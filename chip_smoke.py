@@ -8,21 +8,32 @@ Phases (any failure raises and exits non-zero; nothing falls back):
  2. build: nvcc builds every kernel from llama_box_tpu_torch/csrc into
     build/torch_kernels/ and `-Xptxas -v` is printed;
  3. kernel vs plain: each kernel against its plain torch version on the
-    card, at the shapes the server below gives it (bf16 and int8 caches)
-    plus the masking variants at smaller shapes; cache positions a kernel
-    must never read hold NaN;
- 4. times: kernel, plain version and SDPA (the library yardstick, never
-    used by the port) with CUDA events on a cold L2, beside the bound
-    max(bytes / 3.35 TB/s, flops / 989 TFLOP/s);
- 5. end to end: a synthetic TinyLlama-1.1B-width GGUF (random F16 weights
-    from --seed, a 32000-piece SPM vocab, a chatml template) is served by
-    the port's own HTTP server at -np 4 -c 8192 -ub 512 --decode-chain 16.
-    The launch counts are set to 0 just before the requests and read just
-    after; both kernels must have run. Then, in process: the card's f32
-    logits against an f32 CPU reference on a small input, and greedy K=1
-    and K=16 decode chains identical for the bf16 and the int8 cache;
- 6. print a `kernels` line, an `e2e` line, the card line, and as the last
-    line {"ok": true, "device": {...}}.
+    card, at the shapes the server below gives it (bf16 and int8 caches;
+    the w8a8 projections of a 4 x 512 prefill and of 4 decode rows) plus
+    variants at smaller shapes; cache positions a kernel must never read,
+    output guards a kernel must never write and the fused tail's scratch
+    hold NaN. w8a8_matmul must equal its plain version bit for bit;
+ 4. times: kernel, plain version and a library yardstick (SDPA for the
+    attention kernels, torch._int_mm on the int8 operands for
+    w8a8_matmul; never used by the port) with CUDA events on a cold L2,
+    beside the bound max(bytes / 3.35 TB/s, ops / peak), the peak being
+    989 TFLOP/s bf16 or 1979 TOP/s int8;
+ 5. end to end, bf16 path: a synthetic TinyLlama-1.1B-width GGUF (random
+    F16 weights from --seed, a 32000-piece SPM vocab, a chatml template)
+    is served by the port's own HTTP server at -np 4 -c 8192 -ub 512
+    --decode-chain 16. The launch counts are set to 0 just before the
+    requests and read just after; both attention kernels must have run.
+    Then, in process: the card's f32 logits against an f32 CPU reference
+    on a small input, and greedy K=1 and K=16 decode chains identical for
+    the bf16 and the int8 cache;
+ 5w. end to end, w8a8 path: the same model written with Q8_0 weights,
+    served with --weights-dtype quantized and the same flags and traffic;
+    all five kernels must have run. In process: the card's logits against
+    the plain versions on the CPU over the same QTensors (cosine >= 0.99),
+    greedy K=1 and K=16 identical for both caches, and the fused kernels'
+    decode logits against LLAMA_BOX_TPU_NO_FUSED (cosine >= 0.99);
+ 6. print a `kernels` line, an `e2e` line (both paths), the card line, and
+    as the last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without CUDA,
 or without the llama_box_tpu_torch package beside it, it exits non-zero
@@ -33,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -49,7 +61,12 @@ L, E, H, HKV, D, FF, V = 22, 2048, 32, 4, 64, 5632, 32000
 N_SLOTS, N_CTX, N_UBATCH, CHAIN = 4, 8192, 512, 16
 SLOT_CTX = N_CTX // N_SLOTS
 HBM_BPS, BF16_FLOPS = 3.35e12, 989e12          # H100 SXM data sheet peaks
+INT8_OPS = 1979e12
 BF16_ATOL, F32_ATOL = 2e-2, 1e-4
+# fused kernels against their plain versions (the JAX tests' tolerances):
+# the rms norm's sum of squares runs in another order, so one bf16
+# rounding and then one int8 code can move
+NORM_QMM_TOL, TAIL_TOL = 1e-2, 2e-2
 CHATML = ("{% for message in messages %}{{'<|im_start|>' + message['role'] "
           "+ '\n' + message['content'] + '<|im_end|>' + '\n'}}{% endfor %}"
           "{% if add_generation_prompt %}{{'<|im_start|>assistant\n'}}"
@@ -94,8 +111,9 @@ def device_ms(fn, flush: torch.Tensor, n: int = 15) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float,
+             peak: float = BF16_FLOPS) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -336,6 +354,178 @@ def kernel_phase(dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# the w8a8 kernels
+
+
+def _guarded(shape, dtype, dev, pad=256):
+    """(NaN-filled flat buffer, contiguous `shape` view inside it with
+    `pad` NaN elements on each side): unwritten outputs stay NaN, stray
+    writes hit the guards."""
+    n = int(np.prod(shape))
+    buf = torch.full((n + 2 * pad,), float("nan"), dtype=dtype, device=dev)
+    return buf, buf[pad:pad + n].view(shape)
+
+
+def _guards_ok(buf, pad=256) -> bool:
+    return bool(torch.isnan(buf[:pad].float()).all()
+                and torch.isnan(buf[-pad:].float()).all())
+
+
+class W8Gen:
+    """Random w8a8 operands on the card: bf16 rows ~ N(0, 1), int8 codes
+    over the full range, column scales that keep outputs near unit size."""
+
+    def __init__(self, dev, seed):
+        self.dev = dev
+        self.g = torch.Generator(device=dev)
+        self.g.manual_seed(seed)
+
+    def rows(self, r, k):
+        return torch.randn(r, k, generator=self.g, device=self.dev).to(
+            torch.bfloat16)
+
+    def norm(self, k):
+        return (torch.rand(k, generator=self.g, device=self.dev) + 0.5).to(
+            torch.bfloat16)
+
+    def weights(self, k, n):
+        qs = torch.randint(-127, 128, (k, n), generator=self.g,
+                           device=self.dev, dtype=torch.int8)
+        sc = (torch.rand(n, generator=self.g, device=self.dev) + 0.5) \
+            / (73.0 * k ** 0.5)
+        return qs, sc
+
+
+def w8a8_work(kind, shp):
+    """(bytes, int8 ops) one call needs: inputs read once, outputs written
+    once (activations bf16, codes int8, scales f32; w8a8_matmul writes
+    f32, the fused kernels bf16)."""
+    if kind == "w8a8_matmul":
+        M, K, N = shp
+        return M * K * 2 + K * N + N * 4 + M * N * 4, 2 * M * K * N
+    if kind == "fused_norm_qmm":
+        R, E, O = shp
+        return R * E * 2 + E * 2 + E * O + O * 4 + R * O * 2, 2 * R * E * O
+    R, HD, E, FF = shp
+    w = HD * E + E * 2 * FF + FF * E
+    return (2 * R * HD + 2 * R * E + E * 2 + w + (2 * E + 2 * FF) * 4
+            + 2 * R * E, 2 * R * w)
+
+
+def w8a8_kernel_phase(dev, seed, shapes=None):
+    """Phase 3 and 4 for the w8a8 kernels. Returns (max errors, timing
+    rows). `shapes` overrides the slice's shapes (a smaller rehearsal)."""
+    from llama_box_tpu_torch.ops.fused_decode import (
+        fused_layer_tail, fused_layer_tail_plain, fused_norm_qmm,
+        fused_norm_qmm_plain)
+    from llama_box_tpu_torch.ops.qmatmul import (_quant_rows, w8a8_matmul,
+                                                 w8a8_matmul_plain)
+    shapes = shapes or dict(
+        mm=[(M, K, N) for M in (2048, 4) for K, N in
+            ((E, (H + 2 * HKV) * D), (H * D, E), (E, 2 * FF), (FF, E))],
+        nq=[(4, E, (H + 2 * HKV) * D), (4, E, V), (1, E, 2560),
+            (64, E, 2560)],
+        tail=[(4, H * D, E, FF, "silu", 1.0), (1, 256, 256, 384, "gelu", 0.5),
+              (64, 256, 256, 200, "relu2", 1.0), (4, 256, 256, 384, "silu", 0.5)])
+    gen = W8Gen(dev, seed + 100)
+    errs = {"w8a8_matmul": 0.0, "fused_norm_qmm": 0.0,
+            "fused_layer_tail": 0.0}
+    cases = []
+    log("== phase 3w: w8a8 kernels vs plain (NaN output guards / scratch)")
+    for M, K, N in shapes["mm"]:
+        x = gen.rows(M, K)
+        qs, sc = gen.weights(K, N)
+        buf, out = _guarded((M, N), torch.float32, dev)
+        got = w8a8_matmul(x, qs, sc, out=out)
+        want = w8a8_matmul_plain(x, qs, sc)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and _guards_ok(buf), (M, K, N)
+        err = float((got - want).abs().max())
+        log(f"  w8a8_matmul x[{M},{K}] qs[{K},{N}]{'':<14s} max_abs_err "
+            f"{err:.3e}  (bit-equal required)")
+        if not torch.equal(got, want):
+            raise AssertionError(f"w8a8_matmul {(M, K, N)}: not bit-equal "
+                                 f"to its plain version ({err})")
+        errs["w8a8_matmul"] = max(errs["w8a8_matmul"], err)
+        lib = None
+        if M > 16 and K % 8 == 0 and N % 8 == 0:
+            xq = _quant_rows(x.float())[0].contiguous()
+            lib = lambda a=xq, b=qs: torch._int_mm(a, b)  # noqa: E731
+        cases.append(("w8a8_matmul", (M, K, N),
+                      lambda a=(x, qs, sc): w8a8_matmul(*a),
+                      lambda a=(x, qs, sc): w8a8_matmul_plain(*a), lib))
+    for R, E_, O in shapes["nq"]:
+        x, nw = gen.rows(R, E_), gen.norm(E_)
+        qs, sc = gen.weights(E_, O)
+        buf, out = _guarded((R, O), torch.bfloat16, dev)
+        got = fused_norm_qmm(x, nw, qs, sc, eps=1e-5, out=out)
+        want = fused_norm_qmm_plain(x, nw, qs, sc, eps=1e-5)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all() and _guards_ok(buf)
+        err = float((got.float() - want.float()).abs().max())
+        log(f"  fused_norm_qmm x[{R},{E_}] qs[{E_},{O}]{'':<10s} max_abs_err "
+            f"{err:.3e}  (tol {NORM_QMM_TOL:g} + rel, argmax)")
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=NORM_QMM_TOL, atol=NORM_QMM_TOL)
+        assert torch.equal(got.float().argmax(-1), want.float().argmax(-1))
+        errs["fused_norm_qmm"] = max(errs["fused_norm_qmm"], err)
+        cases.append(("fused_norm_qmm", (R, E_, O),
+                      lambda a=(x, nw, qs, sc): fused_norm_qmm(*a, eps=1e-5),
+                      lambda a=(x, nw, qs, sc): fused_norm_qmm_plain(
+                          *a, eps=1e-5), None))
+    for R, HD, E_, FF_, act_fn, rs in shapes["tail"]:
+        ao, xr, nw = gen.rows(R, HD), gen.rows(R, E_), gen.norm(E_)
+        ws = (*gen.weights(HD, E_), nw, *gen.weights(E_, 2 * FF_),
+              *gen.weights(FF_, E_))
+        kw = dict(eps=1e-5, rs=rs, act_fn=act_fn)
+        obuf, out = _guarded((R, E_), torch.bfloat16, dev)
+        xbuf, xnew = _guarded((R, E_), torch.bfloat16, dev)
+        abuf, act = _guarded((R, FF_), torch.bfloat16, dev)
+        got = fused_layer_tail(ao, xr, *ws, out=out, scratch=(xnew, act),
+                               **kw)
+        want = fused_layer_tail_plain(ao, xr, *ws, **kw)
+        torch.cuda.synchronize()
+        assert all(_guards_ok(b) for b in (obuf, xbuf, abuf))
+        assert torch.isfinite(xnew.float()).all() \
+            and torch.isfinite(act.float()).all() \
+            and torch.isfinite(got.float()).all()
+        err = float((got.float() - want.float()).abs().max())
+        log(f"  fused_layer_tail R={R} HD={HD} E={E_} FF={FF_} {act_fn} "
+            f"rs={rs}{'':<3s} max_abs_err {err:.3e}  (tol {TAIL_TOL:g} + rel)")
+        torch.testing.assert_close(got.float(), want.float(), rtol=TAIL_TOL,
+                                   atol=TAIL_TOL)
+        errs["fused_layer_tail"] = max(errs["fused_layer_tail"], err)
+        cases.append(("fused_layer_tail", (R, HD, E_, FF_),
+                      lambda a=(ao, xr, *ws), k=kw: fused_layer_tail(*a, **k),
+                      lambda a=(ao, xr, *ws), k=kw: fused_layer_tail_plain(
+                          *a, **k), None))
+
+    log("== phase 4w: w8a8 device times (median of 15, cold L2)")
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for name, shp, kern, plain, lib in cases:
+        if name != "w8a8_matmul" and shp[0] not in (4,):
+            continue                      # time the served shapes only
+        if name == "fused_layer_tail" and shp[1:] != (H * D, E, FF):
+            continue
+        nbytes, ops = w8a8_work(name, shp)
+        b_ms, b_by = bound_ms(nbytes, ops, INT8_OPS)
+        lib_ms = None
+        if lib is not None:
+            try:
+                lib_ms = device_ms(lib, flush)
+            except RuntimeError as exc:    # the yardstick refused the shape
+                log(f"  torch._int_mm refused {shp}: {exc}")
+        r = dict(kind=name, shape=list(shp), ms=device_ms(kern, flush),
+                 plain_ms=device_ms(plain, flush), library_ms=lib_ms,
+                 bound_ms=b_ms, bound_by=b_by, mbytes=nbytes / 1e6,
+                 gop=ops / 1e9)
+        rows.append(r)
+        log("  " + json.dumps(r))
+    return errs, rows
+
+
+# ---------------------------------------------------------------------------
 # synthetic TinyLlama-1.1B-width GGUF
 
 
@@ -358,7 +548,9 @@ def spm_vocab():
     return toks + pieces, scores, types + [TokenType.NORMAL] * len(pieces)
 
 
-def write_model(path: str, seed: int) -> None:
+def write_model(path: str, seed: int, q8: bool = False) -> None:
+    """The synthetic model: F16 2D weights, or Q8_0 ones (the same random
+    floats, from the same seed)."""
     from llama_box_tpu_torch.gguf import GGMLType, GGUFWriter
     rng = np.random.default_rng(seed)
     vocab, scores, types = spm_vocab()
@@ -389,7 +581,7 @@ def write_model(path: str, seed: int) -> None:
     def norm_w():
         return 1.0 + rng.standard_normal(E, dtype=np.float32) * 0.02
 
-    f16 = GGMLType.F16
+    f16 = GGMLType.Q8_0 if q8 else GGMLType.F16
     w.add_tensor("token_embd.weight", rand(V, E), f16)
     w.add_tensor("output_norm.weight", norm_w())
     w.add_tensor("output.weight", rand(V, E), f16)
@@ -480,50 +672,61 @@ def greedy_run(engine_cls, ecfg, cfg, params, tok, prompts, max_tokens,
         eng.stop()
 
 
-def reference_check(engine, dev):
-    """The card's f32 logits (kernels, cuBLAS f32) against the same model
-    on the CPU (plain versions): two prefill chunks, then one decode
-    step, on a small input at full width."""
+def small_forward(params, cfg, device, kv_dtype):
+    """Two prefill chunks, then one decode step, on a small input (2
+    slots, 16-token chunks, a 64-position cache) at full width. Returns
+    the logits [6, V] f32 on the CPU."""
     from llama_box_tpu_torch.models import llama
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = engine.cfg
     S, T, C = 2, 16, 64
     rng = np.random.default_rng(5)
     toks = rng.integers(3, V, (3, S, T)).astype(np.int32)
     chunks = [(np.zeros(S, np.int64), np.array([T, 11])),
               (np.array([T, 11]), np.array([T, 7]))]
-    nxt = toks[2, :, :1]
-    pos = np.array([[2 * T], [18]])
+    kv = llama.init_kv_cache(cfg, S, C, kv_dtype, device=device)
+    cos, sin = llama.make_rope(cfg, C, device=device)
+    out = []
+    for i, (p, n) in enumerate(chunks):
+        lg, kv = llama.prefill_batch_impl(params, cfg,
+                                          torch.from_numpy(toks[i]), p, n,
+                                          kv, cos, sin)
+        out.append(lg.float().cpu())
+    lg, kv = llama.forward_impl(params, cfg, torch.from_numpy(toks[2, :, :1]),
+                                np.array([[2 * T], [18]]), kv, cos, sin)
+    out.append(lg[:, 0].float().cpu())
+    return torch.cat(out)
 
-    def run(params, device, kv_dtype):
-        kv = llama.init_kv_cache(cfg, S, C, kv_dtype, device=device)
-        cos, sin = llama.make_rope(cfg, C, device=device)
-        out = []
-        for i, (p, n) in enumerate(chunks):
-            lg, kv = llama.prefill_batch_impl(params, cfg,
-                                              torch.from_numpy(toks[i]), p,
-                                              n, kv, cos, sin)
-            out.append(lg.float().cpu())
-        lg, kv = llama.forward_impl(params, cfg, torch.from_numpy(nxt), pos,
-                                    kv, cos, sin)
-        out.append(lg[:, 0].float().cpu())
-        return torch.cat(out)
 
-    def cast(tree, dtype, device):
-        return {k: cast(v, dtype, device) if isinstance(v, dict)
-                else v.to(device, dtype) for k, v in tree.items()}
+def _moved(tree, device, dtype=None):
+    """The param tree on `device` (dense leaves cast to `dtype` if given;
+    QTensors moved as they are)."""
+    from llama_box_tpu_torch.ops.qmatmul import QTensor
+    if isinstance(tree, dict):
+        return {k: _moved(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return tree.to(device)
+    return tree.to(device, dtype) if dtype is not None else tree.to(device)
 
-    want = run(cast(engine.params, torch.float32, "cpu"), "cpu",
-               torch.float32)
-    got32 = run(cast(engine.params, torch.float32, dev), dev, torch.float32)
-    got16 = run(engine.params, dev, torch.bfloat16)
-    assert got32.shape == (3 * S, V) and torch.isfinite(got32).all()
+
+def _cosine(a, b) -> float:
+    return float(torch.nn.functional.cosine_similarity(a, b).min())
+
+
+def reference_check(engine, dev):
+    """The card's f32 logits (kernels, cuBLAS f32) against the same model
+    on the CPU (plain versions), on small_forward's input."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = engine.cfg
+    want = small_forward(_moved(engine.params, "cpu", torch.float32), cfg,
+                         "cpu", torch.float32)
+    got32 = small_forward(_moved(engine.params, dev, torch.float32), cfg,
+                          dev, torch.float32)
+    got16 = small_forward(engine.params, cfg, dev, torch.bfloat16)
+    assert got32.shape == (6, V) and torch.isfinite(got32).all()
     assert torch.isfinite(got16).all()
     scale = float(want.abs().max())
     e32 = float((got32 - want).abs().max())
     e16 = float((got16 - want).abs().max())
-    cos16 = float(torch.nn.functional.cosine_similarity(got16, want).min())
+    cos16 = _cosine(got16, want)
     log(f"  f32 card vs f32 CPU: max_abs_err {e32:.3e} (|logit| max "
         f"{scale:.3f}, tol {1e-3 * max(1.0, scale):.3e})")
     log(f"  bf16 card vs f32 CPU: max_abs_err {e16:.3e}, min cosine "
@@ -533,31 +736,74 @@ def reference_check(engine, dev):
     return e32, e16
 
 
-def e2e_phase(dev, seed, tmp, profile=False):
-    from llama_box_tpu_torch import cli
+def w8a8_reference_check(engine, dev):
+    """The card's w8a8 logits (all five kernels) against the plain versions
+    on the CPU over the same QTensors, and the fused kernels against
+    LLAMA_BOX_TPU_NO_FUSED on the card, on small_forward's input (bf16
+    activations and cache)."""
+    cfg = engine.cfg
+    want = small_forward(_moved(engine.params, "cpu"), cfg, "cpu",
+                         torch.bfloat16)
+    got = small_forward(engine.params, cfg, dev, torch.bfloat16)
+    os.environ["LLAMA_BOX_TPU_NO_FUSED"] = "1"
+    try:
+        unfused = small_forward(engine.params, cfg, dev, torch.bfloat16)
+    finally:
+        del os.environ["LLAMA_BOX_TPU_NO_FUSED"]
+    assert got.shape == (6, V) and torch.isfinite(got).all()
+    assert torch.isfinite(unfused).all()
+    scale = float(want.abs().max())
+    e_cpu, c_cpu = float((got - want).abs().max()), _cosine(got, want)
+    e_uf, c_uf = float((got - unfused).abs().max()), _cosine(got, unfused)
+    agree = float((got.argmax(-1) == unfused.argmax(-1)).float().mean())
+    log(f"  w8a8 card vs plain versions on the CPU: max_abs_err {e_cpu:.3e} "
+        f"(|logit| max {scale:.3f}), min cosine {c_cpu:.6f} (tol 0.99)")
+    log(f"  fused vs LLAMA_BOX_TPU_NO_FUSED on the card: max_abs_err "
+        f"{e_uf:.3e}, min cosine {c_uf:.6f} (tol 0.99), argmax agreement "
+        f"{agree:.3f} (not asserted: random weights give near ties)")
+    assert c_cpu >= 0.99, c_cpu
+    assert c_uf >= 0.99, c_uf
+    return dict(ref_cpu_max_abs_err=e_cpu, ref_cpu_min_cos=c_cpu,
+                fused_vs_unfused_max_abs_err=e_uf,
+                fused_vs_unfused_min_cos=c_uf,
+                fused_vs_unfused_argmax_agree=agree)
+
+
+def kernel_counters() -> dict:
+    """name -> the wrapper whose `launches` counts the kernel."""
     from llama_box_tpu_torch.ops.flash_decode import flash_decode
     from llama_box_tpu_torch.ops.flash_prefill import flash_prefill_batched
-    from llama_box_tpu_torch.server.engine import Engine, EngineConfig
-    from llama_box_tpu_torch.server.metrics import Metrics
+    from llama_box_tpu_torch.ops.fused_decode import (fused_layer_tail,
+                                                      fused_norm_qmm)
+    from llama_box_tpu_torch.ops.qmatmul import w8a8_matmul
+    return {"flash_prefill": flash_prefill_batched,
+            "flash_decode": flash_decode, "w8a8_matmul": w8a8_matmul,
+            "fused_norm_qmm": fused_norm_qmm,
+            "fused_layer_tail": fused_layer_tail}
 
-    log("== phase 5: end to end")
-    path = f"{tmp}/synthetic-tinyllama-1.1b-f16.gguf"
+
+def e2e_phase(dev, seed, tmp, profile=False, w8a8=False):
+    from llama_box_tpu_torch import cli
+
+    log(f"== phase 5{'w' if w8a8 else ''}: end to end, "
+        f"{'w8a8 (Q8_0 GGUF, --weights-dtype quantized)' if w8a8 else 'bf16 (F16 GGUF)'}")
+    path = f"{tmp}/synthetic-tinyllama-1.1b-{'q8_0' if w8a8 else 'f16'}.gguf"
     t0 = time.perf_counter()
-    write_model(path, seed)
+    write_model(path, seed, q8=w8a8)
     log(f"  wrote {path} in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     engine, srv = cli.build_server([
         "-m", path, "--port", "0", "-np", str(N_SLOTS), "-c", str(N_CTX),
         "-ub", str(N_UBATCH), "--decode-chain", str(CHAIN), "--no-jinja",
-        "--device", dev.type])
+        "--device", dev.type]
+        + (["--weights-dtype", "quantized"] if w8a8 else []))
     url = f"http://127.0.0.1:{srv.server_address[1]}"
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
     log(f"  server up at {url} in {time.perf_counter() - t0:.1f} s "
         f"(params on {engine.device}, kv {engine.kv.k.dtype})")
     try:
-        return _serve(engine, url, seed, flash_prefill_batched, flash_decode,
-                      Metrics, Engine, EngineConfig, dev, profile)
+        return _serve(engine, url, seed, dev, profile, w8a8)
     finally:
         srv.shutdown()
         srv.server_close()
@@ -565,8 +811,10 @@ def e2e_phase(dev, seed, tmp, profile=False):
         thread.join(timeout=30)
 
 
-def _serve(engine, url, seed, fpb, fdec, Metrics, Engine, EngineConfig, dev,
-           profile):
+def _serve(engine, url, seed, dev, profile, w8a8):
+    from llama_box_tpu_torch.server.engine import Engine, EngineConfig
+    from llama_box_tpu_torch.server.metrics import Metrics
+    counters = kernel_counters()
     tok = engine.tokenizer
     rng = np.random.default_rng(seed + 1)
     texts = [make_prompt(tok, rng, 500) for _ in range(3)]
@@ -585,8 +833,8 @@ def _serve(engine, url, seed, fpb, fdec, Metrics, Engine, EngineConfig, dev,
     assert st == 200
     # -- the main path: counts from 0 -----------------------------------
     engine.metrics = Metrics()
-    fpb.launches = 0
-    fdec.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     wave1 = concurrently([lambda t=t: chat(t) for t in
                           (texts[0], texts[1], texts[2], texts[0])])
@@ -595,7 +843,7 @@ def _serve(engine, url, seed, fpb, fdec, Metrics, Engine, EngineConfig, dev,
         lambda: chat(texts[1], stream=True,
                      stream_options={"include_usage": True}),
         lambda: chat(texts[2], temperature=0.8, seed=seed, ignore_eos=False)])
-    launches = {"flash_prefill": fpb.launches, "flash_decode": fdec.launches}
+    launches = {k: fn.launches for k, fn in counters.items()}
     m = engine.metrics.snapshot()
     # -------------------------------------------------------------------
     bodies = []
@@ -617,8 +865,13 @@ def _serve(engine, url, seed, fpb, fdec, Metrics, Engine, EngineConfig, dev,
     st, text, _ = wave2[1]
     sampled = json.loads(text)
     assert st == 200 and sampled["usage"]["completion_tokens"] > 0
+    path_kernels = list(counters) if w8a8 else ["flash_prefill",
+                                                 "flash_decode"]
     for k, n in launches.items():
-        assert n > 0, f"{k} was never launched on the main path"
+        if k in path_kernels:
+            assert n > 0, f"{k} was never launched on the main path"
+        else:
+            assert n == 0, f"{k} launched on the bf16 path"
     log(f"  wave 1: 4 greedy chats, prompt tokens "
         f"{[b['usage']['prompt_tokens'] for b in bodies]}, 64 tokens each, "
         f"{t_wave1:.2f} s wall; repeated request identical")
@@ -635,8 +888,12 @@ def _serve(engine, url, seed, fpb, fdec, Metrics, Engine, EngineConfig, dev,
         client_ms=[round(x[2], 1) for x in wave1],
         wave1_wall_s=t_wave1)
 
-    log("== phase 5b: in process")
-    e32, e16 = reference_check(engine, dev)
+    log(f"== phase 5{'w' if w8a8 else ''}b: in process")
+    if w8a8:
+        e2e.update(w8a8_reference_check(engine, dev))
+    else:
+        e32, e16 = reference_check(engine, dev)
+        e2e.update(ref_f32_max_abs_err=e32, ref_bf16_max_abs_err=e16)
     prompts = [tok.encode(t) for t in texts] + [tok.encode(texts[0][::-1])]
     outs = {}
     for kv in ("bfloat16", "int8"):
@@ -650,18 +907,20 @@ def _serve(engine, url, seed, fpb, fdec, Metrics, Engine, EngineConfig, dev,
         log(f"  greedy K=1 vs K={CHAIN}, {kv} cache: "
             f"{'identical' if same else 'DIFFERENT'}")
         assert same, f"K=1 and K={CHAIN} greedy outputs differ ({kv} cache)"
-    e2e.update(ref_f32_max_abs_err=e32, ref_bf16_max_abs_err=e16)
     if profile:
-        profile_phase(Engine, EngineConfig, engine, tok, prompts, dev)
+        e2e["profile"] = profile_phase(Engine, EngineConfig, engine, tok,
+                                       prompts, dev,
+                                       "w8a8" if w8a8 else "bf16")
     return launches, e2e
 
 
-def profile_phase(Engine, EngineConfig, engine, tok, prompts, dev):
+def profile_phase(Engine, EngineConfig, engine, tok, prompts, dev, label):
     """--profile: torch.profiler over 4 greedy requests (one batched
     prefill, then 48 tokens each in chains of 16), bf16 cache: device
     time by kernel and the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile as tprofile
-    log("== profile: 4 x (500-token prompt + 48 tokens), bf16 cache, K=16")
+    log("== profile: 4 x (500-token prompt + 48 tokens), bf16 cache, K=16, "
+        f"{label} weights")
     ecfg = EngineConfig(n_slots=N_SLOTS, n_ctx=N_CTX, n_ubatch=N_UBATCH,
                         kv_dtype="bfloat16", decode_chain=CHAIN)
     greedy_run(Engine, ecfg, engine.cfg, engine.params, tok, prompts, 8, dev)
@@ -675,13 +934,17 @@ def profile_phase(Engine, EngineConfig, engine, tok, prompts, dev):
     ka = prof.key_averages()
     dev_us = sum(e.self_device_time_total for e in ka)
     n_launch = sum(e.count for e in ka if e.self_device_time_total > 0)
+    per_layer = n_launch / (48 * engine.cfg.n_layers)
     log(f"  wall {wall_ms:.1f} ms, device busy {dev_us / 1e3:.1f} ms "
         f"({dev_us / 1e3 / wall_ms:.3f} of wall), ops with device time: "
-        f"{n_launch}")
+        f"{n_launch} (about {per_layer:.1f} per layer per decode step)")
     rows = sorted(ka, key=lambda e: -e.self_device_time_total)[:14]
     for e in rows:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:7d}x  "
             f"{e.key[:90]}")
+    return dict(wall_ms=wall_ms, device_busy_ms=dev_us / 1e3,
+                busy_share=dev_us / 1e3 / wall_ms, device_ops=n_launch,
+                ops_per_layer_step=per_layer)
 
 
 # ---------------------------------------------------------------------------
@@ -716,28 +979,54 @@ def main(argv=None) -> int:
                 log(f"  [{name}] {line.strip()}")
 
     errs, rows = kernel_phase(dev, args.seed)
+    w_errs, w_rows = w8a8_kernel_phase(dev, args.seed)
+    errs.update(w_errs)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches, e2e = e2e_phase(dev, args.seed, tmp, args.profile)
+        launches_bf16, e2e_bf16 = e2e_phase(dev, args.seed, tmp,
+                                            args.profile)
+        launches, e2e_w8 = e2e_phase(dev, args.seed, tmp, args.profile,
+                                     w8a8=True)
 
     pick = {"flash_prefill": ("prefill", "bf16", 0),
-            "flash_decode": ("decode", "bf16", 1023)}
+            "flash_decode": ("decode", "bf16", 1023),
+            "w8a8_matmul": [2048, E, 2 * FF],
+            "fused_norm_qmm": [4, E, V],
+            "fused_layer_tail": [4, H * D, E, FF]}
     shapes = {"flash_prefill": "q[4,4,8,512,64] bf16, C=2048, pos0=0",
-              "flash_decode": "q[4,4,8,64] bf16, C=2048, cpos=1023, R=16"}
+              "flash_decode": "q[4,4,8,64] bf16, C=2048, cpos=1023, R=16",
+              "w8a8_matmul": "x[2048,2048] bf16 . qs[2048,11264] (gate|up)",
+              "fused_norm_qmm": "x[4,2048] bf16 . qs[2048,32000] (output)",
+              "fused_layer_tail": "R=4, HD=E=2048, FF=5632, silu"}
     srcs = {"flash_prefill": ("llama_box_tpu_torch/csrc/flash_prefill.cu",
                               "llama_box_tpu/ops/flash_prefill.py:75"),
             "flash_decode": ("llama_box_tpu_torch/csrc/flash_decode.cu",
-                             "llama_box_tpu/ops/flash_decode.py:76")}
+                             "llama_box_tpu/ops/flash_decode.py:76"),
+            "w8a8_matmul": ("llama_box_tpu_torch/csrc/w8a8_matmul.cu",
+                            "scripts/probe_qmm_pallas.py:28"),
+            "fused_norm_qmm": ("llama_box_tpu_torch/csrc/fused_norm_qmm.cu",
+                               "llama_box_tpu/ops/fused_decode.py:67"),
+            "fused_layer_tail": (
+                "llama_box_tpu_torch/csrc/fused_layer_tail.cu",
+                "llama_box_tpu/ops/fused_decode.py:115")}
     kernels = []
-    for name in ("flash_prefill", "flash_decode"):
-        r = next(x for x in rows if (x["kind"], x["cache"], x["pos"])
-                 == pick[name])
+    for name in srcs:
+        if name.startswith("flash"):
+            r = next(x for x in rows if (x["kind"], x["cache"], x["pos"])
+                     == pick[name])
+        else:
+            r = next(x for x in w_rows if x["kind"] == name
+                     and x["shape"] == pick[name])
         kernels.append(dict(
             name=name, route="cuda", source=srcs[name][0],
             replaces=srcs[name][1], launches=launches[name],
             max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], shape=shapes[name]))
-    e2e.update(card=card, seconds=time.perf_counter() - t_start)
+            library_ms=r["library_ms"], shape=shapes[name],
+            launches_bf16_path=launches_bf16[name]))
+    e2e = dict(bf16=e2e_bf16, w8a8=e2e_w8, card=card,
+               seconds=time.perf_counter() - t_start)
+    for k in ("ttft_p50_ms", "prefill_tok_s", "decode_tok_s"):
+        log(f"  {k:<14s} bf16 {e2e_bf16[k]:10.2f}   w8a8 {e2e_w8[k]:10.2f}")
     log("e2e " + json.dumps(e2e))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -58,8 +58,11 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["f32", "bf16", "q8_0", "int8"])
     g.add_argument("-ctv", "--cache-type-v", default="bf16",
                    choices=["f32", "bf16", "q8_0", "int8"])
-    g.add_argument("--weights-dtype", default="bf16", choices=["bf16", "f32"],
-                   help="device-resident weight format")
+    g.add_argument("--weights-dtype", default="bf16",
+                   choices=["bf16", "f32", "quantized"],
+                   help="device-resident weight format; 'quantized' keeps "
+                        "block-quant projections as per-column int8 (w8a8) "
+                        "with bf16 activations")
 
     g = p.add_argument_group("completion")
     g.add_argument("--temp", type=float, default=0.8)
@@ -123,11 +126,12 @@ def build_server(argv: list[str]):
     device = resolve_device(args.device)
 
     SRV_INF("main", "loading %s on %s", args.model, device)
-    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[
-        args.weights_dtype]
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32,
+             "quantized": torch.bfloat16}[args.weights_dtype]
     with GGUFFile(args.model) as g:
         tokenizer = Tokenizer.from_gguf(g)
-    cfg, params = load_model(args.model, dtype=dtype, device=device)
+    cfg, params = load_model(args.model, dtype=dtype, device=device,
+                             quantized=args.weights_dtype == "quantized")
     template = args.chat_template
     if args.chat_template_file:
         with open(args.chat_template_file) as f:

@@ -1,5 +1,5 @@
-"""Dense llama decoder in PyTorch (counterpart of the dense-llama branches
-of llama_box_tpu/models/llama.py).
+"""Llama decoder in PyTorch (counterpart of the dense-llama branches of
+llama_box_tpu/models/llama.py), with bf16/f32 weights or w8a8 QTensors.
 
 The JAX package keeps the KV cache read-only through a lax.scan over the
 layers and writes every layer's new rows in one scatter afterwards (a TPU
@@ -20,10 +20,19 @@ bf16 rounding points follow the JAX model: attention computes in `adt`
 (int8 codes with bf16 scales for a q8_0 cache); the prefill attention
 output stays f32 into the output projection while the decode output is
 cast to `adt`; matmuls return x's dtype; the FFN activation runs in f32.
+
+w8a8 weights: at decode widths (R = B*T <= 64 rows, bf16 activations)
+the fused q/k/v projection, the layer tail and the output projection take
+the fused kernels of ops/fused_decode, under the JAX package's own gates
+(_fuse_qkv_ok, _fuse_tail_ok); the gates count rows, so short prefill
+chunks and the prefill's last-token logits take them too. The JAX package
+makes them opt-in on the TPU; here they are on unless
+LLAMA_BOX_TPU_NO_FUSED is set. Both paths give the same rounding.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -31,7 +40,10 @@ import torch
 
 from ..ops.flash_decode import flash_decode
 from ..ops.flash_prefill import flash_prefill_batched
+from ..ops.fused_decode import (_MAX_ROWS, _pick_tile, fused_layer_tail,
+                                fused_norm_qmm)
 from ..ops.norm import rms_norm
+from ..ops.qmatmul import QTensor, mm
 from ..ops.rope import RopeParams, apply_rope, compute_rope_cache
 from .config import ModelConfig
 
@@ -85,6 +97,10 @@ def attn_dtype(kv: KVCache) -> torch.dtype:
 
 _LAYER_KEYS = {"attn_norm", "wq", "wk", "wv", "wqkv", "wo", "ffn_norm",
                "w_gate", "w_up", "w_gateup", "w_down"}
+# the keys that may hold a w8a8 QTensor (the JAX loader's quantizable 2D
+# projections; token_embd and the norms stay dense)
+_Q_KEYS = {"wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up", "w_gateup",
+           "w_down", "output"}
 
 
 def check_supported(cfg: ModelConfig, params: dict) -> None:
@@ -123,6 +139,18 @@ def check_supported(cfg: ModelConfig, params: dict) -> None:
         raise NotImplementedError(
             f"{cfg.arch}: not on the ported dense llama path "
             f"(config: {bad}, tensors: {sorted(extra_keys)})")
+    leaves = dict(params.get("layers", {}), tok_embd=params.get("tok_embd"),
+                  output_norm=params.get("output_norm"),
+                  output=params.get("output"))
+    for key, w in leaves.items():
+        if not isinstance(w, QTensor):
+            continue
+        if key not in _Q_KEYS:
+            raise NotImplementedError(f"{cfg.arch}: {key} as a QTensor")
+        if not w.w8a8:
+            raise NotImplementedError(
+                f"{cfg.arch}: {key} is a grouped/packed QTensor (the Q4 "
+                "slice of the port, not ported yet)")
 
 
 # -- rope --------------------------------------------------------------------
@@ -156,11 +184,6 @@ def _act(gate: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return torch.nn.functional.silu(gate)
 
 
-def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Dense matmul returning x's dtype (ops/qmatmul.mm's dense branch)."""
-    return torch.matmul(x, w.to(x.dtype))
-
-
 def _ffn_block(h, lp, cfg: ModelConfig, dtype):
     if "w_gateup" in lp:
         gu = mm(h, lp["w_gateup"])
@@ -172,8 +195,63 @@ def _ffn_block(h, lp, cfg: ModelConfig, dtype):
     return mm(act, lp["w_down"]).to(dtype)
 
 
+# -- fused w8a8 decode kernels: the JAX package's gates ------------------------
+
+
+def _fused_on() -> bool:
+    """On by default in the port (the JAX package makes the fused kernels
+    opt-in because of a cost of the TPU's compiler that the card does not
+    have); LLAMA_BOX_TPU_NO_FUSED turns them off, as in JAX."""
+    return not os.environ.get("LLAMA_BOX_TPU_NO_FUSED")
+
+
+def _w8(w) -> bool:
+    return isinstance(w, QTensor) and w.w8a8
+
+
+def _n_rows(x: torch.Tensor) -> int:
+    return x.numel() // x.shape[-1]
+
+
+def _fuse_qkv_ok(cfg: ModelConfig, lp, x) -> bool:
+    return (_fused_on() and _n_rows(x) <= _MAX_ROWS
+            and x.dtype == torch.bfloat16
+            and cfg.norm_style == "rms"
+            and "attn_norm" in lp and "attn_norm_b" not in lp
+            and "bq" not in lp and _w8(lp.get("wqkv"))
+            and _pick_tile(lp["wqkv"].out_dim) != 0)
+
+
+def _fuse_tail_ok(cfg: ModelConfig, lp, x) -> bool:
+    return (_fused_on() and _n_rows(x) <= _MAX_ROWS
+            and x.dtype == torch.bfloat16
+            and cfg.norm_style == "rms"
+            and not cfg.parallel_residual and cfg.ffn_gated
+            and cfg.act_fn in ("silu", "gelu", "relu2")
+            and _w8(lp.get("wo")) and _w8(lp.get("w_gateup"))
+            and _w8(lp.get("w_down"))
+            and "ffn_norm" in lp and "ffn_norm_b" not in lp
+            and "bo" not in lp and "b_down" not in lp
+            and "b_gate" not in lp and "b_up" not in lp
+            and "attn_post_norm" not in lp and "ffn_post_norm" not in lp
+            and "w_gate_inp" not in lp and "wq_gate" not in lp
+            and "attn_sub_norm" not in lp and "ffn_sub_norm" not in lp
+            and _pick_tile(x.shape[-1], (256, 128)) != 0
+            and _pick_tile(lp["w_down"].in_dim, (512, 256, 128)) != 0)
+
+
 def _layer_tail(x, lp, cfg: ModelConfig, attn):
     """Output projection + residual, then the FFN block + residual."""
+    if _fuse_tail_ok(cfg, lp, x):
+        # decode widths: the whole tail through ops/fused_decode
+        B, T, E = x.shape
+        out = fused_layer_tail(
+            attn.to(torch.bfloat16).reshape(B * T, -1), x.reshape(B * T, E),
+            lp["wo"].qs, lp["wo"].scales, lp["ffn_norm"],
+            lp["w_gateup"].qs, lp["w_gateup"].scales, lp["w_down"].qs,
+            lp["w_down"].scales, eps=cfg.rms_eps, rs=cfg.residual_scale,
+            act_fn=cfg.act_fn)
+        return out.reshape(B, T, E).to(x.dtype)
     attn_out = mm(attn.to(x.dtype), lp["wo"]).to(x.dtype)
     x = x + attn_out
     h = rms_norm(x, lp["ffn_norm"], cfg.rms_eps)
@@ -221,12 +299,19 @@ def _attn_layer(x, lp, li: int, kv: KVCache, cfg: ModelConfig, cos, sin,
     tables gathered at the rows' positions ([B, T, rot/2])."""
     B, T, E = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
     if "wqkv" in lp:
-        qkv = mm(h, lp["wqkv"])
+        if _fuse_qkv_ok(cfg, lp, x):
+            # decode widths: norm + act-quantize fused into the matmul
+            qkv = fused_norm_qmm(x.reshape(B * T, E), lp["attn_norm"],
+                                 lp["wqkv"].qs, lp["wqkv"].scales,
+                                 eps=cfg.rms_eps)
+            qkv = qkv.reshape(B, T, -1).to(x.dtype)
+        else:
+            qkv = mm(rms_norm(x, lp["attn_norm"], cfg.rms_eps), lp["wqkv"])
         nq, nk = H * D, Hkv * D
         q, k, v = qkv[..., :nq], qkv[..., nq:nq + nk], qkv[..., nq + nk:]
     else:
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
         q, k, v = mm(h, lp["wq"]), mm(h, lp["wk"]), mm(h, lp["wv"])
     q = apply_rope(q.reshape(B, T, H, D), None, cos, sin, cfg.rope_mode)
     k = apply_rope(k.reshape(B, T, Hkv, D), None, cos, sin, cfg.rope_mode)
@@ -303,8 +388,18 @@ def _run_stack(params, cfg: ModelConfig, x, kv: KVCache, cos, sin,
 
 
 def _output_logits(params, cfg: ModelConfig, x):
-    x = rms_norm(x, params["output_norm"], cfg.rms_eps)
     out_w = params.get("output")
+    R = _n_rows(x)
+    if (_fused_on() and _w8(out_w) and R <= _MAX_ROWS
+            and x.dtype == torch.bfloat16 and cfg.norm_style == "rms"
+            and "output_norm_b" not in params
+            and params.get("output_b") is None
+            and _pick_tile(out_w.out_dim) != 0):
+        logits = fused_norm_qmm(x.reshape(R, x.shape[-1]),
+                                params["output_norm"], out_w.qs,
+                                out_w.scales, eps=cfg.rms_eps)
+        return logits.reshape(*x.shape[:-1], out_w.out_dim).float()
+    x = rms_norm(x, params["output_norm"], cfg.rms_eps)
     if out_w is None:   # tied word embeddings
         return torch.matmul(x, params["tok_embd"].T.to(x.dtype)).float()
     return mm(x, out_w).float()

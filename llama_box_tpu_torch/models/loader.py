@@ -1,4 +1,4 @@
-"""GGUF -> torch parameter loading, dense llama path (counterpart of
+"""GGUF -> torch parameter loading, llama path (counterpart of
 llama_box_tpu/models/loader.py: load_model, deinterleave_rope,
 fuse_projections).
 
@@ -9,9 +9,17 @@ package's key names and layouts (`tok_embd`, `output_norm`, `output`,
 `layers.wq` ... or the fused `layers.wqkv` / `layers.w_gateup`), so
 `params_from_numpy` carries a JAX param tree across unchanged.
 
-Quantized residency (the w8a8 and packed Q4/Q8 kernels) and the other
-families' tensors are later slices of the port: a GGUF that carries a
-tensor this path does not know is refused, never half-loaded.
+Two weight formats:
+- dense (default): dequantize to bf16/f32 on the device.
+- quantized=True: every block-quant 2D projection (and the output
+  projection) is repacked (gguf/repack.py) and held as a w8a8 QTensor,
+  per-column int8 codes with f32 scales (ops/qmatmul.pack_w8a8), packed
+  on the host one tensor at a time and moved to the device once per
+  layer stack. token_embd, the norms and formats without a repacker stay
+  dense, as in JAX.
+The packed Q4/Q8 residencies and the other families' tensors are later
+slices of the port: a GGUF that carries a tensor this path does not know
+is refused, never half-loaded.
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ import numpy as np
 import torch
 
 from ..gguf.reader import GGUFFile
+from ..gguf.repack import REPACKERS, repack
+from ..ops.qmatmul import QTensor, pack_repacked
 from ..utils.logging import SRV_INF
 from .config import ModelConfig
 
@@ -49,17 +59,35 @@ def _torch_dtype_of(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def load_model(path: str, dtype=torch.bfloat16,
-               device="cuda") -> tuple[ModelConfig, dict]:
-    """Load a dense llama-family GGUF into a stacked-layer param tree of
-    `dtype` tensors on `device`."""
+def _quantizable(info, shape) -> bool:
+    if info.ggml_type not in REPACKERS or len(shape) != 2:
+        return False
+    out_dim, in_dim = shape
+    return in_dim % 64 == 0 and out_dim % 64 == 0
+
+
+def _stack_qtensors(qts: list[QTensor]) -> QTensor:
+    return QTensor(
+        qs=torch.stack([q.qs for q in qts]),
+        scales=torch.stack([q.scales for q in qts]),
+        mins=(torch.stack([q.mins for q in qts])
+              if qts[0].mins is not None else None),
+        in_dim=qts[0].in_dim, group=qts[0].group, packed4=qts[0].packed4,
+        w8a8=qts[0].w8a8)
+
+
+def load_model(path: str, dtype=torch.bfloat16, device="cuda",
+               quantized: bool = False) -> tuple[ModelConfig, dict]:
+    """Load a llama-family GGUF into a stacked-layer param tree of `dtype`
+    tensors on `device`; with `quantized`, the block-quant projections as
+    w8a8 QTensors (see the module docstring)."""
     dev = torch.device(device)
     with GGUFFile(path) as g:
         cfg = ModelConfig.from_gguf(g)
         SRV_INF("load_model", "arch=%s layers=%d embd=%d heads=%d/%d ff=%d "
-                "vocab=%d dtype=%s device=%s", cfg.arch, cfg.n_layers,
-                cfg.n_embd, cfg.n_heads, cfg.n_kv_heads, cfg.n_ff,
-                cfg.vocab_size, dtype, dev)
+                "vocab=%d dtype=%s quantized=%s device=%s", cfg.arch,
+                cfg.n_layers, cfg.n_embd, cfg.n_heads, cfg.n_kv_heads,
+                cfg.n_ff, cfg.vocab_size, dtype, quantized, dev)
         known = set(_ROOT) | {pat.format(i=i)
                               for pat, _ in _LAYER_WEIGHTS.values()
                               for i in range(cfg.n_layers)}
@@ -75,16 +103,33 @@ def load_model(path: str, dtype=torch.bfloat16,
                 x = x.T
             return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
 
+        def fetch_maybe_q(name: str, transpose: bool):
+            """A w8a8 QTensor (host tensors) or a dense device tensor."""
+            info = g.tensors[name]
+            if quantized and transpose and _quantizable(info, info.shape):
+                rt = repack(info.ggml_type, g.tensor_raw(name),
+                            info.n_elements)
+                out_dim, in_dim = info.shape
+                return pack_repacked(rt, (in_dim, out_dim))
+            return fetch(name, transpose)
+
+        def stack(ws: list):
+            if isinstance(ws[0], QTensor):
+                return _stack_qtensors(ws).to(dev)
+            return torch.stack(ws)
+
         params: dict = {"tok_embd": fetch("token_embd.weight", False),
                         "output_norm": fetch("output_norm.weight", False)}
         if "output.weight" in g.tensors:
-            params["output"] = fetch("output.weight", True)
+            out_w = fetch_maybe_q("output.weight", True)
+            params["output"] = (out_w.to(dev) if isinstance(out_w, QTensor)
+                                else out_w)
         else:
             SRV_INF("load_model", "output.weight absent -> tied embeddings")
         layers = {}
         for key, (pattern, transpose) in _LAYER_WEIGHTS.items():
-            layers[key] = torch.stack([fetch(pattern.format(i=i), transpose)
-                                       for i in range(cfg.n_layers)])
+            layers[key] = stack([fetch_maybe_q(pattern.format(i=i), transpose)
+                                 for i in range(cfg.n_layers)])
         params["layers"] = layers
     return cfg, params
 
@@ -93,16 +138,28 @@ def params_from_numpy(params_np: dict, cfg: ModelConfig,
                       device="cpu") -> dict:
     """Carry a JAX param tree (after `jax.tree.map(np.asarray, params)`)
     into torch on `device`: same keys, same [in, out] layouts, same
-    dtypes."""
+    dtypes. The JAX package's QTensor nodes (numpy leaves) become the
+    port's QTensors. The `smalls_all` bundle (a TPU layout of values the
+    tree already holds) is dropped."""
     del cfg  # the tree carries its own shapes; kept for the JAX signature
 
     def conv(x):
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
+            return {k: conv(v) for k, v in x.items() if k != "smalls_all"}
         if isinstance(x, (list, tuple)):
             return type(x)(conv(v) for v in x)
+        if all(hasattr(x, a) for a in ("qs", "scales", "mins", "in_dim",
+                                       "group", "packed4", "w8a8")):
+            return QTensor(conv(x.qs), conv(x.scales),
+                           None if x.mins is None else conv(x.mins),
+                           int(x.in_dim), int(x.group), bool(x.packed4),
+                           bool(x.w8a8))
         return _torch_dtype_of(np.asarray(x)).to(device)
     return conv(params_np)
+
+
+def _out_dim(w) -> int:
+    return w.out_dim if isinstance(w, QTensor) else w.shape[-1]
 
 
 def deinterleave_rope(params: dict, cfg: ModelConfig):
@@ -118,16 +175,21 @@ def deinterleave_rope(params: dict, cfg: ModelConfig):
         return params, cfg
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rot = cfg.rope_dim or D
-    if rot % 2 or lay["wq"].shape[-1] != H * D \
-            or lay["wk"].shape[-1] != Hkv * D:
+    if rot % 2 or _out_dim(lay["wq"]) != H * D \
+            or _out_dim(lay["wk"]) != Hkv * D:
         return params, cfg
     base = np.concatenate([np.arange(0, rot, 2), np.arange(1, rot, 2),
                            np.arange(rot, D)])
 
     def perm_cols(w, n_heads):
         idx = torch.from_numpy(np.concatenate(
-            [h * D + base for h in range(n_heads)])).to(w.device)
-        return torch.index_select(w, -1, idx)
+            [h * D + base for h in range(n_heads)]))
+
+        def take(a):
+            return torch.index_select(a, -1, idx.to(a.device))
+        if isinstance(w, QTensor):   # permute the codes and the scales
+            return w._map(take)
+        return take(w)
 
     lay = dict(lay)
     lay["wq"] = perm_cols(lay["wq"], H)
@@ -137,22 +199,50 @@ def deinterleave_rope(params: dict, cfg: ModelConfig):
     return out, dataclasses.replace(cfg, rope_mode="neox")
 
 
+def _cat_weights(ws):
+    """Concatenate projection weights along the output dim: dense tensors
+    or QTensors with identical layout params. Returns None when the set is
+    heterogeneous (no fusion)."""
+    if all(isinstance(w, torch.Tensor) for w in ws):
+        if len({w.dtype for w in ws}) != 1 \
+                or len({w.shape[:-1] for w in ws}) != 1:
+            return None
+        return torch.cat(ws, dim=-1)
+    if not all(isinstance(w, QTensor) for w in ws):
+        return None
+    w0 = ws[0]
+    if any(w.w8a8 != w0.w8a8 or w.packed4 != w0.packed4
+           or w.group != w0.group or w.in_dim != w0.in_dim
+           or (w.mins is None) != (w0.mins is None) for w in ws):
+        return None
+    return QTensor(
+        qs=torch.cat([w.qs for w in ws], dim=-1),
+        scales=torch.cat([w.scales for w in ws], dim=-1),
+        mins=(torch.cat([w.mins for w in ws], dim=-1)
+              if w0.mins is not None else None),
+        in_dim=w0.in_dim, group=w0.group, packed4=w0.packed4,
+        w8a8=w0.w8a8)
+
+
 def fuse_projections(params: dict, cfg: ModelConfig) -> dict:
     """Fuse per-layer q/k/v and gate/up projections into single matmuls
     (`wqkv` [L, E, (H+2*Hkv)*D], `w_gateup` [L, E, 2*FF]). Each output
-    column is an independent contraction, so the split outputs equal the
+    column is an independent contraction (and w8a8 activation scales are
+    per row of x, shared by construction), so the split outputs equal the
     separate matmuls'."""
     del cfg
     layers = params.get("layers")
     if not isinstance(layers, dict):
         return params
     layers = dict(layers)
-    if all(k in layers for k in ("wq", "wk", "wv")):
-        layers["wqkv"] = torch.cat([layers.pop("wq"), layers.pop("wk"),
-                                    layers.pop("wv")], dim=-1)
-    if all(k in layers for k in ("w_gate", "w_up")):
-        layers["w_gateup"] = torch.cat([layers.pop("w_gate"),
-                                        layers.pop("w_up")], dim=-1)
+    for fused, keys in (("wqkv", ("wq", "wk", "wv")),
+                        ("w_gateup", ("w_gate", "w_up"))):
+        if all(k in layers for k in keys):
+            f = _cat_weights([layers[k] for k in keys])
+            if f is not None:
+                layers[fused] = f
+                for k in keys:
+                    del layers[k]
     out = dict(params)
     out["layers"] = layers
     return out

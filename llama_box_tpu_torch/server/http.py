@@ -23,6 +23,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 
+from ..ops.qmatmul import QTensor
 from ..sampling import SamplerParams
 from ..utils.logging import SRV_ERR, SRV_INF
 from .chat import ChatTemplates
@@ -196,6 +197,8 @@ def _next_event(task):
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, QTensor):
+        return tree.leaves()
     return [tree]
 
 

@@ -162,3 +162,153 @@ def test_unsupported_shapes_raise(cuda):
     args, _ = _on(cuda, d, torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
         flash_decode(*args, as_t(d["meta"]).to(cuda), win)
+
+
+# -- the w8a8 kernels (csrc/w8a8_matmul.cu, fused_norm_qmm.cu,
+# fused_layer_tail.cu) --------------------------------------------------------
+#
+# w8a8_matmul is held to bit equality: the codes use IEEE division and
+# round-half-to-even like torch, and the s32 sums are exact in any order.
+# The fused kernels sum the rms norm's squares in another order than torch,
+# so one bf16 rounding and then one int8 code can move: rtol = atol = 1e-2
+# (fused_norm_qmm) and 2e-2 (fused_layer_tail), the JAX tests' tolerances.
+
+from llama_box_tpu_torch.ops import fused_decode as fdec_mod  # noqa: E402
+from llama_box_tpu_torch.ops import qmatmul as qmm_mod  # noqa: E402
+
+
+def _w8(rng, k, n, cuda):
+    qs = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    sc = torch.from_numpy(rng.uniform(0.005, 0.02, n).astype(np.float32))
+    return qs.to(cuda), sc.to(cuda)
+
+
+def _x(rng, r, k, cuda, dtype=torch.bfloat16):
+    return torch.from_numpy(rng.standard_normal((r, k)).astype(
+        np.float32)).to(cuda, dtype)
+
+
+def _guarded(shape, dtype, cuda, pad=64):
+    """A NaN-filled flat buffer; returns (buffer, contiguous view of
+    `shape` inside it with `pad` NaN elements on each side)."""
+    n = int(np.prod(shape))
+    buf = torch.full((n + 2 * pad,), float("nan"), dtype=dtype, device=cuda)
+    return buf, buf[pad:pad + n].view(shape)
+
+
+def _guards_intact(buf, pad=64):
+    return bool(torch.isnan(buf[:pad].float()).all()
+                and torch.isnan(buf[-pad:].float()).all())
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 64, 48), (4, 2048, 2560),
+                                   (64, 100, 100), (200, 320, 144)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_w8a8_matmul_matches_plain_exactly(cuda, M, K, N, dtype):
+    rng = np.random.default_rng(M + K)
+    x = _x(rng, M, K, cuda, dtype)
+    qs, sc = _w8(rng, K, N, cuda)
+    buf, out = _guarded((M, N), torch.float32, cuda)
+    before = qmm_mod.w8a8_matmul.launches
+    got = qmm_mod.w8a8_matmul(x, qs, sc, out=out)
+    want = qmm_mod.w8a8_matmul_plain(x, qs, sc)
+    torch.cuda.synchronize()
+    assert qmm_mod.w8a8_matmul.launches == before + 1
+    assert torch.isfinite(got).all() and _guards_intact(buf)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("R", [1, 4, 64])
+@pytest.mark.parametrize("O", [96, 512])
+@pytest.mark.parametrize("nw_dtype", [torch.bfloat16, torch.float32])
+def test_fused_norm_qmm_matches_plain(cuda, R, O, nw_dtype):
+    rng = np.random.default_rng(R * O)
+    E = 256
+    x = _x(rng, R, E, cuda)
+    nw = torch.from_numpy(rng.uniform(0.5, 1.5, E).astype(
+        np.float32)).to(cuda, nw_dtype)
+    qs, sc = _w8(rng, E, O, cuda)
+    buf, out = _guarded((R, O), torch.bfloat16, cuda)
+    before = fdec_mod.fused_norm_qmm.launches
+    got = fdec_mod.fused_norm_qmm(x, nw, qs, sc, eps=1e-5, out=out)
+    want = fdec_mod.fused_norm_qmm_plain(x, nw, qs, sc, eps=1e-5)
+    torch.cuda.synchronize()
+    assert fdec_mod.fused_norm_qmm.launches == before + 1
+    assert torch.isfinite(got.float()).all() and _guards_intact(buf)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+    assert torch.equal(got.float().argmax(-1), want.float().argmax(-1))
+
+
+@pytest.mark.parametrize("R", [1, 4, 64])
+@pytest.mark.parametrize("act_fn,rs,FF", [("silu", 1.0, 384),
+                                          ("gelu", 0.5, 384),
+                                          ("relu2", 1.0, 200)])
+def test_fused_layer_tail_matches_plain(cuda, R, act_fn, rs, FF):
+    rng = np.random.default_rng(R + FF)
+    HD, E = 256, 256
+    ao, x = _x(rng, R, HD, cuda), _x(rng, R, E, cuda)
+    nw = torch.from_numpy(rng.uniform(0.5, 1.5, E).astype(
+        np.float32)).to(cuda, torch.float32 if R == 1 else torch.bfloat16)
+    wo, gu, dn = _w8(rng, HD, E, cuda), _w8(rng, E, 2 * FF, cuda), \
+        _w8(rng, FF, E, cuda)
+    obuf, out = _guarded((R, E), torch.bfloat16, cuda)
+    xbuf, xnew = _guarded((R, E), torch.bfloat16, cuda)
+    abuf, act = _guarded((R, FF), torch.bfloat16, cuda)
+    kw = dict(eps=1e-5, rs=rs, act_fn=act_fn)
+    before = fdec_mod.fused_layer_tail.launches
+    got = fdec_mod.fused_layer_tail(ao, x, *wo, nw, *gu, *dn, out=out,
+                                    scratch=(xnew, act), **kw)
+    want = fdec_mod.fused_layer_tail_plain(ao, x, *wo, nw, *gu, *dn, **kw)
+    torch.cuda.synchronize()
+    assert fdec_mod.fused_layer_tail.launches == before + 1
+    for b in (obuf, xbuf, abuf):
+        assert _guards_intact(b)
+    assert torch.isfinite(xnew.float()).all()
+    assert torch.isfinite(act.float()).all()
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_w8a8_rows_are_independent(cuda):
+    """A row's bits do not depend on the other rows of the call."""
+    rng = np.random.default_rng(11)
+    x = _x(rng, 64, 256, cuda)
+    nw = torch.ones(256, dtype=torch.bfloat16, device=cuda)
+    qs, sc = _w8(rng, 256, 512, cuda)
+    full = fdec_mod.fused_norm_qmm(x, nw, qs, sc, eps=1e-5)
+    one = fdec_mod.fused_norm_qmm(x[5:6], nw, qs, sc, eps=1e-5)
+    assert torch.equal(full[5:6], one)
+    mm_full = qmm_mod.w8a8_matmul(x, qs, sc)
+    assert torch.equal(mm_full[7:9], qmm_mod.w8a8_matmul(x[7:9], qs, sc))
+
+
+def test_w8a8_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version reached on CUDA tensors")
+    monkeypatch.setattr(qmm_mod, "w8a8_matmul_plain", boom)
+    monkeypatch.setattr(fdec_mod, "fused_norm_qmm_plain", boom)
+    monkeypatch.setattr(fdec_mod, "fused_layer_tail_plain", boom)
+    rng = np.random.default_rng(12)
+    x = _x(rng, 4, 128, cuda)
+    nw = torch.ones(128, dtype=torch.bfloat16, device=cuda)
+    qs, sc = _w8(rng, 128, 128, cuda)
+    gu = _w8(rng, 128, 256, cuda)
+    qmm_mod.w8a8_matmul(x, qs, sc)
+    fdec_mod.fused_norm_qmm(x, nw, qs, sc, eps=1e-5)
+    fdec_mod.fused_layer_tail(x, x, qs, sc, nw, *gu, qs, sc, eps=1e-5)
+    torch.cuda.synchronize()
+
+
+def test_w8a8_unsupported_shapes_raise(cuda):
+    rng = np.random.default_rng(13)
+    x = _x(rng, 4, 64, cuda)
+    qs, sc = _w8(rng, 64, 30, cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        qmm_mod.w8a8_matmul(x, qs, sc)
+    x65 = _x(rng, 65, 64, cuda)
+    qs, sc = _w8(rng, 64, 32, cuda)
+    with pytest.raises(ValueError, match="rows"):
+        fdec_mod.fused_norm_qmm(x65, torch.ones(64, device=cuda), qs, sc,
+                                eps=1e-5)

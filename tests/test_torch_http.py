@@ -186,6 +186,61 @@ def test_cli_without_cuda_raises(model_path, monkeypatch):
         cli.build_server(["-m", model_path, "--no-jinja"])
 
 
+@pytest.fixture(scope="module")
+def q_server(tmp_path_factory):
+    """The tiny fixture at Q4_K, widths the fused kernels take (N_EMBD=128,
+    HEAD_DIM=32, N_FF=256), served with --weights-dtype quantized."""
+    import tests.fixtures.make_tiny_model as mk
+    from llama_box_tpu_torch.gguf.constants import GGMLType
+    path = str(tmp_path_factory.mktemp("tinyq") / "tiny-q4k.gguf")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mk, "N_EMBD", 128)
+        mp.setattr(mk, "HEAD_DIM", 32)
+        mp.setattr(mk, "N_FF", 256)
+        mk.write_tiny_model(path, quant=GGMLType.Q4_K)
+    engine, srv = cli.build_server([
+        "-m", path, "--device", "cpu", "--port", "0", "--no-jinja",
+        "-np", str(N_SLOTS), "-c", str(N_CTX), "-ub", "16",
+        "--decode-chain", "4", "--weights-dtype", "quantized"])
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    yield engine, f"http://127.0.0.1:{srv.server_address[1]}"
+    srv.shutdown()
+    srv.server_close()
+    engine.stop()
+
+
+def test_quantized_weights_serve_chat(q_server):
+    """--weights-dtype quantized: the projections are w8a8 QTensors with
+    bf16 activations, and a greedy chat completes over HTTP, streamed and
+    not, with the same text."""
+    from llama_box_tpu_torch.ops.qmatmul import QTensor
+    engine, url = q_server
+    lay = engine.params["layers"]
+    for key in ("wqkv", "wo", "w_gateup", "w_down"):
+        assert isinstance(lay[key], QTensor) and lay[key].w8a8, key
+    assert engine.params["tok_embd"].dtype == torch.bfloat16
+    status, body = _get(url + "/v1/models")
+    n = sum(t.numel() for w in lay.values()
+            for t in (w.leaves() if isinstance(w, QTensor) else [w]))
+    assert status == 200 and body["data"][0]["meta"]["n_params"] > n
+    status, text = _post(url + "/v1/chat/completions", dict(
+        messages=MESSAGES, max_tokens=MAX_TOKENS, temperature=0))
+    assert status == 200
+    body = json.loads(text)
+    content = body["choices"][0]["message"]["content"]
+    n_gen = body["usage"]["completion_tokens"]
+    assert 0 < n_gen <= MAX_TOKENS
+    assert body["choices"][0]["finish_reason"] == (
+        "length" if n_gen == MAX_TOKENS else "stop")
+    _, text = _post(url + "/v1/chat/completions", dict(
+        messages=MESSAGES, max_tokens=MAX_TOKENS, temperature=0,
+        stream=True))
+    streamed = "".join(c["delta"].get("content", "")
+                       for e in _events(text) for c in e["choices"])
+    assert streamed == (content or "")
+
+
 @pytest.mark.parametrize("extra", [
     {"grammar": "root ::= \"a\""},
     {"json_schema": {"type": "object"}},
