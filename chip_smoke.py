@@ -32,8 +32,23 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     the plain versions on the CPU over the same QTensors (cosine >= 0.99),
     greedy K=1 and K=16 identical for both caches, and the fused kernels'
     decode logits against LLAMA_BOX_TPU_NO_FUSED (cosine >= 0.99);
- 6. print a `kernels` line, an `e2e` line (both paths), the card line, and
-    as the last line {"ok": true, "device": {...}}.
+ 3q/4q. the grouped kernels (q4_matmul, q8_matmul) against their plain
+    versions at the shapes 5q gives them (4 x 512 prefill rows and 4
+    decode rows: wqkv, wo, gate|up, down, output) and at variants (packed
+    and int8 codes, bf16 and f32 scales, mins and none, groups 16 and 32,
+    1 to 200 rows, 4160 = 65 x 64 columns), NaN output guards; then times
+    beside the bound, the plain version and torch.matmul in bf16 on the
+    dequantized weight, at those shapes and at Llama-3-8B's widths
+    (kernel only, not served);
+ 5q. end to end, grouped path: the same floats written with Q4_K_M's
+    tensor types (Q6_K output and ffn_down, Q4_K elsewhere), served with
+    LLAMA_BOX_TPU_PACKED4=1 --weights-dtype quantized and the same flags
+    and traffic; q4_matmul, q8_matmul and the attention kernels must have
+    run, the w8a8 kernels not. In process: the card's logits against the
+    CPU path (q_matmul_ref) over the same QTensors (cosine >= 0.99) and
+    greedy K=1 and K=16 identical for both caches;
+ 6. print a `kernels` line (seven kernels), an `e2e` line (three paths),
+    the card line, and as the last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without CUDA,
 or without the llama_box_tpu_torch package beside it, it exits non-zero
@@ -67,6 +82,12 @@ BF16_ATOL, F32_ATOL = 2e-2, 1e-4
 # the rms norm's sum of squares runs in another order, so one bf16
 # rounding and then one int8 code can move
 NORM_QMM_TOL, TAIL_TOL = 1e-2, 2e-2
+# grouped kernels against their plain versions, x max|out|: f32 sums of
+# the same exact bf16 products in another order (about sqrt(in) x 2**-23);
+# a weight moved by one bf16 rounding would give about 1.4e-3
+Q_REL = 1e-4
+# Llama-3-8B's widths (kernel rows only)
+E8, FF8, V8 = 4096, 14336, 128256
 CHATML = ("{% for message in messages %}{{'<|im_start|>' + message['role'] "
           "+ '\n' + message['content'] + '<|im_end|>' + '\n'}}{% endfor %}"
           "{% if add_generation_prompt %}{{'<|im_start|>assistant\n'}}"
@@ -526,6 +547,129 @@ def w8a8_kernel_phase(dev, seed, shapes=None):
 
 
 # ---------------------------------------------------------------------------
+# the grouped kernels
+
+
+class QGen:
+    """Random grouped operands on the card: bf16 rows ~ N(0, 1); codes
+    `q4` (packed bytes), `q4int8` (0..15), `q6` (-32..31) or `q8`
+    (-127..127); scales (and mins near the codes' middle) that keep
+    outputs near unit size."""
+
+    CODES = {"q4int8": (0, 16, 4.6), "q6": (-32, 32, 18.5),
+             "q8": (-127, 128, 73.0)}
+
+    def __init__(self, dev, seed):
+        self.dev = dev
+        self.g = torch.Generator(device=dev)
+        self.g.manual_seed(seed)
+
+    def rows(self, m, k, dtype=torch.bfloat16):
+        return torch.randn(m, k, generator=self.g, device=self.dev).to(dtype)
+
+    def weight(self, k, n, codes, group, mins, sdt):
+        if codes == "q4":
+            qs = torch.randint(-128, 128, (k // 2, n), generator=self.g,
+                               device=self.dev, dtype=torch.int8)
+            spread = 4.6
+        else:
+            lo, hi, spread = self.CODES[codes]
+            qs = torch.randint(lo, hi, (k, n), generator=self.g,
+                               device=self.dev, dtype=torch.int8)
+        sc = (torch.rand(k // group, n, generator=self.g, device=self.dev)
+              + 0.5) / (spread * k ** 0.5)
+        mn = (sc * (torch.rand(sc.shape, generator=self.g, device=self.dev)
+                    * 3 + 6)).to(sdt) if mins else None
+        return qs, sc.to(sdt), mn
+
+
+def q_cases():
+    """(label, M, K, N, codes, group, mins, scale dtype, x dtype, timed)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    served = [("wqkv", E, (H + 2 * HKV) * D, "q4", 32, True),
+              ("wo", H * D, E, "q4", 32, True),
+              ("gate|up", E, 2 * FF, "q4", 32, True),
+              ("down", FF, E, "q6", 16, False)]
+    cases = [(lbl, M, K, N, c, g, mn, bf, bf, True)
+             for M in (2048, 4) for lbl, K, N, c, g, mn in served]
+    cases.append(("output", 4, E, V, "q6", 16, False, bf, bf, True))
+    cases += [("q4 f32 scales", 1, 512, 320, "q4", 32, True, f32, bf, False),
+              ("q4 no mins", 64, 512, 320, "q4", 32, False, bf, bf, False),
+              ("q4 as int8 codes", 4, E, 4160, "q4int8", 32, True, bf, bf,
+               False),
+              ("q8_0 f32 scales", 64, 1024, 4160, "q8", 32, False, f32, bf,
+               False),
+              ("q6_k f32 rows", 1, FF, 320, "q6", 16, False, bf, f32, False),
+              ("q4 200 rows", 200, E, 4160, "q4", 32, True, bf, bf, False)]
+    for M in (4, 2048):
+        cases += [("8B gate|up", M, E8, 2 * FF8, "q4", 32, True, bf, bf, True),
+                  ("8B down", M, FF8, E8, "q6", 16, False, bf, bf, True),
+                  ("8B output", M, E8, V8, "q6", 16, False, bf, bf, True)]
+    return cases
+
+
+def q_work(x, qs, sc, mn, N):
+    """(bytes, operations) of one call: x, codes, scales and mins read
+    once, the f32 output written once; 2*M*K*N operations."""
+    M, K = x.shape
+    nbytes = (x.numel() * x.element_size() + qs.numel()
+              + sc.numel() * sc.element_size() * (2 if mn is not None else 1)
+              + M * N * 4)
+    return nbytes, 2 * M * K * N
+
+
+def q_kernel_phase(dev, seed):
+    """Phases 3q and 4q. Returns (max errors, timing rows)."""
+    from llama_box_tpu_torch.ops.qmatmul import (_dequant_f32, q4_matmul,
+                                                 q4_matmul_plain, q8_matmul,
+                                                 q8_matmul_plain)
+    gen = QGen(dev, seed + 200)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    errs = {"q4_matmul": 0.0, "q8_matmul": 0.0}
+    rows = []
+    log("== phase 3q/4q: grouped kernels vs plain (NaN output guards), "
+        "then device times (median of 15, cold L2) of the timed shapes")
+    for lbl, M, K, N, codes, group, mins, sdt, xdt, timed in q_cases():
+        packed = codes == "q4"
+        name = "q4_matmul" if packed else "q8_matmul"
+        kern, plain = ((q4_matmul, q4_matmul_plain) if packed
+                       else (q8_matmul, q8_matmul_plain))
+        x = gen.rows(M, K, xdt)
+        qs, sc, mn = gen.weight(K, N, codes, group, mins, sdt)
+        buf, out = _guarded((M, N), torch.float32, dev)
+        got = kern(x, qs, sc, mn, group, out=out)
+        want = plain(x, qs, sc, mn, group)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and _guards_ok(buf), (lbl, M)
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        tol = Q_REL * scale
+        log(f"  {name} {lbl:<16s} x[{M},{K}] {str(xdt)[6:]:<8s} N={N:<6d} "
+            f"group {group} {'mins' if mins else 'no mins'} "
+            f"{str(sdt)[6:]} scales: max_abs_err {err:.3e} (tol {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"{name} {lbl} M={M}: max_abs_err {err} "
+                                 f"> {tol}")
+        errs[name] = max(errs[name], err)
+        del got, want, buf, out
+        if timed:
+            w = _dequant_f32(qs, sc, mn, group, packed).to(torch.bfloat16)
+            nbytes, ops = q_work(x, qs, sc, mn, N)
+            b_ms, b_by = bound_ms(nbytes, ops)
+            r = dict(kind=name, label=lbl, shape=[M, K, N],
+                     ms=device_ms(lambda: kern(x, qs, sc, mn, group), flush),
+                     plain_ms=device_ms(lambda: plain(x, qs, sc, mn, group),
+                                        flush),
+                     library_ms=device_ms(lambda: torch.matmul(x, w), flush),
+                     bound_ms=b_ms, bound_by=b_by, mbytes=nbytes / 1e6,
+                     gflop=ops / 1e9)
+            rows.append(r)
+            log("  " + json.dumps(r))
+            del w
+    return errs, rows
+
+
+# ---------------------------------------------------------------------------
 # synthetic TinyLlama-1.1B-width GGUF
 
 
@@ -548,9 +692,16 @@ def spm_vocab():
     return toks + pieces, scores, types + [TokenType.NORMAL] * len(pieces)
 
 
-def write_model(path: str, seed: int, q8: bool = False) -> None:
-    """The synthetic model: F16 2D weights, or Q8_0 ones (the same random
-    floats, from the same seed)."""
+# the 2D weights' types of each synthetic file: (most weights, output and
+# ffn_down); q4_k_m gives each layer key one type, Q6_K where llama.cpp's
+# Q4_K_M gives it to output and (about half of the layers') ffn_down
+MODEL_TYPES = {"f16": ("F16", "F16"), "q8_0": ("Q8_0", "Q8_0"),
+               "q4_k_m": ("Q4_K", "Q6_K")}
+
+
+def write_model(path: str, seed: int, fmt: str = "f16") -> None:
+    """The synthetic model with the 2D weight types of MODEL_TYPES[fmt]
+    (the same random floats, from the same seed, in every format)."""
     from llama_box_tpu_torch.gguf import GGMLType, GGUFWriter
     rng = np.random.default_rng(seed)
     vocab, scores, types = spm_vocab()
@@ -581,10 +732,10 @@ def write_model(path: str, seed: int, q8: bool = False) -> None:
     def norm_w():
         return 1.0 + rng.standard_normal(E, dtype=np.float32) * 0.02
 
-    f16 = GGMLType.Q8_0 if q8 else GGMLType.F16
+    f16, q6 = (GGMLType[t] for t in MODEL_TYPES[fmt])
     w.add_tensor("token_embd.weight", rand(V, E), f16)
     w.add_tensor("output_norm.weight", norm_w())
-    w.add_tensor("output.weight", rand(V, E), f16)
+    w.add_tensor("output.weight", rand(V, E), q6)
     for i in range(L):
         w.add_tensor(f"blk.{i}.attn_norm.weight", norm_w())
         w.add_tensor(f"blk.{i}.attn_q.weight", rand(H * D, E), f16)
@@ -594,7 +745,7 @@ def write_model(path: str, seed: int, q8: bool = False) -> None:
         w.add_tensor(f"blk.{i}.ffn_norm.weight", norm_w())
         w.add_tensor(f"blk.{i}.ffn_gate.weight", rand(FF, E), f16)
         w.add_tensor(f"blk.{i}.ffn_up.weight", rand(FF, E), f16)
-        w.add_tensor(f"blk.{i}.ffn_down.weight", rand(E, FF), f16)
+        w.add_tensor(f"blk.{i}.ffn_down.weight", rand(E, FF), q6)
     w.write()
 
 
@@ -769,41 +920,85 @@ def w8a8_reference_check(engine, dev):
                 fused_vs_unfused_argmax_agree=agree)
 
 
+def q4_reference_check(engine, dev):
+    """The card's grouped logits (q4_matmul, q8_matmul and the attention
+    kernels) against the CPU path over the same QTensors (q_matmul_ref,
+    f32 dequantization), on small_forward's input (bf16 activations and
+    cache)."""
+    cfg = engine.cfg
+    want = small_forward(_moved(engine.params, "cpu"), cfg, "cpu",
+                         torch.bfloat16)
+    got = small_forward(engine.params, cfg, dev, torch.bfloat16)
+    assert got.shape == (6, V) and torch.isfinite(got).all()
+    scale = float(want.abs().max())
+    err, cos = float((got - want).abs().max()), _cosine(got, want)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    log(f"  q4 card vs q_matmul_ref on the CPU: max_abs_err {err:.3e} "
+        f"(|logit| max {scale:.3f}), min cosine {cos:.6f} (tol 0.99), "
+        f"argmax agreement {agree:.3f} (not asserted: the kernels round "
+        "the weights to bf16, the CPU path does not)")
+    assert cos >= 0.99, cos
+    return dict(ref_cpu_max_abs_err=err, ref_cpu_min_cos=cos,
+                ref_cpu_argmax_agree=agree)
+
+
 def kernel_counters() -> dict:
     """name -> the wrapper whose `launches` counts the kernel."""
     from llama_box_tpu_torch.ops.flash_decode import flash_decode
     from llama_box_tpu_torch.ops.flash_prefill import flash_prefill_batched
     from llama_box_tpu_torch.ops.fused_decode import (fused_layer_tail,
                                                       fused_norm_qmm)
-    from llama_box_tpu_torch.ops.qmatmul import w8a8_matmul
+    from llama_box_tpu_torch.ops.qmatmul import (q4_matmul, q8_matmul,
+                                                 w8a8_matmul)
     return {"flash_prefill": flash_prefill_batched,
             "flash_decode": flash_decode, "w8a8_matmul": w8a8_matmul,
             "fused_norm_qmm": fused_norm_qmm,
-            "fused_layer_tail": fused_layer_tail}
+            "fused_layer_tail": fused_layer_tail, "q4_matmul": q4_matmul,
+            "q8_matmul": q8_matmul}
 
 
-def e2e_phase(dev, seed, tmp, profile=False, w8a8=False):
+# each served path: phase name, GGUF types, extra CLI flags, environment,
+# and the kernels its main path must launch (all others: none)
+PATHS = {
+    "bf16": ("5", "f16", [], {}, ("flash_prefill", "flash_decode")),
+    "w8a8": ("5w", "q8_0", ["--weights-dtype", "quantized"], {},
+             ("flash_prefill", "flash_decode", "w8a8_matmul",
+              "fused_norm_qmm", "fused_layer_tail")),
+    "q4": ("5q", "q4_k_m", ["--weights-dtype", "quantized"],
+           {"LLAMA_BOX_TPU_PACKED4": "1"},
+           ("flash_prefill", "flash_decode", "q4_matmul", "q8_matmul")),
+}
+
+
+def e2e_phase(dev, seed, tmp, profile=False, mode="bf16"):
     from llama_box_tpu_torch import cli
 
-    log(f"== phase 5{'w' if w8a8 else ''}: end to end, "
-        f"{'w8a8 (Q8_0 GGUF, --weights-dtype quantized)' if w8a8 else 'bf16 (F16 GGUF)'}")
-    path = f"{tmp}/synthetic-tinyllama-1.1b-{'q8_0' if w8a8 else 'f16'}.gguf"
+    phase, fmt, flags, env, _ = PATHS[mode]
+    log(f"== phase {phase}: end to end, {mode} path ({fmt} GGUF"
+        f"{', ' + ' '.join(flags) if flags else ''}"
+        f"{', ' + ' '.join(f'{k}={v}' for k, v in env.items()) if env else ''})")
+    path = f"{tmp}/synthetic-tinyllama-1.1b-{fmt}.gguf"
     t0 = time.perf_counter()
-    write_model(path, seed, q8=w8a8)
+    write_model(path, seed, fmt)
     log(f"  wrote {path} in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    engine, srv = cli.build_server([
-        "-m", path, "--port", "0", "-np", str(N_SLOTS), "-c", str(N_CTX),
-        "-ub", str(N_UBATCH), "--decode-chain", str(CHAIN), "--no-jinja",
-        "--device", dev.type]
-        + (["--weights-dtype", "quantized"] if w8a8 else []))
+    os.environ.update(env)            # the residency switches: load time
+    try:
+        engine, srv = cli.build_server([
+            "-m", path, "--port", "0", "-np", str(N_SLOTS), "-c", str(N_CTX),
+            "-ub", str(N_UBATCH), "--decode-chain", str(CHAIN), "--no-jinja",
+            "--device", dev.type] + flags)
+    finally:
+        for k in env:
+            del os.environ[k]
+        os.remove(path)
     url = f"http://127.0.0.1:{srv.server_address[1]}"
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
     log(f"  server up at {url} in {time.perf_counter() - t0:.1f} s "
         f"(params on {engine.device}, kv {engine.kv.k.dtype})")
     try:
-        return _serve(engine, url, seed, dev, profile, w8a8)
+        return _serve(engine, url, seed, dev, profile, mode)
     finally:
         srv.shutdown()
         srv.server_close()
@@ -811,7 +1006,7 @@ def e2e_phase(dev, seed, tmp, profile=False, w8a8=False):
         thread.join(timeout=30)
 
 
-def _serve(engine, url, seed, dev, profile, w8a8):
+def _serve(engine, url, seed, dev, profile, mode):
     from llama_box_tpu_torch.server.engine import Engine, EngineConfig
     from llama_box_tpu_torch.server.metrics import Metrics
     counters = kernel_counters()
@@ -865,13 +1060,12 @@ def _serve(engine, url, seed, dev, profile, w8a8):
     st, text, _ = wave2[1]
     sampled = json.loads(text)
     assert st == 200 and sampled["usage"]["completion_tokens"] > 0
-    path_kernels = list(counters) if w8a8 else ["flash_prefill",
-                                                 "flash_decode"]
+    path_kernels = PATHS[mode][4]
     for k, n in launches.items():
         if k in path_kernels:
             assert n > 0, f"{k} was never launched on the main path"
         else:
-            assert n == 0, f"{k} launched on the bf16 path"
+            assert n == 0, f"{k} launched on the {mode} path"
     log(f"  wave 1: 4 greedy chats, prompt tokens "
         f"{[b['usage']['prompt_tokens'] for b in bodies]}, 64 tokens each, "
         f"{t_wave1:.2f} s wall; repeated request identical")
@@ -888,9 +1082,11 @@ def _serve(engine, url, seed, dev, profile, w8a8):
         client_ms=[round(x[2], 1) for x in wave1],
         wave1_wall_s=t_wave1)
 
-    log(f"== phase 5{'w' if w8a8 else ''}b: in process")
-    if w8a8:
+    log(f"== phase {PATHS[mode][0]}b: in process")
+    if mode == "w8a8":
         e2e.update(w8a8_reference_check(engine, dev))
+    elif mode == "q4":
+        e2e.update(q4_reference_check(engine, dev))
     else:
         e32, e16 = reference_check(engine, dev)
         e2e.update(ref_f32_max_abs_err=e32, ref_bf16_max_abs_err=e16)
@@ -909,8 +1105,7 @@ def _serve(engine, url, seed, dev, profile, w8a8):
         assert same, f"K=1 and K={CHAIN} greedy outputs differ ({kv} cache)"
     if profile:
         e2e["profile"] = profile_phase(Engine, EngineConfig, engine, tok,
-                                       prompts, dev,
-                                       "w8a8" if w8a8 else "bf16")
+                                       prompts, dev, mode)
     return launches, e2e
 
 
@@ -980,23 +1175,31 @@ def main(argv=None) -> int:
 
     errs, rows = kernel_phase(dev, args.seed)
     w_errs, w_rows = w8a8_kernel_phase(dev, args.seed)
+    q_errs, q_rows = q_kernel_phase(dev, args.seed)
     errs.update(w_errs)
+    errs.update(q_errs)
+    launches, e2e = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches_bf16, e2e_bf16 = e2e_phase(dev, args.seed, tmp,
-                                            args.profile)
-        launches, e2e_w8 = e2e_phase(dev, args.seed, tmp, args.profile,
-                                     w8a8=True)
+        for mode in PATHS:
+            launches[mode], e2e[mode] = e2e_phase(dev, args.seed, tmp,
+                                                  args.profile, mode)
 
     pick = {"flash_prefill": ("prefill", "bf16", 0),
             "flash_decode": ("decode", "bf16", 1023),
             "w8a8_matmul": [2048, E, 2 * FF],
             "fused_norm_qmm": [4, E, V],
-            "fused_layer_tail": [4, H * D, E, FF]}
+            "fused_layer_tail": [4, H * D, E, FF],
+            "q4_matmul": [4, E, 2 * FF],
+            "q8_matmul": [4, E, V]}
     shapes = {"flash_prefill": "q[4,4,8,512,64] bf16, C=2048, pos0=0",
               "flash_decode": "q[4,4,8,64] bf16, C=2048, cpos=1023, R=16",
               "w8a8_matmul": "x[2048,2048] bf16 . qs[2048,11264] (gate|up)",
               "fused_norm_qmm": "x[4,2048] bf16 . qs[2048,32000] (output)",
-              "fused_layer_tail": "R=4, HD=E=2048, FF=5632, silu"}
+              "fused_layer_tail": "R=4, HD=E=2048, FF=5632, silu",
+              "q4_matmul": "x[4,2048] bf16 . Q4_K packed qs[1024,11264] "
+                           "(gate|up)",
+              "q8_matmul": "x[4,2048] bf16 . Q6_K codes qs[2048,32000] "
+                           "(output)"}
     srcs = {"flash_prefill": ("llama_box_tpu_torch/csrc/flash_prefill.cu",
                               "llama_box_tpu/ops/flash_prefill.py:75"),
             "flash_decode": ("llama_box_tpu_torch/csrc/flash_decode.cu",
@@ -1007,26 +1210,34 @@ def main(argv=None) -> int:
                                "llama_box_tpu/ops/fused_decode.py:67"),
             "fused_layer_tail": (
                 "llama_box_tpu_torch/csrc/fused_layer_tail.cu",
-                "llama_box_tpu/ops/fused_decode.py:115")}
+                "llama_box_tpu/ops/fused_decode.py:115"),
+            "q4_matmul": ("llama_box_tpu_torch/csrc/q_matmul.cu",
+                          "llama_box_tpu/ops/qmatmul.py:202"),
+            "q8_matmul": ("llama_box_tpu_torch/csrc/q_matmul.cu",
+                          "llama_box_tpu/ops/qmatmul.py:237")}
+    # the path whose main-path run counts each kernel's launches
+    home = {"flash_prefill": "bf16", "flash_decode": "bf16",
+            "w8a8_matmul": "w8a8", "fused_norm_qmm": "w8a8",
+            "fused_layer_tail": "w8a8", "q4_matmul": "q4", "q8_matmul": "q4"}
     kernels = []
     for name in srcs:
         if name.startswith("flash"):
             r = next(x for x in rows if (x["kind"], x["cache"], x["pos"])
                      == pick[name])
         else:
-            r = next(x for x in w_rows if x["kind"] == name
+            r = next(x for x in w_rows + q_rows if x["kind"] == name
                      and x["shape"] == pick[name])
         kernels.append(dict(
             name=name, route="cuda", source=srcs[name][0],
-            replaces=srcs[name][1], launches=launches[name],
+            replaces=srcs[name][1], launches=launches[home[name]][name],
             max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], shape=shapes[name],
-            launches_bf16_path=launches_bf16[name]))
-    e2e = dict(bf16=e2e_bf16, w8a8=e2e_w8, card=card,
-               seconds=time.perf_counter() - t_start)
+            launches_by_path={m: launches[m][name] for m in PATHS}))
+    e2e.update(card=card, seconds=time.perf_counter() - t_start)
     for k in ("ttft_p50_ms", "prefill_tok_s", "decode_tok_s"):
-        log(f"  {k:<14s} bf16 {e2e_bf16[k]:10.2f}   w8a8 {e2e_w8[k]:10.2f}")
+        log(f"  {k:<14s} " + "   ".join(f"{m} {e2e[m][k]:10.2f}"
+                                        for m in PATHS))
     log("e2e " + json.dumps(e2e))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -62,7 +62,11 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["bf16", "f32", "quantized"],
                    help="device-resident weight format; 'quantized' keeps "
                         "block-quant projections as per-column int8 (w8a8) "
-                        "with bf16 activations")
+                        "with bf16 activations, or, when LLAMA_BOX_TPU_PACKED4"
+                        ", LLAMA_BOX_TPU_Q4_INT8 or LLAMA_BOX_TPU_Q4_F32SCALES "
+                        "is set (read at load time), as GGUF group codes "
+                        "(4-bit ones nibble-packed unless Q4_INT8) with bf16 "
+                        "scales (f32 under Q4_F32SCALES)")
 
     g = p.add_argument_group("completion")
     g.add_argument("--temp", type=float, default=0.8)

@@ -1,5 +1,6 @@
 """Llama decoder in PyTorch (counterpart of the dense-llama branches of
-llama_box_tpu/models/llama.py), with bf16/f32 weights or w8a8 QTensors.
+llama_box_tpu/models/llama.py), with bf16/f32 weights or QTensors (w8a8
+or grouped, ops/qmatmul).
 
 The JAX package keeps the KV cache read-only through a lax.scan over the
 layers and writes every layer's new rows in one scatter afterwards (a TPU
@@ -28,6 +29,12 @@ the fused kernels of ops/fused_decode, under the JAX package's own gates
 chunks and the prefill's last-token logits take them too. The JAX package
 makes them opt-in on the TPU; here they are on unless
 LLAMA_BOX_TPU_NO_FUSED is set. Both paths give the same rounding.
+
+Grouped weights (the LLAMA_BOX_TPU_PACKED4 / _Q4_INT8 / _Q4_F32SCALES
+residencies): every projection goes through ops/qmatmul.mm, which runs
+the Q4 or Q8 group-dequant kernel on the card. The fused gates stay
+w8a8-only, as the JAX package's `_w8`, so decode rows take the unfused
+path.
 """
 
 from __future__ import annotations
@@ -97,7 +104,7 @@ def attn_dtype(kv: KVCache) -> torch.dtype:
 
 _LAYER_KEYS = {"attn_norm", "wq", "wk", "wv", "wqkv", "wo", "ffn_norm",
                "w_gate", "w_up", "w_gateup", "w_down"}
-# the keys that may hold a w8a8 QTensor (the JAX loader's quantizable 2D
+# the keys that may hold a QTensor (the JAX loader's quantizable 2D
 # projections; token_embd and the norms stay dense)
 _Q_KEYS = {"wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up", "w_gateup",
            "w_down", "output"}
@@ -143,14 +150,8 @@ def check_supported(cfg: ModelConfig, params: dict) -> None:
                   output_norm=params.get("output_norm"),
                   output=params.get("output"))
     for key, w in leaves.items():
-        if not isinstance(w, QTensor):
-            continue
-        if key not in _Q_KEYS:
+        if isinstance(w, QTensor) and key not in _Q_KEYS:
             raise NotImplementedError(f"{cfg.arch}: {key} as a QTensor")
-        if not w.w8a8:
-            raise NotImplementedError(
-                f"{cfg.arch}: {key} is a grouped/packed QTensor (the Q4 "
-                "slice of the port, not ported yet)")
 
 
 # -- rope --------------------------------------------------------------------

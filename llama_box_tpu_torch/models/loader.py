@@ -12,14 +12,20 @@ package's key names and layouts (`tok_embd`, `output_norm`, `output`,
 Two weight formats:
 - dense (default): dequantize to bf16/f32 on the device.
 - quantized=True: every block-quant 2D projection (and the output
-  projection) is repacked (gguf/repack.py) and held as a w8a8 QTensor,
-  per-column int8 codes with f32 scales (ops/qmatmul.pack_w8a8), packed
-  on the host one tensor at a time and moved to the device once per
-  layer stack. token_embd, the norms and formats without a repacker stay
-  dense, as in JAX.
-The packed Q4/Q8 residencies and the other families' tensors are later
-slices of the port: a GGUF that carries a tensor this path does not know
-is refused, never half-loaded.
+  projection) is repacked (gguf/repack.py) and held as a QTensor in the
+  residency ops/qmatmul.pack_repacked picks from the JAX package's
+  switches: w8a8 by default (per-column int8 codes, f32 scales), or the
+  grouped layout under LLAMA_BOX_TPU_PACKED4 / _Q4_INT8 / _Q4_F32SCALES
+  (group codes, nibble-packed for 4-bit formats, per-group scales and
+  mins). Tensors are packed on the host one at a time and moved to the
+  device once per layer stack. token_embd, the norms and formats without
+  a repacker stay dense, as in JAX.
+A layer key whose layers pack to different layouts (a llama.cpp Q4_K_M
+gives Q6_K to some layers' attn_v and ffn_down) cannot be stacked: the
+JAX loader's np.stack fails on it under the grouped residency, and this
+loader refuses it by name. The other families' tensors are later slices
+of the port: a GGUF that carries a tensor this path does not know is
+refused, never half-loaded.
 """
 
 from __future__ import annotations
@@ -66,7 +72,25 @@ def _quantizable(info, shape) -> bool:
     return in_dim % 64 == 0 and out_dim % 64 == 0
 
 
-def _stack_qtensors(qts: list[QTensor]) -> QTensor:
+def _layout(q: QTensor) -> tuple:
+    return (q.w8a8, q.packed4, q.group, q.in_dim, q.mins is None,
+            tuple(q.qs.shape), tuple(q.scales.shape), q.scales.dtype)
+
+
+def _stack_qtensors(qts: list[QTensor], key: str,
+                    formats: list[str]) -> QTensor:
+    """Stack per-layer QTensors along a new leading axis. Raises
+    ValueError, naming `key` and the GGUF `formats` found, when the layers
+    differ in layout; nothing is padded or converted."""
+    layouts = sorted({_layout(q) for q in qts}, key=str)
+    if len(layouts) > 1:
+        desc = "; ".join(f"packed4={p}, group={g}, mins={not nm}, qs{qs}"
+                         for _, p, g, _, nm, qs, _, _ in layouts)
+        raise ValueError(
+            f"{key}: its layers pack to {len(layouts)} different quantized "
+            f"layouts ({desc}) from GGUF formats {sorted(set(formats))}; "
+            "a layer stack needs one layout per key (the JAX package's "
+            "loader cannot stack them either)")
     return QTensor(
         qs=torch.stack([q.qs for q in qts]),
         scales=torch.stack([q.scales for q in qts]),
@@ -80,7 +104,7 @@ def load_model(path: str, dtype=torch.bfloat16, device="cuda",
                quantized: bool = False) -> tuple[ModelConfig, dict]:
     """Load a llama-family GGUF into a stacked-layer param tree of `dtype`
     tensors on `device`; with `quantized`, the block-quant projections as
-    w8a8 QTensors (see the module docstring)."""
+    QTensors (w8a8 or grouped: see the module docstring)."""
     dev = torch.device(device)
     with GGUFFile(path) as g:
         cfg = ModelConfig.from_gguf(g)
@@ -104,7 +128,7 @@ def load_model(path: str, dtype=torch.bfloat16, device="cuda",
             return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
 
         def fetch_maybe_q(name: str, transpose: bool):
-            """A w8a8 QTensor (host tensors) or a dense device tensor."""
+            """A QTensor (host tensors) or a dense device tensor."""
             info = g.tensors[name]
             if quantized and transpose and _quantizable(info, info.shape):
                 rt = repack(info.ggml_type, g.tensor_raw(name),
@@ -113,9 +137,14 @@ def load_model(path: str, dtype=torch.bfloat16, device="cuda",
                 return pack_repacked(rt, (in_dim, out_dim))
             return fetch(name, transpose)
 
-        def stack(ws: list):
-            if isinstance(ws[0], QTensor):
-                return _stack_qtensors(ws).to(dev)
+        def stack(key: str, names: list[str], ws: list):
+            if any(isinstance(w, QTensor) for w in ws):
+                if not all(isinstance(w, QTensor) for w in ws):
+                    raise ValueError(f"{key}: some layers are quantized "
+                                     "QTensors and some dense")
+                return _stack_qtensors(
+                    ws, key, [g.tensors[n].ggml_type.name for n in names]
+                ).to(dev)
             return torch.stack(ws)
 
         params: dict = {"tok_embd": fetch("token_embd.weight", False),
@@ -128,8 +157,9 @@ def load_model(path: str, dtype=torch.bfloat16, device="cuda",
             SRV_INF("load_model", "output.weight absent -> tied embeddings")
         layers = {}
         for key, (pattern, transpose) in _LAYER_WEIGHTS.items():
-            layers[key] = stack([fetch_maybe_q(pattern.format(i=i), transpose)
-                                 for i in range(cfg.n_layers)])
+            names = [pattern.format(i=i) for i in range(cfg.n_layers)]
+            layers[key] = stack(key, names, [fetch_maybe_q(n, transpose)
+                                             for n in names])
         params["layers"] = layers
     return cfg, params
 

@@ -1,24 +1,38 @@
-"""Quantized-resident weights: QTensor + the w8a8 matmul (counterpart of
-llama_box_tpu/ops/qmatmul.py, its default w8a8 residency).
+"""Quantized-resident weights: QTensor and its matmuls (counterpart of
+llama_box_tpu/ops/qmatmul.py).
 
-The loader keeps every block-quant projection weight as per-output-column
-symmetric int8 codes (`pack_w8a8`): one byte per weight, half the bytes of
-bf16, which is what a decode step streams. A matmul quantizes its
-activations per row to int8 and runs s8 x s8 -> s32 (`w8a8_matmul`): on a
-CUDA tensor it launches the hand-written kernel csrc/w8a8_matmul.cu, on a
-CPU tensor it runs `w8a8_matmul_plain`, the same function in torch.
+Two residencies, chosen at load time by `pack_repacked` from the JAX
+package's switches (LLAMA_BOX_TPU_PACKED4, _Q4_INT8, _Q4_F32SCALES):
 
-Layout ([in, out] matmul convention; the loader transposes GGUF [out, in]):
-- qs int8 [in, out] (or a layer stack [L, in, out]);
-- scales f32 [out] (or [L, out]): w[i, o] = qs[i, o] * scales[o].
+- w8a8 (the default, no switch set): every block-quant projection as
+  per-output-column symmetric int8 codes (`pack_w8a8`). A matmul quantizes
+  its activations per row to int8 and runs s8 x s8 -> s32
+  (`w8a8_matmul`, csrc/w8a8_matmul.cu).
+- grouped (any switch set): the GGUF group quantization kept as it is,
+  w = s * q - m per group of rows, dequantized inside the matmul
+  (`q4_matmul` for nibble-packed codes, `q8_matmul` for int8 codes; both
+  csrc/q_matmul.cu): bf16 weights, bf16 activations, f32 sums.
 
-The grouped and nibble-packed residencies of the JAX package (its
-LLAMA_BOX_TPU_PACKED4 / _Q4_INT8 / _Q4_F32SCALES switches and their
-Pallas kernels) are the next slice of the port; `mm` refuses such a
-QTensor.
+Layout ([in, out] matmul convention; the loader transposes GGUF [out, in]),
+each optionally stacked over layers as [L, ...]:
+- w8a8: qs int8 [in, out]; scales f32 [out]: w[i, o] = qs[i, o] * scales[o].
+- grouped, 4-bit formats (Q4_0, Q4_1, Q4_K, Q2_K) unless _Q4_INT8: qs int8
+  [in/2, out] in HALVES packing: byte row r holds row r in its low nibble
+  and row r + in/2 in its high nibble (`packed4`).
+- grouped, other formats (or _Q4_INT8): qs int8 codes [in, out].
+- grouped scales and mins [in/group, out], bf16 (f32 under
+  _Q4_F32SCALES); mins None for formats without them (Q8_0, Q6_K):
+  w[i, o] = scales[i // group, o] * q[i, o] - mins[i // group, o].
+
+On a CUDA tensor each matmul launches its hand-written kernel; on a CPU
+tensor it runs its `*_plain` version, the same function in torch. `mm`,
+the model's dispatch, sends a grouped weight with a CPU x to
+`q_matmul_ref` instead, as the JAX package does off the TPU.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -72,9 +86,39 @@ class QTensor:
 
 def pack_repacked(rt, shape_in_out: tuple[int, int]) -> QTensor:
     """RepackedTensor (flat, GGUF [out, in] row-major order) -> QTensor in
-    [in, out] layout, host tensors. The port's only residency so far is
-    the JAX package's default, w8a8."""
-    return pack_w8a8(rt, shape_in_out)
+    [in, out] layout, host tensors. The residency follows the JAX
+    package's switches, read here at load time: none set gives w8a8
+    (`pack_w8a8`); any of LLAMA_BOX_TPU_PACKED4, _Q4_INT8, _Q4_F32SCALES
+    gives the grouped layout, 4-bit codes nibble-packed unless _Q4_INT8,
+    scales and mins bf16 (round to nearest even, as ml_dtypes) unless
+    _Q4_F32SCALES."""
+    if not (os.environ.get("LLAMA_BOX_TPU_PACKED4")
+            or os.environ.get("LLAMA_BOX_TPU_Q4_INT8")
+            or os.environ.get("LLAMA_BOX_TPU_Q4_F32SCALES")):
+        return pack_w8a8(rt, shape_in_out)
+    f32_scales = bool(os.environ.get("LLAMA_BOX_TPU_Q4_F32SCALES"))
+    out_dim, in_dim = shape_in_out[1], shape_in_out[0]
+    q = rt.q.reshape(out_dim, in_dim).T                      # [in, out]
+    scales = rt.scales.reshape(out_dim, in_dim // rt.group).T
+    mins = (rt.mins.reshape(out_dim, in_dim // rt.group).T
+            if rt.mins is not None else None)
+    packed4 = rt.qbits == 4 and not os.environ.get("LLAMA_BOX_TPU_Q4_INT8")
+    if packed4:
+        half = in_dim // 2
+        if in_dim % 2 or half % rt.group:
+            raise ValueError(f"pack_repacked: in={in_dim} cannot be nibble-"
+                             f"packed in groups of {rt.group}")
+        qs = (q[:half].astype(np.uint8)
+              | (q[half:].astype(np.uint8) << 4)).astype(np.int8)
+    else:
+        qs = q.astype(np.int8)
+
+    def sc(a):
+        t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+        return t if f32_scales else t.to(torch.bfloat16)
+    return QTensor(torch.from_numpy(np.ascontiguousarray(qs)), sc(scales),
+                   None if mins is None else sc(mins), in_dim, rt.group,
+                   packed4)
 
 
 def pack_w8a8(rt, shape_in_out: tuple[int, int]) -> QTensor:
@@ -174,16 +218,160 @@ def w8a8_matmul(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor, *,
 w8a8_matmul.launches = 0   # kernel launches (chip_smoke reads it)
 
 
+# -- the grouped matmuls -------------------------------------------------------
+
+
+def _codes(qs: torch.Tensor, packed4: bool) -> torch.Tensor:
+    """Integer codes [in, out]: nibble-packed [in/2, out] bytes unpack to
+    their low nibbles (rows 0..in/2-1) over their high nibbles."""
+    if not packed4:
+        return qs
+    b = qs.view(torch.uint8)
+    return torch.cat([b & 0x0F, b >> 4], dim=0)
+
+
+def _dequant_f32(qs, scales, mins, group: int, packed4: bool):
+    """w = s * q - m in f32, scales and mins converted from their stored
+    dtype (the JAX package's f32 dequantization)."""
+    w = _codes(qs, packed4).float() * scales.float().repeat_interleave(
+        group, dim=0)
+    if mins is not None:
+        w = w - mins.float().repeat_interleave(group, dim=0)
+    return w
+
+
+def _grouped_plain(x, qs, scales, mins, group: int, packed4: bool):
+    """The TPU kernels' arithmetic: the f32 weight rounded to bf16, x
+    rounded to bf16, the exact bf16 products summed. The sums are formed
+    in float64 and rounded once to f32, so the kernel's order of
+    summation does not enter the plain version."""
+    w = _dequant_f32(qs, scales, mins, group, packed4).to(torch.bfloat16)
+    return torch.matmul(x.to(torch.bfloat16).double(), w.double()).float()
+
+
+def q4_matmul_plain(x, qs, scales, mins, group: int) -> torch.Tensor:
+    """Plain version of q4_matmul (any device): x [M, in] -> [M, out] f32
+    against nibble-packed codes qs [in/2, out]."""
+    return _grouped_plain(x, qs, scales, mins, group, True)
+
+
+def q8_matmul_plain(x, qs, scales, mins, group: int) -> torch.Tensor:
+    """Plain version of q8_matmul (any device): x [M, in] -> [M, out] f32
+    against int8 codes qs [in, out]."""
+    return _grouped_plain(x, qs, scales, mins, group, False)
+
+
+# rows up to which a call splits its in-dim across blocks (decode widths)
+_SPLIT_MAX_ROWS = 64
+_TARGET_BLOCKS = 4 * 132      # about four blocks per SM of an H100
+_TILE_N, _TILE_K, _MAX_SPLITS = 64, 64, 16
+
+
+def _splits(M: int, N: int, K: int) -> int:
+    """in-dim splits of a call (csrc/q_matmul.cu). Decode widths split
+    the in-dim so that about _TARGET_BLOCKS blocks run; the number depends
+    on the weight's shape alone, so a row's bits never depend on how many
+    other rows of at most _SPLIT_MAX_ROWS share the call."""
+    if M > _SPLIT_MAX_ROWS:
+        return 1
+    n_blocks = -(-N // _TILE_N)
+    return max(1, min(_MAX_SPLITS, K // _TILE_K,
+                      -(-_TARGET_BLOCKS // n_blocks)))
+
+
+def _grouped_launch(fn: str, packed4: bool, x, qs, scales, mins, group: int,
+                    out):
+    def check(cond: bool, what: str) -> None:
+        if not cond:
+            raise ValueError(f"{fn}: {what}")
+    check(x.dim() == 2 and x.dtype in (torch.bfloat16, torch.float32),
+          f"x {x.dtype} {tuple(x.shape)}: 2-D bf16 or f32")
+    M, K = x.shape
+    N = qs.shape[-1]
+    dev = x.device
+    check(K % _TILE_K == 0, f"in={K} must be a multiple of {_TILE_K}")
+    check(N % 8 == 0, f"out={N} must be a multiple of 8")
+    check(group in (2, 4, 8, 16, 32), f"group {group}: a power of two <= 32")
+    rows = K // 2 if packed4 else K
+    check(qs.dtype == torch.int8 and tuple(qs.shape) == (rows, N),
+          f"qs {qs.dtype} {tuple(qs.shape)}, want int8 {(rows, N)}")
+    check(scales.dtype in (torch.bfloat16, torch.float32)
+          and tuple(scales.shape) == (K // group, N),
+          f"scales {scales.dtype} {tuple(scales.shape)}, want "
+          f"{(K // group, N)} bf16 or f32")
+    check(mins is None or (mins.dtype == scales.dtype
+                           and mins.shape == scales.shape),
+          "mins must match the scales' dtype and shape")
+    x = x.contiguous()
+    for name, t in (("x", x), ("qs", qs), ("scales", scales),
+                    ("mins", mins)):
+        check(t is None or (t.device == dev and t.is_contiguous()
+                            and t.data_ptr() % 16 == 0),
+              f"{name} must be a contiguous, 16-byte aligned tensor on "
+              "x's device")
+    if out is None:
+        out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    check(out.dtype == torch.float32 and tuple(out.shape) == (M, N)
+          and out.is_contiguous() and out.device == dev, "out")
+    if not M:
+        return out
+    S = _splits(M, N, K)
+    ws = (torch.empty((S, M, N), dtype=torch.float32, device=dev)
+          if S > 1 else None)
+    _kernels.call("q_matmul", "lbt_q4_matmul" if packed4 else "lbt_q8_matmul",
+                  _kernels.DTYPE_CODES[x.dtype],
+                  _kernels.DTYPE_CODES[scales.dtype], x, qs, scales, mins, ws,
+                  out, M, K, N, group, S)
+    return out
+
+
+def q4_matmul(x, qs, scales, mins, group: int, *, out=None) -> torch.Tensor:
+    """x [M, in] (bf16 or f32) -> [M, out] f32 against nibble-packed codes
+    qs [in/2, out], scales/mins [in/group, out] (bf16 or f32; mins may be
+    None). A CUDA x launches csrc/q_matmul.cu's Q4 kernel; a CPU x takes
+    the plain version. `out` may name a contiguous f32 [M, out] tensor."""
+    if not x.is_cuda:
+        res = q4_matmul_plain(x, qs, scales, mins, group)
+        return res if out is None else out.copy_(res)
+    out = _grouped_launch("q4_matmul", True, x, qs, scales, mins, group, out)
+    if x.shape[0]:
+        q4_matmul.launches += 1
+    return out
+
+
+def q8_matmul(x, qs, scales, mins, group: int, *, out=None) -> torch.Tensor:
+    """x [M, in] (bf16 or f32) -> [M, out] f32 against int8 codes qs [in,
+    out], as q4_matmul (csrc/q_matmul.cu's Q8 kernel on a CUDA x)."""
+    if not x.is_cuda:
+        res = q8_matmul_plain(x, qs, scales, mins, group)
+        return res if out is None else out.copy_(res)
+    out = _grouped_launch("q8_matmul", False, x, qs, scales, mins, group, out)
+    if x.shape[0]:
+        q8_matmul.launches += 1
+    return out
+
+
+q4_matmul.launches = 0   # kernel launches (chip_smoke reads them)
+q8_matmul.launches = 0
+
+
+def q_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """x [M, in] -> [M, out] f32 through the kernel that matches a grouped
+    QTensor's layout (q4_matmul for packed codes, else q8_matmul)."""
+    fn = q4_matmul if w.packed4 else q8_matmul
+    return fn(x, w.qs, w.scales, w.mins, w.group)
+
+
 # -- reference implementation ----------------------------------------------------
 
 
 def q_matmul_ref(x: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """Dequantize-then-matmul in f32 (correctness baseline; the w8a8
-    branch only, the grouped forms are the Q4 slice)."""
-    if not w.w8a8:
-        raise NotImplementedError(
-            "grouped / packed QTensor: the Q4 slice of the port")
-    wf = w.qs.float() * w.scales.float()[None, :]
+    """Dequantize-then-matmul in f32 (the JAX package's correctness
+    baseline and CPU path): x [M, in] -> [M, out] f32."""
+    if w.w8a8:
+        wf = w.qs.float() * w.scales.float()[None, :]
+    else:
+        wf = _dequant_f32(w.qs, w.scales, w.mins, w.group, w.packed4)
     return x.float() @ wf
 
 
@@ -191,15 +379,17 @@ def q_matmul_ref(x: torch.Tensor, w: QTensor) -> torch.Tensor:
 
 
 def mm(x: torch.Tensor, w) -> torch.Tensor:
-    """Matmul dispatch returning x's dtype: a dense tensor -> torch.matmul;
-    a w8a8 QTensor -> w8a8_matmul. x: [..., in]."""
+    """Matmul dispatch returning x's dtype, x: [..., in]: a dense tensor ->
+    torch.matmul; a w8a8 QTensor -> w8a8_matmul; a grouped QTensor ->
+    q_matmul on a CUDA x (the kernels), q_matmul_ref on a CPU x."""
     if not isinstance(w, QTensor):
         return torch.matmul(x, w.to(x.dtype))
-    if not w.w8a8:
-        raise NotImplementedError(
-            "grouped / packed (Q4/Q8 group-dequant) QTensor weights are the "
-            "Q4 slice of the port, not ported yet")
     lead = x.shape[:-1]
     xf = x.reshape(-1, x.shape[-1])
-    return w8a8_matmul(xf, w.qs, w.scales).reshape(*lead, w.out_dim).to(
-        x.dtype)
+    if w.w8a8:
+        out = w8a8_matmul(xf, w.qs, w.scales)
+    elif xf.is_cuda:
+        out = q_matmul(xf, w)
+    else:
+        out = q_matmul_ref(xf, w)
+    return out.reshape(*lead, w.out_dim).to(x.dtype)

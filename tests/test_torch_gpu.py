@@ -312,3 +312,126 @@ def test_w8a8_unsupported_shapes_raise(cuda):
     with pytest.raises(ValueError, match="rows"):
         fdec_mod.fused_norm_qmm(x65, torch.ones(64, device=cuda), qs, sc,
                                 eps=1e-5)
+
+
+# -- the grouped kernels (csrc/q_matmul.cu) -------------------------------------
+#
+# q4_matmul / q8_matmul against their plain versions: the same bf16 weights
+# (s*q - m rounded once) and bf16 rows, the products summed in f32 by the
+# tensor cores and in float64 by the plain version. Tolerance 1e-4 x
+# max|out|: above f32 summation noise (about sqrt(in) x 2**-23, 1e-5 at
+# in = 5632), below the 1.4e-3 that moving the weights by one bf16
+# rounding (a contracted s*q - m) gives.
+
+Q_REL = 1e-4
+
+
+def _grouped(rng, K, N, group, packed, sdt, mins, cuda, codes=(-32, 32)):
+    """Codes (random packed bytes, or integers in `codes`), scales and
+    optional mins [K/group, N] in `sdt`, sized for outputs near 1."""
+    if packed:
+        qs = rng.integers(-128, 128, (K // 2, N))
+        spread = 4.6
+    else:
+        qs = rng.integers(*codes, (K, N))
+        spread = (codes[1] - codes[0]) / 3.5
+    sc = rng.uniform(0.5, 1.5, (K // group, N)) / (spread * np.sqrt(K))
+    mn = sc * rng.uniform(6.0, 9.0, sc.shape) if mins else None
+
+    def t(a, dt):
+        return torch.from_numpy(np.asarray(a)).to(cuda, dt)
+    return (t(qs.astype(np.int8), torch.int8), t(sc.astype(np.float32), sdt),
+            None if mn is None else t(mn.astype(np.float32), sdt))
+
+
+def _q_fn(packed):
+    return ((qmm_mod.q4_matmul, qmm_mod.q4_matmul_plain) if packed
+            else (qmm_mod.q8_matmul, qmm_mod.q8_matmul_plain))
+
+
+@pytest.mark.parametrize("M", [1, 4, 64, 200])
+@pytest.mark.parametrize("packed,group,mins", [(True, 32, True),
+                                               (True, 32, False),
+                                               (False, 16, False),
+                                               (False, 32, True)],
+                         ids=["q4k", "q4nomin", "q6k", "q4int8"])
+@pytest.mark.parametrize("sdt", [torch.bfloat16, torch.float32],
+                         ids=["bf16s", "f32s"])
+def test_q_matmul_matches_plain(cuda, M, packed, group, mins, sdt):
+    rng = np.random.default_rng(M + group)
+    K, N = 512, 320                      # 5 column tiles of 64
+    x = _x(rng, M, K, cuda)
+    qs, sc, mn = _grouped(rng, K, N, group, packed, sdt, mins, cuda)
+    kern, plain = _q_fn(packed)
+    buf, out = _guarded((M, N), torch.float32, cuda)
+    before = kern.launches
+    got = kern(x, qs, sc, mn, group, out=out)
+    want = plain(x, qs, sc, mn, group)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert torch.isfinite(got).all() and _guards_intact(buf)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=Q_REL * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_q_matmul_f32_rows_and_wide_in(cuda, packed):
+    rng = np.random.default_rng(21)
+    K, N = 5632, 4160                    # 65 column tiles, split in-dim
+    x = _x(rng, 4, K, cuda, torch.float32)
+    qs, sc, mn = _grouped(rng, K, N, 32, packed, torch.bfloat16, packed, cuda,
+                          codes=(-127, 128))
+    kern, plain = _q_fn(packed)
+    got = kern(x, qs, sc, mn, 32)
+    want = plain(x, qs, sc, mn, 32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=Q_REL * float(want.abs().max()))
+
+
+def test_q_matmul_rows_are_independent(cuda):
+    """A row's bits depend on its own inputs only (no atomics; the in-dim
+    splits depend on the weight's shape), within each regime of rows."""
+    rng = np.random.default_rng(22)
+    K, N = 2048, 2560
+    qs, sc, mn = _grouped(rng, K, N, 32, True, torch.bfloat16, True, cuda)
+    x = _x(rng, 300, K, cuda)
+    full = qmm_mod.q4_matmul(x[:64], qs, sc, mn, 32)
+    assert torch.equal(full[5:6], qmm_mod.q4_matmul(x[5:6], qs, sc, mn, 32))
+    assert torch.equal(full[:4], qmm_mod.q4_matmul(x[:4], qs, sc, mn, 32))
+    big = qmm_mod.q4_matmul(x, qs, sc, mn, 32)
+    assert torch.equal(big[100:180], qmm_mod.q4_matmul(x[100:180], qs, sc,
+                                                       mn, 32))
+    again = qmm_mod.q4_matmul(x[:64], qs, sc, mn, 32)
+    assert torch.equal(full, again)
+
+
+def test_q_matmul_cuda_tensors_never_take_the_plain_version(cuda,
+                                                            monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version reached on CUDA tensors")
+    monkeypatch.setattr(qmm_mod, "q4_matmul_plain", boom)
+    monkeypatch.setattr(qmm_mod, "q8_matmul_plain", boom)
+    monkeypatch.setattr(qmm_mod, "q_matmul_ref", boom)
+    rng = np.random.default_rng(23)
+    x = _x(rng, 2, 3 * 128, cuda).reshape(2, 1, 384)
+    for packed in (True, False):
+        qs, sc, mn = _grouped(rng, 384, 64, 32, packed, torch.bfloat16,
+                              packed, cuda)
+        w = qmm_mod.QTensor(qs, sc, mn, 384, 32, packed)
+        assert qmm_mod.mm(x, w).shape == (2, 1, 64)
+    torch.cuda.synchronize()
+
+
+def test_q_matmul_unsupported_shapes_raise(cuda):
+    rng = np.random.default_rng(24)
+    x = _x(rng, 4, 128, cuda)
+    qs, sc, mn = _grouped(rng, 128, 68, 32, True, torch.bfloat16, True, cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        qmm_mod.q4_matmul(x, qs, sc, mn, 32)
+    qs, sc, mn = _grouped(rng, 128, 64, 32, True, torch.bfloat16, True, cuda)
+    with pytest.raises(ValueError, match="qs"):
+        qmm_mod.q4_matmul(x, qs[:, :56], sc[:, :56], mn[:, :56], 32)
+    with pytest.raises(ValueError, match="in=96"):
+        qmm_mod.q8_matmul(_x(rng, 4, 96, cuda), *_grouped(
+            rng, 96, 64, 32, False, torch.bfloat16, False, cuda), 32)

@@ -8,7 +8,8 @@ ops/qmatmul.py) against the JAX package, on the CPU.
   JAX `_w8a8_matmul` (both compute float(s32) * xs * ws in f32 with the
   same per-row codes);
 - mm: dense weights go to a dense matmul, w8a8 QTensors to the w8a8
-  matmul (cast to x's dtype), grouped QTensors are refused."""
+  matmul (cast to x's dtype), grouped QTensors on a CPU x to q_matmul_ref
+  (the grouped path's parity: tests/test_torch_q4_matmul.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -146,8 +147,11 @@ def test_mm_dispatch():
                                rtol=0, atol=0)
     grouped = tq.QTensor(w.qs, torch.ones(2, 48), None, 64, 32,
                          packed4=False)
-    with pytest.raises(NotImplementedError, match="Q4 slice"):
-        tq.mm(xb, grouped)
+    out = tq.mm(xb, grouped)
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (2, 3, 48)
+    want = xb.reshape(6, 64).float() @ w.qs.float()
+    torch.testing.assert_close(out.reshape(6, 48), want.to(torch.bfloat16),
+                               rtol=0, atol=0)
 
 
 def test_qtensor_unbind_and_leaves():
