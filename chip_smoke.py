@@ -12,7 +12,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     the w8a8 projections of a 4 x 512 prefill and of 4 decode rows) plus
     variants at smaller shapes; cache positions a kernel must never read,
     output guards a kernel must never write and the fused tail's scratch
-    hold NaN. w8a8_matmul must equal its plain version bit for bit;
+    hold NaN. w8a8_matmul must equal its plain version bit for bit, and a
+    cold 500-token prefill must equal, bit for bit, the same prompts with
+    their first 137 / 64 / 1 / 300 positions in a bf16 cache;
  4. times: kernel, plain version and a library yardstick (SDPA for the
     attention kernels, torch._int_mm on the int8 operands for
     w8a8_matmul; never used by the port) with CUDA events on a cold L2,
@@ -136,6 +138,25 @@ def bound_ms(nbytes: float, flops: float,
              peak: float = BF16_FLOPS) -> tuple[float, str]:
     tb, tf = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def ptxas_entries(report: str, names):
+    """(entry, 'Used ... registers ... smem ...', '... spill ...') of each
+    entry in an `nvcc -Xptxas -v` report whose name contains one of
+    `names`."""
+    out, entry, spill = [], None, ""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+            spill = ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and entry:
+            if any(n in entry for n in names):
+                out.append((entry, line.split("info    :")[-1].strip(),
+                            spill))
+            entry = None
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -293,6 +314,49 @@ def sdpa_decode(args):
         qq, k, v, attn_mask=mask, enable_gqa=True)
 
 
+def cold_cached_check(g, dev, T=500, prefix=(137, 64, 1, 300)):
+    """flash_prefill at the served shape: 4 slots of a T-token prompt
+    prefilled cold (pos0 0) against the same prompts with their first
+    prefix[b] positions already in a bf16 cache and the rest as rows.
+    Tiles are aligned to absolute key positions, so every output row must
+    be bit-identical. Returns the number of rows compared."""
+    from llama_box_tpu_torch.ops.flash_prefill import flash_prefill_batched
+    B, G, bf = len(prefix), H // HKV, torch.bfloat16
+    q = torch.randn(B, HKV, G, T, D, generator=g, device=dev).to(bf)
+    kr = torch.randn(B, T, HKV, D, generator=g, device=dev).to(bf)
+    vr = torch.randn(B, T, HKV, D, generator=g, device=dev).to(bf)
+    kc = torch.full((B, SLOT_CTX, HKV, D), float("nan"), device=dev,
+                    dtype=bf)
+    vc = kc.clone()
+    win = torch.zeros(2, dtype=torch.int32, device=dev)
+    meta = torch.tensor([[0, T, 0, 0]] * B, dtype=torch.int32, device=dev)
+    cold = flash_prefill_batched(q, kc, vc, kr, vr, meta, win)
+    Tw = T - min(prefix)
+    qw = torch.zeros(B, HKV, G, Tw, D, device=dev, dtype=bf)
+    krw = torch.zeros(B, Tw, HKV, D, device=dev, dtype=bf)
+    vrw = torch.zeros_like(krw)
+    for b, p in enumerate(prefix):
+        kc[b, :p], vc[b, :p] = kr[b, :p], vr[b, :p]
+        qw[b, :, :, :T - p] = q[b, :, :, p:]
+        krw[b, :T - p], vrw[b, :T - p] = kr[b, p:], vr[b, p:]
+    meta = torch.tensor([[p, T - p, 0, 0] for p in prefix],
+                        dtype=torch.int32, device=dev)
+    warm = flash_prefill_batched(qw, kc, vc, krw, vrw, meta, win)
+    torch.cuda.synchronize()
+    rows = 0
+    for b, p in enumerate(prefix):
+        got, want = warm[b, :, :, :T - p], cold[b, :, :, p:]
+        if not (torch.isfinite(got).all() and torch.equal(got, want)):
+            n = int((got != want).sum())
+            raise AssertionError(f"flash_prefill: cached prefix {p} differs "
+                                 f"from the cold prefill in {n} elements")
+        rows += T - p
+    log(f"  flash_prefill cold vs cached prefix {list(prefix)} "
+        f"(q[{B},{HKV},{G},{T},{D}] bf16, C={SLOT_CTX}): {rows} rows x "
+        f"{G * HKV} heads bit-identical")
+    return rows
+
+
 def kernel_phase(dev, seed):
     from llama_box_tpu_torch.ops.flash_decode import (flash_decode,
                                                       flash_decode_plain)
@@ -347,6 +411,7 @@ def kernel_phase(dev, seed):
     dc("f32", cpos=(200, 40), nv=(5, 1), dtype=torch.float32,
        atol=F32_ATOL, **small)
     dc("fresh slot", cpos=(0, 3), nv=(1, 4), **small)
+    cold_cached_check(g, dev)
 
     log("== phase 4: device times (median of 15, cold L2)")
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
@@ -600,6 +665,7 @@ def q_cases():
               ("q8_0 f32 scales", 64, 1024, 4160, "q8", 32, False, f32, bf,
                False),
               ("q6_k f32 rows", 1, FF, 320, "q6", 16, False, bf, f32, False),
+              ("q6_k 200 rows", 200, E, 4160, "q6", 16, False, bf, bf, False),
               ("q4 200 rows", 200, E, 4160, "q4", 32, True, bf, bf, False)]
     for M in (4, 2048):
         cases += [("8B gate|up", M, E8, 2 * FF8, "q4", 32, True, bf, bf, True),
@@ -1109,6 +1175,12 @@ def _serve(engine, url, seed, dev, profile, mode):
     return launches, e2e
 
 
+# the port's own kernels in a profile (names as nvcc gives them)
+PORT_KERNELS = ("flash_prefill", "flash_decode", "q8_gemm", "q_gemm",
+                "splitk_sum", "w8a8_gemm", "quant_rows", "norm_qmm",
+                "tail_phase")
+
+
 def profile_phase(Engine, EngineConfig, engine, tok, prompts, dev, label):
     """--profile: torch.profiler over 4 greedy requests (one batched
     prefill, then 48 tokens each in chains of 16), bf16 cache: device
@@ -1133,13 +1205,20 @@ def profile_phase(Engine, EngineConfig, engine, tok, prompts, dev, label):
     log(f"  wall {wall_ms:.1f} ms, device busy {dev_us / 1e3:.1f} ms "
         f"({dev_us / 1e3 / wall_ms:.3f} of wall), ops with device time: "
         f"{n_launch} (about {per_layer:.1f} per layer per decode step)")
-    rows = sorted(ka, key=lambda e: -e.self_device_time_total)[:14]
+    rows = sorted(ka, key=lambda e: -e.self_device_time_total)[:20]
     for e in rows:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:7d}x  "
             f"{e.key[:90]}")
+    ours = {e.key[:100]: (e.self_device_time_total / 1e3, e.count)
+            for e in ka if e.self_device_time_total > 0
+            and any(t in e.key for t in PORT_KERNELS)}
+    for k, (ms, n) in sorted(ours.items(), key=lambda kv: -kv[1][0]):
+        log(f"  port kernel {ms:9.2f} ms  {n:7d}x  {k[:90]}")
     return dict(wall_ms=wall_ms, device_busy_ms=dev_us / 1e3,
                 busy_share=dev_us / 1e3 / wall_ms, device_ops=n_launch,
-                ops_per_layer_step=per_layer)
+                ops_per_layer_step=per_layer,
+                top=[(e.key[:100], e.self_device_time_total / 1e3, e.count)
+                     for e in rows], port_kernels=ours)
 
 
 # ---------------------------------------------------------------------------
@@ -1172,6 +1251,10 @@ def main(argv=None) -> int:
         for line in report.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling")):
                 log(f"  [{name}] {line.strip()}")
+    for entry, used, spill in ptxas_entries(
+            "\n".join(_kernels.ptxas_report.values()),
+            ("flash_prefill_mma_kernel", "q8_gemm_kernel")):
+        log(f"  tensor-core kernel {entry[:60]}: {used}; {spill}")
 
     errs, rows = kernel_phase(dev, args.seed)
     w_errs, w_rows = w8a8_kernel_phase(dev, args.seed)
@@ -1213,7 +1296,7 @@ def main(argv=None) -> int:
                 "llama_box_tpu/ops/fused_decode.py:115"),
             "q4_matmul": ("llama_box_tpu_torch/csrc/q_matmul.cu",
                           "llama_box_tpu/ops/qmatmul.py:202"),
-            "q8_matmul": ("llama_box_tpu_torch/csrc/q_matmul.cu",
+            "q8_matmul": ("llama_box_tpu_torch/csrc/q8_matmul.cu",
                           "llama_box_tpu/ops/qmatmul.py:237")}
     # the path whose main-path run counts each kernel's launches
     home = {"flash_prefill": "bf16", "flash_decode": "bf16",

@@ -1,4 +1,6 @@
-// Shared helpers for the attention kernels (flash_prefill.cu, flash_decode.cu).
+// Shared helpers for the attention kernels (flash_prefill.cu, flash_decode.cu)
+// and the tensor-core kernels' copy and fragment instructions (cp.async,
+// ldmatrix; flash_prefill.cu, q8_matmul.cu).
 //
 // Element types: the attention compute dtype QT is float or __nv_bfloat16
 // (the JAX model's `adt`); the KV cache holds QT, or int8 codes with one
@@ -88,4 +90,74 @@ __device__ __forceinline__ float lbt_softmax_step(float s, float& m, float& l,
   const float p = expf(s - m);
   l += p;
   return lbt_round<QT>(p);
+}
+
+// -- tensor cores: mma.sync, cp.async (sm_80+) and ldmatrix ------------------
+
+// c += a . b, m16n8k16, bf16 x bf16 -> f32
+__device__ __forceinline__ void lbt_mma_bf16(float (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two floats as two bf16 (round to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t lbt_pack_bf16(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+
+
+__device__ __forceinline__ uint32_t lbt_smem(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled when !ok (src is not
+// read then, but must still be a valid address)
+__device__ __forceinline__ void lbt_cp16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   lbt_smem(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// 8 bytes global -> shared (through L1), zero-filled when !ok
+__device__ __forceinline__ void lbt_cp8(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   lbt_smem(dst)),
+               "l"(src), "r"(ok ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void lbt_cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void lbt_cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 give the row
+// addresses of matrix i, register i receives matrix i's fragment (thread t:
+// row t/4, columns 2(t%4) and 2(t%4)+1; transposed with _t)
+__device__ __forceinline__ void lbt_ldsm4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(lbt_smem(p))
+      : "memory");
+}
+__device__ __forceinline__ void lbt_ldsm4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(lbt_smem(p))
+      : "memory");
 }

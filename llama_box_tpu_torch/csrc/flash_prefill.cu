@@ -8,29 +8,57 @@
 //
 // What bounds it: operations. A 512-row chunk does ~G * T / 2 multiply-adds
 // per byte of K/V it reads, above the card's ridge, so the floor is the
-// tensor-core rate. This first version runs the dot products as f32 FMAs on
-// the CUDA cores from shared-memory tiles, far below that floor; the time it
-// takes is recorded in PERF.md and tensor cores (mma/wgmma) come later.
+// tensor-core rate.
 //
-// Design: one block per (slot, KV head, tile of BQ query positions), with
-// all G query heads of the GQA group in the block (G * BQ = 128 rows, one
-// thread each), so every K/V tile is staged in shared memory once and read
-// by all G heads. The TPU kernel carried the softmax state across its
-// sequential grid axis; here each thread carries (m, l, acc) in registers
-// through one loop over the cache tiles and then the rows tiles, and folds
-// keys in position order (lbt_softmax_step), so the result does not depend
-// on where the cache ends and the rows begin. The loops start at the
-// window/chunk floor and stop at pos0 (cache) and at the causal edge (rows):
-// skipped positions are never read.
+// Which kernel: a bf16 q (the served path; bf16 or int8 cache) takes
+// flash_prefill_mma_kernel, on the tensor cores. An f32 q (f32 or int8
+// cache) takes flash_prefill_fma_kernel, f32 FMAs on the CUDA cores: bf16
+// and TF32 tensor cores cannot hold an f32 q to the f32 tolerance. The
+// choice is made by dtype in lbt_flash_prefill, before any launch.
+//
+// Both kernels: one block per (slot, KV head, tile of BQ query positions)
+// with all G query heads of the GQA group in the block, block row r being
+// head r / BQ at position qt * BQ + r % BQ (G * BQ <= 128 rows), so every
+// K/V tile is staged in shared memory once and read by all G heads. The
+// TPU kernel carried the softmax state across its sequential grid axis;
+// here each row carries (m, l, acc) in registers through one loop over the
+// key tiles. Keys below the window/chunk floor of the block's first row,
+// and rows past its causal edge (or past n_valid, with a bidirectional
+// span), are never read: the loop bounds skip them and partly visible
+// tiles are staged as zeros there, so a NaN in a never-read position
+// cannot reach the output through a 0 * NaN product.
+//
+// flash_prefill_mma_kernel (FlashAttention-2 style): 8 warps of 16 rows.
+// Q fragments stay in registers; K/V tiles of 64 keys arrive by cp.async
+// (int8 caches: codes times their scale, rounded to bf16 as kv_dequant
+// does, through registers) into a 3-stage ring, so two tiles are in flight
+// while one is computed. S = Q K^T and O += P V run as mma.sync.m16n8k16
+// (bf16 x bf16 -> f32) from ldmatrix fragments (.trans for V); the masks
+// (skipped on a tile all 16 rows of a warp see whole), softcap and the
+// online softmax (in base 2, the scale times log2(e) folded into one
+// multiply) are applied per element in registers, and
+// P is rounded to bf16 and fed from registers as the A operand of P V, the
+// rounding point of the plain version. Tiles are aligned to absolute key
+// positions (multiples of 64 from 0), and the tile that straddles pos0
+// takes cache keys and row keys together: a row sees the same keys in the
+// same tile columns and the same mma order whether its prefix was cached or
+// prefilled in the same pass, so a cold prefill and a cached-prefix one
+// give the same bits (a tile a row cannot see leaves its state unchanged:
+// alpha = 1, p = 0).
+//
+// flash_prefill_fma_kernel: one thread per row, each dot product as D f32
+// FMAs from 32-key shared tiles, keys folded one at a time in position
+// order (lbt_softmax_step), which gives the same independence of where the
+// cache ends.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int BK = 32;  // keys per shared-memory tile
+constexpr int kThreads = 128;  // flash_prefill_fma_kernel: one row a thread
+constexpr int BK = 32;         // keys per shared-memory tile (FMA kernel)
 
 template <typename QT, typename CT, typename ST, int D, int DV>
-__global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
+__global__ void __launch_bounds__(kThreads) flash_prefill_fma_kernel(
     const QT* __restrict__ q, const CT* __restrict__ kc,
     const CT* __restrict__ vc, const ST* __restrict__ ks,
     const ST* __restrict__ vs, const QT* __restrict__ kr,
@@ -144,19 +172,304 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   for (int d = 0; d < DV; ++d) o[d] = acc[d] * inv;
 }
 
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaThreads = 256;  // 8 warps x 16 rows
+constexpr int kRows = 128;        // rows (head, position) per block
+constexpr int BKEY = 64;          // keys per tile
+constexpr int kStages = 3;        // K/V tiles in the ring
+
+// 8 int8 cache codes times their scale, each rounded to bf16 (kv_dequant)
+template <typename ST>
+__device__ __forceinline__ uint4 deq8(const int8_t* p, ST sc) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float s = lbt_f(sc);
+  auto c = [&](int j) {
+    return (float)(int8_t)(((j < 4 ? u.x : u.y) >> (8 * (j & 3))) & 0xffu);
+  };
+  return make_uint4(
+      lbt_pack_bf16(c(0) * s, c(1) * s), lbt_pack_bf16(c(2) * s, c(3) * s),
+      lbt_pack_bf16(c(4) * s, c(5) * s), lbt_pack_bf16(c(6) * s, c(7) * s));
+}
+
+template <typename CT, typename ST, int D, int DV>
+__global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 2 : 1)
+    flash_prefill_mma_kernel(const bf16* __restrict__ q,
+                             const CT* __restrict__ kc,
+                             const CT* __restrict__ vc,
+                             const ST* __restrict__ ks,
+                             const ST* __restrict__ vs,
+                             const bf16* __restrict__ kr,
+                             const bf16* __restrict__ vr,
+                             const int* __restrict__ meta,
+                             const int* __restrict__ win,
+                             const float* __restrict__ sinks,
+                             float* __restrict__ out, int G, int T, int C,
+                             int Hkv, int BQ, float scale, float softcap) {
+  constexpr int KLD = D + 8, VLD = DV + 8;  // 16-byte pad: ldmatrix rows
+  constexpr int KT = D / 16;                // k-steps of S = Q K^T
+  constexpr int NS = BKEY / 8;              // n8 tiles of S
+  constexpr int NO = DV / 8;                // n8 tiles of O
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* const Ks = reinterpret_cast<bf16*>(smem);   // [kStages][BKEY][KLD]
+  bf16* const Vs = Ks + kStages * BKEY * KLD;       // [kStages][BKEY][VLD]
+
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tig = lane & 3;
+  const int pos0 = meta[4 * b], nval = meta[4 * b + 1];
+  const int st = meta[4 * b + 2], en = meta[4 * b + 3];
+  const int window = win[0], chunk = win[1];
+
+  // this thread's rows of the m16 tiles: warp * 16 + gq (+ 8)
+  int rg[2], rt[2], qpos[2];
+  bool live[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + gq + 8 * i;
+    rg[i] = r / BQ;
+    rt[i] = qt * BQ + r % BQ;
+    live[i] = rg[i] < G && rt[i] < T;
+    qpos[i] = pos0 + rt[i];
+  }
+  // Q as A fragments: a0/a2 row gq, a1/a3 row gq + 8; k 2*tig (+8)
+  uint32_t qf[KT][4];
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = j & 1, col = kk * 16 + 2 * tig + (j >> 1) * 8;
+      qf[kk][j] = live[i] ? *reinterpret_cast<const uint32_t*>(
+                                q + ((long)((b * Hkv + h) * G + rg[i]) * T +
+                                     rt[i]) * D + col)
+                          : 0u;
+    }
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {LBT_NEG_INF, LBT_NEG_INF}, l[2] = {0.f, 0.f};
+
+  // keys [lo, pos0) of the cache and rows [0, rhi) may be read
+  const int qmin = pos0 + qt * BQ;
+  int lo = window > 0 ? qmin - window + 1 : 0;
+  if (chunk > 0) lo = max(lo, qmin / chunk * chunk);
+  if (en > st) lo = min(lo, st);
+  lo = max(lo, 0);
+  const int hi = min(pos0, C);
+  int rhi = en > st ? nval : min(nval, (qt + 1) * BQ);
+  rhi = min(rhi, T);
+  const int tlo = lo / BKEY, thi = (pos0 + rhi + BKEY - 1) / BKEY;
+  auto readable = [&](int kp) {
+    return kp < pos0 ? (kp >= lo && kp < hi) : (kp - pos0 < rhi);
+  };
+  // a tile every row of this warp sees whole needs no mask: readable keys
+  // only, all at or below the warp's first position, no window or chunk
+  const int wqmin = __reduce_min_sync(0xffffffffu, min(qpos[0], qpos[1]));
+  auto whole = [&](int t) {
+    const int k0 = t * BKEY, k1 = k0 + BKEY;
+    return window <= 0 && chunk <= 0 && k1 - 1 <= wqmin && k0 >= lo &&
+           (k1 <= hi || ((hi == pos0 || k0 >= pos0) && k1 <= pos0 + rhi));
+  };
+  // scores in base 2: p = 2^(s*log2(e) - m), the scale folded in
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float sl = softcap > 0.f ? scale : scale * kLog2e;
+
+  // tile t (absolute keys t*64 ..) -> stage i; unreadable keys as zeros
+  auto stage = [&](int t, int i) {
+    bf16* K_ = Ks + i * BKEY * KLD;
+    bf16* V_ = Vs + i * BKEY * VLD;
+    auto one = [&](bf16* dst, const CT* cache, const ST* sc,
+                   const bf16* rows, int W, int j, int c) {
+      const int kp = t * BKEY + j;
+      const bool ok = readable(kp);
+      if (kp < pos0) {
+        const long row = (long)(b * C + (ok ? kp : 0)) * Hkv + h;
+        if constexpr (std::is_same<CT, bf16>::value) {
+          lbt_cp16(dst, cache + row * W + c, ok);
+        } else {
+          *reinterpret_cast<uint4*>(dst) =
+              ok ? deq8(cache + row * W + c, sc[row])
+                 : make_uint4(0u, 0u, 0u, 0u);
+        }
+      } else {
+        const int r = ok ? kp - pos0 : 0;
+        lbt_cp16(dst, rows + ((long)(b * T + r) * Hkv + h) * W + c, ok);
+      }
+    };
+    for (int e = tid; e < BKEY * (D / 8); e += kMmaThreads) {
+      const int j = e / (D / 8), c = (e % (D / 8)) * 8;
+      one(K_ + j * KLD + c, kc, ks, kr, D, j, c);
+    }
+    for (int e = tid; e < BKEY * (DV / 8); e += kMmaThreads) {
+      const int j = e / (DV / 8), c = (e % (DV / 8)) * 8;
+      one(V_ + j * VLD + c, vc, vs, vr, DV, j, c);
+    }
+  };
+
+  auto compute = [&](int t, int i) {
+    const bf16* K_ = Ks + i * BKEY * KLD;
+    const bf16* V_ = Vs + i * BKEY * VLD;
+    // S = Q K^T: K rows (keys) by ldmatrix, matrices (keys 0-7 | 8-15) x
+    // (d 0-7 | 8-15) of a pair of n8 tiles
+    float sc[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t r[4];
+        lbt_ldsm4(r, K_ + (np * 16 + (lane & 7) + (lane >> 4) * 8) * KLD +
+                         kk * 16 + ((lane >> 3) & 1) * 8);
+        const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+        lbt_mma_bf16(sc[2 * np], qf[kk], b0);
+        lbt_mma_bf16(sc[2 * np + 1], qf[kk], b1);
+      }
+    // masks (not on a tile the whole warp sees), softcap, online softmax
+    // (c0, c1: row gq; c2, c3: row gq + 8; columns 2*tig, 2*tig + 1 of
+    // each n8 tile)
+    const bool all = whole(t);
+    float tmax[2] = {LBT_NEG_INF, LBT_NEG_INF};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i2 = e >> 1, kp = t * BKEY + n * 8 + 2 * tig + (e & 1);
+        float v = sc[n][e] * sl;
+        if (softcap > 0.f) v = softcap * tanhf(v / softcap) * kLog2e;
+        if (!all) {
+          const bool vis =
+              readable(kp) && (lbt_pos_ok(kp, qpos[i2], window, chunk) ||
+                               (kp >= st && kp < en));
+          v = vis ? v : -INFINITY;
+        }
+        sc[n][e] = v;
+        tmax[i2] = fmaxf(tmax[i2], v);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      tmax[i2] = fmaxf(tmax[i2], __shfl_xor_sync(0xffffffffu, tmax[i2], 1));
+      tmax[i2] = fmaxf(tmax[i2], __shfl_xor_sync(0xffffffffu, tmax[i2], 2));
+      const float mn = fmaxf(m[i2], tmax[i2]);
+      alpha[i2] = exp2f(m[i2] - mn);
+      m[i2] = mn;
+      l[i2] *= alpha[i2];
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(sc[n][e] - m[e >> 1]);  // masked: 2^-inf = 0
+        l[e >> 1] += p;
+        sc[n][e] = p;
+      }
+    // O += P V: P (bf16) from registers as A, V rows by ldmatrix.trans,
+    // matrices (keys 0-7 | 8-15) x (dv 0-7 | 8-15)
+#pragma unroll
+    for (int j = 0; j < BKEY / 16; ++j) {
+      const uint32_t pa[4] = {
+          lbt_pack_bf16(sc[2 * j][0], sc[2 * j][1]),
+          lbt_pack_bf16(sc[2 * j][2], sc[2 * j][3]),
+          lbt_pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]),
+          lbt_pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3])};
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        uint32_t r[4];
+        lbt_ldsm4_t(r, V_ + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                               VLD + np * 16 + (lane >> 4) * 8);
+        const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+        lbt_mma_bf16(o[2 * np], pa, b0);
+        lbt_mma_bf16(o[2 * np + 1], pa, b1);
+      }
+    }
+  };
+
+  // the ring: stage (it - 1) % kStages is refilled only after the barrier
+  // that follows every warp's compute of tile it - 1
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (tlo + i < thi) stage(tlo + i, i);
+    lbt_cp_commit();
+  }
+  for (int t = tlo; t < thi; ++t) {
+    const int it = t - tlo;
+    lbt_cp_wait<kStages - 2>();
+    __syncthreads();
+    if (t + kStages - 1 < thi)
+      stage(t + kStages - 1, (it + kStages - 1) % kStages);
+    lbt_cp_commit();
+    compute(t, it % kStages);
+  }
+  lbt_cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!live[i]) continue;
+    float f = 1.f, den = l[i];
+    if (sinks != nullptr) {
+      const float snk = sinks[h * G + rg[i]] * kLog2e;
+      const float m_fin = fmaxf(m[i], snk);
+      f = exp2f(m[i] - m_fin);
+      den = l[i] * f + exp2f(snk - m_fin);
+    }
+    const float inv = f / fmaxf(den, 1e-30f);
+    float* op = out + ((long)((b * Hkv + h) * G + rg[i]) * T + rt[i]) * DV;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(op + n * 8 + 2 * tig) =
+          make_float2(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+  }
+}
+
 template <typename QT, typename CT, typename ST, int D, int DV>
 int launch(const void* q, const void* kc, const void* vc, const void* ks,
            const void* vs, const void* kr, const void* vr, const void* meta,
            const void* win, const void* sinks, void* out, int B, int Hkv,
            int G, int T, int C, float scale, float softcap,
            cudaStream_t stream) {
-  const int BQ = kThreads / G;
-  dim3 grid((T + BQ - 1) / BQ, Hkv, B), block(kThreads);
-  flash_prefill_kernel<QT, CT, ST, D, DV><<<grid, block, 0, stream>>>(
-      (const QT*)q, (const CT*)kc, (const CT*)vc, (const ST*)ks,
-      (const ST*)vs, (const QT*)kr, (const QT*)vr, (const int*)meta,
-      (const int*)win, (const float*)sinks, (float*)out, G, T, C, Hkv, BQ,
-      scale, softcap);
+  if constexpr (std::is_same<QT, bf16>::value) {
+    auto kern = flash_prefill_mma_kernel<CT, ST, D, DV>;
+    constexpr int smem = kStages * BKEY * ((D + 8) + (DV + 8)) * 2;
+    static int allowed = 0;
+    if (!allowed) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+      allowed = 1;
+    }
+    const int BQ = kRows / G;
+    dim3 grid((T + BQ - 1) / BQ, Hkv, B);
+    kern<<<grid, kMmaThreads, smem, stream>>>(
+        (const bf16*)q, (const CT*)kc, (const CT*)vc, (const ST*)ks,
+        (const ST*)vs, (const bf16*)kr, (const bf16*)vr, (const int*)meta,
+        (const int*)win, (const float*)sinks, (float*)out, G, T, C, Hkv, BQ,
+        scale, softcap);
+  } else {
+    const int BQ = kThreads / G;
+    dim3 grid((T + BQ - 1) / BQ, Hkv, B);
+    flash_prefill_fma_kernel<QT, CT, ST, D, DV><<<grid, kThreads, 0, stream>>>(
+        (const QT*)q, (const CT*)kc, (const CT*)vc, (const ST*)ks,
+        (const ST*)vs, (const QT*)kr, (const QT*)vr, (const int*)meta,
+        (const int*)win, (const float*)sinks, (float*)out, G, T, C, Hkv, BQ,
+        scale, softcap);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -169,7 +482,6 @@ int dispatch(int qd, int cd, int sd, const void* q, const void* kc,
 #define LBT_ARGS \
   q, kc, vc, ks, vs, kr, vr, meta, win, sinks, out, B, Hkv, G, T, C, scale, \
       softcap, st
-  using bf16 = __nv_bfloat16;
   if (qd == LBT_BF16 && cd == LBT_BF16)
     return launch<bf16, bf16, float, D, DV>(LBT_ARGS);
   if (qd == LBT_F32 && cd == LBT_F32)

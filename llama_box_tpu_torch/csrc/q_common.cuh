@@ -1,0 +1,116 @@
+// Helpers shared by the grouped dequant matmuls (q_matmul.cu: q4_matmul,
+// q8_matmul.cu: q8_matmul): x rows as bf16, scales as f32, code bytes,
+// and the dequantization s*q - m with each
+// operation rounded (nvcc must not contract it into one fma, which rounds
+// once where torch and XLA round twice).
+#pragma once
+
+#include "common.cuh"
+
+namespace lbt_q {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t lds32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// 8 consecutive x values as 8 bf16 (16 bytes)
+__device__ __forceinline__ uint4 x8(const bf16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ uint4 x8(const float* p) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  return make_uint4(lbt_pack_bf16(a.x, a.y), lbt_pack_bf16(a.z, a.w),
+                    lbt_pack_bf16(b.x, b.y), lbt_pack_bf16(b.z, b.w));
+}
+
+// 8 consecutive scales (or mins) as f32
+__device__ __forceinline__ void s8(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void s8(const bf16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ uint32_t byte_of(uint2 r, int j) {
+  return ((j < 4 ? r.x : r.y) >> (8 * (j & 3))) & 0xffu;
+}
+
+// the f32 weight s*q - m, each operation rounded
+template <bool HAS_MIN>
+__device__ __forceinline__ float deq(float q, float s, float m) {
+  const float w = __fmul_rn(q, s);
+  return HAS_MIN ? __fsub_rn(w, m) : w;
+}
+
+// log2 of a power-of-two group size <= 32, or -1
+__host__ __forceinline__ int group_shift(int group) {
+  for (int i = 1; i <= 5; ++i)
+    if (group == (1 << i)) return i;
+  return -1;
+}
+
+}  // namespace lbt_q
+
+// -- wgmma (sm_90a) -------------------------------------------------------------
+
+// shared-memory matrix descriptor: 128-byte swizzle, offsets in bytes
+__device__ __forceinline__ uint64_t lbt_wg_desc(uint32_t addr, uint32_t lbo,
+                                                uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void lbt_wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void lbt_wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void lbt_wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// shared-memory writes of this thread (st.shared, cp.async) made visible to
+// the tensor cores' reads (the async proxy)
+__device__ __forceinline__ void lbt_fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d += A . B for a warpgroup, m64n128k16, bf16 x bf16 -> f32; A K-major and
+// B MN-major (N contiguous), both from shared memory. d[j][e]: n8 tile j,
+// (row, column) as mma.sync's c[e] within the warp's 16 rows
+__device__ __forceinline__ void lbt_wgmma_128(float (&d)[16][4], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(1));
+}

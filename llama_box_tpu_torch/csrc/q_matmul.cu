@@ -1,29 +1,26 @@
-// The grouped dequant matmuls: out [M, N] f32 = bf16(x) . bf16(s*q - m),
-// with w[i, n] = scales[i / group, n] * q[i, n] - mins[i / group, n]
-// dequantized inside the kernel (f32 multiply, f32 subtract, one rounding
-// to bf16) and the products summed in f32.
+// The Q4 group-dequant matmul: out [M, N] f32 = bf16(x) . bf16(s*q - m),
+// with w[i, n] = scales[i / group, n] * q[i, n] - mins[i / group, n] and the
+// codes nibble-packed, dequantized inside the kernel (f32 multiply, f32
+// subtract, one rounding to bf16) and the products summed in f32.
 //
-// Replaces _q4_kernel (llama_box_tpu/ops/qmatmul.py:202, nibble-packed
-// codes: entry lbt_q4_matmul) and _q8_kernel (:237, int8 codes:
-// lbt_q8_matmul), both behind q_matmul_pallas: every projection of a
-// grouped residency (LLAMA_BOX_TPU_PACKED4 / _Q4_INT8 / _Q4_F32SCALES).
+// Replaces _q4_kernel (llama_box_tpu/ops/qmatmul.py:202, entry
+// lbt_q4_matmul) behind q_matmul_pallas: every 4-bit projection of the
+// nibble-packed residency (LLAMA_BOX_TPU_PACKED4 / _Q4_F32SCALES). The int8
+// codes' kernel (_q8_kernel) is q8_matmul.cu.
 //
 // What bounds it: at decode widths (M <= 64 rows; 4 in the server) the
-// bytes of the codes and scales, 0.5 or 1 byte a weight; at prefill widths
-// (M = 2048) the bf16 products, 2*M*K*N operations.
+// bytes of the codes and scales, 0.5 bytes a weight plus the scales; at
+// prefill widths (M = 2048) the bf16 products, 2*M*K*N operations.
 //
-// Design: one tensor-core GEMM for both layouts. A block owns 64 output
-// columns and BM rows (16 at decode widths, 64 above) and walks the in-dim
-// in tiles of 64 weight rows. Per tile it stages the x rows as bf16 in
-// shared memory [BM][k], and dequantizes the weights into shared memory
-// transposed to [n][k], so that the B operand of mma.sync.m16n8k16
-// (bf16 x bf16 -> f32) is one 32-bit load of two consecutive k. A packed
-// tile is 32 byte rows: byte row r gives weight rows r (low nibble) and
-// r + K/2 (high nibble), which meet x columns r and r + K/2, so the tile's
-// k index 0..31 holds the low rows and 32..63 the high ones. Codes are
-// read as unsigned bytes for the nibbles and as int8 for unpacked codes.
-// The dequant uses __fmul_rn / __fsub_rn: nvcc must not contract s*q - m
-// into one fma, which rounds once where torch and XLA round twice.
+// Design: one tensor-core GEMM. A block owns 64 output columns and BM rows
+// (16 at decode widths, 64 above) and walks the in-dim in tiles of 64
+// weight rows. Per tile it stages the x rows as bf16 in shared memory
+// [BM][k], and dequantizes the weights into shared memory transposed to
+// [n][k], so that the B operand of mma.sync.m16n8k16 (bf16 x bf16 -> f32)
+// is one 32-bit load of two consecutive k. A packed tile is 32 byte rows:
+// byte row r gives weight rows r (low nibble) and r + K/2 (high nibble),
+// which meet x columns r and r + K/2, so the tile's k index 0..31 holds the
+// low rows and 32..63 the high ones. Codes are read as unsigned bytes.
 //
 // At decode widths 64-column blocks are few (40 for TinyLlama's wqkv), so
 // the in-dim is split across gridDim.z blocks, each writing its partial
@@ -31,12 +28,14 @@
 // No atomics: every output element is the same sequence of f32 operations
 // in every run and for every other row of the call, so greedy decoding is
 // deterministic. Rows 16 at a time waste no mma work at M = 4 beyond the
-// 16-row tile. No cp.async pipelining or wgmma yet: a later PR's work.
-#include "common.cuh"
+// 16-row tile. No cp.async pipelining yet: q8_matmul.cu has the pipelined
+// design with the split sum folded in, to be carried over to the packed
+// layout.
+#include "q_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace lbt_q;
 
 constexpr int BN = 64;          // output columns per block
 constexpr int BK = 64;          // weight rows (logical k) per tile
@@ -54,70 +53,13 @@ struct Args {
   int M, K, N, gshift, splits;
 };
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
-}
-
-// 8 consecutive x values as 8 bf16 (16 bytes)
-__device__ __forceinline__ uint4 x8(const bf16* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-__device__ __forceinline__ uint4 x8(const float* p) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
-                    pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
-}
-
-// 8 consecutive scales (or mins) as f32
-__device__ __forceinline__ void s8(const float* p, float (&v)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void s8(const bf16* p, float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ uint32_t byte_of(uint2 r, int j) {
-  return ((j < 4 ? r.x : r.y) >> (8 * (j & 3))) & 0xffu;
-}
-
-// the f32 weight s*q - m, each operation rounded
-template <bool HAS_MIN>
-__device__ __forceinline__ float deq(float q, float s, float m) {
-  const float w = __fmul_rn(q, s);
-  return HAS_MIN ? __fsub_rn(w, m) : w;
-}
-
-template <typename XT, typename ST, bool PACKED, bool HAS_MIN, int BM>
+template <typename XT, typename ST, bool HAS_MIN, int BM>
 __global__ void __launch_bounds__(kThreads) q_gemm_kernel(Args a) {
   constexpr int WM = BM >= 32 ? BM / 32 : 1;   // warps along the rows
   constexpr int WN = 4 / WM;                    // warps along the columns
   constexpr int MT = BM / WM / 16;              // m16 tiles per warp
   constexpr int NT = BN / WN / 8;               // n8 tiles per warp
-  constexpr int BROWS = PACKED ? BK / 2 : BK;   // code byte rows per tile
+  constexpr int BROWS = BK / 2;                 // code byte rows per tile
   constexpr int RP = BROWS / 2;                 // byte-row pairs per tile
   __shared__ __align__(16) bf16 As[BM][LDS];   // [m][k]
   __shared__ __align__(16) bf16 Bs[BN][LDS];   // [n][k]
@@ -144,13 +86,12 @@ __global__ void __launch_bounds__(kThreads) q_gemm_kernel(Args a) {
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
   for (int t = t0; t < t1; ++t) {
-    // x rows -> As, 8 k a thread-step; packed: k 0..31 are x columns
-    // t*32.., k 32..63 are columns K/2 + t*32..
+    // x rows -> As, 8 k a thread-step: k 0..31 are x columns t*32..,
+    // k 32..63 are columns K/2 + t*32..
     for (int i = tid; i < BM * (BK / 8); i += kThreads) {
       const int row = i / (BK / 8), kc = i % (BK / 8);
-      const int col = PACKED ? (kc < 4 ? t * 32 + kc * 8
-                                       : half + t * 32 + (kc - 4) * 8)
-                             : t * BK + kc * 8;
+      const int col = kc < 4 ? t * 32 + kc * 8
+                             : half + t * 32 + (kc - 4) * 8;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (m0 + row < M) v = x8(x + (long)(m0 + row) * K + col);
       *reinterpret_cast<uint4*>(&As[row][kc * 8]) = v;
@@ -170,27 +111,19 @@ __global__ void __launch_bounds__(kThreads) q_gemm_kernel(Args a) {
         float s_lo[8], m_lo[8] = {};
         s8(sc + (long)(br >> a.gshift) * N + c, s_lo);
         if (HAS_MIN) s8(mn + (long)(br >> a.gshift) * N + c, m_lo);
-        if (PACKED) {
-          float s_hi[8], m_hi[8] = {};
-          const long gh = (long)((half + br) >> a.gshift) * N + c;
-          s8(sc + gh, s_hi);
-          if (HAS_MIN) s8(mn + gh, m_hi);
+        float s_hi[8], m_hi[8] = {};
+        const long gh = (long)((half + br) >> a.gshift) * N + c;
+        s8(sc + gh, s_hi);
+        if (HAS_MIN) s8(mn + gh, m_hi);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const uint32_t b0 = byte_of(r0, j), b1 = byte_of(r1, j);
-            lo[j] = pack_bf16(deq<HAS_MIN>((float)(b0 & 15u), s_lo[j], m_lo[j]),
-                              deq<HAS_MIN>((float)(b1 & 15u), s_lo[j], m_lo[j]));
-            hi[j] = pack_bf16(deq<HAS_MIN>((float)(b0 >> 4), s_hi[j], m_hi[j]),
-                              deq<HAS_MIN>((float)(b1 >> 4), s_hi[j], m_hi[j]));
-          }
-        } else {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float q0 = (float)(int8_t)byte_of(r0, j);
-            const float q1 = (float)(int8_t)byte_of(r1, j);
-            lo[j] = pack_bf16(deq<HAS_MIN>(q0, s_lo[j], m_lo[j]),
-                              deq<HAS_MIN>(q1, s_lo[j], m_lo[j]));
-          }
+        for (int j = 0; j < 8; ++j) {
+          const uint32_t b0 = byte_of(r0, j), b1 = byte_of(r1, j);
+          lo[j] = lbt_pack_bf16(
+              deq<HAS_MIN>((float)(b0 & 15u), s_lo[j], m_lo[j]),
+              deq<HAS_MIN>((float)(b1 & 15u), s_lo[j], m_lo[j]));
+          hi[j] = lbt_pack_bf16(
+              deq<HAS_MIN>((float)(b0 >> 4), s_hi[j], m_hi[j]),
+              deq<HAS_MIN>((float)(b1 >> 4), s_hi[j], m_hi[j]));
         }
       } else {
 #pragma unroll
@@ -199,9 +132,7 @@ __global__ void __launch_bounds__(kThreads) q_gemm_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         *reinterpret_cast<uint32_t*>(&Bs[cg * 8 + j][2 * rp]) = lo[j];
-        if (PACKED)
-          *reinterpret_cast<uint32_t*>(&Bs[cg * 8 + j][BK / 2 + 2 * rp]) =
-              hi[j];
+        *reinterpret_cast<uint32_t*>(&Bs[cg * 8 + j][BK / 2 + 2 * rp]) = hi[j];
       }
     }
     __syncthreads();
@@ -227,7 +158,8 @@ __global__ void __launch_bounds__(kThreads) q_gemm_kernel(Args a) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[nt]);
+        for (int nt = 0; nt < NT; ++nt)
+          lbt_mma_bf16(acc[mt][nt], af[mt], bfr[nt]);
     }
     __syncthreads();
   }
@@ -259,10 +191,10 @@ __global__ void splitk_sum_kernel(const float* __restrict__ ws,
   out[i] = v;
 }
 
-template <typename XT, typename ST, bool PACKED, bool HAS_MIN, int BM>
+template <typename XT, typename ST, bool HAS_MIN, int BM>
 int run(const Args& a, cudaStream_t st) {
   const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, a.splits);
-  q_gemm_kernel<XT, ST, PACKED, HAS_MIN, BM><<<grid, kThreads, 0, st>>>(a);
+  q_gemm_kernel<XT, ST, HAS_MIN, BM><<<grid, kThreads, 0, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || a.splits == 1) return (int)e;
   const long mn = (long)a.M * a.N;
@@ -271,68 +203,47 @@ int run(const Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <typename XT, typename ST, bool PACKED, bool HAS_MIN>
+template <typename XT, typename ST, bool HAS_MIN>
 int by_rows(const Args& a, cudaStream_t st) {
-  return a.M <= kSmallRows ? run<XT, ST, PACKED, HAS_MIN, 16>(a, st)
-                           : run<XT, ST, PACKED, HAS_MIN, 64>(a, st);
+  return a.M <= kSmallRows ? run<XT, ST, HAS_MIN, 16>(a, st)
+                           : run<XT, ST, HAS_MIN, 64>(a, st);
 }
 
-template <typename XT, typename ST, bool PACKED>
+template <typename XT, typename ST>
 int by_min(const Args& a, cudaStream_t st) {
-  return a.mn ? by_rows<XT, ST, PACKED, true>(a, st)
-              : by_rows<XT, ST, PACKED, false>(a, st);
+  return a.mn ? by_rows<XT, ST, true>(a, st) : by_rows<XT, ST, false>(a, st);
 }
 
-template <typename XT, bool PACKED>
+template <typename XT>
 int by_scale(int s_dtype, const Args& a, cudaStream_t st) {
-  if (s_dtype == LBT_BF16) return by_min<XT, bf16, PACKED>(a, st);
-  if (s_dtype == LBT_F32) return by_min<XT, float, PACKED>(a, st);
-  return LBT_UNSUPPORTED;
-}
-
-template <bool PACKED>
-int entry(int x_dtype, int s_dtype, const void* x, const void* qs,
-          const void* sc, const void* mn, void* ws, void* out, int M, int K,
-          int N, int group, int splits, void* stream) {
-  int gshift = -1;
-  for (int i = 1; i <= 5; ++i)
-    if (group == (1 << i)) gshift = i;
-  if (M < 1 || K < BK || K % BK || N < 8 || N % 8 || gshift < 0 ||
-      splits < 1 || splits > K / BK || (splits > 1 && !ws) ||
-      (M + 15) / 16 > 65535 || splits > 65535)
-    return LBT_UNSUPPORTED;
-  const Args a{x, (const int8_t*)qs, sc, mn, (float*)ws, (float*)out,
-               M, K, N, gshift, splits};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (x_dtype == LBT_BF16) return by_scale<bf16, PACKED>(s_dtype, a, st);
-  if (x_dtype == LBT_F32) return by_scale<float, PACKED>(s_dtype, a, st);
+  if (s_dtype == LBT_BF16) return by_min<XT, bf16>(a, st);
+  if (s_dtype == LBT_F32) return by_min<XT, float>(a, st);
   return LBT_UNSUPPORTED;
 }
 
 }  // namespace
 
 // x [M, K] (bf16 or f32, x_dtype as LbtDtype); qs int8 [K/2, N] nibble-
-// packed (lbt_q4_matmul) or [K, N] codes (lbt_q8_matmul); scales and mins
-// [K/group, N] of s_dtype (bf16 or f32), mins nullable; ws f32 [splits, M,
-// N] scratch when splits > 1 (else nullable); out [M, N] f32. All
-// contiguous on the device and 16-byte aligned; K a multiple of 64, N of
-// 8, group a power of two <= 32, 1 <= splits <= K/64. Returns the first
-// non-zero cudaGetLastError() of the launches, or -1 for a configuration
-// the kernels do not take.
+// packed; scales and mins [K/group, N] of s_dtype (bf16 or f32), mins
+// nullable; ws f32 [splits, M, N] scratch when splits > 1 (else nullable);
+// out [M, N] f32. All contiguous on the device and 16-byte aligned; K a
+// multiple of 64, N of 8, group a power of two <= 32, 1 <= splits <= K/64.
+// Returns the first non-zero cudaGetLastError() of the launches, or -1 for
+// a configuration the kernels do not take.
 extern "C" int lbt_q4_matmul(int x_dtype, int s_dtype, const void* x,
                              const void* qs, const void* scales,
                              const void* mins, void* ws, void* out, int M,
                              int K, int N, int group, int splits,
                              void* stream) {
-  return entry<true>(x_dtype, s_dtype, x, qs, scales, mins, ws, out, M, K, N,
-                     group, splits, stream);
-}
-
-extern "C" int lbt_q8_matmul(int x_dtype, int s_dtype, const void* x,
-                             const void* qs, const void* scales,
-                             const void* mins, void* ws, void* out, int M,
-                             int K, int N, int group, int splits,
-                             void* stream) {
-  return entry<false>(x_dtype, s_dtype, x, qs, scales, mins, ws, out, M, K,
-                      N, group, splits, stream);
+  const int gshift = group_shift(group);
+  if (M < 1 || K < BK || K % BK || N < 8 || N % 8 || gshift < 0 ||
+      splits < 1 || splits > K / BK || (splits > 1 && !ws) ||
+      (M + 15) / 16 > 65535 || splits > 65535)
+    return LBT_UNSUPPORTED;
+  const Args a{x, (const int8_t*)qs, scales, mins, (float*)ws, (float*)out,
+               M, K, N, gshift, splits};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (x_dtype == LBT_BF16) return by_scale<bf16>(s_dtype, a, st);
+  if (x_dtype == LBT_F32) return by_scale<float>(s_dtype, a, st);
+  return LBT_UNSUPPORTED;
 }

@@ -3,8 +3,9 @@
 
 `flash_prefill_batched` keeps the JAX signature (without the TPU block
 sizes and `interpret`): on a CUDA tensor it launches the hand-written
-kernel csrc/flash_prefill.cu, on a CPU tensor it runs
-`flash_prefill_plain`, the same function written out in torch.
+kernel csrc/flash_prefill.cu (a bf16 q: the tensor-core kernel; an f32 q:
+the f32 FMA kernel, chosen by dtype before the launch), on a CPU tensor it
+runs `flash_prefill_plain`, the same function written out in torch.
 
 Layouts (all post-RoPE):
     q:        [B, Hkv, G, T, D]
@@ -94,9 +95,13 @@ def flash_prefill_batched(q, k_cache, v_cache, k_rows, v_rows, meta, win,
            and tuple(v_rows.shape) == (B, T, Hkv, Dv), "rows shape")
     _check((D, Dv) in ((64, 64), (128, 128)), f"head dims {(D, Dv)}")
     _check(1 <= G <= 128, f"group size {G}")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        _check(t.device == dev and t.is_contiguous(),
-               f"{name} must be contiguous on {dev}")
+    k_rows = k_rows.to(dev, dt).contiguous()
+    v_rows = v_rows.to(dev, dt).contiguous()
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("k_rows", k_rows), ("v_rows", v_rows)):
+        _check(t.device == dev and t.is_contiguous()
+               and t.data_ptr() % 16 == 0,
+               f"{name} must be contiguous and 16-byte aligned on {dev}")
     if quant:
         _check(v_scale is not None
                and k_scale.dtype in (torch.bfloat16, torch.float32)
@@ -104,8 +109,6 @@ def flash_prefill_batched(q, k_cache, v_cache, k_rows, v_rows, meta, win,
                and tuple(k_scale.shape) == (B, C, Hkv)
                and tuple(v_scale.shape) == (B, C, Hkv), "scales")
         k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
-    k_rows = k_rows.to(dev, dt).contiguous()
-    v_rows = v_rows.to(dev, dt).contiguous()
     meta = torch.as_tensor(meta).to(dev, torch.int32).contiguous()
     win = torch.as_tensor(win).to(dev, torch.int32).contiguous()
     _check(tuple(meta.shape) == (B, 4) and tuple(win.shape) == (2,),

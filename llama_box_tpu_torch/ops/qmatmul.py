@@ -10,8 +10,9 @@ package's switches (LLAMA_BOX_TPU_PACKED4, _Q4_INT8, _Q4_F32SCALES):
   (`w8a8_matmul`, csrc/w8a8_matmul.cu).
 - grouped (any switch set): the GGUF group quantization kept as it is,
   w = s * q - m per group of rows, dequantized inside the matmul
-  (`q4_matmul` for nibble-packed codes, `q8_matmul` for int8 codes; both
-  csrc/q_matmul.cu): bf16 weights, bf16 activations, f32 sums.
+  (`q4_matmul` for nibble-packed codes, csrc/q_matmul.cu; `q8_matmul` for
+  int8 codes, csrc/q8_matmul.cu): bf16 weights, bf16 activations, f32
+  sums.
 
 Layout ([in, out] matmul convention; the loader transposes GGUF [out, in]),
 each optionally stacked over layers as [L, ...]:
@@ -268,8 +269,9 @@ _TILE_N, _TILE_K, _MAX_SPLITS = 64, 64, 16
 
 
 def _splits(M: int, N: int, K: int) -> int:
-    """in-dim splits of a call (csrc/q_matmul.cu). Decode widths split
-    the in-dim so that about _TARGET_BLOCKS blocks run; the number depends
+    """in-dim splits of a q4_matmul call (csrc/q_matmul.cu). Decode
+    widths split the in-dim so that about _TARGET_BLOCKS blocks run; the
+    number depends
     on the weight's shape alone, so a row's bits never depend on how many
     other rows of at most _SPLIT_MAX_ROWS share the call."""
     if M > _SPLIT_MAX_ROWS:
@@ -279,8 +281,39 @@ def _splits(M: int, N: int, K: int) -> int:
                       -(-_TARGET_BLOCKS // n_blocks)))
 
 
-def _grouped_launch(fn: str, packed4: bool, x, qs, scales, mins, group: int,
-                    out):
+# q8_matmul (csrc/q8_matmul.cu): 128-column blocks, at most one wave of
+# two blocks per SM of an H100 at decode widths
+_Q8_TILE_N, _Q8_WAVE = 128, 2 * 132
+
+
+def _q8_splits(M: int, N: int, K: int) -> int:
+    """in-dim splits of a q8_matmul call: 1 above _SPLIT_MAX_ROWS rows;
+    below, as many as keep the blocks within one wave (up to 16 and one
+    64-row tile each). Like _splits it depends on the weight's shape
+    alone."""
+    if M > _SPLIT_MAX_ROWS:
+        return 1
+    n_blocks = -(-N // _Q8_TILE_N)
+    return max(1, min(_MAX_SPLITS, K // _TILE_K, _Q8_WAVE // n_blocks))
+
+
+# per device: the split tickets of csrc/q8_matmul.cu, zero between calls
+# (the last block of each output tile resets its own), grown on demand
+_q8_counters: dict[torch.device, torch.Tensor] = {}
+
+
+def _q8_counter_buffer(dev: torch.device, n: int) -> torch.Tensor:
+    buf = _q8_counters.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
+        _q8_counters[dev] = buf
+    return buf
+
+
+def _grouped_checks(fn: str, packed4: bool, x, qs, scales, mins,
+                    group: int):
+    """Shapes, dtypes and alignment of a grouped call; returns x
+    contiguous."""
     def check(cond: bool, what: str) -> None:
         if not cond:
             raise ValueError(f"{fn}: {what}")
@@ -309,17 +342,24 @@ def _grouped_launch(fn: str, packed4: bool, x, qs, scales, mins, group: int,
                             and t.data_ptr() % 16 == 0),
               f"{name} must be a contiguous, 16-byte aligned tensor on "
               "x's device")
+    return x
+
+
+def _q4_launch(x, qs, scales, mins, group: int, out):
+    x = _grouped_checks("q4_matmul", True, x, qs, scales, mins, group)
+    M, N, dev = x.shape[0], qs.shape[-1], x.device
     if out is None:
         out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    check(out.dtype == torch.float32 and tuple(out.shape) == (M, N)
-          and out.is_contiguous() and out.device == dev, "out")
+    if not (out.dtype == torch.float32 and tuple(out.shape) == (M, N)
+            and out.is_contiguous() and out.device == dev):
+        raise ValueError("q4_matmul: out")
     if not M:
         return out
+    K = x.shape[1]
     S = _splits(M, N, K)
     ws = (torch.empty((S, M, N), dtype=torch.float32, device=dev)
           if S > 1 else None)
-    _kernels.call("q_matmul", "lbt_q4_matmul" if packed4 else "lbt_q8_matmul",
-                  _kernels.DTYPE_CODES[x.dtype],
+    _kernels.call("q_matmul", "lbt_q4_matmul", _kernels.DTYPE_CODES[x.dtype],
                   _kernels.DTYPE_CODES[scales.dtype], x, qs, scales, mins, ws,
                   out, M, K, N, group, S)
     return out
@@ -333,21 +373,46 @@ def q4_matmul(x, qs, scales, mins, group: int, *, out=None) -> torch.Tensor:
     if not x.is_cuda:
         res = q4_matmul_plain(x, qs, scales, mins, group)
         return res if out is None else out.copy_(res)
-    out = _grouped_launch("q4_matmul", True, x, qs, scales, mins, group, out)
+    out = _q4_launch(x, qs, scales, mins, group, out)
     if x.shape[0]:
         q4_matmul.launches += 1
     return out
 
 
-def q8_matmul(x, qs, scales, mins, group: int, *, out=None) -> torch.Tensor:
-    """x [M, in] (bf16 or f32) -> [M, out] f32 against int8 codes qs [in,
-    out], as q4_matmul (csrc/q_matmul.cu's Q8 kernel on a CUDA x)."""
+def q8_matmul(x, qs, scales, mins, group: int, *, out=None,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x [M, in] (bf16 or f32) -> [M, out] against int8 codes qs [in, out],
+    as q4_matmul; a CUDA x launches csrc/q8_matmul.cu, one launch a call.
+    The result is f32, or with out_dtype=torch.bfloat16 the f32 sums
+    rounded once to bf16 (as `.to(torch.bfloat16)` of the f32 result).
+    `out` may name a contiguous [M, out] tensor of out_dtype."""
+    fn = "q8_matmul"
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{fn}: out_dtype {out_dtype}: f32 or bf16")
     if not x.is_cuda:
-        res = q8_matmul_plain(x, qs, scales, mins, group)
+        res = q8_matmul_plain(x, qs, scales, mins, group).to(out_dtype)
         return res if out is None else out.copy_(res)
-    out = _grouped_launch("q8_matmul", False, x, qs, scales, mins, group, out)
-    if x.shape[0]:
-        q8_matmul.launches += 1
+    x = _grouped_checks(fn, False, x, qs, scales, mins, group)
+    (M, K), N, dev = x.shape, qs.shape[-1], x.device
+    if out is None:
+        out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    if not (out.dtype == out_dtype and tuple(out.shape) == (M, N)
+            and out.is_contiguous() and out.device == dev
+            and out.data_ptr() % 16 == 0):
+        raise ValueError(f"{fn}: out must be a contiguous, 16-byte aligned "
+                         f"{out_dtype} {(M, N)} tensor on x's device")
+    if not M:
+        return out
+    S = _q8_splits(M, N, K)
+    ws = cnt = None
+    if S > 1:
+        ws = torch.empty((S, M, N), dtype=torch.float32, device=dev)
+        cnt = _q8_counter_buffer(dev, -(-N // _Q8_TILE_N) * -(-M // 16))
+    _kernels.call("q8_matmul", "lbt_q8_matmul", _kernels.DTYPE_CODES[x.dtype],
+                  _kernels.DTYPE_CODES[scales.dtype], x, qs, scales, mins, ws,
+                  cnt, out, int(out_dtype == torch.bfloat16), M, K, N, group,
+                  S)
+    q8_matmul.launches += 1
     return out
 
 
@@ -355,11 +420,14 @@ q4_matmul.launches = 0   # kernel launches (chip_smoke reads them)
 q8_matmul.launches = 0
 
 
-def q_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """x [M, in] -> [M, out] f32 through the kernel that matches a grouped
-    QTensor's layout (q4_matmul for packed codes, else q8_matmul)."""
-    fn = q4_matmul if w.packed4 else q8_matmul
-    return fn(x, w.qs, w.scales, w.mins, w.group)
+def q_matmul(x: torch.Tensor, w: QTensor,
+             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x [M, in] -> [M, out] through the kernel that matches a grouped
+    QTensor's layout: q4_matmul for packed codes (f32), else q8_matmul
+    (out_dtype, rounded in the kernel)."""
+    if w.packed4:
+        return q4_matmul(x, w.qs, w.scales, w.mins, w.group)
+    return q8_matmul(x, w.qs, w.scales, w.mins, w.group, out_dtype=out_dtype)
 
 
 # -- reference implementation ----------------------------------------------------
@@ -389,7 +457,7 @@ def mm(x: torch.Tensor, w) -> torch.Tensor:
     if w.w8a8:
         out = w8a8_matmul(xf, w.qs, w.scales)
     elif xf.is_cuda:
-        out = q_matmul(xf, w)
+        out = q_matmul(xf, w, out_dtype=x.dtype)
     else:
         out = q_matmul_ref(xf, w)
     return out.reshape(*lead, w.out_dim).to(x.dtype)

@@ -119,3 +119,32 @@ def test_cpu_tensors_never_touch_the_kernels(monkeypatch):
                           as_t(p["vr"]), as_t(p["meta"]),
                           torch.zeros(2, dtype=torch.int32))
     assert flash_decode.launches == before
+
+
+@pytest.mark.parametrize("split", [1, 63, 64, 137])
+@pytest.mark.parametrize("win", [(0, 0), (24, 0), (0, 32)],
+                         ids=["causal", "window", "chunk"])
+def test_prefill_plain_cold_equals_cached_prefix(split, win):
+    """A prompt prefilled in one pass gives the rows that the same prompt
+    gives with its first `split` positions already in the cache (f32, up
+    to summation order). csrc/flash_prefill.cu holds this bit for bit on
+    a bf16 cache (test_torch_gpu.py)."""
+    rng = np.random.default_rng(split)
+    B, Hkv, G, T, C, D = 2, 2, 2, 160, 192, 32
+    c = prefill_case(rng, B=B, Hkv=Hkv, G=G, T=T, C=C, D=D, pos0=(0, 0),
+                     n_valid=(T, T))
+    c["kc"][:] = np.nan                  # a cold slot never reads its cache
+    c["vc"][:] = np.nan
+    w = as_t(np.asarray(win, np.int32))
+    cold = flash_prefill_batched(*(as_t(c[k]) for k in ("q", "kc", "vc",
+                                                        "kr", "vr")),
+                                 as_t(c["meta"]), w)
+    kc, vc = c["kc"].copy(), c["vc"].copy()
+    kc[:, :split], vc[:, :split] = c["kr"][:, :split], c["vr"][:, :split]
+    meta = np.array([[split, T - split, 0, 0]] * B, np.int32)
+    warm = flash_prefill_batched(
+        as_t(c["q"][:, :, :, split:]), as_t(kc), as_t(vc),
+        as_t(c["kr"][:, split:]), as_t(c["vr"][:, split:]), as_t(meta), w)
+    assert torch.isfinite(warm).all()
+    np.testing.assert_allclose(warm.numpy(), cold[:, :, :, split:].numpy(),
+                               rtol=0, atol=1e-6)

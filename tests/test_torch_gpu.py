@@ -137,6 +137,73 @@ def test_head_dim_128(cuda):
                                rtol=0, atol=BF16_ATOL)
 
 
+@pytest.mark.parametrize("G", [8, 6])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16cache", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_kernel_ragged_edges(cuda, dtype, quant, G):
+    """T, n_valid and pos0 on no multiple of any tile (rows: 128 // G
+    positions a block, keys: 64 a tile; the FMA kernel's 32), a tile
+    straddling pos0; G = 6 leaves dead rows in every block."""
+    rng = np.random.default_rng(31)
+    c = prefill_case(rng, B=3, Hkv=4, G=G, D=64, C=256, T=77,
+                     pos0=(131, 5, 0), n_valid=(77, 50, 13), quant=quant)
+    _poison(c, c["meta"][:, 0])
+    args, sc = _on(cuda, c, dtype)
+    meta = as_t(c["meta"]).to(cuda)
+    win = torch.zeros(2, dtype=torch.int32)
+    got = flash_prefill_batched(*args, meta, win, **sc)
+    want = flash_prefill_plain(*args, meta, win, **sc)
+    torch.cuda.synchronize()
+    atol = F32_ATOL if dtype == torch.float32 and not quant else BF16_ATOL
+    for b, nv in enumerate(c["meta"][:, 1]):
+        assert torch.isfinite(got[b, :, :, :nv]).all()
+        torch.testing.assert_close(got[b, :, :, :nv], want[b, :, :, :nv],
+                                   rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16cache", "int8"])
+def test_prefill_kernel_cold_equals_cached_prefix(cuda, quant):
+    """A 300-token prompt prefilled cold gives the same output rows as the
+    same prompt with its first 137 positions in the cache: bit for bit on a
+    bf16 cache (tiles are aligned to absolute key positions). An int8 cache
+    quantizes the prefix, so there the cached call is held to the plain
+    version on the same int8 inputs, at the tolerance."""
+    rng = np.random.default_rng(37)
+    T, P, C = 300, 137, 512
+    c = prefill_case(rng, B=2, Hkv=4, G=8, D=64, C=C, T=T, pos0=(0, 0),
+                     n_valid=(T, T))
+    bf = torch.bfloat16
+    q, kr, vr = (as_t(c[k]).to(cuda, bf) for k in ("q", "kr", "vr"))
+    kc = torch.full((2, C, 4, 64), float("nan"), device=cuda, dtype=bf)
+    vc = kc.clone()
+    win = torch.zeros(2, dtype=torch.int32)
+    meta = torch.tensor([[0, T, 0, 0]] * 2, dtype=torch.int32, device=cuda)
+    cold = flash_prefill_batched(q, kc, vc, kr, vr, meta, win)
+    kc[:, :P], vc[:, :P] = kr[:, :P], vr[:, :P]
+    sc = {}
+    if quant:
+        ks = kc.float().abs().amax(-1).clamp_min(1e-6) / 127
+        vs = vc.float().abs().amax(-1).clamp_min(1e-6) / 127
+        kc = (kc.float() / ks[..., None]).round().clamp(-127, 127).to(
+            torch.int8)
+        vc = (vc.float() / vs[..., None]).round().clamp(-127, 127).to(
+            torch.int8)
+        sc = dict(k_scale=ks.to(bf), v_scale=vs.to(bf))
+    meta = torch.tensor([[P, T - P, 0, 0]] * 2, dtype=torch.int32,
+                        device=cuda)
+    warm = flash_prefill_batched(q[:, :, :, P:].contiguous(), kc, vc,
+                                 kr[:, P:].contiguous(),
+                                 vr[:, P:].contiguous(), meta, win, **sc)
+    torch.cuda.synchronize()
+    assert torch.isfinite(warm).all()
+    if quant:   # the prefix went through int8: held to the plain version
+        want = flash_prefill_plain(q[:, :, :, P:], kc, vc, kr[:, P:],
+                                   vr[:, P:], meta, win, **sc)
+        torch.testing.assert_close(warm, want, rtol=0, atol=BF16_ATOL)
+    else:
+        assert torch.equal(warm, cold[:, :, :, P:])
+
+
 def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
     def boom(*a, **k):
         raise AssertionError("plain version reached on CUDA tensors")
@@ -435,3 +502,91 @@ def test_q_matmul_unsupported_shapes_raise(cuda):
     with pytest.raises(ValueError, match="in=96"):
         qmm_mod.q8_matmul(_x(rng, 4, 96, cuda), *_grouped(
             rng, 96, 64, 32, False, torch.bfloat16, False, cuda), 32)
+
+
+# -- q8_matmul (csrc/q8_matmul.cu) ---------------------------------------------
+#
+# The pipelined int8-code kernel: decode widths (<= 64 rows, 16-row blocks,
+# in-dim split with the sum folded into the launch) and prefill widths
+# (128-row blocks), a ragged 4160 = 32 x 128 + 64 columns, every scale,
+# min and x variant, f32 and bf16 outputs.
+
+
+@pytest.mark.parametrize("M", [1, 4, 64, 65, 200, 2048])
+@pytest.mark.parametrize("group,mins", [(16, False), (32, True)],
+                         ids=["q6k", "q4int8"])
+@pytest.mark.parametrize("sdt", [torch.bfloat16, torch.float32],
+                         ids=["bf16s", "f32s"])
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32],
+                         ids=["bf16x", "f32x"])
+def test_q8_matmul_matches_plain(cuda, M, group, mins, sdt, xdt):
+    rng = np.random.default_rng(M * group)
+    K, N = 1024, 4160
+    x = _x(rng, M, K, cuda, xdt)
+    qs, sc, mn = _grouped(rng, K, N, group, False, sdt, mins, cuda,
+                          codes=(-127, 128) if mins else (-32, 32))
+    buf, out = _guarded((M, N), torch.float32, cuda)
+    before = qmm_mod.q8_matmul.launches
+    got = qmm_mod.q8_matmul(x, qs, sc, mn, group, out=out)
+    want = qmm_mod.q8_matmul_plain(x, qs, sc, mn, group)
+    torch.cuda.synchronize()
+    assert qmm_mod.q8_matmul.launches == before + 1
+    assert torch.isfinite(got).all() and _guards_intact(buf)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=Q_REL * float(want.abs().max()))
+    b16 = qmm_mod.q8_matmul(x, qs, sc, mn, group, out_dtype=torch.bfloat16)
+    assert torch.equal(b16, got.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("N", [2048, 72])          # 8-byte code copies at 72
+def test_q8_matmul_split_sum_is_one_launch(cuda, N):
+    """At decode widths a call is one kernel: the in-dim splits are summed
+    by the last block of each tile, whose counter is 0 again afterwards."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(41)
+    K = 5632
+    x = _x(rng, 4, K, cuda)
+    qs, sc, mn = _grouped(rng, K, N, 16, False, torch.bfloat16, False, cuda)
+    assert qmm_mod._q8_splits(4, N, K) > 1
+    first = qmm_mod.q8_matmul(x, qs, sc, mn, 16)       # counters allocated
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = qmm_mod.q8_matmul(x, qs, sc, mn, 16)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "q8_gemm_kernel" in kernels[0], kernels
+    assert torch.equal(first, again)
+    cnt = qmm_mod._q8_counters[x.device]
+    assert int(cnt.abs().sum()) == 0
+
+
+def test_q8_matmul_rows_are_independent(cuda):
+    """A row's bits depend on its own inputs only, within each regime of
+    rows (no atomics on values; the splits depend on the weight's shape)."""
+    rng = np.random.default_rng(43)
+    K, N = 2048, 2560
+    qs, sc, mn = _grouped(rng, K, N, 32, False, torch.bfloat16, True, cuda,
+                          codes=(0, 16))
+    x = _x(rng, 300, K, cuda)
+    f = qmm_mod.q8_matmul
+    full = f(x[:64], qs, sc, mn, 32)
+    assert torch.equal(full[5:6], f(x[5:6], qs, sc, mn, 32))
+    assert torch.equal(full[:4], f(x[:4], qs, sc, mn, 32))
+    big = f(x, qs, sc, mn, 32)
+    assert torch.equal(big[100:180], f(x[100:180], qs, sc, mn, 32))
+    assert torch.equal(full, f(x[:64], qs, sc, mn, 32))
+
+
+def test_q8_mm_writes_the_dtype_of_x(cuda):
+    """mm on a bf16 x: q8_matmul rounds to bf16 in the kernel, the same
+    bits as rounding its f32 result."""
+    rng = np.random.default_rng(47)
+    qs, sc, mn = _grouped(rng, 512, 192, 16, False, torch.bfloat16, False,
+                          cuda)
+    w = qmm_mod.QTensor(qs, sc, mn, 512, 16, False)
+    x = _x(rng, 6, 512, cuda).reshape(2, 3, 512)
+    got = qmm_mod.mm(x, w)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (2, 3, 192)
+    want = qmm_mod.q8_matmul(x.reshape(6, 512), qs, sc, mn, 16)
+    assert torch.equal(got.reshape(6, 192), want.to(torch.bfloat16))
