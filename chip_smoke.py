@@ -12,9 +12,11 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     the w8a8 projections of a 4 x 512 prefill and of 4 decode rows) plus
     variants at smaller shapes; cache positions a kernel must never read,
     output guards a kernel must never write and the fused tail's scratch
-    hold NaN. w8a8_matmul must equal its plain version bit for bit, and a
+    hold NaN. w8a8_matmul must equal its plain version bit for bit, a
     cold 500-token prefill must equal, bit for bit, the same prompts with
-    their first 137 / 64 / 1 / 300 positions in a bf16 cache;
+    their first 137 / 64 / 1 / 300 positions in a bf16 cache, and a decode
+    query with nv = 16 chain rows must equal, bit for bit, the same query
+    with nv = 1 (its other keys in the cache; bf16 and int8 caches);
  4. times: kernel, plain version and a library yardstick (SDPA for the
     attention kernels, torch._int_mm on the int8 operands for
     w8a8_matmul; never used by the port) with CUDA events on a cold L2,
@@ -38,9 +40,10 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     versions at the shapes 5q gives them (4 x 512 prefill rows and 4
     decode rows: wqkv, wo, gate|up, down, output) and at variants (packed
     and int8 codes, bf16 and f32 scales, mins and none, groups 16 and 32,
-    1 to 200 rows, 4160 = 65 x 64 columns), NaN output guards; then times
-    beside the bound, the plain version and torch.matmul in bf16 on the
-    dequantized weight, at those shapes and at Llama-3-8B's widths
+    1 to 200 rows, 4160 = 65 x 64 columns), NaN output guards, and the
+    bf16 output bit-equal to the f32 one rounded; then times of both
+    outputs beside the bound, the plain version and torch.matmul in bf16
+    on the dequantized weight, at those shapes and at Llama-3-8B's widths
     (kernel only, not served);
  5q. end to end, grouped path: the same floats written with Q4_K_M's
     tensor types (Q6_K output and ffn_down, Q4_K elsewhere), served with
@@ -357,6 +360,59 @@ def cold_cached_check(g, dev, T=500, prefix=(137, 64, 1, 300)):
     return rows
 
 
+def chain_rows_check(g, dev, cposes=(17, 1023, 2040)):
+    """flash_decode at the served shape: each query with nv = 16 (its last
+    16 keys as chain rows) against the same query with nv = 1 (all but
+    its own key in the cache), the rows holding what the cache holds (an
+    int8 cache: codes times scale rounded to bf16, as the model's rows).
+    Splits and tiles follow absolute positions, so the outputs must be
+    bit-identical (greedy K=1 = K=16). Returns the cases compared."""
+    from llama_box_tpu_torch.ops.flash_decode import flash_decode
+    B, G, C, R, bf = 4, H // HKV, SLOT_CTX, CHAIN, torch.bfloat16
+    n = 0
+    for quant in (False, True):
+        for cpos in cposes:
+            q = torch.randn(B, HKV, G, D, generator=g, device=dev).to(bf)
+            kc, vc, ks, vs = make_cache(g, B, C, bf, quant, dev)
+            cur = [torch.randn(B, HKV, D, generator=g, device=dev).to(bf)
+                   for _ in range(2)]
+            if quant:
+                kd = (kc.float() * ks.float()[..., None]).to(bf)
+                vd = (vc.float() * vs.float()[..., None]).to(bf)
+            else:
+                kd, vd = kc, vc
+            win = torch.zeros(2, dtype=torch.int32, device=dev)
+            out = {}
+            for nv in (1, R):
+                cs = cpos - nv + 1
+                kr = torch.zeros(B, R, HKV, D, device=dev, dtype=bf)
+                vr = torch.zeros_like(kr)
+                kr[:, :nv - 1], vr[:, :nv - 1] = kd[:, cs:cpos], vd[:, cs:cpos]
+                kr[:, nv - 1], vr[:, nv - 1] = cur
+                k2, v2, ks2, vs2 = kc.clone(), vc.clone(), ks, vs
+                if quant:            # never read: at or past the chain start
+                    ks2, vs2 = ks.clone(), vs.clone()
+                    ks2[:, cs:], vs2[:, cs:] = float("nan"), float("nan")
+                else:
+                    k2[:, cs:], v2[:, cs:] = float("nan"), float("nan")
+                meta = torch.tensor([[cpos, nv]] * B, dtype=torch.int32,
+                                    device=dev)
+                out[nv] = flash_decode(q, k2, v2, kr, vr, meta, win,
+                                       k_scale=ks2, v_scale=vs2)
+            torch.cuda.synchronize()
+            a, b = out[1], out[R]
+            if not (torch.isfinite(a).all() and torch.equal(a, b)):
+                raise AssertionError(
+                    f"flash_decode cpos {cpos} ({'int8' if quant else 'bf16'}"
+                    f" cache): nv = 1 and nv = {R} differ in "
+                    f"{int((a != b).sum())} elements")
+            n += 1
+    log(f"  flash_decode nv=1 vs nv={R} (q[{B},{HKV},{G},{D}] bf16, C={C}, "
+        f"cpos {list(cposes)}, bf16 and int8 caches): {n} cases "
+        "bit-identical")
+    return n
+
+
 def kernel_phase(dev, seed):
     from llama_box_tpu_torch.ops.flash_decode import (flash_decode,
                                                       flash_decode_plain)
@@ -412,6 +468,7 @@ def kernel_phase(dev, seed):
        atol=F32_ATOL, **small)
     dc("fresh slot", cpos=(0, 3), nv=(1, 4), **small)
     cold_cached_check(g, dev)
+    chain_rows_check(g, dev)
 
     log("== phase 4: device times (median of 15, cold L2)")
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
@@ -674,13 +731,13 @@ def q_cases():
     return cases
 
 
-def q_work(x, qs, sc, mn, N):
+def q_work(x, qs, sc, mn, N, out_dtype=torch.float32):
     """(bytes, operations) of one call: x, codes, scales and mins read
-    once, the f32 output written once; 2*M*K*N operations."""
+    once, the output written once; 2*M*K*N operations."""
     M, K = x.shape
     nbytes = (x.numel() * x.element_size() + qs.numel()
               + sc.numel() * sc.element_size() * (2 if mn is not None else 1)
-              + M * N * 4)
+              + M * N * torch.finfo(out_dtype).bits // 8)
     return nbytes, 2 * M * K * N
 
 
@@ -717,20 +774,28 @@ def q_kernel_phase(dev, seed):
             raise AssertionError(f"{name} {lbl} M={M}: max_abs_err {err} "
                                  f"> {tol}")
         errs[name] = max(errs[name], err)
-        del got, want, buf, out
+        b16 = kern(x, qs, sc, mn, group, out_dtype=torch.bfloat16)
+        if not torch.equal(b16, got.to(torch.bfloat16)):
+            raise AssertionError(f"{name} {lbl} M={M}: bf16 output is not the "
+                                 "f32 output rounded")
+        del got, want, buf, out, b16
         if timed:
             w = _dequant_f32(qs, sc, mn, group, packed).to(torch.bfloat16)
-            nbytes, ops = q_work(x, qs, sc, mn, N)
-            b_ms, b_by = bound_ms(nbytes, ops)
-            r = dict(kind=name, label=lbl, shape=[M, K, N],
-                     ms=device_ms(lambda: kern(x, qs, sc, mn, group), flush),
-                     plain_ms=device_ms(lambda: plain(x, qs, sc, mn, group),
-                                        flush),
-                     library_ms=device_ms(lambda: torch.matmul(x, w), flush),
-                     bound_ms=b_ms, bound_by=b_by, mbytes=nbytes / 1e6,
-                     gflop=ops / 1e9)
-            rows.append(r)
-            log("  " + json.dumps(r))
+            for odt in (torch.float32, torch.bfloat16):
+                nbytes, ops = q_work(x, qs, sc, mn, N, odt)
+                b_ms, b_by = bound_ms(nbytes, ops)
+                r = dict(kind=name, label=lbl, shape=[M, K, N],
+                         out=str(odt)[6:],
+                         ms=device_ms(lambda: kern(x, qs, sc, mn, group,
+                                                   out_dtype=odt), flush),
+                         plain_ms=device_ms(lambda: plain(
+                             x, qs, sc, mn, group).to(odt), flush),
+                         library_ms=device_ms(lambda: torch.matmul(x, w),
+                                              flush),
+                         bound_ms=b_ms, bound_by=b_by, mbytes=nbytes / 1e6,
+                         gflop=ops / 1e9)
+                rows.append(r)
+                log("  " + json.dumps(r))
             del w
     return errs, rows
 
@@ -1176,9 +1241,8 @@ def _serve(engine, url, seed, dev, profile, mode):
 
 
 # the port's own kernels in a profile (names as nvcc gives them)
-PORT_KERNELS = ("flash_prefill", "flash_decode", "q8_gemm", "q_gemm",
-                "splitk_sum", "w8a8_gemm", "quant_rows", "norm_qmm",
-                "tail_phase")
+PORT_KERNELS = ("flash_prefill", "flash_decode", "grouped_gemm", "w8a8_gemm",
+                "quant_rows", "norm_qmm", "tail_phase")
 
 
 def profile_phase(Engine, EngineConfig, engine, tok, prompts, dev, label):
@@ -1253,7 +1317,8 @@ def main(argv=None) -> int:
                 log(f"  [{name}] {line.strip()}")
     for entry, used, spill in ptxas_entries(
             "\n".join(_kernels.ptxas_report.values()),
-            ("flash_prefill_mma_kernel", "q8_gemm_kernel")):
+            ("flash_prefill_mma_kernel", "flash_decode_mma_kernel",
+             "grouped_gemm_kernel")):
         log(f"  tensor-core kernel {entry[:60]}: {used}; {spill}")
 
     errs, rows = kernel_phase(dev, args.seed)
@@ -1280,9 +1345,9 @@ def main(argv=None) -> int:
               "fused_norm_qmm": "x[4,2048] bf16 . qs[2048,32000] (output)",
               "fused_layer_tail": "R=4, HD=E=2048, FF=5632, silu",
               "q4_matmul": "x[4,2048] bf16 . Q4_K packed qs[1024,11264] "
-                           "(gate|up)",
+                           "(gate|up), bf16 out",
               "q8_matmul": "x[4,2048] bf16 . Q6_K codes qs[2048,32000] "
-                           "(output)"}
+                           "(output), bf16 out"}
     srcs = {"flash_prefill": ("llama_box_tpu_torch/csrc/flash_prefill.cu",
                               "llama_box_tpu/ops/flash_prefill.py:75"),
             "flash_decode": ("llama_box_tpu_torch/csrc/flash_decode.cu",
@@ -1296,7 +1361,7 @@ def main(argv=None) -> int:
                 "llama_box_tpu/ops/fused_decode.py:115"),
             "q4_matmul": ("llama_box_tpu_torch/csrc/q_matmul.cu",
                           "llama_box_tpu/ops/qmatmul.py:202"),
-            "q8_matmul": ("llama_box_tpu_torch/csrc/q8_matmul.cu",
+            "q8_matmul": ("llama_box_tpu_torch/csrc/q_matmul.cu",
                           "llama_box_tpu/ops/qmatmul.py:237")}
     # the path whose main-path run counts each kernel's launches
     home = {"flash_prefill": "bf16", "flash_decode": "bf16",
@@ -1308,8 +1373,10 @@ def main(argv=None) -> int:
             r = next(x for x in rows if (x["kind"], x["cache"], x["pos"])
                      == pick[name])
         else:
+            # the grouped kernels: the bf16 output the server asks for
             r = next(x for x in w_rows + q_rows if x["kind"] == name
-                     and x["shape"] == pick[name])
+                     and x["shape"] == pick[name]
+                     and x.get("out", "bfloat16") == "bfloat16")
         kernels.append(dict(
             name=name, route="cuda", source=srcs[name][0],
             replaces=srcs[name][1], launches=launches[home[name]][name],

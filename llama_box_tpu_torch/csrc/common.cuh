@@ -1,6 +1,6 @@
 // Shared helpers for the attention kernels (flash_prefill.cu, flash_decode.cu)
 // and the tensor-core kernels' copy and fragment instructions (cp.async,
-// ldmatrix; flash_prefill.cu, q8_matmul.cu).
+// ldmatrix; flash_prefill.cu, flash_decode.cu, q_matmul.cu).
 //
 // Element types: the attention compute dtype QT is float or __nv_bfloat16
 // (the JAX model's `adt`); the KV cache holds QT, or int8 codes with one
@@ -74,8 +74,8 @@ __device__ __forceinline__ bool lbt_pos_ok(int kpos, int qpos, int window,
 // a score exceeds it, so the result depends on the sequence of keys alone
 // and not on how they were cut into tiles: a key read from the cache and
 // the same key read from the rows operand give bit-identical outputs.
-// flash_decode.cu computes the same fold with the exponentials taken in
-// parallel. p is rounded to QT before it weights V, as the Pallas kernels
+// flash_decode.cu's f32 kernel computes the same fold with the
+// exponentials taken in parallel. p is rounded to QT before it weights V, as the Pallas kernels
 // do.
 template <typename QT, int N>
 __device__ __forceinline__ float lbt_softmax_step(float s, float& m, float& l,
@@ -105,12 +105,35 @@ __device__ __forceinline__ void lbt_mma_bf16(float (&c)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// two floats as two bf16 (round to nearest even), lo in the low half
+// two floats as two bf16 (round to nearest even), lo in the low half: one
+// paired conversion (conversions issue at a quarter of the FMA rate)
 __device__ __forceinline__ uint32_t lbt_pack_bf16(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
 }
 
+// byte j (0..3) of w as an exact float, without a conversion instruction:
+// the byte becomes the low mantissa bits of 2^23, which is then subtracted
+// (for int8 codes w holds the bytes ^ 0x80 and bias is 2^23 + 128)
+__device__ __forceinline__ float lbt_byte_f(uint32_t w, int j, float bias) {
+  return __fsub_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | j)),
+                   bias);
+}
+constexpr float LBT_U8_BIAS = 8388608.f, LBT_S8_BIAS = 8388736.f;
+
+// 8 int8 cache codes times their scale, each rounded to bf16 (kv_dequant)
+template <typename ST>
+__device__ __forceinline__ uint4 lbt_deq8(const int8_t* p, ST sc) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const uint32_t w[2] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u};
+  const float s = lbt_f(sc);
+  auto c = [&](int j) {
+    return __fmul_rn(lbt_byte_f(w[j >> 2], j & 3, LBT_S8_BIAS), s);
+  };
+  return make_uint4(lbt_pack_bf16(c(0), c(1)), lbt_pack_bf16(c(2), c(3)),
+                    lbt_pack_bf16(c(4), c(5)), lbt_pack_bf16(c(6), c(7)));
+}
 
 __device__ __forceinline__ uint32_t lbt_smem(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);

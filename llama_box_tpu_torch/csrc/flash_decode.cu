@@ -8,31 +8,56 @@
 // What bounds it: bytes. Each (slot, KV head) reads its visible K/V once,
 // about 2 * cpos * D * 2 bytes at bf16, and does ~4 flops per byte read, far
 // below the card's ~295 flop/byte ridge. The TPU kernel clamped its block
-// index maps so dead blocks were never fetched; here the tile loop itself
-// runs only over [window/chunk floor, chain start), so traffic is
-// proportional to each slot's position and dead positions are never read.
+// index maps so dead blocks were never fetched; here only the visible span
+// [window/chunk floor, cpos] is read, so traffic is proportional to each
+// slot's position and dead positions are never read.
 //
-// Design: one block per (slot, KV head), one warp per query head of the GQA
-// group, so each K/V tile is staged in shared memory once and read by all G
-// query heads. Tiles are loaded 16 bytes per thread into registers one tile
-// ahead of the compute, so a tile's loads are in flight while the previous
-// tile is scored. Lanes score the tile's keys in parallel; a warp max-scan
-// gives every key the running max the keys before it reached, so the
-// exponentials are computed in parallel, and the walk that folds them into
-// (l, acc) in key order is a chain of multiplies and adds only. The fold
-// depends on the sequence of keys alone and not on how they were cut into
-// tiles: a key read from the cache and the same key read from the rows
-// operand give bit-identical outputs, which keeps greedy decoding identical
-// between a K-step chain and per-token steps. p is rounded to the compute
-// type before it weights V, as the Pallas kernel does. B * Hkv blocks (16 at
-// the serving shape) fill few of the 132 SMs: split-K flash-decoding,
-// tensor cores and TMA are later work.
+// Which kernel: a bf16 q (the served path; bf16 or int8 cache) takes
+// flash_decode_mma_kernel, split across the SMs and on the tensor cores.
+// An f32 q (f32 or int8 cache) takes flash_decode_fma_kernel, f32 FMAs:
+// bf16 and TF32 tensor cores cannot hold an f32 q to the f32 tolerance.
+// The choice is made by dtype in lbt_flash_decode, before any launch.
+//
+// flash_decode_mma_kernel: split-K over absolute key positions. Split z
+// owns positions [z*L, (z+1)*L) (the last split also everything beyond),
+// L and the split count S chosen from the cache capacity C alone
+// (ops/flash_decode.py), so the grid is (Hkv, B, S) and the host never
+// reads the device-side (cpos, nv); a block whose span holds no visible
+// key exits at once. A block of 4 warps walks its span in 64-key tiles
+// aligned to absolute positions through a 3-stage cp.async ring (an int8
+// cache is dequantized through registers, code times row scale rounded to
+// bf16 as kv_dequant does), each warp taking 16 keys of every tile for all
+// G <= 16 query heads of the KV head: S = Q K^T and O += P V as
+// mma.sync.m16n8k16 (bf16 x bf16 -> f32) from ldmatrix fragments (.trans
+// for V), Q fragments in registers, the online softmax in base 2 in
+// registers, and P rounded to bf16 before it weights V (the Pallas
+// kernel's rounding point). The tile that straddles the chain start takes
+// cache keys below it and row keys from it together, and a key outside the
+// span or unreadable is staged as zero and masked, so a key's score and
+// its place in the sums depend on its position alone, never on which
+// operand held it nor on nv, R or B: greedy K=1 and K=16 chains give the
+// same bits. The warps' states are merged in warp order, the block writes
+// its split's (m, l, acc) per query head to a workspace and takes a ticket
+// from its (slot, KV head)'s counter; the block with the last ticket (the
+// live-split count comes from meta, the same way in every block) merges
+// the live splits in split order, applies the sinks, writes the output and
+// resets the counter, so a call is one launch. Calls that share the
+// counters must run on one stream.
+//
+// flash_decode_fma_kernel: one block per (slot, KV head), one warp per
+// query head. Tiles are loaded 16 bytes per thread into registers one tile
+// ahead of the compute. Lanes score the tile's keys in parallel; a warp
+// max-scan gives every key the running max the keys before it reached, so
+// the exponentials are computed in parallel, and the walk that folds them
+// into (l, acc) in key order is a chain of multiplies and adds only. The
+// fold depends on the sequence of keys alone and not on how they were cut
+// into tiles, which gives the same independence of where the cache ends.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxG = 16;
-constexpr int kMinThreads = 256;  // every block stages with >= 8 warps
+constexpr int kMinThreads = 256;  // every FMA block stages with >= 8 warps
 constexpr unsigned kFull = 0xffffffffu;
 
 // One K or V tile (BK rows x W columns of T) held in registers: chunk c of
@@ -109,7 +134,7 @@ __device__ __forceinline__ float lbt_dot(const float* q, const QT* k) {
 }
 
 template <typename QT, typename CT, typename ST, int D, int DV>
-__global__ void __launch_bounds__(32 * kMaxG) flash_decode_kernel(
+__global__ void __launch_bounds__(32 * kMaxG) flash_decode_fma_kernel(
     const QT* __restrict__ q, const CT* __restrict__ kc,
     const CT* __restrict__ vc, const ST* __restrict__ ks,
     const ST* __restrict__ vs, const QT* __restrict__ kr,
@@ -252,44 +277,359 @@ __global__ void __launch_bounds__(32 * kMaxG) flash_decode_kernel(
   for (int i = 0; i < NA; ++i) o[lane + 32 * i] = acc[i] * inv;
 }
 
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaThreads = 128;  // 4 warps, 16 keys of every tile each
+constexpr int BKEY = 64;          // keys per tile, from a multiple of 64
+constexpr int kStages = 3;        // K/V tiles in the ring
+constexpr int kMaxSplits = 64;
+
+// one split's partial in the workspace: acc [kMaxG][DV], then (m, l) per
+// query head
+template <int DV>
+constexpr int kPart = kMaxG * (DV + 2);
+
+template <typename CT, typename ST, int D, int DV>
+__global__ void __launch_bounds__(kMmaThreads) flash_decode_mma_kernel(
+    const bf16* __restrict__ q, const CT* __restrict__ kc,
+    const CT* __restrict__ vc, const ST* __restrict__ ks,
+    const ST* __restrict__ vs, const bf16* __restrict__ kr,
+    const bf16* __restrict__ vr, const int* __restrict__ meta,
+    const int* __restrict__ win, const float* __restrict__ sinks,
+    float* __restrict__ ws, unsigned* __restrict__ cnt,
+    float* __restrict__ out, int G, int C, int R, int Hkv, int L,
+    float scale, float softcap) {
+  constexpr int KLD = D + 8, VLD = DV + 8;  // 16-byte pad: ldmatrix rows
+  constexpr int KT = D / 16;                // k-steps of S = Q K^T
+  constexpr int NO = DV / 8;                // n8 tiles of O
+  constexpr int P = kPart<DV>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* const Ks = reinterpret_cast<bf16*>(smem);   // [kStages][BKEY][KLD]
+  bf16* const Vs = Ks + kStages * BKEY * KLD;       // [kStages][BKEY][VLD]
+  __shared__ float wt[kMaxSplits][kMaxG];           // the final merge's
+  __shared__ float fin[kMaxG];                      // weights and scales
+  __shared__ int is_last;
+
+  const int h = blockIdx.x, b = blockIdx.y, s = blockIdx.z, S = gridDim.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tig = lane & 3;
+  const int cpos = meta[2 * b], nv = meta[2 * b + 1];
+  const int window = win[0], chunk = win[1];
+  const int cstart = cpos - nv + 1;  // first position owned by chain rows
+
+  // visible keys: [lo, cpos] (window / chunk floor to the causal edge);
+  // the live splits are those that meet it, the same in every block
+  int lo = window > 0 ? max(cpos - window + 1, 0) : 0;
+  if (chunk > 0) lo = max(lo, cpos / chunk * chunk);
+  const int s_lo = min(lo / L, S - 1), s_hi = min(max(cpos, 0) / L, S - 1);
+  if (s < s_lo || s > s_hi) return;
+  const int k_lo = max(lo, s * L);
+  const int k_hi = s == S - 1 ? cpos : min(cpos, (s + 1) * L - 1);
+  const int chi = min(cstart, C), nrow = min(nv, R);
+  // a key of this split is read and seen iff its operand holds it: the
+  // cache below the chain start, the chain's rows from it
+  auto seen = [&](int kp) {
+    return kp >= k_lo && kp <= k_hi &&
+           (kp < cstart ? kp < chi : kp - cstart < nrow);
+  };
+
+  // Q as A fragments (rows: query heads, zero past G): a0/a2 row gq,
+  // a1/a3 row gq + 8; k 2*tig (+8)
+  uint32_t qf[KT][4];
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = gq + 8 * (j & 1), col = kk * 16 + 2 * tig + (j >> 1) * 8;
+      qf[kk][j] = r < G ? *reinterpret_cast<const uint32_t*>(
+                              q + ((long)(b * Hkv + h) * G + r) * D + col)
+                        : 0u;
+    }
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {LBT_NEG_INF, LBT_NEG_INF}, l[2] = {0.f, 0.f};
+  // scores in base 2: p = 2^(s*log2(e) - m), the scale folded in
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float sl = softcap > 0.f ? scale : scale * kLog2e;
+
+  // tile t (absolute keys t*64 ..) -> stage i; keys not seen as zeros
+  auto stage = [&](int t, int i) {
+    bf16* K_ = Ks + i * BKEY * KLD;
+    bf16* V_ = Vs + i * BKEY * VLD;
+    auto one = [&](bf16* dst, const CT* cache, const ST* sc,
+                   const bf16* rows, int W, int j, int c) {
+      const int kp = t * BKEY + j;
+      const bool ok = seen(kp);
+      if (kp < cstart) {
+        const long row = (long)(b * C + (ok ? kp : 0)) * Hkv + h;
+        if constexpr (std::is_same<CT, bf16>::value) {
+          lbt_cp16(dst, cache + row * W + c, ok);
+        } else {
+          *reinterpret_cast<uint4*>(dst) =
+              ok ? lbt_deq8(cache + row * W + c, sc[row])
+                 : make_uint4(0u, 0u, 0u, 0u);
+        }
+      } else {
+        const int r = ok ? kp - cstart : 0;
+        lbt_cp16(dst, rows + ((long)(b * R + r) * Hkv + h) * W + c, ok);
+      }
+    };
+    for (int e = tid; e < BKEY * (D / 8); e += kMmaThreads) {
+      const int j = e / (D / 8), c = (e % (D / 8)) * 8;
+      one(K_ + j * KLD + c, kc, ks, kr, D, j, c);
+    }
+    for (int e = tid; e < BKEY * (DV / 8); e += kMmaThreads) {
+      const int j = e / (DV / 8), c = (e % (DV / 8)) * 8;
+      one(V_ + j * VLD + c, vc, vs, vr, DV, j, c);
+    }
+  };
+
+  // this warp's 16 keys of tile t (stage i): a part no key of which is
+  // seen leaves the state as it is and is skipped
+  auto compute = [&](int t, int i) {
+    const int kp0 = t * BKEY + warp * 16;
+    if (kp0 > k_hi || kp0 + 15 < k_lo) return;
+    const bf16* K_ = Ks + (i * BKEY + warp * 16) * KLD;
+    const bf16* V_ = Vs + (i * BKEY + warp * 16) * VLD;
+    // S = Q K^T: K rows (keys) by ldmatrix, matrices (keys 0-7 | 8-15) x
+    // (d 0-7 | 8-15)
+    float sc[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t r[4];
+      lbt_ldsm4(r, K_ + ((lane & 7) + (lane >> 4) * 8) * KLD + kk * 16 +
+                       ((lane >> 3) & 1) * 8);
+      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      lbt_mma_bf16(sc[0], qf[kk], b0);
+      lbt_mma_bf16(sc[1], qf[kk], b1);
+    }
+    // softcap, mask, online softmax (c0, c1: head gq; c2, c3: head gq + 8;
+    // keys 2*tig, 2*tig + 1 of each n8 tile)
+    float tmax[2] = {LBT_NEG_INF, LBT_NEG_INF};
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = sc[n][e] * sl;
+        if (softcap > 0.f) v = softcap * tanhf(v / softcap) * kLog2e;
+        v = seen(kp0 + n * 8 + 2 * tig + (e & 1)) ? v : -INFINITY;
+        sc[n][e] = v;
+        tmax[e >> 1] = fmaxf(tmax[e >> 1], v);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      tmax[i2] = fmaxf(tmax[i2], __shfl_xor_sync(kFull, tmax[i2], 1));
+      tmax[i2] = fmaxf(tmax[i2], __shfl_xor_sync(kFull, tmax[i2], 2));
+      const float mn = fmaxf(m[i2], tmax[i2]);
+      alpha[i2] = exp2f(m[i2] - mn);
+      m[i2] = mn;
+      l[i2] *= alpha[i2];
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(sc[n][e] - m[e >> 1]);  // masked: 2^-inf = 0
+        l[e >> 1] += p;
+        sc[n][e] = p;
+      }
+    // O += P V: P (bf16) from registers as A, V rows by ldmatrix.trans,
+    // matrices (keys 0-7 | 8-15) x (dv 0-7 | 8-15)
+    const uint32_t pa[4] = {lbt_pack_bf16(sc[0][0], sc[0][1]),
+                            lbt_pack_bf16(sc[0][2], sc[0][3]),
+                            lbt_pack_bf16(sc[1][0], sc[1][1]),
+                            lbt_pack_bf16(sc[1][2], sc[1][3])};
+#pragma unroll
+    for (int np = 0; np < NO / 2; ++np) {
+      uint32_t r[4];
+      lbt_ldsm4_t(r, V_ + ((lane & 7) + ((lane >> 3) & 1) * 8) * VLD +
+                         np * 16 + (lane >> 4) * 8);
+      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      lbt_mma_bf16(o[2 * np], pa, b0);
+      lbt_mma_bf16(o[2 * np + 1], pa, b1);
+    }
+  };
+
+  // the ring: stage (it - 1) % kStages is refilled only after the barrier
+  // that follows every warp's compute of tile it - 1
+  const int tlo = k_lo / BKEY, thi = k_hi >= k_lo ? k_hi / BKEY + 1 : tlo;
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (tlo + i < thi) stage(tlo + i, i);
+    lbt_cp_commit();
+  }
+  for (int t = tlo; t < thi; ++t) {
+    const int it = t - tlo;
+    lbt_cp_wait<kStages - 2>();
+    __syncthreads();
+    if (t + kStages - 1 < thi)
+      stage(t + kStages - 1, (it + kStages - 1) % kStages);
+    lbt_cp_commit();
+    compute(t, it % kStages);
+  }
+  lbt_cp_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(kFull, l[i], 1);
+    l[i] += __shfl_xor_sync(kFull, l[i], 2);
+  }
+
+  // the warps' states through shared memory (the ring is done with),
+  // merged in warp order into this split's partial
+  __syncthreads();
+  float* const pm = reinterpret_cast<float*>(smem);   // [4][kMaxG]
+  float* const pl = pm + 4 * kMaxG;                   // [4][kMaxG]
+  float* const po = pl + 4 * kMaxG;                   // [4][kMaxG][DV]
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * kMaxG + gq + 8 * i;
+    if (tig == 0) {
+      pm[r] = m[i];
+      pl[r] = l[i];
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(po + r * DV + n * 8 + 2 * tig) =
+          make_float2(o[n][2 * i], o[n][2 * i + 1]);
+  }
+  __syncthreads();
+  float* const part = ws + ((long)(b * Hkv + h) * S + s) * P;
+  for (int e = tid; e < G * DV; e += kMmaThreads) {
+    const int g = e / DV, d = e % DV;
+    float M = LBT_NEG_INF, acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) M = fmaxf(M, pm[w * kMaxG + g]);
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      acc += po[(w * kMaxG + g) * DV + d] * exp2f(pm[w * kMaxG + g] - M);
+    part[g * DV + d] = acc;
+  }
+  for (int g = tid; g < G; g += kMmaThreads) {
+    float M = LBT_NEG_INF, lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) M = fmaxf(M, pm[w * kMaxG + g]);
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      lsum += pl[w * kMaxG + g] * exp2f(pm[w * kMaxG + g] - M);
+    part[kMaxG * DV + 2 * g] = M;
+    part[kMaxG * DV + 2 * g + 1] = lsum;
+  }
+
+  // the last live split of this (slot, KV head) merges them all
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    unsigned* c = cnt + b * Hkv + h;
+    const bool last = atomicAdd(c, 1u) == (unsigned)(s_hi - s_lo);
+    if (last) atomicExch(c, 0u);
+    is_last = last;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const float* const parts = ws + (long)(b * Hkv + h) * S * P;
+  for (int g = tid; g < G; g += kMmaThreads) {
+    float M = LBT_NEG_INF, den = 0.f;
+    for (int j = s_lo; j <= s_hi; ++j)
+      M = fmaxf(M, __ldcg(parts + j * P + kMaxG * DV + 2 * g));
+    for (int j = s_lo; j <= s_hi; ++j) {
+      const float w =
+          exp2f(__ldcg(parts + j * P + kMaxG * DV + 2 * g) - M);
+      wt[j - s_lo][g] = w;
+      den += __ldcg(parts + j * P + kMaxG * DV + 2 * g + 1) * w;
+    }
+    float f = 1.f;
+    if (sinks != nullptr) {
+      // attention sinks: a per-head logit joins the max and the denominator
+      const float snk = sinks[h * G + g] * kLog2e;
+      const float m_fin = fmaxf(M, snk);
+      f = exp2f(M - m_fin);
+      den = den * f + exp2f(snk - m_fin);
+    }
+    fin[g] = f / fmaxf(den, 1e-30f);
+  }
+  __syncthreads();
+  for (int e = tid; e < G * DV; e += kMmaThreads) {
+    const int g = e / DV, d = e % DV;
+    float acc = 0.f;
+    for (int j = s_lo; j <= s_hi; ++j)
+      acc += __ldcg(parts + j * P + g * DV + d) * wt[j - s_lo][g];
+    out[((long)(b * Hkv + h) * G + g) * DV + d] = acc * fin[g];
+  }
+}
+
+struct Call {
+  const void *q, *kc, *vc, *ks, *vs, *kr, *vr, *meta, *win, *sinks;
+  void *ws, *cnt, *out;
+  int B, Hkv, G, C, R, L, S;
+  float scale, softcap;
+  cudaStream_t st;
+};
+
 template <typename QT, typename CT, typename ST, int D, int DV>
-int launch(const void* q, const void* kc, const void* vc, const void* ks,
-           const void* vs, const void* kr, const void* vr, const void* meta,
-           const void* win, const void* sinks, void* out, int B, int Hkv,
-           int G, int C, int R, float scale, float softcap,
-           cudaStream_t stream) {
-  dim3 grid(Hkv, B), block(32 * G > kMinThreads ? 32 * G : kMinThreads);
-  flash_decode_kernel<QT, CT, ST, D, DV><<<grid, block, 0, stream>>>(
-      (const QT*)q, (const CT*)kc, (const CT*)vc, (const ST*)ks,
-      (const ST*)vs, (const QT*)kr, (const QT*)vr, (const int*)meta,
-      (const int*)win, (const float*)sinks, (float*)out, G, C, R, Hkv, scale,
-      softcap);
+int launch(const Call& a) {
+  if constexpr (std::is_same<QT, bf16>::value) {
+    auto kern = flash_decode_mma_kernel<CT, ST, D, DV>;
+    constexpr int smem = kStages * BKEY * ((D + 8) + (DV + 8)) * 2;
+    static_assert(smem >= (8 * kMaxG + 4 * kMaxG * DV) * 4,
+                  "the warps' merge fits in the ring");
+    if (a.S < 1 || a.S > kMaxSplits || a.L < BKEY || a.L % BKEY ||
+        !a.ws || !a.cnt)
+      return LBT_UNSUPPORTED;
+    static int allowed = 0;
+    if (!allowed) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+      allowed = 1;
+    }
+    kern<<<dim3(a.Hkv, a.B, a.S), kMmaThreads, smem, a.st>>>(
+        (const bf16*)a.q, (const CT*)a.kc, (const CT*)a.vc, (const ST*)a.ks,
+        (const ST*)a.vs, (const bf16*)a.kr, (const bf16*)a.vr,
+        (const int*)a.meta, (const int*)a.win, (const float*)a.sinks,
+        (float*)a.ws, (unsigned*)a.cnt, (float*)a.out, a.G, a.C, a.R, a.Hkv,
+        a.L, a.scale, a.softcap);
+  } else {
+    const int threads = 32 * a.G > kMinThreads ? 32 * a.G : kMinThreads;
+    flash_decode_fma_kernel<QT, CT, ST, D, DV>
+        <<<dim3(a.Hkv, a.B), threads, 0, a.st>>>(
+            (const QT*)a.q, (const CT*)a.kc, (const CT*)a.vc, (const ST*)a.ks,
+            (const ST*)a.vs, (const QT*)a.kr, (const QT*)a.vr,
+            (const int*)a.meta, (const int*)a.win, (const float*)a.sinks,
+            (float*)a.out, a.G, a.C, a.R, a.Hkv, a.scale, a.softcap);
+  }
   return (int)cudaGetLastError();
 }
 
 template <int D, int DV>
-int dispatch(int qd, int cd, int sd, const void* q, const void* kc,
-             const void* vc, const void* ks, const void* vs, const void* kr,
-             const void* vr, const void* meta, const void* win,
-             const void* sinks, void* out, int B, int Hkv, int G, int C, int R,
-             float scale, float softcap, cudaStream_t st) {
-#define LBT_ARGS \
-  q, kc, vc, ks, vs, kr, vr, meta, win, sinks, out, B, Hkv, G, C, R, scale, \
-      softcap, st
-  using bf16 = __nv_bfloat16;
+int dispatch(int qd, int cd, int sd, const Call& a) {
   if (qd == LBT_BF16 && cd == LBT_BF16)
-    return launch<bf16, bf16, float, D, DV>(LBT_ARGS);
+    return launch<bf16, bf16, float, D, DV>(a);
   if (qd == LBT_F32 && cd == LBT_F32)
-    return launch<float, float, float, D, DV>(LBT_ARGS);
+    return launch<float, float, float, D, DV>(a);
   if (qd == LBT_BF16 && cd == LBT_I8 && sd == LBT_BF16)
-    return launch<bf16, int8_t, bf16, D, DV>(LBT_ARGS);
+    return launch<bf16, int8_t, bf16, D, DV>(a);
   if (qd == LBT_BF16 && cd == LBT_I8 && sd == LBT_F32)
-    return launch<bf16, int8_t, float, D, DV>(LBT_ARGS);
+    return launch<bf16, int8_t, float, D, DV>(a);
   if (qd == LBT_F32 && cd == LBT_I8 && sd == LBT_BF16)
-    return launch<float, int8_t, bf16, D, DV>(LBT_ARGS);
+    return launch<float, int8_t, bf16, D, DV>(a);
   if (qd == LBT_F32 && cd == LBT_I8 && sd == LBT_F32)
-    return launch<float, int8_t, float, D, DV>(LBT_ARGS);
-#undef LBT_ARGS
+    return launch<float, int8_t, float, D, DV>(a);
   return LBT_UNSUPPORTED;
 }
 
@@ -297,26 +637,29 @@ int dispatch(int qd, int cd, int sd, const void* q, const void* kc,
 
 // q [B,Hkv,G,D]; kc/vc [B,C,Hkv,D|DV]; ks/vs [B,C,Hkv] or null;
 // kr/vr [B,R,Hkv,D|DV] in q's dtype; meta [B,2] (cpos, nv); win [2];
-// sinks [Hkv,G] f32 or null; out [B,Hkv,G,DV] f32. All contiguous, all on
-// the device, the K/V operands 16-byte aligned. Returns cudaGetLastError()
-// after the launch, or -1 for a configuration no instantiation covers.
+// sinks [Hkv,G] f32 or null; out [B,Hkv,G,DV] f32. For a bf16 q: S splits
+// of L positions (L a multiple of 64, 1 <= S <= 64), ws f32
+// [B,Hkv,S,16*(DV+2)] scratch and counters, B*Hkv unsigned ints that are 0
+// before the call and are 0 again after it (both unused for an f32 q). All
+// contiguous, all on the device, the K/V operands 16-byte aligned. Returns
+// cudaGetLastError() after the launch, or -1 for a configuration no
+// instantiation covers.
 extern "C" int lbt_flash_decode(int q_dtype, int kv_dtype, int scale_dtype,
                                 int D, int DV, const void* q, const void* kc,
                                 const void* vc, const void* ks, const void* vs,
                                 const void* kr, const void* vr,
                                 const void* meta, const void* win,
-                                const void* sinks, void* out, int B, int Hkv,
-                                int G, int C, int R, float scale,
+                                const void* sinks, void* ws, void* counters,
+                                void* out, int B, int Hkv, int G, int C,
+                                int R, int L, int S, float scale,
                                 float softcap, void* stream) {
   if (G < 1 || G > kMaxG) return LBT_UNSUPPORTED;
-  cudaStream_t st = (cudaStream_t)stream;
+  const Call a{q,  kc,   vc, ks, vs, kr, vr, meta, win, sinks,   ws,
+               counters, out, B, Hkv, G, C, R, L, S, scale, softcap,
+               (cudaStream_t)stream};
   if (D == 64 && DV == 64)
-    return dispatch<64, 64>(q_dtype, kv_dtype, scale_dtype, q, kc, vc, ks, vs,
-                            kr, vr, meta, win, sinks, out, B, Hkv, G, C, R,
-                            scale, softcap, st);
+    return dispatch<64, 64>(q_dtype, kv_dtype, scale_dtype, a);
   if (D == 128 && DV == 128)
-    return dispatch<128, 128>(q_dtype, kv_dtype, scale_dtype, q, kc, vc, ks,
-                              vs, kr, vr, meta, win, sinks, out, B, Hkv, G, C,
-                              R, scale, softcap, st);
+    return dispatch<128, 128>(q_dtype, kv_dtype, scale_dtype, a);
   return LBT_UNSUPPORTED;
 }

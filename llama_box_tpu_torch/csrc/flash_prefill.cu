@@ -179,19 +179,6 @@ constexpr int kRows = 128;        // rows (head, position) per block
 constexpr int BKEY = 64;          // keys per tile
 constexpr int kStages = 3;        // K/V tiles in the ring
 
-// 8 int8 cache codes times their scale, each rounded to bf16 (kv_dequant)
-template <typename ST>
-__device__ __forceinline__ uint4 deq8(const int8_t* p, ST sc) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float s = lbt_f(sc);
-  auto c = [&](int j) {
-    return (float)(int8_t)(((j < 4 ? u.x : u.y) >> (8 * (j & 3))) & 0xffu);
-  };
-  return make_uint4(
-      lbt_pack_bf16(c(0) * s, c(1) * s), lbt_pack_bf16(c(2) * s, c(3) * s),
-      lbt_pack_bf16(c(4) * s, c(5) * s), lbt_pack_bf16(c(6) * s, c(7) * s));
-}
-
 template <typename CT, typename ST, int D, int DV>
 __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 2 : 1)
     flash_prefill_mma_kernel(const bf16* __restrict__ q,
@@ -290,7 +277,7 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 2 : 1)
           lbt_cp16(dst, cache + row * W + c, ok);
         } else {
           *reinterpret_cast<uint4*>(dst) =
-              ok ? deq8(cache + row * W + c, sc[row])
+              ok ? lbt_deq8(cache + row * W + c, sc[row])
                  : make_uint4(0u, 0u, 0u, 0u);
         }
       } else {

@@ -1,8 +1,7 @@
-// Helpers shared by the grouped dequant matmuls (q_matmul.cu: q4_matmul,
-// q8_matmul.cu: q8_matmul): x rows as bf16, scales as f32, code bytes,
-// and the dequantization s*q - m with each
-// operation rounded (nvcc must not contract it into one fma, which rounds
-// once where torch and XLA round twice).
+// Helpers of the grouped dequant matmuls (q_matmul.cu: q4_matmul and
+// q8_matmul): x rows as bf16, scales as f32, code bytes, the dequantization
+// s*q - m with each operation rounded (nvcc must not contract it into one
+// fma, which rounds once where torch and XLA round twice), and wgmma.
 #pragma once
 
 #include "common.cuh"
@@ -10,10 +9,6 @@
 namespace lbt_q {
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // 8 consecutive x values as 8 bf16 (16 bytes)
 __device__ __forceinline__ uint4 x8(const bf16* p) {
@@ -41,10 +36,6 @@ __device__ __forceinline__ void s8(const bf16* p, float (&v)[8]) {
     v[2 * i] = __uint_as_float(w[i] << 16);
     v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
-}
-
-__device__ __forceinline__ uint32_t byte_of(uint2 r, int j) {
-  return ((j < 4 ? r.x : r.y) >> (8 * (j & 3))) & 0xffu;
 }
 
 // the f32 weight s*q - m, each operation rounded

@@ -110,9 +110,17 @@ _Q_KEYS = {"wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up", "w_gateup",
            "w_down", "output"}
 
 
-def check_supported(cfg: ModelConfig, params: dict) -> None:
+# what the attention kernels instantiate (csrc/flash_prefill.cu,
+# csrc/flash_decode.cu): K and V head widths, and the GQA group of flash
+# decode (flash prefill takes up to 128)
+_KERNEL_HEAD_DIMS, _KERNEL_MAX_GROUP = (64, 128), 16
+
+
+def check_supported(cfg: ModelConfig, params: dict, device=None) -> None:
     """Raise NotImplementedError for a model outside the dense llama path
-    (the other families are later slices; nothing runs half-supported)."""
+    (the other families are later slices; nothing runs half-supported), or,
+    on a CUDA `device`, for attention shapes the kernels do not take: the
+    engine refuses such a model at load, not at its first request."""
     unsupported = {
         "recurrent": getattr(cfg, "recurrent", False),
         "mrope_sections": bool(cfg.mrope_sections),
@@ -152,6 +160,17 @@ def check_supported(cfg: ModelConfig, params: dict) -> None:
     for key, w in leaves.items():
         if isinstance(w, QTensor) and key not in _Q_KEYS:
             raise NotImplementedError(f"{cfg.arch}: {key} as a QTensor")
+    if device is not None and torch.device(device).type == "cuda":
+        dv = cfg.v_head_dim or cfg.head_dim
+        group = cfg.n_heads / max(1, cfg.n_kv_heads)
+        if cfg.head_dim not in _KERNEL_HEAD_DIMS \
+                or dv not in _KERNEL_HEAD_DIMS or group > _KERNEL_MAX_GROUP:
+            raise NotImplementedError(
+                f"{cfg.arch}: the CUDA attention kernels take head widths "
+                f"{_KERNEL_HEAD_DIMS} and up to {_KERNEL_MAX_GROUP} query "
+                f"heads per KV head (this model: K {cfg.head_dim}, V {dv}, "
+                f"{cfg.n_heads} / {cfg.n_kv_heads} heads); --device cpu "
+                "runs it")
 
 
 # -- rope --------------------------------------------------------------------

@@ -63,6 +63,37 @@ def flash_decode_plain(q, k_cache, v_cache, k_rows, v_rows, meta, win,
     return out[:, :, :, 0]
 
 
+# csrc/flash_decode.cu's bf16 kernel: 64-key tiles, spans of whole tiles,
+# at most 64 splits (one block each per slot and KV head)
+_TILE, _MAX_SPLITS = 64, 64
+
+
+def _splits(C: int) -> tuple[int, int]:
+    """(L, S) of a bf16 call on a cache of C positions: split z takes key
+    positions [z*L, (z+1)*L), the last one everything beyond; L is at
+    least two tiles. A function of C alone, never of (cpos, nv), R or B:
+    the host cannot read the device-side meta without a sync, and where the
+    splits fall must not move with the chain step."""
+    L = _TILE * max(2, -(-C // (_TILE * _MAX_SPLITS)))
+    return L, max(1, -(-C // L))
+
+
+# per device: the bf16 kernel's partials and split tickets (zero between
+# calls: the last block of each slot and KV head resets its own), grown on
+# demand, so a call allocates only its output
+_scratch: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch_for(dev: torch.device, n_ws: int, n_cnt: int):
+    ws, cnt = _scratch.get(dev, (None, None))
+    if ws is None or ws.numel() < n_ws:
+        ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
+    if cnt is None or cnt.numel() < n_cnt:
+        cnt = torch.zeros(max(n_cnt, 1024), dtype=torch.int32, device=dev)
+    _scratch[dev] = ws, cnt
+    return ws, cnt
+
+
 def _check(cond: bool, what: str) -> None:
     if not cond:
         raise ValueError(f"flash_decode: {what}")
@@ -72,9 +103,10 @@ def flash_decode(q, k_cache, v_cache, k_rows, v_rows, meta, win,
                  k_scale=None, v_scale=None, *, layer=None, sinks=None,
                  scale: float | None = None, softcap: float = 0.0):
     """Single-query chained-decode attention (see the module docstring).
-    A CUDA q launches csrc/flash_decode.cu; a CPU q takes the plain
-    version. `layer` indexes a layer-stacked cache (a free view in
-    torch, where XLA had to let the kernel slice it)."""
+    A CUDA q launches csrc/flash_decode.cu, one launch a call (a bf16 q:
+    split across the SMs by _splits(C)); a CPU q takes the plain version.
+    `layer` indexes a layer-stacked cache (a free view in torch, where XLA
+    had to let the kernel slice it)."""
     if not q.is_cuda:
         return flash_decode_plain(q, k_cache, v_cache, k_rows, v_rows, meta,
                                   win, k_scale, v_scale, layer=layer,
@@ -124,12 +156,17 @@ def flash_decode(q, k_cache, v_cache, k_rows, v_rows, meta, win,
         sinks = sinks.to(dev, torch.float32).contiguous()
         _check(tuple(sinks.shape) == (Hkv, G), "sinks shape")
     out = torch.empty((B, Hkv, G, Dv), dtype=torch.float32, device=dev)
+    L, S = _splits(C)
+    ws = cnt = None
+    if dt == torch.bfloat16:
+        ws, cnt = _scratch_for(dev, B * Hkv * S * 16 * (Dv + 2), B * Hkv)
     codes = _kernels.DTYPE_CODES
     _kernels.call(
         "flash_decode", "lbt_flash_decode", codes[dt], codes[k_cache.dtype],
         codes[k_scale.dtype] if quant else 0, D, Dv, q, k_cache, v_cache,
-        k_scale, v_scale, k_rows, v_rows, meta, win, sinks, out, B, Hkv, G,
-        C, R, float(D ** -0.5 if scale is None else scale), float(softcap))
+        k_scale, v_scale, k_rows, v_rows, meta, win, sinks, ws, cnt, out, B,
+        Hkv, G, C, R, L, S, float(D ** -0.5 if scale is None else scale),
+        float(softcap))
     flash_decode.launches += 1
     return out
 

@@ -10,9 +10,9 @@ package's switches (LLAMA_BOX_TPU_PACKED4, _Q4_INT8, _Q4_F32SCALES):
   (`w8a8_matmul`, csrc/w8a8_matmul.cu).
 - grouped (any switch set): the GGUF group quantization kept as it is,
   w = s * q - m per group of rows, dequantized inside the matmul
-  (`q4_matmul` for nibble-packed codes, csrc/q_matmul.cu; `q8_matmul` for
-  int8 codes, csrc/q8_matmul.cu): bf16 weights, bf16 activations, f32
-  sums.
+  (`q4_matmul` for nibble-packed codes, `q8_matmul` for int8 codes; one
+  kernel template in csrc/q_matmul.cu, one launch a call): bf16 weights,
+  bf16 activations, f32 sums, f32 or bf16 out.
 
 Layout ([in, out] matmul convention; the loader transposes GGUF [out, in]),
 each optionally stacked over layers as [L, ...]:
@@ -264,49 +264,33 @@ def q8_matmul_plain(x, qs, scales, mins, group: int) -> torch.Tensor:
 
 # rows up to which a call splits its in-dim across blocks (decode widths)
 _SPLIT_MAX_ROWS = 64
-_TARGET_BLOCKS = 4 * 132      # about four blocks per SM of an H100
-_TILE_N, _TILE_K, _MAX_SPLITS = 64, 64, 16
+# csrc/q_matmul.cu: 128-column blocks of 64-row tiles, at most one wave of
+# two blocks per SM of an H100 at decode widths
+_TILE_N, _TILE_K, _MAX_SPLITS, _WAVE = 128, 64, 16, 2 * 132
 
 
 def _splits(M: int, N: int, K: int) -> int:
-    """in-dim splits of a q4_matmul call (csrc/q_matmul.cu). Decode
-    widths split the in-dim so that about _TARGET_BLOCKS blocks run; the
-    number depends
-    on the weight's shape alone, so a row's bits never depend on how many
-    other rows of at most _SPLIT_MAX_ROWS share the call."""
+    """in-dim splits of a q4_matmul or q8_matmul call: 1 above
+    _SPLIT_MAX_ROWS rows; below, as many as keep the blocks within one wave
+    (up to 16 and one 64-row tile each). The number depends on the
+    weight's shape alone, so a row's bits never depend on how many other
+    rows of at most _SPLIT_MAX_ROWS share the call."""
     if M > _SPLIT_MAX_ROWS:
         return 1
     n_blocks = -(-N // _TILE_N)
-    return max(1, min(_MAX_SPLITS, K // _TILE_K,
-                      -(-_TARGET_BLOCKS // n_blocks)))
+    return max(1, min(_MAX_SPLITS, K // _TILE_K, _WAVE // n_blocks))
 
 
-# q8_matmul (csrc/q8_matmul.cu): 128-column blocks, at most one wave of
-# two blocks per SM of an H100 at decode widths
-_Q8_TILE_N, _Q8_WAVE = 128, 2 * 132
-
-
-def _q8_splits(M: int, N: int, K: int) -> int:
-    """in-dim splits of a q8_matmul call: 1 above _SPLIT_MAX_ROWS rows;
-    below, as many as keep the blocks within one wave (up to 16 and one
-    64-row tile each). Like _splits it depends on the weight's shape
-    alone."""
-    if M > _SPLIT_MAX_ROWS:
-        return 1
-    n_blocks = -(-N // _Q8_TILE_N)
-    return max(1, min(_MAX_SPLITS, K // _TILE_K, _Q8_WAVE // n_blocks))
-
-
-# per device: the split tickets of csrc/q8_matmul.cu, zero between calls
+# per device: the split tickets of csrc/q_matmul.cu, zero between calls
 # (the last block of each output tile resets its own), grown on demand
-_q8_counters: dict[torch.device, torch.Tensor] = {}
+_counters: dict[torch.device, torch.Tensor] = {}
 
 
-def _q8_counter_buffer(dev: torch.device, n: int) -> torch.Tensor:
-    buf = _q8_counters.get(dev)
+def _counter_buffer(dev: torch.device, n: int) -> torch.Tensor:
+    buf = _counters.get(dev)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
-        _q8_counters[dev] = buf
+        _counters[dev] = buf
     return buf
 
 
@@ -345,54 +329,18 @@ def _grouped_checks(fn: str, packed4: bool, x, qs, scales, mins,
     return x
 
 
-def _q4_launch(x, qs, scales, mins, group: int, out):
-    x = _grouped_checks("q4_matmul", True, x, qs, scales, mins, group)
-    M, N, dev = x.shape[0], qs.shape[-1], x.device
-    if out is None:
-        out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    if not (out.dtype == torch.float32 and tuple(out.shape) == (M, N)
-            and out.is_contiguous() and out.device == dev):
-        raise ValueError("q4_matmul: out")
-    if not M:
-        return out
-    K = x.shape[1]
-    S = _splits(M, N, K)
-    ws = (torch.empty((S, M, N), dtype=torch.float32, device=dev)
-          if S > 1 else None)
-    _kernels.call("q_matmul", "lbt_q4_matmul", _kernels.DTYPE_CODES[x.dtype],
-                  _kernels.DTYPE_CODES[scales.dtype], x, qs, scales, mins, ws,
-                  out, M, K, N, group, S)
-    return out
-
-
-def q4_matmul(x, qs, scales, mins, group: int, *, out=None) -> torch.Tensor:
-    """x [M, in] (bf16 or f32) -> [M, out] f32 against nibble-packed codes
-    qs [in/2, out], scales/mins [in/group, out] (bf16 or f32; mins may be
-    None). A CUDA x launches csrc/q_matmul.cu's Q4 kernel; a CPU x takes
-    the plain version. `out` may name a contiguous f32 [M, out] tensor."""
-    if not x.is_cuda:
-        res = q4_matmul_plain(x, qs, scales, mins, group)
-        return res if out is None else out.copy_(res)
-    out = _q4_launch(x, qs, scales, mins, group, out)
-    if x.shape[0]:
-        q4_matmul.launches += 1
-    return out
-
-
-def q8_matmul(x, qs, scales, mins, group: int, *, out=None,
-              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """x [M, in] (bf16 or f32) -> [M, out] against int8 codes qs [in, out],
-    as q4_matmul; a CUDA x launches csrc/q8_matmul.cu, one launch a call.
-    The result is f32, or with out_dtype=torch.bfloat16 the f32 sums
-    rounded once to bf16 (as `.to(torch.bfloat16)` of the f32 result).
-    `out` may name a contiguous [M, out] tensor of out_dtype."""
-    fn = "q8_matmul"
+def _grouped(fn: str, packed4: bool, x, qs, scales, mins, group: int, out,
+             out_dtype: torch.dtype) -> torch.Tensor:
+    """One grouped call of the wrapper named `fn`: its plain version on a
+    CPU x, else one launch of csrc/q_matmul.cu's lbt_<fn> when x has
+    rows."""
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{fn}: out_dtype {out_dtype}: f32 or bf16")
     if not x.is_cuda:
-        res = q8_matmul_plain(x, qs, scales, mins, group).to(out_dtype)
+        plain = q4_matmul_plain if packed4 else q8_matmul_plain
+        res = plain(x, qs, scales, mins, group).to(out_dtype)
         return res if out is None else out.copy_(res)
-    x = _grouped_checks(fn, False, x, qs, scales, mins, group)
+    x = _grouped_checks(fn, packed4, x, qs, scales, mins, group)
     (M, K), N, dev = x.shape, qs.shape[-1], x.device
     if out is None:
         out = torch.empty((M, N), dtype=out_dtype, device=dev)
@@ -403,16 +351,42 @@ def q8_matmul(x, qs, scales, mins, group: int, *, out=None,
                          f"{out_dtype} {(M, N)} tensor on x's device")
     if not M:
         return out
-    S = _q8_splits(M, N, K)
+    S = _splits(M, N, K)
     ws = cnt = None
     if S > 1:
         ws = torch.empty((S, M, N), dtype=torch.float32, device=dev)
-        cnt = _q8_counter_buffer(dev, -(-N // _Q8_TILE_N) * -(-M // 16))
-    _kernels.call("q8_matmul", "lbt_q8_matmul", _kernels.DTYPE_CODES[x.dtype],
+        cnt = _counter_buffer(dev, -(-N // _TILE_N) * -(-M // 16))
+    _kernels.call("q_matmul", f"lbt_{fn}", _kernels.DTYPE_CODES[x.dtype],
                   _kernels.DTYPE_CODES[scales.dtype], x, qs, scales, mins, ws,
                   cnt, out, int(out_dtype == torch.bfloat16), M, K, N, group,
                   S)
-    q8_matmul.launches += 1
+    return out
+
+
+def q4_matmul(x, qs, scales, mins, group: int, *, out=None,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x [M, in] (bf16 or f32) -> [M, out] against nibble-packed codes
+    qs [in/2, out], scales/mins [in/group, out] (bf16 or f32; mins may be
+    None). A CUDA x launches csrc/q_matmul.cu's lbt_q4_matmul, one launch a
+    call; a CPU x takes the plain version. The result is f32, or with
+    out_dtype=torch.bfloat16 the f32 sums rounded once to bf16 (as
+    `.to(torch.bfloat16)` of the f32 result). `out` may name a contiguous
+    [M, out] tensor of out_dtype."""
+    out = _grouped("q4_matmul", True, x, qs, scales, mins, group, out,
+                   out_dtype)
+    if x.is_cuda and x.shape[0]:
+        q4_matmul.launches += 1
+    return out
+
+
+def q8_matmul(x, qs, scales, mins, group: int, *, out=None,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x [M, in] (bf16 or f32) -> [M, out] against int8 codes qs [in, out],
+    as q4_matmul; a CUDA x launches csrc/q_matmul.cu's lbt_q8_matmul."""
+    out = _grouped("q8_matmul", False, x, qs, scales, mins, group, out,
+                   out_dtype)
+    if x.is_cuda and x.shape[0]:
+        q8_matmul.launches += 1
     return out
 
 
@@ -423,11 +397,10 @@ q8_matmul.launches = 0
 def q_matmul(x: torch.Tensor, w: QTensor,
              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """x [M, in] -> [M, out] through the kernel that matches a grouped
-    QTensor's layout: q4_matmul for packed codes (f32), else q8_matmul
-    (out_dtype, rounded in the kernel)."""
-    if w.packed4:
-        return q4_matmul(x, w.qs, w.scales, w.mins, w.group)
-    return q8_matmul(x, w.qs, w.scales, w.mins, w.group, out_dtype=out_dtype)
+    QTensor's layout (q4_matmul for packed codes, else q8_matmul), the
+    result rounded to out_dtype in the kernel."""
+    fn = q4_matmul if w.packed4 else q8_matmul
+    return fn(x, w.qs, w.scales, w.mins, w.group, out_dtype=out_dtype)
 
 
 # -- reference implementation ----------------------------------------------------
@@ -449,7 +422,9 @@ def q_matmul_ref(x: torch.Tensor, w: QTensor) -> torch.Tensor:
 def mm(x: torch.Tensor, w) -> torch.Tensor:
     """Matmul dispatch returning x's dtype, x: [..., in]: a dense tensor ->
     torch.matmul; a w8a8 QTensor -> w8a8_matmul; a grouped QTensor ->
-    q_matmul on a CUDA x (the kernels), q_matmul_ref on a CPU x."""
+    q_matmul on a CUDA x (the kernels, which round to x's dtype
+    themselves: the final cast is a no-op there), q_matmul_ref on a CPU
+    x."""
     if not isinstance(w, QTensor):
         return torch.matmul(x, w.to(x.dtype))
     lead = x.shape[:-1]

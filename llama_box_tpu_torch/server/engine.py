@@ -135,7 +135,7 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params, tokenizer,
                  ecfg: EngineConfig | None = None, device: str = "cuda"):
         self.device = resolve_device(device)
-        check_supported(cfg, params)
+        check_supported(cfg, params, self.device)
         if ecfg is not None and ecfg.kv_dtype not in _KV_DTYPES:
             raise ValueError(f"KV cache type {ecfg.kv_dtype!r} is not "
                              f"supported (one of {sorted(_KV_DTYPES)})")

@@ -148,3 +148,20 @@ def test_prefill_plain_cold_equals_cached_prefix(split, win):
     assert torch.isfinite(warm).all()
     np.testing.assert_allclose(warm.numpy(), cold[:, :, :, split:].numpy(),
                                rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("C,want", [(1, (128, 1)), (256, (128, 2)),
+                                    (2048, (128, 16)), (8192, (128, 64)),
+                                    (8193, (192, 43)), (32768, (512, 64))])
+def test_decode_splits_depend_on_the_capacity_alone(C, want):
+    """The bf16 kernel's split span L and split count S (grid and
+    workspace) are a function of the cache capacity only, never of the
+    device-side (cpos, nv), R or B: whole 64-key tiles, at least two a
+    split, at most 64 splits covering the cache."""
+    import inspect
+    from llama_box_tpu_torch.ops import flash_decode as fd
+    assert list(inspect.signature(fd._splits).parameters) == ["C"]
+    L, S = fd._splits(C)
+    assert (L, S) == want
+    assert L % 64 == 0 and L >= 128 and 1 <= S <= 64
+    assert (S - 1) * L < C <= S * L

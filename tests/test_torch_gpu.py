@@ -381,7 +381,7 @@ def test_w8a8_unsupported_shapes_raise(cuda):
                                 eps=1e-5)
 
 
-# -- the grouped kernels (csrc/q_matmul.cu) -------------------------------------
+# -- the grouped kernels (csrc/q_matmul.cu: q4_matmul, q8_matmul) ---------------
 #
 # q4_matmul / q8_matmul against their plain versions: the same bf16 weights
 # (s*q - m rounded once) and bf16 rows, the products summed in f32 by the
@@ -439,6 +439,8 @@ def test_q_matmul_matches_plain(cuda, M, packed, group, mins, sdt):
     assert torch.isfinite(got).all() and _guards_intact(buf)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=Q_REL * float(want.abs().max()))
+    b16 = kern(x, qs, sc, mn, group, out_dtype=torch.bfloat16)
+    assert torch.equal(b16, got.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("packed", [True, False])
@@ -504,12 +506,12 @@ def test_q_matmul_unsupported_shapes_raise(cuda):
             rng, 96, 64, 32, False, torch.bfloat16, False, cuda), 32)
 
 
-# -- q8_matmul (csrc/q8_matmul.cu) ---------------------------------------------
+# -- q8_matmul and q4_matmul at every width -------------------------------------
 #
-# The pipelined int8-code kernel: decode widths (<= 64 rows, 16-row blocks,
-# in-dim split with the sum folded into the launch) and prefill widths
-# (128-row blocks), a ragged 4160 = 32 x 128 + 64 columns, every scale,
-# min and x variant, f32 and bf16 outputs.
+# The pipelined kernel of both code layouts: decode widths (<= 64 rows,
+# 16-row blocks, in-dim split with the sum folded into the launch) and
+# prefill widths (256-row blocks, wgmma), a ragged 4160 = 32 x 128 + 64
+# columns, every scale, min and x variant, f32 and bf16 outputs.
 
 
 @pytest.mark.parametrize("M", [1, 4, 64, 65, 200, 2048])
@@ -547,7 +549,7 @@ def test_q8_matmul_split_sum_is_one_launch(cuda, N):
     K = 5632
     x = _x(rng, 4, K, cuda)
     qs, sc, mn = _grouped(rng, K, N, 16, False, torch.bfloat16, False, cuda)
-    assert qmm_mod._q8_splits(4, N, K) > 1
+    assert qmm_mod._splits(4, N, K) > 1
     first = qmm_mod.q8_matmul(x, qs, sc, mn, 16)       # counters allocated
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -555,9 +557,9 @@ def test_q8_matmul_split_sum_is_one_launch(cuda, N):
         torch.cuda.synchronize()
     kernels = [e.name for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(kernels) == 1 and "q8_gemm_kernel" in kernels[0], kernels
+    assert len(kernels) == 1 and "grouped_gemm_kernel" in kernels[0], kernels
     assert torch.equal(first, again)
-    cnt = qmm_mod._q8_counters[x.device]
+    cnt = qmm_mod._counters[x.device]
     assert int(cnt.abs().sum()) == 0
 
 
@@ -590,3 +592,158 @@ def test_q8_mm_writes_the_dtype_of_x(cuda):
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (2, 3, 192)
     want = qmm_mod.q8_matmul(x.reshape(6, 512), qs, sc, mn, 16)
     assert torch.equal(got.reshape(6, 192), want.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("M", [1, 4, 64, 65, 200, 2048])
+@pytest.mark.parametrize("group,mins", [(32, True), (32, False), (16, True)],
+                         ids=["q4k", "q4_0", "q2k"])
+@pytest.mark.parametrize("sdt", [torch.bfloat16, torch.float32],
+                         ids=["bf16s", "f32s"])
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32],
+                         ids=["bf16x", "f32x"])
+def test_q4_matmul_matches_plain(cuda, M, group, mins, sdt, xdt):
+    """Nibble-packed codes through the same kernel: the stage takes x
+    columns t*32 .. and K/2 + t*32 .. and both halves' scale rows."""
+    rng = np.random.default_rng(M * group + mins)
+    K, N = 1024, 4160
+    x = _x(rng, M, K, cuda, xdt)
+    qs, sc, mn = _grouped(rng, K, N, group, True, sdt, mins, cuda)
+    buf, out = _guarded((M, N), torch.float32, cuda)
+    before = qmm_mod.q4_matmul.launches
+    got = qmm_mod.q4_matmul(x, qs, sc, mn, group, out=out)
+    want = qmm_mod.q4_matmul_plain(x, qs, sc, mn, group)
+    torch.cuda.synchronize()
+    assert qmm_mod.q4_matmul.launches == before + 1
+    assert torch.isfinite(got).all() and _guards_intact(buf)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=Q_REL * float(want.abs().max()))
+    b16 = qmm_mod.q4_matmul(x, qs, sc, mn, group, out_dtype=torch.bfloat16)
+    assert torch.equal(b16, got.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("N", [2048, 72])          # 8-byte code copies at 72
+def test_q4_matmul_split_sum_is_one_launch(cuda, N):
+    """At decode widths a packed call is one kernel too: no split-sum
+    kernel, the counters 0 again afterwards, bf16 output the f32 one
+    rounded."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(53)
+    K = 5632
+    x = _x(rng, 4, K, cuda)
+    qs, sc, mn = _grouped(rng, K, N, 32, True, torch.bfloat16, True, cuda)
+    assert qmm_mod._splits(4, N, K) > 1
+    first = qmm_mod.q4_matmul(x, qs, sc, mn, 32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = qmm_mod.q4_matmul(x, qs, sc, mn, 32)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "grouped_gemm_kernel" in kernels[0], kernels
+    assert torch.equal(first, again)
+    assert int(qmm_mod._counters[x.device].abs().sum()) == 0
+    b16 = qmm_mod.q4_matmul(x, qs, sc, mn, 32, out_dtype=torch.bfloat16)
+    assert torch.equal(b16, first.to(torch.bfloat16))
+
+
+def test_q4_mm_writes_the_dtype_of_x(cuda):
+    """mm on a bf16 x and a packed weight: q4_matmul rounds to bf16 in the
+    kernel, the same bits as rounding its f32 result."""
+    rng = np.random.default_rng(59)
+    qs, sc, mn = _grouped(rng, 512, 192, 32, True, torch.bfloat16, True,
+                          cuda)
+    w = qmm_mod.QTensor(qs, sc, mn, 512, 32, True)
+    x = _x(rng, 6, 512, cuda).reshape(2, 3, 512)
+    got = qmm_mod.mm(x, w)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (2, 3, 192)
+    want = qmm_mod.q4_matmul(x.reshape(6, 512), qs, sc, mn, 32)
+    assert torch.equal(got.reshape(6, 192), want.to(torch.bfloat16))
+
+
+# -- flash decode split across the SMs ------------------------------------------
+
+
+def _served_decode(rng, cuda, cpos, nv, quant, C=2048, R=16, B=4, Hkv=4,
+                   G=8, D=64):
+    """One decode call at the served shape in which the chain's rows hold
+    the values the cache holds (an int8 cache: its codes times their scale,
+    rounded to bf16, as the model's rows hold them), and every cache
+    position at or past the chain start is NaN (int8: its scale)."""
+    bf = torch.bfloat16
+    q = _x(rng, B * Hkv * G, D, cuda).reshape(B, Hkv, G, D)
+    k = _x(rng, B * C * Hkv, D, cuda, torch.float32).reshape(B, C, Hkv, D)
+    v = _x(rng, B * C * Hkv, D, cuda, torch.float32).reshape(B, C, Hkv, D)
+    cur_k = _x(rng, B * Hkv, D, cuda).reshape(B, Hkv, D)
+    cur_v = _x(rng, B * Hkv, D, cuda).reshape(B, Hkv, D)
+    sc = {}
+    if quant:
+        ks = (k.abs().amax(-1) / 127).to(bf)
+        vs = (v.abs().amax(-1) / 127).to(bf)
+        kc = (k / ks.float()[..., None]).round().clamp(-127, 127).to(
+            torch.int8)
+        vc = (v / vs.float()[..., None]).round().clamp(-127, 127).to(
+            torch.int8)
+        kd = (kc.float() * ks.float()[..., None]).to(bf)
+        vd = (vc.float() * vs.float()[..., None]).to(bf)
+        ks, vs = ks.clone(), vs.clone()
+        ks[:, cpos - nv + 1:] = float("nan")
+        vs[:, cpos - nv + 1:] = float("nan")
+        sc = dict(k_scale=ks, v_scale=vs)
+    else:
+        kc, vc = k.to(bf), v.to(bf)
+        kd, vd = kc.clone(), vc.clone()
+        kc[:, cpos - nv + 1:] = float("nan")
+        vc[:, cpos - nv + 1:] = float("nan")
+    kr = _x(rng, B * R * Hkv, D, cuda).reshape(B, R, Hkv, D)   # dead rows
+    vr = _x(rng, B * R * Hkv, D, cuda).reshape(B, R, Hkv, D)
+    kr[:, :nv - 1] = kd[:, cpos - nv + 1:cpos]
+    vr[:, :nv - 1] = vd[:, cpos - nv + 1:cpos]
+    kr[:, nv - 1], vr[:, nv - 1] = cur_k, cur_v
+    meta = torch.tensor([[cpos, nv]] * B, dtype=torch.int32, device=cuda)
+    return (q, kc, vc, kr, vr, meta,
+            torch.zeros(2, dtype=torch.int32, device=cuda)), sc
+
+
+@pytest.mark.parametrize("cpos", [17, 1023, 2040])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16cache", "int8"])
+def test_decode_kernel_chain_rows_give_the_cache_bits(cuda, cpos, quant):
+    """The same query with nv = 16 (its last 16 keys as chain rows) and
+    with nv = 1 (all but its own key in the cache) gives the same bits:
+    splits and tiles follow absolute positions (greedy K=1 = K=16)."""
+    out = {}
+    for nv in (1, 16):
+        args, sc = _served_decode(np.random.default_rng(cpos), cuda, cpos, nv,
+                                  quant)
+        out[nv] = flash_decode(*args, **sc)
+        want = flash_decode_plain(*args, **sc)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out[nv]).all()
+        torch.testing.assert_close(out[nv], want, rtol=0, atol=BF16_ATOL)
+    assert torch.equal(out[1], out[16])
+
+
+def test_decode_kernel_is_one_launch_and_resets_its_counters(cuda):
+    """A bf16 call is one kernel (the splits are merged by the block with
+    the last ticket); a second identical call gives the same bits and
+    leaves every counter at 0."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(61)
+    d = decode_case(rng, B=4, Hkv=4, G=8, D=64, C=2048, R=16,
+                    cpos=(1023, 1500, 17, 2040), nv=(16, 3, 16, 1))
+    _poison(d, d["meta"][:, 0] - d["meta"][:, 1] + 1)
+    args, _ = _on(cuda, d, torch.bfloat16)
+    meta = as_t(d["meta"]).to(cuda)
+    win = torch.zeros(2, dtype=torch.int32, device=cuda)
+    first = flash_decode(*args, meta, win)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = flash_decode(*args, meta, win)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "flash_decode_mma_kernel" in kernels[0], \
+        kernels
+    assert torch.isfinite(first).all() and torch.equal(first, again)
+    torch.testing.assert_close(first, flash_decode_plain(*args, meta, win),
+                               rtol=0, atol=BF16_ATOL)
+    assert int(fd_mod._scratch[args[0].device][1].abs().sum()) == 0

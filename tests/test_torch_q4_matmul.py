@@ -16,7 +16,11 @@ mm) against the JAX package, on the CPU.
   in another order: the same 1e-5 x max|out|);
 - the CPU wrappers are the plain versions and count no launch; mm sends a
   grouped weight with a CPU x to q_matmul_ref, as the JAX mm does off the
-  TPU."""
+  TPU;
+- q4_matmul's host side: its bf16 output is the f32 result rounded, mm
+  keeps x's dtype, and its in-dim splits depend on the weight's shape
+  alone (the kernel itself is held to q4_matmul_plain on a card in
+  test_torch_gpu.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -184,3 +188,66 @@ def test_plain_versions_round_weights_and_rows_to_bf16():
     # the int8-code layout of the same codes gives the same result
     got8 = tq.q8_matmul_plain(x, q.to(torch.int8), sc, mn, G)
     assert torch.equal(got8, want)
+
+
+def _q4(rng, K, N, group, mins):
+    qs = torch.from_numpy(rng.integers(-128, 128, (K // 2, N)).astype(
+        np.int8))
+    sc = torch.from_numpy(rng.uniform(0.5, 1.5, (K // group, N)).astype(
+        np.float32) / (4.6 * np.sqrt(K))).to(torch.bfloat16)
+    mn = (sc.float() * 7.5).to(torch.bfloat16) if mins else None
+    return qs, sc, mn
+
+
+@pytest.mark.parametrize("M", [1, 4, 70])
+@pytest.mark.parametrize("mins", [True, False])
+def test_q4_matmul_bf16_out_is_the_f32_result_rounded(M, mins):
+    rng = np.random.default_rng(M + mins)
+    K, N, G = 256, 96, 32
+    qs, sc, mn = _q4(rng, K, N, G, mins)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    f32 = tq.q4_matmul(x, qs, sc, mn, G)
+    b16 = tq.q4_matmul(x, qs, sc, mn, G, out_dtype=torch.bfloat16)
+    assert f32.dtype == torch.float32 and b16.dtype == torch.bfloat16
+    assert torch.equal(f32, tq.q4_matmul_plain(x, qs, sc, mn, G))
+    assert torch.equal(b16, f32.to(torch.bfloat16))
+    out = torch.empty(M, N, dtype=torch.bfloat16)
+    assert tq.q4_matmul(x, qs, sc, mn, G, out=out,
+                        out_dtype=torch.bfloat16) is out
+    assert torch.equal(out, b16)
+    with pytest.raises(ValueError, match="out_dtype"):
+        tq.q4_matmul(x, qs, sc, mn, G, out_dtype=torch.float16)
+
+
+def test_mm_on_a_packed_qtensor_keeps_the_dtype_of_x():
+    """mm on a CPU x takes q_matmul_ref and returns x's dtype; on a card
+    q_matmul hands x's dtype to the kernel for packed codes too, so the
+    final cast is a no-op there (test_torch_gpu.py)."""
+    rng = np.random.default_rng(5)
+    qs, sc, mn = _q4(rng, 128, 32, 32, True)
+    w = tq.QTensor(qs, sc, mn, 128, 32, True)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 128)).astype(np.float32))
+    before = tq.q4_matmul.launches
+    for dt in (torch.float32, torch.bfloat16):
+        got = tq.mm(x.to(dt), w)
+        assert got.dtype == dt and tuple(got.shape) == (2, 3, 32)
+        want = tq.q_matmul_ref(x.to(dt).reshape(6, 128), w).reshape(2, 3, 32)
+        assert torch.equal(got, want.to(dt))
+        assert tq.q_matmul(x.to(dt).reshape(6, 128), w,
+                           out_dtype=dt).dtype == dt
+    assert tq.q4_matmul.launches == before
+
+
+@pytest.mark.parametrize("K,N,want", [(2048, 2560, 13),      # wqkv
+                                      (2048, 2048, 16),      # wo
+                                      (2048, 11264, 3),      # gate|up
+                                      (4096, 28672, 1),      # 8B gate|up
+                                      (128, 64, 2)])         # in-dim bound
+def test_q4_splits_depend_on_the_weight_shape_alone(K, N, want):
+    """The packed layout takes the same rule as the int8 one: 128-column
+    blocks within one wave at <= 64 rows, one split above, whatever the
+    number of rows in the call."""
+    for M in (1, 4, 16, 64):
+        assert tq._splits(M, N, K) == want
+    for M in (65, 200, 2048):
+        assert tq._splits(M, N, K) == 1

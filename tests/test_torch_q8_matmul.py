@@ -1,6 +1,6 @@
 """q8_matmul's host side (llama_box_tpu_torch/ops/qmatmul.py), on the CPU:
 the output dtype of the wrapper, the in-dim split rule of
-csrc/q8_matmul.cu and the model's dispatch of a bf16 x. The kernel itself
+csrc/q_matmul.cu and the model's dispatch of a bf16 x. The kernel itself
 is held against q8_matmul_plain on a card in test_torch_gpu.py; the plain
 version against the JAX Pallas kernel in test_torch_q4_matmul.py."""
 
@@ -47,11 +47,11 @@ def test_q8_matmul_bf16_out_is_the_f32_result_rounded(M, group, mins):
 def test_q8_splits_fill_one_wave_by_weight_shape(K, N, want):
     n_blocks = -(-N // 128)
     for M in (1, 4, 16, 64):
-        s = tq._q8_splits(M, N, K)
+        s = tq._splits(M, N, K)
         assert s == want
         assert 1 <= s <= min(16, K // 64) and s * n_blocks <= 264 or s == 1
-    assert tq._q8_splits(65, N, K) == 1
-    assert tq._q8_splits(2048, N, K) == 1
+    assert tq._splits(65, N, K) == 1
+    assert tq._splits(2048, N, K) == 1
 
 
 def test_mm_keeps_the_dtype_of_x_on_the_cpu():
