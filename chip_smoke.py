@@ -12,7 +12,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     the w8a8 projections of a 4 x 512 prefill and of 4 decode rows) plus
     variants at smaller shapes; cache positions a kernel must never read,
     output guards a kernel must never write and the fused tail's scratch
-    hold NaN. w8a8_matmul must equal its plain version bit for bit, a
+    hold NaN. w8a8_matmul must equal its plain version bit for bit, and
+    so must the fused tail's xnew rows (its first phase has no norm); a
     cold 500-token prefill must equal, bit for bit, the same prompts with
     their first 137 / 64 / 1 / 300 positions in a bf16 cache, and a decode
     query with nv = 16 chain rows must equal, bit for bit, the same query
@@ -21,7 +22,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     attention kernels, torch._int_mm on the int8 operands for
     w8a8_matmul; never used by the port) with CUDA events on a cold L2,
     beside the bound max(bytes / 3.35 TB/s, ops / peak), the peak being
-    989 TFLOP/s bf16 or 1979 TOP/s int8;
+    989 TFLOP/s bf16 or 1979 TOP/s int8; phase 4w also times the fused
+    kernels at Llama-3-8B's widths (kernel only, not served) and counts
+    the kernels each w8a8 call runs (torch.profiler);
  5. end to end, bf16 path: a synthetic TinyLlama-1.1B-width GGUF (random
     F16 weights from --seed, a 32000-piece SPM vocab, a chatml template)
     is served by the port's own HTTP server at -np 4 -c 8192 -ub 512
@@ -555,21 +558,37 @@ def w8a8_work(kind, shp):
             + 2 * R * E, 2 * R * w)
 
 
+def launches_per_call(fn) -> int:
+    """Kernels one call of fn() runs on the card (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def w8a8_kernel_phase(dev, seed, shapes=None):
     """Phase 3 and 4 for the w8a8 kernels. Returns (max errors, timing
-    rows). `shapes` overrides the slice's shapes (a smaller rehearsal)."""
+    rows). `shapes` overrides the slice's shapes (a smaller rehearsal);
+    `timed` lists the fused shapes phase 4w times (the served ones and
+    Llama-3-8B's widths)."""
     from llama_box_tpu_torch.ops.fused_decode import (
         fused_layer_tail, fused_layer_tail_plain, fused_norm_qmm,
-        fused_norm_qmm_plain)
+        fused_norm_qmm_plain, tail_xnew_plain)
     from llama_box_tpu_torch.ops.qmatmul import (_quant_rows, w8a8_matmul,
                                                  w8a8_matmul_plain)
     shapes = shapes or dict(
         mm=[(M, K, N) for M in (2048, 4) for K, N in
             ((E, (H + 2 * HKV) * D), (H * D, E), (E, 2 * FF), (FF, E))],
         nq=[(4, E, (H + 2 * HKV) * D), (4, E, V), (1, E, 2560),
-            (64, E, 2560)],
+            (64, E, 2560), (9, E, 2560), (4, E8, 6144), (4, E8, V8)],
         tail=[(4, H * D, E, FF, "silu", 1.0), (1, 256, 256, 384, "gelu", 0.5),
-              (64, 256, 256, 200, "relu2", 1.0), (4, 256, 256, 384, "silu", 0.5)])
+              (64, 256, 256, 200, "relu2", 1.0), (4, 256, 256, 384, "silu", 0.5),
+              (9, H * D, E, FF, "silu", 1.0), (4, E8, E8, FF8, "silu", 1.0)],
+        timed=[(4, E, (H + 2 * HKV) * D), (4, E, V), (4, E8, 6144),
+               (4, E8, V8), (4, H * D, E, FF), (4, E8, E8, FF8)])
     gen = W8Gen(dev, seed + 100)
     errs = {"w8a8_matmul": 0.0, "fused_norm_qmm": 0.0,
             "fused_layer_tail": 0.0}
@@ -634,7 +653,12 @@ def w8a8_kernel_phase(dev, seed, shapes=None):
             and torch.isfinite(got.float()).all()
         err = float((got.float() - want.float()).abs().max())
         log(f"  fused_layer_tail R={R} HD={HD} E={E_} FF={FF_} {act_fn} "
-            f"rs={rs}{'':<3s} max_abs_err {err:.3e}  (tol {TAIL_TOL:g} + rel)")
+            f"rs={rs}{'':<3s} max_abs_err {err:.3e}  (tol {TAIL_TOL:g} + rel;"
+            " xnew bit-equal)")
+        # phase A has no norm: its xnew rows are the plain ones, bit for bit
+        if not torch.equal(xnew, tail_xnew_plain(ao, xr, *ws[:2], rs=rs)):
+            raise AssertionError(f"fused_layer_tail {(R, HD, E_, FF_)}: "
+                                 "xnew differs from the plain version's")
         torch.testing.assert_close(got.float(), want.float(), rtol=TAIL_TOL,
                                    atol=TAIL_TOL)
         errs["fused_layer_tail"] = max(errs["fused_layer_tail"], err)
@@ -646,11 +670,10 @@ def w8a8_kernel_phase(dev, seed, shapes=None):
     log("== phase 4w: w8a8 device times (median of 15, cold L2)")
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     rows = []
+    timed = {tuple(t) for t in shapes.get("timed", ())}
     for name, shp, kern, plain, lib in cases:
-        if name != "w8a8_matmul" and shp[0] not in (4,):
-            continue                      # time the served shapes only
-        if name == "fused_layer_tail" and shp[1:] != (H * D, E, FF):
-            continue
+        if name != "w8a8_matmul" and tuple(shp) not in timed:
+            continue                      # served and 8B-width shapes only
         nbytes, ops = w8a8_work(name, shp)
         b_ms, b_by = bound_ms(nbytes, ops, INT8_OPS)
         lib_ms = None
@@ -662,7 +685,7 @@ def w8a8_kernel_phase(dev, seed, shapes=None):
         r = dict(kind=name, shape=list(shp), ms=device_ms(kern, flush),
                  plain_ms=device_ms(plain, flush), library_ms=lib_ms,
                  bound_ms=b_ms, bound_by=b_by, mbytes=nbytes / 1e6,
-                 gop=ops / 1e9)
+                 gop=ops / 1e9, kernels_per_call=launches_per_call(kern))
         rows.append(r)
         log("  " + json.dumps(r))
     return errs, rows
@@ -1315,11 +1338,12 @@ def main(argv=None) -> int:
         for line in report.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling")):
                 log(f"  [{name}] {line.strip()}")
+    names = ("flash_prefill_mma_kernel", "flash_decode_mma_kernel",
+             "grouped_gemm_kernel", "norm_qmm_kernel", "tail_phase_kernel")
     for entry, used, spill in ptxas_entries(
-            "\n".join(_kernels.ptxas_report.values()),
-            ("flash_prefill_mma_kernel", "flash_decode_mma_kernel",
-             "grouped_gemm_kernel")):
-        log(f"  tensor-core kernel {entry[:60]}: {used}; {spill}")
+            "\n".join(_kernels.ptxas_report.values()), names):
+        short = entry[min(entry.find(n) for n in names if n in entry):]
+        log(f"  kernel {short[:80]}: {used}; {spill}")
 
     errs, rows = kernel_phase(dev, args.seed)
     w_errs, w_rows = w8a8_kernel_phase(dev, args.seed)

@@ -188,3 +188,93 @@ def test_jax_gates_agree_with_the_port(tmp_path, monkeypatch):
             == tl._fuse_qkv_ok(tcfg, tlp, xt)
         assert jl._fuse_tail_ok(jcfg, jlp, None, xj) \
             == tl._fuse_tail_ok(tcfg, tlp, xt)
+
+
+# -- the CUDA kernels' split rule (ops/fused_decode._splits) -----------------
+#
+# The fused kernels' weights [in, out] at TinyLlama-1.1B's and Llama-3-8B's
+# widths (gate|up as [E, 2 * FF]), and the GPU tests' small ones (ragged
+# in-dims of 200 and 100 rows).
+_WEIGHTS = {
+    "tinyllama": dict(wqkv=(2048, 2560), output=(2048, 32000),
+                      wo=(2048, 2048), gate_up=(2048, 11264),
+                      down=(5632, 2048)),
+    "llama3_8b": dict(wqkv=(4096, 6144), output=(4096, 128256),
+                      wo=(4096, 4096), gate_up=(4096, 28672),
+                      down=(14336, 4096)),
+    "gpu_tests": dict(qkv=(256, 96), gate_up=(256, 400), down=(200, 256),
+                      odd=(100, 36)),
+}
+
+
+def _cut(k, S):
+    """The kernel's split of ceil(k / 64) tiles: split s takes tiles
+    [kt * s // S, kt * (s + 1) // S)."""
+    kt = -(-k // 64)
+    return [kt * (s + 1) // S - kt * s // S for s in range(S)]
+
+
+@pytest.mark.parametrize("model,proj", [(m, p) for m in _WEIGHTS
+                                        for p in _WEIGHTS[m]])
+def test_fused_split_rule(model, proj):
+    import inspect
+    k, n = _WEIGHTS[model][proj]
+    S = tfd._splits(k, n)
+    kt = -(-k // 64)
+    # the weight's shape alone: no row count enters the rule
+    assert list(inspect.signature(tfd._splits).parameters) == ["k", "n"]
+    assert 1 <= S <= kt
+    # each split a whole number of 64-row tiles (only the last tile of the
+    # in-dim is ragged), at most 128 of them, covering the in-dim once
+    sizes = _cut(k, S)
+    assert min(sizes) >= 1 and sum(sizes) == kt and max(sizes) <= 128
+    # the blocks fill a wave of 132 SMs, or the splits are at their cap
+    blocks = -(-n // 128) * S
+    assert blocks >= 132 or S == min(16, kt), (blocks, S)
+
+
+@pytest.mark.parametrize("R", [1, 4, 9, 64])
+def test_split_regions_cover_the_kernels_sums(R):
+    """Each phase's region holds what csrc/w8a8_common.cuh indexes, for any
+    rows a block takes (RP = 1, 2, 4 or 8): row groups x column tiles x RP
+    x 128 sums and a ticket per (row group, tile); regions do not overlap
+    and start zero; a single split needs none. The tail's row maxima lie
+    in a buffer of their own (they are not zero after a call)."""
+    dev = torch.device("cpu")
+    parts = [(2048, 9), (11264, 2), (2048, 1), (96, 4)]
+    regions = tfd._split_regions(dev, R, parts)
+    assert tfd._split_regions(dev, R, parts) is regions   # kept per shape
+    amax = tfd._row_max_buffer(dev)
+    assert amax.numel() >= R and amax.dtype == torch.int32
+    spans = [(amax.data_ptr(), amax.data_ptr() + 4 * amax.numel())]
+    for (n, s), (acc, cnt) in zip(parts, regions):
+        if s == 1:
+            assert acc is None and cnt is None
+            continue
+        tiles = -(-n // 128)
+        for rp in (1, 2, 4, 8):
+            groups = -(-R // rp)
+            assert acc.numel() >= groups * tiles * rp * 128
+            assert cnt.numel() >= groups * tiles
+        for t in (acc, cnt):
+            assert t.dtype == torch.int32 and int(t.abs().sum()) == 0
+            spans.append((t.data_ptr(), t.data_ptr() + 4 * t.numel()))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    tfd._scratch.pop(dev, None)
+    tfd._regions.clear()
+    tfd._row_max.pop(dev, None)
+
+
+def test_tail_xnew_plain_matches_jax_unfused():
+    """The tail's xnew rows, plain, against the JAX unfused sequence's
+    x + wo(ao) (bf16 rounding points as _tail_kernel's first phase)."""
+    rng = np.random.default_rng(5)
+    R, HD, E = 4, 256, 256
+    aoj, aot = _bf16(rng, R, HD)
+    xj, xt = _bf16(rng, R, E)
+    jw, qs, sc = _qt(rng, HD, E)
+    got = tfd.tail_xnew_plain(aot, xt, qs, sc, rs=0.5)
+    want = xj + jmm(aoj, jw).astype(jnp.bfloat16) * jnp.bfloat16(0.5)
+    assert got.dtype == torch.bfloat16
+    _close(got, want, 1e-2)

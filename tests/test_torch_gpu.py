@@ -334,8 +334,141 @@ def test_fused_layer_tail_matches_plain(cuda, R, act_fn, rs, FF):
     assert torch.isfinite(xnew.float()).all()
     assert torch.isfinite(act.float()).all()
     assert torch.isfinite(got.float()).all()
+    # phase A has no norm: its rows are the plain version's, bit for bit
+    assert torch.equal(xnew, fdec_mod.tail_xnew_plain(ao, x, *wo, rs=rs))
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+# The served widths: TinyLlama-1.1B's E 2048 (wqkv 2560, output 32000 wide)
+# and its layer tail (HD = E = 2048, FF = 5632), R 1 to 64 rows; 9 rows take
+# two row groups.
+
+def _norm_qmm_case(rng, R, E, O, cuda):
+    x = _x(rng, R, E, cuda)
+    nw = torch.from_numpy(rng.uniform(0.5, 1.5, E).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    return (x, nw, *_w8(rng, E, O, cuda))
+
+
+def _tail_case(rng, R, HD, E, FF, cuda):
+    ao, x = _x(rng, R, HD, cuda), _x(rng, R, E, cuda)
+    nw = torch.from_numpy(rng.uniform(0.5, 1.5, E).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    # scales that keep the residual stream near unit size
+    wo, gu, dn = _w8(rng, HD, E, cuda), _w8(rng, E, 2 * FF, cuda), \
+        _w8(rng, FF, E, cuda)
+    return (ao, x, wo[0], wo[1] * 0.1, nw, gu[0], gu[1] * 0.1, dn[0],
+            dn[1] * 0.1)
+
+
+@pytest.mark.parametrize("R", [1, 4, 9, 64])
+@pytest.mark.parametrize("O", [2560, 32000])
+def test_fused_norm_qmm_served_widths(cuda, R, O):
+    rng = np.random.default_rng(R + O)
+    args = _norm_qmm_case(rng, R, 2048, O, cuda)
+    buf, out = _guarded((R, O), torch.bfloat16, cuda)
+    got = fdec_mod.fused_norm_qmm(*args, eps=1e-5, out=out)
+    want = fdec_mod.fused_norm_qmm_plain(*args, eps=1e-5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all() and _guards_intact(buf)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+    assert torch.equal(got.float().argmax(-1), want.float().argmax(-1))
+
+
+@pytest.mark.parametrize("R", [1, 4, 9, 64])
+def test_fused_layer_tail_served_widths(cuda, R):
+    rng = np.random.default_rng(100 + R)
+    args = _tail_case(rng, R, 2048, 2048, 5632, cuda)
+    obuf, out = _guarded((R, 2048), torch.bfloat16, cuda)
+    xbuf, xnew = _guarded((R, 2048), torch.bfloat16, cuda)
+    abuf, act = _guarded((R, 5632), torch.bfloat16, cuda)
+    got = fdec_mod.fused_layer_tail(*args, eps=1e-5, out=out,
+                                    scratch=(xnew, act))
+    want = fdec_mod.fused_layer_tail_plain(*args, eps=1e-5)
+    torch.cuda.synchronize()
+    for b in (obuf, xbuf, abuf):
+        assert _guards_intact(b)
+    assert torch.isfinite(act.float()).all()
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(xnew, fdec_mod.tail_xnew_plain(*args[:4]))
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_fused_rows_bits_do_not_depend_on_the_row_count(cuda):
+    """Rows of a 16-row call (two row groups of 8) equal the same rows
+    called alone (one row a block), bit for bit, in both kernels."""
+    rng = np.random.default_rng(21)
+    x, nw, qs, sc = _norm_qmm_case(rng, 16, 2048, 2560, cuda)
+    full = fdec_mod.fused_norm_qmm(x, nw, qs, sc, eps=1e-5)
+    t = _tail_case(rng, 16, 2048, 2048, 5632, cuda)
+    tfull = fdec_mod.fused_layer_tail(*t, eps=1e-5)
+    for r in (0, 7, 8, 15):
+        one = fdec_mod.fused_norm_qmm(x[r:r + 1], nw, qs, sc, eps=1e-5)
+        assert torch.equal(full[r:r + 1], one), r
+        tone = fdec_mod.fused_layer_tail(t[0][r:r + 1], t[1][r:r + 1],
+                                         *t[2:], eps=1e-5)
+        assert torch.equal(tfull[r:r + 1], tone), r
+
+
+def _cuda_kernels(fn):
+    """Names of the kernels one call of fn() runs (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_fused_calls_are_their_launches_and_reset_their_sums(cuda):
+    """fused_norm_qmm is one kernel, the tail three; the split sums and
+    tickets are 0 again after each call, so a second call gives the same
+    bits."""
+    rng = np.random.default_rng(22)
+    a = _norm_qmm_case(rng, 4, 2048, 2560, cuda)
+    t = _tail_case(rng, 4, 2048, 2048, 5632, cuda)
+    assert fdec_mod._splits(2048, 2560) > 1
+    first = fdec_mod.fused_norm_qmm(*a, eps=1e-5)
+    tfirst = fdec_mod.fused_layer_tail(*t, eps=1e-5)
+    torch.cuda.synchronize()
+    out = {}
+    names = _cuda_kernels(lambda: out.update(
+        q=fdec_mod.fused_norm_qmm(*a, eps=1e-5)))
+    assert len(names) == 1 and "norm_qmm_kernel" in names[0], names
+    names = _cuda_kernels(lambda: out.update(
+        t=fdec_mod.fused_layer_tail(*t, eps=1e-5)))
+    assert len(names) == 3 and all("tail_phase_kernel" in n
+                                   for n in names), names
+    assert torch.equal(first, out["q"]) and torch.equal(tfirst, out["t"])
+    assert int(fdec_mod._scratch[t[0].device].abs().sum()) == 0
+
+
+def test_fused_layer_tail_in_a_cuda_graph(cuda):
+    """One tail call captured in a CUDA graph (programmatic launches and
+    tickets included) and replayed twice gives the eager call's bits."""
+    rng = np.random.default_rng(23)
+    t = _tail_case(rng, 4, 2048, 2048, 5632, cuda)
+    eager = fdec_mod.fused_layer_tail(*t, eps=1e-5)
+    out = torch.empty_like(eager)
+    scratch = (torch.empty_like(eager),
+               torch.empty((4, 5632), dtype=torch.bfloat16, device=cuda))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fdec_mod.fused_layer_tail(*t, eps=1e-5, out=out, scratch=scratch)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fdec_mod.fused_layer_tail(*t, eps=1e-5, out=out, scratch=scratch)
+    for _ in range(2):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert int(fdec_mod._scratch[t[0].device].abs().sum()) == 0
 
 
 def test_w8a8_rows_are_independent(cuda):
