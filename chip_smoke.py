@@ -9,7 +9,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     build/torch_kernels/ and `-Xptxas -v` is printed;
  3. kernel vs plain: each kernel against its plain torch version on the
     card, at the shapes the server below gives it (bf16 and int8 caches;
-    the w8a8 projections of a 4 x 512 prefill and of 4 decode rows) plus
+    the w8a8 projections of a 4 x 512 prefill, of one 500-token prompt and
+    of 4 decode rows, f32 and bf16 out) plus
     variants at smaller shapes; cache positions a kernel must never read,
     output guards a kernel must never write and the fused tail's scratch
     hold NaN. w8a8_matmul must equal its plain version bit for bit, and
@@ -19,12 +20,15 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     query with nv = 16 chain rows must equal, bit for bit, the same query
     with nv = 1 (its other keys in the cache; bf16 and int8 caches);
  4. times: kernel, plain version and a library yardstick (SDPA for the
-    attention kernels, torch._int_mm on the int8 operands for
-    w8a8_matmul; never used by the port) with CUDA events on a cold L2,
-    beside the bound max(bytes / 3.35 TB/s, ops / peak), the peak being
-    989 TFLOP/s bf16 or 1979 TOP/s int8; phase 4w also times the fused
-    kernels at Llama-3-8B's widths (kernel only, not served) and counts
-    the kernels each w8a8 call runs (torch.profiler);
+    attention kernels; for w8a8_matmul torch._int_mm on the codes with
+    the weight K-major, beside it _int_mm on the weight as stored and
+    torch.matmul in bf16 on the dequantized weight; never used by the
+    port) with CUDA events on a cold L2, beside the bound max(bytes /
+    3.35 TB/s, ops / peak), the peak being 989 TFLOP/s bf16 or 1979 TOP/s
+    int8; phase 4w also times w8a8_matmul's row-quantize pass alone
+    (bound: M*K*3 + 4*M bytes), the fused kernels at Llama-3-8B's widths
+    (kernel only, not served) and counts the kernels each w8a8 call runs
+    (torch.profiler);
  5. end to end, bf16 path: a synthetic TinyLlama-1.1B-width GGUF (random
     F16 weights from --seed, a 32000-piece SPM vocab, a chatml template)
     is served by the port's own HTTP server at -np 4 -c 8192 -ub 512
@@ -542,13 +546,14 @@ class W8Gen:
         return qs, sc
 
 
-def w8a8_work(kind, shp):
+def w8a8_work(kind, shp, out_bytes=2):
     """(bytes, int8 ops) one call needs: inputs read once, outputs written
-    once (activations bf16, codes int8, scales f32; w8a8_matmul writes
-    f32, the fused kernels bf16)."""
+    once (activations bf16, codes int8, scales f32; w8a8_matmul writes the
+    dtype the call asks for, `out_bytes` an element, the fused kernels
+    bf16)."""
     if kind == "w8a8_matmul":
         M, K, N = shp
-        return M * K * 2 + K * N + N * 4 + M * N * 4, 2 * M * K * N
+        return M * K * 2 + K * N + N * 4 + M * N * out_bytes, 2 * M * K * N
     if kind == "fused_norm_qmm":
         R, E, O = shp
         return R * E * 2 + E * 2 + E * O + O * 4 + R * O * 2, 2 * R * E * O
@@ -558,15 +563,21 @@ def w8a8_work(kind, shp):
             + 2 * R * E, 2 * R * w)
 
 
-def launches_per_call(fn) -> int:
-    """Kernels one call of fn() runs on the card (torch.profiler)."""
+def call_kernels(fn) -> dict:
+    """Kernel name -> (device ms, launches) of one call of fn()
+    (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {e.key[:60]: (e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def launches_per_call(fn) -> int:
+    """Kernels one call of fn() runs on the card."""
+    return sum(n for _, n in call_kernels(fn).values())
 
 
 def w8a8_kernel_phase(dev, seed, shapes=None):
@@ -577,10 +588,11 @@ def w8a8_kernel_phase(dev, seed, shapes=None):
     from llama_box_tpu_torch.ops.fused_decode import (
         fused_layer_tail, fused_layer_tail_plain, fused_norm_qmm,
         fused_norm_qmm_plain, tail_xnew_plain)
-    from llama_box_tpu_torch.ops.qmatmul import (_quant_rows, w8a8_matmul,
-                                                 w8a8_matmul_plain)
+    from llama_box_tpu_torch.ops.qmatmul import (w8a8_matmul,
+                                                 w8a8_matmul_plain,
+                                                 w8a8_quant_rows)
     shapes = shapes or dict(
-        mm=[(M, K, N) for M in (2048, 4) for K, N in
+        mm=[(M, K, N) for M in (2048, 512, 4) for K, N in
             ((E, (H + 2 * HKV) * D), (H * D, E), (E, 2 * FF), (FF, E))],
         nq=[(4, E, (H + 2 * HKV) * D), (4, E, V), (1, E, 2560),
             (64, E, 2560), (9, E, 2560), (4, E8, 6144), (4, E8, V8)],
@@ -594,28 +606,26 @@ def w8a8_kernel_phase(dev, seed, shapes=None):
             "fused_layer_tail": 0.0}
     cases = []
     log("== phase 3w: w8a8 kernels vs plain (NaN output guards / scratch)")
+    mm_cases = []
     for M, K, N in shapes["mm"]:
         x = gen.rows(M, K)
         qs, sc = gen.weights(K, N)
-        buf, out = _guarded((M, N), torch.float32, dev)
-        got = w8a8_matmul(x, qs, sc, out=out)
         want = w8a8_matmul_plain(x, qs, sc)
-        torch.cuda.synchronize()
-        assert torch.isfinite(got).all() and _guards_ok(buf), (M, K, N)
-        err = float((got - want).abs().max())
-        log(f"  w8a8_matmul x[{M},{K}] qs[{K},{N}]{'':<14s} max_abs_err "
-            f"{err:.3e}  (bit-equal required)")
-        if not torch.equal(got, want):
-            raise AssertionError(f"w8a8_matmul {(M, K, N)}: not bit-equal "
-                                 f"to its plain version ({err})")
-        errs["w8a8_matmul"] = max(errs["w8a8_matmul"], err)
-        lib = None
-        if M > 16 and K % 8 == 0 and N % 8 == 0:
-            xq = _quant_rows(x.float())[0].contiguous()
-            lib = lambda a=xq, b=qs: torch._int_mm(a, b)  # noqa: E731
-        cases.append(("w8a8_matmul", (M, K, N),
-                      lambda a=(x, qs, sc): w8a8_matmul(*a),
-                      lambda a=(x, qs, sc): w8a8_matmul_plain(*a), lib))
+        for odt in (torch.float32, torch.bfloat16):
+            buf, out = _guarded((M, N), odt, dev)
+            got = w8a8_matmul(x, qs, sc, out=out, out_dtype=odt)
+            torch.cuda.synchronize()
+            ref = want.to(odt)
+            assert torch.isfinite(got.float()).all() and _guards_ok(buf), (
+                M, K, N, odt)
+            err = float((got.float() - ref.float()).abs().max())
+            log(f"  w8a8_matmul x[{M},{K}] qs[{K},{N}] {str(odt)[6:]:<9s} "
+                f"out max_abs_err {err:.3e}  (bit-equal required)")
+            if not torch.equal(got, ref):
+                raise AssertionError(f"w8a8_matmul {(M, K, N)} {odt}: not "
+                                     f"bit-equal to its plain version ({err})")
+            errs["w8a8_matmul"] = max(errs["w8a8_matmul"], err)
+        mm_cases.append(((M, K, N), x, qs, sc))
     for R, E_, O in shapes["nq"]:
         x, nw = gen.rows(R, E_), gen.norm(E_)
         qs, sc = gen.weights(E_, O)
@@ -670,20 +680,56 @@ def w8a8_kernel_phase(dev, seed, shapes=None):
     log("== phase 4w: w8a8 device times (median of 15, cold L2)")
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     rows = []
+    for (M, K, N), x, qs, sc in mm_cases:
+        # yardsticks (never used by the port): torch._int_mm on the codes
+        # with the weight as stored ([K, N] row-major) and as cuBLASLt's
+        # int8 path takes it (a K-major copy, made once); torch.matmul in
+        # bf16 on the dequantized weight, the dense path's cost
+        xq = w8a8_quant_rows(x)[0][:, :K].contiguous()
+        qs_km = qs.t().contiguous().t()
+        wf = (qs.float() * sc[None, :]).to(torch.bfloat16)
+        yard = {}
+        for key, fn in (("int_mm_ms", lambda: torch._int_mm(xq, qs)),
+                        ("int_mm_kmajor_ms", lambda: torch._int_mm(xq, qs_km)),
+                        ("matmul_bf16_ms", lambda: torch.matmul(x, wf))):
+            yard[key] = None
+            if key != "matmul_bf16_ms" and not (M > 16 and K % 8 == 0
+                                                and N % 8 == 0):
+                continue
+            try:
+                yard[key] = device_ms(fn, flush)
+            except RuntimeError as exc:    # the yardstick refused the shape
+                log(f"  {key} refused {(M, K, N)}: {exc}")
+        q_bytes = M * K * 3 + 4 * M
+        quant = dict(quant_ms=device_ms(lambda: w8a8_quant_rows(x), flush),
+                     quant_bound_ms=q_bytes / HBM_BPS * 1e3,
+                     quant_mbytes=q_bytes / 1e6)
+        for odt in (torch.float32, torch.bfloat16):
+            nbytes, ops = w8a8_work("w8a8_matmul", (M, K, N),
+                                    torch.finfo(odt).bits // 8)
+            b_ms, b_by = bound_ms(nbytes, ops, INT8_OPS)
+            kern = lambda o=odt: w8a8_matmul(x, qs, sc, out_dtype=o)  # noqa: E731
+            calls = call_kernels(kern)
+            r = dict(kind="w8a8_matmul", shape=[M, K, N], out=str(odt)[6:],
+                     ms=device_ms(kern, flush),
+                     plain_ms=device_ms(lambda o=odt: w8a8_matmul_plain(
+                         x, qs, sc).to(o), flush),
+                     library_ms=yard["int_mm_kmajor_ms"], bound_ms=b_ms,
+                     bound_by=b_by, mbytes=nbytes / 1e6, gop=ops / 1e9,
+                     kernels_per_call=sum(n for _, n in calls.values()),
+                     kernels_ms_warm={k: v[0] for k, v in calls.items()},
+                     **yard, **quant)
+            rows.append(r)
+            log("  " + json.dumps(r))
+        del xq, qs_km, wf
     timed = {tuple(t) for t in shapes.get("timed", ())}
     for name, shp, kern, plain, lib in cases:
-        if name != "w8a8_matmul" and tuple(shp) not in timed:
+        if tuple(shp) not in timed:
             continue                      # served and 8B-width shapes only
         nbytes, ops = w8a8_work(name, shp)
         b_ms, b_by = bound_ms(nbytes, ops, INT8_OPS)
-        lib_ms = None
-        if lib is not None:
-            try:
-                lib_ms = device_ms(lib, flush)
-            except RuntimeError as exc:    # the yardstick refused the shape
-                log(f"  torch._int_mm refused {shp}: {exc}")
         r = dict(kind=name, shape=list(shp), ms=device_ms(kern, flush),
-                 plain_ms=device_ms(plain, flush), library_ms=lib_ms,
+                 plain_ms=device_ms(plain, flush), library_ms=None,
                  bound_ms=b_ms, bound_by=b_by, mbytes=nbytes / 1e6,
                  gop=ops / 1e9, kernels_per_call=launches_per_call(kern))
         rows.append(r)
@@ -1271,7 +1317,9 @@ PORT_KERNELS = ("flash_prefill", "flash_decode", "grouped_gemm", "w8a8_gemm",
 def profile_phase(Engine, EngineConfig, engine, tok, prompts, dev, label):
     """--profile: torch.profiler over 4 greedy requests (one batched
     prefill, then 48 tokens each in chains of 16), bf16 cache: device
-    time by kernel and the device's busy share of the wall time."""
+    time by kernel and the device's busy share of the wall time; then over
+    the same requests with one token each, the prefill pass alone (its
+    device ms by kernel; decode is the first profile less it)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     log("== profile: 4 x (500-token prompt + 48 tokens), bf16 cache, K=16, "
         f"{label} weights")
@@ -1301,11 +1349,28 @@ def profile_phase(Engine, EngineConfig, engine, tok, prompts, dev, label):
             and any(t in e.key for t in PORT_KERNELS)}
     for k, (ms, n) in sorted(ours.items(), key=lambda kv: -kv[1][0]):
         log(f"  port kernel {ms:9.2f} ms  {n:7d}x  {k[:90]}")
+    # the prefill pass apart: the same four prompts with one token each (one
+    # batched prefill pass, no decode step); decode is the rest
+    with tprofile(activities=acts) as prof:
+        greedy_run(Engine, ecfg, engine.cfg, engine.params, tok, prompts, 1,
+                   dev)
+        torch.cuda.synchronize()
+    pre = sorted(((e.key[:100], e.self_device_time_total / 1e3, e.count)
+                  for e in prof.key_averages()
+                  if e.self_device_time_total > 0), key=lambda r: -r[1])
+    pre_ms = sum(r[1] for r in pre)
+    log(f"  prefill pass alone (max_tokens 1): device {pre_ms:.2f} ms, "
+        f"{sum(r[2] for r in pre)} ops; decode (the rest) "
+        f"{dev_us / 1e3 - pre_ms:.2f} ms")
+    for k, ms, n in pre[:15]:
+        log(f"  prefill {ms:9.2f} ms  {n:7d}x  {k[:90]}")
     return dict(wall_ms=wall_ms, device_busy_ms=dev_us / 1e3,
                 busy_share=dev_us / 1e3 / wall_ms, device_ops=n_launch,
                 ops_per_layer_step=per_layer,
                 top=[(e.key[:100], e.self_device_time_total / 1e3, e.count)
-                     for e in rows], port_kernels=ours)
+                     for e in rows], port_kernels=ours,
+                prefill_device_ms=pre_ms, prefill_ops=sum(r[2] for r in pre),
+                decode_device_ms=dev_us / 1e3 - pre_ms, prefill_top=pre[:20])
 
 
 # ---------------------------------------------------------------------------
@@ -1339,7 +1404,8 @@ def main(argv=None) -> int:
             if any(w in line for w in ("registers", "spill", "Compiling")):
                 log(f"  [{name}] {line.strip()}")
     names = ("flash_prefill_mma_kernel", "flash_decode_mma_kernel",
-             "grouped_gemm_kernel", "norm_qmm_kernel", "tail_phase_kernel")
+             "grouped_gemm_kernel", "norm_qmm_kernel", "tail_phase_kernel",
+             "w8a8_gemm", "quant_rows_kernel")
     for entry, used, spill in ptxas_entries(
             "\n".join(_kernels.ptxas_report.values()), names):
         short = entry[min(entry.find(n) for n in names if n in entry):]

@@ -178,14 +178,77 @@ def _check(cond: bool, what: str) -> None:
         raise ValueError(f"w8a8_matmul: {what}")
 
 
-def w8a8_matmul(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor, *,
-                out: torch.Tensor | None = None) -> torch.Tensor:
-    """x [M, in] (bf16 or f32) -> [M, out] f32. A CUDA x launches
-    csrc/w8a8_matmul.cu (a row-quantize pass, then the int8 GEMM); a CPU x
-    takes the plain version. `out` may name a contiguous f32 [M, out]
-    tensor to write into."""
+# csrc/w8a8_matmul.cu: 64 x 64 output tiles on mma.sync walk the in-dim in
+# steps of 64 (up to _W8_SMALL_ROWS rows, and shapes TMA cannot take);
+# above, 128 x 128 or 256 x 128 tiles on TMA and wgmma in steps of 128, one
+# block an SM of the 132 of an H100; at most 8 splits. _W8_BIG_COST: the
+# time of a 256-row tile over a 128-row one's, tuned on the H100 at
+# TinyLlama's projections.
+_W8_SMALL_ROWS, _W8_MAX_SPLITS, _SMS, _W8_BIG_COST = 64, 8, 132, 1.4
+
+
+def _w8a8_plan(M: int, N: int, K: int, tma: bool = True) -> tuple[int, int]:
+    """(tile rows bm, in-dim splits) of a w8a8_matmul call, from its shape
+    alone (`tma`: K a multiple of 8, N of 16 and the weight 16-byte
+    aligned). bm 64, the mma.sync kernel, at most _W8_SMALL_ROWS rows or
+    without `tma`, with as many splits as keep the blocks within four an SM
+    (up to 8 and the in-dim's 64-deep steps; its blocks are 128 threads and
+    10 KB). Else, where 128-row tiles fill a wave: bm 256 if its waves x
+    _W8_BIG_COST are fewer than the 128-row tiles' waves, else 128, and no
+    split; below a wave, bm 128 and the split count (up to 8 and the
+    in-dim's 128-deep steps) that minimises waves x (steps a split + 2), the
+    2 standing for a block's start and epilogue, ties to the fewer. Integer
+    sums are exact, so neither ever changes a bit of the result."""
+    if M <= _W8_SMALL_ROWS or not tma:
+        tiles = -(-M // 64) * -(-N // 64)
+        steps = -(-(-(-K // 16) * 16) // 64)
+        return 64, max(1, min(_W8_MAX_SPLITS, steps, 4 * _SMS // tiles))
+    cols, steps = -(-N // 128), -(-K // 128)
+    tiles = -(-M // 128) * cols
+    if tiles >= _SMS:
+        big = -(-(-(-M // 256) * cols) // _SMS) * _W8_BIG_COST
+        return (256 if big < -(-tiles // _SMS) else 128), 1
+
+    def cost(s: int) -> int:
+        return -(-tiles * s // _SMS) * (-(-steps // s) + 2)
+    return 128, min(range(1, min(_W8_MAX_SPLITS, steps) + 1),
+                    key=lambda s: (cost(s), s))
+
+
+def w8a8_quant_rows(x: torch.Tensor):
+    """The row-quantize pass of w8a8_matmul alone: x [M, in] (bf16 or f32)
+    -> (codes int8 [M, roundup(in, 16)], zero past in; scales f32 [M]). A
+    CUDA x launches the pass of csrc/w8a8_matmul.cu; a CPU x takes
+    _quant_rows."""
+    M, K = x.shape
+    kp = (K + 15) // 16 * 16                  # codes rows padded to 16 B
     if not x.is_cuda:
-        res = w8a8_matmul_plain(x, qs, scales)
+        xq, xs = _quant_rows(x.float())
+        return torch.nn.functional.pad(xq, (0, kp - K)), xs[:, 0]
+    _check(x.dtype in (torch.bfloat16, torch.float32), f"x dtype {x.dtype}")
+    x = x.contiguous()
+    xq = torch.empty((M, kp), dtype=torch.int8, device=x.device)
+    xs = torch.empty((M,), dtype=torch.float32, device=x.device)
+    if M:
+        _kernels.call("w8a8_matmul", "lbt_w8a8_quant_rows",
+                      _kernels.DTYPE_CODES[x.dtype], x, xq, xs, M, K)
+    return xq, xs
+
+
+def w8a8_matmul(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor, *,
+                out: torch.Tensor | None = None,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x [M, in] (bf16 or f32) -> [M, out]: f32, or with
+    out_dtype=torch.bfloat16 the f32 result rounded once to bf16 (as
+    `.to(torch.bfloat16)` of it). A CUDA x launches csrc/w8a8_matmul.cu (a
+    row-quantize pass, then the int8 GEMM as its programmatic dependent,
+    tiles and splits from _w8a8_plan); a CPU x takes the plain version.
+    `out` may name a contiguous [M, out] tensor of out_dtype to write
+    into."""
+    _check(out_dtype in (torch.float32, torch.bfloat16),
+           f"out_dtype {out_dtype}: f32 or bf16")
+    if not x.is_cuda:
+        res = w8a8_matmul_plain(x, qs, scales).to(out_dtype)
         return res if out is None else out.copy_(res)
     M, K = x.shape
     N = qs.shape[-1]
@@ -200,19 +263,31 @@ def w8a8_matmul(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor, *,
     _check(qs.device == dev and qs.data_ptr() % 4 == 0,
            "qs must be a 4-byte aligned tensor on x's device")
     scales = scales.to(dev, torch.float32).contiguous()
-    _check(tuple(scales.shape) == (N,), "scales shape")
+    _check(tuple(scales.shape) == (N,) and scales.data_ptr() % 16 == 0,
+           "scales must be a 16-byte aligned [out] tensor")
     if out is None:
-        out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    _check(out.dtype == torch.float32 and tuple(out.shape) == (M, N)
-           and out.is_contiguous() and out.device == dev, "out")
+        out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    _check(out.dtype == out_dtype and tuple(out.shape) == (M, N)
+           and out.is_contiguous() and out.device == dev
+           and out.data_ptr() % 16 == 0,
+           f"out must be a contiguous, 16-byte aligned {out_dtype} "
+           f"{(M, N)} tensor on x's device")
+    if not M:
+        return out
     kp = (K + 15) // 16 * 16                  # codes rows padded to 16 B
     xq = torch.empty((M, kp), dtype=torch.int8, device=dev)
     xs = torch.empty((M,), dtype=torch.float32, device=dev)
-    if M:
-        _kernels.call("w8a8_matmul", "lbt_w8a8_matmul",
-                      _kernels.DTYPE_CODES[x.dtype], x, qs, scales, xq, xs,
-                      out, M, K, N)
-        w8a8_matmul.launches += 1
+    bm, S = _w8a8_plan(M, N, K, tma=K % 8 == 0 and N % 16 == 0
+                       and qs.data_ptr() % 16 == 0)
+    part = cnt = None
+    if S > 1:
+        part = torch.empty((S, M, N), dtype=torch.int32, device=dev)
+        cnt = _counter_buffer(dev, -(-M // bm) * -(-N // (64 if bm == 64
+                                                            else 128)))
+    _kernels.call("w8a8_matmul", "lbt_w8a8_matmul",
+                  _kernels.DTYPE_CODES[x.dtype], x, qs, scales, xq, xs, part,
+                  cnt, out, int(out_dtype == torch.bfloat16), M, K, N, bm, S)
+    w8a8_matmul.launches += 1
     return out
 
 
@@ -422,15 +497,16 @@ def q_matmul_ref(x: torch.Tensor, w: QTensor) -> torch.Tensor:
 def mm(x: torch.Tensor, w) -> torch.Tensor:
     """Matmul dispatch returning x's dtype, x: [..., in]: a dense tensor ->
     torch.matmul; a w8a8 QTensor -> w8a8_matmul; a grouped QTensor ->
-    q_matmul on a CUDA x (the kernels, which round to x's dtype
-    themselves: the final cast is a no-op there), q_matmul_ref on a CPU
-    x."""
+    q_matmul on a CUDA x, q_matmul_ref on a CPU x. The kernels round a bf16
+    x's result to bf16 themselves, so the final cast is a no-op on the
+    card."""
     if not isinstance(w, QTensor):
         return torch.matmul(x, w.to(x.dtype))
     lead = x.shape[:-1]
     xf = x.reshape(-1, x.shape[-1])
     if w.w8a8:
-        out = w8a8_matmul(xf, w.qs, w.scales)
+        out = w8a8_matmul(xf, w.qs, w.scales, out_dtype=(
+            torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32))
     elif xf.is_cuda:
         out = q_matmul(xf, w, out_dtype=x.dtype)
     else:

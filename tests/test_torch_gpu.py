@@ -285,6 +285,83 @@ def test_w8a8_matmul_matches_plain_exactly(cuda, M, K, N, dtype):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("M", [1, 4, 64, 65, 127, 500, 512, 2048])
+@pytest.mark.parametrize("K", [64, 100, 2048, 5632])
+@pytest.mark.parametrize("N", [4, 100, 2560, 11264])
+def test_w8a8_matmul_bits_over_the_shape_grid(cuda, M, K, N):
+    """Both GEMM kernels (mma.sync, and TMA with wgmma above 64 rows where
+    K is a multiple of 8 and N of 16; splits and tile rows by shape) equal
+    the plain version bit for bit, for bf16 and f32 rows and f32 and bf16
+    outputs, with NaN guards around the output intact."""
+    rng = np.random.default_rng(M * 7 + K + N)
+    qs, sc = _w8(rng, K, N, cuda)
+    for xdt in (torch.bfloat16, torch.float32):
+        x = _x(rng, M, K, cuda, xdt)
+        want = qmm_mod.w8a8_matmul_plain(x, qs, sc)
+        for odt in (torch.float32, torch.bfloat16):
+            buf, out = _guarded((M, N), odt, cuda)
+            got = qmm_mod.w8a8_matmul(x, qs, sc, out=out, out_dtype=odt)
+            torch.cuda.synchronize()
+            assert _guards_intact(buf) and torch.isfinite(got.float()).all()
+            assert torch.equal(got, want.to(odt)), (xdt, odt)
+
+
+def test_w8a8_matmul_is_two_kernels_and_rows_do_not_depend_on_m(cuda):
+    """A call is the quant pass and one GEMM kernel at every width, and rows
+    7..9 have the same bits in a 9-row call (mma.sync) and a 2048-row one
+    (wgmma)."""
+    rng = np.random.default_rng(14)
+    x = _x(rng, 2048, 2048, cuda)
+    qs, sc = _w8(rng, 2048, 2560, cuda)
+    for M in (4, 9, 512, 2048):       # the split tickets allocated first
+        qmm_mod.w8a8_matmul(x[:M], qs, sc, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    for M in (4, 9, 512, 2048):
+        names = _cuda_kernels(lambda m=M: qmm_mod.w8a8_matmul(
+            x[:m], qs, sc, out_dtype=torch.bfloat16))
+        assert len(names) == 2 and "quant_rows" in names[0] \
+            and "w8a8_gemm" in names[1], names
+    full = qmm_mod.w8a8_matmul(x, qs, sc, out_dtype=torch.bfloat16)
+    nine = qmm_mod.w8a8_matmul(x[:9], qs, sc, out_dtype=torch.bfloat16)
+    assert torch.equal(full[7:9], nine[7:9])
+
+
+@pytest.mark.parametrize("M", [4, 512, 2048])
+def test_w8a8_matmul_in_a_cuda_graph(cuda, M):
+    """A call captured in a CUDA graph (the programmatic launch and the
+    split tickets included) and replayed twice gives the eager bits."""
+    rng = np.random.default_rng(15)
+    x = _x(rng, M, 2048, cuda)
+    qs, sc = _w8(rng, 2048, 2560, cuda)
+    eager = qmm_mod.w8a8_matmul(x, qs, sc, out_dtype=torch.bfloat16)
+    out = torch.empty_like(eager)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qmm_mod.w8a8_matmul(x, qs, sc, out=out, out_dtype=torch.bfloat16)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        qmm_mod.w8a8_matmul(x, qs, sc, out=out, out_dtype=torch.bfloat16)
+    for _ in range(2):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_w8a8_quant_rows_matches_plain(cuda, dtype):
+    """The row-quantize pass alone: codes (zero-padded) and scales equal
+    the plain version's, rows kept in registers, re-read and scalar."""
+    rng = np.random.default_rng(16)
+    for M, K in ((9, 100), (2048, 2048), (64, 5632), (3, 8192)):
+        x = _x(rng, M, K, cuda, dtype)
+        xq, xs = qmm_mod.w8a8_quant_rows(x)
+        pq, ps = qmm_mod.w8a8_quant_rows(x.cpu())
+        assert torch.equal(xq.cpu(), pq) and torch.equal(xs.cpu(), ps), (M, K)
+
+
 @pytest.mark.parametrize("R", [1, 4, 64])
 @pytest.mark.parametrize("O", [96, 512])
 @pytest.mark.parametrize("nw_dtype", [torch.bfloat16, torch.float32])
