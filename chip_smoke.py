@@ -32,8 +32,10 @@ Phases (any failure raises and exits non-zero; nothing falls back):
  5. end to end, bf16 path: a synthetic TinyLlama-1.1B-width GGUF (random
     F16 weights from --seed, a 32000-piece SPM vocab, a chatml template)
     is served by the port's own HTTP server at -np 4 -c 8192 -ub 512
-    --decode-chain 16. The launch counts are set to 0 just before the
-    requests and read just after; both attention kernels must have run.
+    --decode-chain 16, CUDA graphs on (the default). The launch counts are
+    set to 0 just before the requests and read just after (a graph replay
+    adds its kernels' launches); both attention kernels must have run and
+    the server must have captured graphs.
     Then, in process: the card's f32 logits against an f32 CPU reference
     on a small input, and greedy K=1 and K=16 decode chains identical for
     the bf16 and the int8 cache;
@@ -59,8 +61,18 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     run, the w8a8 kernels not. In process: the card's logits against the
     CPU path (q_matmul_ref) over the same QTensors (cosine >= 0.99) and
     greedy K=1 and K=16 identical for both caches;
- 6. print a `kernels` line (seven kernels), an `e2e` line (three paths),
-    the card line, and as the last line {"ok": true, "device": {...}}.
+ 5c/5wc/5qc. after each path, in process: the same wave on two fresh
+    engines of the model, with CUDA graphs (the default: each decode chain
+    and prefill pass replays one captured graph) and with
+    EngineConfig.cuda_graphs=False, each behind the same HTTP routes and
+    after a warm-up wave of other prompts: greedy texts and the seeded
+    text identical in both modes and to the main path's; TTFT p50,
+    prefill and decode tok/s, graph count and pool memory of both; the
+    host's microseconds per kernel-entry C call, per torch op, per eager
+    decode step and per replay of a 16-step chain;
+ 6. print a `kernels` line (seven kernels; launches count graph replays),
+    an `e2e` line (three paths), the card line, and as the last line
+    {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without CUDA,
 or without the llama_box_tpu_torch package beside it, it exits non-zero
@@ -70,6 +82,7 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -999,28 +1012,34 @@ def concurrently(fns):
 
 def greedy_run(engine_cls, ecfg, cfg, params, tok, prompts, max_tokens,
                dev):
-    from llama_box_tpu_torch.sampling import SamplerParams
-    from llama_box_tpu_torch.server.task import CompletionsTask
     eng = engine_cls(cfg, params, tok, ecfg, device=str(dev))
     eng.start()
     try:
-        tasks = [CompletionsTask(p, SamplerParams(temp=0.0, ignore_eos=True),
-                                 tokenizer=tok, max_tokens=max_tokens)
-                 for p in prompts]
-        for t in tasks:
-            eng.submit(t)
-        out = []
-        for t in tasks:
-            while True:
-                kind, payload = t.result_q.get(timeout=600)
-                if kind == "error":
-                    raise payload
-                if kind == "final":
-                    out.append(list(payload.generated))
-                    break
-        return out
+        return greedy_on(eng, tok, prompts, max_tokens)
     finally:
         eng.stop()
+
+
+def greedy_on(eng, tok, prompts, max_tokens):
+    """The generated tokens of greedy requests for `prompts` (token lists)
+    on a started engine."""
+    from llama_box_tpu_torch.sampling import SamplerParams
+    from llama_box_tpu_torch.server.task import CompletionsTask
+    tasks = [CompletionsTask(p, SamplerParams(temp=0.0, ignore_eos=True),
+                             tokenizer=tok, max_tokens=max_tokens)
+             for p in prompts]
+    for t in tasks:
+        eng.submit(t)
+    out = []
+    for t in tasks:
+        while True:
+            kind, payload = t.result_q.get(timeout=600)
+            if kind == "error":
+                raise payload
+            if kind == "final":
+                out.append(list(payload.generated))
+                break
+    return out
 
 
 def small_forward(params, cfg, device, kv_dtype):
@@ -1198,7 +1217,8 @@ def e2e_phase(dev, seed, tmp, profile=False, mode="bf16"):
     log(f"  server up at {url} in {time.perf_counter() - t0:.1f} s "
         f"(params on {engine.device}, kv {engine.kv.k.dtype})")
     try:
-        return _serve(engine, url, seed, dev, profile, mode)
+        return _serve(engine, srv.RequestHandlerClass.routes, url, seed,
+                      dev, profile, mode)
     finally:
         srv.shutdown()
         srv.server_close()
@@ -1206,30 +1226,18 @@ def e2e_phase(dev, seed, tmp, profile=False, mode="bf16"):
         thread.join(timeout=30)
 
 
-def _serve(engine, url, seed, dev, profile, mode):
-    from llama_box_tpu_torch.server.engine import Engine, EngineConfig
-    from llama_box_tpu_torch.server.metrics import Metrics
-    counters = kernel_counters()
-    tok = engine.tokenizer
-    rng = np.random.default_rng(seed + 1)
-    texts = [make_prompt(tok, rng, 500) for _ in range(3)]
-
+def run_wave(url, texts, seed):
+    """The traffic of every path: 4 concurrent greedy chats of texts 0, 1,
+    2, 0 (64 tokens each), then an SSE stream of text 1 beside a sampled
+    request of text 2 (seeded). Checks the responses; returns the greedy
+    contents, the streamed and the sampled text, the four bodies and the
+    first wave's wall seconds."""
     def chat(text, **kw):
         body = dict(messages=[{"role": "user", "content": text}],
                     max_tokens=64, temperature=0, ignore_eos=True)
         body.update(kw)
         return http(url + "/v1/chat/completions", body)
 
-    # warm-up (cuBLAS handles, the kernel libraries) through the text
-    # route with raw token ids: it shares no prefix with the chat prompts
-    # (they start with BOS), so no request below reuses its cache rows
-    st, _, _ = http(url + "/v1/completions", dict(
-        prompt=list(range(300, 332)), max_tokens=8, temperature=0))
-    assert st == 200
-    # -- the main path: counts from 0 -----------------------------------
-    engine.metrics = Metrics()
-    for fn in counters.values():
-        fn.launches = 0
     t0 = time.perf_counter()
     wave1 = concurrently([lambda t=t: chat(t) for t in
                           (texts[0], texts[1], texts[2], texts[0])])
@@ -1238,15 +1246,13 @@ def _serve(engine, url, seed, dev, profile, mode):
         lambda: chat(texts[1], stream=True,
                      stream_options={"include_usage": True}),
         lambda: chat(texts[2], temperature=0.8, seed=seed, ignore_eos=False)])
-    launches = {k: fn.launches for k, fn in counters.items()}
-    m = engine.metrics.snapshot()
-    # -------------------------------------------------------------------
     bodies = []
     for st, text, ms in wave1:
         assert st == 200, st
         b = json.loads(text)
         assert b["usage"]["completion_tokens"] == 64, b["usage"]
         assert b["choices"][0]["message"]["content"], b
+        b["client_ms"] = ms
         bodies.append(b)
     c = [b["choices"][0]["message"]["content"] for b in bodies]
     assert c[3] == c[0], "a repeated greedy request gave another text"
@@ -1260,27 +1266,66 @@ def _serve(engine, url, seed, dev, profile, mode):
     st, text, _ = wave2[1]
     sampled = json.loads(text)
     assert st == 200 and sampled["usage"]["completion_tokens"] > 0
+    log(f"  wave 1: 4 greedy chats, prompt tokens "
+        f"{[b['usage']['prompt_tokens'] for b in bodies]}, 64 tokens each, "
+        f"{t_wave1:.2f} s wall; repeated request identical")
+    log(f"  wave 2: SSE stream ({len(events)} events, [DONE]) + sampled "
+        f"request ({sampled['usage']['completion_tokens']} tokens)")
+    return dict(greedy=c, streamed=streamed,
+                sampled=sampled["choices"][0]["message"]["content"],
+                bodies=bodies, wall_s=t_wave1)
+
+
+def wave_metrics(w, m) -> dict:
+    """End-to-end numbers of a wave: TTFT p50 of the four greedy chats,
+    prompt and generated tokens over the engine's prefill and decode
+    wall time."""
+    ttft = [b["usage"]["time_to_first_token_ms"] for b in w["bodies"]]
+    return dict(
+        ttft_p50_ms=statistics.median(ttft), ttft_ms=ttft,
+        prefill_tok_s=m["n_prefill_total"] / m["t_prefill_total_ms"] * 1e3,
+        decode_tok_s=m["n_decode_total"] / m["t_decode_total_ms"] * 1e3,
+        prefill_tokens=m["n_prefill_total"],
+        decode_tokens=m["n_decode_total"],
+        client_ms=[round(b["client_ms"], 1) for b in w["bodies"]],
+        wave1_wall_s=w["wall_s"])
+
+
+def _serve(engine, app, url, seed, dev, profile, mode):
+    from llama_box_tpu_torch.server.engine import Engine, EngineConfig
+    from llama_box_tpu_torch.server.metrics import Metrics
+    counters = kernel_counters()
+    tok = engine.tokenizer
+    rng = np.random.default_rng(seed + 1)
+    texts = [make_prompt(tok, rng, 500) for _ in range(3)]
+
+    # warm-up (cuBLAS handles, the kernel libraries) through the text
+    # route with raw token ids: it shares no prefix with the chat prompts
+    # (they start with BOS), so no request below reuses its cache rows
+    st, _, _ = http(url + "/v1/completions", dict(
+        prompt=list(range(300, 332)), max_tokens=8, temperature=0))
+    assert st == 200
+    # -- the main path: counts from 0 -----------------------------------
+    engine.metrics = Metrics()
+    for fn in counters.values():
+        fn.launches = 0
+    wave = run_wave(url, texts, seed)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    m = engine.metrics.snapshot()
+    # -------------------------------------------------------------------
     path_kernels = PATHS[mode][4]
     for k, n in launches.items():
         if k in path_kernels:
             assert n > 0, f"{k} was never launched on the main path"
         else:
             assert n == 0, f"{k} launched on the {mode} path"
-    log(f"  wave 1: 4 greedy chats, prompt tokens "
-        f"{[b['usage']['prompt_tokens'] for b in bodies]}, 64 tokens each, "
-        f"{t_wave1:.2f} s wall; repeated request identical")
-    log(f"  wave 2: SSE stream ({len(events)} events, [DONE]) + sampled "
-        f"request ({sampled['usage']['completion_tokens']} tokens)")
+    assert engine.graphs.n_graphs > 0, "the server replayed no CUDA graph"
     log(f"  launches on the main path: {launches}")
-    ttft = [b["usage"]["time_to_first_token_ms"] for b in bodies]
-    e2e = dict(
-        ttft_p50_ms=statistics.median(ttft), ttft_ms=ttft,
-        prefill_tok_s=m["n_prefill_total"] / m["t_prefill_total_ms"] * 1e3,
-        decode_tok_s=m["n_decode_total"] / m["t_decode_total_ms"] * 1e3,
-        prefill_tokens=m["n_prefill_total"],
-        decode_tokens=m["n_decode_total"],
-        client_ms=[round(x[2], 1) for x in wave1],
-        wave1_wall_s=t_wave1)
+    log(f"  CUDA graphs: {engine.graphs.n_graphs} captured, pool "
+        f"{engine.graphs.pool_bytes / 2**20:.1f} MiB")
+    e2e = wave_metrics(wave, m)
+    e2e.update(graphs=engine.graphs.n_graphs,
+               graph_pool_mib=engine.graphs.pool_bytes / 2**20)
 
     log(f"== phase {PATHS[mode][0]}b: in process")
     if mode == "w8a8":
@@ -1303,10 +1348,166 @@ def _serve(engine, url, seed, dev, profile, mode):
         log(f"  greedy K=1 vs K={CHAIN}, {kv} cache: "
             f"{'identical' if same else 'DIFFERENT'}")
         assert same, f"K=1 and K={CHAIN} greedy outputs differ ({kv} cache)"
+    e2e["modes"] = modes_phase(engine, app, seed, texts, wave, mode)
     if profile:
-        e2e["profile"] = profile_phase(Engine, EngineConfig, engine, tok,
-                                       prompts, dev, mode)
+        e2e["profile"] = {
+            label: profile_phase(Engine, EngineConfig, engine, tok, prompts,
+                                 dev, mode, graphs)
+            for label, graphs in (("graphs", True), ("eager", False))}
     return launches, e2e
+
+
+def modes_phase(engine, app, seed, texts, main_wave, mode):
+    """The same wave on two fresh engines of the same model, graphs on
+    (the default) and cuda_graphs=False, each served in process by the
+    same HTTP routes after two warm-up waves of other prompts of the same
+    lengths (a key's first use runs eagerly and its second captures, so
+    the measured wave replays graphs): the
+    greedy texts and the seeded text must be identical in both modes and
+    to the main path's. Then the host's cost: a kernel entry's C call, a
+    torch op, an eager decode step and a graph replay of a 16-step chain."""
+    import copy
+
+    from llama_box_tpu_torch.server.engine import Engine
+    from llama_box_tpu_torch.server.metrics import Metrics
+    log(f"== phase {PATHS[mode][0]}c: graphs on and off, same wave, in "
+        "process")
+    rng = np.random.default_rng(seed + 7)
+    warm = [[make_prompt(engine.tokenizer, rng, 500) for _ in range(3)]
+            for _ in range(2)]
+    res, engines = {}, {}
+    try:
+        for label, graphs in (("graphs", True), ("eager", False)):
+            ecfg = dataclasses.replace(engine.ecfg, cuda_graphs=graphs)
+            eng = engines[label] = Engine(engine.cfg, engine.params,
+                                          engine.tokenizer, ecfg,
+                                          device=str(engine.device))
+            eng.start()
+            app2 = copy.copy(app)
+            app2.engine = eng
+            srv = app2.make_server("127.0.0.1", 0)
+            thread = threading.Thread(target=srv.serve_forever, daemon=True)
+            thread.start()
+            url = f"http://127.0.0.1:{srv.server_address[1]}"
+            try:
+                for i, w_texts in enumerate(warm):
+                    run_wave(url, w_texts, seed + 1 + i)
+                n0 = eng.graphs.n_graphs
+                eng.metrics = Metrics()
+                w = run_wave(url, texts, seed)
+            finally:
+                srv.shutdown()
+                srv.server_close()
+                thread.join(timeout=30)
+            r = res[label] = wave_metrics(w, eng.metrics.snapshot())
+            r.update(graphs=eng.graphs.n_graphs,
+                     captured_in_wave=eng.graphs.n_graphs - n0,
+                     graph_pool_mib=eng.graphs.pool_bytes / 2**20)
+            for k in ("greedy", "streamed", "sampled"):
+                assert w[k] == main_wave[k], f"{label}: {k} text differs " \
+                    "from the main path's"
+            log(f"  {label:6s}: TTFT p50 {r['ttft_p50_ms']:.2f} ms, prefill "
+                f"{r['prefill_tok_s']:.1f} tok/s, decode "
+                f"{r['decode_tok_s']:.1f} tok/s, {r['graphs']} graphs "
+                f"({r['captured_in_wave']} captured in the measured wave), "
+                f"pool {r['graph_pool_mib']:.1f} MiB")
+        assert res["graphs"]["graphs"] > 0 and res["eager"]["graphs"] == 0
+        log("  greedy texts and the seeded text identical with graphs on "
+            "and off")
+        res["host"] = host_costs(engines["eager"], engines["graphs"])
+    finally:
+        for eng in engines.values():
+            eng.stop()
+    return res
+
+
+_CAPTURE_FAILS = """
+import torch
+from llama_box_tpu_torch.server.cuda_graph import GraphRunner
+runner = GraphRunner(torch.device("cuda"))
+x = torch.ones(4, device="cuda")
+def fn():
+    y = x * 2
+    torch.cuda.synchronize()    # no capture can take a device synchronise
+    return y
+assert torch.equal(runner.run("k", fn), x * 2)     # the eager first use
+try:
+    runner.run("k", fn)
+except RuntimeError as exc:
+    assert runner.n_graphs == 0
+    print("raised:", str(exc).splitlines()[0][:120])
+else:
+    raise SystemExit("a failed capture did not raise")
+"""
+
+
+def capture_failure_check() -> None:
+    """A capture that fails raises out of the graph runner (no eager
+    fallback), in a process of its own (a failed capture may leave the
+    context unusable)."""
+    r = subprocess.run([sys.executable, "-c", _CAPTURE_FAILS],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    log(f"  capture failure: {r.stdout.strip()} (rc {r.returncode})")
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+def host_costs(eager, graphs) -> dict:
+    """Host microseconds (the card idle, no sync inside the timed loop):
+    one C call of each kernel entry a decode step makes (its recorded
+    arguments, ctypes conversion included), one small torch op, one eager
+    decode step of 4 slots (the whole enqueue) and one replay of the
+    16-step chain's graph. Each the median of 5 runs of 50 calls (steps:
+    of 5)."""
+    from llama_box_tpu_torch.ops import _kernels
+    S = len(eager.slots)
+
+    def stage(eng):
+        h = eng._dec_in.host()
+        h[:S], h[S:2 * S], h[2 * S:] = 400, 600, 1
+        eng._dec_in.push()
+
+    def per_call(fn, n=50):
+        out = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            out.append((time.perf_counter() - t0) / n * 1e6)
+            torch.cuda.synchronize()
+        return statistics.median(out)
+
+    stage(eager)
+    calls, orig = {}, _kernels.call
+
+    def spy(lib, fn, *args):
+        calls.setdefault(fn, (lib, fn, args))
+        return orig(lib, fn, *args)
+    _kernels.call = spy
+    try:
+        eager._decode_program(1, samp_extras=False, samp_kcap=64)
+    finally:
+        _kernels.call = orig
+    torch.cuda.synchronize()
+    out = {f"call_us.{fn}": per_call(lambda a=a: orig(*a[:2], *a[2]))
+           for fn, a in calls.items()}
+    x = torch.ones(64, device=eager.device)
+    out["torch_op_us"] = per_call(lambda: x.add(1))
+    out["eager_step_ms"] = per_call(lambda: eager._decode_program(
+        1, samp_extras=False, samp_kcap=64), n=5) / 1e3
+    stage(graphs)
+    key = ("decode", CHAIN, False, 64)
+    for _ in range(2):
+        graphs.graphs.run(key, lambda: graphs._decode_program(
+            CHAIN, samp_extras=False, samp_kcap=64))
+    n0 = graphs.graphs.n_graphs
+    out["replay_chain16_us"] = per_call(lambda: graphs.graphs.run(
+        key, lambda: graphs._decode_program(CHAIN, samp_extras=False,
+                                            samp_kcap=64)), n=5)
+    assert graphs.graphs.n_graphs == n0
+    log("  host: " + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    return out
 
 
 # the port's own kernels in a profile (names as nvcc gives them)
@@ -1314,32 +1515,53 @@ PORT_KERNELS = ("flash_prefill", "flash_decode", "grouped_gemm", "w8a8_gemm",
                 "quant_rows", "norm_qmm", "tail_phase")
 
 
-def profile_phase(Engine, EngineConfig, engine, tok, prompts, dev, label):
+def profile_phase(Engine, EngineConfig, engine, tok, prompts, dev, label,
+                  graphs=True):
     """--profile: torch.profiler over 4 greedy requests (one batched
-    prefill, then 48 tokens each in chains of 16), bf16 cache: device
-    time by kernel and the device's busy share of the wall time; then over
-    the same requests with one token each, the prefill pass alone (its
-    device ms by kernel; decode is the first profile less it)."""
+    prefill, then 48 tokens each in chains of 16), bf16 cache, graphs on
+    or off: device time by kernel and the device's busy share of the wall
+    time; then over 4 other prompts of the same lengths with one token
+    each, the prefill pass alone (its device ms by kernel; decode is the
+    first profile less it). One engine serves two warm-ups of the same
+    shapes first (the prompts reversed, then rotated by two: no shared
+    prefix), so every graph is captured before the profiles."""
     from torch.profiler import ProfilerActivity, profile as tprofile
+    mode = "graphs" if graphs else "eager"
     log("== profile: 4 x (500-token prompt + 48 tokens), bf16 cache, K=16, "
-        f"{label} weights")
+        f"{label} weights, {mode}")
     ecfg = EngineConfig(n_slots=N_SLOTS, n_ctx=N_CTX, n_ubatch=N_UBATCH,
-                        kv_dtype="bfloat16", decode_chain=CHAIN)
-    greedy_run(Engine, ecfg, engine.cfg, engine.params, tok, prompts, 8, dev)
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with tprofile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        greedy_run(Engine, ecfg, engine.cfg, engine.params, tok, prompts, 48,
-                   dev)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    ka = prof.key_averages()
+                        kv_dtype="bfloat16", decode_chain=CHAIN,
+                        cuda_graphs=graphs)
+    eng = Engine(engine.cfg, engine.params, tok, ecfg, device=str(dev))
+    eng.start()
+    try:
+        for warm in ([p[::-1] for p in prompts],
+                     [p[2:] + p[:2] for p in prompts]):
+            greedy_on(eng, tok, warm, 48)
+            greedy_on(eng, tok, [p[3:] + p[:3] for p in warm], 1)
+        n0 = eng.graphs.n_graphs
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with tprofile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            greedy_on(eng, tok, prompts, 48)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        ka = prof.key_averages()
+        # the prefill pass apart: four other prompts (one token each: one
+        # batched prefill pass, no decode step); decode is the rest
+        with tprofile(activities=acts) as prof2:
+            greedy_on(eng, tok, [p[1:] + p[:1] for p in prompts], 1)
+            torch.cuda.synchronize()
+        captured = eng.graphs.n_graphs - n0
+    finally:
+        eng.stop()
     dev_us = sum(e.self_device_time_total for e in ka)
     n_launch = sum(e.count for e in ka if e.self_device_time_total > 0)
     per_layer = n_launch / (48 * engine.cfg.n_layers)
     log(f"  wall {wall_ms:.1f} ms, device busy {dev_us / 1e3:.1f} ms "
         f"({dev_us / 1e3 / wall_ms:.3f} of wall), ops with device time: "
-        f"{n_launch} (about {per_layer:.1f} per layer per decode step)")
+        f"{n_launch} (about {per_layer:.1f} per layer per decode step); "
+        f"graphs captured inside the profiles: {captured}")
     rows = sorted(ka, key=lambda e: -e.self_device_time_total)[:20]
     for e in rows:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:7d}x  "
@@ -1349,14 +1571,8 @@ def profile_phase(Engine, EngineConfig, engine, tok, prompts, dev, label):
             and any(t in e.key for t in PORT_KERNELS)}
     for k, (ms, n) in sorted(ours.items(), key=lambda kv: -kv[1][0]):
         log(f"  port kernel {ms:9.2f} ms  {n:7d}x  {k[:90]}")
-    # the prefill pass apart: the same four prompts with one token each (one
-    # batched prefill pass, no decode step); decode is the rest
-    with tprofile(activities=acts) as prof:
-        greedy_run(Engine, ecfg, engine.cfg, engine.params, tok, prompts, 1,
-                   dev)
-        torch.cuda.synchronize()
     pre = sorted(((e.key[:100], e.self_device_time_total / 1e3, e.count)
-                  for e in prof.key_averages()
+                  for e in prof2.key_averages()
                   if e.self_device_time_total > 0), key=lambda r: -r[1])
     pre_ms = sum(r[1] for r in pre)
     log(f"  prefill pass alone (max_tokens 1): device {pre_ms:.2f} ms, "
@@ -1366,7 +1582,7 @@ def profile_phase(Engine, EngineConfig, engine, tok, prompts, dev, label):
         log(f"  prefill {ms:9.2f} ms  {n:7d}x  {k[:90]}")
     return dict(wall_ms=wall_ms, device_busy_ms=dev_us / 1e3,
                 busy_share=dev_us / 1e3 / wall_ms, device_ops=n_launch,
-                ops_per_layer_step=per_layer,
+                ops_per_layer_step=per_layer, captured_in_profile=captured,
                 top=[(e.key[:100], e.self_device_time_total / 1e3, e.count)
                      for e in rows], port_kernels=ours,
                 prefill_device_ms=pre_ms, prefill_ops=sum(r[2] for r in pre),
@@ -1380,7 +1596,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace 4 greedy requests with torch.profiler")
+                    help="also trace 4 greedy requests with torch.profiler, "
+                    "graphs on and off")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card (torch.cuda.is_available() "
@@ -1417,6 +1634,7 @@ def main(argv=None) -> int:
     errs.update(w_errs)
     errs.update(q_errs)
     launches, e2e = {}, {}
+    capture_failure_check()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         for mode in PATHS:
             launches[mode], e2e[mode] = e2e_phase(dev, args.seed, tmp,
@@ -1478,6 +1696,10 @@ def main(argv=None) -> int:
     for k in ("ttft_p50_ms", "prefill_tok_s", "decode_tok_s"):
         log(f"  {k:<14s} " + "   ".join(f"{m} {e2e[m][k]:10.2f}"
                                         for m in PATHS))
+        for label in ("graphs", "eager"):
+            log(f"  {k:<14s} " + "   ".join(
+                f"{m} {e2e[m]['modes'][label][k]:10.2f}" for m in PATHS)
+                + f"   ({label}, phase c)")
     log("e2e " + json.dumps(e2e))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

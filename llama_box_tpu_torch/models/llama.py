@@ -2,19 +2,24 @@
 llama_box_tpu/models/llama.py), with bf16/f32 weights or QTensors (w8a8
 or grouped, ops/qmatmul).
 
-The JAX package keeps the KV cache read-only through a lax.scan over the
-layers and writes every layer's new rows in one scatter afterwards (a TPU
-workaround: carrying an updated cache through the scan copied it per
-layer). Here the layers are a Python loop and each layer writes its rows
-into its own cache slice IN PLACE, right after its attention kernel has
-read that slice. The kernels still see exactly the JAX semantics:
+As in the JAX package, the KV cache stays read-only through a forward
+(a prefill pass, or a whole K-step decode chain) and every layer's new
+rows reach it in ONE scatter afterwards; the kernels see the JAX
+semantics:
 - prefill: the cache below pos0, plus the chunk's rows (rows operand);
 - decode: the cache below the chain start cpos-(nv-1), plus the chain's
   rows 0..nv-1 with the current token's row last.
-Rows never reach the cache for padded or inactive rows: the write indices
-are built on the host from the rows' known positions (JAX dropped writes
-at the position >= C sentinel; an out-of-range index on CUDA is a device
-fault, so the port never forms one).
+Every operand of a forward is computed on the device from fixed-shape
+buffers (a prefill's tokens [S, T], pos_base [S], n_valid [S]; a chain's
+token0, pos0 and active [S]), so a forward replays as one CUDA graph. The
+scatter keeps a fixed shape too: all S x T (prefill) or S x K (decode)
+rows are written, row t of slot b to position (start + t) mod C, and a
+row that is padding, inactive or past the capacity writes back the value
+it overwrites (gathered first). A slot's positions are distinct when
+T <= C, so no index repeats, the result is deterministic and an idle
+slot's prefix-cache rows keep their bits. (JAX dropped writes at the
+position >= C sentinel; an out-of-range index on CUDA is a device fault,
+so the port never forms one.)
 
 bf16 rounding points follow the JAX model: attention computes in `adt`
 (f32 for an f32 cache, else bf16); rows are stored in the cache dtype
@@ -42,9 +47,9 @@ from __future__ import annotations
 import os
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
+from ..ops import _kernels
 from ..ops.flash_decode import flash_decode
 from ..ops.flash_prefill import flash_prefill_batched
 from ..ops.fused_decode import (_MAX_ROWS, _pick_tile, fused_layer_tail,
@@ -278,23 +283,6 @@ def _layer_tail(x, lp, cfg: ModelConfig, attn):
     return x + _ffn_block(h, lp, cfg, x.dtype)
 
 
-class RowWrites(NamedTuple):
-    """Where a forward's new K/V rows go: rows[b_idx, t_idx] land at cache
-    [b_idx, p_idx] (device int64 index vectors, valid rows only)."""
-    b_idx: torch.Tensor
-    t_idx: torch.Tensor
-    p_idx: torch.Tensor
-
-
-def row_writes(positions: np.ndarray, capacity: int, device) -> RowWrites:
-    """Index vectors of the rows whose position lies inside the cache
-    (host positions [B, T]; >= capacity marks padding / inactive rows)."""
-    b, t = np.nonzero(positions < capacity)
-    p = positions[b, t]
-    as_t = lambda a: torch.from_numpy(a.astype(np.int64)).to(device)  # noqa: E731
-    return RowWrites(as_t(b), as_t(t), as_t(p))
-
-
 class ChainRows(NamedTuple):
     """Rows of the current K-step decode chain as the attention reads them
     ([L, B, K, Hkv, D] in adt): row j is step j's K/V, in the cache dtype's
@@ -312,8 +300,41 @@ def init_chain_rows(cfg: ModelConfig, kv: KVCache, n_steps: int) -> ChainRows:
                      torch.zeros(shape, dtype=dt, device=kv.k.device))
 
 
+class RowWrites(NamedTuple):
+    """Where a forward's new rows go: row (i, t) of slot b[i, t] lands at
+    cache position p[i, t] if valid[i, t]; else the cache keeps its value
+    there. [N, M] int64/bool device tensors whose (b, p) pairs are
+    distinct."""
+    b: torch.Tensor
+    p: torch.Tensor
+    valid: torch.Tensor
+
+
+def _cache_rows(kv: KVCache, k, v):
+    """A layer's new rows as the cache stores them: (k, v) in its dtype, or
+    int8 codes with their bf16 scales (k, v, k_scale, v_scale)."""
+    if kv.quantized:
+        kq, ksr = _kv_quantize(k.float())
+        vq, vsr = _kv_quantize(v.float())
+        return kq, vq, ksr, vsr
+    return k.to(kv.k.dtype), v.to(kv.v.dtype)
+
+
+def write_rows(kv: KVCache, fields: list, writes: RowWrites) -> None:
+    """The one scatter of a forward: fields[f] holds field f of every
+    layer's _cache_rows, [L, *writes.b.shape, Hkv(, D)]; each goes in one
+    gather, select and put."""
+    caches = (kv.k, kv.v, kv.k_scale, kv.v_scale) if kv.quantized \
+        else (kv.k, kv.v)
+    for cache, new in zip(caches, fields):
+        old = cache[:, writes.b, writes.p]
+        keep = writes.valid.view(1, *writes.valid.shape,
+                                 *(1,) * (new.dim() - 3))
+        cache[:, writes.b, writes.p] = torch.where(keep, new, old)
+
+
 def _attn_layer(x, lp, li: int, kv: KVCache, cfg: ModelConfig, cos, sin,
-                writes: RowWrites, flash_meta=None, chain=None, step=0,
+                rows: list, win, flash_meta=None, chain=None, step=0,
                 decode_meta=None):
     """x [B, T, E] -> x after attention and the layer tail. cos/sin are the
     tables gathered at the rows' positions ([B, T, rot/2])."""
@@ -336,17 +357,18 @@ def _attn_layer(x, lp, li: int, kv: KVCache, cfg: ModelConfig, cos, sin,
     q = apply_rope(q.reshape(B, T, H, D), None, cos, sin, cfg.rope_mode)
     k = apply_rope(k.reshape(B, T, Hkv, D), None, cos, sin, cfg.rope_mode)
     v = v.reshape(B, T, Hkv, D)
-    return _attn_deferred(x, lp, li, kv, cfg, q, k, v, writes,
+    return _attn_deferred(x, lp, li, kv, cfg, q, k, v, rows, win,
                           flash_meta=flash_meta, chain=chain, step=step,
                           decode_meta=decode_meta)
 
 
 def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
-                   writes: RowWrites, flash_meta=None, chain=None, step=0,
+                   rows: list, win, flash_meta=None, chain=None, step=0,
                    decode_meta=None):
     """Attention against the cache as it stood before this forward plus
-    the new rows (through the flash kernels), then the rows' in-place
-    write into layer li of the cache, then the layer tail."""
+    the new rows (through the flash kernels), then the layer tail. The
+    layer's rows, as the cache stores them, are appended to `rows` for the
+    forward's one scatter (write_rows)."""
     B, T = q.shape[:2]
     H, Hkv, D = q.shape[2], k.shape[2], q.shape[-1]
     G = H // Hkv
@@ -354,16 +376,14 @@ def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
     kc, vc = kv.k[li], kv.v[li]
     ks = kv.k_scale[li] if kv.quantized else None
     vs = kv.v_scale[li] if kv.quantized else None
-    win = decode_meta[1] if decode_meta is not None else flash_meta[1]
-    if kv.quantized:
-        kq, ksr = _kv_quantize(k.float())
-        vq, vsr = _kv_quantize(v.float())
+    stored = _cache_rows(kv, k, v)
+    rows.append(stored)
     scale = cfg.attn_scale or None
 
     if flash_meta is not None:
         qg = q.to(adt).reshape(B, T, Hkv, G, D).permute(0, 2, 3, 1, 4)
         o = flash_prefill_batched(qg.contiguous(), kc, vc, k.to(adt),
-                                  v.to(adt), flash_meta[0], win,
+                                  v.to(adt), flash_meta, win,
                                   k_scale=ks, v_scale=vs, scale=scale)
         attn = o.permute(0, 3, 1, 2, 4).reshape(B, T, H * D)
     else:
@@ -372,36 +392,29 @@ def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
         kr[:, step] = k[:, 0].to(adt)
         vr[:, step] = v[:, 0].to(adt)
         qd = q.to(adt).reshape(B, Hkv, G, D).contiguous()
-        o = flash_decode(qd, kc, vc, kr, vr, decode_meta[0], win,
+        o = flash_decode(qd, kc, vc, kr, vr, decode_meta, win,
                          k_scale=ks, v_scale=vs, scale=scale)
         attn = o.to(adt).reshape(B, 1, H * D)
         if kv.quantized:
             # later steps read this row as the cache holds it
+            kq, vq, ksr, vsr = stored
             kr[:, step] = (kq[:, 0].float() * ksr[:, 0].float()[..., None]
                            ).to(adt)
             vr[:, step] = (vq[:, 0].float() * vsr[:, 0].float()[..., None]
                            ).to(adt)
-
-    bi, ti, pi = writes
-    if kv.quantized:
-        kc[bi, pi] = kq[bi, ti]
-        vc[bi, pi] = vq[bi, ti]
-        ks[bi, pi] = ksr[bi, ti]
-        vs[bi, pi] = vsr[bi, ti]
-    else:
-        kc[bi, pi] = k[bi, ti].to(kc.dtype)
-        vc[bi, pi] = v[bi, ti].to(vc.dtype)
     return _layer_tail(x, lp, cfg, attn)
 
 
 def _run_stack(params, cfg: ModelConfig, x, kv: KVCache, cos, sin,
-               writes: RowWrites, flash_meta=None, chain=None, step=0,
+               rows: list, flash_meta=None, chain=None, step=0,
                decode_meta=None):
-    """The layer loop (the JAX package's lax.scan)."""
+    """The layer loop (the JAX package's lax.scan); appends each layer's
+    rows to `rows`."""
+    win = _no_window(x.device)
     layers = {k: v.unbind(0) for k, v in params["layers"].items()}
     for li in range(cfg.n_layers):
         lp = {k: v[li] for k, v in layers.items()}
-        x = _attn_layer(x, lp, li, kv, cfg, cos, sin, writes,
+        x = _attn_layer(x, lp, li, kv, cfg, cos, sin, rows, win,
                         flash_meta=flash_meta, chain=chain, step=step,
                         decode_meta=decode_meta)
     return x
@@ -436,59 +449,78 @@ def _rope_at(cos, sin, positions: torch.Tensor):
     return cos[p], sin[p]
 
 
+# one all-zero (swa_window, chunked_window) operand per device: the dense
+# llama path has no window (a constant, made at its first, eager, use)
+_NO_WINDOW: dict[torch.device, torch.Tensor] = {}
+
+
 def _no_window(device) -> torch.Tensor:
-    """The per-layer (swa_window, chunked_window) operand: all-zero on the
-    dense llama path."""
-    return torch.zeros(2, dtype=torch.int32, device=device)
+    """The per-layer window operand of the attention kernels: all-zero on
+    the dense llama path, one buffer per device."""
+    dev = torch.device(device)
+    win = _NO_WINDOW.get(dev)
+    if win is None:
+        _kernels.no_capture(dev, "the window operand")
+        win = _NO_WINDOW[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return win
 
 
-class DecodeStep(NamedTuple):
-    """Device operands of one decode step: positions [B, 1] (>= C marks an
-    inactive slot), the flash decode meta [B, 2] (cpos, nv) and the rows'
-    cache writes."""
-    pos: torch.Tensor
+class DecodeOperands(NamedTuple):
+    """Device operands of a K-step chain, all computed from pos0 and
+    active [S]: step j's positions [K, S] (>= C marks an inactive slot),
+    flash decode meta [K, S, 2] (cpos, nv = j + 1), the rope tables
+    gathered at the positions ([K, S, 1, rot/2]) and the chain's row
+    writes ([K, S])."""
+    positions: torch.Tensor
     meta: torch.Tensor
+    cos: torch.Tensor
+    sin: torch.Tensor
     writes: RowWrites
 
 
-def decode_steps(positions: np.ndarray, capacity: int,
-                 device) -> list[DecodeStep]:
-    """The operands of K chained steps from host positions [K, B] (step j
-    is chain row j, so nv = j + 1), uploaded in ONE host-to-device copy:
-    a copy from pageable memory synchronises the stream, so a copy per
-    step would stall the device once per step."""
-    positions = np.asarray(positions, np.int64)
-    K, B = positions.shape
-    act = np.nonzero(positions[0] < capacity)[0]   # active through the chain
-    cpos = np.where(positions >= capacity, 0, positions)   # inactive: 0
-    nv = np.broadcast_to(np.arange(1, K + 1)[:, None], (K, B))
-    n_act = len(act)
-    flat = np.concatenate([positions.ravel(), cpos.ravel(), nv.ravel(),
-                           act, positions[:, act].ravel()])
-    dev = torch.from_numpy(flat).to(device)
-    pos, cp, nvs, b_idx, p_idx = torch.split(
-        dev, [K * B, K * B, K * B, n_act, K * n_act])
-    meta = torch.stack([cp.view(K, B), nvs.view(K, B)], dim=-1).to(
-        torch.int32)
-    zeros = torch.zeros_like(b_idx)
-    return [DecodeStep(pos.view(K, B)[j, :, None], meta[j],
-                       RowWrites(b_idx, zeros, p_idx.view(K, n_act)[j]))
-            for j in range(K)]
+def decode_operands(pos0: torch.Tensor, active: torch.Tensor, capacity: int,
+                    n_steps: int, rope_cos, rope_sin) -> DecodeOperands:
+    """The operands of n_steps chained steps from each slot's first
+    position pos0 [S] (int64) and its active mask [S] (bool), as the JAX
+    scan body computes them: positions where(active, pos0 + j, C), meta
+    (cpos, j + 1) with cpos 0 for an inactive slot. Step j of slot b
+    writes position (pos0[b] + j) mod C, kept only if active and inside
+    the cache."""
+    C = capacity
+    j = torch.arange(n_steps, device=pos0.device)
+    pos = pos0[None, :] + j[:, None]                           # [K, S]
+    live = active[None, :] & (pos < C)
+    positions = torch.where(active[None, :], pos, C)
+    cpos = torch.where(positions >= C, 0, positions)
+    meta = torch.stack([cpos, (j + 1)[:, None].expand_as(cpos)],
+                       dim=-1).to(torch.int32)
+    cos, sin = _rope_at(rope_cos, rope_sin, positions[..., None])
+    b = torch.arange(pos0.shape[0], device=pos0.device)
+    writes = RowWrites(b[None, :].expand_as(pos), pos % C, live)
+    return DecodeOperands(positions, meta, cos, sin, writes)
 
 
-def decode_step_impl(params, cfg: ModelConfig, tokens, step_in: DecodeStep,
-                     kv: KVCache, rope_cos, rope_sin, chain: ChainRows,
-                     step: int):
+def decode_step_impl(params, cfg: ModelConfig, tokens, ops: DecodeOperands,
+                     kv: KVCache, chain: ChainRows, step: int, rows: list):
     """Step `step` of a decode chain through the flash decode kernel; the
-    rows are written into the cache in place. Returns logits [B, 1, V]
-    f32."""
-    dev = kv.k.device
-    cos, sin = _rope_at(rope_cos, rope_sin, step_in.pos)
+    step's rows are appended to `rows` (one entry per layer), for the
+    chain's write_rows. Returns logits [B, 1, V] f32."""
     x = _embed_tokens(params, cfg, tokens)
-    x = _run_stack(params, cfg, x, kv, cos, sin, step_in.writes,
-                   chain=chain, step=step,
-                   decode_meta=(step_in.meta, _no_window(dev)))
+    x = _run_stack(params, cfg, x, kv, ops.cos[step], ops.sin[step], rows,
+                   chain=chain, step=step, decode_meta=ops.meta[step])
     return _output_logits(params, cfg, x)
+
+
+def write_chain_rows(kv: KVCache, steps: list, writes: RowWrites) -> None:
+    """Write a chain's rows: steps[j][l] is layer l's _cache_rows at step
+    j ([S, 1, ...] each field); one stack a field gives [L, K, S, ...]."""
+    K, L = len(steps), len(steps[0])
+    fields = []
+    for f in range(len(steps[0][0])):
+        st = torch.stack([steps[j][li][f][:, 0] for li in range(L)
+                          for j in range(K)])
+        fields.append(st.view(L, K, *st.shape[1:]))
+    write_rows(kv, fields, writes)
 
 
 def forward_impl(params, cfg: ModelConfig, tokens, positions, kv: KVCache,
@@ -497,18 +529,21 @@ def forward_impl(params, cfg: ModelConfig, tokens, positions, kv: KVCache,
     kernel.
 
     tokens:    [B, 1] int
-    positions: [B, 1] host int array; >= C marks an inactive slot
+    positions: [B, 1] int (host or device); >= C marks an inactive slot
     The new rows are written into the cache in place. Returns
     (logits [B, 1, V] f32, kv)."""
-    positions = np.asarray(positions)
+    dev = kv.k.device
+    positions = torch.as_tensor(positions).to(dev, torch.int64)
     if positions.shape[1] != 1:
         raise NotImplementedError("decode forward takes one row per slot "
                                   "(speculative verify is not ported yet)")
-    dev = kv.k.device
-    (step_in,) = decode_steps(positions.T, kv.capacity, dev)
-    logits = decode_step_impl(params, cfg, tokens.to(dev), step_in, kv,
-                              rope_cos, rope_sin,
-                              init_chain_rows(cfg, kv, 1), 0)
+    pos0 = positions[:, 0]
+    ops = decode_operands(pos0, pos0 < kv.capacity, kv.capacity, 1,
+                          rope_cos, rope_sin)
+    rows: list = []
+    logits = decode_step_impl(params, cfg, tokens.to(dev), ops, kv,
+                              init_chain_rows(cfg, kv, 1), 0, rows)
+    write_chain_rows(kv, [rows], ops.writes)
     return logits, kv
 
 
@@ -516,28 +551,36 @@ def prefill_batch_impl(params, cfg: ModelConfig, tokens, pos_base, n_valid,
                        kv: KVCache, rope_cos, rope_sin):
     """Batched prefill: one chunk per slot through the flash prefill kernel.
 
-    tokens:   [S, T] int — row s is slot s's next chunk (padded)
-    pos_base: [S] host int — absolute position of each row's start
-    n_valid:  [S] host int — valid tokens per row (0 = slot not prefilling)
-    The rows are written into the cache in place. Returns (last-token
+    tokens:   [S, T] int — row s is slot s's next chunk (padded), T <= C
+    pos_base: [S] int — absolute position of each row's start
+    n_valid:  [S] int — valid tokens per row (0 = slot not prefilling)
+    Host arrays or tensors; on the cache's device every operand below is
+    computed there, so the pass replays as one CUDA graph. The rows are
+    written into the cache in place (write_rows). Returns (last-token
     logits [S, V] f32, kv)."""
-    pos_base = np.asarray(pos_base, np.int64)
-    n_valid = np.asarray(n_valid, np.int64)
     dev = kv.k.device
     tokens = torch.as_tensor(tokens).to(dev)
+    pos_base = torch.as_tensor(pos_base).to(dev, torch.int64)
+    n_valid = torch.as_tensor(n_valid).to(dev, torch.int64)
     S, T = tokens.shape
     C = kv.capacity
-    offs = np.arange(T)[None, :]
-    positions = np.where(offs < n_valid[:, None], pos_base[:, None] + offs, C)
-    meta = np.stack([pos_base, n_valid, np.zeros(S, np.int64),
-                     np.zeros(S, np.int64)], axis=1)
-    meta = torch.from_numpy(meta.astype(np.int32)).to(dev)
-    pos_t = torch.from_numpy(positions.astype(np.int64)).to(dev)
-    cos, sin = _rope_at(rope_cos, rope_sin, pos_t)
+    if T > C:
+        raise ValueError(f"a prefill chunk of {T} rows does not fit a cache "
+                         f"of {C} positions")
+    t = torch.arange(T, device=dev)[None, :]
+    pos = pos_base[:, None] + t                                 # [S, T]
+    inside = t < n_valid[:, None]
+    positions = torch.where(inside, pos, C)
+    zeros = torch.zeros_like(pos_base)
+    meta = torch.stack([pos_base, n_valid, zeros, zeros], dim=1).to(
+        torch.int32)
+    cos, sin = _rope_at(rope_cos, rope_sin, positions)
     x = _embed_tokens(params, cfg, tokens)
-    x = _run_stack(params, cfg, x, kv, cos, sin,
-                   row_writes(positions, C, dev),
-                   flash_meta=(meta, _no_window(dev)))
-    last = torch.from_numpy(np.maximum(n_valid - 1, 0)).to(dev)
+    rows: list = []
+    x = _run_stack(params, cfg, x, kv, cos, sin, rows, flash_meta=meta)
+    b = torch.arange(S, device=dev)[:, None].expand(S, T)
+    fields = [torch.stack([r[f] for r in rows]) for f in range(len(rows[0]))]
+    write_rows(kv, fields, RowWrites(b, pos % C, inside & (pos < C)))
+    last = (n_valid - 1).clamp_min(0)
     x_last = x[torch.arange(S, device=dev), last]
     return _output_logits(params, cfg, x_last), kv

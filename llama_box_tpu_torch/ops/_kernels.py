@@ -94,9 +94,35 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            no_capture("cuda", f"the {name} library")
             lib = ctypes.CDLL(str(build((name,))[name]))
             _libs[name] = lib
         return lib
+
+
+# scratch buffers a larger one replaced: a captured CUDA graph may still
+# point into them, so they are kept for the life of the process (a buffer
+# grows only outside a capture, a few times at most)
+_retired: list[torch.Tensor] = []
+
+
+def grown(old: torch.Tensor | None, new_buffer, dev, what: str):
+    """The larger buffer `new_buffer()` in place of `old`, which is kept
+    alive; raises during a capture (see no_capture)."""
+    no_capture(dev, what)
+    if old is not None:
+        _retired.append(old)
+    return new_buffer()
+
+
+def no_capture(dev, what: str) -> None:
+    """Raise if the current stream is capturing a CUDA graph: `what` (a
+    library, a persistent buffer) is made at a call's first, eager, use,
+    never inside a capture, where it would live in the graph's pool."""
+    if torch.device(dev).type == "cuda" \
+            and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} would be made during a CUDA graph "
+                           "capture; run the call once eagerly first")
 
 
 def ptr(t: torch.Tensor | None):

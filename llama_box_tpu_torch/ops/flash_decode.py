@@ -28,7 +28,7 @@ import torch
 
 from . import _kernels
 from .attention import pos_visible, softmax_attend
-from .flash_prefill import _as_int_list, kv_dequant
+from .flash_prefill import _as_int_list, _int32_on, kv_dequant
 
 
 def flash_decode_plain(q, k_cache, v_cache, k_rows, v_rows, meta, win,
@@ -80,16 +80,20 @@ def _splits(C: int) -> tuple[int, int]:
 
 # per device: the bf16 kernel's partials and split tickets (zero between
 # calls: the last block of each slot and KV head resets its own), grown on
-# demand, so a call allocates only its output
+# demand outside a CUDA graph capture (a grown-out buffer is kept: a graph
+# may point into it), so a call allocates only its output
 _scratch: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _scratch_for(dev: torch.device, n_ws: int, n_cnt: int):
     ws, cnt = _scratch.get(dev, (None, None))
+    what = "flash_decode's scratch"
     if ws is None or ws.numel() < n_ws:
-        ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
+        ws = _kernels.grown(ws, lambda: torch.empty(
+            n_ws, dtype=torch.float32, device=dev), dev, what)
     if cnt is None or cnt.numel() < n_cnt:
-        cnt = torch.zeros(max(n_cnt, 1024), dtype=torch.int32, device=dev)
+        cnt = _kernels.grown(cnt, lambda: torch.zeros(
+            max(n_cnt, 1024), dtype=torch.int32, device=dev), dev, what)
     _scratch[dev] = ws, cnt
     return ws, cnt
 
@@ -148,8 +152,7 @@ def flash_decode(q, k_cache, v_cache, k_rows, v_rows, meta, win,
                     ("k_rows", k_rows), ("v_rows", v_rows)):
         _check(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned "
                "(the kernel loads 16 bytes at a time)")
-    meta = torch.as_tensor(meta).to(dev, torch.int32).contiguous()
-    win = torch.as_tensor(win).to(dev, torch.int32).contiguous()
+    meta, win = _int32_on(dev, meta), _int32_on(dev, win)
     _check(tuple(meta.shape) == (B, 2) and tuple(win.shape) == (2,),
            "meta/win shape")
     if sinks is not None:

@@ -30,6 +30,16 @@ def _as_int_list(x) -> list[int]:
     return [int(v) for v in (x.tolist() if hasattr(x, "tolist") else x)]
 
 
+def _int32_on(dev, t) -> torch.Tensor:
+    """An int32 operand (meta, win) on dev: itself when it already is a
+    contiguous int32 tensor there (the engine's path: no device op), else
+    converted."""
+    if isinstance(t, torch.Tensor) and t.device == dev \
+            and t.dtype == torch.int32 and t.is_contiguous():
+        return t
+    return torch.as_tensor(t).to(dev, torch.int32).contiguous()
+
+
 def kv_dequant(cache: torch.Tensor, scale: torch.Tensor | None,
                dtype: torch.dtype) -> torch.Tensor:
     """Cache entries as the kernels see them: int8 codes times their
@@ -109,8 +119,7 @@ def flash_prefill_batched(q, k_cache, v_cache, k_rows, v_rows, meta, win,
                and tuple(k_scale.shape) == (B, C, Hkv)
                and tuple(v_scale.shape) == (B, C, Hkv), "scales")
         k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
-    meta = torch.as_tensor(meta).to(dev, torch.int32).contiguous()
-    win = torch.as_tensor(win).to(dev, torch.int32).contiguous()
+    meta, win = _int32_on(dev, meta), _int32_on(dev, win)
     _check(tuple(meta.shape) == (B, 4) and tuple(win.shape) == (2,),
            "meta/win shape")
     if sinks is not None:

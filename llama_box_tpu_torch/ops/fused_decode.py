@@ -64,8 +64,10 @@ def _splits(k: int, n: int) -> int:
 
 # per device: the split sums (int32) and tickets of the fused kernels, zero
 # between calls (the block with a tile's last ticket re-zeroes its own),
-# grown on demand; calls that share it run on one stream. The views carved
-# for a call's shape are kept (the decode step is bound by host time).
+# grown on demand outside a CUDA graph capture (a grown-out buffer is kept:
+# a graph may point into it); calls that share it run on one stream. The
+# views carved for a call's shape are kept (the decode step is bound by
+# host time).
 _scratch: dict[torch.device, torch.Tensor] = {}
 _regions: dict[tuple, list] = {}
 
@@ -86,7 +88,9 @@ def _split_regions(dev: torch.device, R: int, parts):
     total = sum(a + c for a, c in sizes)
     buf = _scratch.get(dev)
     if total and (buf is None or buf.numel() < total):
-        buf = torch.zeros(max(total, 1 << 16), dtype=torch.int32, device=dev)
+        buf = _kernels.grown(buf, lambda: torch.zeros(
+            max(total, 1 << 16), dtype=torch.int32, device=dev), dev,
+            "the fused kernels' split sums")
         _scratch[dev] = buf
         _regions.clear()            # views of the old buffer
     out, off = [], 0
@@ -108,6 +112,7 @@ _row_max: dict[torch.device, torch.Tensor] = {}
 def _row_max_buffer(dev: torch.device) -> torch.Tensor:
     buf = _row_max.get(dev)
     if buf is None:
+        _kernels.no_capture(dev, "the tail's row maxima")
         buf = torch.zeros(_MAX_ROWS, dtype=torch.int32, device=dev)
         _row_max[dev] = buf
     return buf

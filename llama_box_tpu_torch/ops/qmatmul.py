@@ -356,15 +356,19 @@ def _splits(M: int, N: int, K: int) -> int:
     return max(1, min(_MAX_SPLITS, K // _TILE_K, _WAVE // n_blocks))
 
 
-# per device: the split tickets of csrc/q_matmul.cu, zero between calls
-# (the last block of each output tile resets its own), grown on demand
+# per device: the split tickets of csrc/q_matmul.cu and csrc/w8a8_matmul.cu,
+# zero between calls (the last block of each output tile resets its own),
+# grown on demand outside a CUDA graph capture (a grown-out buffer is kept:
+# a graph may point into it)
 _counters: dict[torch.device, torch.Tensor] = {}
 
 
 def _counter_buffer(dev: torch.device, n: int) -> torch.Tensor:
     buf = _counters.get(dev)
     if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
+        buf = _kernels.grown(buf, lambda: torch.zeros(
+            max(n, 4096), dtype=torch.int32, device=dev), dev,
+            "the split tickets")
         _counters[dev] = buf
     return buf
 

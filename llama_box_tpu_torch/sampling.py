@@ -7,12 +7,16 @@ The chain is the reference's default: penalties -> top-k -> top-p -> min-p
 greedy (temp <= 0), over a top-N_CAND candidate set. It runs as torch ops
 over the decode batch [B, V]; nothing crosses to the host per step.
 
-Randomness: each slot owns a torch.Generator seeded with its request seed
-(`reset_slot`), drawn from only while the slot is active, so one seed
-reproduces one stream whatever else is batched beside it. The streams are
-not the JAX package's threefry streams: seeded sampling agrees with it in
-distribution, not token by token. The host-side sampler (mirostat, DRY,
-grammar) is not ported yet; such requests are refused at admission.
+Randomness is counter-based, as in the JAX sampler (`fold_in(PRNGKey(seed),
+step)` per slot): every uniform is an integer hash of (the slot's seed,
+its `step`, the stream, the draw's index), computed by the same int64
+torch ops on the CPU and on the card, so the draws agree bit for bit
+between the two, depend on nothing but (seed, step), and need no host
+state (a decode chain replays as one CUDA graph). Every row draws; only
+active rows advance `step`. The hash is not the JAX package's threefry:
+seeded sampling agrees with it in distribution, not token by token. The
+host-side sampler (mirostat, DRY, grammar) is not ported yet; such
+requests are refused at admission.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+
+from .utils.staging import StagedBuffer
 
 NEG_INF = -1e30
 N_CAND = 256     # candidate-set width; exact for any top_k <= N_CAND
@@ -165,7 +171,7 @@ class SamplerState(NamedTuple):
     ring: torch.Tensor      # [B, RING_CAP] int32 — the window itself
     ring_len: torch.Tensor  # [B] int32
     step: torch.Tensor      # [B] int32 — samples drawn
-    gens: list              # per-slot torch.Generator on the state's device
+    keys: torch.Tensor      # [B] int64 — each slot's seed (0 .. 2**32-1)
 
 
 def init_sampler_state(n_slots: int, n_vocab: int,
@@ -177,7 +183,7 @@ def init_sampler_state(n_slots: int, n_vocab: int,
                         device=dev),
         ring_len=torch.zeros((n_slots,), dtype=torch.int32, device=dev),
         step=torch.zeros((n_slots,), dtype=torch.int32, device=dev),
-        gens=[torch.Generator(device=dev) for _ in range(n_slots)],
+        keys=torch.zeros((n_slots,), dtype=torch.int64, device=dev),
     )
 
 
@@ -201,12 +207,47 @@ class SamplerArrays(NamedTuple):
     nsigma: torch.Tensor
 
 
-def make_sampler_arrays(params: Sequence[SamplerParams],
-                        eog_ids: Sequence[int] = (),
-                        device="cpu") -> SamplerArrays:
+# the per-slot fields in one flat 4-byte buffer: (name, f32?, getter); the
+# two [B, BIAS_CAP] tables follow them
+_VEC_FIELDS = (
+    ("temp", True, lambda p: p.temp),
+    ("top_k", False, lambda p: p.top_k),
+    ("top_p", True, lambda p: p.top_p),
+    ("min_p", True, lambda p: p.min_p),
+    ("typ_p", True, lambda p: p.typ_p),
+    ("xtc_p", True, lambda p: p.xtc_probability),
+    ("xtc_t", True, lambda p: p.xtc_threshold),
+    ("pen_last_n", False, lambda p: min(p.penalty_last_n
+                                        if p.penalty_last_n >= 0
+                                        else RING_CAP, RING_CAP)),
+    ("pen_repeat", True, lambda p: p.penalty_repeat),
+    ("pen_freq", True, lambda p: p.penalty_freq),
+    ("pen_present", True, lambda p: p.penalty_present),
+    ("dyna_range", True, lambda p: p.dynatemp_range),
+    ("dyna_exp", True, lambda p: p.dynatemp_exponent),
+    ("nsigma", True, lambda p: p.top_n_sigma),
+)
+
+
+def _arrays_size(B: int) -> int:
+    return B * (len(_VEC_FIELDS) + 2 * BIAS_CAP)
+
+
+def _pack_arrays(params: Sequence[SamplerParams], eog_ids,
+                 out: np.ndarray) -> None:
+    """Write the parameter vectors of `params` into the flat int32 array
+    `out` (f32 fields as their bits), in _views' layout."""
     B = len(params)
-    bias_idx = np.full((B, BIAS_CAP), -1, np.int32)
-    bias_val = np.zeros((B, BIAS_CAP), np.float32)
+    nv = len(_VEC_FIELDS) * B
+    vecs = out[:nv].reshape(len(_VEC_FIELDS), B)
+    for i, (_, f32, fn) in enumerate(_VEC_FIELDS):
+        row = np.asarray([fn(p) for p in params],
+                         np.float32 if f32 else np.int32)
+        vecs[i] = row.view(np.int32)
+    bias_idx = out[nv:nv + B * BIAS_CAP].reshape(B, BIAS_CAP)
+    bias_val = out[nv + B * BIAS_CAP:].view(np.float32).reshape(B, BIAS_CAP)
+    bias_idx[:] = -1
+    bias_val[:] = 0.0
     for b, p in enumerate(params):
         entries = list(p.logit_bias.items())
         if p.ignore_eos:
@@ -215,31 +256,45 @@ def make_sampler_arrays(params: Sequence[SamplerParams],
             bias_idx[b, j] = tid
             bias_val[b, j] = val
 
-    def vec(fn, dtype):
-        return torch.tensor([fn(p) for p in params], dtype=dtype,
-                            device=device)
 
-    f32, i32 = torch.float32, torch.int32
-    return SamplerArrays(
-        temp=vec(lambda p: p.temp, f32),
-        top_k=vec(lambda p: p.top_k, i32),
-        top_p=vec(lambda p: p.top_p, f32),
-        min_p=vec(lambda p: p.min_p, f32),
-        typ_p=vec(lambda p: p.typ_p, f32),
-        xtc_p=vec(lambda p: p.xtc_probability, f32),
-        xtc_t=vec(lambda p: p.xtc_threshold, f32),
-        pen_last_n=vec(lambda p: min(p.penalty_last_n
-                                     if p.penalty_last_n >= 0 else RING_CAP,
-                                     RING_CAP), i32),
-        pen_repeat=vec(lambda p: p.penalty_repeat, f32),
-        pen_freq=vec(lambda p: p.penalty_freq, f32),
-        pen_present=vec(lambda p: p.penalty_present, f32),
-        bias_idx=torch.from_numpy(bias_idx).to(device),
-        bias_val=torch.from_numpy(bias_val).to(device),
-        dyna_range=vec(lambda p: p.dynatemp_range, f32),
-        dyna_exp=vec(lambda p: p.dynatemp_exponent, f32),
-        nsigma=vec(lambda p: p.top_n_sigma, f32),
-    )
+def _views(flat: torch.Tensor, B: int) -> SamplerArrays:
+    """SamplerArrays as views of one flat int32 buffer."""
+    nv = len(_VEC_FIELDS) * B
+    vecs = flat[:nv].view(len(_VEC_FIELDS), B)
+    kw = {name: vecs[i].view(torch.float32) if f32 else vecs[i]
+          for i, (name, f32, _) in enumerate(_VEC_FIELDS)}
+    kw["bias_idx"] = flat[nv:nv + B * BIAS_CAP].view(B, BIAS_CAP)
+    kw["bias_val"] = flat[nv + B * BIAS_CAP:].view(torch.float32).view(
+        B, BIAS_CAP)
+    return SamplerArrays(**kw)
+
+
+def make_sampler_arrays(params: Sequence[SamplerParams],
+                        eog_ids: Sequence[int] = (),
+                        device="cpu") -> SamplerArrays:
+    host = np.empty(_arrays_size(len(params)), np.int32)
+    _pack_arrays(params, eog_ids, host)
+    return _views(torch.from_numpy(host).to(device), len(params))
+
+
+class SamplerBuffers:
+    """One engine's SamplerArrays as persistent device buffers: `fill`
+    rewrites them in place through one pinned staging copy, so a captured
+    CUDA graph that reads them sees every later batch composition."""
+
+    def __init__(self, n_slots: int, device):
+        self.n_slots = n_slots
+        self._buf = StagedBuffer(_arrays_size(n_slots), torch.int32, device)
+        self.arrays = _views(self._buf.dev, n_slots)
+
+    def fill(self, params: Sequence[SamplerParams],
+             eog_ids: Sequence[int] = ()) -> SamplerArrays:
+        if len(params) != self.n_slots:
+            raise ValueError(f"{len(params)} parameter sets for "
+                             f"{self.n_slots} slots")
+        _pack_arrays(params, eog_ids, self._buf.host())
+        self._buf.push()
+        return self.arrays
 
 
 # ---------------------------------------------------------------------------
@@ -247,13 +302,13 @@ def make_sampler_arrays(params: Sequence[SamplerParams],
 
 
 def reset_slot(state: SamplerState, slot: int, seed: int) -> SamplerState:
-    """Clear one slot's penalty window and reseed its generator (a new task
-    was admitted). Updates the state in place and returns it."""
+    """Clear one slot's penalty window and reseed it (a new task was
+    admitted). Updates the state in place and returns it."""
     state.counts[slot] = 0
     state.ring[slot] = -1
     state.ring_len[slot] = 0
     state.step[slot] = 0
-    state.gens[slot].manual_seed(int(seed) & 0xFFFFFFFF)
+    state.keys[slot] = int(seed) & _MASK32
     return state
 
 
@@ -383,35 +438,51 @@ def _plain_mask(cvals, arrs: SamplerArrays):
     return mask & ((p >= arrs.min_p[:, None] * pmax) | (col == 0))
 
 
-def _draws(state: SamplerState, active: np.ndarray, n: int, dev):
-    """[B, n] uniforms, row b from slot b's generator (active rows only)."""
-    rows = []
-    for b, act in enumerate(active):
-        if act:
-            rows.append(torch.rand(n, generator=state.gens[b], device=dev))
-        else:
-            rows.append(torch.full((n,), 0.5, device=dev))
-    return torch.stack(rows)
+_MASK32 = 0xFFFFFFFF
+# odd multipliers below 2**31: a 32-bit value times one stays below 2**63,
+# so the int64 products never wrap and every device gives the same bits
+_MIX1, _MIX2 = 0x7FEB352D, 0x2C1B3C6D
+_GOLDEN = 0x9E3779B9
+STREAM_XTC, STREAM_GUMBEL = 0, 1
+
+
+def _mix32(h: torch.Tensor) -> torch.Tensor:
+    """A 32-bit finalizer (the xorshift-multiply shape of lowbias32) on
+    int64 tensors holding values in [0, 2**32)."""
+    h = h ^ (h >> 16)
+    h = (h * _MIX1) & _MASK32
+    h = h ^ (h >> 15)
+    h = (h * _MIX2) & _MASK32
+    return h ^ (h >> 16)
+
+
+def _draws(state: SamplerState, stream: int, n: int) -> torch.Tensor:
+    """[B, n] uniforms in the open interval (0, 1): draw i of slot b is a
+    hash of (keys[b], step[b], stream, i), so it depends on the slot's
+    seed and step alone (not on K, nor on the other slots). Each value is
+    (2m + 1) / 2**24 for a 23-bit m, exact in f32 on every device."""
+    ctr = (state.step.long() * (2 * _GOLDEN) + stream * _GOLDEN) & _MASK32
+    row = _mix32(state.keys ^ ctr)                                # [B]
+    idx = torch.arange(1, n + 1, device=row.device) * _GOLDEN     # < 2**41
+    h = _mix32((row[:, None] + idx) & _MASK32)
+    return ((h >> 8) | 1).float() * (2.0 ** -24)
 
 
 def sample_impl(logits: torch.Tensor, state: SamplerState,
-                arrs: SamplerArrays, active, extras: bool = True,
-                kcap: int = 0, active_dev: torch.Tensor | None = None):
+                arrs: SamplerArrays, active: torch.Tensor,
+                extras: bool = True, kcap: int = 0):
     """Sample one token per slot from [B, V] logits.
 
-    active: [B] bools (host) — the slots actually decoding; only they draw
-    random numbers and advance their state (`active_dev`, the same mask
-    already on the logits' device, saves the upload). extras=False: every
-    slot is
-    `plain` (skip bias/penalties, the typical/xtc/top-n-sigma/dynatemp
-    filters and the penalty-ring update). kcap (0 => N_CAND): candidate
+    active: [B] bool tensor on the logits' device — the slots actually
+    decoding; every row draws, only these advance their state.
+    extras=False: every slot is `plain` (skip bias/penalties, the
+    typical/xtc/top-n-sigma/dynatemp filters and the penalty-ring
+    update). kcap (0 => N_CAND): candidate
     count, valid when every slot has 0 < top_k <= kcap.
     Returns (tokens [B] i32, top_ids [B, N_PROBS] i32, top_probs
     [B, N_PROBS] f32, tok_prob [B] f32, state) — the state is updated in
     place."""
     B, V = logits.shape
-    dev = logits.device
-    active = np.asarray(active, bool)
     logits = logits.float()
     if extras:
         logits = _apply_bias(logits, arrs)
@@ -421,7 +492,7 @@ def sample_impl(logits: torch.Tensor, state: SamplerState,
     cvals, cidx = torch.topk(logits, kcap, dim=-1, sorted=True)
 
     if extras:
-        xtc_draw = _draws(state, active, 1, dev)[:, 0]
+        xtc_draw = _draws(state, STREAM_XTC, 1)[:, 0]
         mask = _chain_mask(cvals, arrs, xtc_draw)
     else:
         mask = _plain_mask(cvals, arrs)
@@ -445,7 +516,7 @@ def sample_impl(logits: torch.Tensor, state: SamplerState,
     ez = torch.exp(z) * mask
     probs = ez / (ez.sum(dim=-1, keepdim=True) + 1e-30)
 
-    u = _draws(state, active, kcap, dev)
+    u = _draws(state, STREAM_GUMBEL, kcap)
     gumbel = -torch.log(-torch.log(u))
     noisy = torch.where(mask, z + gumbel, torch.full_like(z, NEG_INF))
     pick_dist = torch.argmax(noisy, dim=-1)
@@ -458,9 +529,7 @@ def sample_impl(logits: torch.Tensor, state: SamplerState,
     top_ids = cidx[:, :N_PROBS].to(torch.int32)
     tok_prob = torch.gather(report, 1, pick[:, None])[:, 0]
 
-    act_t = (torch.from_numpy(active).to(dev) if active_dev is None
-             else active_dev)
     if extras:
-        _push_active(state, tokens, arrs.pen_last_n, act_t)
-    state.step.add_(act_t.to(torch.int32))
+        _push_active(state, tokens, arrs.pen_last_n, active)
+    state.step.add_(active.to(torch.int32))
     return tokens, top_ids, top_probs, tok_prob, state

@@ -1,0 +1,106 @@
+"""One captured CUDA graph per static configuration (the port's counterpart
+of `jax.jit` for the engine's two device programs, the K-step decode chain
+and the batched prefill pass; the JAX package keys its programs by their
+static arguments, and the port keys its graphs the same way).
+
+`GraphRunner.run(key, fn)` calls `fn()`, a function of the engine's
+persistent device buffers that returns its output tensors:
+- the first use of a key runs `fn` eagerly, on the runner's stream: it
+  does real work, and whatever a call makes at its first use (a kernel
+  library, an attribute set once, scratch buffers, cuBLAS's workspace for
+  the stream) is made outside any capture;
+- the second use captures `fn` into a `torch.cuda.CUDAGraph` on that
+  stream, then replays it; every later use replays it (on the caller's
+  current stream);
+- a capture or replay error raises; nothing falls back to eager.
+All graphs of one runner share one memory pool: they replay one after
+another on one stream, and each graph's outputs stay allocated while it
+lives. A replay does not call the kernel wrappers, so the runner keeps
+their `launches` counts: it takes back what the capture added and adds it
+again on every replay. Disabled (the CPU, or EngineConfig.cuda_graphs
+off), `run` calls `fn` each time.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def kernel_wrappers() -> list:
+    """The wrappers whose `launches` count their kernels' launches."""
+    from ..ops.flash_decode import flash_decode
+    from ..ops.flash_prefill import flash_prefill_batched
+    from ..ops.fused_decode import fused_layer_tail, fused_norm_qmm
+    from ..ops.qmatmul import q4_matmul, q8_matmul, w8a8_matmul
+    return [flash_prefill_batched, flash_decode, w8a8_matmul, fused_norm_qmm,
+            fused_layer_tail, q4_matmul, q8_matmul]
+
+
+class _Graph:
+    __slots__ = ("graph", "outputs", "launches")
+
+    def __init__(self, graph, outputs, launches):
+        self.graph = graph
+        self.outputs = outputs
+        self.launches = launches
+
+
+class GraphRunner:
+    def __init__(self, device, enabled: bool = True):
+        dev = torch.device(device)
+        self.enabled = enabled and dev.type == "cuda"
+        self._graphs: dict = {}
+        self._seen: set = set()
+        self.pool_bytes = 0       # reserved memory the captures added
+        if self.enabled:
+            self.stream = torch.cuda.Stream(dev)
+            self.pool = torch.cuda.graph_pool_handle()
+            self._wrappers = kernel_wrappers()
+
+    @property
+    def n_graphs(self) -> int:
+        return len(self._graphs)
+
+    def run(self, key, fn):
+        """fn()'s outputs for `key`: eager at its first use, then from its
+        captured graph (see the module docstring)."""
+        if not self.enabled:
+            return fn()
+        g = self._graphs.get(key)
+        if g is None and key not in self._seen:
+            self._seen.add(key)
+            return self._on_stream(fn)
+        if g is None:
+            g = self._graphs[key] = self._capture(fn)
+        g.graph.replay()
+        for w, n in zip(self._wrappers, g.launches):
+            w.launches += n
+        return g.outputs
+
+    def _on_stream(self, fn):
+        cur = torch.cuda.current_stream()
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            out = fn()
+        cur.wait_stream(self.stream)
+        return out
+
+    def _capture(self, fn) -> _Graph:
+        before = [w.launches for w in self._wrappers]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()        # as the capture's entry does
+        reserved = torch.cuda.memory_reserved()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            outputs = fn()
+        delta = []
+        for w, n in zip(self._wrappers, before):
+            delta.append(w.launches - n)
+            w.launches = n              # nothing ran yet: the replays count
+        self.pool_bytes += torch.cuda.memory_reserved() - reserved
+        return _Graph(graph, outputs, delta)
+
+    def close(self) -> None:
+        """Drop every graph (and its memory)."""
+        self._graphs.clear()
+        self._seen.clear()

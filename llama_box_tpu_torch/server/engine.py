@@ -10,6 +10,13 @@ of llama_box_tpu/server/engine.py for completions on a dense llama).
   device and the host syncs once per chain; the first chains after a
   prefill are short (chain_ramp) so the first tokens stream early, and the
   chain shrinks to the remaining token budget.
+- One dispatch per program, as the JAX engine's jitted programs: on a
+  CUDA device each decode chain (keyed by K, samp_extras, samp_kcap) and
+  each prefill pass with its first-token sample (keyed by the bucket)
+  replays one captured CUDA graph (server/cuda_graph.py). Their operands
+  live in persistent device buffers that the host fills by one pinned
+  copy a pass. EngineConfig.cuda_graphs=False runs the same programs
+  eagerly (for comparison); on the CPU they always run eagerly.
 
 Not ported yet (the JAX engine has them): context shift (a slot that
 reaches its capacity finishes with "length"), cross-slot prefix copies,
@@ -30,14 +37,16 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.llama import (check_supported, decode_step_impl, decode_steps,
-                            init_chain_rows, init_kv_cache, make_rope,
-                            prefill_batch_impl)
-from ..sampling import (RING_CAP, SamplerParams, init_sampler_state,
-                        make_sampler_arrays, push_tokens, reset_slot,
+from ..models.llama import (check_supported, decode_operands,
+                            decode_step_impl, init_chain_rows, init_kv_cache,
+                            make_rope, prefill_batch_impl, write_chain_rows)
+from ..sampling import (RING_CAP, SamplerBuffers, SamplerParams,
+                        init_sampler_state, push_tokens, reset_slot,
                         sample_impl)
 from ..utils.logging import SRV_DBG, SRV_ERR
+from ..utils.staging import StagedBuffer
 from ..utils.text import longest_common_prefix
+from .cuda_graph import GraphRunner
 from .metrics import Metrics
 from .task import BaseTask, CompletionsTask
 
@@ -68,33 +77,31 @@ def _decode_chain(params, cfg: ModelConfig, token0, pos0, kv, sstate, arrs,
                   active, cos, sin, n_steps: int, samp_extras: bool = True,
                   samp_kcap: int = 0):
     """Chained multi-step decode: n_steps sequential forward+sample steps
-    with no host sync in between.
+    with no host sync in between (one CUDA graph on the card).
 
-    token0: [S] device int32, each slot's next token; pos0/active: [S] host
-    arrays (an inactive slot's rows are neither attended nor written).
-    Step j's K/V rows ride the chain operand of the attention (the flash
-    decode kernel's rows 0..j) and are also written into the cache in
-    place; the cache part the kernel reads stops at the chain start.
-    Slots that hit EOG mid-chain keep generating; the host discards the
-    tail. Returns (tokens [S,K], ids [S,K,NP], probs [S,K,NP],
-    tokps [S,K], kv, sstate), all on the device."""
-    C = kv.capacity
-    pos0 = np.asarray(pos0)
-    active = np.asarray(active, bool)
+    token0: [S] each slot's next token; pos0: [S] int64 its position;
+    active: [S] bool (an inactive slot's rows are neither attended nor
+    kept), all on the device. Step j's K/V rows ride the chain operand of
+    the attention (the flash decode kernel's rows 0..j); the cache stays
+    read-only through the chain and ONE scatter writes all n_steps rows at
+    the end, as in the JAX engine. Slots that hit EOG mid-chain keep
+    generating; the host discards the tail. Returns (tokens [S,K],
+    ids [S,K,NP], probs [S,K,NP], tokps [S,K], kv, sstate), all on the
+    device."""
+    ops = decode_operands(pos0, active, kv.capacity, n_steps, cos, sin)
     chain = init_chain_rows(cfg, kv, n_steps)
-    steps_pos = pos0[None] + np.arange(n_steps)[:, None]      # [K, S]
-    positions = np.where(active[None], steps_pos, C)
-    steps = decode_steps(positions, C, kv.k.device)
-    act_dev = torch.from_numpy(active).to(kv.k.device)
     tok = token0
-    outs = []
+    outs, steps = [], []
     for j in range(n_steps):
-        logits = decode_step_impl(params, cfg, tok[:, None], steps[j], kv,
-                                  cos, sin, chain, j)
+        rows: list = []
+        logits = decode_step_impl(params, cfg, tok[:, None], ops, kv, chain,
+                                  j, rows)
+        steps.append(rows)
         tok, ids, probs, tokp, sstate = sample_impl(
             logits[:, -1], sstate, arrs, active, extras=samp_extras,
-            kcap=samp_kcap, active_dev=act_dev)
+            kcap=samp_kcap)
         outs.append((tok, ids, probs, tokp))
+    write_chain_rows(kv, steps, ops.writes)
     toks, ids, probs, tokps = (torch.stack(x, dim=1) for x in zip(*outs))
     return toks, ids, probs, tokps, kv, sstate
 
@@ -112,6 +119,9 @@ class EngineConfig:
     # first chains after a prefill are this long (x4 per chain until
     # decode_chain), so the first tokens stream early; 0 disables
     chain_ramp: int = 4
+    # on a CUDA device, replay each decode chain and prefill pass as one
+    # captured CUDA graph; False runs them eagerly (for comparison)
+    cuda_graphs: bool = True
 
 
 class Slot:
@@ -152,11 +162,20 @@ class Engine:
         self.sstate = init_sampler_state(S, cfg.vocab_size, self.device)
         self.eog_ids = sorted(tokenizer.eog_ids) if tokenizer else []
         self._default_sp = SamplerParams()
-        self.arrs = make_sampler_arrays([self._default_sp] * S, self.eog_ids,
-                                        self.device)
+        self._samp_bufs = SamplerBuffers(S, self.device)
+        self.arrs = self._samp_bufs.fill([self._default_sp] * S,
+                                         self.eog_ids)
         self._arrs_dirty = False
-        self.buckets = tuple(b for b in DEFAULT_BUCKETS
-                             if b <= max(self.ecfg.n_ubatch, 16))
+        # a chunk never exceeds the slot's capacity, nor then its bucket
+        self.buckets = tuple(sorted({
+            min(b, self.slot_ctx) for b in DEFAULT_BUCKETS
+            if b <= max(self.ecfg.n_ubatch, 16)}))
+        # the programs' operands: decode token0 | pos0 | active, prefill
+        # pos_base | n_valid | sample-active | tokens [S, bucket]
+        self._dec_in = StagedBuffer(3 * S, torch.int64, self.device)
+        self._pre_in = StagedBuffer(S * (3 + self.buckets[-1]), torch.int64,
+                                    self.device)
+        self.graphs = GraphRunner(self.device, self.ecfg.cuda_graphs)
         self.slots = [Slot(i, self.slot_ctx) for i in range(S)]
         self.queue: queue.Queue[BaseTask] = queue.Queue()
         self.metrics = Metrics()
@@ -184,6 +203,8 @@ class Engine:
         self._stop.set()
         if self._thread:
             self._thread.join(timeout=30)
+        if not (self._thread and self._thread.is_alive()):
+            self.graphs.close()
 
     def submit(self, task: BaseTask) -> None:
         self.metrics.n_requests += 1
@@ -325,7 +346,7 @@ class Engine:
             return
         plist = [s.task.sparams if s.task is not None else self._default_sp
                  for s in self.slots]
-        self.arrs = make_sampler_arrays(plist, self.eog_ids, self.device)
+        self.arrs = self._samp_bufs.fill(plist, self.eog_ids)
         self._arrs_dirty = False
 
     # -- prefill -------------------------------------------------------------
@@ -338,8 +359,8 @@ class Engine:
 
     def _prefill_batch(self, pre: list) -> None:
         """Prefill every pending slot's next chunk in ONE batched pass;
-        first tokens of every completed prompt are sampled together and
-        reach the host with one sync."""
+        first tokens of every completed prompt are sampled in the same
+        program and reach the host with one sync."""
         slots = []
         for s in pre:
             if s.task.cancelled:
@@ -352,33 +373,29 @@ class Engine:
         S = len(self.slots)
         chunks = {s.idx: min(len(s.task.prompt_tokens) - s.cursor,
                              self.ecfg.n_ubatch) for s in slots}
-        bucket = self._bucket(max(chunks.values()))
-        tokens = np.zeros((S, bucket), np.int32)
-        pos_base = np.zeros((S,), np.int32)
-        n_valid = np.zeros((S,), np.int32)
+        T = self._bucket(max(chunks.values()))
+        done = [s for s in slots
+                if s.cursor + chunks[s.idx] >= len(s.task.prompt_tokens)]
+        h = self._pre_in.host()
+        h[:S * (3 + T)] = 0
+        tokens = h[3 * S:S * (3 + T)].reshape(S, T)
         for s in slots:
             n = chunks[s.idx]
             tokens[s.idx, :n] = s.task.prompt_tokens[s.cursor:s.cursor + n]
-            pos_base[s.idx] = s.pos
-            n_valid[s.idx] = n
-        logits, self.kv = prefill_batch_impl(
-            self.params, self.cfg, torch.from_numpy(tokens), pos_base,
-            n_valid, self.kv, self.rope_cos, self.rope_sin)
-        done = []
+            h[s.idx] = s.pos
+            h[S + s.idx] = n
+        for s in done:
+            h[2 * S + s.idx] = 1
+        self._pre_in.push(S * (3 + T))
+        self._refresh_arrs()
+        tok, ids, probs, tokp = self.graphs.run(
+            ("prefill", T), lambda: self._prefill_program(T))
         for s in slots:
             n = chunks[s.idx]
             s.cache_tokens.extend(s.task.prompt_tokens[s.cursor:s.cursor + n])
             s.cursor += n
             s.pos += n
-            if s.cursor >= len(s.task.prompt_tokens):
-                done.append(s)
         if done:
-            self._refresh_arrs()
-            active = np.zeros((S,), bool)
-            for s in done:
-                active[s.idx] = True
-            tok, ids, probs, tokp, self.sstate = sample_impl(
-                logits, self.sstate, self.arrs, active)
             tok_h = tok.cpu().numpy()
             want = any(s.task.n_probs > 0 for s in done)
             ids_h = ids.cpu().numpy() if want else None
@@ -395,6 +412,19 @@ class Engine:
                     float(tokp_h[s.idx]) if want else 0.0)
         self.metrics.on_prefill(int(sum(chunks.values())),
                                 (time.monotonic() - t0) * 1e3)
+
+    def _prefill_program(self, T: int):
+        """One prefill pass of bucket T over the staged operands, then the
+        sample of the slots whose prompt it completes (the others do not
+        advance their sampler state)."""
+        S = len(self.slots)
+        d = self._pre_in.dev
+        logits, self.kv = prefill_batch_impl(
+            self.params, self.cfg, d[3 * S:S * (3 + T)].view(S, T), d[:S],
+            d[S:2 * S], self.kv, self.rope_cos, self.rope_sin)
+        tok, ids, probs, tokp, self.sstate = sample_impl(
+            logits, self.sstate, self.arrs, d[2 * S:3 * S] != 0)
+        return tok, ids, probs, tokp
 
     # -- decode --------------------------------------------------------------
 
@@ -450,17 +480,18 @@ class Engine:
         self._refresh_arrs()
         t0 = time.monotonic()
         S = len(self.slots)
-        token0 = np.zeros((S,), np.int32)
-        pos0 = np.full((S,), self.slot_ctx, np.int32)
-        active = np.zeros((S,), bool)
+        h = self._dec_in.host()
+        h[:] = 0
+        h[S:2 * S] = self.slot_ctx
         for s in dec:
-            token0[s.idx] = s.next_token
-            pos0[s.idx] = s.pos
-            active[s.idx] = True
-        toks, ids, probs, tokps, self.kv, self.sstate = _decode_chain(
-            self.params, self.cfg, torch.from_numpy(token0).to(self.device),
-            pos0, self.kv, self.sstate, self.arrs, active, self.rope_cos,
-            self.rope_sin, n_steps=K, **self._chain_fast_kw(dec))
+            h[s.idx] = s.next_token
+            h[S + s.idx] = s.pos
+            h[2 * S + s.idx] = 1
+        self._dec_in.push()
+        kw = self._chain_fast_kw(dec)
+        toks, ids, probs, tokps = self.graphs.run(
+            ("decode", K, kw["samp_extras"], kw.get("samp_kcap", 0)),
+            lambda: self._decode_program(K, **kw))
         self._bump_ramps(dec)
         toks_h = toks.cpu().numpy()
         want = any(s.task.n_probs > 0 for s in dec)
@@ -468,6 +499,16 @@ class Engine:
         probs_h = probs.cpu().numpy() if want else None
         tokps_h = tokps.cpu().numpy() if want else None
         self._emit_chain(dec, K, toks_h, ids_h, probs_h, tokps_h, t0)
+
+    def _decode_program(self, K: int, **kw):
+        """One K-step chain over the staged operands."""
+        S = len(self.slots)
+        d = self._dec_in.dev
+        toks, ids, probs, tokps, self.kv, self.sstate = _decode_chain(
+            self.params, self.cfg, d[:S], d[S:2 * S], self.kv, self.sstate,
+            self.arrs, d[2 * S:] != 0, self.rope_cos, self.rope_sin,
+            n_steps=K, **kw)
+        return toks, ids, probs, tokps
 
     def _emit_chain(self, dec: list, K: int, toks_h, ids_h, probs_h,
                     tokps_h, t0: float) -> None:

@@ -306,7 +306,8 @@ def test_w8a8_matmul_bits_over_the_shape_grid(cuda, M, K, N):
             assert torch.equal(got, want.to(odt)), (xdt, odt)
 
 
-def test_w8a8_matmul_is_two_kernels_and_rows_do_not_depend_on_m(cuda):
+def test_w8a8_matmul_is_two_kernels_and_rows_do_not_depend_on_m(cuda,
+                                                                tmp_path):
     """A call is the quant pass and one GEMM kernel at every width, and rows
     7..9 have the same bits in a 9-row call (mma.sync) and a 2048-row one
     (wgmma)."""
@@ -317,8 +318,8 @@ def test_w8a8_matmul_is_two_kernels_and_rows_do_not_depend_on_m(cuda):
         qmm_mod.w8a8_matmul(x[:M], qs, sc, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     for M in (4, 9, 512, 2048):
-        names = _cuda_kernels(lambda m=M: qmm_mod.w8a8_matmul(
-            x[:m], qs, sc, out_dtype=torch.bfloat16))
+        names, _ = _graph_kernels(lambda m=M: qmm_mod.w8a8_matmul(
+            x[:m], qs, sc, out_dtype=torch.bfloat16), tmp_path)
         assert len(names) == 2 and "quant_rows" in names[0] \
             and "w8a8_gemm" in names[1], names
     full = qmm_mod.w8a8_matmul(x, qs, sc, out_dtype=torch.bfloat16)
@@ -490,17 +491,28 @@ def test_fused_rows_bits_do_not_depend_on_the_row_count(cuda):
         assert torch.equal(tfull[r:r + 1], tone), r
 
 
-def _cuda_kernels(fn):
-    """Names of the kernels one call of fn() runs (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+def _graph_kernels(fn, tmp_path):
+    """Names of the kernels one call of fn() runs, read without
+    torch.profiler (which in a long process sometimes reports no device
+    activity): the kernel nodes of a CUDA graph capturing the call, from
+    its debug dump. Returns (names, graph); replaying the graph runs the
+    call."""
+    import re
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=side):
         fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    torch.cuda.current_stream().wait_stream(side)
+    path = tmp_path / "graph.dot"
+    graph.debug_dump(str(path))
+    nodes = re.findall(r'label="\{(\w+)\s*\n\| \{ID \| [^|]*\| ([^\\|]+)',
+                       path.read_text())
+    return [name for kind, name in nodes if kind == "KERNEL"], graph
 
 
-def test_fused_calls_are_their_launches_and_reset_their_sums(cuda):
+def test_fused_calls_are_their_launches_and_reset_their_sums(cuda, tmp_path):
     """fused_norm_qmm is one kernel, the tail three; the split sums and
     tickets are 0 again after each call, so a second call gives the same
     bits."""
@@ -512,11 +524,14 @@ def test_fused_calls_are_their_launches_and_reset_their_sums(cuda):
     tfirst = fdec_mod.fused_layer_tail(*t, eps=1e-5)
     torch.cuda.synchronize()
     out = {}
-    names = _cuda_kernels(lambda: out.update(
-        q=fdec_mod.fused_norm_qmm(*a, eps=1e-5)))
+    names, graph = _graph_kernels(lambda: out.update(
+        q=fdec_mod.fused_norm_qmm(*a, eps=1e-5)), tmp_path)
+    graph.replay()
     assert len(names) == 1 and "norm_qmm_kernel" in names[0], names
-    names = _cuda_kernels(lambda: out.update(
-        t=fdec_mod.fused_layer_tail(*t, eps=1e-5)))
+    names, graph = _graph_kernels(lambda: out.update(
+        t=fdec_mod.fused_layer_tail(*t, eps=1e-5)), tmp_path)
+    graph.replay()
+    torch.cuda.synchronize()
     assert len(names) == 3 and all("tail_phase_kernel" in n
                                    for n in names), names
     assert torch.equal(first, out["q"]) and torch.equal(tfirst, out["t"])
@@ -751,22 +766,21 @@ def test_q8_matmul_matches_plain(cuda, M, group, mins, sdt, xdt):
 
 
 @pytest.mark.parametrize("N", [2048, 72])          # 8-byte code copies at 72
-def test_q8_matmul_split_sum_is_one_launch(cuda, N):
-    """At decode widths a call is one kernel: the in-dim splits are summed
-    by the last block of each tile, whose counter is 0 again afterwards."""
-    from torch.profiler import ProfilerActivity, profile
+def test_q8_matmul_split_sum_is_one_launch(cuda, N, tmp_path):
+    """At decode widths a call is one kernel (counted as the kernel nodes
+    of a graph capturing it): the in-dim splits are summed by the last
+    block of each tile, whose counter is 0 again afterwards."""
     rng = np.random.default_rng(41)
     K = 5632
     x = _x(rng, 4, K, cuda)
     qs, sc, mn = _grouped(rng, K, N, 16, False, torch.bfloat16, False, cuda)
     assert qmm_mod._splits(4, N, K) > 1
     first = qmm_mod.q8_matmul(x, qs, sc, mn, 16)       # counters allocated
+    again = torch.empty_like(first)
+    kernels, graph = _graph_kernels(
+        lambda: qmm_mod.q8_matmul(x, qs, sc, mn, 16, out=again), tmp_path)
+    graph.replay()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        again = qmm_mod.q8_matmul(x, qs, sc, mn, 16)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(kernels) == 1 and "grouped_gemm_kernel" in kernels[0], kernels
     assert torch.equal(first, again)
     cnt = qmm_mod._counters[x.device]
@@ -832,23 +846,21 @@ def test_q4_matmul_matches_plain(cuda, M, group, mins, sdt, xdt):
 
 
 @pytest.mark.parametrize("N", [2048, 72])          # 8-byte code copies at 72
-def test_q4_matmul_split_sum_is_one_launch(cuda, N):
-    """At decode widths a packed call is one kernel too: no split-sum
-    kernel, the counters 0 again afterwards, bf16 output the f32 one
-    rounded."""
-    from torch.profiler import ProfilerActivity, profile
+def test_q4_matmul_split_sum_is_one_launch(cuda, N, tmp_path):
+    """At decode widths a packed call is one kernel too (the kernel nodes
+    of a graph capturing it): no split-sum kernel, the counters 0 again
+    afterwards, bf16 output the f32 one rounded."""
     rng = np.random.default_rng(53)
     K = 5632
     x = _x(rng, 4, K, cuda)
     qs, sc, mn = _grouped(rng, K, N, 32, True, torch.bfloat16, True, cuda)
     assert qmm_mod._splits(4, N, K) > 1
     first = qmm_mod.q4_matmul(x, qs, sc, mn, 32)
+    again = torch.empty_like(first)
+    kernels, graph = _graph_kernels(
+        lambda: qmm_mod.q4_matmul(x, qs, sc, mn, 32, out=again), tmp_path)
+    graph.replay()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        again = qmm_mod.q4_matmul(x, qs, sc, mn, 32)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(kernels) == 1 and "grouped_gemm_kernel" in kernels[0], kernels
     assert torch.equal(first, again)
     assert int(qmm_mod._counters[x.device].abs().sum()) == 0
@@ -932,11 +944,11 @@ def test_decode_kernel_chain_rows_give_the_cache_bits(cuda, cpos, quant):
     assert torch.equal(out[1], out[16])
 
 
-def test_decode_kernel_is_one_launch_and_resets_its_counters(cuda):
+def test_decode_kernel_is_one_launch_and_resets_its_counters(cuda, tmp_path):
     """A bf16 call is one kernel (the splits are merged by the block with
-    the last ticket); a second identical call gives the same bits and
-    leaves every counter at 0."""
-    from torch.profiler import ProfilerActivity, profile
+    the last ticket; counted as the kernel nodes of a graph capturing it);
+    a second identical call gives the same bits and leaves every counter
+    at 0."""
     rng = np.random.default_rng(61)
     d = decode_case(rng, B=4, Hkv=4, G=8, D=64, C=2048, R=16,
                     cpos=(1023, 1500, 17, 2040), nv=(16, 3, 16, 1))
@@ -945,15 +957,350 @@ def test_decode_kernel_is_one_launch_and_resets_its_counters(cuda):
     meta = as_t(d["meta"]).to(cuda)
     win = torch.zeros(2, dtype=torch.int32, device=cuda)
     first = flash_decode(*args, meta, win)
+    out = {}
+    kernels, graph = _graph_kernels(
+        lambda: out.update(again=flash_decode(*args, meta, win)), tmp_path)
+    graph.replay()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        again = flash_decode(*args, meta, win)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    again = out["again"]
     assert len(kernels) == 1 and "flash_decode_mma_kernel" in kernels[0], \
         kernels
     assert torch.isfinite(first).all() and torch.equal(first, again)
     torch.testing.assert_close(first, flash_decode_plain(*args, meta, win),
                                rtol=0, atol=BF16_ATOL)
     assert int(fd_mod._scratch[args[0].device][1].abs().sum()) == 0
+
+
+# -- CUDA graphs: each kernel captured, the engine's programs replayed ----------
+
+
+def _replays_equal_eager(call, inputs, fill, cuda):
+    """call(*inputs) captured in a graph; three times, `fill(rng, inputs)`
+    rewrites the inputs in place, the graph replays and its output must
+    equal an eager call on the same inputs bit for bit."""
+    eager = call(*inputs)                     # libraries, scratch, tickets
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = call(*inputs)
+    torch.cuda.current_stream().wait_stream(side)
+    rng = np.random.default_rng(77)
+    for _ in range(3):
+        fill(rng, inputs)
+        graph.replay()
+        want = call(*inputs)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and torch.isfinite(out.float()).all()
+        assert not torch.equal(out, eager)
+        eager = want
+
+
+def _refill(*which):
+    def fill(rng, inputs):
+        for i in which:
+            t = inputs[i]
+            t.copy_(torch.from_numpy(rng.standard_normal(
+                tuple(t.shape)).astype(np.float32)).to(t.dtype))
+    return fill
+
+
+def test_flash_prefill_in_a_cuda_graph(cuda):
+    rng = np.random.default_rng(71)
+    p = prefill_case(rng, B=4, Hkv=4, G=8, D=64, C=256, T=64,
+                     pos0=(0, 40, 100, 192), n_valid=(64, 30, 1, 64))
+    args, _ = _on(cuda, p, torch.bfloat16)
+    meta = as_t(p["meta"]).to(cuda)
+    win = torch.zeros(2, dtype=torch.int32, device=cuda)
+    _replays_equal_eager(lambda *a: flash_prefill_batched(*a, meta, win),
+                         args, _refill(0, 1, 3), cuda)
+
+
+def test_flash_decode_in_a_cuda_graph(cuda):
+    rng = np.random.default_rng(72)
+    d = decode_case(rng, B=4, Hkv=4, G=8, D=64, C=2048, R=16,
+                    cpos=(1023, 1500, 17, 2040), nv=(16, 3, 16, 1))
+    args, _ = _on(cuda, d, torch.bfloat16)
+    meta = as_t(d["meta"]).to(cuda)
+    win = torch.zeros(2, dtype=torch.int32, device=cuda)
+    _replays_equal_eager(lambda *a: flash_decode(*a, meta, win), args,
+                         _refill(0, 1, 3), cuda)
+
+
+def test_fused_norm_qmm_in_a_cuda_graph(cuda):
+    rng = np.random.default_rng(73)
+    a = list(_norm_qmm_case(rng, 4, 2048, 2560, cuda))
+    _replays_equal_eager(lambda *t: fdec_mod.fused_norm_qmm(*t, eps=1e-5), a,
+                         _refill(0), cuda)
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["q4", "q8"])
+@pytest.mark.parametrize("M", [4, 512])
+def test_q_matmul_in_a_cuda_graph(cuda, packed, M):
+    rng = np.random.default_rng(74 + M)
+    K, N = 2048, 2560
+    x = _x(rng, M, K, cuda)
+    qs, sc, mn = _grouped(rng, K, N, 32 if packed else 16, packed,
+                          torch.bfloat16, packed, cuda)
+    kern, _ = _q_fn(packed)
+    group = 32 if packed else 16
+    _replays_equal_eager(
+        lambda xx: kern(xx, qs, sc, mn, group, out_dtype=torch.bfloat16),
+        [x], _refill(0), cuda)
+
+
+def test_draws_on_the_card_are_the_cpu_draws(cuda):
+    from llama_box_tpu_torch import sampling as ts
+    for dev in ("cpu", cuda):
+        st = ts.init_sampler_state(5, 10, dev)
+        for b in range(5):
+            ts.reset_slot(st, b, 0xFFFFFFFF - 977 * b)
+        st.step.copy_(torch.tensor([0, 1, 7, 4096, 2 ** 30]))
+        got = ts._draws(st, ts.STREAM_GUMBEL, 256).cpu()
+        if dev == "cpu":
+            want = got
+    assert torch.equal(got, want)
+
+
+# a tiny llama for the engine tests: E 256, head 64, FF 512, vocab 512 (byte
+# fallback and letter pieces), two layers; every width the fused w8a8 gates
+# and the Q4_K / Q6_K blocks take
+_TINY = dict(L=2, E=256, H=4, HKV=2, D=64, FF=512, V=512)
+
+
+def _tiny_gguf(path, fmt):
+    from llama_box_tpu_torch.gguf import GGMLType, GGUFWriter
+    from llama_box_tpu_torch.tokenizer.tokenizer import TokenType
+    L, E, H, HKV, D, FF, V = (_TINY[k] for k in
+                              ("L", "E", "H", "HKV", "D", "FF", "V"))
+    alpha = ["▁"] + [chr(c) for c in range(ord("a"), ord("z") + 1)]
+    pieces = (alpha + [a + b for a in alpha for b in alpha])[:V - 259]
+    toks = ["<unk>", "<s>", "</s>"] + [f"<0x{i:02X}>" for i in range(256)] \
+        + pieces
+    types = [TokenType.UNKNOWN, TokenType.CONTROL, TokenType.CONTROL] \
+        + [TokenType.BYTE] * 256 + [TokenType.NORMAL] * len(pieces)
+    rng = np.random.default_rng(3)
+    w = GGUFWriter(str(path), architecture="llama")
+    for k, v in (("llama.block_count", L), ("llama.context_length", 512),
+                 ("llama.embedding_length", E),
+                 ("llama.feed_forward_length", FF),
+                 ("llama.attention.head_count", H),
+                 ("llama.attention.head_count_kv", HKV),
+                 ("llama.attention.layer_norm_rms_epsilon", 1e-5),
+                 ("llama.rope.freq_base", 10000.0),
+                 ("llama.rope.dimension_count", D),
+                 ("llama.vocab_size", V), ("tokenizer.ggml.model", "llama"),
+                 ("tokenizer.ggml.tokens", toks),
+                 ("tokenizer.ggml.scores", np.asarray(
+                     [0.0] * 259 + [-float(i) for i in range(len(pieces))],
+                     np.float32)),
+                 ("tokenizer.ggml.token_type", np.asarray(types, np.int32)),
+                 ("tokenizer.ggml.bos_token_id", 1),
+                 ("tokenizer.ggml.eos_token_id", 2),
+                 ("tokenizer.ggml.unknown_token_id", 0)):
+        w.add_kv(k, v)
+
+    def rand(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * 0.05
+
+    def norm_w():
+        return 1.0 + rng.standard_normal(E, dtype=np.float32) * 0.02
+    most, q6 = {"f16": ("F16", "F16"), "q8_0": ("Q8_0", "Q8_0"),
+                "q4_k_m": ("Q4_K", "Q6_K")}[fmt]
+    most, q6 = GGMLType[most], GGMLType[q6]
+    w.add_tensor("token_embd.weight", rand(V, E), most)
+    w.add_tensor("output_norm.weight", norm_w())
+    w.add_tensor("output.weight", rand(V, E), q6)
+    for i in range(L):
+        w.add_tensor(f"blk.{i}.attn_norm.weight", norm_w())
+        w.add_tensor(f"blk.{i}.attn_q.weight", rand(H * D, E), most)
+        w.add_tensor(f"blk.{i}.attn_k.weight", rand(HKV * D, E), most)
+        w.add_tensor(f"blk.{i}.attn_v.weight", rand(HKV * D, E), most)
+        w.add_tensor(f"blk.{i}.attn_output.weight", rand(E, H * D), most)
+        w.add_tensor(f"blk.{i}.ffn_norm.weight", norm_w())
+        w.add_tensor(f"blk.{i}.ffn_gate.weight", rand(FF, E), most)
+        w.add_tensor(f"blk.{i}.ffn_up.weight", rand(FF, E), most)
+        w.add_tensor(f"blk.{i}.ffn_down.weight", rand(E, FF), q6)
+    w.write()
+
+
+_FORMATS = {"bf16": ("f16", {}), "w8a8": ("q8_0", {}),
+            "q4": ("q4_k_m", {"LLAMA_BOX_TPU_PACKED4": "1"})}
+
+
+@pytest.fixture(scope="module", params=sorted(_FORMATS))
+def tiny_model(request, tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from llama_box_tpu_torch.gguf import GGUFFile
+    from llama_box_tpu_torch.models.loader import load_model
+    from llama_box_tpu_torch.tokenizer import Tokenizer
+    fmt, env = _FORMATS[request.param]
+    path = tmp_path_factory.mktemp("tiny") / f"tiny-{fmt}.gguf"
+    _tiny_gguf(path, fmt)
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in env.items():
+            mp.setenv(k, v)
+        cfg, params = load_model(str(path), dtype=torch.bfloat16,
+                                 device="cuda",
+                                 quantized=request.param != "bf16")
+    with GGUFFile(str(path)) as g:
+        tok = Tokenizer.from_gguf(g)
+    return request.param, cfg, params, tok
+
+
+def _engine(tiny, graphs, chain=16, start=False):
+    from llama_box_tpu_torch.server.engine import Engine, EngineConfig
+    _, cfg, params, tok = tiny
+    eng = Engine(cfg, params, tok,
+                 EngineConfig(n_slots=4, n_ctx=4 * 256, n_ubatch=32,
+                              kv_dtype="bfloat16", decode_chain=chain,
+                              cuda_graphs=graphs), device="cuda")
+    eng.fuse_params()
+    if start:
+        eng.start()
+    return eng
+
+
+def _stage_decode(eng, tokens, pos):
+    S = len(eng.slots)
+    h = eng._dec_in.host()
+    h[:] = 0
+    h[S:2 * S] = eng.slot_ctx
+    for b, (t, p) in enumerate(zip(tokens, pos)):
+        if t is not None:
+            h[b], h[S + b], h[2 * S + b] = t, p, 1
+    eng._dec_in.push()
+
+
+def _stage_prefill(eng, chunks, T):
+    S = len(eng.slots)
+    h = eng._pre_in.host()
+    h[:S * (3 + T)] = 0
+    tok = h[3 * S:S * (3 + T)].reshape(S, T)
+    for b, (p, ids) in chunks.items():
+        tok[b, :len(ids)] = ids
+        h[b], h[S + b], h[2 * S + b] = p, len(ids), 1
+    eng._pre_in.push(S * (3 + T))
+
+
+def test_engine_programs_replay_the_eager_bits(cuda, tiny_model):
+    """The prefill program (bucket 32, slot 2 idle) and a 16-step decode
+    chain, each run three times (eager first use, capture + replay,
+    replay) on an engine with graphs and on one without: every output,
+    the KV cache and the sampler state equal bit for bit after each run,
+    and the graph engine captured one graph per key."""
+    engines = [_engine(tiny_model, g) for g in (True, False)]
+    rng = np.random.default_rng(81)
+    chunks = {b: (0, rng.integers(300, 500, n).tolist())
+              for b, n in ((0, 32), (1, 20), (3, 7))}
+    for it in range(3):
+        outs = []
+        for eng in engines:
+            _stage_prefill(eng, chunks, 32)
+            eng._refresh_arrs()
+            pre = eng.graphs.run(("prefill", 32),
+                                 lambda e=eng: e._prefill_program(32))
+            tok0 = pre[0].cpu().tolist()
+            _stage_decode(eng, [tok0[0], tok0[1], None, tok0[3]],
+                          [32, 20, 0, 7])
+            dec = eng.graphs.run(("decode", 16, False, 64),
+                                 lambda e=eng: e._decode_program(
+                                     16, samp_extras=False, samp_kcap=64))
+            torch.cuda.synchronize()
+            outs.append([t.clone() for t in (*pre, *dec)]
+                        + [t.clone() for t in eng.kv if t is not None]
+                        + [t.clone() for t in eng.sstate])
+        for a, b in zip(*outs):
+            assert torch.equal(a, b), it
+    assert engines[0].graphs.n_graphs == 2
+    assert engines[1].graphs.n_graphs == 0
+
+
+def test_engine_greedy_tokens_with_and_without_graphs(cuda, tiny_model):
+    """Four greedy requests (one repeated) through the started engine:
+    graphs on and off, K = 1 and 16, give the same tokens; with graphs on,
+    the launches of every kernel the path runs count the replays."""
+    from llama_box_tpu_torch.sampling import SamplerParams
+    from llama_box_tpu_torch.server.cuda_graph import kernel_wrappers
+    from llama_box_tpu_torch.server.task import CompletionsTask
+    rng = np.random.default_rng(82)
+    prompts = [rng.integers(300, 500, n).tolist() for n in (40, 23, 9)]
+    prompts.append(prompts[0])
+    out = {}
+    for graphs in (True, False):
+        for K in (1, 16):
+            eng = _engine(tiny_model, graphs, chain=K, start=True)
+            for w in kernel_wrappers():
+                w.launches = 0
+            try:
+                tasks = [CompletionsTask(p, SamplerParams(
+                    temp=0.0, ignore_eos=True), tokenizer=eng.tokenizer,
+                    max_tokens=20) for p in prompts]
+                for t in tasks:
+                    eng.submit(t)
+                gen = []
+                for t in tasks:
+                    while True:
+                        kind, payload = t.result_q.get(timeout=300)
+                        if kind == "error":
+                            raise payload
+                        if kind == "final":
+                            gen.append(list(payload.generated))
+                            break
+                n_graphs = eng.graphs.n_graphs
+            finally:
+                eng.stop()
+            out[graphs, K] = gen
+            assert (n_graphs > 0) == graphs
+            if graphs:
+                assert flash_decode.launches > 0
+                assert flash_prefill_batched.launches > 0
+    assert out[True, 1] == out[True, 16] == out[False, 1] == out[False, 16]
+    assert all(len(g) == 20 for g in out[True, 16])
+    assert out[True, 16][3] == out[True, 16][0]
+
+
+def test_sampler_arrays_change_between_replays(cuda, tiny_model):
+    """A captured chain reads the engine's persistent SamplerArrays: a
+    logit bias filled in between two replays moves the sampled token, as
+    the eager chain does with the same arrays (runs: eager first use,
+    capture + replay, replay after the refill)."""
+    from llama_box_tpu_torch.sampling import SamplerParams
+    eng, ref = _engine(tiny_model, True), _engine(tiny_model, False)
+    greedy = SamplerParams(temp=0.0)
+    got = []
+    for run in range(3):
+        pair = []
+        for e in (eng, ref):
+            sp = greedy if run < 2 else SamplerParams(
+                temp=0.0, logit_bias={int(got[0][0, 0]): -1e9})
+            e.arrs = e._samp_bufs.fill([sp] * 4, e.eog_ids)
+            _stage_decode(e, [400, 401, 402, 403], [0, 0, 0, 0])
+            out = e.graphs.run(("decode", 1, True, 0),
+                               lambda e=e: e._decode_program(
+                                   1, samp_extras=True))
+            pair.append(out[0].cpu().clone())
+        assert torch.equal(pair[0], pair[1]), run
+        got.append(pair[0])
+    assert eng.graphs.n_graphs == 1
+    assert torch.equal(got[0], got[1])
+    assert int(got[2][0, 0]) != int(got[0][0, 0])
+
+
+def test_a_capture_failure_raises(cuda):
+    """An operation a capture cannot take (a device synchronise) raises
+    out of the runner's second use; nothing runs eagerly instead."""
+    from llama_box_tpu_torch.server.cuda_graph import GraphRunner
+    runner = GraphRunner(cuda)
+    x = torch.ones(4, device=cuda)
+
+    def fn():
+        y = x * 2
+        torch.cuda.synchronize()
+        return y
+    assert torch.equal(runner.run("k", fn), x * 2)       # eager first use
+    with pytest.raises(RuntimeError):
+        runner.run("k", fn)
+    assert runner.n_graphs == 0
+    torch.cuda.synchronize()

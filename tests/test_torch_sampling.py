@@ -5,8 +5,9 @@ Greedy rows pick the argmax. The filtered distribution that top-k, top-p,
 min-p, typical-p, temperature, logit bias and the repetition / frequency /
 presence penalties leave (the `top_probs` both chains report) matches the
 JAX chain's within atol 1e-6 (f32 softmax; only summation order differs).
-The random streams differ (JAX threefry, torch Philox), so seeded sampling
-is held to the reported distribution by its empirical frequencies."""
+The random streams differ (JAX threefry, the port's integer hash of
+(seed, step)), so seeded sampling is held to the reported distribution by
+its empirical frequencies."""
 
 import jax
 import jax.numpy as jnp
@@ -54,8 +55,8 @@ def _both(params, logits, extras=True, kcap=0):
     active = np.ones(B, bool)
     jout = jsample(jnp.asarray(logits), jst, jarr, jnp.asarray(active),
                    extras=extras, kcap=kcap)
-    tout = ts.sample_impl(torch.from_numpy(logits), tst, tarr, active,
-                          extras=extras, kcap=kcap)
+    tout = ts.sample_impl(torch.from_numpy(logits), tst, tarr,
+                          torch.from_numpy(active), extras=extras, kcap=kcap)
     return [np.asarray(x) for x in jout[:4]], [x.numpy() for x in tout[:4]]
 
 
@@ -96,7 +97,7 @@ def test_penalty_window_advances_like_jax():
         jt, *_, jst = jsample(jnp.asarray(logits), jst, jarr,
                               jnp.asarray(active))
         tt, *_, tst = ts.sample_impl(torch.from_numpy(logits), tst, tarr,
-                                     active)
+                                     torch.from_numpy(active))
         np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
         logits = np.roll(logits, 7, axis=1)
     np.testing.assert_array_equal(tst.counts.numpy(), np.asarray(jst.counts))
@@ -106,9 +107,9 @@ def test_penalty_window_advances_like_jax():
 
 
 def test_seeded_sampling_follows_the_reported_distribution():
-    """N draws from one row's generator: empirical frequencies match the
-    reported probabilities (4-sigma binomial band), and one seed repeats
-    its stream."""
+    """N draws from one row's seeded stream: empirical frequencies match
+    the reported probabilities (4-sigma binomial band), and one seed
+    repeats its stream."""
     p = ts.SamplerParams(temp=1.0, top_k=8, top_p=1.0, min_p=0.0, seed=42)
     logits = torch.from_numpy(_logits(np.random.default_rng(3), 1))
     arrs = ts.make_sampler_arrays([p])
@@ -119,8 +120,9 @@ def test_seeded_sampling_follows_the_reported_distribution():
         ts.reset_slot(st, 0, seed)
         out = []
         for _ in range(N):
-            tok, ids, probs, _, st = ts.sample_impl(logits, st, arrs, [True],
-                                                    extras=False)
+            tok, ids, probs, _, st = ts.sample_impl(
+                logits, st, arrs, torch.ones(1, dtype=torch.bool),
+                extras=False)
             out.append(int(tok[0]))
         return np.asarray(out), ids[0].numpy(), probs[0].numpy()
 
