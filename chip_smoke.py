@@ -32,10 +32,12 @@ Phases (any failure raises and exits non-zero; nothing falls back):
  5. end to end, bf16 path: a synthetic TinyLlama-1.1B-width GGUF (random
     F16 weights from --seed, a 32000-piece SPM vocab, a chatml template)
     is served by the port's own HTTP server at -np 4 -c 8192 -ub 512
-    --decode-chain 16, CUDA graphs on (the default). The launch counts are
-    set to 0 just before the requests and read just after (a graph replay
-    adds its kernels' launches); both attention kernels must have run and
-    the server must have captured graphs.
+    --decode-chain 16, CUDA graphs on and chains pipelined (the
+    defaults: up to two further chains go out before the host waits for
+    the oldest, the first off the prefill's first tokens). The launch
+    counts are set to 0 just before the requests and read just after (a
+    graph replay adds its kernels' launches); both attention kernels must
+    have run and the server must have captured graphs.
     Then, in process: the card's f32 logits against an f32 CPU reference
     on a small input, and greedy K=1 and K=16 decode chains identical for
     the bf16 and the int8 cache;
@@ -61,13 +63,21 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     run, the w8a8 kernels not. In process: the card's logits against the
     CPU path (q_matmul_ref) over the same QTensors (cosine >= 0.99) and
     greedy K=1 and K=16 identical for both caches;
- 5c/5wc/5qc. after each path, in process: the same wave on two fresh
-    engines of the model, with CUDA graphs (the default: each decode chain
-    and prefill pass replays one captured graph) and with
-    EngineConfig.cuda_graphs=False, each behind the same HTTP routes and
-    after a warm-up wave of other prompts: greedy texts and the seeded
-    text identical in both modes and to the main path's; TTFT p50,
-    prefill and decode tok/s, graph count and pool memory of both; the
+ 5c/5wc/5qc. after each path, in process: three fresh engines of the
+    model, with CUDA graphs (the default: each decode chain and prefill
+    pass replays one captured graph) and pipelined chains (the default),
+    with EngineConfig(cuda_graphs=False, pipeline_chain=False), and with
+    graphs but pipeline_chain=False, each behind the same HTTP routes;
+    after two warm-up waves of other prompts, five measured waves (the
+    main path's prompts, then new ones of the same lengths), the modes in
+    turn: greedy texts and the seeded text identical in all three modes
+    in every wave and to the main path's in the first, and speculated
+    chains counted in the default mode (above 0) and in the others (0);
+    the medians of TTFT p50, prefill, decode and window tok/s (every
+    generated token over the waves' wall), graph count and pool memory of
+    each; then requests that arrive while three others decode (their
+    client ms to the first token, texts identical in all modes);
+    `--profile` profiles each mode; the
     host's microseconds per kernel-entry C call, per torch op, per eager
     decode step and per replay of a 16-step chain;
  6. print a `kernels` line (seven kernels; launches count graph replays),
@@ -1246,6 +1256,7 @@ def run_wave(url, texts, seed):
         lambda: chat(texts[1], stream=True,
                      stream_options={"include_usage": True}),
         lambda: chat(texts[2], temperature=0.8, seed=seed, ignore_eos=False)])
+    t_all = time.perf_counter() - t0
     bodies = []
     for st, text, ms in wave1:
         assert st == 200, st
@@ -1271,15 +1282,20 @@ def run_wave(url, texts, seed):
         f"{t_wave1:.2f} s wall; repeated request identical")
     log(f"  wave 2: SSE stream ({len(events)} events, [DONE]) + sampled "
         f"request ({sampled['usage']['completion_tokens']} tokens)")
+    n_gen = (sum(b["usage"]["completion_tokens"] for b in bodies)
+             + events[-1]["usage"]["completion_tokens"]
+             + sampled["usage"]["completion_tokens"])
     return dict(greedy=c, streamed=streamed,
                 sampled=sampled["choices"][0]["message"]["content"],
-                bodies=bodies, wall_s=t_wave1)
+                bodies=bodies, wall_s=t_wave1, wall_all_s=t_all,
+                n_generated=n_gen)
 
 
 def wave_metrics(w, m) -> dict:
     """End-to-end numbers of a wave: TTFT p50 of the four greedy chats,
     prompt and generated tokens over the engine's prefill and decode
-    wall time."""
+    wall time, and the window: every generated token of both waves over
+    their wall time, on the client's clock."""
     ttft = [b["usage"]["time_to_first_token_ms"] for b in w["bodies"]]
     return dict(
         ttft_p50_ms=statistics.median(ttft), ttft_ms=ttft,
@@ -1288,7 +1304,8 @@ def wave_metrics(w, m) -> dict:
         prefill_tokens=m["n_prefill_total"],
         decode_tokens=m["n_decode_total"],
         client_ms=[round(b["client_ms"], 1) for b in w["bodies"]],
-        wave1_wall_s=w["wall_s"])
+        wave1_wall_s=w["wall_s"],
+        window_tok_s=w["n_generated"] / w["wall_all_s"])
 
 
 def _serve(engine, app, url, seed, dev, profile, mode):
@@ -1352,33 +1369,94 @@ def _serve(engine, app, url, seed, dev, profile, mode):
     if profile:
         e2e["profile"] = {
             label: profile_phase(Engine, EngineConfig, engine, tok, prompts,
-                                 dev, mode, graphs)
-            for label, graphs in (("graphs", True), ("eager", False))}
+                                 dev, mode, graphs, pipe)
+            for label, (graphs, pipe) in MODES.items()}
     return launches, e2e
 
 
+# phase c's modes: label -> (cuda_graphs, pipeline_chain); the first is
+# the default the main path serves with; "eager" runs strictly
+# alternating chains too (an eager engine's host launches a speculated
+# chain's every kernel before it can wait for the first tokens)
+MODES = {"graphs": (True, True), "eager": (False, False),
+         "lockstep": (True, False)}
+REPS = 5    # measured waves a mode
+# the arrival probe: rounds a mode, requests a round, the background's
+# tokens a chat (fewer where the engine runs eagerly)
+PROBE_ROUNDS, PROBES = 2, 6
+PROBE_BG_TOKENS = {True: 384, False: 96}
+
+
+def arrival_probe(url, bg_texts, probe_texts, bg_tokens, delays):
+    """Requests that arrive while others decode. Three greedy chats of
+    bg_texts (bg_tokens each) and, on a thread of their own from 0.3 s
+    on, one-token chats of probe_texts one after another, the i-th after
+    a pause of delays[i] s (so they land at other points of a chain).
+    A probe's client ms is its time to its one token as its user sees
+    it: its wait in the queue, the chains ahead of its prefill on the
+    stream, and the prefill. Returns the ms of the probes that ended
+    before the first background chat did, the background's tokens over
+    its wall, and every text."""
+    def chat(text, n):
+        st, body, ms = http(url + "/v1/chat/completions", dict(
+            messages=[{"role": "user", "content": text}], max_tokens=n,
+            temperature=0, ignore_eos=True))
+        assert st == 200, st
+        b = json.loads(body)
+        assert b["usage"]["completion_tokens"] == n, b["usage"]
+        return b["choices"][0]["message"]["content"], ms, time.perf_counter()
+
+    def probes():
+        time.sleep(0.3)
+        out = []
+        for text, d in zip(probe_texts, delays):
+            time.sleep(d)
+            out.append(chat(text, 1))
+        return out
+    res = concurrently([lambda t=t: chat(t, bg_tokens) for t in bg_texts]
+                       + [probes])
+    bg, pr = res[:-1], res[-1]
+    t_bg_end = min(t for _, _, t in bg)
+    return dict(ms=[ms for _, ms, t in pr if t < t_bg_end],
+                bg_tok_s=len(bg) * bg_tokens / max(ms for _, ms, _ in bg)
+                * 1e3,
+                texts=[c for c, _, _ in bg + pr])
+
+
 def modes_phase(engine, app, seed, texts, main_wave, mode):
-    """The same wave on two fresh engines of the same model, graphs on
-    (the default) and cuda_graphs=False, each served in process by the
-    same HTTP routes after two warm-up waves of other prompts of the same
-    lengths (a key's first use runs eagerly and its second captures, so
-    the measured wave replays graphs): the
-    greedy texts and the seeded text must be identical in both modes and
-    to the main path's. Then the host's cost: a kernel entry's C call, a
-    torch op, an eager decode step and a graph replay of a 16-step chain."""
+    """The same waves on three fresh engines of the same model: graphs on
+    and chains pipelined (the default), cuda_graphs=False, and graphs on
+    with pipeline_chain=False; each served in process by the same HTTP
+    routes after two warm-up waves of other prompts of the same lengths (a
+    key's first use runs eagerly and its second captures, so the measured
+    waves replay graphs). Then REPS measured waves, the modes in turn and
+    each rep starting with another mode: the main path's texts first,
+    then new prompts of the same lengths. Every rep's greedy texts and
+    seeded text must be identical in all modes, the first rep's to the
+    main path's, and the default mode must have dispatched speculated
+    chains. Each metric is the median over the reps. Then PROBE_ROUNDS
+    rounds of arrival_probe, the modes in turn: the probes' texts and the
+    background's identical in all modes, and the median of the probes'
+    ms that landed mid-decode. Then the host's cost: a kernel entry's C
+    call, a torch op, an eager decode step and a graph replay of a
+    16-step chain."""
     import copy
 
     from llama_box_tpu_torch.server.engine import Engine
     from llama_box_tpu_torch.server.metrics import Metrics
-    log(f"== phase {PATHS[mode][0]}c: graphs on and off, same wave, in "
-        "process")
+    log(f"== phase {PATHS[mode][0]}c: graphs on and off, pipelined and "
+        f"not, {REPS} waves in turn, in process")
     rng = np.random.default_rng(seed + 7)
     warm = [[make_prompt(engine.tokenizer, rng, 500) for _ in range(3)]
             for _ in range(2)]
-    res, engines = {}, {}
+    reps = [texts] + [[make_prompt(engine.tokenizer, rng, 500)
+                       for _ in range(3)] for _ in range(REPS - 1)]
+    engines, servers, urls, n0 = {}, [], {}, {}
+    waves = {label: [] for label in MODES}
     try:
-        for label, graphs in (("graphs", True), ("eager", False)):
-            ecfg = dataclasses.replace(engine.ecfg, cuda_graphs=graphs)
+        for label, (graphs, pipe) in MODES.items():
+            ecfg = dataclasses.replace(engine.ecfg, cuda_graphs=graphs,
+                                       pipeline_chain=pipe)
             eng = engines[label] = Engine(engine.cfg, engine.params,
                                           engine.tokenizer, ecfg,
                                           device=str(engine.device))
@@ -1388,34 +1466,107 @@ def modes_phase(engine, app, seed, texts, main_wave, mode):
             srv = app2.make_server("127.0.0.1", 0)
             thread = threading.Thread(target=srv.serve_forever, daemon=True)
             thread.start()
-            url = f"http://127.0.0.1:{srv.server_address[1]}"
-            try:
-                for i, w_texts in enumerate(warm):
-                    run_wave(url, w_texts, seed + 1 + i)
-                n0 = eng.graphs.n_graphs
+            servers.append((srv, thread))
+            urls[label] = f"http://127.0.0.1:{srv.server_address[1]}"
+            for i, w_texts in enumerate(warm):
+                run_wave(urls[label], w_texts, seed + 1 + i)
+            n0[label] = eng.graphs.n_graphs
+        order = list(MODES)
+        for i, r_texts in enumerate(reps):
+            r_seed = seed if i == 0 else seed + 100 + i
+            for label in order[i % len(order):] + order[:i % len(order)]:
+                eng = engines[label]
                 eng.metrics = Metrics()
-                w = run_wave(url, texts, seed)
-            finally:
-                srv.shutdown()
-                srv.server_close()
-                thread.join(timeout=30)
-            r = res[label] = wave_metrics(w, eng.metrics.snapshot())
-            r.update(graphs=eng.graphs.n_graphs,
-                     captured_in_wave=eng.graphs.n_graphs - n0,
-                     graph_pool_mib=eng.graphs.pool_bytes / 2**20)
-            for k in ("greedy", "streamed", "sampled"):
-                assert w[k] == main_wave[k], f"{label}: {k} text differs " \
-                    "from the main path's"
-            log(f"  {label:6s}: TTFT p50 {r['ttft_p50_ms']:.2f} ms, prefill "
+                w = run_wave(urls[label], r_texts, r_seed)
+                m = eng.metrics.snapshot()
+                waves[label].append(dict(
+                    wave_metrics(w, m), spec_chains=m["n_spec_chains"],
+                    spec_post_prefill=m["n_spec_post_prefill"],
+                    texts={k: w[k] for k in ("greedy", "streamed",
+                                             "sampled")}))
+            want = main_wave if i == 0 else waves["graphs"][i]["texts"]
+            for label in MODES:
+                for k in ("greedy", "streamed", "sampled"):
+                    assert waves[label][i]["texts"][k] == want[k], \
+                        f"{label}, rep {i}: {k} text differs"
+        captured = {label: engines[label].graphs.n_graphs - n0[label]
+                    for label in MODES}
+        probed = {label: [] for label in MODES}
+        bg_rate = {label: [] for label in MODES}
+        for i in range(PROBE_ROUNDS):
+            bg = [make_prompt(engine.tokenizer, rng, 500) for _ in range(3)]
+            pr = [make_prompt(engine.tokenizer, rng, 500)
+                  for _ in range(PROBES)]
+            delays = rng.uniform(0, 0.06, PROBES)
+            texts_i = {}
+            for label in order[i % len(order):] + order[:i % len(order)]:
+                p = arrival_probe(urls[label], bg, pr,
+                                  PROBE_BG_TOKENS[MODES[label][0]], delays)
+                probed[label] += p["ms"]
+                bg_rate[label].append(p["bg_tok_s"])
+                texts_i[label] = p["texts"]
+            for label in MODES:
+                # the background's length depends on cuda_graphs
+                same = MODES[label][0] == MODES["graphs"][0]
+                n = 0 if same else 3
+                assert texts_i[label][n:] == texts_i["graphs"][n:], \
+                    f"{label}, probe round {i}: a text differs"
+        res = {}
+        for label in MODES:
+            eng, ws = engines[label], waves[label]
+            r = res[label] = {k: statistics.median(w[k] for w in ws)
+                              for k in ("ttft_p50_ms", "prefill_tok_s",
+                                        "decode_tok_s", "window_tok_s",
+                                        "wave1_wall_s")}
+            ms = probed[label]
+            assert len(ms) >= PROBES, f"{label}: {len(ms)} probes landed " \
+                "mid-decode"
+            r.update(waves=[{k: v for k, v in w.items() if k != "texts"}
+                            for w in ws],
+                     graphs=eng.graphs.n_graphs,
+                     captured_in_waves=captured[label],
+                     graph_pool_mib=eng.graphs.pool_bytes / 2**20,
+                     spec_chains=sum(w["spec_chains"] for w in ws),
+                     spec_post_prefill=sum(w["spec_post_prefill"]
+                                           for w in ws),
+                     arrival_ttft_p50_ms=statistics.median(ms),
+                     arrival_ttft_mean_ms=statistics.fmean(ms),
+                     arrival_ttft_ms=ms,
+                     arrival_bg_tok_s=statistics.median(bg_rate[label]))
+            log(f"  {label:8s}: medians of {REPS}: TTFT p50 "
+                f"{r['ttft_p50_ms']:.2f} ms, prefill "
                 f"{r['prefill_tok_s']:.1f} tok/s, decode "
-                f"{r['decode_tok_s']:.1f} tok/s, {r['graphs']} graphs "
-                f"({r['captured_in_wave']} captured in the measured wave), "
-                f"pool {r['graph_pool_mib']:.1f} MiB")
+                f"{r['decode_tok_s']:.1f} tok/s, window "
+                f"{r['window_tok_s']:.1f} tok/s, wave 1 "
+                f"{r['wave1_wall_s']:.4f} s; {r['graphs']} graphs "
+                f"({r['captured_in_waves']} captured in the measured waves), "
+                f"pool {r['graph_pool_mib']:.1f} MiB, speculated chains "
+                f"{r['spec_chains']} ({r['spec_post_prefill']} off a "
+                "prefill)")
+            for k in ("ttft_p50_ms", "prefill_tok_s", "decode_tok_s",
+                      "window_tok_s"):
+                log(f"    {k:<14s} " + " ".join(f"{w[k]:.2f}" for w in ws))
+            log(f"    arrival mid-decode: {len(ms)} probes, client ms p50 "
+                f"{r['arrival_ttft_p50_ms']:.2f}, mean "
+                f"{r['arrival_ttft_mean_ms']:.2f}: "
+                + " ".join(f"{x:.1f}" for x in ms)
+                + "; background " + " ".join(f"{x:.1f}"
+                                             for x in bg_rate[label])
+                + " tok/s")
         assert res["graphs"]["graphs"] > 0 and res["eager"]["graphs"] == 0
+        assert res["lockstep"]["graphs"] > 0
+        assert res["graphs"]["spec_chains"] > 0, "no chain was speculated"
+        assert res["lockstep"]["spec_chains"] == 0
+        assert res["eager"]["spec_chains"] == 0
         log("  greedy texts and the seeded text identical with graphs on "
-            "and off")
+            "and off, pipelined and not, in every rep; probes' and "
+            "background texts too")
         res["host"] = host_costs(engines["eager"], engines["graphs"])
     finally:
+        for srv, thread in servers:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=30)
         for eng in engines.values():
             eng.stop()
     return res
@@ -1516,22 +1667,24 @@ PORT_KERNELS = ("flash_prefill", "flash_decode", "grouped_gemm", "w8a8_gemm",
 
 
 def profile_phase(Engine, EngineConfig, engine, tok, prompts, dev, label,
-                  graphs=True):
+                  graphs=True, pipeline=True):
     """--profile: torch.profiler over 4 greedy requests (one batched
     prefill, then 48 tokens each in chains of 16), bf16 cache, graphs on
-    or off: device time by kernel and the device's busy share of the wall
+    or off, chains pipelined or not: device time by kernel and the
+    device's busy share of the wall
     time; then over 4 other prompts of the same lengths with one token
     each, the prefill pass alone (its device ms by kernel; decode is the
     first profile less it). One engine serves two warm-ups of the same
     shapes first (the prompts reversed, then rotated by two: no shared
     prefix), so every graph is captured before the profiles."""
     from torch.profiler import ProfilerActivity, profile as tprofile
-    mode = "graphs" if graphs else "eager"
+    mode = ("graphs" if graphs else "eager") + (
+        "" if pipeline else ", pipeline_chain=False")
     log("== profile: 4 x (500-token prompt + 48 tokens), bf16 cache, K=16, "
         f"{label} weights, {mode}")
     ecfg = EngineConfig(n_slots=N_SLOTS, n_ctx=N_CTX, n_ubatch=N_UBATCH,
                         kv_dtype="bfloat16", decode_chain=CHAIN,
-                        cuda_graphs=graphs)
+                        cuda_graphs=graphs, pipeline_chain=pipeline)
     eng = Engine(engine.cfg, engine.params, tok, ecfg, device=str(dev))
     eng.start()
     try:
@@ -1693,11 +1846,18 @@ def main(argv=None) -> int:
             library_ms=r["library_ms"], shape=shapes[name],
             launches_by_path={m: launches[m][name] for m in PATHS}))
     e2e.update(card=card, seconds=time.perf_counter() - t_start)
-    for k in ("ttft_p50_ms", "prefill_tok_s", "decode_tok_s"):
-        log(f"  {k:<14s} " + "   ".join(f"{m} {e2e[m][k]:10.2f}"
-                                        for m in PATHS))
-        for label in ("graphs", "eager"):
-            log(f"  {k:<14s} " + "   ".join(
+    if args.profile:
+        for label in MODES:
+            log(f"  decode profile busy share ({label}): " + "   ".join(
+                f"{m} {e2e[m]['profile'][label]['busy_share']:.3f}"
+                for m in PATHS))
+    for k in ("ttft_p50_ms", "prefill_tok_s", "decode_tok_s",
+              "window_tok_s", "arrival_ttft_p50_ms", "arrival_bg_tok_s"):
+        if k in e2e[next(iter(PATHS))]:
+            log(f"  {k:<19s} " + "   ".join(f"{m} {e2e[m][k]:10.2f}"
+                                             for m in PATHS))
+        for label in MODES:
+            log(f"  {k:<19s} " + "   ".join(
                 f"{m} {e2e[m]['modes'][label][k]:10.2f}" for m in PATHS)
                 + f"   ({label}, phase c)")
     log("e2e " + json.dumps(e2e))

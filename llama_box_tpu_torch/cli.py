@@ -54,6 +54,11 @@ def build_parser() -> argparse.ArgumentParser:
                    default=32,
                    help="tokens sampled per device chain on the decode path "
                         "(1 = per-token steps)")
+    g.add_argument("--no-decode-pipeline", dest="pipeline_chain",
+                   action="store_false", default=True,
+                   help="disable speculative dispatch of the next decode "
+                        "chain (chain N+1 goes out while chain N's tokens "
+                        "are still on their way to the host)")
     g.add_argument("-ctk", "--cache-type-k", default="bf16",
                    choices=["f32", "bf16", "q8_0", "int8"])
     g.add_argument("-ctv", "--cache-type-v", default="bf16",
@@ -144,7 +149,8 @@ def build_server(argv: list[str]):
         n_slots=max(1, args.n_parallel), n_ctx=args.n_ctx,
         n_ubatch=args.n_ubatch, kv_dtype=_KV[args.cache_type_k],
         prompt_cache=args.prompt_cache,
-        decode_chain=max(1, args.decode_chain))
+        decode_chain=max(1, args.decode_chain),
+        pipeline_chain=args.pipeline_chain)
     engine = Engine(cfg, params, tokenizer, ecfg, device=str(device))
     engine.start()
     app = HTTPServer(

@@ -282,9 +282,10 @@ class SamplerBuffers:
     rewrites them in place through one pinned staging copy, so a captured
     CUDA graph that reads them sees every later batch composition."""
 
-    def __init__(self, n_slots: int, device):
+    def __init__(self, n_slots: int, device, n_host: int = 1):
         self.n_slots = n_slots
-        self._buf = StagedBuffer(_arrays_size(n_slots), torch.int32, device)
+        self._buf = StagedBuffer(_arrays_size(n_slots), torch.int32, device,
+                                 n_host)
         self.arrays = _views(self._buf.dev, n_slots)
 
     def fill(self, params: Sequence[SamplerParams],
@@ -312,15 +313,11 @@ def reset_slot(state: SamplerState, slot: int, seed: int) -> SamplerState:
     return state
 
 
-def push_tokens(state: SamplerState, slot: int, tokens, n_valid: int,
-                last_n: int) -> SamplerState:
-    """Bulk-push prompt tokens of one slot into its penalty window (the
-    prompt participates in penalties). Host-side window arithmetic, one
-    upload; updates the state in place and returns it."""
+def _push_window(counts: np.ndarray, ring: np.ndarray, n: int, tokens,
+                 n_valid: int, last_n: int) -> int:
+    """Push tokens[:n_valid] into one slot's window on the host (`counts`
+    and `ring` in place); returns the new ring length."""
     last_n = max(int(last_n), 1)
-    counts = state.counts[slot].cpu().numpy().copy()
-    ring = state.ring[slot].cpu().numpy().copy()
-    n = int(state.ring_len[slot])
     for tok in np.asarray(tokens)[:int(n_valid)]:
         pos = n % last_n
         old = ring[pos]
@@ -329,10 +326,53 @@ def push_tokens(state: SamplerState, slot: int, tokens, n_valid: int,
         counts[int(tok)] += 1
         ring[pos] = tok
         n += 1
+    return n
+
+
+def push_tokens(state: SamplerState, slot: int, tokens, n_valid: int,
+                last_n: int) -> SamplerState:
+    """Bulk-push prompt tokens of one slot into its penalty window (the
+    prompt participates in penalties). Host-side window arithmetic, one
+    upload; updates the state in place and returns it."""
+    counts = state.counts[slot].cpu().numpy().copy()
+    ring = state.ring[slot].cpu().numpy().copy()
+    n = _push_window(counts, ring, int(state.ring_len[slot]), tokens,
+                     n_valid, last_n)
     dev = state.counts.device
     state.counts[slot] = torch.from_numpy(counts).to(dev)
     state.ring[slot] = torch.from_numpy(ring).to(dev)
     state.ring_len[slot] = n
+    return state
+
+
+def window_size(n_vocab: int) -> int:
+    """Elements of the int32 staging buffer `seed_slot` takes."""
+    return n_vocab + RING_CAP + 1
+
+
+def seed_slot(state: SamplerState, slot: int, seed: int, tokens,
+              n_valid: int, last_n: int,
+              staging: StagedBuffer) -> SamplerState:
+    """reset_slot, then push_tokens, with the same result and no read-back
+    (a read-back would wait for every program in flight): after the reset
+    the window is known (no counts, an empty ring), so it is built on the
+    host and goes up by one copy from `staging` (window_size(V) int32).
+    Updates the state in place and returns it."""
+    V = state.counts.shape[1]
+    h = staging.host()
+    counts, ring = h[:V], h[V:V + RING_CAP]
+    counts[:] = 0
+    ring[:] = -1
+    h[-1] = _push_window(counts, ring, 0, tokens, n_valid, last_n)
+    staging.push()
+    d = staging.dev
+    state.counts[slot].copy_(d[:V])
+    state.ring[slot].copy_(d[V:V + RING_CAP])
+    state.ring_len[slot].copy_(d[-1])
+    # fill_ takes the value as an argument; an indexed assignment would
+    # copy it from host memory and synchronise
+    state.step[slot].fill_(0)
+    state.keys[slot].fill_(int(seed) & _MASK32)
     return state
 
 

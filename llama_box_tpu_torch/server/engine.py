@@ -10,20 +10,30 @@ of llama_box_tpu/server/engine.py for completions on a dense llama).
   device and the host syncs once per chain; the first chains after a
   prefill are short (chain_ramp) so the first tokens stream early, and the
   chain shrinks to the remaining token budget.
+- Pipelined chains (EngineConfig.pipeline_chain, on by default, as in the
+  JAX engine): up to pipeline_depth further chains go out (one fewer,
+  and short, while a slot is idle; none past a budget's end while a task
+  waits for a slot), each taking its token0 from the chain before it on the
+  device, before the host waits for the oldest; the first chain after a
+  prefill goes out from the prefill's device-resident first tokens
+  before the host waits for them. A speculated chain is consumed whole
+  by the slots it covers (same task, same position) or dropped. Each
+  program's outputs are copied to pinned host buffers right after its
+  dispatch (utils/staging.HostCopies) and the consume step waits on that
+  copy's event; no other step waits for the device.
 - One dispatch per program, as the JAX engine's jitted programs: on a
   CUDA device each decode chain (keyed by K, samp_extras, samp_kcap) and
   each prefill pass with its first-token sample (keyed by the bucket)
   replays one captured CUDA graph (server/cuda_graph.py). Their operands
   live in persistent device buffers that the host fills by one pinned
-  copy a pass. EngineConfig.cuda_graphs=False runs the same programs
-  eagerly (for comparison); on the CPU they always run eagerly.
+  copy a pass (a speculated chain's token0 by a copy on the device).
+  EngineConfig.cuda_graphs=False runs the same programs eagerly (for
+  comparison); on the CPU they always run eagerly.
 
 Not ported yet (the JAX engine has them): context shift (a slot that
 reaches its capacity finishes with "length"), cross-slot prefix copies,
 the host sampler (grammar, mirostat, DRY), speculative and n-gram
-drafting, embeddings, multimodal prompts, the other model families, and
-the transfer-thread pipelining of chains (the host syncs each chain
-before dispatching the next).
+drafting, embeddings, multimodal prompts and the other model families.
 """
 
 from __future__ import annotations
@@ -40,11 +50,11 @@ from ..models.config import ModelConfig
 from ..models.llama import (check_supported, decode_operands,
                             decode_step_impl, init_chain_rows, init_kv_cache,
                             make_rope, prefill_batch_impl, write_chain_rows)
-from ..sampling import (RING_CAP, SamplerBuffers, SamplerParams,
-                        init_sampler_state, push_tokens, reset_slot,
-                        sample_impl)
+from ..sampling import (N_PROBS, RING_CAP, SamplerBuffers, SamplerParams,
+                        init_sampler_state, sample_impl, seed_slot,
+                        window_size)
 from ..utils.logging import SRV_DBG, SRV_ERR
-from ..utils.staging import StagedBuffer
+from ..utils.staging import HostCopies, StagedBuffer
 from ..utils.text import longest_common_prefix
 from .cuda_graph import GraphRunner
 from .metrics import Metrics
@@ -54,6 +64,11 @@ DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 
 _KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
               "int8": torch.int8}
+
+
+# the longest chain speculated while a slot is idle: a request arriving
+# into it waits for the rest of the chain in flight and one such chain
+_IDLE_CHAIN = 4
 
 
 def _pow2_floor(n: int) -> int:
@@ -119,9 +134,28 @@ class EngineConfig:
     # first chains after a prefill are this long (x4 per chain until
     # decode_chain), so the first tokens stream early; 0 disables
     chain_ramp: int = 4
+    # pipelined chains: dispatch chain N+1 (token0 = chain N's last
+    # tokens, on the device) before syncing chain N, and the first chain
+    # after a prefill before syncing the first tokens (False = strictly
+    # alternating; the CLI's --no-decode-pipeline)
+    pipeline_chain: bool = True
+    # speculative chains kept in flight beyond the one being synced (one
+    # fewer, and short, while a slot is idle: _fill_chain_queue)
+    pipeline_depth: int = 2
     # on a CUDA device, replay each decode chain and prefill pass as one
     # captured CUDA graph; False runs them eagerly (for comparison)
     cuda_graphs: bool = True
+
+
+@dataclasses.dataclass
+class _Chain:
+    """A dispatched program whose tokens the host has not consumed yet."""
+    toks: torch.Tensor          # [S, K] (prefill: [S]) device tokens
+    copy: tuple                 # its HostCopies handle
+    pos0: np.ndarray | None     # [S] the chain's start positions
+    tasks: list                 # [S] the task each slot ran it for
+    k: int                      # steps
+    t0: float                   # dispatch time
 
 
 class Slot:
@@ -162,7 +196,10 @@ class Engine:
         self.sstate = init_sampler_state(S, cfg.vocab_size, self.device)
         self.eog_ids = sorted(tokenizer.eog_ids) if tokenizer else []
         self._default_sp = SamplerParams()
-        self._samp_bufs = SamplerBuffers(S, self.device)
+        # staging buffers take a push a program; with chains in flight a
+        # buffer is reused only once the chain its last push fed is done
+        ring = max(1, self.ecfg.pipeline_depth) + 2
+        self._samp_bufs = SamplerBuffers(S, self.device, ring)
         self.arrs = self._samp_bufs.fill([self._default_sp] * S,
                                          self.eog_ids)
         self._arrs_dirty = False
@@ -172,9 +209,19 @@ class Engine:
             if b <= max(self.ecfg.n_ubatch, 16)}))
         # the programs' operands: decode token0 | pos0 | active, prefill
         # pos_base | n_valid | sample-active | tokens [S, bucket]
-        self._dec_in = StagedBuffer(3 * S, torch.int64, self.device)
+        self._dec_in = StagedBuffer(3 * S, torch.int64, self.device, ring)
         self._pre_in = StagedBuffer(S * (3 + self.buckets[-1]), torch.int64,
-                                    self.device)
+                                    self.device, ring)
+        # an admitted slot's penalty window (one pass may admit S)
+        self._win_in = StagedBuffer(window_size(cfg.vocab_size), torch.int32,
+                                    self.device, S + ring)
+        # the outputs of the programs in flight: tokens, top ids, top
+        # probs, token probs of up to S x decode_chain samples
+        n = S * max(1, self.ecfg.decode_chain)
+        self._copies = HostCopies(ring, [
+            (n, torch.int32), (n * N_PROBS, torch.int32),
+            (n * N_PROBS, torch.float32), (n, torch.float32)], self.device)
+        self._chain_q: list[_Chain] = []    # speculated, oldest first
         self.graphs = GraphRunner(self.device, self.ecfg.cuda_graphs)
         self.slots = [Slot(i, self.slot_ctx) for i in range(S)]
         self.queue: queue.Queue[BaseTask] = queue.Queue()
@@ -204,6 +251,10 @@ class Engine:
         if self._thread:
             self._thread.join(timeout=30)
         if not (self._thread and self._thread.is_alive()):
+            # the chains in flight read and write the graphs' buffers
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._drop_queue()
             self.graphs.close()
 
     def submit(self, task: BaseTask) -> None:
@@ -226,6 +277,8 @@ class Engine:
                 self._stop.wait(0.2)
 
     def _fail_all(self, exc: Exception) -> None:
+        self._chain_q.clear()
+        self._copies.reset()     # the queue's sets and the failed pass's
         for s in self.slots:
             if s.task is not None:
                 s.task.fail(exc)
@@ -329,14 +382,15 @@ class Engine:
 
         # reset + seed the sampler slot; the prompt joins the penalties
         sp = task.sparams
-        reset_slot(self.sstate, s.idx, sp.seed & 0xFFFFFFFF)
         last_n = min(sp.penalty_last_n if sp.penalty_last_n >= 0
                      else RING_CAP, RING_CAP)
-        if last_n > 0 and task.prompt_tokens:
+        window = []
+        if last_n > 0:
             window = [t if t >= 0 else 0
                       for t in task.prompt_tokens[-last_n:]]
-            push_tokens(self.sstate, s.idx, np.asarray(window, np.int32),
-                        len(window), last_n)
+        seed_slot(self.sstate, s.idx, sp.seed & 0xFFFFFFFF,
+                  np.asarray(window, np.int32), len(window), last_n,
+                  self._win_in)
         self._arrs_dirty = True
         SRV_DBG("admit", "task %s -> slot %d reuse=%d prompt=%d",
                 task.rid, s.idx, reuse, len(task.prompt_tokens))
@@ -360,7 +414,8 @@ class Engine:
     def _prefill_batch(self, pre: list) -> None:
         """Prefill every pending slot's next chunk in ONE batched pass;
         first tokens of every completed prompt are sampled in the same
-        program and reach the host with one sync."""
+        program and reach the host with one wait (after the first decode
+        chain has gone out, when it can)."""
         slots = []
         for s in pre:
             if s.task.cancelled:
@@ -370,6 +425,16 @@ class Engine:
         if not slots:
             return
         t0 = time.monotonic()
+        done, total, pend = self._prefill_batch_dispatch(slots)
+        if done:
+            ramp_set = self._speculate_post_prefill(done, pend)
+            self._finish_batch_sync(done, pend, ramp_set)
+        self.metrics.on_prefill(total, (time.monotonic() - t0) * 1e3)
+
+    def _prefill_batch_dispatch(self, slots: list):
+        """Stage and dispatch one batched prefill pass, and start the copy
+        of the first tokens of the prompts it completes; no wait. Returns
+        (completed slots, prompt tokens, their _Chain or None)."""
         S = len(self.slots)
         chunks = {s.idx: min(len(s.task.prompt_tokens) - s.cursor,
                              self.ecfg.n_ubatch) for s in slots}
@@ -388,30 +453,15 @@ class Engine:
             h[2 * S + s.idx] = 1
         self._pre_in.push(S * (3 + T))
         self._refresh_arrs()
-        tok, ids, probs, tokp = self.graphs.run(
-            ("prefill", T), lambda: self._prefill_program(T))
+        outs = self.graphs.run(("prefill", T),
+                               lambda: self._prefill_program(T))
         for s in slots:
             n = chunks[s.idx]
             s.cache_tokens.extend(s.task.prompt_tokens[s.cursor:s.cursor + n])
             s.cursor += n
             s.pos += n
-        if done:
-            tok_h = tok.cpu().numpy()
-            want = any(s.task.n_probs > 0 for s in done)
-            ids_h = ids.cpu().numpy() if want else None
-            probs_h = probs.cpu().numpy() if want else None
-            tokp_h = tokp.cpu().numpy() if want else None
-            for s in done:
-                s.task.t_prefilled = time.monotonic()
-                s.state = "decode"
-                s.chain_ramp = self.ecfg.chain_ramp
-                self._accept_token(
-                    s, int(tok_h[s.idx]),
-                    ids_h[s.idx] if want else None,
-                    probs_h[s.idx] if want else None,
-                    float(tokp_h[s.idx]) if want else 0.0)
-        self.metrics.on_prefill(int(sum(chunks.values())),
-                                (time.monotonic() - t0) * 1e3)
+        pend = self._copy_out(done, 1, outs, None, 0.0) if done else None
+        return done, int(sum(chunks.values())), pend
 
     def _prefill_program(self, T: int):
         """One prefill pass of bucket T over the staged operands, then the
@@ -426,9 +476,67 @@ class Engine:
             logits, self.sstate, self.arrs, d[2 * S:3 * S] != 0)
         return tok, ids, probs, tokp
 
+    def _speculate_post_prefill(self, done: list, pend: _Chain) -> bool:
+        """Dispatch the first (ramped) decode chain off the prefill's
+        device-resident first tokens before the host waits for them, so
+        the device runs it while the first tokens stream (JAX
+        `_speculate_post_prefill`). Consumed or dropped as every
+        speculated chain is (_consume_pending_chain). Returns True when
+        it went out (it has set the slots' ramps)."""
+        if not self.ecfg.pipeline_chain or self._chain_q:
+            return False
+        # every decoding slot must ride a joint chain; slots still
+        # prefilling later chunks are inactive rows
+        if any(s.state == "decode" for s in self.slots):
+            return False
+        # the JAX gate: plain slots only, by the JAX chain's `plain`,
+        # which leaves ignore_eos out (ROADMAP Queue 3)
+        if any(not dataclasses.replace(s.task.sparams,
+                                       ignore_eos=False).plain
+               for s in done):
+            return False
+        K = self.ecfg.decode_chain
+        if self.ecfg.chain_ramp > 0:
+            K = min(K, self.ecfg.chain_ramp)
+        rem = max(self._remaining(s) - 1 for s in done)  # first tok pending
+        if rem < K:
+            K = min(K, max(4, _pow2_floor(max(rem, 1))))
+        K = min(K, _pow2_floor(min(s.capacity - s.pos for s in done)))
+        if K < 2 or rem <= 0:
+            return False
+        self._chain_q.append(self._dispatch_chain(
+            done, K, {s.idx: s.pos for s in done}, pend.toks))
+        self.metrics.on_speculate(post_prefill=True)
+        for s in done:
+            nxt = K * 4
+            s.chain_ramp = 0 if nxt >= self.ecfg.decode_chain else nxt
+        return True
+
+    def _finish_batch_sync(self, done: list, pend: _Chain,
+                           ramp_set: bool) -> None:
+        """Wait for the first tokens and emit them."""
+        tok_h, ids_h, probs_h, tokp_h = self._copies.wait(pend.copy)
+        for s in done:
+            s.task.t_prefilled = time.monotonic()
+            s.state = "decode"
+            if not ramp_set:
+                # else the speculated chain already took (and advanced)
+                # this slot's ramp
+                s.chain_ramp = self.ecfg.chain_ramp
+            self._accept_token(
+                s, int(tok_h[s.idx]),
+                ids_h[s.idx] if ids_h is not None else None,
+                probs_h[s.idx] if probs_h is not None else None,
+                float(tokp_h[s.idx]) if tokp_h is not None else 0.0)
+
     # -- decode --------------------------------------------------------------
 
     def _decode_pass(self, dec: list) -> None:
+        # a speculated chain holds the tokens these slots consume next
+        # (their device sampler state already advanced through it): use
+        # it, never re-dispatch
+        if self._chain_q and self._consume_pending_chain(dec):
+            return
         # every decoding slot has room for one more row (_accept_token
         # finishes a slot at its capacity); the chain shrinks to fit
         K = self._chain_k(dec)
@@ -445,14 +553,14 @@ class Engine:
             return 1 << 30
         return max(0, mt - len(task.generated))
 
-    def _chain_k(self, dec: list) -> int:
+    def _chain_k(self, dec: list, off: int = 0) -> int:
         """The configured decode_chain, capped by any ramping slot and by
-        the pow2 bucket of the largest remaining budget (a 1-3 token
-        leftover runs a 4-chain)."""
+        the pow2 bucket of the largest remaining budget less `off` steps
+        in flight (a 1-3 token leftover runs a 4-chain)."""
         K = self.ecfg.decode_chain
         ramps = [s.chain_ramp for s in dec if s.chain_ramp > 0]
         K = min([K] + ramps)
-        rem = max(self._remaining(s) for s in dec)
+        rem = max(self._remaining(s) for s in dec) - off
         if rem <= 0:
             return 1
         if rem < K:
@@ -460,6 +568,7 @@ class Engine:
         return K
 
     def _bump_ramps(self, dec: list) -> None:
+        """One chain dispatched: quadruple each ramping slot's cap."""
         for s in dec:
             if s.chain_ramp > 0:
                 nxt = s.chain_ramp * 4
@@ -476,29 +585,52 @@ class Engine:
         return kw
 
     def _decode_pass_chain(self, dec: list, K: int) -> None:
-        """K sequential decode steps on the device + ONE host sync."""
+        """K sequential decode steps on the device, the next chains
+        speculated behind them, then ONE wait for this chain's tokens."""
         self._refresh_arrs()
+        rec = self._dispatch_chain(dec, K, {s.idx: s.pos for s in dec})
+        # pipelining: the next chains go out before the wait below, so the
+        # device works through the host's token handling
+        self._bump_ramps(dec)
+        self._fill_chain_queue(dec, K, rec)
+        self._emit_chain(dec, rec)
+
+    def _dispatch_chain(self, dec: list, K: int, pos: dict,
+                        token0=None) -> _Chain:
+        """Stage a K-step chain's operands, run it and start the copy of
+        its outputs. Each slot of `dec` is active from pos[idx]; its
+        token0 is s.next_token or, given `token0` (a device [S]: the last
+        tokens of the chain in flight, or the prefill's first), taken
+        from that on the device."""
         t0 = time.monotonic()
         S = len(self.slots)
+        pos0 = np.full(S, self.slot_ctx, np.int64)
         h = self._dec_in.host()
         h[:] = 0
-        h[S:2 * S] = self.slot_ctx
         for s in dec:
+            pos0[s.idx] = pos[s.idx]
             h[s.idx] = s.next_token
-            h[S + s.idx] = s.pos
             h[2 * S + s.idx] = 1
+        h[S:2 * S] = pos0
         self._dec_in.push()
+        if token0 is not None:
+            self._dec_in.dev[:S].copy_(token0)
         kw = self._chain_fast_kw(dec)
-        toks, ids, probs, tokps = self.graphs.run(
+        outs = self.graphs.run(
             ("decode", K, kw["samp_extras"], kw.get("samp_kcap", 0)),
             lambda: self._decode_program(K, **kw))
-        self._bump_ramps(dec)
-        toks_h = toks.cpu().numpy()
+        return self._copy_out(dec, K, outs, pos0, t0)
+
+    def _copy_out(self, dec: list, K: int, outs, pos0, t0: float) -> _Chain:
+        """Start the copy of a program's outputs (the probs only when a
+        slot of `dec` wants them) and record what it was run for."""
         want = any(s.task.n_probs > 0 for s in dec)
-        ids_h = ids.cpu().numpy() if want else None
-        probs_h = probs.cpu().numpy() if want else None
-        tokps_h = tokps.cpu().numpy() if want else None
-        self._emit_chain(dec, K, toks_h, ids_h, probs_h, tokps_h, t0)
+        copy = self._copies.start(outs if want else (outs[0], None, None,
+                                                     None))
+        tasks = [None] * len(self.slots)
+        for s in dec:
+            tasks[s.idx] = s.task
+        return _Chain(outs[0], copy, pos0, tasks, K, t0)
 
     def _decode_program(self, K: int, **kw):
         """One K-step chain over the staged operands."""
@@ -510,12 +642,92 @@ class Engine:
             n_steps=K, **kw)
         return toks, ids, probs, tokps
 
-    def _emit_chain(self, dec: list, K: int, toks_h, ids_h, probs_h,
-                    tokps_h, t0: float) -> None:
+    def _fill_chain_queue(self, dec: list, k_unemitted: int,
+                          newest: _Chain) -> None:
+        """Top the speculative queue up to pipeline_depth, each new chain
+        taking its token0 from the newest dispatched chain's last tokens
+        on the device (JAX `_fill_chain_queue`). Safe because a covered
+        slot consumes a speculated chain whole (its position and sampler
+        state then match) or its task finishes, and admission rebuilds a
+        released slot's sampler state and KV. A chain is speculated only
+        while every position it covers stays below capacity, counting the
+        k_unemitted steps dispatched but not emitted: the slot ends there
+        with "length" (context shift is not ported).
+
+        A new request's prefill queues behind every chain in flight, so
+        the port adds gates of its own (they move no token, only when
+        and how long chains go out): while a slot is idle (a request may
+        arrive into it), one chain fewer is speculated, of at most
+        _IDLE_CHAIN steps, and none while a task waits for it; and while
+        a task waits for a slot, no chain goes out past the point where
+        a covered slot's budget ends."""
+        if not self.ecfg.pipeline_chain:
+            return
+        waiting = not self.queue.empty()
+        idle = any(s.state == "idle" for s in self.slots)
+        if waiting and idle:
+            return          # admitted next pass, behind fewer chains
+        depth = max(1, self.ecfg.pipeline_depth - int(idle))
+        while len(self._chain_q) < depth:
+            if max(self._remaining(s) for s in dec) <= k_unemitted:
+                return      # every slot's budget is already covered
+            if waiting and min(self._remaining(s)
+                               for s in dec) <= k_unemitted:
+                return      # a slot frees for the waiting task
+            K2 = self._chain_k(dec, off=k_unemitted)
+            if idle:
+                K2 = min(K2, _IDLE_CHAIN)
+            K2 = min(K2, _pow2_floor(
+                min(s.capacity - s.pos for s in dec) - k_unemitted))
+            if K2 < 2:
+                return
+            newest = self._dispatch_chain(
+                dec, K2,
+                {s.idx: int(newest.pos0[s.idx]) + newest.k for s in dec},
+                newest.toks[:, -1])
+            self._chain_q.append(newest)
+            self.metrics.on_speculate(post_prefill=False)
+            self._bump_ramps(dec)
+            k_unemitted += K2
+
+    def _consume_pending_chain(self, dec: list) -> bool:
+        """Emit the OLDEST speculated chain's tokens (JAX
+        `_consume_pending_chain`). Covered = the same task object at the
+        expected position (a released or re-admitted slot fails it and
+        admission rebuilds its state). Returns False, the whole queue
+        dropped (the later chains assumed the continuation), when nothing
+        is covered; uncovered slots in `dec` wait one pass."""
+        pend = self._chain_q.pop(0)
+        covered = [s for s in dec
+                   if s.task is not None and pend.tasks[s.idx] is s.task
+                   and s.pos == int(pend.pos0[s.idx])]
+        if not covered:
+            self._copies.drop(pend.copy)
+            self._drop_queue()
+            return False
+        # keep the pipeline full: the next chain goes out before the wait,
+        # but only when the pending chain covers every decoding slot (a
+        # slot admitted meanwhile is not starved: draining lets the next
+        # pass dispatch a joint chain that includes it)
+        if len(covered) == len(dec):
+            newest = self._chain_q[-1] if self._chain_q else pend
+            off = pend.k + sum(c.k for c in self._chain_q)
+            self._fill_chain_queue(covered, off, newest)
+        self._emit_chain(covered, pend)
+        return True
+
+    def _drop_queue(self) -> None:
+        for c in self._chain_q:
+            self._copies.drop(c.copy)
+        self._chain_q.clear()
+
+    def _emit_chain(self, dec: list, rec: _Chain) -> None:
+        """Wait for a chain's tokens and hand them to its slots."""
+        toks_h, ids_h, probs_h, tokps_h = self._copies.wait(rec.copy)
         n_tok = 0
         for s in dec:
             inp = s.next_token
-            for j in range(K):
+            for j in range(rec.k):
                 if s.task is None:   # finished/cancelled mid-chain
                     break
                 s.cache_tokens.append(inp)
@@ -527,6 +739,13 @@ class Engine:
                     probs_h[s.idx, j] if probs_h is not None else None,
                     float(tokps_h[s.idx, j]) if tokps_h is not None else 0.0)
                 inp = tok
+        self._acct_decode(n_tok, rec.t0)
+
+    def _acct_decode(self, n_tok: int, t0: float) -> None:
+        """Account decode tokens over a non-overlapping wall window
+        (pipelined passes dispatch before their predecessors consume), as
+        the JAX engine does: from the chain's dispatch, so a chain in
+        flight through a prefill pass counts the pass's wall too."""
         now = time.monotonic()
         self.metrics.on_decode(
             n_tok, (now - max(t0, self._decode_acct_ts)) * 1e3)

@@ -18,6 +18,10 @@ class Metrics:
         self.n_requests = 0
         self.n_image_steps_forward = 0
         self.n_image_steps_reverse = 0
+        # decode chains dispatched before the host synced the one before
+        # (all; those off a prefill's first tokens)
+        self.n_spec_chains = 0
+        self.n_spec_post_prefill = 0
 
     def on_prefill(self, n_tokens: int, ms: float) -> None:
         with self._lock:
@@ -33,6 +37,11 @@ class Metrics:
         with self._lock:
             self.n_drafted_total += drafted
             self.n_drafted_accepted_total += accepted
+
+    def on_speculate(self, post_prefill: bool) -> None:
+        with self._lock:
+            self.n_spec_chains += 1
+            self.n_spec_post_prefill += int(post_prefill)
 
     def snapshot(self) -> dict:
         with self._lock:

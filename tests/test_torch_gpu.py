@@ -1149,13 +1149,13 @@ def tiny_model(request, tmp_path_factory):
     return request.param, cfg, params, tok
 
 
-def _engine(tiny, graphs, chain=16, start=False):
+def _engine(tiny, graphs, chain=16, start=False, **kw):
     from llama_box_tpu_torch.server.engine import Engine, EngineConfig
     _, cfg, params, tok = tiny
     eng = Engine(cfg, params, tok,
                  EngineConfig(n_slots=4, n_ctx=4 * 256, n_ubatch=32,
                               kv_dtype="bfloat16", decode_chain=chain,
-                              cuda_graphs=graphs), device="cuda")
+                              cuda_graphs=graphs, **kw), device="cuda")
     eng.fuse_params()
     if start:
         eng.start()
@@ -1304,3 +1304,120 @@ def test_a_capture_failure_raises(cuda):
         runner.run("k", fn)
     assert runner.n_graphs == 0
     torch.cuda.synchronize()
+
+
+# -- pipelined chains (chain N+1 dispatched before chain N's sync) -------------
+
+
+def _serve(eng, specs, timeout=300):
+    """Submit (prompt ids, SamplerParams, max_tokens) tasks at once; their
+    generated tokens, in order."""
+    from llama_box_tpu_torch.server.task import CompletionsTask
+    tasks = [CompletionsTask(list(p), sp, tokenizer=eng.tokenizer,
+                             max_tokens=n) for p, sp, n in specs]
+    for t in tasks:
+        eng.submit(t)
+    out = []
+    for t in tasks:
+        while True:
+            kind, payload = t.result_q.get(timeout=timeout)
+            if kind == "error":
+                raise payload
+            if kind == "final":
+                out.append(list(payload.generated))
+                break
+    return out
+
+
+def _pipeline_specs(rng, n=20, penalty=1.2):
+    """Greedy and seeded requests of mixed lengths and budgets; the last
+    with a repeat penalty (without one, every request may take the
+    post-prefill chain)."""
+    from llama_box_tpu_torch.sampling import SamplerParams
+    prompts = [rng.integers(300, 500, k).tolist() for k in (40, 23, 9, 17)]
+    return [(prompts[0], SamplerParams(temp=0.0, ignore_eos=True), n),
+            (prompts[1], SamplerParams(temp=0.0), n),
+            (prompts[2], SamplerParams(temp=0.8, seed=5), n),
+            (prompts[3], SamplerParams(temp=0.9, seed=11,
+                                       penalty_repeat=penalty), n + 7)]
+
+
+@pytest.mark.parametrize("chain,depth", [(16, 2), (4, 2)])
+def test_pipelined_texts_equal_lockstep(cuda, tiny_model, chain, depth):
+    """Graphs on: pipelined chains (depth 2) and pipeline_chain=False give
+    identical greedy and seeded tokens on every weight path. At K 4 two
+    chains of one key are in flight at once (their outputs are the same
+    graph buffers): the copy made right after each replay keeps each
+    chain's tokens."""
+    specs = _pipeline_specs(np.random.default_rng(83),
+                            n=20 if chain == 16 else 40)
+    out, spec = {}, {}
+    for pipe in (True, False):
+        eng = _engine(tiny_model, True, chain=chain, start=True,
+                      pipeline_chain=pipe, pipeline_depth=depth)
+        try:
+            out[pipe] = _serve(eng, specs)
+            spec[pipe] = eng.metrics.n_spec_chains
+            assert eng.graphs.n_graphs > 0
+        finally:
+            eng.stop()
+    assert out[True] == out[False]
+    assert spec[True] > 0 and spec[False] == 0
+    assert [len(g) for g in out[True]][:1] == [specs[0][2]]
+
+
+def _warm_every_key(eng):
+    """Run every program key the engine's traffic below can meet twice
+    (its eager first use, then its capture), so the engine only replays."""
+    S = len(eng.slots)
+    for T in eng.buckets:
+        for _ in range(2):
+            _stage_prefill(eng, {0: (0, [400] * T)}, T)
+            eng._refresh_arrs()
+            eng.graphs.run(("prefill", T),
+                           lambda T=T: eng._prefill_program(T))
+    K = 1
+    while K <= eng.ecfg.decode_chain:
+        for extras, kcap in ((True, 0), (False, 0), (False, 64)):
+            for _ in range(2):
+                _stage_decode(eng, [400] + [None] * (S - 1), [0] * S)
+                eng.graphs.run(("decode", K, extras, kcap),
+                               lambda K=K, e=extras, c=kcap:
+                               eng._decode_program(K, samp_extras=e,
+                                                   samp_kcap=c))
+        K *= 2
+    torch.cuda.synchronize()
+
+
+def test_pipelined_serving_syncs_only_at_consume(cuda, tiny_model):
+    """Once every graph is captured, a whole wave (admission, prefill, the
+    post-prefill chain, pipelined decode) runs under
+    torch.cuda.set_sync_debug_mode("error"): an implicit synchronisation
+    (a read-back, a copy from pageable memory, a stream or device
+    synchronise) raises in the engine and fails the tasks. The one wait
+    is the event of a program's output copy (HostCopies.wait), which the
+    mode does not count; the detector itself is shown live first."""
+    eng = _engine(tiny_model, True, chain=16)
+    _warm_every_key(eng)
+    n_graphs = eng.graphs.n_graphs
+    eng.start()
+    specs = _pipeline_specs(np.random.default_rng(84), penalty=1.0)
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with pytest.raises(RuntimeError):
+                torch.ones(1, device=cuda).item()
+            out = _serve(eng, specs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert eng.graphs.n_graphs == n_graphs     # nothing captured
+        assert eng.metrics.n_spec_chains > 0
+        assert eng.metrics.n_spec_post_prefill > 0
+    finally:
+        eng.stop()
+    ref = _engine(tiny_model, True, chain=16, start=True,
+                  pipeline_chain=False)
+    try:
+        assert _serve(ref, specs) == out
+    finally:
+        ref.stop()

@@ -133,3 +133,39 @@ def test_seeded_sampling_follows_the_reported_distribution():
     assert set(toks.tolist()) <= set(ids[:8].tolist())
     again, _, _ = draws(42)
     np.testing.assert_array_equal(again, toks)
+
+
+@pytest.mark.parametrize("last_n", [0, 4, 64, ts.RING_CAP])
+def test_seed_slot_is_reset_then_push_without_a_read_back(last_n):
+    """seed_slot (the engine's admission: reset and push the prompt window
+    from the host, one staged upload) leaves the state bit for bit where
+    reset_slot + push_tokens leave it, in the port and in the JAX package,
+    on a slot whose window, step and key held another task's values."""
+    from llama_box_tpu_torch.utils.staging import StagedBuffer
+    rng = np.random.default_rng(11)
+    window = rng.integers(0, V, 300).astype(np.int32)
+    n = min(last_n, len(window)) if last_n > 0 else 0
+    toks = window[-n:] if n else window[:0]
+    B, slot, seed = 3, 1, 0xDEADBEEF
+    dirty = ts.init_sampler_state(B, V)
+    ts.push_tokens(dirty, slot, window[:50], 50, 16)
+    dirty.step.fill_(9)
+    dirty.keys.fill_(5)
+    want = ts.SamplerState(*(t.clone() for t in dirty))
+    ts.reset_slot(want, slot, seed)
+    if n:
+        ts.push_tokens(want, slot, toks, n, last_n)
+    got = ts.SamplerState(*(t.clone() for t in dirty))
+    staging = StagedBuffer(ts.window_size(V), torch.int32, "cpu", n_host=2)
+    ts.seed_slot(got, slot, seed, toks, n, last_n, staging)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    jst = js.init_sampler_state(B, V)
+    jst = js.reset_slot(jst, slot, jnp.uint32(seed))
+    if n:
+        jst = js.push_tokens(jst, slot, jnp.asarray(toks), n, last_n)
+    np.testing.assert_array_equal(got.counts[slot].numpy(),
+                                  np.asarray(jst.counts[slot]))
+    np.testing.assert_array_equal(got.ring[slot].numpy(),
+                                  np.asarray(jst.ring[slot]))
+    assert int(got.ring_len[slot]) == int(jst.ring_len[slot])
