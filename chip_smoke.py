@@ -80,9 +80,30 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     `--profile` profiles each mode; the
     host's microseconds per kernel-entry C call, per torch op, per eager
     decode step and per replay of a 16-step chain;
- 6. print a `kernels` line (seven kernels; launches count graph replays),
-    an `e2e` line (three paths), the card line, and as the last line
-    {"ok": true, "device": {...}}.
+ 6. the in-place KV-cache edits, on the bf16 path's model (its weights
+    as served), once with a bf16 and once with an int8 cache: context
+    shift at -np 4 -c 2048 (slot capacity 512): 4 concurrent greedy
+    requests of 200 to 350 prompt tokens and 700 tokens each, every one
+    ending with "length" at 700 after at least 2 shifts of 128 rows, the
+    slots shifting at different steps; the same texts and shift steps
+    with graphs and chains pipelined (every graph captured first, the
+    wave under set_sync_debug_mode("error")), graphs in lockstep, eager
+    in lockstep and --decode-chain 1; no cache leaf's data_ptr moves;
+    one shift against a float64 host reference of it (bf16 within one
+    ulp, or of the f32 rounding where the rotation cancels; int8 codes
+    within 1, scales equal) and the next step's logits off the shifted
+    cache against an f32 CPU forward (reference_check's gates); the
+    device ms of one shift beside its bytes bound. Then the
+    cross-slot prefix copy at -np 4 -c 8192: while a chat with a
+    1500-token shared prefix decodes, 2 + 5 chats with that prefix (three
+    one-token chats of other prompts first take the idle slots), each
+    with cached_tokens >= 1499 by one copy (the copied rows bit-equal to
+    the donor's), against --prompt-cache-share-min -1: greedy texts
+    equal up to the first near tie, TTFT p50 of the 5 both ways, the
+    device ms of one 1500-row copy beside its bytes bound;
+ 7. print a `kernels` line (seven kernels; launches count graph replays),
+    an `e2e` line (three paths and phase 6), the card line, and as the
+    last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without CUDA,
 or without the llama_box_tpu_torch package beside it, it exits non-zero
@@ -1226,9 +1247,10 @@ def e2e_phase(dev, seed, tmp, profile=False, mode="bf16"):
     thread.start()
     log(f"  server up at {url} in {time.perf_counter() - t0:.1f} s "
         f"(params on {engine.device}, kv {engine.kv.k.dtype})")
+    routes = srv.RequestHandlerClass.routes
     try:
-        return _serve(engine, srv.RequestHandlerClass.routes, url, seed,
-                      dev, profile, mode)
+        return (*_serve(engine, routes, url, seed, dev, profile, mode),
+                (engine, routes))
     finally:
         srv.shutdown()
         srv.server_close()
@@ -1743,6 +1765,536 @@ def profile_phase(Engine, EngineConfig, engine, tok, prompts, dev, label,
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the in-place KV-cache edits (context shift, cross-slot prefix
+# copy) on the bf16 path's model
+
+
+SHIFT_CTX, SHIFT_TOKENS = 2048, 700     # -np 4: slot capacity 512
+SHIFT_PROMPTS = (200, 250, 300, 350)
+# the shift wave's modes: label -> EngineConfig fields; the first serves
+# with every graph captured, under set_sync_debug_mode("error")
+SHIFT_MODES = {"graphs": {}, "lockstep": dict(pipeline_chain=False),
+               "eager": dict(cuda_graphs=False, pipeline_chain=False),
+               "k1": dict(decode_chain=1)}
+SHARE_PREFIX, SHARE_WARM, SHARE_REPS, SHARE_TOKENS = 1500, 2, 5, 8
+# a donor is replaced before a chat once fewer tokens than this are left
+# to it (a chat and its three one-token neighbours wait behind at most
+# two chains of 16 and 4 steps each and decode 8 tokens beside it)
+DONOR_MARGIN = 120
+# a step whose top-2 log-prob margin is within this may pick either token
+# (twice the bf16 tolerance, as tests/test_torch_graph_ready.py compares)
+NEAR_TIE = 2 * BF16_ATOL
+
+
+def _leaves(kv) -> list:
+    return [x for x in kv if x is not None]
+
+
+def wait_final(task, timeout=600):
+    """A task's final state (its error raised)."""
+    while True:
+        kind, payload = task.result_q.get(timeout=timeout)
+        if kind == "error":
+            raise payload
+        if kind == "final":
+            return payload
+
+
+def _stage_prefill(eng, chunks, T):
+    S = len(eng.slots)
+    h = eng._pre_in.host()
+    h[:S * (3 + T)] = 0
+    tok = h[3 * S:S * (3 + T)].reshape(S, T)
+    for b, (p, ids) in chunks.items():
+        tok[b, :len(ids)] = ids
+        h[b], h[S + b], h[2 * S + b] = p, len(ids), 1
+    eng._pre_in.push(S * (3 + T))
+
+
+def _stage_decode(eng, tokens, pos):
+    S = len(eng.slots)
+    h = eng._dec_in.host()
+    h[:] = 0
+    h[S:2 * S] = eng.slot_ctx
+    for b, (t, p) in enumerate(zip(tokens, pos)):
+        if t is not None:
+            h[b], h[S + b], h[2 * S + b] = t, p, 1
+    eng._dec_in.push()
+
+
+def warm_every_key(eng) -> None:
+    """Run every program key a greedy ignore_eos wave can meet twice (its
+    eager first use, then its capture), so the wave only replays."""
+    S = len(eng.slots)
+    for T in eng.buckets:
+        for _ in range(2):
+            _stage_prefill(eng, {0: (0, [400] * T)}, T)
+            eng._refresh_arrs()
+            eng.graphs.run(("prefill", T),
+                           lambda T=T: eng._prefill_program(T))
+    K = 1
+    while K <= eng.ecfg.decode_chain:
+        for _ in range(2):
+            _stage_decode(eng, [400] + [None] * (S - 1), [0] * S)
+            eng.graphs.run(("decode", K, True, 0),
+                           lambda K=K: eng._decode_program(K))
+        K *= 2
+    torch.cuda.synchronize()
+
+
+def shift_reference(probe, quant) -> dict:
+    """One shift held against a float64 host reference of it, built from
+    the slot's cache read just before it (the engine's f32 delta tables,
+    the half-split rotation the engine applies): bf16 keys within one
+    bf16 ulp of the rounded reference, except where the rotation's two
+    terms cancel below the f32 rounding of the terms (those within one
+    ulp beside that rounding; counted), and every other row and value
+    bit-equal; int8 codes within 1 and each scale one of the bf16
+    roundings of the reference scale x (1 -+ 1e-6) (the two differ only
+    where f32 arithmetic may round either way; counted)."""
+    pre = [x.cpu().double().numpy() for x in probe["pre"]]
+    post = [x.cpu() for x in probe["post"]]
+    nk, nd = probe["n_keep"], probe["n_discard"]
+    C = pre[0].shape[1]
+    idx = np.arange(C)
+    src = np.where(idx < nk, idx, np.minimum(idx + nd, C - 1))
+    k = pre[0][:, src]
+    if quant:
+        k = k * pre[2][:, src][..., None]
+    c = probe["dcos"][nd].double().cpu().numpy()
+    s = probe["dsin"][nd].double().cpu().numpy()
+    h = c.shape[-1]
+    x0, x1 = k[..., :h], k[..., h:2 * h]
+    rot = np.concatenate([x0 * c + x1 * s, x1 * c - x0 * s, k[..., 2 * h:]],
+                         axis=-1)
+    # what the f32 rotation may miss by: its two products and their sum
+    # each round once (where they cancel, below one bf16 ulp of the sum)
+    f32_err = 2.0 ** -22 * np.concatenate(
+        [np.abs(x0 * c) + np.abs(x1 * s), np.abs(x1 * c) + np.abs(x0 * s),
+         np.zeros_like(k[..., 2 * h:])], axis=-1)
+    moved = (idx >= nk)[None, :, None, None]
+    kref = np.where(moved, rot, k)
+    ok_v = np.array_equal(post[1].double().numpy(), pre[1][:, src])
+    out = dict(n_keep=nk, n_discard=nd, slot=probe["slot"], v_equal=ok_v)
+    if quant:
+        ok_v &= np.array_equal(post[3].double().numpy(), pre[3][:, src])
+        amax = np.abs(kref).max(axis=-1)
+        sc = np.maximum(amax, 1e-6) / 127.0
+        lo = torch.from_numpy(sc * (1 - 1e-6)).to(torch.bfloat16).double()
+        hi = torch.from_numpy(sc * (1 + 1e-6)).to(torch.bfloat16).double()
+        got_s = post[2].double()
+        scale_ok = bool(((got_s == lo) | (got_s == hi)).all())
+        codes = np.clip(np.round(kref / got_s.numpy()[..., None]), -127, 127)
+        diff = np.abs(post[0].double().numpy() - codes)
+        out.update(codes_max_diff=float(diff.max()),
+                   codes_equal_share=float((diff == 0).mean()),
+                   scales_ok=scale_ok,
+                   scales_ambiguous=int((lo != hi).sum()), v_equal=ok_v)
+        ok = ok_v and scale_ok and diff.max() <= 1
+    else:
+        ref16 = torch.from_numpy(kref).to(torch.bfloat16).double().numpy()
+        got = post[0].double().numpy()
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref16),
+                                                  2.0 ** -126))) - 7)
+        diff = np.abs(got - ref16)
+        # within one bf16 ulp, or (where the rotation cancels) within one
+        # ulp beside the f32 rounding of its terms
+        over = diff > ulp
+        bad = diff > ulp + np.where(moved, f32_err, 0.0)
+        kept_ok = np.array_equal(got[:, :nk], pre[0][:, :nk])
+        out.update(max_ulps=float((diff / ulp).max()),
+                   equal_share=float((diff == 0).mean()),
+                   beyond_one_ulp=int(over.sum()),
+                   beyond_f32_bound=int(bad.sum()), kept_equal=kept_ok)
+        ok = ok_v and kept_ok and not bad.any()
+    log(f"  shift vs float64 reference (slot {probe['slot']}, keep {nk}, "
+        f"discard {nd}): " + json.dumps(out))
+    assert ok, out
+    return out
+
+
+def next_step_check(engine, probe, dev, quant, ref) -> dict:
+    """The next step's logits off the shifted slot (its next token at its
+    new position, a one-slot copy of the cache just after the shift): the
+    card with the engine's weights and cache type, and the card in f32,
+    against an f32 forward on the CPU, under reference_check's gates."""
+    from llama_box_tpu_torch.models import llama
+    cfg = engine.cfg
+    post = probe["post"]
+    C = post[0].shape[1]
+
+    def one_slot(device, f32):
+        if not f32:
+            return llama.KVCache(*[x[:, None].to(device).clone()
+                                   for x in post])
+        k, v = post[0].float(), post[1].float()
+        if quant:
+            k = k * post[2].float()[..., None]
+            v = v * post[3].float()[..., None]
+        return llama.KVCache(k[:, None].to(device).contiguous(),
+                             v[:, None].to(device).contiguous())
+
+    tok = torch.tensor([[probe["token"]]])
+    pos = np.array([[probe["pos"]]])
+
+    def logits(params, device, f32):
+        cos, sin = llama.make_rope(cfg, C, device=device)
+        lg, _ = llama.forward_impl(params, cfg, tok, pos,
+                                   one_slot(device, f32), cos, sin)
+        return lg[:, 0].float().cpu()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want = logits(ref["cpu32"], "cpu", True)
+    got32 = logits(ref["card32"], dev, True)
+    got = logits(engine.params, dev, False)
+    assert torch.isfinite(got).all() and torch.isfinite(got32).all()
+    scale = float(want.abs().max())
+    e32 = float((got32 - want).abs().max())
+    cos_ = _cosine(got, want)
+    log(f"  next step off the shifted cache: f32 card vs f32 CPU "
+        f"max_abs_err {e32:.3e} (tol {1e-3 * max(1.0, scale):.3e}); "
+        f"{'int8' if quant else 'bf16'} cache card vs f32 CPU min cosine "
+        f"{cos_:.6f} (tol 0.99)")
+    assert e32 <= 1e-3 * max(1.0, scale), e32
+    assert cos_ >= 0.99, cos_
+    return dict(next_f32_max_abs_err=e32, next_min_cos=cos_)
+
+
+def shift_phase(dev, seed, engine, kv_dtype, flush, ref) -> dict:
+    """4 concurrent greedy ignore_eos requests (prompts of 200 to 350
+    tokens, 700 tokens each) on -np 4 -c 2048: each slot (capacity 512)
+    shifts 128 rows at a time, at its own steps. The same texts, ends and
+    shift steps in every mode of SHIFT_MODES; no cache leaf moves; the
+    first mode runs with every graph captured under
+    set_sync_debug_mode("error"); the lockstep mode's first shift is held
+    against shift_reference and next_step_check. Then the device ms of
+    one shift beside its bytes bound."""
+    from llama_box_tpu_torch.models import llama
+    from llama_box_tpu_torch.sampling import SamplerParams
+    from llama_box_tpu_torch.server.engine import Engine
+    from llama_box_tpu_torch.server.task import CompletionsTask
+    quant = kv_dtype == "int8"
+    tag = "int8" if quant else "bf16"
+    log(f"== phase 6, {tag} cache: context shift, -np 4 -c {SHIFT_CTX}, 4 x "
+        f"{SHIFT_TOKENS} greedy tokens")
+    tok = engine.tokenizer
+    rng = np.random.default_rng(seed + 11)
+    prompts = [rng.integers(300, V, n).tolist() for n in SHIFT_PROMPTS]
+    base = dataclasses.replace(engine.ecfg, n_slots=4, n_ctx=SHIFT_CTX,
+                               kv_dtype=kv_dtype)
+    counters = kernel_counters()
+    res, texts, steps, probe = {}, {}, {}, {}
+    for label, kw in SHIFT_MODES.items():
+        eng = Engine(engine.cfg, engine.params, tok,
+                     dataclasses.replace(base, **kw), device=str(dev))
+        ptrs = [x.data_ptr() for x in _leaves(eng.kv)]
+        shifts, shift = [], eng._context_shift
+
+        def spy(s, shifts=shifts, shift=shift, eng=eng, label=label):
+            shifts.append((id(s.task), len(s.task.generated), s.pos))
+            first = label == "lockstep" and "pre" not in probe
+            if first:
+                probe.update(slot=s.idx, pre=[x[:, s.idx].clone()
+                                              for x in _leaves(eng.kv)],
+                             dcos=eng.delta_cos, dsin=eng.delta_sin,
+                             n_keep=max(0, min(s.task.n_keep, s.pos - 2)),
+                             pos0=s.pos)
+            shift(s)
+            if first:
+                probe.update(post=[x[:, s.idx].clone()
+                                   for x in _leaves(eng.kv)],
+                             n_discard=probe["pos0"] - s.pos, pos=s.pos,
+                             token=s.next_token)
+        eng._context_shift = spy
+        if label == "graphs":
+            warm_every_key(eng)
+        n_graphs = eng.graphs.n_graphs
+        eng.start()
+        tasks = [CompletionsTask(p, SamplerParams(temp=0.0, ignore_eos=True),
+                                 tokenizer=tok, max_tokens=SHIFT_TOKENS)
+                 for p in prompts]
+        t0 = time.perf_counter()
+        try:
+            if label == "graphs":
+                for fn in counters.values():
+                    fn.launches = 0
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                for t in tasks:
+                    eng.submit(t)
+                finals = [wait_final(t) for t in tasks]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            wall = time.perf_counter() - t0
+            launched = {k: fn.launches for k, fn in counters.items()}
+            captured = eng.graphs.n_graphs - n_graphs
+        finally:
+            eng.stop()
+        assert [x.data_ptr() for x in _leaves(eng.kv)] == ptrs, \
+            f"{label}: a cache leaf moved"
+        order = {id(t): i for i, t in enumerate(tasks)}
+        steps[label] = [[n for tid, n, _ in shifts if order[tid] == i]
+                        for i in range(len(tasks))]
+        texts[label] = [list(f.generated) for f in finals]
+        for f, st in zip(finals, steps[label]):
+            assert f.finish_reason == "length", (label, f.finish_reason)
+            assert len(f.generated) == SHIFT_TOKENS and f.n_shifted >= 2, \
+                (label, len(f.generated), f.n_shifted)
+            assert len(st) == f.n_shifted
+        assert all(pos == eng.slot_ctx for _, _, pos in shifts), label
+        res[label] = dict(wall_s=wall, shifts=[f.n_shifted for f in finals],
+                          graphs=eng.graphs.n_graphs)
+        if label == "graphs":
+            assert captured == 0, "a graph was captured in the checked wave"
+            assert launched["flash_decode"] > 0
+            res[label]["launches"] = launched
+        log(f"  {label:8s}: {wall:.2f} s wall, shifts "
+            f"{res[label]['shifts']}, first at generated tokens "
+            f"{[st[0] for st in steps[label]]}, {eng.graphs.n_graphs} graphs"
+            + (", every graph captured before the wave, which ran under "
+               "set_sync_debug_mode('error')" if label == "graphs" else ""))
+    for label in SHIFT_MODES:
+        for i, (x, y) in enumerate(zip(texts[label], texts["graphs"])):
+            j = next((k for k, (p, q) in enumerate(zip(x, y)) if p != q),
+                     None)
+            assert j is None, (f"{label}: request {i}'s text differs from "
+                               f"token {j} on (its shifts at generated "
+                               f"tokens {steps['graphs'][i]})")
+        assert steps[label] == steps["graphs"], f"{label}: shifts differ"
+    assert len({st[0] for st in steps["graphs"]}) == len(prompts), \
+        "two slots shifted at the same step"
+    log("  texts, ends and shift steps identical in every mode; no cache "
+        "leaf moved")
+    res["reference"] = shift_reference(probe, quant)
+    res["reference"].update(next_step_check(engine, probe, dev, quant, ref))
+
+    # the device time of one shift (slot 1, n_keep 0, n_discard 128)
+    kv = llama.init_kv_cache(engine.cfg, 4, SHIFT_CTX // 4, _KV_TORCH[tag],
+                             dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    for x in _leaves(kv):
+        if x.dtype == torch.int8:
+            x.copy_(torch.randint(-127, 128, x.shape, generator=g,
+                                  device=dev))
+        else:
+            x.copy_(torch.rand(x.shape, generator=g, device=dev) * 0.05)
+    dcos, dsin = llama.make_delta_rope(engine.cfg, SHIFT_CTX // 4, dev)
+    nd = (SHIFT_CTX // 4) // 4
+    ms = device_ms(lambda: llama.shift_kv(kv, 1, 0, nd, dcos, dsin,
+                                          engine.cfg.rope_mode), flush)
+    nbytes = 2 * sum(x[:, 1].numel() * x.element_size() for x in _leaves(kv))
+    b_ms, b_by = bound_ms(nbytes, 0)
+    res["shift_ms"], res["shift_bound_ms"] = ms, b_ms
+    res["shift_mbytes"] = nbytes / 1e6
+    log(f"  one shift (L {engine.cfg.n_layers}, C {SHIFT_CTX // 4}, "
+        f"discard {nd}): {ms:.5f} ms device (median of 15, cold L2), bound "
+        f"{b_ms:.5f} ms ({b_by}: {nbytes / 1e6:.2f} MB read and written)")
+    return res
+
+
+_KV_TORCH = {"bf16": torch.bfloat16, "int8": torch.int8}
+
+
+def _margins(body) -> list:
+    """Each generated token's top-2 log-prob margin and its text."""
+    out = []
+    for e in body["choices"][0]["logprobs"]["content"]:
+        lps = sorted((t["logprob"] for t in e["top_logprobs"]), reverse=True)
+        out.append((e["token"], lps[0] - lps[1]))
+    return out
+
+
+def copy_phase(dev, seed, engine, app, kv_dtype, flush) -> dict:
+    """A chat with a 1500-token shared prefix decodes (the donor) while
+    other chats with that prefix arrive, one at a time, on the served
+    engine's configuration (-np 4 -c 8192): before each, three one-token
+    chats of other prompts take the idle slots, so no slot but the
+    donor's holds the prefix. With --prompt-cache-share-min 32 (the
+    default) each takes the donor's rows by one copy (cached_tokens
+    >= 1499; the copied rows bit-equal to the donor's in the warm-ups);
+    with -1 each recomputes them. Greedy texts equal both ways up to the
+    first near tie; TTFT p50 of SHARE_REPS measured chats each way (after
+    SHARE_WARM that capture the graphs); then the device ms of one copy
+    of 1500 rows beside its bytes bound."""
+    import copy as copy_mod
+
+    from llama_box_tpu_torch.models import llama
+    from llama_box_tpu_torch.server import engine as engine_mod
+    from llama_box_tpu_torch.server.engine import Engine
+    tag = "int8" if kv_dtype == "int8" else "bf16"
+    log(f"== phase 6, {tag} cache: cross-slot prefix copy, -np {N_SLOTS} -c "
+        f"{N_CTX}, a {SHARE_PREFIX}-token shared prefix")
+    tok = engine.tokenizer
+    rng = np.random.default_rng(seed + 13)
+    shared = make_prompt(tok, rng, SHARE_PREFIX + 32)
+    donor_text = shared + " " + make_prompt(tok, rng, 60)
+    n = SHARE_WARM + SHARE_REPS
+    tails = [make_prompt(tok, rng, 40) for _ in range(n)]
+    scrubs = [[make_prompt(tok, rng, 60) for _ in range(3)]
+              for _ in range(n)]
+    slot_ctx = N_CTX // N_SLOTS
+    counters = kernel_counters()
+    # the donor decodes to just short of its capacity (a shift would drop
+    # the shared rows)
+    donor_tokens = slot_ctx - len(tok.encode(donor_text)) - 32
+    copies, checked = [], []
+    orig = engine_mod.copy_kv_prefix
+
+    def spy(kv, src, dst, n_rows):
+        out = orig(kv, src, dst, n_rows)
+        copies.append(n_rows)
+        if len(copies) <= SHARE_WARM:      # the warm-ups: a read-back
+            checked.append(all(torch.equal(x[:, dst, :n_rows],
+                                           x[:, src, :n_rows])
+                               for x in _leaves(kv)))
+        return out
+
+    def chat(url, text, n_tok, **kw):
+        st, body, ms = http(url + "/v1/chat/completions", dict(
+            messages=[{"role": "user", "content": text}], max_tokens=n_tok,
+            temperature=0, ignore_eos=True, **kw))
+        assert st == 200, st
+        return json.loads(body), ms
+
+    res = {}
+    for label, share_min in (("copy", 32), ("recompute", -1)):
+        ecfg = dataclasses.replace(engine.ecfg, kv_dtype=kv_dtype,
+                                   cache_share_min=share_min)
+        eng = Engine(engine.cfg, engine.params, tok, ecfg, device=str(dev))
+        eng.start()
+        app2 = copy_mod.copy(app)
+        app2.engine = eng
+        srv = app2.make_server("127.0.0.1", 0)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        donors, errs, reps = [], [], []
+        engine_mod.copy_kv_prefix = spy
+        del copies[:], checked[:]
+        for fn in counters.values():
+            fn.launches = 0
+
+        def donor_left():
+            """The donor's tokens still to come (0: none decoding)."""
+            for s in eng.slots:
+                t = s.task
+                if s.state == "decode" and t is not None \
+                        and s.pos >= SHARE_PREFIX:
+                    return t.max_tokens - len(t.generated)
+            return 0
+
+        def donor():
+            try:
+                chat(url, donor_text, donor_tokens)
+            except Exception as exc:  # noqa: BLE001 — raised below
+                errs.append(exc)
+        try:
+            for i in range(n):
+                # a donor decoding the shared prefix, with enough tokens
+                # left for this chat (else a new one, once the last has
+                # ended: it takes its own cached rows)
+                if donor_left() < DONOR_MARGIN:
+                    for d in donors:
+                        d.join(timeout=300)
+                    d = threading.Thread(target=donor, daemon=True)
+                    d.start()
+                    donors.append(d)
+                    t_end = time.perf_counter() + 120
+                    while donor_left() < DONOR_MARGIN:
+                        assert not errs and time.perf_counter() < t_end, \
+                            f"no donor decodes: {errs}"
+                        time.sleep(0.002)
+                concurrently([lambda t=t: chat(url, t, 1)
+                              for t in scrubs[i]])
+                n_copies = len(copies)
+                body, ms = chat(url, shared + " " + tails[i], SHARE_TOKENS,
+                                logprobs=True, top_logprobs=2)
+                u = body["usage"]
+                reps.append(dict(
+                    ttft_ms=u["time_to_first_token_ms"], client_ms=ms,
+                    cached=u["prompt_tokens_details"]["cached_tokens"],
+                    prompt=u["prompt_tokens"],
+                    copies=len(copies) - n_copies,
+                    donor_alive=donors[-1].is_alive(),
+                    margins=_margins(body)))
+            for d in donors:
+                d.join(timeout=300)
+                assert not d.is_alive(), "a donor did not end"
+            assert not errs, errs
+        finally:
+            engine_mod.copy_kv_prefix = orig
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=30)
+            eng.stop()
+        launched = {k: fn.launches for k, fn in counters.items()}
+        assert launched["flash_prefill"] > 0 and launched["flash_decode"] > 0
+        measured = reps[SHARE_WARM:]
+        for r in reps:
+            if label == "copy":
+                assert r["cached"] >= SHARE_PREFIX - 1 and r["copies"] == 1, r
+            else:
+                assert r["cached"] < SHARE_PREFIX - 1 and r["copies"] == 0, r
+        if label == "copy":
+            assert checked and all(checked), "copied rows differ"
+        res[label] = dict(
+            ttft_p50_ms=statistics.median(r["ttft_ms"] for r in measured),
+            ttft_ms=[r["ttft_ms"] for r in measured],
+            client_ms=[round(r["client_ms"], 2) for r in measured],
+            cached=[r["cached"] for r in reps],
+            prompt_tokens=[r["prompt"] for r in reps], donors=len(donors),
+            donor_alive=[r["donor_alive"] for r in reps], launches=launched)
+        res[label, "margins"] = [r["margins"] for r in reps]
+        log(f"  {label:9s}: TTFT p50 {res[label]['ttft_p50_ms']:.2f} ms "
+            f"({SHARE_REPS} chats: "
+            + " ".join(f"{x:.2f}" for x in res[label]["ttft_ms"])
+            + f"), cached_tokens {res[label]['cached']}, prompt tokens "
+            f"{res[label]['prompt_tokens']}, donors {len(donors)}")
+    compared = []
+    for a, b in zip(res.pop(("copy", "margins")),
+                    res.pop(("recompute", "margins"))):
+        j = next((i for i, ((_, ma), (_, mb)) in enumerate(zip(a, b))
+                  if min(ma, mb) <= NEAR_TIE), len(a))
+        assert [t for t, _ in a[:j]] == [t for t, _ in b[:j]], \
+            "copy and recompute texts differ before a near tie"
+        compared.append(j)
+    res["tokens_compared"] = compared
+    log(f"  copy and recompute texts identical up to the first near tie "
+        f"(top-2 margin <= {NEAR_TIE}): tokens compared {compared} of "
+        f"{SHARE_TOKENS} each; copied rows bit-equal to the donor's")
+
+    # the device time of one copy of SHARE_PREFIX rows, slot 0 into 1
+    kv = llama.init_kv_cache(engine.cfg, N_SLOTS, slot_ctx, _KV_TORCH[tag],
+                             dev)
+    ms = device_ms(lambda: llama.copy_kv_prefix(kv, 0, 1, SHARE_PREFIX),
+                   flush)
+    nbytes = 2 * sum(x[:, 0, :SHARE_PREFIX].numel() * x.element_size()
+                     for x in _leaves(kv))
+    b_ms, b_by = bound_ms(nbytes, 0)
+    res.update(copy_ms=ms, copy_bound_ms=b_ms, copy_mbytes=nbytes / 1e6)
+    log(f"  one copy of {SHARE_PREFIX} rows: {ms:.5f} ms device (median of "
+        f"15, cold L2), bound {b_ms:.5f} ms ({b_by}: {nbytes / 1e6:.2f} MB "
+        "read and written)")
+    return res
+
+
+def kv_edit_phase(dev, seed, engine, app) -> dict:
+    """Phase 6 on the bf16 path's model (its weights, as served), with a
+    bf16 and an int8 cache."""
+    ref = dict(cpu32=_moved(engine.params, "cpu", torch.float32),
+               card32=_moved(engine.params, dev, torch.float32))
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    out = {}
+    for kv_dtype in ("bfloat16", "int8"):
+        tag = "int8" if kv_dtype == "int8" else "bf16"
+        out[tag] = dict(shift=shift_phase(dev, seed, engine, kv_dtype,
+                                          flush, ref),
+                        copy=copy_phase(dev, seed, engine, app, kv_dtype,
+                                        flush))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -1790,8 +2342,13 @@ def main(argv=None) -> int:
     capture_failure_check()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         for mode in PATHS:
-            launches[mode], e2e[mode] = e2e_phase(dev, args.seed, tmp,
-                                                  args.profile, mode)
+            launches[mode], e2e[mode], served = e2e_phase(
+                dev, args.seed, tmp, args.profile, mode)
+            if mode == "bf16":
+                bf16_served = served
+            del served
+    e2e["kv_edit"] = kv_edit_phase(dev, args.seed, *bf16_served)
+    del bf16_served
 
     pick = {"flash_prefill": ("prefill", "bf16", 0),
             "flash_decode": ("decode", "bf16", 1023),
@@ -1860,6 +2417,13 @@ def main(argv=None) -> int:
             log(f"  {k:<19s} " + "   ".join(
                 f"{m} {e2e[m]['modes'][label][k]:10.2f}" for m in PATHS)
                 + f"   ({label}, phase c)")
+    for tag, r in e2e["kv_edit"].items():
+        sh, cp = r["shift"], r["copy"]
+        log(f"  phase 6, {tag} cache: shift {sh['shift_ms']:.5f} ms (bound "
+            f"{sh['shift_bound_ms']:.5f}); copy of {SHARE_PREFIX} rows "
+            f"{cp['copy_ms']:.5f} ms (bound {cp['copy_bound_ms']:.5f}); "
+            f"shared-prefix TTFT p50 {cp['copy']['ttft_p50_ms']:.2f} ms by "
+            f"copy, {cp['recompute']['ttft_p50_ms']:.2f} ms recomputed")
     log("e2e " + json.dumps(e2e))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -41,6 +41,15 @@ def build_parser() -> argparse.ArgumentParser:
                    type=int, default=4, help="number of parallel slots")
     g.add_argument("--no-prompt-cache", dest="prompt_cache",
                    action="store_false", default=True)
+    g.add_argument("--prompt-cache-share-min", type=int, default=32,
+                   help="cross-slot prefix sharing: copy KV rows from any "
+                        "slot sharing this many more prefix tokens than "
+                        "the chosen slot's own cache (-1 disables)")
+    g.add_argument("--context-shift", action="store_true", default=True,
+                   help="context shift is enabled by default")
+    g.add_argument("--no-context-shift", dest="context_shift",
+                   action="store_false",
+                   help="accepted; context shift stays enabled")
     g.add_argument("-a", "--alias", "--model-alias", dest="alias",
                    default=None)
 
@@ -86,6 +95,9 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("-r", "--reverse-prompt", action="append", default=[],
                    help="stop strings added to every request")
     g.add_argument("-n", "--predict", dest="n_predict", type=int, default=-1)
+    g.add_argument("--keep", dest="n_keep", type=int, default=0,
+                   help="accepted and stored; a request's own n_keep sets "
+                        "what a context shift keeps")
     g.add_argument("--jinja", action="store_true", default=True)
     g.add_argument("--no-jinja", dest="jinja", action="store_false")
     g.add_argument("--chat-template", default=None)
@@ -148,7 +160,8 @@ def build_server(argv: list[str]):
     ecfg = EngineConfig(
         n_slots=max(1, args.n_parallel), n_ctx=args.n_ctx,
         n_ubatch=args.n_ubatch, kv_dtype=_KV[args.cache_type_k],
-        prompt_cache=args.prompt_cache,
+        n_keep_default=args.n_keep, prompt_cache=args.prompt_cache,
+        cache_share_min=args.prompt_cache_share_min,
         decode_chain=max(1, args.decode_chain),
         pipeline_chain=args.pipeline_chain)
     engine = Engine(cfg, params, tokenizer, ecfg, device=str(device))

@@ -44,6 +44,8 @@ path.
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import os
 from typing import NamedTuple
 
@@ -196,6 +198,94 @@ def _rope_params(cfg: ModelConfig) -> RopeParams:
 def make_rope(cfg: ModelConfig, max_pos: int, device="cuda"):
     """(cos, sin) tables [max_pos, rot/2] f32 on `device`."""
     return compute_rope_cache(_rope_params(cfg), max_pos, device)
+
+
+def make_delta_rope(cfg: ModelConfig, max_pos: int, device="cuda"):
+    """Pure-rotation tables for shift_kv: make_rope's frequencies without
+    the YaRN mscale amplitude (the stored keys carry it once already).
+    Stacked [2, P, half] where layers rotate differently (llama4's nope
+    layers: identity at index 0; gemma3's local base at index 1), as in
+    the JAX package, whose shift picks one per layer (those families are
+    not on the ported path yet)."""
+    def pure(rp):
+        cos, sin = compute_rope_cache(
+            dataclasses.replace(rp, yarn_attn_factor=1.0), max_pos, device)
+        if rp.scaling_type == "yarn" and rp.freq_scale != 1.0:
+            # the residual of attn_factor 1: 1 + 0.1 ln(1 / freq_scale)
+            mscale = 1.0 + 0.1 * math.log(1.0 / rp.freq_scale)
+            cos, sin = cos / mscale, sin / mscale
+        return cos, sin
+
+    rp = _rope_params(cfg)
+    cos, sin = pure(rp)
+    if cfg.nope_layer_step > 0:
+        return (torch.stack([torch.ones_like(cos), cos]),
+                torch.stack([torch.zeros_like(sin), sin]))
+    if cfg.swa_pattern > 0 and cfg.rope_freq_base_swa > 0:
+        cos_l, sin_l = pure(dataclasses.replace(
+            rp, freq_base=cfg.rope_freq_base_swa))
+        return torch.stack([cos, cos_l]), torch.stack([sin, sin_l])
+    return cos, sin
+
+
+# -- in-place KV-cache edits -------------------------------------------------
+#
+# Both take the slot and row counts as host ints and write into the cache's
+# own tensors, which the engine's CUDA graphs captured by address; they are
+# plain torch ops enqueued on the caller's current stream, with no read-back.
+
+
+def shift_kv(kv: KVCache, slot: int, n_keep: int, n_discard: int,
+             delta_cos, delta_sin, rope_mode: str) -> KVCache:
+    """Context shift of one slot, in place (JAX `shift_kv_impl` with the
+    plain [P, half] tables; the stacked ones and their per-layer pick
+    wait for the families that use them): row i takes row i + n_discard
+    (clipped to C - 1) for i >= n_keep, and its key is rotated by
+    -n_discard positions (RoPE is additive in position at fixed
+    frequency); values (and their scales) only move. An int8 cache
+    re-quantizes every key row of the slot from the rotated f32 values,
+    the kept prefix too, as JAX does."""
+    C = kv.capacity
+    idx = torch.arange(C, device=kv.k.device)
+    src = torch.where(idx < n_keep, idx, (idx + n_discard).clamp_max(C - 1))
+    moved = (idx >= n_keep)[None, :, None, None]
+    # gathered first: source and destination rows overlap within the slot
+    k_g = kv.k[:, slot].index_select(1, src)              # [L, C, Hkv, D]
+    v_g = kv.v[:, slot].index_select(1, src)
+    if kv.quantized:
+        ks_g = kv.k_scale[:, slot].index_select(1, src)   # [L, C, Hkv]
+        vs_g = kv.v_scale[:, slot].index_select(1, src)
+        k_f = k_g.float() * ks_g.float()[..., None]
+    else:
+        k_f = k_g.float()
+    # the rotation by n_discard for every row: cos(d), -sin(d)
+    c = delta_cos[n_discard:n_discard + 1]                # [1, half]
+    s = delta_sin[n_discard:n_discard + 1]
+    k_rot = apply_rope(k_f, None, c, -s, rope_mode)
+    if kv.quantized:
+        k_rot_f = torch.where(moved, k_rot, k_f)
+        amax = k_rot_f.abs().amax(dim=-1)
+        ks_new = (amax.clamp_min(1e-6) / 127.0).to(torch.bfloat16)
+        k_new = torch.round(k_rot_f / ks_new.float()[..., None]).clamp(
+            -127, 127).to(torch.int8)
+        kv.k_scale[:, slot].copy_(ks_new)
+        kv.v_scale[:, slot].copy_(vs_g)
+    else:
+        k_new = torch.where(moved, k_rot.to(k_g.dtype), k_g)
+    kv.k[:, slot].copy_(k_new)
+    kv.v[:, slot].copy_(v_g)
+    return kv
+
+
+def copy_kv_prefix(kv: KVCache, src: int, dst: int, n: int) -> KVCache:
+    """Rows [0, n) of slot `src` into slot `dst`, every leaf, in place (JAX
+    `copy_kv_prefix_impl`): a new request that shares a busy sibling's
+    prefix takes its rows instead of recomputing them. dst's rows from n
+    on keep their bits. The slots differ, so the views do not overlap."""
+    for x in kv:
+        if x is not None:
+            x[:, dst, :n].copy_(x[:, src, :n])
+    return kv
 
 
 # -- layers ------------------------------------------------------------------

@@ -29,11 +29,19 @@ of llama_box_tpu/server/engine.py for completions on a dense llama).
   copy a pass (a speculated chain's token0 by a copy on the device).
   EngineConfig.cuda_graphs=False runs the same programs eagerly (for
   comparison); on the CPU they always run eagerly.
+- Context shift: a slot that reaches its capacity drops n_discard rows
+  after n_keep and re-rotates the keys it keeps (models/llama.shift_kv),
+  then decodes on; chains shrink toward the boundary, so the shift fires
+  with no chain in flight over the slot (`_context_shift`).
+- Cross-slot prefix copy: a new request that shares at least
+  cache_share_min more prefix tokens with another slot than with its own
+  takes that slot's rows (models/llama.copy_kv_prefix).
+Both edit the cache the graphs captured, in place, on the stream the
+programs replay on, with no host wait.
 
-Not ported yet (the JAX engine has them): context shift (a slot that
-reaches its capacity finishes with "length"), cross-slot prefix copies,
-the host sampler (grammar, mirostat, DRY), speculative and n-gram
-drafting, embeddings, multimodal prompts and the other model families.
+Not ported yet (the JAX engine has them): the host sampler (grammar,
+mirostat, DRY), speculative and n-gram drafting, embeddings, multimodal
+prompts and the other model families.
 """
 
 from __future__ import annotations
@@ -47,9 +55,11 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.llama import (check_supported, decode_operands,
-                            decode_step_impl, init_chain_rows, init_kv_cache,
-                            make_rope, prefill_batch_impl, write_chain_rows)
+from ..models.llama import (check_supported, copy_kv_prefix,
+                            decode_operands, decode_step_impl,
+                            init_chain_rows, init_kv_cache, make_delta_rope,
+                            make_rope, prefill_batch_impl, shift_kv,
+                            write_chain_rows)
 from ..sampling import (N_PROBS, RING_CAP, SamplerBuffers, SamplerParams,
                         init_sampler_state, sample_impl, seed_slot,
                         window_size)
@@ -127,7 +137,14 @@ class EngineConfig:
     n_ctx: int = 4096             # total; per-slot = n_ctx // n_slots
     n_ubatch: int = 512           # max prefill chunk
     kv_dtype: str = "bfloat16"    # bfloat16 | float32 | int8 (q8_0)
+    # --keep: stored and read nowhere, as in the JAX engine (a request's
+    # own n_keep sets what a context shift keeps)
+    n_keep_default: int = 0
     prompt_cache: bool = True     # prefix cache (--no-prompt-cache disables)
+    # cross-slot prefix sharing: copy the rows of any slot that shares at
+    # least this many more prefix tokens than the chosen slot's own cache
+    # (-1 disables; --prompt-cache-share-min)
+    cache_share_min: int = 32
     defrag_headroom: int = 4      # free positions to leave after a squeeze
     # chained decode: tokens sampled per device chain (1 = per token)
     decode_chain: int = 1
@@ -193,6 +210,8 @@ class Engine:
                                 _KV_DTYPES[self.ecfg.kv_dtype], self.device)
         self.rope_cos, self.rope_sin = make_rope(cfg, self.slot_ctx,
                                                  self.device)
+        self.delta_cos, self.delta_sin = make_delta_rope(cfg, self.slot_ctx,
+                                                         self.device)
         self.sstate = init_sampler_state(S, cfg.vocab_size, self.device)
         self.eog_ids = sorted(tokenizer.eog_ids) if tokenizer else []
         self._default_sp = SamplerParams()
@@ -368,6 +387,7 @@ class Engine:
         reuse = min(lcp, len(task.prompt_tokens) - 1)
         if not self.ecfg.prompt_cache:
             reuse = 0
+        reuse = self._share_prefix(best, task.prompt_tokens, reuse)
 
         s = best
         s.task = task
@@ -394,6 +414,42 @@ class Engine:
         self._arrs_dirty = True
         SRV_DBG("admit", "task %s -> slot %d reuse=%d prompt=%d",
                 task.rid, s.idx, reuse, len(task.prompt_tokens))
+
+    def _share_prefix(self, best: Slot, prompt: list, reuse: int) -> int:
+        """Cross-slot prefix reuse (JAX `_admit_completion`): copy the
+        rows of the slot sharing the longest prefix with `prompt` into
+        `best` when it beats `best`'s own `reuse` by cache_share_min or
+        more; returns the rows `best` now holds. (The JAX rule also
+        excludes SWA and recurrent models; the port refuses both at load.)
+
+        The rows are valid under pipelining: a donor's cache_tokens and
+        pos are host state that lags the device, and every row below
+        them was written by a program enqueued earlier on this stream, so
+        the copy, enqueued now, reads it. A chain in flight that covers
+        `best` as an idle slot writes back the values it gathered itself,
+        and it runs before the copy."""
+        share_min = self.ecfg.cache_share_min
+        if not self.ecfg.prompt_cache or share_min < 0:
+            return reuse
+        donor, donor_l = None, reuse
+        for t in self.slots:
+            if t is best:
+                continue
+            n = min(longest_common_prefix(t.cache_tokens, prompt),
+                    len(prompt) - 1, t.pos)
+            if n > donor_l and n - reuse >= share_min:
+                donor, donor_l = t, n
+        if donor is None:
+            return reuse
+        best.cache_tokens, best.pos = [], 0   # no rows claimed mid-copy
+        try:
+            copy_kv_prefix(self.kv, donor.idx, best.idx, donor_l)
+        except Exception as exc:  # noqa: BLE001 — the device is suspect
+            self._fail_all(exc)
+            raise
+        SRV_DBG("admit", "slot %d shares %d prefix rows from slot %d",
+                best.idx, donor_l, donor.idx)
+        return donor_l
 
     def _refresh_arrs(self) -> None:
         if not self._arrs_dirty:
@@ -537,11 +593,36 @@ class Engine:
         # it, never re-dispatch
         if self._chain_q and self._consume_pending_chain(dec):
             return
-        # every decoding slot has room for one more row (_accept_token
-        # finishes a slot at its capacity); the chain shrinks to fit
+        # chains shrink toward the boundary, so a slot reaches its
+        # capacity at the end of one; it shifts before the next (the JAX
+        # engine's one-token pass), and the chain shrinks to fit
+        for s in dec:
+            if s.pos >= s.capacity:
+                self._context_shift(s)
         K = self._chain_k(dec)
         K = max(1, min(K, _pow2_floor(min(s.capacity - s.pos for s in dec))))
         self._decode_pass_chain(dec, K)
+
+    def _context_shift(self, s: Slot) -> None:
+        """Drop min(n_left / 4, n_ubatch) rows after n_keep and re-rotate
+        the kept keys (JAX `_context_shift`, the reference's reactive
+        shift). Enqueued on the stream the programs replay on; a chain in
+        flight over the slot would move its rows under it, so none may
+        be. The sampler's step is not a position and stays."""
+        if any(c.tasks[s.idx] is not None for c in self._chain_q):
+            raise RuntimeError(f"context shift of slot {s.idx} with a "
+                               "chain in flight over it")
+        task = s.task
+        n_keep = max(0, min(task.n_keep, s.pos - 2)) if task else 0
+        n_discard = max(1, min((s.pos - n_keep) // 4, self.ecfg.n_ubatch))
+        shift_kv(self.kv, s.idx, n_keep, n_discard, self.delta_cos,
+                 self.delta_sin, self.cfg.rope_mode)
+        del s.cache_tokens[n_keep:n_keep + n_discard]
+        s.pos -= n_discard
+        if task:
+            task.n_shifted += 1
+        SRV_DBG("shift", "slot %d keep=%d discard=%d pos=%d", s.idx, n_keep,
+                n_discard, s.pos)
 
     def _remaining(self, s: Slot) -> int:
         """Tokens this slot's task can still emit (max_tokens budget)."""
@@ -651,8 +732,8 @@ class Engine:
         state then match) or its task finishes, and admission rebuilds a
         released slot's sampler state and KV. A chain is speculated only
         while every position it covers stays below capacity, counting the
-        k_unemitted steps dispatched but not emitted: the slot ends there
-        with "length" (context shift is not ported).
+        k_unemitted steps dispatched but not emitted: a context shift
+        there would move a continuing slot's rows under the chain.
 
         A new request's prefill queues behind every chain in flight, so
         the port adds gates of its own (they move no token, only when
@@ -778,10 +859,6 @@ class Engine:
         elif task.scanner.stopped:
             finish = "stop"
         elif task.budget_left() <= 0:
-            finish = "length"
-        elif s.pos >= s.capacity:
-            # the token just sampled has no cache position left (context
-            # shift is not ported yet): the request ends at the boundary
             finish = "length"
 
         if finish == "stop" and not task.scanner.stopped:

@@ -7,7 +7,9 @@ same tokens in both packages. The JAX engine runs its flash kernels in
 interpret mode (LLAMA_BOX_TPU_FORCE_FLASH=1), the port its kernels' plain
 versions. Before the tokens are compared, every step's top-2 logit margin
 is checked to exceed 1e-3, so a near tie shows up as a tie and not as a
-port fault. The port's own K=1 and K=16 greedy outputs are identical."""
+port fault. So do the tokens of a request that runs past its slot's
+capacity through several context shifts. The port's own K=1 and K=16
+greedy outputs are identical."""
 
 import math
 import time
@@ -122,27 +124,49 @@ def test_chain_lengths_give_identical_greedy_output(model_path):
     assert all(f.finish_reason in ("stop", "length") for f in chained)
 
 
-def test_slot_at_capacity_ends_with_length(model_path):
-    """Context shift is not ported: a slot that fills its cache finishes
-    with "length" at the boundary."""
+def test_generation_past_capacity_shifts_like_jax(model_path):
+    """A greedy request whose generation runs past its 32-position slot
+    context-shifts (8 rows dropped each time) and ends with "length" at
+    its 100-token budget; its tokens equal the JAX engine's, and every
+    step clears the margin."""
+    prompt = "the quick brown fox"
+    ecfg = dict(n_slots=1, n_ctx=32, n_ubatch=16, kv_dtype="float32",
+                decode_chain=16)
     cfg, params = load_model(model_path, dtype=torch.float32, device="cpu")
     with GGUFFile(model_path) as g:
         tok = Tokenizer.from_gguf(g)
-    eng = Engine(cfg, params, tok,
-                 EngineConfig(n_slots=1, n_ctx=32, n_ubatch=16,
-                              kv_dtype="float32", decode_chain=16),
-                 device="cpu")
+    eng = Engine(cfg, params, tok, EngineConfig(**ecfg), device="cpu")
     eng.start()
     try:
-        prompt = tok.encode("a b c d e f")
-        t = CompletionsTask(prompt, SamplerParams(temp=0.0, ignore_eos=True),
-                            tokenizer=tok, max_tokens=100)
+        t = CompletionsTask(tok.encode(prompt),
+                            SamplerParams(temp=0.0, ignore_eos=True),
+                            tokenizer=tok, max_tokens=100, n_probs=2)
         eng.submit(t)
         (f,) = _collect([t])
     finally:
         eng.stop()
-    assert f.finish_reason == "length"
-    assert len(prompt) + len(f.generated) == 32 + 1
+    assert f.finish_reason == "length" and len(f.generated) == 100
+    assert f.n_shifted >= 2
+    for tp in f.probs:
+        p0, p1 = tp.top_probs[:2]
+        assert math.log(p0) - math.log(p1) > MARGIN, "a near tie"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("LLAMA_BOX_TPU_FORCE_FLASH", "1")
+        jcfg, jparams = jax_load(model_path, dtype=jnp.float32)
+        with JGGUFFile(model_path) as g:
+            jtok = JTokenizer.from_gguf(g)
+        jeng = JEngine(jcfg, jparams, jtok, JEngineConfig(**ecfg))
+        jeng.start()
+        try:
+            jt = JTask(jtok.encode(prompt),
+                       JSamplerParams(temp=0.0, ignore_eos=True),
+                       tokenizer=jtok, max_tokens=100)
+            jeng.submit(jt)
+            (jf,) = _collect([jt])
+        finally:
+            jeng.stop()
+    assert f.generated == jf.generated
+    assert (f.finish_reason, f.n_shifted) == (jf.finish_reason, jf.n_shifted)
 
 
 def test_engine_without_cuda_raises(monkeypatch):

@@ -1152,10 +1152,11 @@ def tiny_model(request, tmp_path_factory):
 def _engine(tiny, graphs, chain=16, start=False, **kw):
     from llama_box_tpu_torch.server.engine import Engine, EngineConfig
     _, cfg, params, tok = tiny
+    kw = dict(dict(n_slots=4, n_ctx=4 * 256, n_ubatch=32,
+                   kv_dtype="bfloat16"), **kw)
     eng = Engine(cfg, params, tok,
-                 EngineConfig(n_slots=4, n_ctx=4 * 256, n_ubatch=32,
-                              kv_dtype="bfloat16", decode_chain=chain,
-                              cuda_graphs=graphs, **kw), device="cuda")
+                 EngineConfig(decode_chain=chain, cuda_graphs=graphs, **kw),
+                 device="cuda")
     eng.fuse_params()
     if start:
         eng.start()
@@ -1416,6 +1417,111 @@ def test_pipelined_serving_syncs_only_at_consume(cuda, tiny_model):
     finally:
         eng.stop()
     ref = _engine(tiny_model, True, chain=16, start=True,
+                  pipeline_chain=False)
+    try:
+        assert _serve(ref, specs) == out
+    finally:
+        ref.stop()
+
+
+# -- in-place KV-cache edits between replays (context shift, prefix copy) -----
+
+
+def _leaf_ptrs(eng):
+    return [x.data_ptr() for x in eng.kv if x is not None]
+
+
+def _cloned(tensors) -> list:
+    """Copies of a program's outputs (a replay writes them anew)."""
+    return [t.clone() for t in tensors if t is not None]
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+def test_shift_and_copy_between_replays_give_the_eager_bits(cuda, tiny_model,
+                                                            kv_dtype):
+    """Two prefill passes fill slot 0 to 56 rows (slot 1: 20), an 8-step
+    chain takes slot 0 to its capacity of 64, then a context shift of
+    slot 0 and a copy of its first 40 rows into slot 2, then another
+    8-step chain over slots 0 and 2 that reads the edited rows; three
+    times (eager first use, capture + replay, replay) on an engine with
+    graphs and on one without: every output, the cache and the sampler
+    state equal bit for bit each time, and no cache leaf moves."""
+    from llama_box_tpu_torch.models.llama import copy_kv_prefix
+    engines = [_engine(tiny_model, g, n_ctx=4 * 64, kv_dtype=kv_dtype)
+               for g in (True, False)]
+    ptrs = [_leaf_ptrs(e) for e in engines]
+    rng = np.random.default_rng(85)
+    ids = rng.integers(300, 500, 56).tolist()
+    side = rng.integers(300, 500, 20).tolist()
+    key = ("decode", 8, False, 64)
+    for it in range(3):
+        outs = []
+        for eng in engines:
+            got = []
+            for chunks in ({0: (0, ids[:32]), 1: (0, side)},
+                           {0: (32, ids[32:])}):
+                _stage_prefill(eng, chunks, 32)
+                eng._refresh_arrs()
+                got += _cloned(eng.graphs.run(
+                    ("prefill", 32), lambda e=eng: e._prefill_program(32)))
+            tok0 = int(got[-4][0])
+            _stage_decode(eng, [tok0, None, None, None], [56, 0, 0, 0])
+            got += _cloned(eng.graphs.run(key, lambda e=eng: e._decode_program(
+                8, samp_extras=False, samp_kcap=64)))
+            s = eng.slots[0]
+            s.pos, s.cache_tokens = eng.slot_ctx, list(range(eng.slot_ctx))
+            eng._context_shift(s)                   # 16 rows dropped
+            assert s.pos == eng.slot_ctx - 16
+            copy_kv_prefix(eng.kv, 0, 2, 40)
+            last = int(got[-4][0, -1])
+            _stage_decode(eng, [last, None, last, None], [s.pos, 0, 40, 0])
+            got += _cloned(eng.graphs.run(key, lambda e=eng: e._decode_program(
+                8, samp_extras=False, samp_kcap=64)))
+            torch.cuda.synchronize()
+            outs.append(got + _cloned(eng.kv) + _cloned(eng.sstate))
+        for a, b in zip(*outs):
+            assert torch.equal(a, b), it
+        assert [_leaf_ptrs(e) for e in engines] == ptrs
+    assert engines[0].graphs.n_graphs == 2
+    assert engines[1].graphs.n_graphs == 0
+
+
+def test_pipelined_wave_that_shifts_syncs_only_at_consume(cuda, tiny_model):
+    """Once every graph is captured, a wave whose requests run past their
+    64-position slots (each shifting at least twice) runs under
+    torch.cuda.set_sync_debug_mode("error"): the shifts add no host
+    wait. Its tokens equal lockstep's, and no cache leaf moved."""
+    eng = _engine(tiny_model, True, chain=16, n_ctx=4 * 64)
+    _warm_every_key(eng)
+    n_graphs, ptrs = eng.graphs.n_graphs, _leaf_ptrs(eng)
+    shifts = []
+    shift = eng._context_shift
+
+    def spy(s):
+        shifts.append(s.idx)
+        return shift(s)
+    eng._context_shift = spy
+    eng.start()
+    from llama_box_tpu_torch.sampling import SamplerParams
+    rng = np.random.default_rng(86)
+    specs = [(rng.integers(300, 500, k).tolist(),
+              SamplerParams(temp=t, seed=seed, ignore_eos=True), 120)
+             for k, t, seed in ((40, 0.0, 0), (23, 0.0, 0), (9, 0.8, 5),
+                                (17, 0.9, 11))]
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = _serve(eng, specs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert eng.graphs.n_graphs == n_graphs     # nothing captured
+        assert eng.metrics.n_spec_chains > 0
+        assert _leaf_ptrs(eng) == ptrs
+    finally:
+        eng.stop()
+    assert all(shifts.count(i) >= 2 for i in range(4)), shifts
+    assert [len(g) for g in out][:1] == [120]
+    ref = _engine(tiny_model, True, chain=16, start=True, n_ctx=4 * 64,
                   pipeline_chain=False)
     try:
         assert _serve(ref, specs) == out

@@ -8,7 +8,10 @@ strictly alternating chains and of per-token decode, across finishes,
 cancels and re-admissions while a speculated chain is in flight; no
 speculated chain covers a position at or past a slot's capacity; and the
 greedy tokens still equal the JAX engine's (which pipelines by default
-too). Every wait on a result has a timeout."""
+too). A slot that runs past its capacity shifts at the same tokens in
+every mode, and a request that shares a prefix with a decoding slot takes
+its rows while chains are in flight. Every wait on a result has a
+timeout."""
 
 import queue
 import time
@@ -79,6 +82,11 @@ def _run(eng, specs, late=0):
     of them from the engine's thread when it first goes to emit a
     chain's tokens (in a pipelined engine the next chains are in flight
     by then); their generated tokens and finish reasons."""
+    return [(f.generated, f.finish_reason) for f in _finals(eng, specs, late)]
+
+
+def _finals(eng, specs, late=0):
+    """_run's tasks, finished."""
     tok = eng.tokenizer
     tasks = [CompletionsTask(tok.encode(p), sp, tokenizer=tok,
                              max_tokens=n, stream=False)
@@ -94,8 +102,7 @@ def _run(eng, specs, late=0):
         eng._emit_chain = submit_held
     for t in tasks[:len(tasks) - late]:
         eng.submit(t)
-    finals = [_final(t) for t in tasks]
-    return [(f.generated, f.finish_reason) for f in finals]
+    return [_final(t) for t in tasks]
 
 
 def _spy_consumes(eng) -> dict:
@@ -341,9 +348,10 @@ def test_post_prefill_speculation_and_tail_shrink(model):
         eng.stop()
 
 
-def test_slot_at_capacity_ends_at_the_same_token(model):
-    """A slot that runs to its capacity ends with "length" at the same
-    token pipelined, strictly alternating and per token, and no chain
+def test_slot_past_capacity_shifts_at_the_same_token(model):
+    """A slot that runs past its capacity context-shifts at the same
+    tokens pipelined, deeper, strictly alternating and per token, ends
+    with "length" at its budget with the same tokens, and no chain
     (speculated or not) covers a position at or past its capacity."""
     prompt = "a b c d e f"
     outs = {}
@@ -352,26 +360,79 @@ def test_slot_at_capacity_ends_at_the_same_token(model):
                      ("alt", dict(decode_chain=16, pipeline_chain=False)),
                      ("tok", dict(decode_chain=1))):
         eng = _engine(model, start=False, n_slots=1, n_ctx=32, **kw)
-        ends = []
-        dispatch = eng._dispatch_chain
+        ends, shifts = [], []
+        dispatch, shift = eng._dispatch_chain, eng._context_shift
 
         def spy(dec, K, pos, *a, ends=ends, dispatch=dispatch):
             ends.extend(pos[s.idx] + K for s in dec)
             return dispatch(dec, K, pos, *a)
+
+        def spy_shift(s, shifts=shifts, shift=shift):
+            shifts.append((len(s.task.generated), s.pos))
+            return shift(s)
         eng._dispatch_chain = spy
+        eng._context_shift = spy_shift
         eng.start()
         try:
             (outs[name],) = _run(eng, [(prompt, SamplerParams(
                 temp=0.0, ignore_eos=True), 100)])
             outs[name, "spec"] = eng.metrics.n_spec_chains
+            outs[name, "shifts"] = shifts
         finally:
             eng.stop()
         assert ends and max(ends) <= eng.slot_ctx, (name, ends)
     gen, reason = outs["pipe"]
-    assert reason == "length"
-    assert len(eng.tokenizer.encode(prompt)) + len(gen) == 32 + 1
+    assert reason == "length" and len(gen) == 100
+    assert len(outs["pipe", "shifts"]) >= 2
+    assert all(pos == eng.slot_ctx for _, pos in outs["pipe", "shifts"])
     assert outs["pipe"] == outs["pipe4"] == outs["alt"] == outs["tok"]
+    assert outs["pipe", "shifts"] == outs["pipe4", "shifts"] \
+        == outs["alt", "shifts"] == outs["tok", "shifts"]
     assert outs["pipe", "spec"] > 0 and outs["pipe4", "spec"] > 0
+
+
+def test_prefix_share_admitted_while_chains_are_in_flight(model):
+    """A request that shares a long prefix with a decoding slot arrives
+    while that slot's speculated chains are in flight: it takes the
+    slot's rows by copy (n_cached covers the prefix), and its tokens and
+    the sibling's equal those of strictly alternating and per-token
+    decode, and of the same request alone on a fresh engine."""
+    shared = "the quick brown fox jumps over the lazy dog and"
+    specs = [(shared + " runs far", SamplerParams(temp=0.0), 24),
+             (shared + " sleeps here", SamplerParams(temp=0.0), 6)]
+    n_shared = len(model[3].encode(shared))
+    out = {}
+    for name, kw in (("pipe", {}), ("alt", dict(pipeline_chain=False)),
+                     ("tok", dict(decode_chain=1))):
+        kw.setdefault("decode_chain", 4)
+        eng = _engine(model, start=False, n_ctx=128, cache_share_min=4,
+                      **kw)
+        copies = []
+        share = eng._share_prefix
+
+        def spy(best, prompt, reuse, share=share, eng=eng, copies=copies):
+            n = share(best, prompt, reuse)
+            if n > reuse:
+                copies.append(len(eng._chain_q))
+            return n
+        eng._share_prefix = spy
+        eng.start()
+        try:
+            finals = _finals(eng, specs, late=1)
+        finally:
+            eng.stop()
+        out[name] = [(f.generated, f.finish_reason) for f in finals]
+        assert finals[1].n_cached >= n_shared - 1, (name, finals[1].n_cached)
+        assert len(copies) == 1, (name, copies)
+        out[name, "in_flight"] = copies[0]
+    assert out["pipe"] == out["alt"] == out["tok"]
+    assert out["pipe", "in_flight"] > 0          # chains were in flight
+    assert out["alt", "in_flight"] == out["tok", "in_flight"] == 0
+    fresh = _engine(model, n_slots=1, n_ctx=64, decode_chain=4)
+    try:
+        assert _run(fresh, specs[1:]) == out["pipe"][1:]
+    finally:
+        fresh.stop()
 
 
 def test_cancel_mid_flight_frees_the_slot(model):
