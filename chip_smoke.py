@@ -101,9 +101,31 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     the donor's), against --prompt-cache-share-min -1: greedy texts
     equal up to the first near tie, TTFT p50 of the 5 both ways, the
     device ms of one 1500-row copy beside its bytes bound;
- 7. print a `kernels` line (seven kernels; launches count graph replays),
-    an `e2e` line (three paths and phase 6), the card line, and as the
-    last line {"ok": true, "device": {...}}.
+ 7/7w/7q. host-controlled decode on each path's model (its weights and
+    settings as served, prefix cache on), fresh engines with CUDA graphs
+    (every key warmed first) and fresh eager ones behind the same
+    routes: four concurrent requests
+    (a greedy JSON-schema chat, a greedy GBNF completion, a seeded
+    mirostat chat, a greedy DRY chat with tools and a grammar forcing one
+    tool call), the kernel counts from 0 (the path's kernels must run);
+    the JSON parses with the schema's keys, the GBNF text is in its
+    language, the tool chat ends with one tool call; a plain greedy chat
+    beside a mirostat one (one-token passes) gives its text alone
+    (chained, on an engine of its own: both prefill the prompt cold);
+    texts identical with graphs and eager; no graph captured
+    in the measured requests; one request at X-Request-Tokens-Per-Second
+    20 runs within 10 % of it past its burst; /tokenize round-trips
+    through /detokenize, /metrics parses and its counters grow,
+    /lora-adapters is empty. Printed: each wave pass's device ms (CUDA
+    events around its replay) and host ms (its wall less that), whether
+    the plain chat repeated from the prefix cache gave the same text
+    (recorded, not checked), the host sampler's ms a token (grammar and
+    mirostat),
+    the tok/s of each constrained request, of the plain one beside and
+    alone, and of the rate-limited one;
+ 8. print a `kernels` line (seven kernels; launches count graph replays),
+    an `e2e` line (three paths and phases 6 and 7), the card line, and as
+    the last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without CUDA,
 or without the llama_box_tpu_torch package beside it, it exits non-zero
@@ -1012,9 +1034,10 @@ def make_prompt(tok, rng, n_target: int) -> str:
 # end to end
 
 
-def http(url, body, timeout=600):
+def http(url, body, timeout=600, headers=None):
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
-                                 headers={"Content-Type": "application/json"})
+                                 headers={"Content-Type": "application/json",
+                                          **(headers or {})})
     t0 = time.perf_counter()
     with urllib.request.urlopen(req, timeout=timeout) as r:
         status, text = r.status, r.read().decode()
@@ -1388,6 +1411,7 @@ def _serve(engine, app, url, seed, dev, profile, mode):
             f"{'identical' if same else 'DIFFERENT'}")
         assert same, f"K=1 and K={CHAIN} greedy outputs differ ({kv} cache)"
     e2e["modes"] = modes_phase(engine, app, seed, texts, wave, mode)
+    e2e["host"] = host_phase(engine, app, seed, mode)
     if profile:
         e2e["profile"] = {
             label: profile_phase(Engine, EngineConfig, engine, tok, prompts,
@@ -2295,6 +2319,421 @@ def kv_edit_phase(dev, seed, engine, app) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: host-controlled decode (grammar, JSON schema, tools, mirostat,
+# DRY, the rate header) on each served path
+
+HOST_SCHEMA = {"type": "object", "properties": {
+    "ok": {"type": "boolean"},
+    "n": {"type": "integer", "enum": [1, 2, 3, 5, 8, 13]},
+    "mode": {"enum": ["fast", "slow", "auto"]}},
+    "required": ["ok", "n", "mode"]}
+HOST_GBNF = 'root ::= ("yes" | "no") " " [a-z]{2,8} (" " [a-z]{2,8}){0,3} "."'
+HOST_TOOLS = [{"type": "function", "function": {
+    "name": "get_weather", "parameters": {
+        "type": "object", "properties": {"city": {"type": "string"}},
+        "required": ["city"]}}}]
+HOST_TOOL_GBNF = ('root ::= "<tool_call>{\\"name\\": \\"get_weather\\", '
+                  '\\"arguments\\": {\\"city\\": \\"" [a-z]{2,10} '
+                  '"\\"}}</tool_call>"')
+# the tool call's literal is up to 87 characters, a token each at worst
+HOST_TOKENS, HOST_TOOL_TOKENS, HOST_PROMPT = 64, 128, 160
+RATE_TPS, RATE_TOKENS, RATE_FROM = 20, 100, 30
+HOST_MODES = {"graphs": {}, "eager": dict(cuda_graphs=False,
+                                          pipeline_chain=False)}
+
+
+def warm_host_keys(eng) -> None:
+    """Every program key phase 7's traffic can meet, run twice (its eager
+    first use, then its capture): the prefill buckets, the decode chains
+    of plain slots, and the one-token pass of all three sampler
+    variants."""
+    S = len(eng.slots)
+    for T in eng.buckets:
+        for _ in range(2):
+            _stage_prefill(eng, {0: (0, [400] * T)}, T)
+            eng._refresh_arrs()
+            eng.graphs.run(("prefill", T),
+                           lambda T=T: eng._prefill_program(T))
+    K = 1
+    while K <= eng.ecfg.decode_chain:
+        for _ in range(2):
+            _stage_decode(eng, [400] + [None] * (S - 1), [0] * S)
+            eng.graphs.run(("decode", K, False, 64),
+                           lambda K=K: eng._decode_program(
+                               K, samp_extras=False, samp_kcap=64))
+        K *= 2
+    for extras, kcap in ((True, 0), (False, 64), (False, 0)):
+        kw = dict(samp_extras=extras, samp_kcap=kcap) if kcap else \
+            dict(samp_extras=extras)
+        for _ in range(2):
+            eng._stage_one([400, 401] + [None] * (S - 2), [0] * S, [0])
+            eng.graphs.run(("one", extras, kcap),
+                           lambda kw=kw: eng._one_token_program(**kw))
+    torch.cuda.synchronize()
+
+
+def _prom(text) -> dict:
+    """Prometheus text -> {name: value}; every line must parse."""
+    out = {}
+    for ln in text.splitlines():
+        if ln.startswith("# HELP ") or ln.startswith("# TYPE "):
+            assert ln.split()[2].startswith("llamabox:"), ln
+            continue
+        name, val = ln.split()
+        assert name.startswith("llamabox:"), ln
+        out[name] = float(val)
+    return out
+
+
+def _pct(xs, q):
+    return float(np.percentile(np.asarray(xs, np.float64), q)) if xs \
+        else float("nan")
+
+
+def host_wave(url, texts, seed):
+    """Four concurrent host-controlled requests: a greedy JSON-schema chat,
+    a greedy GBNF completion, a seeded mirostat chat and a greedy DRY chat
+    with tools and a grammar forcing one tool call. Returns their bodies."""
+    def chat(text, **kw):
+        body = dict(messages=[{"role": "user", "content": text}],
+                    max_tokens=HOST_TOKENS)
+        body.update(kw)
+        return lambda: http(url + "/v1/chat/completions", body)
+    fns = [
+        chat(texts[0], temperature=0, response_format={
+            "type": "json_schema",
+            "json_schema": {"name": "probe", "schema": HOST_SCHEMA}}),
+        lambda: http(url + "/v1/completions", dict(
+            prompt=texts[1], max_tokens=HOST_TOKENS, temperature=0,
+            grammar=HOST_GBNF)),
+        chat(texts[2], temperature=0.8, seed=seed, mirostat=2,
+             ignore_eos=True),
+        chat(texts[3], temperature=0, dry_multiplier=0.8, tools=HOST_TOOLS,
+             grammar=HOST_TOOL_GBNF, max_tokens=HOST_TOOL_TOKENS)]
+    out = []
+    for st, text, ms in concurrently(fns):
+        assert st == 200, (st, text[:300])
+        b = json.loads(text)
+        b["client_ms"] = ms
+        out.append(b)
+    return out
+
+
+def _check_host_wave(bodies, tok) -> dict:
+    from llama_box_tpu_torch.grammar import Grammar
+    js, gb, mi, tl = bodies
+    c = js["choices"][0]
+    obj = json.loads(c["message"]["content"])
+    assert set(obj) == set(HOST_SCHEMA["required"]) \
+        and c["finish_reason"] == "stop", c
+    assert isinstance(obj["ok"], bool) and obj["n"] in \
+        HOST_SCHEMA["properties"]["n"]["enum"], obj
+    g = Grammar(HOST_GBNF, native=False)
+    text = gb["choices"][0]["text"]
+    assert g.accept_bytes(text.encode()) and g.completed, text
+    assert gb["choices"][0]["finish_reason"] == "stop"
+    assert mi["usage"]["completion_tokens"] == HOST_TOKENS
+    c = tl["choices"][0]
+    calls = c["message"].get("tool_calls") or []
+    assert c["finish_reason"] == "tool_calls" and len(calls) == 1, c
+    assert calls[0]["function"]["name"] == "get_weather"
+    assert set(json.loads(calls[0]["function"]["arguments"])) == {"city"}
+    return dict(json=obj, gbnf=text,
+                mirostat=mi["choices"][0]["message"]["content"],
+                tool=calls[0]["function"]["arguments"])
+
+
+def _serve_engine(app, eng):
+    """`app`'s routes over `eng` on a free local port: (url, close)."""
+    import copy
+    app2 = copy.copy(app)
+    app2.engine = eng
+    srv = app2.make_server("127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+
+    def close():
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+        eng.stop()
+    return f"http://127.0.0.1:{srv.server_address[1]}", close
+
+
+def host_phase(engine, app, seed, mode) -> dict:
+    """Phase 7 on the path's model (its weights as served), in two modes,
+    graphs (every key warmed first) and eager, each on fresh engines with
+    the path's own settings (prefix cache on) behind the same routes: a
+    plain greedy chat alone (chained) on an engine of its own; on a second
+    engine the same chat beside a mirostat chat (one-token passes), then
+    the host-controlled wave (host_wave) with the kernel counts from 0, a
+    rate-limited request (X-Request-Tokens-Per-Second 20, 100 tokens,
+    graphs only), /tokenize, /detokenize, /metrics and /lora-adapters.
+    Both plain runs prefill their prompt cold. Texts identical in both
+    modes, no graph captured in the measured requests, and each wave
+    pass's device ms by CUDA events around its replay (graphs)."""
+    from llama_box_tpu_torch import sampling
+    from llama_box_tpu_torch.server.engine import Engine
+    from llama_box_tpu_torch.server.metrics import Metrics
+    phase = PATHS[mode][0].replace("5", "7")
+    log(f"== phase {phase}: host-controlled decode, {mode} path: grammar, "
+        f"json_schema, tools, mirostat, DRY, the rate header")
+    from llama_box_tpu_torch.gguf import native
+    t0 = time.perf_counter()
+    native.grammar_lib()
+    log(f"  grammar core {native.lib_path().name} ready in "
+        f"{time.perf_counter() - t0:.2f} s")
+    tok = engine.tokenizer
+    rng = np.random.default_rng(seed + 31)
+    texts = [make_prompt(tok, rng, HOST_PROMPT) for _ in range(4)]
+    plain_text = make_prompt(tok, rng, HOST_PROMPT)
+    counters = kernel_counters()
+
+    def plain(url):
+        return lambda: http(url + "/v1/chat/completions", dict(
+            messages=[{"role": "user", "content": plain_text}],
+            max_tokens=HOST_TOKENS, temperature=0))
+
+    def fresh(kw):
+        eng = Engine(engine.cfg, engine.params, tok,
+                     dataclasses.replace(engine.ecfg, **kw),
+                     device=str(engine.device))
+        if eng.ecfg.cuda_graphs:
+            warm_host_keys(eng)
+        eng.start()
+        return eng
+    res, got = {}, {}
+    for label, kw in HOST_MODES.items():
+        # the plain chat alone, on an engine of its own: on the second
+        # engine its prompt is not cached, so both runs prefill it whole
+        eng = fresh(kw)
+        url, close = _serve_engine(app, eng)
+        try:
+            st, text, _ = plain(url)()
+            assert st == 200, (st, text[:300])
+            alone = json.loads(text)
+            spec_alone = eng.metrics.n_spec_chains
+            # recorded, not checked: the same chat again, its prompt
+            # cached but its last token, which prefills alone
+            st, text, _ = plain(url)()
+            a_text = alone["choices"][0]["message"]["content"]
+            repeat_same = \
+                json.loads(text)["choices"][0]["message"]["content"] == a_text
+        finally:
+            close()
+        eng = fresh(kw)
+        url, close = _serve_engine(app, eng)
+        # host-sampler cost a token (by kind), the one-token passes' wall
+        # and (graphs) each replay's device ms, from spies on the engine's
+        # thread
+        samp_ms = {"grammar": [], "mirostat": []}
+        pass_ms, pass_dev = [], []
+        sample = sampling.HostSampler.sample
+        run = eng.graphs.run
+        one = eng._one_token_pass
+
+        def timed_sample(hs, logits, sample=sample, samp_ms=samp_ms):
+            t0 = time.perf_counter()
+            out = sample(hs, logits)
+            kind = ("grammar" if hs.grammar is not None else
+                    "mirostat" if hs.sp.mirostat else None)
+            if kind:
+                samp_ms[kind].append((time.perf_counter() - t0) * 1e3)
+            return out
+        events = []
+
+        def timed_run(key, fn, run=run, events=events):
+            if key[0] != "one":
+                return run(key, fn)
+            a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+            a.record()
+            out = run(key, fn)
+            b.record()
+            events.append((a, b))
+            return out
+
+        def timed_pass(dec, one=one, pass_ms=pass_ms, pass_dev=pass_dev):
+            n = len(events)
+            t0 = time.perf_counter()
+            one(dec)
+            pass_ms.append((time.perf_counter() - t0) * 1e3)
+            # the pass waited for its copy, enqueued after b
+            pass_dev.append(events[-1][0].elapsed_time(events[-1][1])
+                            if len(events) > n else float("nan"))
+        try:
+            sampling.HostSampler.sample = timed_sample
+            eng._one_token_pass = timed_pass
+            if label == "graphs":
+                eng.graphs.run = timed_run
+            n_graphs = eng.graphs.n_graphs
+            with urllib.request.urlopen(url + "/metrics") as r:
+                m0 = _prom(r.read().decode())
+            eng.metrics = Metrics()
+            beside = concurrently([plain(url), lambda: http(
+                url + "/v1/chat/completions", dict(
+                    messages=[{"role": "user", "content": texts[2]}],
+                    max_tokens=HOST_TOKENS, temperature=0.8,
+                    seed=seed + 1, mirostat=2, ignore_eos=True))])
+            b_plain, b_host = (json.loads(x[1]) for x in beside)
+            assert pass_ms, "no one-token pass beside"
+            p_text = b_plain["choices"][0]["message"]["content"]
+            assert p_text == a_text, ("the plain greedy text beside a "
+                                      "constrained request differs from "
+                                      "its text alone")
+            del pass_ms[:], pass_dev[:]
+            for v in samp_ms.values():
+                del v[:]
+            # -- this slice's path: counts from 0 ---------------------------
+            eng.metrics = Metrics()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            bodies = host_wave(url, texts, seed)
+            wall = time.perf_counter() - t0
+            launched = {k: fn.launches for k, fn in counters.items()}
+            # -------------------------------------------------------------
+            wave_samp = {k: list(v) for k, v in samp_ms.items()}
+            wave_pass, wave_dev = list(pass_ms), list(pass_dev)
+            for k, n in launched.items():
+                if k in PATHS[mode][4]:
+                    assert n > 0, f"{k} was never launched in phase {phase}"
+                else:
+                    assert n == 0, f"{k} launched on the {mode} path"
+            checked = _check_host_wave(bodies, tok)
+            out = dict(wall_s=wall, launches=launched, checked=checked,
+                       plain_text=a_text, cached_repeat_same=repeat_same,
+                       mirostat_beside=b_host["choices"][0]["message"][
+                           "content"],
+                       spec_chains_alone=spec_alone,
+                       plain_alone_tok_s=alone["usage"]["tokens_per_second"],
+                       plain_beside_tok_s=b_plain["usage"][
+                           "tokens_per_second"],
+                       constrained_tok_s={
+                           k: b["usage"]["tokens_per_second"]
+                           for k, b in zip(("json", "gbnf", "mirostat",
+                                            "tool"), bodies)},
+                       passes=len(wave_pass),
+                       pass_wall_ms_p50=_pct(wave_pass, 50),
+                       pass_wall_ms_p90=_pct(wave_pass, 90),
+                       sampler_ms={k: dict(n=len(v), p50=_pct(v, 50),
+                                           p90=_pct(v, 90))
+                                   for k, v in wave_samp.items()})
+            if label == "graphs":
+                host = [w - d for w, d in zip(wave_pass, wave_dev)]
+                out.update(pass_dev_ms_p50=_pct(wave_dev, 50),
+                           pass_dev_ms_p90=_pct(wave_dev, 90),
+                           pass_host_ms_p50=_pct(host, 50),
+                           pass_host_ms_p90=_pct(host, 90),
+                           pass_idle_share=1 - sum(wave_dev) / sum(wave_pass))
+                eng.graphs.run = run
+                out.update(rate_phase(eng, url, texts[0]))
+                out["captured_in_measured"] = eng.graphs.n_graphs - n_graphs
+                assert out["captured_in_measured"] == 0, \
+                    "a graph was captured in phase 7's measured requests"
+                out.update(one_pass_device_ms(eng))
+            # the host-side routes
+            st, text, _ = http(url + "/tokenize", {"content": texts[1],
+                                                   "add_special": False})
+            ids = json.loads(text)["tokens"]
+            st, text, _ = http(url + "/detokenize", {"tokens": ids})
+            assert json.loads(text)["content"] == texts[1], \
+                "/tokenize then /detokenize did not round-trip"
+            with urllib.request.urlopen(url + "/metrics") as r:
+                m1 = _prom(r.read().decode())
+            for k in ("llamabox:requests_total",
+                      "llamabox:tokens_predicted_total",
+                      "llamabox:prompt_tokens_total"):
+                assert m1[k] > m0[k], k
+            with urllib.request.urlopen(url + "/lora-adapters") as r:
+                assert json.loads(r.read()) == []
+            res[label] = out
+            got[label] = dict(checked, plain=a_text,
+                              beside=out["mirostat_beside"])
+        finally:
+            sampling.HostSampler.sample = sample
+            eng.graphs.run = run
+            close()
+        sm = out["sampler_ms"]
+        log(f"  {label:6s}: wave {out['wall_s']:.2f} s, {out['passes']} "
+            f"one-token passes (wall p50 {out['pass_wall_ms_p50']:.3f} ms, "
+            f"p90 {out['pass_wall_ms_p90']:.3f}); host sampler ms a token "
+            + ", ".join(f"{k} p50 {v['p50']:.3f} p90 {v['p90']:.3f} "
+                        f"(n {v['n']})" for k, v in sm.items()))
+        log(f"          constrained tok/s {out['constrained_tok_s']}; plain "
+            f"greedy tok/s alone {out['plain_alone_tok_s']:.1f} (chained, "
+            f"{out['spec_chains_alone']} speculated), beside a mirostat "
+            f"request {out['plain_beside_tok_s']:.1f}; same text; the "
+            f"same chat again from the prefix cache (recorded): "
+            f"{'same' if repeat_same else 'other'} text")
+        if label == "graphs":
+            log(f"          wave pass device ms (CUDA events around each "
+                f"replay) p50 {out['pass_dev_ms_p50']:.5f} p90 "
+                f"{out['pass_dev_ms_p90']:.5f}, host ms (wall - device, a "
+                f"pass) p50 {out['pass_host_ms_p50']:.3f} p90 "
+                f"{out['pass_host_ms_p90']:.3f}, device idle share "
+                f"{out['pass_idle_share']:.4f}; one replay alone (all 4 "
+                f"slots host-sampled) {out['one_pass_ms']:.5f} ms; "
+                f"rate-limited {out['rate_tok_s']:.2f} tok/s after the "
+                f"burst (header {RATE_TPS}); no graph captured in the "
+                "measured requests")
+    assert got["graphs"] == got["eager"], "a text differs, graphs vs eager"
+    log(f"  json {got['graphs']['json']}, gbnf {got['graphs']['gbnf']!r}, "
+        f"tool arguments {got['graphs']['tool']}; texts identical with "
+        "graphs and eager; /tokenize -> /detokenize round-trips; /metrics "
+        "counters grew; /lora-adapters []")
+    return res
+
+
+def rate_phase(eng, url, text) -> dict:
+    """One greedy request with X-Request-Tokens-Per-Second RATE_TPS and
+    RATE_TOKENS tokens; each token's time on the engine's thread; its
+    rate from token RATE_FROM on (past the bucket's burst) must be within
+    10 % of the header's."""
+    rid = "phase7-rate"
+    times = []
+    accept = eng._accept_token
+
+    def spy(s, token, *a, **kw):
+        if s.task is not None and s.task.rid == rid:
+            times.append(time.perf_counter())
+        return accept(s, token, *a, **kw)
+    eng._accept_token = spy
+    try:
+        st, body, ms = http(url + "/v1/chat/completions", dict(
+            messages=[{"role": "user", "content": text}],
+            max_tokens=RATE_TOKENS, temperature=0, ignore_eos=True),
+            headers={"X-Request-Tokens-Per-Second": str(RATE_TPS),
+                     "X-Request-ID": rid})
+    finally:
+        eng._accept_token = accept
+    assert st == 200 and len(times) == RATE_TOKENS, (st, len(times))
+    tps = (RATE_TOKENS - 1 - RATE_FROM) / (times[-1] - times[RATE_FROM])
+    burst = RATE_FROM / (times[RATE_FROM] - times[0])
+    assert abs(tps - RATE_TPS) <= 0.1 * RATE_TPS, \
+        f"rate-limited request at {tps:.2f} tok/s, header {RATE_TPS}"
+    return dict(rate_tok_s=tps, rate_first_tok_s=burst,
+                rate_client_ms=ms)
+
+
+def one_pass_device_ms(eng, n=30) -> dict:
+    """Device ms of one one-token pass replay (4 slots decoding, all
+    host-sampled, their rows gathered), by CUDA events, median of n."""
+    S = len(eng.slots)
+    key = ("one", False, 64)
+    ms = []
+    for i in range(n):
+        eng._stage_one([400 + i] * S, [100] * S, list(range(S)))
+        a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+        a.record()
+        eng.graphs.run(key, lambda: eng._one_token_program(
+            samp_extras=False, samp_kcap=64))
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    return dict(one_pass_ms=statistics.median(ms))
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -2424,6 +2863,22 @@ def main(argv=None) -> int:
             f"{cp['copy_ms']:.5f} ms (bound {cp['copy_bound_ms']:.5f}); "
             f"shared-prefix TTFT p50 {cp['copy']['ttft_p50_ms']:.2f} ms by "
             f"copy, {cp['recompute']['ttft_p50_ms']:.2f} ms recomputed")
+    for m in PATHS:
+        h = e2e[m]["host"]["graphs"]
+        sm = h["sampler_ms"]
+        log(f"  phase 7, {m}: one-token pass device ms p50 "
+            f"{h['pass_dev_ms_p50']:.5f} p90 {h['pass_dev_ms_p90']:.5f}, "
+            f"host ms p50 {h['pass_host_ms_p50']:.3f} p90 "
+            f"{h['pass_host_ms_p90']:.3f} (a wave pass, wall - its replay's "
+            f"device ms); host sampler ms a token grammar p50 "
+            f"{sm['grammar']['p50']:.3f} p90 {sm['grammar']['p90']:.3f}, "
+            f"mirostat p50 {sm['mirostat']['p50']:.3f} p90 "
+            f"{sm['mirostat']['p90']:.3f}; constrained tok/s "
+            + " ".join(f"{k} {v:.1f}" for k, v in
+                       h["constrained_tok_s"].items())
+            + f"; plain greedy tok/s beside {h['plain_beside_tok_s']:.1f}, "
+            f"alone {h['plain_alone_tok_s']:.1f}; rate-limited "
+            f"{h['rate_tok_s']:.2f} tok/s (header {RATE_TPS})")
     log("e2e " + json.dumps(e2e))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -39,6 +39,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--port", type=int, default=8080)
     g.add_argument("--threads-http", "-np", "--parallel", dest="n_parallel",
                    type=int, default=4, help="number of parallel slots")
+    g.add_argument("--metrics", action="store_true", default=True,
+                   help="accepted; GET /metrics is always served")
     g.add_argument("--no-prompt-cache", dest="prompt_cache",
                    action="store_false", default=True)
     g.add_argument("--prompt-cache-share-min", type=int, default=32,
@@ -50,6 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--no-context-shift", dest="context_shift",
                    action="store_false",
                    help="accepted; context shift stays enabled")
+    g.add_argument("-tps", "--tokens-per-second", type=float, default=0.0,
+                   help="max decode rate per request; -1 probes at startup")
     g.add_argument("-a", "--alias", "--model-alias", dest="alias",
                    default=None)
 
@@ -92,6 +96,27 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--repeat-last-n", type=int, default=64)
     g.add_argument("--frequency-penalty", type=float, default=0.0)
     g.add_argument("--presence-penalty", type=float, default=0.0)
+    g.add_argument("--mirostat", type=int, default=0, choices=[0, 1, 2])
+    g.add_argument("--mirostat-ent", dest="mirostat_tau", type=float,
+                   default=5.0, help="mirostat target entropy tau")
+    g.add_argument("--mirostat-lr", dest="mirostat_eta", type=float,
+                   default=0.1, help="mirostat learning rate eta")
+    g.add_argument("--dry-multiplier", type=float, default=0.0)
+    g.add_argument("--dry-base", type=float, default=1.75)
+    g.add_argument("--dry-allowed-length", type=int, default=2)
+    g.add_argument("--dry-penalty-last-n", type=int, default=-1)
+    g.add_argument("--dry-sequence-breaker", action="append", default=None,
+                   help="DRY sequence breaker (repeatable; 'none' clears; "
+                        "default: newline ':' '\"' '*')")
+    g.add_argument("--grammar", default="",
+                   help="server default GBNF grammar")
+    g.add_argument("--grammar-file", default=None)
+    g.add_argument("-j", "--json-schema", default=None,
+                   help="server default JSON schema (converted to GBNF)")
+    g.add_argument("--samplers", "--sampling-seq", dest="samplers",
+                   default=None,
+                   help="sampler selection + order, ';'-separated; a "
+                        "non-canonical order samples on the host")
     g.add_argument("-r", "--reverse-prompt", action="append", default=[],
                    help="stop strings added to every request")
     g.add_argument("-n", "--predict", dest="n_predict", type=int, default=-1)
@@ -102,6 +127,17 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--no-jinja", dest="jinja", action="store_false")
     g.add_argument("--chat-template", default=None)
     g.add_argument("--chat-template-file", default=None)
+    # Parsed and ignored, as in the JAX package: reasoning blocks are
+    # always split when the chat template has markers.
+    g.add_argument("--enable-reasoning", dest="enable_reasoning",
+                   action="store_true", default=True)
+    g.add_argument("--no-enable-reasoning", dest="enable_reasoning",
+                   action="store_false", help="accepted and ignored")
+    g.add_argument("--reasoning-in-content", dest="reasoning_in_content",
+                   action="store_true", default=False,
+                   help="accepted and ignored")
+    g.add_argument("--no-reasoning-in-content", dest="reasoning_in_content",
+                   action="store_false")
     return p
 
 
@@ -109,13 +145,44 @@ _KV = {"f32": "float32", "bf16": "bfloat16", "q8_0": "int8", "int8": "int8"}
 
 
 def _default_sampling(args) -> SamplerParams:
+    brks = args.dry_sequence_breaker
+    if brks is None:
+        brks = ("\n", ":", "\"", "*")
+    elif brks == ["none"]:
+        brks = ()
+    samplers = ()
+    if args.samplers:
+        from .sampling import sampler_types_from_names
+        samplers = sampler_types_from_names(
+            args.samplers.replace(",", ";").split(";"))
     return SamplerParams(
+        samplers=samplers,
         temp=args.temp, top_k=args.top_k, top_p=args.top_p,
         min_p=args.min_p, typ_p=args.typ_p,
         penalty_repeat=args.repeat_penalty,
         penalty_last_n=args.repeat_last_n,
         penalty_freq=args.frequency_penalty,
-        penalty_present=args.presence_penalty)
+        penalty_present=args.presence_penalty,
+        mirostat=args.mirostat, mirostat_tau=args.mirostat_tau,
+        mirostat_eta=args.mirostat_eta,
+        dry_multiplier=args.dry_multiplier, dry_base=args.dry_base,
+        dry_allowed_length=args.dry_allowed_length,
+        dry_penalty_last_n=args.dry_penalty_last_n,
+        dry_sequence_breakers=tuple(brks))
+
+
+def _default_grammar_text(args) -> str | None:
+    if args.grammar:
+        return args.grammar
+    if args.grammar_file:
+        with open(args.grammar_file) as f:
+            return f.read()
+    if args.json_schema:
+        import json
+
+        from .grammar import json_schema_to_grammar
+        return json_schema_to_grammar(json.loads(args.json_schema))
+    return None
 
 
 def build_server(argv: list[str]):
@@ -166,12 +233,18 @@ def build_server(argv: list[str]):
         pipeline_chain=args.pipeline_chain)
     engine = Engine(cfg, params, tokenizer, ecfg, device=str(device))
     engine.start()
+    max_tps = args.tokens_per_second
+    if max_tps < 0:     # -1: probe the decode rate (reference -tps -1)
+        SRV_INF("main", "probing decode tokens/sec ...")
+        max_tps = engine.probe_decode_tps()
+        SRV_INF("main", "decode rate: %.1f tok/s", max_tps)
     app = HTTPServer(
         engine, model_name=args.alias or args.model.rsplit("/", 1)[-1],
         defaults=_default_sampling(args),
         chat_templates=ChatTemplates(tokenizer, template, args.jinja),
         default_max_tokens=args.n_predict,
-        default_stop=tuple(args.reverse_prompt))
+        default_stop=tuple(args.reverse_prompt),
+        max_tps=max_tps, default_grammar=_default_grammar_text(args))
     return engine, app.make_server(args.host, args.port)
 
 

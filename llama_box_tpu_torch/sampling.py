@@ -14,9 +14,14 @@ torch ops on the CPU and on the card, so the draws agree bit for bit
 between the two, depend on nothing but (seed, step), and need no host
 state (a decode chain replays as one CUDA graph). Every row draws; only
 active rows advance `step`. The hash is not the JAX package's threefry:
-seeded sampling agrees with it in distribution, not token by token. The
-host-side sampler (mirostat, DRY, grammar) is not ported yet; such
-requests are refused at admission.
+seeded sampling agrees with it in distribution, not token by token.
+
+HostSampler (grammar, mirostat, DRY, reordered chains) is the JAX
+package's, line for line: the same chain in numpy over one slot's logits
+row, drawn from `np.random.default_rng(seed & 0xFFFFFFFF)`, so a seeded
+host-sampled request gives the JAX engine's tokens wherever the logits
+agree. The engine gives such a slot one-token passes and keeps its device
+sampler state still (server/engine.py).
 """
 
 from __future__ import annotations
@@ -573,3 +578,346 @@ def sample_impl(logits: torch.Tensor, state: SamplerState,
         _push_active(state, tokens, arrs.pen_last_n, active)
     state.step.add_(active.to(torch.int32))
     return tokens, top_ids, top_probs, tok_prob, state
+
+
+class HostSampler:
+    """Host-side sampler for grammar-constrained slots.
+
+    Mirrors the device chain (penalties -> top-k -> top-p -> min-p ->
+    typical -> xtc -> temp) in numpy, with the reference's lazy-grammar
+    strategy (sampling.patch / common_sampler_sample2): sample WITHOUT the
+    grammar first; only if the pick violates the grammar, mask the
+    candidates and re-sample. Grammar-advancing and the penalty window live
+    here, so the device sampler state for this slot stays untouched.
+    """
+
+    def __init__(self, sp: SamplerParams, grammar, tokenizer):
+        self.sp = sp
+        self.grammar = grammar
+        self.tok = tokenizer
+        # lazy grammars (tool-call constraint, reference common_chat
+        # grammar_lazy + trigger words): stay unconstrained until a
+        # trigger string appears in the generated text, enforce the
+        # grammar until it completes, then re-arm for the next call
+        self._gr_template = None
+        self._trigger_tail = ""
+        if grammar is not None and sp.grammar_lazy and sp.grammar_triggers:
+            self._gr_template = grammar.copy()
+            self.grammar = None
+        self.rng = np.random.default_rng(sp.seed & 0xFFFFFFFF)
+        self._window: list[int] = []
+        self._counts: dict[int, int] = {}
+        self._last_n = min(sp.penalty_last_n if sp.penalty_last_n >= 0
+                           else RING_CAP, RING_CAP)
+        self._mask_cache: dict = {}
+        self._history: list[int] = []   # full generation history (DRY)
+        # mirostat v1/v2 state: target surprise window
+        self._mu = 2.0 * sp.mirostat_tau
+
+    # -- state ---------------------------------------------------------------
+
+    def accept(self, token: int) -> None:
+        self._history.append(token)
+        if self._last_n > 0:
+            self._window.append(token)
+            self._counts[token] = self._counts.get(token, 0) + 1
+            if len(self._window) > self._last_n:
+                old = self._window.pop(0)
+                self._counts[old] -= 1
+                if not self._counts[old]:
+                    del self._counts[old]
+        if self._gr_template is not None and self.grammar is None \
+                and not self.tok.is_eog(token):
+            piece = self.tok.token_bytes(token, render_special=True)
+            self._trigger_tail = (self._trigger_tail
+                                  + piece.decode("utf-8", "replace"))[-64:]
+            for trig in self.sp.grammar_triggers:
+                if self._trigger_tail.endswith(trig):
+                    self.grammar = self._gr_template.copy()
+                    self._mask_cache.clear()
+                    self._trigger_tail = ""
+                    return
+            return
+        if self.grammar is not None and not self.tok.is_eog(token):
+            self.grammar.accept_bytes(
+                self.tok.token_bytes(token, render_special=True))
+            self._mask_cache.clear()
+            if self._gr_template is not None and self.grammar.completed:
+                # call emitted in full: back to unconstrained text until
+                # the next trigger (parallel tool calls)
+                self.grammar = None
+                self._mask_cache.clear()
+
+    def push_prompt(self, tokens: list[int]) -> None:
+        for t in tokens[-self._last_n:] if self._last_n > 0 else []:
+            self._window.append(t)
+            self._counts[t] = self._counts.get(t, 0) + 1
+        while len(self._window) > self._last_n:
+            old = self._window.pop(0)
+            self._counts[old] -= 1
+            if not self._counts[old]:
+                del self._counts[old]
+
+    @property
+    def must_stop(self) -> bool:
+        return self.grammar is not None and self.grammar.must_stop
+
+    def _token_allowed(self, tid: int) -> bool:
+        g = self.grammar
+        cached = self._mask_cache.get(tid)
+        if cached is not None:
+            return cached
+        if self.tok.is_eog(tid):
+            ok = g.completed
+        elif self.tok.is_control(tid):
+            ok = False
+        else:
+            piece = self.tok.token_bytes(tid, render_special=True)
+            ok = bool(piece) and g.accepts_token(piece)
+        self._mask_cache[tid] = ok
+        return ok
+
+    # -- the chain -----------------------------------------------------------
+
+    def sample(self, logits: np.ndarray
+               ) -> tuple[int, np.ndarray, np.ndarray, float]:
+        """Returns (token, top_ids [N_PROBS], top_probs [N_PROBS],
+        tok_prob — the sampled token's own candidate-softmax probability)."""
+        sp = self.sp
+        logits = logits.astype(np.float64).copy()
+        for tid, v in sp.logit_bias.items():
+            if 0 <= tid < logits.shape[0]:
+                logits[tid] += v
+        if sp.ignore_eos:
+            for tid in self.tok.eog_ids:
+                logits[tid] = NEG_INF
+        # penalties
+        if self._counts and (sp.penalty_repeat != 1.0 or sp.penalty_freq
+                             or sp.penalty_present):
+            for tid, c in self._counts.items():
+                l = logits[tid]
+                if sp.penalty_repeat != 1.0:
+                    l = l / sp.penalty_repeat if l > 0 else l * sp.penalty_repeat
+                logits[tid] = (l - c * sp.penalty_freq
+                               - (c > 0) * sp.penalty_present)
+
+        if self.sp.dry_multiplier > 0.0:
+            self._apply_dry(logits)
+
+        kcap = min(N_CAND, logits.shape[0])
+        cand = np.argpartition(-logits, kcap - 1)[:kcap]
+        cand = cand[np.argsort(-logits[cand], kind="stable")]
+        cvals = logits[cand]
+
+        token = self._pick(cand, cvals, grammar_mask=None)
+        if self.grammar is not None and not self._token_allowed(int(token)):
+            mask = np.fromiter((self._token_allowed(int(t)) for t in cand),
+                               bool, len(cand))
+            if not mask.any():
+                # no candidate fits: fall back to scanning the full
+                # vocab in logit order, in chunks through the batched
+                # native matcher (grammar.filter_pieces — one crossing
+                # per 512 candidates instead of one per token; the
+                # Python matcher path degrades to per-token trials)
+                order = np.argsort(-logits, kind="stable")
+                token = None
+                for base in range(0, len(order), 512):
+                    chunk = [int(t) for t in order[base:base + 512]]
+                    cached = [self._mask_cache.get(t) for t in chunk]
+                    todo = [t for t, c in zip(chunk, cached) if c is None]
+                    if todo:
+                        pieces = [b"" if (self.tok.is_eog(t)
+                                          or self.tok.is_control(t))
+                                  else self.tok.token_bytes(
+                                      t, render_special=True)
+                                  for t in todo]
+                        oks = self.grammar.filter_pieces(pieces)
+                        for t, pc, ok in zip(todo, pieces, oks):
+                            # eog/control keep _token_allowed semantics
+                            self._mask_cache[t] = (
+                                self.grammar.completed
+                                if self.tok.is_eog(t)
+                                else bool(pc) and ok)
+                    hit = next((t for t in chunk if self._mask_cache[t]),
+                               None)
+                    if hit is not None:
+                        token = hit
+                        break
+                if token is None:
+                    token = self.tok.eos_id or 0
+            else:
+                token = self._pick(cand, cvals, grammar_mask=mask)
+
+        # logprobs view
+        z = cvals - cvals.max()
+        p = np.exp(z)
+        p /= p.sum()
+        # sampled token's own probability in the same (candidate-softmax)
+        # view; grammar fallback may land outside the candidate set
+        hit = np.nonzero(cand == token)[0]
+        if hit.size:
+            tok_prob = float(p[hit[0]])
+        else:
+            tok_prob = float(np.exp(logits[token] - cvals.max())
+                             / np.exp(z).sum())
+        return (int(token), cand[:N_PROBS].astype(np.int64), p[:N_PROBS],
+                tok_prob)
+
+    _DRY_BRK_CACHE: dict = {}   # (tokenizer id, breakers) -> frozenset
+
+    def _dry_breaker_ids(self) -> frozenset:
+        """Token ids whose text contains a DRY sequence breaker (computed
+        once per tokenizer+breaker set; llama.cpp preprocesses the breaker
+        strings into a token restart set the same way)."""
+        brks = tuple(self.sp.dry_sequence_breakers or ())
+        if not brks or self.tok is None \
+                or not hasattr(self.tok, "n_vocab"):
+            return frozenset()
+        key = (id(self.tok), brks)
+        hit = self._DRY_BRK_CACHE.get(key)
+        if hit is None:
+            pats = [b.encode() for b in brks]
+            hit = frozenset(
+                t for t in range(self.tok.n_vocab)
+                if any(p in self.tok.token_bytes(t, render_special=True)
+                       for p in pats))
+            self._DRY_BRK_CACHE[key] = hit
+        return hit
+
+    def _apply_dry(self, logits: np.ndarray) -> None:
+        """DRY sampler (llama.cpp semantics, simplified): penalize tokens
+        that would extend a sequence already seen — for each candidate z, if
+        history ends with S and S+z occurred before with |S| >= allowed,
+        subtract multiplier * base^(|S| - allowed)."""
+        sp = self.sp
+        h = self._history
+        if sp.dry_penalty_last_n > 0:
+            h = h[-sp.dry_penalty_last_n:]
+        # sequence breakers cut the match window: only history after the
+        # most recent breaker token participates (llama.cpp restart set)
+        brk = self._dry_breaker_ids()
+        if brk:
+            for i in range(len(h) - 1, -1, -1):
+                if h[i] in brk:
+                    h = h[i + 1:]
+                    break
+        n = len(h)
+        if n < sp.dry_allowed_length:
+            return
+        max_pen: dict[int, int] = {}
+        # find occurrences of the current suffix of length L (L descending
+        # capped at 32) and note the token that followed each
+        for L in range(min(n, 32), sp.dry_allowed_length - 1, -1):
+            suffix = h[n - L:]
+            for i in range(0, n - L):
+                if h[i:i + L] == suffix:
+                    nxt = h[i + L]
+                    if nxt not in max_pen:
+                        max_pen[nxt] = L
+            if max_pen:
+                break
+        for tok, L in max_pen.items():
+            if 0 <= tok < logits.shape[0]:
+                logits[tok] -= (sp.dry_multiplier
+                                * sp.dry_base ** (L - sp.dry_allowed_length))
+
+    def _mirostat_pick(self, cand, cvals) -> int:
+        """Mirostat v2: drop candidates with surprise > mu, sample from the
+        rest, then update mu toward the target surprise tau."""
+        sp = self.sp
+        z = cvals - cvals.max()
+        p = np.exp(z)
+        p /= p.sum()
+        surprise = -np.log2(p + 1e-30)
+        keep = surprise <= self._mu
+        if not keep.any():
+            keep[p.argmax()] = True
+        pk = p * keep
+        pk /= pk.sum()
+        idx = int(self.rng.choice(len(cand), p=pk))
+        observed = float(surprise[idx])
+        self._mu -= sp.mirostat_eta * (observed - sp.mirostat_tau)
+        return int(cand[idx])
+
+    def _pick(self, cand, cvals, grammar_mask) -> int:
+        """Filter/scale the candidate view and draw.
+
+        Ops run in sp.samplers order (reference: the chain is built from
+        the listed samplers in order); the default is the device chain's
+        canonical order. penalties/DRY always run on the full logits
+        before candidate selection (their canonical slot) — only the
+        candidate-view ops reorder here.
+        """
+        sp = self.sp
+        if sp.mirostat > 0 and grammar_mask is None:
+            return self._mirostat_pick(cand, cvals)
+        K = len(cand)
+        cvals = cvals.copy()
+        keep = np.ones(K, bool)
+        if grammar_mask is not None:
+            keep &= grammar_mask
+
+        def probs_of(keep):
+            z = np.where(keep, cvals, NEG_INF)
+            z = z - z.max()
+            e = np.exp(z) * keep
+            return e / max(e.sum(), 1e-30)
+
+        for op in (sp.samplers or CHAIN_ORDER):
+            if op == "top_n_sigma" and sp.top_n_sigma > 0.0:
+                keep &= cvals >= cvals.max() - sp.top_n_sigma * cvals.std()
+                keep[0] = True
+            elif op == "top_k" and sp.top_k > 0:
+                kk = np.zeros(K, bool)
+                kk[np.nonzero(keep)[0][:sp.top_k]] = True
+                keep &= kk
+            elif op == "top_p" and sp.top_p < 1.0:
+                p = probs_of(keep)
+                cum = np.cumsum(p)
+                keep &= (cum - p) < sp.top_p
+                keep[np.nonzero(p)[0][:1]] = True
+            elif op == "min_p" and sp.min_p > 0.0:
+                p = probs_of(keep)
+                keep &= ((p >= sp.min_p * p.max())
+                         | (np.arange(K) == p.argmax()))
+            elif op == "typ_p" and sp.typ_p < 1.0:
+                p = probs_of(keep)
+                nlp = -np.log(p + 1e-30)
+                H = float((p * nlp).sum())
+                shift = np.where(keep, np.abs(nlp - H), np.inf)
+                order = np.argsort(shift, kind="stable")
+                ps = p[order]
+                cs = np.cumsum(ps)
+                k2 = (cs - ps) < sp.typ_p
+                k2[0] = True
+                kt = np.zeros(K, bool)
+                kt[order[k2]] = True
+                keep &= kt
+            elif op == "xtc" and sp.xtc_probability > 0.0 \
+                    and self.rng.random() < sp.xtc_probability:
+                p = probs_of(keep)
+                above = p > sp.xtc_threshold
+                if above.sum() >= 2:
+                    last = np.nonzero(above)[0][-1]
+                    drop = above.copy()
+                    drop[last] = False
+                    keep &= ~drop
+            elif op == "temperature" and sp.temp > 0.0:
+                temp = sp.temp
+                if sp.dynatemp_range > 0.0:
+                    p = probs_of(keep)
+                    ent = float(-(p * np.log(p + 1e-30)).sum())
+                    n_kept = max(int(keep.sum()), 2)
+                    norm = min(max(ent / np.log(n_kept), 0.0), 1.0)
+                    t_min = max(temp - sp.dynatemp_range, 0.0)
+                    t_max = temp + sp.dynatemp_range
+                    temp = t_min + (t_max - t_min) * norm ** sp.dynatemp_exponent
+                # scale the surviving logits; later ops see the scaled view
+                cvals = cvals / max(temp, 1e-4)
+
+        if sp.temp <= 0.0:
+            # greedy replaces the final dist draw (reference swaps in a
+            # greedy sampler when temp<=0 regardless of chain position)
+            return int(cand[np.nonzero(keep)[0][0]])
+        p = probs_of(keep)
+        return int(self.rng.choice(cand, p=p))

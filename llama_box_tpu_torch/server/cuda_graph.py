@@ -1,7 +1,8 @@
 """One captured CUDA graph per static configuration (the port's counterpart
-of `jax.jit` for the engine's two device programs, the K-step decode chain
-and the batched prefill pass; the JAX package keys its programs by their
-static arguments, and the port keys its graphs the same way).
+of `jax.jit` for the engine's device programs, the K-step decode chain,
+the batched prefill pass and the one-token pass of host-controlled
+decode; the JAX package keys its programs by their static arguments, and
+the port keys its graphs the same way).
 
 `GraphRunner.run(key, fn)` calls `fn()`, a function of the engine's
 persistent device buffers that returns its output tensors:

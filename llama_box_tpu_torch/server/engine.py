@@ -38,10 +38,19 @@ of llama_box_tpu/server/engine.py for completions on a dense llama).
   takes that slot's rows (models/llama.copy_kv_prefix).
 Both edit the cache the graphs captured, in place, on the stream the
 programs replay on, with no host wait.
+- Host-controlled decode (JAX `_decode_pass`'s per-token path): a request
+  with a grammar, mirostat, DRY or a reordered chain samples on the host
+  (sampling.HostSampler), and one with a token-rate bucket decodes one
+  token per pass. While such a slot decodes, every pass is ONE one-token
+  pass (`_decode_verify_sample` at T = 1, one graph a key on the card):
+  the device samples the other slots (samp_active), the host-sampled
+  slots' device sampler state stays still, and their logits rows come
+  back gathered by a staged index vector; no chain is dispatched or
+  speculated, and a chain in flight when such a task arrives is consumed
+  first. A slot whose bucket is empty sits the pass out.
 
-Not ported yet (the JAX engine has them): the host sampler (grammar,
-mirostat, DRY), speculative and n-gram drafting, embeddings, multimodal
-prompts and the other model families.
+Not ported yet (the JAX engine has them): speculative and n-gram
+drafting, embeddings, multimodal prompts and the other model families.
 """
 
 from __future__ import annotations
@@ -60,9 +69,10 @@ from ..models.llama import (check_supported, copy_kv_prefix,
                             init_chain_rows, init_kv_cache, make_delta_rope,
                             make_rope, prefill_batch_impl, shift_kv,
                             write_chain_rows)
-from ..sampling import (N_PROBS, RING_CAP, SamplerBuffers, SamplerParams,
-                        init_sampler_state, sample_impl, seed_slot,
-                        window_size)
+from ..ops.qmatmul import _SPLIT_MAX_ROWS, QTensor
+from ..sampling import (N_PROBS, RING_CAP, HostSampler, SamplerBuffers,
+                        SamplerParams, init_sampler_state, sample_impl,
+                        seed_slot, window_size)
 from ..utils.logging import SRV_DBG, SRV_ERR
 from ..utils.staging import HostCopies, StagedBuffer
 from ..utils.text import longest_common_prefix
@@ -129,6 +139,34 @@ def _decode_chain(params, cfg: ModelConfig, token0, pos0, kv, sstate, arrs,
     write_chain_rows(kv, steps, ops.writes)
     toks, ids, probs, tokps = (torch.stack(x, dim=1) for x in zip(*outs))
     return toks, ids, probs, tokps, kv, sstate
+
+
+def _decode_verify_sample(params, cfg: ModelConfig, token0, pos0, kv,
+                          sstate, arrs, fwd_active, samp_active, cos, sin,
+                          samp_extras: bool = True, samp_kcap: int = 0):
+    """One decode step over the full slot batch (JAX
+    `_decode_verify_sample` at T = 1): forward every fwd_active slot,
+    write its row, and sample only the samp_active ones; the others (the
+    host-sampled slots) neither draw a kept token nor advance their
+    sampler state, and are sampled on the host from the returned logits.
+    Returns (tokens [S], ids [S,NP], probs [S,NP], tokps [S], logits
+    [S, V] f32, kv, sstate), all on the device."""
+    ops = decode_operands(pos0, fwd_active, kv.capacity, 1, cos, sin)
+    chain = init_chain_rows(cfg, kv, 1)
+    rows: list = []
+    logits = decode_step_impl(params, cfg, token0[:, None], ops, kv, chain,
+                              0, rows)[:, -1]
+    write_chain_rows(kv, [rows], ops.writes)
+    tok, ids, probs, tokp, sstate = sample_impl(
+        logits, sstate, arrs, samp_active, extras=samp_extras,
+        kcap=samp_kcap)
+    return tok, ids, probs, tokp, logits, kv, sstate
+
+
+def _host_controlled(task) -> bool:
+    """The task needs per-token control on the host: a host sampler or a
+    token-rate bucket (the JAX gates on chained and speculated decode)."""
+    return task.host_sampler is not None or task.rate_bucket is not None
 
 
 @dataclasses.dataclass
@@ -223,23 +261,34 @@ class Engine:
                                          self.eog_ids)
         self._arrs_dirty = False
         # a chunk never exceeds the slot's capacity, nor then its bucket
-        self.buckets = tuple(sorted({
-            min(b, self.slot_ctx) for b in DEFAULT_BUCKETS
-            if b <= max(self.ecfg.n_ubatch, 16)}))
+        buckets = sorted({min(b, self.slot_ctx) for b in DEFAULT_BUCKETS
+                          if b <= max(self.ecfg.n_ubatch, 16)})
+        # grouped weights: a prefill pass holds more rows than the grouped
+        # GEMM splits (<= _SPLIT_MAX_ROWS rows take other bits), so a
+        # prompt row's bits do not depend on how much of it was cached
+        if any(isinstance(w, QTensor) and not w.w8a8
+               for w in params.get("layers", {}).values()):
+            buckets = [b for b in buckets if S * b > _SPLIT_MAX_ROWS] \
+                or buckets[-1:]
+        self.buckets = tuple(buckets)
         # the programs' operands: decode token0 | pos0 | active, prefill
-        # pos_base | n_valid | sample-active | tokens [S, bucket]
+        # pos_base | n_valid | sample-active | tokens [S, bucket], one-token
+        # pass token0 | pos0 | active | sample-active | host-row index
         self._dec_in = StagedBuffer(3 * S, torch.int64, self.device, ring)
+        self._one_in = StagedBuffer(5 * S, torch.int64, self.device, ring)
         self._pre_in = StagedBuffer(S * (3 + self.buckets[-1]), torch.int64,
                                     self.device, ring)
         # an admitted slot's penalty window (one pass may admit S)
         self._win_in = StagedBuffer(window_size(cfg.vocab_size), torch.int32,
                                     self.device, S + ring)
         # the outputs of the programs in flight: tokens, top ids, top
-        # probs, token probs of up to S x decode_chain samples
+        # probs, token probs of up to S x decode_chain samples, and the
+        # logits rows of a one-token pass's host-sampled slots
         n = S * max(1, self.ecfg.decode_chain)
         self._copies = HostCopies(ring, [
             (n, torch.int32), (n * N_PROBS, torch.int32),
-            (n * N_PROBS, torch.float32), (n, torch.float32)], self.device)
+            (n * N_PROBS, torch.float32), (n, torch.float32),
+            (S * cfg.vocab_size, torch.float32)], self.device)
         self._chain_q: list[_Chain] = []    # speculated, oldest first
         self.graphs = GraphRunner(self.device, self.ecfg.cuda_graphs)
         self.slots = [Slot(i, self.slot_ctx) for i in range(S)]
@@ -349,9 +398,6 @@ class Engine:
     def _admit_completion(self, task: CompletionsTask) -> None:
         if task.chunks is not None:
             raise NotImplementedError("multimodal prompts are not ported yet")
-        if task.sparams.needs_host_sampler:
-            raise NotImplementedError("grammar, mirostat, DRY and reordered "
-                                      "sampler chains are not ported yet")
         if not task.prompt_tokens:
             bos = self.tokenizer.bos_id if self.tokenizer else None
             if bos is None:
@@ -412,6 +458,12 @@ class Engine:
                   np.asarray(window, np.int32), len(window), last_n,
                   self._win_in)
         self._arrs_dirty = True
+
+        # grammar/mirostat/DRY/reordered chains sample on the host (the
+        # lazy-grammar semantics of the JAX engine)
+        if sp.needs_host_sampler and task.host_sampler is None:
+            task.host_sampler = HostSampler(sp, sp.grammar, self.tokenizer)
+            task.host_sampler.push_prompt(task.prompt_tokens)
         SRV_DBG("admit", "task %s -> slot %d reuse=%d prompt=%d",
                 task.rid, s.idx, reuse, len(task.prompt_tokens))
 
@@ -481,16 +533,19 @@ class Engine:
         if not slots:
             return
         t0 = time.monotonic()
-        done, total, pend = self._prefill_batch_dispatch(slots)
+        done, total, pend, logits = self._prefill_batch_dispatch(slots)
         if done:
-            ramp_set = self._speculate_post_prefill(done, pend)
-            self._finish_batch_sync(done, pend, ramp_set)
+            ramp_set = pend is not None and \
+                self._speculate_post_prefill(done, pend)
+            self._finish_batch_sync(done, pend, ramp_set, logits)
         self.metrics.on_prefill(total, (time.monotonic() - t0) * 1e3)
 
     def _prefill_batch_dispatch(self, slots: list):
         """Stage and dispatch one batched prefill pass, and start the copy
-        of the first tokens of the prompts it completes; no wait. Returns
-        (completed slots, prompt tokens, their _Chain or None)."""
+        of the first tokens of the prompts it completes (the device-sampled
+        ones; a host-sampled slot's sampler state stays still); no wait.
+        Returns (completed slots, prompt tokens, the device-sampled ones'
+        _Chain or None, the pass's last-row logits [S, V] on the device)."""
         S = len(self.slots)
         chunks = {s.idx: min(len(s.task.prompt_tokens) - s.cursor,
                              self.ecfg.n_ubatch) for s in slots}
@@ -505,7 +560,8 @@ class Engine:
             tokens[s.idx, :n] = s.task.prompt_tokens[s.cursor:s.cursor + n]
             h[s.idx] = s.pos
             h[S + s.idx] = n
-        for s in done:
+        dev_done = [s for s in done if s.task.host_sampler is None]
+        for s in dev_done:
             h[2 * S + s.idx] = 1
         self._pre_in.push(S * (3 + T))
         self._refresh_arrs()
@@ -516,13 +572,15 @@ class Engine:
             s.cache_tokens.extend(s.task.prompt_tokens[s.cursor:s.cursor + n])
             s.cursor += n
             s.pos += n
-        pend = self._copy_out(done, 1, outs, None, 0.0) if done else None
-        return done, int(sum(chunks.values())), pend
+        pend = (self._copy_out(dev_done, 1, outs, None, 0.0)
+                if dev_done else None)
+        return done, int(sum(chunks.values())), pend, outs[4]
 
     def _prefill_program(self, T: int):
         """One prefill pass of bucket T over the staged operands, then the
-        sample of the slots whose prompt it completes (the others do not
-        advance their sampler state)."""
+        sample of the device-sampled slots whose prompt it completes (the
+        others do not advance their sampler state). Returns (tok, ids,
+        probs, tokp, last-row logits [S, V] f32)."""
         S = len(self.slots)
         d = self._pre_in.dev
         logits, self.kv = prefill_batch_impl(
@@ -530,7 +588,7 @@ class Engine:
             d[S:2 * S], self.kv, self.rope_cos, self.rope_sin)
         tok, ids, probs, tokp, self.sstate = sample_impl(
             logits, self.sstate, self.arrs, d[2 * S:3 * S] != 0)
-        return tok, ids, probs, tokp
+        return tok, ids, probs, tokp, logits
 
     def _speculate_post_prefill(self, done: list, pend: _Chain) -> bool:
         """Dispatch the first (ramped) decode chain off the prefill's
@@ -546,9 +604,11 @@ class Engine:
         if any(s.state == "decode" for s in self.slots):
             return False
         # the JAX gate: plain slots only, by the JAX chain's `plain`,
-        # which leaves ignore_eos out (ROADMAP Queue 3)
-        if any(not dataclasses.replace(s.task.sparams,
-                                       ignore_eos=False).plain
+        # which leaves ignore_eos out (ROADMAP Queue 3), and none under
+        # host control
+        if any(_host_controlled(s.task)
+               or not dataclasses.replace(s.task.sparams,
+                                          ignore_eos=False).plain
                for s in done):
             return False
         K = self.ecfg.decode_chain
@@ -568,22 +628,39 @@ class Engine:
             s.chain_ramp = 0 if nxt >= self.ecfg.decode_chain else nxt
         return True
 
-    def _finish_batch_sync(self, done: list, pend: _Chain,
-                           ramp_set: bool) -> None:
-        """Wait for the first tokens and emit them."""
-        tok_h, ids_h, probs_h, tokp_h = self._copies.wait(pend.copy)
-        for s in done:
-            s.task.t_prefilled = time.monotonic()
-            s.state = "decode"
-            if not ramp_set:
-                # else the speculated chain already took (and advanced)
-                # this slot's ramp
+    def _finish_batch_sync(self, done: list, pend: _Chain | None,
+                           ramp_set: bool, logits) -> None:
+        """Wait for the first tokens and emit them: one host copy for the
+        device-sampled slots, one batched gather of the last-row logits
+        for the host-sampled ones (JAX `_finish_batch_sync`)."""
+        hs = [s for s in done if s.task.host_sampler is not None]
+        if pend is not None:
+            tok_h, ids_h, probs_h, tokp_h, _ = self._copies.wait(pend.copy)
+            for s in done:
+                if s in hs:
+                    continue
+                s.task.t_prefilled = time.monotonic()
+                s.state = "decode"
+                if not ramp_set:
+                    # else the speculated chain already took (and
+                    # advanced) this slot's ramp
+                    s.chain_ramp = self.ecfg.chain_ramp
+                self._accept_token(
+                    s, int(tok_h[s.idx]),
+                    ids_h[s.idx] if ids_h is not None else None,
+                    probs_h[s.idx] if probs_h is not None else None,
+                    float(tokp_h[s.idx]) if tokp_h is not None else 0.0)
+        if hs:
+            # read before any later program can replay the pass's graph:
+            # the gather is enqueued behind the pass and waited on here
+            rows = torch.stack([logits[s.idx] for s in hs]).cpu().numpy()
+            for k, s in enumerate(hs):
+                first, ids_row, probs_row, tok_prob = \
+                    s.task.host_sampler.sample(rows[k])
+                s.task.t_prefilled = time.monotonic()
+                s.state = "decode"
                 s.chain_ramp = self.ecfg.chain_ramp
-            self._accept_token(
-                s, int(tok_h[s.idx]),
-                ids_h[s.idx] if ids_h is not None else None,
-                probs_h[s.idx] if probs_h is not None else None,
-                float(tokp_h[s.idx]) if tokp_h is not None else 0.0)
+                self._accept_token(s, first, ids_row, probs_row, tok_prob)
 
     # -- decode --------------------------------------------------------------
 
@@ -592,6 +669,11 @@ class Engine:
         # (their device sampler state already advanced through it): use
         # it, never re-dispatch
         if self._chain_q and self._consume_pending_chain(dec):
+            return
+        # per-token host control (a host sampler or a rate bucket): ONE
+        # one-token pass for every decoding slot, no chain (the JAX gates)
+        if any(_host_controlled(s.task) for s in dec):
+            self._one_token_pass(dec)
             return
         # chains shrink toward the boundary, so a slot reaches its
         # capacity at the end of one; it shifts before the next (the JAX
@@ -602,6 +684,86 @@ class Engine:
         K = self._chain_k(dec)
         K = max(1, min(K, _pow2_floor(min(s.capacity - s.pos for s in dec))))
         self._decode_pass_chain(dec, K)
+
+    def _one_token_pass(self, dec: list) -> None:
+        """One decode step for every decoding slot (the JAX engine's
+        per-token pass: `_decode_verify_sample` at T = 1). The device
+        samples the device-sampled slots; the host-sampled ones get their
+        logits rows (one gather by a staged index vector, one copy) and
+        sample on the host, their device sampler state left as it was. A
+        slot at its capacity shifts first; a slot whose rate bucket is
+        empty sits the pass out (a 5 ms sleep when no slot is left, so
+        the loop does not spin). The chain queue is empty here."""
+        for s in dec:
+            if s.pos >= s.capacity:
+                self._context_shift(s)
+        dec = [s for s in dec if s.task.rate_bucket is None
+               or s.task.rate_bucket.try_acquire(1)]
+        if not dec:
+            time.sleep(0.005)
+            return
+        self._refresh_arrs()
+        t0 = time.monotonic()
+        S = len(self.slots)
+        hs = [s for s in dec if s.task.host_sampler is not None]
+        tokens, pos = [None] * S, [0] * S
+        for s in dec:
+            tokens[s.idx], pos[s.idx] = s.next_token, s.pos
+        self._stage_one(tokens, pos, [s.idx for s in hs])
+        kw = self._chain_fast_kw([s for s in dec if s not in hs])
+        outs = self.graphs.run(
+            ("one", kw["samp_extras"], kw.get("samp_kcap", 0)),
+            lambda: self._one_token_program(**kw))
+        want = any(s.task.n_probs > 0 for s in dec)
+        copy = self._copies.start(
+            (outs[0],) + (outs[1:4] if want else (None,) * 3)
+            + (outs[4][:len(hs)] if hs else None,))
+        toks_h, ids_h, probs_h, tokps_h, rows_h = self._copies.wait(copy)
+        self._acct_decode(len(dec), t0)
+        for s in dec:
+            s.cache_tokens.append(s.next_token)
+            s.pos += 1
+            if s in hs:
+                tok, ids_row, probs_row, tok_prob = \
+                    s.task.host_sampler.sample(rows_h[hs.index(s)])
+                self._accept_token(s, tok, ids_row, probs_row, tok_prob)
+                continue
+            self._accept_token(
+                s, int(toks_h[s.idx]),
+                ids_h[s.idx] if ids_h is not None else None,
+                probs_h[s.idx] if probs_h is not None else None,
+                float(tokps_h[s.idx]) if tokps_h is not None else 0.0)
+
+    def _stage_one(self, tokens: list, pos: list, host: list) -> None:
+        """Stage a one-token pass's operands (token0 | pos0 | active |
+        sample-active | host-row index, S each): slot b decodes tokens[b]
+        at pos[b] (None: it sits out, at position slot_ctx); the device
+        samples the active slots not in `host`, and the rows of the slots
+        in `host` come out in that order."""
+        S = len(self.slots)
+        h = self._one_in.host()
+        h[:] = 0
+        h[S:2 * S] = self.slot_ctx
+        for b, (t, p) in enumerate(zip(tokens, pos)):
+            if t is not None:
+                h[b], h[S + b], h[2 * S + b] = t, p, 1
+                h[3 * S + b] = int(b not in host)
+        for k, b in enumerate(host):
+            h[4 * S + k] = b
+        self._one_in.push()
+
+    def _one_token_program(self, **kw):
+        """One one-token pass over the staged operands; the host-sampled
+        slots' logits rows come first in its last output ([S, V], gathered
+        by the staged index vector, so the graph's shapes are fixed)."""
+        S = len(self.slots)
+        d = self._one_in.dev
+        tok, ids, probs, tokp, logits, self.kv, self.sstate = \
+            _decode_verify_sample(
+                self.params, self.cfg, d[:S], d[S:2 * S], self.kv,
+                self.sstate, self.arrs, d[2 * S:3 * S] != 0,
+                d[3 * S:4 * S] != 0, self.rope_cos, self.rope_sin, **kw)
+        return tok, ids, probs, tokp, logits.index_select(0, d[4 * S:])
 
     def _context_shift(self, s: Slot) -> None:
         """Drop min(n_left / 4, n_ubatch) rows after n_keep and re-rotate
@@ -657,7 +819,8 @@ class Engine:
 
     def _chain_fast_kw(self, dec: list) -> dict:
         """samp_extras=False when every slot is plain; samp_kcap=64 when
-        every slot's chain is covered by 64 candidates."""
+        every slot's chain is covered by 64 candidates (both hold for no
+        slot)."""
         plain = all(s.task.sparams.plain for s in dec)
         kw = {"samp_extras": not plain}
         if plain and all(0 < s.task.sparams.top_k <= 64
@@ -703,11 +866,13 @@ class Engine:
         return self._copy_out(dec, K, outs, pos0, t0)
 
     def _copy_out(self, dec: list, K: int, outs, pos0, t0: float) -> _Chain:
-        """Start the copy of a program's outputs (the probs only when a
-        slot of `dec` wants them) and record what it was run for."""
+        """Start the copy of a program's tokens (and probs when a slot of
+        `dec` wants them; no logits rows) and record what it was run
+        for."""
         want = any(s.task.n_probs > 0 for s in dec)
-        copy = self._copies.start(outs if want else (outs[0], None, None,
-                                                     None))
+        copy = self._copies.start(
+            (outs[0],) + (tuple(outs[1:4]) if want else (None,) * 3)
+            + (None,))
         tasks = [None] * len(self.slots)
         for s in dec:
             tasks[s.idx] = s.task
@@ -743,6 +908,10 @@ class Engine:
         a task waits for a slot, no chain goes out past the point where
         a covered slot's budget ends."""
         if not self.ecfg.pipeline_chain:
+            return
+        # the JAX gate: no chain while a slot needs per-token host control
+        if any(s.state == "decode" and _host_controlled(s.task)
+               for s in self.slots):
             return
         waiting = not self.queue.empty()
         idle = any(s.state == "idle" for s in self.slots)
@@ -804,7 +973,7 @@ class Engine:
 
     def _emit_chain(self, dec: list, rec: _Chain) -> None:
         """Wait for a chain's tokens and hand them to its slots."""
-        toks_h, ids_h, probs_h, tokps_h = self._copies.wait(rec.copy)
+        toks_h, ids_h, probs_h, tokps_h, _ = self._copies.wait(rec.copy)
         n_tok = 0
         for s in dec:
             inp = s.next_token
@@ -842,6 +1011,9 @@ class Engine:
             return
         task.generated.append(token)
         s.next_token = token
+        hs = task.host_sampler
+        if hs is not None:
+            hs.accept(token)
         text = task.scanner.push(token)
         if task.n_probs > 0 and ids_row is not None:
             from .task import TokenProbs
@@ -856,6 +1028,8 @@ class Engine:
         finish = None
         if self.tokenizer is not None and self.tokenizer.is_eog(token):
             finish = "stop"
+        elif hs is not None and hs.must_stop:
+            finish = "stop"
         elif task.scanner.stopped:
             finish = "stop"
         elif task.budget_left() <= 0:
@@ -866,6 +1040,8 @@ class Engine:
         if finish == "length":
             text += task.scanner.flush()
         text, r_delta, calls = task.postprocess(text, final=bool(finish))
+        if finish == "stop" and task.tool_calls:
+            finish = "tool_calls"
         if text:
             task.text += text
         if task.stream and (text or r_delta or calls or finish):
@@ -878,6 +1054,27 @@ class Engine:
             task.t_decoded = time.monotonic()
             task.emit("final", task)
             self._release(s, keep_cache=self.ecfg.prompt_cache)
+
+    def probe_decode_tps(self, n_tokens: int = 32) -> float:
+        """Timed greedy decode to measure tokens/sec (the reference's
+        --tokens-per-second -1 startup probe; JAX `probe_decode_tps`)."""
+        bos = self.tokenizer.bos_id if self.tokenizer else 1
+        task = CompletionsTask([bos or 1], SamplerParams(temp=0.0, seed=0),
+                               tokenizer=self.tokenizer, max_tokens=n_tokens,
+                               stream=False)
+        self.submit(task)
+        while True:
+            kind, payload = task.result_q.get(timeout=600)
+            if kind == "final":
+                tps = payload.timings()["tokens_per_second"]
+                # the probe leaves its tokens in the prefix cache; clear it
+                for s in self.slots:
+                    if s.state == "idle":
+                        s.cache_tokens = []
+                        s.pos = 0
+                return tps
+            if kind == "error":
+                raise payload
 
     def _release(self, s: Slot, keep_cache: bool = False) -> None:
         """Free the slot; optionally keep its KV token history for the

@@ -7,25 +7,32 @@ result queue. Server-sent events go out as HTTP/1.1 chunked writes, one
 chunk per event, ending with `data: [DONE]`. The JSON shapes are the JAX
 server's (server/protocol.py).
 
-Routes: GET /health, GET /v1/models (/models), POST /v1/completions
-(/completions) and POST /v1/chat/completions (/chat/completions), each
-streamed or not. Tools, reasoning splitting, multimodal content, LoRA,
-embeddings, rerank, tokenize and images are not ported yet and are
-refused with a 400 or a 404; the per-request rate-limit header
-(X-Request-Tokens-Per-Second) is not read yet.
+Routes: GET /health, GET /metrics (Prometheus text, `llamabox:*`), GET
+/v1/models (/models), GET /lora-adapters, POST /tokenize, POST
+/detokenize, POST /v1/completions (/completions) and POST
+/v1/chat/completions (/chat/completions), each streamed or not, with
+tools and tool_choice (tool_calls in the message and in SSE deltas),
+reasoning splitting (reasoning_content) and the per-request rate limit
+(X-Request-Tokens-Per-Second: 400 when it is not a number, 410 above the
+server's -tps cap). Multimodal content, LoRA, embeddings, rerank and
+images are not ported yet and are refused with a 400 or a 404; the port
+loads no adapter, so /lora-adapters lists none.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import queue
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 
+from ..grammar import Grammar, GrammarError
 from ..ops.qmatmul import QTensor
 from ..sampling import SamplerParams
 from ..utils.logging import SRV_ERR, SRV_INF
+from ..utils.tokenbucket import RatelimitTokenBucket
 from .chat import ChatTemplates
 from .engine import Engine
 from .protocol import (RequestError, bad_request, chat_chunk_json,
@@ -33,7 +40,9 @@ from .protocol import (RequestError, bad_request, chat_chunk_json,
                        completion_json, new_request_id, parse_max_tokens,
                        parse_prompt_tokens, parse_sampling, parse_stop,
                        parse_stream_options, usage_json)
+from .reasoning import ReasoningSplitter, detect_reasoning_markers
 from .task import CompletionsTask
+from .toolcall import ToolCallScanner, migrate_functions, tools_grammar
 
 RESULT_TIMEOUT_S = 600.0
 
@@ -47,7 +56,12 @@ class HTTPServer:
                  chat_templates: ChatTemplates | None = None,
                  default_max_tokens: int = -1,
                  chat_template_kwargs: dict | None = None,
-                 default_stop: tuple = ()):
+                 default_stop: tuple = (),
+                 max_tps: float = 0.0,
+                 default_grammar: str | None = None):
+        """max_tps: the server's decode-rate cap a request (-tps; 0 =
+        none); default_grammar: the server-wide GBNF (--grammar,
+        --grammar-file, --json-schema)."""
         self.engine = engine
         self.model_name = model_name
         self.defaults = defaults or SamplerParams()
@@ -56,6 +70,9 @@ class HTTPServer:
         self.default_max_tokens = default_max_tokens
         self.chat_template_kwargs = chat_template_kwargs or {}
         self.default_stop = tuple(default_stop)
+        self.max_tps = max_tps
+        self.default_grammar = default_grammar
+        self.reasoning_markers = detect_reasoning_markers(self.chat.source)
         self.created = int(time.time())
 
     def make_server(self, host: str = "127.0.0.1",
@@ -68,12 +85,104 @@ class HTTPServer:
         srv.daemon_threads = True
         return srv
 
+    def _request_rate_bucket(self, headers):
+        """X-Request-Tokens-Per-Second -> per-task token bucket; 410 when
+        the requested rate exceeds the server cap (JAX
+        `_request_rate_bucket`)."""
+        hdr = headers.get("X-Request-Tokens-Per-Second") if headers else None
+        tps = self.max_tps
+        if hdr is not None:
+            try:
+                tps = float(hdr)
+            except ValueError:
+                raise bad_request(
+                    "\"X-Request-Tokens-Per-Second\" must be a number")
+            if tps <= 0:
+                tps = self.max_tps
+            elif self.max_tps > 0 and tps > self.max_tps:
+                raise RequestError(
+                    410, "requested tokens per second exceeds the server "
+                    f"limit ({self.max_tps:.0f})", code="rate_limit")
+        if tps and tps > 0:
+            return RatelimitTokenBucket(capacity=max(int(tps), 1), rate=tps)
+        return None
+
     # -- meta endpoints ------------------------------------------------------
 
-    def health(self, body: dict, rid: str) -> dict:
+    def health(self, body: dict, rid: str, headers=None) -> dict:
         return {"status": "ok"}
 
-    def models(self, body: dict, rid: str) -> dict:
+    def lora_adapters(self, body: dict, rid: str, headers=None) -> list:
+        return []
+
+    def metrics(self, body: dict, rid: str, headers=None) -> str:
+        """Prometheus text exposition (JAX `handle_metrics`)."""
+        m = self.engine.metrics
+        used, total = self.engine.kv_cache_usage()
+        processing = sum(1 for s in self.engine.slots if s.state != "idle")
+        lines = []
+
+        def metric(kind, name, help_, value):
+            lines.append(f"# HELP llamabox:{name} {help_}")
+            lines.append(f"# TYPE llamabox:{name} {kind}")
+            lines.append(f"llamabox:{name} {value}")
+
+        metric("counter", "prompt_tokens_total",
+               "Number of prompt tokens processed.", m.n_prefill_total)
+        metric("counter", "prompt_seconds_total", "Prompt process time.",
+               round(m.t_prefill_total_ms / 1e3, 3))
+        metric("counter", "tokens_predicted_total",
+               "Number of generated tokens.", m.n_decode_total)
+        metric("counter", "tokens_predicted_seconds_total",
+               "Generation time.", round(m.t_decode_total_ms / 1e3, 3))
+        metric("counter", "tokens_drafted_total",
+               "Number of drafted tokens.", m.n_drafted_total)
+        metric("counter", "tokens_drafted_accepted_total",
+               "Number of accepted drafted tokens.",
+               m.n_drafted_accepted_total)
+        metric("counter", "requests_total", "Number of requests.",
+               m.n_requests)
+        pps = (m.n_prefill_total / (m.t_prefill_total_ms / 1e3)
+               if m.t_prefill_total_ms > 0 else 0.0)
+        dps = (m.n_decode_total / (m.t_decode_total_ms / 1e3)
+               if m.t_decode_total_ms > 0 else 0.0)
+        metric("gauge", "prompt_tokens_seconds",
+               "Average prompt throughput (tok/s).", round(pps, 2))
+        metric("gauge", "predicted_tokens_seconds",
+               "Average generation throughput (tok/s).", round(dps, 2))
+        metric("gauge", "kv_cache_usage_ratio",
+               "KV-cache usage; 1 means full.",
+               round(used / max(total, 1), 4))
+        metric("gauge", "kv_cache_tokens", "KV-cache tokens.", used)
+        metric("gauge", "requests_processing",
+               "Number of requests processing.", processing)
+        metric("gauge", "requests_deferred", "Number of requests deferred.",
+               self.engine.queue.qsize())
+        return "\n".join(lines) + "\n"
+
+    def tokenize(self, body: dict, rid: str, headers=None) -> dict:
+        if "content" not in body:
+            raise bad_request("\"content\" must be provided", "content")
+        add_special = bool(body.get("add_special", True))
+        tok = self.engine.tokenizer
+        ids = parse_prompt_tokens(body["content"], tok, "content") \
+            if not isinstance(body["content"], str) else tok.encode(
+                body["content"], add_special=add_special, parse_special=True)
+        if body.get("with_pieces"):
+            return {"tokens": [
+                {"id": t, "piece": tok.decode([t], skip_leading_space=False)}
+                for t in ids]}
+        return {"tokens": ids}
+
+    def detokenize(self, body: dict, rid: str, headers=None) -> dict:
+        toks = body.get("tokens")
+        if not isinstance(toks, list) or not all(
+                isinstance(t, int) and not isinstance(t, bool) for t in toks):
+            raise bad_request("\"tokens\" must be an array of token ids",
+                              "tokens")
+        return {"content": self.engine.tokenizer.decode(toks)}
+
+    def models(self, body: dict, rid: str, headers=None) -> dict:
         cfg = self.engine.cfg
         leaves = _leaves(self.engine.params)
         return {
@@ -98,22 +207,22 @@ class HTTPServer:
                     "support_vision": False,
                     "support_audio": False,
                     "support_speculative": False,
-                    "support_tool_calls": False,
-                    "support_reasoning": False,
+                    "support_tool_calls": self.chat.source is not None,
+                    "support_reasoning": self.reasoning_markers is not None,
                 },
             }],
         }
 
     # -- completions ---------------------------------------------------------
 
-    def completions(self, body: dict, rid: str):
+    def completions(self, body: dict, rid: str, headers=None):
         tok = self.engine.tokenizer
         if "prompt" not in body:
             raise bad_request("\"prompt\" must be provided", "prompt")
         prompt_tokens = parse_prompt_tokens(body["prompt"], tok)
         if not prompt_tokens:
             raise bad_request("\"prompt\" must not be empty", "prompt")
-        task = self._task(body, rid, prompt_tokens,
+        task = self._task(body, rid, headers, prompt_tokens,
                           n_keep=int(body.get("n_keep", 0)))
         if not task.stream:
             return self._wait_final(
@@ -121,56 +230,104 @@ class HTTPServer:
         return task, lambda t, d, fr: completion_chunk_json(
             t, self.model_name, d.get("text", ""), fr)
 
-    def chat_completions(self, body: dict, rid: str):
+    def chat_completions(self, body: dict, rid: str, headers=None):
         tok = self.engine.tokenizer
         messages = body.get("messages")
         if not isinstance(messages, list) or not messages:
             raise bad_request("\"messages\" must be a non-empty array",
                               "messages")
-        if body.get("tools") or body.get("functions"):
-            raise bad_request("tool calling is not supported by this server "
-                              "yet", "tools")
         msgs = _normalize_messages(messages)
+        tools, tool_choice = migrate_functions(body)
+        if tools is not None and not isinstance(tools, list):
+            raise bad_request("\"tools\" must be an array", "tools")
+        use_tools = bool(tools) and tool_choice != "none"
         extra_ctx = dict(self.chat_template_kwargs)
         ck = body.get("chat_template_kwargs")
         if isinstance(ck, dict):
             extra_ctx.update(ck)
-        prompt = self.chat.apply(msgs, add_generation_prompt=True,
+        prompt = self.chat.apply(msgs, tools=tools if use_tools else None,
+                                 add_generation_prompt=True,
                                  extra_context=extra_ctx or None)
         prompt_tokens = tok.encode(prompt, add_special=True,
                                    parse_special=True)
-        task = self._task(body, rid, prompt_tokens)
+        reasoning = None
+        if self.reasoning_markers is not None:
+            reasoning = ReasoningSplitter(
+                *self.reasoning_markers,
+                force_open=prompt.rstrip().endswith(
+                    self.reasoning_markers[0]))
+        toolscan = (ToolCallScanner(
+            self.chat.alias,
+            parallel=bool(body.get("parallel_tool_calls", True)))
+            if use_tools else None)
+        task = self._task(body, rid, headers, prompt_tokens,
+                          reasoning=reasoning, toolscan=toolscan,
+                          tools=tools if use_tools else None)
         if not task.stream:
-            return self._wait_final(task, lambda t: chat_completion_json(
-                t, self.model_name, tok))
+            def render(t):
+                extra = {}
+                if t.tool_calls:
+                    extra["tool_calls"] = [
+                        {"id": c.id, "type": "function",
+                         "function": {"name": c.name,
+                                      "arguments": c.arguments}}
+                        for c in t.tool_calls]
+                if t.reasoning_text:
+                    extra["reasoning_content"] = t.reasoning_text
+                return chat_completion_json(t, self.model_name, tok, extra)
+            return self._wait_final(task, render)
         first = {"role": "assistant", "content": ""}
+        n_calls = 0
 
         def chunk_fn(t, d, fr):
-            nonlocal first
+            nonlocal first, n_calls
             delta: dict[str, Any] = {}
             if first is not None:
                 delta.update(first)
                 first = None
             if d.get("text"):
                 delta["content"] = delta.get("content", "") + d["text"]
+            if d.get("reasoning_content"):
+                delta["reasoning_content"] = d["reasoning_content"]
+            if d.get("tool_calls"):
+                delta["tool_calls"] = []
+                for c in d["tool_calls"]:
+                    delta["tool_calls"].append(
+                        {"index": n_calls, "id": c.id, "type": "function",
+                         "function": {"name": c.name,
+                                      "arguments": c.arguments}})
+                    n_calls += 1
             return chat_chunk_json(t, self.model_name, delta, fr)
         return task, chunk_fn
 
-    def _task(self, body: dict, rid: str, prompt_tokens: list[int],
-              n_keep: int = 0) -> CompletionsTask:
+    def _task(self, body: dict, rid: str, headers, prompt_tokens: list[int],
+              n_keep: int = 0, reasoning=None, toolscan=None,
+              tools=None) -> CompletionsTask:
         tok = self.engine.tokenizer
-        sparams = parse_sampling(body, self.defaults, tok.n_vocab)
+        sparams = parse_sampling(body, self.defaults, tok.n_vocab,
+                                 default_grammar=self.default_grammar)
         so = parse_stream_options(body)
         mt = parse_max_tokens(body, self.engine.slot_ctx)
         if body.get("lora") is not None:
             raise bad_request("\"lora\" is not supported by this server yet",
                               "lora")
+        if tools and sparams.grammar is None:
+            # lazy tool grammar: unconstrained until a trigger string
+            tg = tools_grammar(tools, self.chat.alias)
+            if tg is not None:
+                try:
+                    sparams = dataclasses.replace(
+                        sparams, grammar=Grammar(tg[0]), grammar_lazy=True,
+                        grammar_triggers=tg[1])
+                except GrammarError:
+                    pass   # malformed tool schema: fall back to scanning
         task = CompletionsTask(
             prompt_tokens, sparams, tokenizer=tok,
             max_tokens=mt if mt > 0 else self.default_max_tokens,
             stop_words=parse_stop(body, self.default_stop),
             stream=so["stream"], n_keep=n_keep, n_probs=sparams.n_probs,
-            rid=rid)
+            rid=rid, reasoning=reasoning, toolscan=toolscan,
+            rate_bucket=self._request_rate_bucket(headers))
         task.include_usage = so["include_usage"]
         self.engine.submit(task)
         return task
@@ -245,10 +402,13 @@ class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     routes: HTTPServer = None   # bound by HTTPServer.make_server
 
-    _GET = {"/health": "health", "/v1/models": "models", "/models": "models"}
+    _GET = {"/health": "health", "/metrics": "metrics",
+            "/v1/models": "models", "/models": "models",
+            "/lora-adapters": "lora_adapters"}
     _POST = {"/v1/completions": "completions", "/completions": "completions",
              "/v1/chat/completions": "chat_completions",
-             "/chat/completions": "chat_completions"}
+             "/chat/completions": "chat_completions",
+             "/tokenize": "tokenize", "/detokenize": "detokenize"}
 
     def log_message(self, fmt, *args):   # access log goes through SRV_INF
         pass
@@ -272,9 +432,11 @@ class _Handler(BaseHTTPRequestHandler):
                 raise RequestError(404, f"no route {self.command} "
                                    f"{self.path}", err_type="not_found_error")
             body = self._body() if self.command == "POST" else {}
-            result = getattr(self.routes, name)(body, rid)
+            result = getattr(self.routes, name)(body, rid, self.headers)
             if isinstance(result, tuple):
                 self._stream(rid, *result)
+            elif isinstance(result, str):
+                self._send(200, result.encode(), "text/plain", rid)
             else:
                 self._send_json(200, result, rid)
         except RequestError as exc:
@@ -308,9 +470,12 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_header("Access-Control-Allow-Headers", "*")
 
     def _send_json(self, status: int, obj, rid: str) -> None:
-        data = json.dumps(obj, ensure_ascii=False).encode()
+        self._send(status, json.dumps(obj, ensure_ascii=False).encode(),
+                   "application/json", rid)
+
+    def _send(self, status: int, data: bytes, ctype: str, rid: str) -> None:
         self.send_response(status)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(data)))
         self._common_headers(rid)
         self.end_headers()

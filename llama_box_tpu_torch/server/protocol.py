@@ -6,9 +6,9 @@ code. Strictness mirrors the reference: wrong-typed or out-of-range fields
 produce 400 invalid_request_error with a specific message.
 
 (Counterpart of llama_box_tpu/server/protocol.py: what chat and
-completions need. Grammar-constrained output (grammar, json_schema,
-response_format), mirostat, DRY, reordered sampler chains and LoRA are
-not ported yet and are refused with a 400.)
+completions need, grammar-constrained output (grammar, json_schema,
+response_format) and the host-sampled knobs included. LoRA is not ported
+yet and is refused with a 400.)
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ import time
 import uuid
 from typing import Any
 
+from ..grammar import (Grammar, GrammarError, JSON_OBJECT_GRAMMAR,
+                       json_schema_to_grammar)
 from ..sampling import SamplerParams
 from .task import CompletionsTask
 
@@ -78,21 +80,15 @@ def get_ranged(body: dict, key: str, default, lo=None, hi=None, typ=float):
 
 
 def parse_sampling(body: dict, defaults: SamplerParams | None = None,
-                   n_vocab: int = 0) -> SamplerParams:
+                   n_vocab: int = 0,
+                   default_grammar: str | None = None) -> SamplerParams:
+    """default_grammar: server-wide GBNF (--grammar/--grammar-file/
+    --json-schema) compiled fresh per request when the body brings none
+    (grammar engines are stateful)."""
     d = defaults or SamplerParams()
     seed = get_typed(body, "seed", int, None)
     if seed is None or seed < 0:
         seed = int(time.time_ns() & 0xFFFFFFFF)
-    for key in ("grammar", "json_schema"):
-        if body.get(key) is not None:
-            raise bad_request(f"\"{key}\" is not supported by this server "
-                              "yet", key)
-    rf = body.get("response_format")
-    if rf is not None and not (isinstance(rf, dict)
-                               and rf.get("type") == "text"):
-        raise bad_request("only \"response_format\": {\"type\": \"text\"} "
-                          "is supported by this server yet",
-                          "response_format")
 
     logit_bias = dict(d.logit_bias)
     lb = body.get("logit_bias")
@@ -136,6 +132,14 @@ def parse_sampling(body: dict, defaults: SamplerParams | None = None,
         raise bad_request("\"top_logprobs\" must be used with "
                           "\"logprobs\"", "top_logprobs")
 
+    grammar = parse_grammar(body)
+    if grammar is None and default_grammar:
+        try:
+            grammar = Grammar(default_grammar)
+        except GrammarError as exc:
+            raise bad_request(f"server default grammar is invalid: {exc}",
+                              "grammar")
+
     # per-request sampler chain (reference httpserver.hpp:162-172: array of
     # names -> from_names, string -> from_chars); unknown entries skipped
     samplers = d.samplers
@@ -173,6 +177,7 @@ def parse_sampling(body: dict, defaults: SamplerParams | None = None,
         logit_bias=logit_bias,
         ignore_eos=bool(body.get("ignore_eos", False)),
         n_probs=n_probs,
+        grammar=grammar,
         mirostat=get_ranged(body, "mirostat", d.mirostat, 0, 2, int),
         mirostat_tau=get_ranged(body, "mirostat_tau", d.mirostat_tau,
                                 0.0, None),
@@ -198,11 +203,58 @@ def parse_sampling(body: dict, defaults: SamplerParams | None = None,
         samplers=samplers,
     )
     from ..sampling import restrict_to_samplers
-    sp = restrict_to_samplers(sp)
-    if sp.needs_host_sampler:
-        raise bad_request("mirostat, DRY and reordered sampler chains are "
-                          "not supported by this server yet", "samplers")
-    return sp
+    return restrict_to_samplers(sp)
+
+
+def parse_grammar(body: dict) -> Grammar | None:
+    """\"grammar\" (GBNF) / \"json_schema\" / \"response_format\"
+    (json_object | json_schema) -> compiled grammar (reference parsers,
+    httpserver.hpp:486-2041; json_schema -> GBNF like the reference)."""
+    gbnf = None
+    if body.get("grammar") is not None:
+        if not isinstance(body["grammar"], str):
+            raise bad_request("\"grammar\" must be a GBNF string", "grammar")
+        gbnf = body["grammar"]
+    elif body.get("json_schema") is not None:
+        try:
+            gbnf = json_schema_to_grammar(body["json_schema"])
+        except (GrammarError, ValueError, TypeError) as exc:
+            raise bad_request(f"\"json_schema\" is invalid: {exc}",
+                              "json_schema")
+    elif body.get("response_format") is not None:
+        rf = body["response_format"]
+        if not isinstance(rf, dict) or "type" not in rf:
+            raise bad_request("\"response_format\" must be an object with a "
+                              "\"type\"", "response_format")
+        rtype = rf["type"]
+        if rtype == "json_object":
+            schema = rf.get("schema")
+            gbnf = (json_schema_to_grammar(schema) if schema
+                    else JSON_OBJECT_GRAMMAR)
+        elif rtype == "json_schema":
+            js = rf.get("json_schema")
+            if not isinstance(js, dict):
+                # reference: httpserver.hpp:1346-1348
+                raise bad_request("using json schema response format must "
+                                  "contain \"json_schema\"",
+                                  "response_format")
+            schema = js.get("schema")
+            try:
+                gbnf = json_schema_to_grammar(schema)
+            except (GrammarError, ValueError, TypeError) as exc:
+                raise bad_request(f"\"response_format.json_schema\" is "
+                                  f"invalid: {exc}", "response_format")
+        elif rtype == "text":
+            return None
+        else:
+            raise bad_request(f"\"response_format.type\" \"{rtype}\" is not "
+                              "supported", "response_format")
+    if gbnf is None:
+        return None
+    try:
+        return Grammar(gbnf)
+    except GrammarError as exc:
+        raise bad_request(f"\"grammar\" is invalid: {exc}", "grammar")
 
 
 def parse_stop(body: dict, extra: tuple = ()) -> list[str]:

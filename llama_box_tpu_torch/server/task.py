@@ -146,6 +146,7 @@ class CompletionsTask(BaseTask):
         self.tool_calls = []        # extracted ToolCall objects
         self.reasoning_text = ""
         self.rate_bucket = rate_bucket
+        self.host_sampler = None    # sampling.HostSampler, set at admission
         self.chunks = chunks        # None => plain text prompt
 
         # mutable generation state

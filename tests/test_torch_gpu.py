@@ -1185,6 +1185,52 @@ def _stage_prefill(eng, chunks, T):
     eng._pre_in.push(S * (3 + T))
 
 
+def test_a_prompt_rows_bits_do_not_depend_on_its_cached_prefix(cuda,
+                                                               tiny_model):
+    """A 40-token prompt prefilled whole (slot 0, bucket 64) and the same
+    prompt as 39 tokens then a one-token chunk (slot 1, the smallest
+    bucket): the last row's logits are bit-equal, so a greedy prompt
+    served from the prefix cache continues as it does cold. On grouped
+    weights the smallest bucket is one whose pass has more rows than the
+    grouped GEMM splits."""
+    eng = _engine(tiny_model, False, n_ubatch=64)
+    S = len(eng.slots)
+    if tiny_model[0] == "q4":
+        assert all(S * b > qmm_mod._SPLIT_MAX_ROWS for b in eng.buckets)
+    prompt = np.random.default_rng(91).integers(300, 500, 40).tolist()
+    eng._refresh_arrs()
+    _stage_prefill(eng, {0: (0, prompt)}, 64)
+    cold = eng._prefill_program(64)[4][0].clone()
+    _stage_prefill(eng, {1: (0, prompt[:-1])}, 64)
+    eng._prefill_program(64)
+    T = eng._bucket(1)
+    _stage_prefill(eng, {1: (39, prompt[-1:])}, T)
+    cached = eng._prefill_program(T)[4][1].clone()
+    assert torch.equal(cold, cached)
+
+
+def test_grouped_rows_keep_their_bits_in_every_prefill_bucket(cuda,
+                                                              tiny_model):
+    """At TinyLlama-1.1B's wqkv widths (in 2048, out 2560, groups of 32)
+    a row's q4_matmul bits are the same in the pass of every bucket an
+    engine over grouped weights keeps (slots x bucket rows), so a prompt
+    row prefilled in a one-token chunk (its prefix from the cache) has its
+    cold bits. Calls of at most 64 rows split the in-dim and round
+    otherwise: the engine keeps no bucket that makes one."""
+    if tiny_model[0] != "q4":
+        pytest.skip("the grouped GEMM's row regimes: grouped weights only")
+    eng = _engine(tiny_model, False, n_ubatch=256)
+    S = len(eng.slots)
+    rng = np.random.default_rng(93)
+    qs, sc, mn = _grouped(rng, 2048, 2560, 32, True, torch.bfloat16, True,
+                          cuda)
+    x = _x(rng, S * eng.buckets[-1], 2048, cuda)
+    full = qmm_mod.q4_matmul(x, qs, sc, mn, 32)
+    for b in eng.buckets:
+        assert torch.equal(qmm_mod.q4_matmul(x[:S * b], qs, sc, mn, 32),
+                           full[:S * b]), b
+
+
 def test_engine_programs_replay_the_eager_bits(cuda, tiny_model):
     """The prefill program (bucket 32, slot 2 idle) and a 16-step decode
     chain, each run three times (eager first use, capture + replay,
@@ -1462,9 +1508,10 @@ def test_shift_and_copy_between_replays_give_the_eager_bits(cuda, tiny_model,
                            {0: (32, ids[32:])}):
                 _stage_prefill(eng, chunks, 32)
                 eng._refresh_arrs()
-                got += _cloned(eng.graphs.run(
+                pre = _cloned(eng.graphs.run(
                     ("prefill", 32), lambda e=eng: e._prefill_program(32)))
-            tok0 = int(got[-4][0])
+                got += pre
+            tok0 = int(pre[0][0])
             _stage_decode(eng, [tok0, None, None, None], [56, 0, 0, 0])
             got += _cloned(eng.graphs.run(key, lambda e=eng: e._decode_program(
                 8, samp_extras=False, samp_kcap=64)))
@@ -1527,3 +1574,75 @@ def test_pipelined_wave_that_shifts_syncs_only_at_consume(cuda, tiny_model):
         assert _serve(ref, specs) == out
     finally:
         ref.stop()
+
+
+def test_one_token_pass_replays_the_eager_bits(cuda, tiny_model):
+    """The one-token pass (three slots decoding, two of them host-sampled,
+    one idle), run three times on an engine with graphs (eager first use,
+    capture + replay, replay) and on one without: every output, the
+    gathered host rows, the KV cache and the sampler state equal bit for
+    bit; the host-sampled slots' sampler state never advances; the third
+    call captures nothing."""
+    engines = [_engine(tiny_model, g) for g in (True, False)]
+    key = ("one", False, 64)
+    host = [3, 0]
+    for it in range(3):
+        outs = []
+        for eng in engines:
+            eng._stage_one([400 + it, 401, None, 403 + it], [it, 5, 0, 9],
+                           host)
+            eng._refresh_arrs()
+            n_before = eng.graphs.n_graphs
+            out = eng.graphs.run(key, lambda e=eng: e._one_token_program(
+                samp_extras=False, samp_kcap=64))
+            torch.cuda.synchronize()
+            if it == 2:
+                assert eng.graphs.n_graphs == n_before
+            outs.append(_cloned(out) + _cloned(eng.kv) + _cloned(eng.sstate))
+            steps = eng.sstate.step.cpu().tolist()
+            assert steps[0] == steps[2] == steps[3] == 0
+            assert steps[1] == it + 1
+        for a, b in zip(*outs):
+            assert torch.equal(a, b), it
+    assert engines[0].graphs.n_graphs == 1
+    assert engines[1].graphs.n_graphs == 0
+
+
+def test_engine_host_sampled_tokens_with_and_without_graphs(cuda,
+                                                            tiny_model):
+    """A greedy grammar request, a seeded mirostat request and a plain
+    greedy one through the started engine, graphs on and off: the same
+    tokens; the grammar text is in its language; the plain request's
+    tokens equal its tokens served alone (chained, on a fresh engine, so
+    both prefill the whole prompt cold); one-token passes launched the
+    attention kernel."""
+    from llama_box_tpu_torch.grammar import Grammar
+    from llama_box_tpu_torch.sampling import SamplerParams
+    rng = np.random.default_rng(87)
+    prompts = [rng.integers(300, 500, n).tolist() for n in (40, 23, 9)]
+
+    def specs():
+        return [(prompts[0], SamplerParams(
+                    temp=0.0, grammar=Grammar('root ::= [a-e]+ "."')), 24),
+                (prompts[1], SamplerParams(temp=0.8, seed=9, mirostat=2),
+                 24),
+                (prompts[2], SamplerParams(temp=0.0, ignore_eos=True), 24)]
+    out = {}
+    for graphs in (True, False):
+        eng = _engine(tiny_model, graphs, start=True)
+        try:
+            flash_decode.launches = 0
+            out[graphs] = _serve(eng, specs())
+            assert flash_decode.launches > 0
+        finally:
+            eng.stop()
+        eng = _engine(tiny_model, graphs, start=True)
+        try:
+            alone = _serve(eng, specs()[2:])
+        finally:
+            eng.stop()
+        assert alone == out[graphs][2:]
+    assert out[True] == out[False]
+    text = tiny_model[3].decode(out[True][0])
+    assert Grammar('root ::= [a-e]+ "."', native=False).accept_bytes(
+        text.encode()), text

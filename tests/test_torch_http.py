@@ -4,10 +4,15 @@ the tiny fixture GGUF with f32 weights and cache, greedy decoding.
 
 The chat and text completion routes return the content and the token
 counts of `usage` that the JAX engine gives for the same prompt tokens;
-each SSE stream carries the same text and ends with `data: [DONE]`."""
+each SSE stream carries the same text and ends with `data: [DONE]`. The
+host-side routes: /tokenize as the JAX tokenizer, /detokenize back,
+/metrics under the JAX server's names, /lora-adapters empty, the
+X-Request-Tokens-Per-Second cases, and reasoning_content and tool_calls
+in SSE deltas."""
 
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -251,9 +256,226 @@ def test_quantized_weights_serve_chat(q_server):
 ], ids=["grammar", "json_schema", "response_format", "mirostat", "dry",
         "tools"])
 def test_unported_features_are_refused(server, extra):
-    """Grammar, host-sampled chains and tools are later slices: such a
-    request gets a 400, never an unconstrained answer."""
+    """The request features of the host-controlled path (grammar,
+    json_schema, response_format, mirostat, DRY, tools) are served: a 200
+    with a finish reason, and the grammar's text where one is forced."""
     body = dict(messages=MESSAGES, max_tokens=4, **extra)
+    status, text = _post(server + "/v1/chat/completions", body)
+    assert status == 200
+    choice = json.loads(text)["choices"][0]
+    assert choice["finish_reason"] in ("stop", "length")
+    if "grammar" in extra:
+        assert choice["message"]["content"] == "a"
+        assert choice["finish_reason"] == "stop"
+
+
+# -- the host-side routes ------------------------------------------------------
+
+# a chatml template that carries reasoning markers (the builtin chatml
+# writer serves it under --no-jinja)
+THINK_TEMPLATE = ("{% for m in messages %}<|im_start|>{{ m.role }}\n"
+                  "{{ m.content }}<|im_end|>\n{% endfor %}<|im_start|>"
+                  "assistant\n<think>\n</think>")
+TPS_CAP = 50
+
+
+@pytest.fixture(scope="module")
+def rich_server(model_path):
+    """The tiny fixture behind a server with a reasoning template and a
+    token-rate cap (-tps)."""
+    engine, srv = cli.build_server([
+        "-m", model_path, "--device", "cpu", "--port", "0", "--no-jinja",
+        "-np", str(N_SLOTS), "-c", str(N_CTX), "-ub", "16",
+        "--decode-chain", "4", "-ctk", "f32", "-ctv", "f32",
+        "--weights-dtype", "f32", "-tps", str(TPS_CAP),
+        "--chat-template", THINK_TEMPLATE])
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    yield f"http://127.0.0.1:{srv.server_address[1]}"
+    srv.shutdown()
+    srv.server_close()
+    engine.stop()
+
+
+def _post_h(url, body, headers):
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json",
+                                          **headers})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, r.read().decode()
+
+
+def test_tokenize_and_detokenize_as_jax_tokenizer(server, model_path):
+    with JGGUFFile(model_path) as g:
+        jtok = JTokenizer.from_gguf(g)
+    status, text = _post(server + "/tokenize", {"content": PROMPT})
+    assert status == 200
+    ids = json.loads(text)["tokens"]
+    assert ids == jtok.encode(PROMPT, add_special=True, parse_special=True)
+    _, text = _post(server + "/tokenize", {"content": PROMPT,
+                                            "add_special": False,
+                                            "with_pieces": True})
+    pieces = json.loads(text)["tokens"]
+    assert [p["piece"] for p in pieces] == [
+        jtok.decode([t], skip_leading_space=False)
+        for t in jtok.encode(PROMPT, add_special=False, parse_special=True)]
+    _, text = _post(server + "/detokenize",
+                    {"tokens": [p["id"] for p in pieces]})
+    assert json.loads(text)["content"] == PROMPT
     with pytest.raises(urllib.error.HTTPError) as e:
-        _post(server + "/v1/chat/completions", body)
+        _post(server + "/detokenize", {"tokens": ["x"]})
     assert e.value.code == 400
+
+
+def _metric_names(text):
+    return {ln.split()[0].split(":", 1)[1] for ln in text.splitlines()
+            if ln and not ln.startswith("#")}
+
+
+def test_metrics_names_as_jax_and_counters_grow(server):
+    """GET /metrics is Prometheus text under the JAX server's names
+    (read from its handle_metrics); its counters grow with a request."""
+    import pathlib
+    import re
+    src = (pathlib.Path(__file__).resolve().parents[1] / "llama_box_tpu"
+           / "server" / "http.py").read_text()
+    body = src[src.index("async def handle_metrics"):
+               src.index("async def handle_tokenize")]
+    jax_names = set(re.findall(r'(?:counter|gauge)\(\s*"([a-z_]+)"', body))
+    with urllib.request.urlopen(server + "/metrics", timeout=30) as r:
+        assert r.headers["Content-Type"].startswith("text/plain")
+        before = r.read().decode()
+    assert _metric_names(before) == jax_names and len(jax_names) >= 12
+    for ln in before.splitlines():
+        assert ln.startswith(("# HELP llamabox:", "# TYPE llamabox:",
+                              "llamabox:")), ln
+        if not ln.startswith("#"):
+            float(ln.split()[1])
+    _post(server + "/v1/completions", dict(prompt=PROMPT, max_tokens=3,
+                                           temperature=0))
+    with urllib.request.urlopen(server + "/metrics", timeout=30) as r:
+        after = r.read().decode()
+
+    def val(text, name):
+        return float(next(ln.split()[1] for ln in text.splitlines()
+                          if ln.startswith(f"llamabox:{name} ")))
+    for name in ("prompt_tokens_total", "tokens_predicted_total",
+                 "requests_total"):
+        assert val(after, name) > val(before, name), name
+
+
+def test_lora_adapters_lists_none(server):
+    assert _get(server + "/lora-adapters") == (200, [])
+
+
+def test_rate_limit_header(rich_server):
+    """X-Request-Tokens-Per-Second: 400 when not a number, 410 above the
+    server's cap; a rate of 5 gives the unlimited text at no more than
+    its rate after the bucket's burst of 5."""
+    body = dict(prompt=PROMPT, max_tokens=10, temperature=0,
+                ignore_eos=True)
+    url = rich_server + "/v1/completions"
+    for hdr, code in (("fast", 400), (str(TPS_CAP * 2), 410)):
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post_h(url, body, {"X-Request-Tokens-Per-Second": hdr})
+        assert e.value.code == code
+    _, free = _post(url, body)
+    t0 = time.monotonic()
+    status, limited = _post_h(url, body, {"X-Request-Tokens-Per-Second": "5"})
+    wall = time.monotonic() - t0
+    assert status == 200
+    assert json.loads(limited)["choices"][0]["text"] \
+        == json.loads(free)["choices"][0]["text"]
+    # the first token from the prefill, 5 from the full bucket, 4 at 5/s
+    assert wall >= 4 / 5 * 0.9
+
+
+def test_reasoning_and_tool_call_deltas(rich_server):
+    """With a template that carries <think> markers, a forced
+    "<think>..</think>.." answer streams reasoning_content and content
+    deltas; a forced tool call streams one tool_calls delta and ends with
+    finish_reason tool_calls; the non-streamed message carries both."""
+    url = rich_server + "/v1/chat/completions"
+    think = dict(messages=MESSAGES, max_tokens=40, temperature=0,
+                 grammar='root ::= "<think>" [a-c]{3} "</think>" [d-f]{3}')
+    _, text = _post(url, dict(think, stream=True))
+    ev = _events(text)
+    deltas = [c["delta"] for e in ev for c in e["choices"]]
+    reasoning = "".join(d.get("reasoning_content", "") for d in deltas)
+    content = "".join(d.get("content", "") for d in deltas)
+    assert len(reasoning) == 3 and set(reasoning) <= set("abc")
+    assert len(content) == 3 and set(content) <= set("def")
+    _, text = _post(url, think)
+    msg = json.loads(text)["choices"][0]["message"]
+    assert (msg["reasoning_content"], msg["content"]) == (reasoning, content)
+
+    tools = [{"type": "function", "function": {
+        "name": "f", "parameters": {"type": "object", "properties": {
+            "x": {"type": "integer"}}, "required": ["x"]}}}]
+    call = dict(messages=MESSAGES, max_tokens=80, temperature=0,
+                tools=tools, grammar='root ::= "<tool_call>{\\"name\\": '
+                '\\"f\\", \\"arguments\\": {\\"x\\": 7}}</tool_call>"')
+    _, text = _post(url, dict(call, stream=True))
+    ev = _events(text)
+    calls = [tc for e in ev for c in e["choices"]
+             for tc in c["delta"].get("tool_calls", [])]
+    assert [(c["index"], c["type"], c["function"]["name"],
+             json.loads(c["function"]["arguments"])) for c in calls] \
+        == [(0, "function", "f", {"x": 7})]
+    assert ev[-1]["choices"][0]["finish_reason"] == "tool_calls"
+    _, text = _post(url, call)
+    choice = json.loads(text)["choices"][0]
+    assert choice["finish_reason"] == "tool_calls"
+    assert [c["function"]["name"] for c in choice["message"]["tool_calls"]] \
+        == ["f"]
+
+
+def test_reasoning_flags_are_parsed_and_ignored_as_jax(model_path):
+    """--(no-)enable-reasoning and --(no-)reasoning-in-content parse as
+    the JAX CLI parses them, and, as there, the server reads neither: a
+    template with reasoning markers still splits reasoning_content off."""
+    from llama_box_tpu import cli as jcli
+    keys = ("enable_reasoning", "reasoning_in_content")
+    flags = ["--no-enable-reasoning", "--reasoning-in-content"]
+    p, jp = cli.build_parser(), jcli.build_parser()
+    for argv in ([], flags, ["--enable-reasoning",
+                             "--no-reasoning-in-content"]):
+        a, ja = p.parse_args(argv), jp.parse_args(argv)
+        assert [getattr(a, k) for k in keys] == [getattr(ja, k)
+                                                 for k in keys], argv
+    engine, srv = cli.build_server([
+        "-m", model_path, "--device", "cpu", "--port", "0", "--no-jinja",
+        "-np", str(N_SLOTS), "-c", str(N_CTX), "--weights-dtype", "f32",
+        "--chat-template", THINK_TEMPLATE] + flags)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        _, text = _post(url + "/v1/chat/completions", dict(
+            messages=MESSAGES, max_tokens=40, temperature=0,
+            grammar='root ::= "<think>" [a-c]{3} "</think>" [d-f]{3}'))
+        msg = json.loads(text)["choices"][0]["message"]
+        assert len(msg["reasoning_content"]) == 3
+        assert len(msg["content"]) == 3
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.stop()
+
+
+def test_tps_minus_one_probes_the_decode_rate(model_path):
+    """-tps -1 runs the engine's timed greedy probe at start and caps
+    every request's rate at its result; the probe leaves no prefix."""
+    engine, srv = cli.build_server([
+        "-m", model_path, "--device", "cpu", "--port", "0", "--no-jinja",
+        "-np", str(N_SLOTS), "-c", str(N_CTX), "-ub", "16",
+        "--weights-dtype", "f32", "-tps", "-1"])
+    try:
+        app = srv.RequestHandlerClass.routes
+        assert app.max_tps > 0
+        assert all(s.pos == 0 and not s.cache_tokens for s in engine.slots)
+        bucket = app._request_rate_bucket({})
+        assert bucket is not None and bucket.rate == app.max_tps
+    finally:
+        srv.server_close()
+        engine.stop()

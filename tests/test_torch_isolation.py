@@ -61,3 +61,14 @@ def test_importing_every_module_loads_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_grammar_core_is_the_ports_own_copy():
+    """The port builds its grammar core from its own source and never
+    reaches for the JAX package's native library or its switch."""
+    from llama_box_tpu_torch.gguf import native
+    assert native.SRC.resolve().is_relative_to(PORT)
+    bad = [str(p.relative_to(ROOT)) for p in SOURCES
+           if any(w in p.read_text() for w in ("libgguf_kernels",
+                                               "LLAMA_BOX_TPU_NO_NATIVE"))]
+    assert not bad, bad

@@ -325,6 +325,28 @@ def test_engine_greedy_matches_jax(greedy, chain):
     assert greedy("port", chain) == want
 
 
+@pytest.mark.parametrize("n_slots", [1, 4, 8])
+def test_grouped_prefill_passes_take_the_unsplit_gemm(models, path,
+                                                      n_slots):
+    """On grouped weights every prefill bucket makes a pass of more than
+    _SPLIT_MAX_ROWS rows (slots x bucket), so a prompt's rows take the
+    unsplit grouped GEMM however much of the prompt was cached (a
+    one-token chunk included); w8a8 weights keep every bucket."""
+    _, _, tcfg, tp = models["LLAMA_BOX_TPU_PACKED4"]
+    with GGUFFile(path) as g:
+        tok = Tokenizer.from_gguf(g)
+    ecfg = EngineConfig(n_slots=n_slots, n_ctx=n_slots * 128, n_ubatch=128)
+    eng = Engine(tcfg, tp, tok, ecfg, device="cpu")
+    assert eng.buckets and all(n_slots * b > tq._SPLIT_MAX_ROWS
+                               for b in eng.buckets)
+    assert eng._bucket(1) == min(b for b in (16, 32, 64, 128)
+                                 if n_slots * b > tq._SPLIT_MAX_ROWS)
+    cfg, params = load_model(path, dtype=torch.bfloat16, device="cpu",
+                             quantized=True)
+    assert Engine(cfg, params, tok, ecfg, device="cpu").buckets == (
+        16, 32, 64, 128)
+
+
 def _mixed_type(name):
     """ffn_down Q6_K in layer 0 only (as llama.cpp's Q4_K_M mixes it)."""
     return GGMLType.Q6_K if name == "blk.0.ffn_down.weight" else GGMLType.Q4_K
