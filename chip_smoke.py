@@ -123,8 +123,37 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     mirostat),
     the tok/s of each constrained request, of the plain one beside and
     alone, and of the rate-limited one;
- 8. print a `kernels` line (seven kernels; launches count graph replays),
-    an `e2e` line (three paths and phases 6 and 7), the card line, and as
+ 8/8w/8q. speculative decoding. 8w and 8q, after each path's phase 7:
+    four greedy ignore_eos chats (about 160 prompt tokens, 128 tokens)
+    by plain chained decode and by the path's model drafting for itself
+    (--draft-p-min 0, --draft-max 8, four rounds a pass; graphs, every
+    key captured first), the kernel counts from 0 over the latter (the
+    path's kernels must run); 8, after phase 6, on the bf16 path's model:
+    the same chats by plain decode (K 16 and K 1), by the CLI's own
+    servers with --lookup-ngram-min 2 --draft-max 8 --decode-chain 1 and
+    with -md a 2-layer draft (the same file's first two layers, written
+    from the same seed) --draft-p-min 0, each counting its kernels from 0
+    (flash prefill and flash decode must run), /metrics' drafted counter
+    equal to the usage's, support_speculative true; then, in process, the
+    n-gram, self-draft and 2-layer draft engines with graphs pipelined
+    (self-draft), graphs in lockstep and eager. Every speculative text
+    must equal plain chained decode's up to the first near tie (a top-2
+    log-prob margin within NEAR_TIE in either run); no graph may be
+    captured in a measured wave; the self-draft must accept at least
+    SELF_ACCEPT_MIN of its drafts. Printed: decode and window tok/s,
+    TTFT, drafted and accepted tokens, speculated passes and the graph
+    pool of each; the device ms of one verify pass of 9 rows a slot, of
+    one one-row pass and of a 16-step chain (CUDA events around a
+    replay) and the flash decode launches of a verify pass; a
+    self-drafting run past the capacity (-c 2048, 700 tokens, shifts
+    that move the draft cache too) against plain chained decode; and,
+    on every path, whether a verify forward's logits and cache rows are
+    bit-equal to those of its rows' one-row decode steps (bf16 and int8
+    caches);
+ 9. print a `kernels` line (seven kernels; launches count graph replays;
+    each also with its launches in the self-drafting waves of 8/8w/8q
+    and in phase 8's n-gram, self-draft and 2-layer draft waves), an
+    `e2e` line (three paths and phases 6, 7 and 8), the card line, and as
     the last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without CUDA,
@@ -965,15 +994,18 @@ MODEL_TYPES = {"f16": ("F16", "F16"), "q8_0": ("Q8_0", "Q8_0"),
                "q4_k_m": ("Q4_K", "Q6_K")}
 
 
-def write_model(path: str, seed: int, fmt: str = "f16") -> None:
+def write_model(path: str, seed: int, fmt: str = "f16",
+                n_layers: int = L) -> None:
     """The synthetic model with the 2D weight types of MODEL_TYPES[fmt]
-    (the same random floats, from the same seed, in every format)."""
+    (the same random floats, from the same seed, in every format); with
+    fewer layers, the same model's first n_layers (a draft model)."""
     from llama_box_tpu_torch.gguf import GGMLType, GGUFWriter
     rng = np.random.default_rng(seed)
     vocab, scores, types = spm_vocab()
     w = GGUFWriter(path, architecture="llama")
     for k, v in (("general.name", "synthetic-tinyllama-1.1b"),
-                 ("llama.block_count", L), ("llama.context_length", 2048),
+                 ("llama.block_count", n_layers),
+                 ("llama.context_length", 2048),
                  ("llama.embedding_length", E),
                  ("llama.feed_forward_length", FF),
                  ("llama.attention.head_count", H),
@@ -1002,7 +1034,7 @@ def write_model(path: str, seed: int, fmt: str = "f16") -> None:
     w.add_tensor("token_embd.weight", rand(V, E), f16)
     w.add_tensor("output_norm.weight", norm_w())
     w.add_tensor("output.weight", rand(V, E), q6)
-    for i in range(L):
+    for i in range(n_layers):
         w.add_tensor(f"blk.{i}.attn_norm.weight", norm_w())
         w.add_tensor(f"blk.{i}.attn_q.weight", rand(H * D, E), f16)
         w.add_tensor(f"blk.{i}.attn_k.weight", rand(HKV * D, E), f16)
@@ -1264,7 +1296,8 @@ def e2e_phase(dev, seed, tmp, profile=False, mode="bf16"):
     finally:
         for k in env:
             del os.environ[k]
-        os.remove(path)
+        if mode != "bf16":          # phase 8 serves the bf16 file again
+            os.remove(path)
     url = f"http://127.0.0.1:{srv.server_address[1]}"
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
@@ -1412,6 +1445,8 @@ def _serve(engine, app, url, seed, dev, profile, mode):
         assert same, f"K=1 and K={CHAIN} greedy outputs differ ({kv} cache)"
     e2e["modes"] = modes_phase(engine, app, seed, texts, wave, mode)
     e2e["host"] = host_phase(engine, app, seed, mode)
+    if mode != "bf16":              # bf16: phase 8, after phase 6
+        e2e["spec"] = spec_path_phase(engine, app, seed, mode)
     if profile:
         e2e["profile"] = {
             label: profile_phase(Engine, EngineConfig, engine, tok, prompts,
@@ -1426,7 +1461,7 @@ def _serve(engine, app, url, seed, dev, profile, mode):
 # chain's every kernel before it can wait for the first tokens)
 MODES = {"graphs": (True, True), "eager": (False, False),
          "lockstep": (True, False)}
-REPS = 5    # measured waves a mode
+REPS = 3    # measured waves a mode
 # the arrival probe: rounds a mode, requests a round, the background's
 # tokens a chat (fewer where the engine runs eagerly)
 PROBE_ROUNDS, PROBES = 2, 6
@@ -1555,8 +1590,14 @@ def modes_phase(engine, app, seed, texts, main_wave, mode):
                 # the background's length depends on cuda_graphs
                 same = MODES[label][0] == MODES["graphs"][0]
                 n = 0 if same else 3
-                assert texts_i[label][n:] == texts_i["graphs"][n:], \
-                    f"{label}, probe round {i}: a text differs"
+                parted = [(k, next(j for j, (x, y) in enumerate(zip(a, b))
+                                   if x != y) if a[:len(b)] != b[:len(a)]
+                           else min(len(a), len(b)))
+                          for k, (a, b) in enumerate(
+                              zip(texts_i[label], texts_i["graphs"]))
+                          if k >= n and a != b]
+                assert not parted, f"{label}, probe round {i}: texts " \
+                    f"(index, first differing character) {parted} differ"
         res = {}
         for label in MODES:
             eng, ws = engines[label], waves[label]
@@ -2552,10 +2593,11 @@ def host_phase(engine, app, seed, mode) -> dict:
             events.append((a, b))
             return out
 
-        def timed_pass(dec, one=one, pass_ms=pass_ms, pass_dev=pass_dev):
+        def timed_pass(dec, *args, one=one, pass_ms=pass_ms,
+                       pass_dev=pass_dev):
             n = len(events)
             t0 = time.perf_counter()
-            one(dec)
+            one(dec, *args)
             pass_ms.append((time.perf_counter() - t0) * 1e3)
             # the pass waited for its copy, enqueued after b
             pass_dev.append(events[-1][0].elapsed_time(events[-1][1])
@@ -2734,6 +2776,554 @@ def one_pass_device_ms(eng, n=30) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: speculative decoding (the T-row verify pass, n-gram lookup,
+# draft models) on the bf16 path's model; one self-drafting wave on the
+# w8a8 and the q4 paths
+
+SPEC_PROMPT, SPEC_TOKENS, SPEC_DRAFT = 160, 128, 8
+DRAFT_LAYERS = 2
+# the least share of a self-draft's drafts the target accepts. The synthetic
+# model's greedy steps are near ties (top-2 margins of a bf16 ulp), so the
+# draft's argmax parts from the target's pick wherever their logits differ
+# by a rounding: its cache rows of accepted tails come from prefill passes
+# and, on the bf16 and q4 paths, the row-count-dependent norm (verify_bits)
+# moves verify rows; an ignore_eos request never takes the end token where
+# it is the argmax. A draft cache that lost its rows (a missed catch-up, a
+# shift not applied to it) would accept next to none, as the unrelated
+# 2-layer draft does
+SELF_ACCEPT_MIN = 0.3
+# phase 8's modes of each speculative configuration: label -> EngineConfig
+# fields; every graph is captured before a measured wave
+SPEC_MODES = {"graphs": {}, "lockstep": dict(pipeline_chain=False),
+              "eager": dict(cuda_graphs=False, pipeline_chain=False)}
+
+
+def spec_chat(url, text, n=SPEC_TOKENS):
+    """One greedy ignore_eos chat of n tokens with its top-2 log-probs."""
+    st, body, ms = http(url + "/v1/chat/completions", dict(
+        messages=[{"role": "user", "content": text}], max_tokens=n,
+        temperature=0, ignore_eos=True, logprobs=True, top_logprobs=2))
+    assert st == 200, (st, body[:300])
+    b = json.loads(body)
+    assert b["usage"]["completion_tokens"] == n, b["usage"]
+    return b
+
+
+def spec_wave(url, eng, texts, n=SPEC_TOKENS) -> dict:
+    """The chats at once on a served engine (its metrics from 0): their
+    tokens and margins, drafted and accepted counts (usage and /metrics
+    agree), decode tok/s by the engine's rule (from each program's
+    dispatch), the wave's tokens over its wall, TTFT p50 and the passes
+    speculated (dispatched before the host synced the one before)."""
+    from llama_box_tpu_torch.server.metrics import Metrics
+    eng.metrics = Metrics()
+    t0 = time.perf_counter()
+    bodies = concurrently([lambda t=t: spec_chat(url, t, n) for t in texts])
+    wall = time.perf_counter() - t0
+    m = eng.metrics.snapshot()
+    drafted = sum(b["usage"].get("draft_tokens", 0) for b in bodies)
+    assert drafted == m["n_drafted_total"], (drafted, m["n_drafted_total"])
+    return dict(margins=[_margins(b) for b in bodies], wall_s=wall,
+                decode_tok_s=m["n_decode_total"] / m["t_decode_total_ms"]
+                * 1e3,
+                window_tok_s=len(texts) * n / wall,
+                drafted=drafted, accepted=m["n_drafted_accepted_total"],
+                acceptance=(m["n_drafted_accepted_total"] / drafted
+                            if drafted else None),
+                speculated=m["n_spec_chains"],
+                ttft_p50_ms=statistics.median(
+                    b["usage"]["time_to_first_token_ms"] for b in bodies))
+
+
+def same_to_near_tie(got, want) -> list:
+    """Per request: the tokens compared, up to the first step where either
+    run's top-2 margin is a near tie (NEAR_TIE), where the texts must be
+    equal; whether the whole texts are; and where they part (None) with
+    the reference's margin there."""
+    out = []
+    for a, b in zip(got, want):
+        j = next((i for i, ((_, ma), (_, mb)) in enumerate(zip(a, b))
+                  if min(ma, mb) <= NEAR_TIE), len(a))
+        ta, tb = [t for t, _ in a], [t for t, _ in b]
+        part = next((i for i in range(min(len(ta), len(tb)))
+                     if ta[i] != tb[i]), None)
+        assert part is None or part >= j, (
+            f"a speculative text parts from plain chained decode at token "
+            f"{part} of {len(ta)}, before a near tie")
+        out.append((j, ta == tb, part,
+                    None if part is None else round(b[part][1], 5)))
+    return out
+
+
+def _stage_spec(eng, tokens, pos):
+    S = len(eng.slots)
+    h = eng._spec_in.host()
+    h[:] = 0
+    h[S:2 * S] = eng.slot_ctx
+    for b, (t, p) in enumerate(zip(tokens, pos)):
+        if t is not None:
+            h[b], h[S + b], h[2 * S + b], h[3 * S + b] = t, p, 1, 1
+    eng._spec_in.push()
+
+
+def warm_spec_keys(eng) -> None:
+    """Every program key phase 8's waves (greedy ignore_eos chats with
+    log-probs, far from the slots' capacity) can meet, run twice (its
+    eager first use, then its capture): the prefill buckets (and the
+    draft's catch-up buckets), the decode chains, the one-token pass at 1
+    and 1 + draft_max rows and, with a draft model, the M-round pass."""
+    S = len(eng.slots)
+    K = eng.ecfg.draft_max
+    kw = dict(samp_extras=True)
+    progs = [("prefill", eng._prefill_program)]
+    if eng.draft_params is not None:
+        progs.append(("draft_prefill", eng._draft_prefill_program))
+    runs = []
+    for B in eng.buckets:
+        for name, prog in progs:
+            runs.append(((name, B), lambda B=B: _stage_prefill(
+                eng, {0: (0, [400] * B)}, B), lambda B=B, p=prog: p(B)))
+    n = 1
+    while n <= eng.ecfg.decode_chain:
+        runs.append(((("decode", n, True, 0)), lambda: _stage_decode(
+            eng, [400] + [None] * (S - 1), [0] * S),
+            lambda n=n: eng._decode_program(n, **kw)))
+        n *= 2
+    for rows in (1, 1 + K):
+        runs.append((("one", True, 0) if rows == 1 else
+                     ("verify", rows, True, 0),
+                     lambda rows=rows: eng._stage_one(
+                         [[400] * rows] + [None] * (S - 1), [0] * S, []),
+                     lambda rows=rows: eng._one_token_program(rows, **kw)))
+    M = eng.ecfg.spec_rounds
+    if eng.draft_params is not None and M > 1:
+        runs.append((("spec", M, K, True, 0), lambda: _stage_spec(
+            eng, [400] + [None] * (S - 1), [0] * S),
+            lambda: eng._spec_program(M, True, **kw)))
+    for key, stage, prog in runs:
+        for _ in range(2):
+            stage()
+            eng._refresh_arrs()
+            eng.graphs.run(key, prog)
+    torch.cuda.synchronize()
+
+
+def verify_bits(engine, seed) -> dict:
+    """A verify forward of T = 1 + SPEC_DRAFT rows a slot (4 slots, from
+    positions 37 to 211 after a prefill) against T one-row decode steps
+    on a copy of the same cache, bf16 and int8 caches: whether the logits
+    and the cache are equal bit for bit, and the logits' largest
+    difference."""
+    from llama_box_tpu_torch.models import llama
+    cfg, params, dev = engine.cfg, engine.params, engine.device
+    S, C, T = N_SLOTS, 512, 1 + SPEC_DRAFT
+    rng = np.random.default_rng(seed + 41)
+    n = np.array([100, 37, 211, 64])
+    pre = torch.from_numpy(rng.integers(300, V, (S, 256)))
+    rows = torch.from_numpy(rng.integers(300, V, (S, T)))
+    pos = n[:, None] + np.arange(T)
+    cos, sin = llama.make_rope(cfg, C, dev)
+    out = {}
+    for tag, dt in _KV_TORCH.items():
+        kv = llama.init_kv_cache(cfg, S, C, dt, dev)
+        llama.prefill_batch_impl(params, cfg, pre, np.zeros(S, np.int64), n,
+                                 kv, cos, sin)
+        kv2 = llama.KVCache(*[x.clone() if x is not None else None
+                              for x in kv])
+        got = llama.forward_impl(params, cfg, rows, pos, kv, cos, sin)[0]
+        want = torch.cat([llama.forward_impl(
+            params, cfg, rows[:, j:j + 1], pos[:, j:j + 1].copy(), kv2, cos,
+            sin)[0] for j in range(T)], dim=1)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and torch.isfinite(want).all()
+        out[tag] = dict(
+            logits_equal=torch.equal(got, want),
+            max_abs_diff=float((got - want).abs().max()),
+            kv_equal=all(torch.equal(a, b)
+                         for a, b in zip(_leaves(kv), _leaves(kv2))))
+        if not out[tag]["logits_equal"]:
+            out[tag]["first_parting_op"] = first_parting_op(
+                engine, dt, pre, n, rows, cos, sin)
+    return out
+
+
+_RECORDED = ("_embed_tokens", "rms_norm", "mm", "apply_rope",
+             "flash_decode", "_act", "fused_norm_qmm", "fused_layer_tail")
+
+
+def first_parting_op(engine, dt, pre, n, rows, cos, sin) -> dict:
+    """Where a verify forward's bits first part from its one-row steps':
+    each op of models/llama (as _RECORDED names them) is recorded in both
+    runs, a verify output's row j held against step j's output; returns
+    the first op (in the steps' order) whose bits differ, with its layer
+    ("output": the output norm and projection) and row."""
+    from llama_box_tpu_torch.models import llama
+    cfg, params, dev = engine.cfg, engine.params, engine.device
+    S, T = rows.shape
+    kv0 = llama.init_kv_cache(cfg, S, 512, dt, dev)
+    llama.prefill_batch_impl(params, cfg, pre, np.zeros(S, np.int64), n,
+                             kv0, cos, sin)
+    log, saved = [], {}
+
+    def rec(name, f):
+        def g(*a, **k):
+            o = f(*a, **k)
+            log.append((name, o.clone()))
+            return o
+        return g
+
+    def layer(f):
+        def g(x, lp, li, *a, **k):
+            log.append(("layer", li))
+            o = f(x, lp, li, *a, **k)
+            log.append(("layer", -1))
+            return o
+        return g
+    for name in _RECORDED:
+        if hasattr(llama, name):
+            saved[name] = getattr(llama, name)
+            setattr(llama, name, rec(name, saved[name]))
+    saved["_attn_layer"] = llama._attn_layer
+    llama._attn_layer = layer(saved["_attn_layer"])
+    try:
+        pos = n[:, None] + np.arange(T)
+        llama.forward_impl(params, cfg, rows, pos, llama.KVCache(
+            *[x.clone() if x is not None else None for x in kv0]), cos, sin)
+        vlog = list(log)
+        kv, steps = llama.KVCache(*[x.clone() if x is not None else None
+                                    for x in kv0]), []
+        for j in range(T):
+            del log[:]
+            llama.forward_impl(params, cfg, rows[:, j:j + 1],
+                               pos[:, j:j + 1].copy(), kv, cos, sin)
+            steps.append(list(log))
+    finally:
+        for name, f in saved.items():
+            setattr(llama, name, f)
+    torch.cuda.synchronize()
+    found = None
+    for j in range(T):
+        vi, li = 0, -1
+        for si, (name, o) in enumerate(steps[j]):
+            while vlog[vi][0] != name:
+                vi += 1
+            if name == "layer":
+                li = o
+                vi += 1
+                continue
+            if name == "flash_decode":
+                ok = torch.equal(vlog[vi + j][1], o)
+                vi += T
+            else:
+                v = vlog[vi][1]
+                ok = torch.equal(v.reshape(S, T, -1)[:, j],
+                                 o.reshape(S, 1, -1)[:, 0])
+                vi += 1
+            if not ok:
+                if found is None or si < found["op_index"]:
+                    found = dict(op=name, op_index=si, row=j,
+                                 layer=li if li >= 0 else "output")
+                break
+    return found
+
+
+def verify_costs(eng, n=30) -> dict:
+    """Device ms (CUDA events around a replay, median of n after 2) of one
+    verify pass of T = 1 + draft_max rows a slot (4 slots, draft_max
+    drafts each, from position 300), one one-row pass and one 16-step
+    chain, and the flash decode launches of one verify pass, on a warmed
+    graphs engine whose loop is idle."""
+    from llama_box_tpu_torch.ops.flash_decode import flash_decode
+    S, T = len(eng.slots), 1 + eng.ecfg.draft_max
+    kw = dict(samp_extras=True)
+
+    def timed(stage, key, prog):
+        ms = []
+        for i in range(n + 2):
+            stage(i)
+            a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+            a.record()
+            eng.graphs.run(key, prog)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+        return statistics.median(ms[2:])
+    out = dict(
+        verify_ms=timed(lambda i: eng._stage_one(
+            [[400 + i] * T] * S, [300] * S, []), ("verify", T, True, 0),
+            lambda: eng._one_token_program(T, **kw)),
+        one_ms=timed(lambda i: eng._stage_one([400 + i] * S, [300] * S, []),
+                     ("one", True, 0),
+                     lambda: eng._one_token_program(1, **kw)),
+        chain16_ms=timed(lambda i: _stage_decode(eng, [400 + i] * S,
+                                                 [300] * S),
+                         ("decode", 16, True, 0),
+                         lambda: eng._decode_program(16, **kw)))
+    flash_decode.launches = 0
+    eng._stage_one([[400] * T] * S, [300] * S, [])
+    eng.graphs.run(("verify", T, True, 0),
+                   lambda: eng._one_token_program(T, **kw))
+    torch.cuda.synchronize()
+    out["flash_decode_per_verify"] = flash_decode.launches
+    return out
+
+
+def _spec_engine(engine, draft, ecfg):
+    from llama_box_tpu_torch.server.engine import Engine
+    return Engine(engine.cfg, engine.params, engine.tokenizer, ecfg,
+                  device=str(engine.device), draft=draft)
+
+
+def spec_run(app, eng, texts, warm_texts, counters=None, srv=None,
+             costs=False) -> dict:
+    """Warm `eng` when it has graphs (every key captured, then one wave of
+    other prompts), serve it (by `srv`, a CLI server whose engine already
+    runs, or by `app`'s routes) and run the measured wave, the kernel
+    counts from 0 when `counters` is given; no graph may be captured in
+    it. `costs`: verify_costs after the wave. The engine is stopped."""
+    if eng.ecfg.cuda_graphs:
+        warm_spec_keys(eng)      # the loop, if running, is idle
+    if srv is None:
+        eng.start()
+        url, close = _serve_engine(app, eng)
+    else:
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+        def close():
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=30)
+            eng.stop()
+    try:
+        if eng.ecfg.cuda_graphs:      # an eager engine captures nothing
+            spec_wave(url, eng, warm_texts)
+        n_graphs = eng.graphs.n_graphs
+        if counters:
+            for fn in counters.values():
+                fn.launches = 0
+        w = spec_wave(url, eng, texts)
+        if counters:
+            w["launches"] = {k: fn.launches for k, fn in counters.items()}
+        w.update(captured_in_measured=eng.graphs.n_graphs - n_graphs,
+                 graphs=eng.graphs.n_graphs,
+                 graph_pool_mib=eng.graphs.pool_bytes / 2**20)
+        assert w["captured_in_measured"] == 0, \
+            "a graph was captured in a measured speculative wave"
+        with urllib.request.urlopen(url + "/metrics") as r:
+            w["prom_drafted"] = _prom(r.read().decode())[
+                "llamabox:tokens_drafted_total"]
+        with urllib.request.urlopen(url + "/v1/models") as r:
+            w["support_speculative"] = json.loads(r.read())["data"][0][
+                "meta"]["support_speculative"]
+        if costs:
+            w["verify_costs"] = verify_costs(eng)
+    finally:
+        close()
+    return w
+
+
+def _log_wave(label, w):
+    vs = w.get("vs_plain")
+    log(f"  {label:15s}: decode {w['decode_tok_s']:8.1f} tok/s, window "
+        f"{w['window_tok_s']:8.1f} tok/s, TTFT p50 {w['ttft_p50_ms']:.2f} "
+        f"ms, drafted {w['drafted']}, accepted {w['accepted']}"
+        + (f" ({w['acceptance']:.4f})" if w["acceptance"] is not None
+           else "")
+        + f", speculated {w['speculated']}, {w['graphs']} graphs, pool "
+        f"{w['graph_pool_mib']:.1f} MiB"
+        + (f"; vs plain chained: tokens compared {[v[0] for v in vs]}, "
+           f"texts part at (token, plain's top-2 margin) "
+           f"{[(v[2], v[3]) for v in vs]}" if vs else ""))
+
+
+def spec_path_phase(engine, app, seed, mode) -> dict:
+    """Phase 8w/8q: on the path's model, plain chained decode and then one
+    self-drafting wave (the served params as the draft, --draft-p-min 0,
+    graphs, every key captured first) of the same chats; the path's
+    kernels must run in it; and the verify rows' bits against the one-row
+    steps'."""
+    phase = PATHS[mode][0].replace("5", "8")
+    log(f"== phase {phase}: speculative decoding, {mode} path: a "
+        "self-drafting wave")
+    tok = engine.tokenizer
+    rng = np.random.default_rng(seed + 51)
+    texts = [make_prompt(tok, rng, SPEC_PROMPT) for _ in range(N_SLOTS)]
+    warm = [make_prompt(tok, rng, SPEC_PROMPT) for _ in range(N_SLOTS)]
+    counters = kernel_counters()
+    waves = {"plain16": spec_run(app, _spec_engine(engine, None,
+                                                   engine.ecfg), texts, warm)}
+    w = waves["self"] = spec_run(app, _spec_engine(
+        engine, (engine.cfg, engine.params), dataclasses.replace(
+            engine.ecfg, draft_max=SPEC_DRAFT, draft_p_min=0.0)),
+        texts, warm, counters)
+    for k, n in w["launches"].items():
+        if k in PATHS[mode][4]:
+            assert n > 0, f"{k} was never launched in phase {phase}"
+        else:
+            assert n == 0, f"{k} launched on the {mode} path"
+    assert w["drafted"] > 0 and w["support_speculative"]
+    w["vs_plain"] = same_to_near_tie(w["margins"], waves["plain16"]["margins"])
+    for label, x in waves.items():
+        _log_wave(label, x)
+        x.pop("margins")
+    log(f"  launches in the self-drafting wave: {w['launches']}")
+    bits = verify_bits(engine, seed)
+    log(f"  verify rows vs one-row steps: {bits}")
+    return dict(waves=waves, bits=bits)
+
+
+def spec_phase(dev, seed, tmp, path, engine, app) -> dict:
+    """Phase 8 on the bf16 path's model (see the module docstring)."""
+    from llama_box_tpu_torch import cli
+    log("== phase 8: speculative decoding, bf16 path: n-gram lookup, "
+        "self-draft, a 2-layer draft; graphs pipelined, lockstep, eager")
+    t_phase = time.perf_counter()
+    tok = engine.tokenizer
+    rng = np.random.default_rng(seed + 53)
+    texts = [make_prompt(tok, rng, SPEC_PROMPT) for _ in range(N_SLOTS)]
+    warm = [make_prompt(tok, rng, SPEC_PROMPT) for _ in range(N_SLOTS)]
+    counters = kernel_counters()
+    dpath = f"{tmp}/synthetic-tinyllama-1.1b-{DRAFT_LAYERS}-layers-f16.gguf"
+    write_model(dpath, seed, "f16", n_layers=DRAFT_LAYERS)
+    flags = {"ngram": ["--lookup-ngram-min", "2", "--draft-max",
+                       str(SPEC_DRAFT), "--decode-chain", "1"],
+             "draft2": ["--decode-chain", str(CHAIN), "-md", dpath,
+                        "--draft-max", str(SPEC_DRAFT), "--draft-p-min",
+                        "0"]}
+    ecfgs = {"plain16": engine.ecfg,
+             "plain1": dataclasses.replace(engine.ecfg, decode_chain=1),
+             "ngram": dataclasses.replace(
+                 engine.ecfg, lookup_ngram_min=2, draft_max=SPEC_DRAFT,
+                 decode_chain=1),
+             "self": dataclasses.replace(engine.ecfg, draft_max=SPEC_DRAFT,
+                                         draft_p_min=0.0)}
+    ecfgs["draft2"] = ecfgs["self"]
+    drafts = {"self": (engine.cfg, engine.params)}
+    waves = {}
+    for label in ("plain16", "plain1"):
+        waves[label] = spec_run(app, _spec_engine(engine, None,
+                                                  ecfgs[label]), texts, warm)
+    # the CLI's own servers (the main path of this phase): graphs,
+    # pipelined; the kernel counts from 0 over the measured wave
+    for label in ("ngram", "draft2"):
+        t0 = time.perf_counter()
+        eng, srv = cli.build_server([
+            "-m", path, "--port", "0", "-np", str(N_SLOTS), "-c", str(N_CTX),
+            "-ub", str(N_UBATCH), "--no-jinja", "--device", dev.type]
+            + flags[label])
+        log(f"  CLI server {' '.join(flags[label])}: up in "
+            f"{time.perf_counter() - t0:.1f} s")
+        assert eng.ecfg == ecfgs[label], \
+            f"{label}: the CLI's EngineConfig is not the in-process one"
+        if label == "draft2":
+            drafts[label] = (eng.draft_cfg, eng.draft_params)
+        waves[label + "_graphs"] = spec_run(None, eng, texts, warm, counters,
+                                            srv=srv)
+        del eng, srv
+    for label in ("ngram", "self", "draft2"):
+        for mode, kw in SPEC_MODES.items():
+            if mode == "graphs" and label != "self":
+                continue           # served by the CLI above
+            waves[f"{label}_{mode}"] = spec_run(
+                app, _spec_engine(engine, drafts.get(label),
+                                  dataclasses.replace(ecfgs[label], **kw)),
+                texts, warm, counters if mode == "graphs" else None,
+                costs=mode == "graphs")
+    ref = waves["plain16"]["margins"]
+    for label, w in waves.items():
+        if not label.startswith("plain"):
+            assert w["drafted"] > 0, f"{label}: nothing was drafted"
+            assert w["prom_drafted"] == w["drafted"] and \
+                w["support_speculative"], label
+            w["vs_plain"] = same_to_near_tie(w["margins"], ref)
+        _log_wave(label, w)
+        w.pop("margins")
+    s = waves["self_graphs"]
+    assert s["accepted"] >= SELF_ACCEPT_MIN * s["drafted"], \
+        "the self-draft's drafts were rejected"
+    for label in ("ngram_graphs", "self_graphs", "draft2_graphs"):
+        lc = waves[label]["launches"]
+        for k, n in lc.items():
+            if k in PATHS["bf16"][4]:
+                assert n > 0, f"{k} was never launched in {label}"
+            else:
+                assert n == 0, f"{k} launched in {label}"
+        log(f"  launches in the {label} wave: {lc}")
+    vc = s.pop("verify_costs")
+    log(f"  device ms (a replay, median of 30): a verify pass of T "
+        f"{1 + SPEC_DRAFT} rows {vc['verify_ms']:.5f}, a one-row pass "
+        f"{vc['one_ms']:.5f}, a 16-step chain {vc['chain16_ms']:.5f}; "
+        f"flash decode launches a verify pass "
+        f"{vc['flash_decode_per_verify']}")
+    res = dict(waves=waves, verify_costs=vc,
+               shift=spec_shift_run(engine, seed),
+               bits=verify_bits(engine, seed))
+    log(f"  verify rows vs one-row steps: {res['bits']}")
+    os.remove(dpath)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 8: {res['seconds']:.1f} s")
+    return res
+
+
+def spec_shift_run(engine, seed) -> dict:
+    """Self-drafting past a slot's capacity (-np 4 -c SHIFT_CTX: 512 a
+    slot; 4 greedy requests of 200 to 350 prompt tokens, SHIFT_TOKENS
+    tokens each, on the engine's task API: an HTTP request may not ask
+    for more tokens than a slot holds) against plain chained decode of
+    the same: the same texts up to a near tie, at least 2 shifts a
+    request, acceptance >= 0.7 (the draft cache shifts with the
+    target's)."""
+    from llama_box_tpu_torch.sampling import SamplerParams
+    from llama_box_tpu_torch.server.task import CompletionsTask
+    tok = engine.tokenizer
+    rng = np.random.default_rng(seed + 57)
+    prompts = [rng.integers(300, V, n).tolist() for n in SHIFT_PROMPTS]
+    out = {}
+    for label, draft, kw in (
+            ("plain16", None, {}),
+            ("self", (engine.cfg, engine.params),
+             dict(draft_max=SPEC_DRAFT, draft_p_min=0.0))):
+        eng = _spec_engine(engine, draft, dataclasses.replace(
+            engine.ecfg, n_ctx=SHIFT_CTX, **kw))
+        eng.start()
+        try:
+            tasks = [CompletionsTask(p, SamplerParams(temp=0.0,
+                                                      ignore_eos=True),
+                                     tokenizer=tok, max_tokens=SHIFT_TOKENS,
+                                     n_probs=2) for p in prompts]
+            t0 = time.perf_counter()
+            for t in tasks:
+                eng.submit(t)
+            finals = [wait_final(t) for t in tasks]
+            m = eng.metrics.snapshot()
+        finally:
+            eng.stop()
+        out[label] = dict(
+            wall_s=time.perf_counter() - t0,
+            margins=[[(p.token, float(np.log(p.top_probs[0])
+                                      - np.log(p.top_probs[1])))
+                      for p in f.probs] for f in finals],
+            shifts=[f.n_shifted for f in finals],
+            drafted=m["n_drafted_total"],
+            accepted=m["n_drafted_accepted_total"])
+        assert min(out[label]["shifts"]) >= 2, out[label]["shifts"]
+    s = out["self"]
+    s["vs_plain"] = same_to_near_tie(s.pop("margins"),
+                                     out["plain16"].pop("margins"))
+    assert s["drafted"] > 0 and \
+        s["accepted"] >= SELF_ACCEPT_MIN * s["drafted"], s
+    log(f"  self-draft past the capacity (-c {SHIFT_CTX}, {SHIFT_TOKENS} "
+        f"tokens, shifts {s['shifts']}): {s['wall_s']:.2f} s, drafted "
+        f"{s['drafted']}, accepted {s['accepted']}; vs plain chained "
+        f"({out['plain16']['wall_s']:.2f} s): tokens compared "
+        f"{[v[0] for v in s['vs_plain']]}, texts part at (token, margin) "
+        f"{[(v[2], v[3]) for v in s['vs_plain']]}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -2786,8 +3376,11 @@ def main(argv=None) -> int:
             if mode == "bf16":
                 bf16_served = served
             del served
-    e2e["kv_edit"] = kv_edit_phase(dev, args.seed, *bf16_served)
-    del bf16_served
+        e2e["kv_edit"] = kv_edit_phase(dev, args.seed, *bf16_served)
+        e2e["spec"] = spec_phase(
+            dev, args.seed, tmp, f"{tmp}/synthetic-tinyllama-1.1b-f16.gguf",
+            *bf16_served)
+        del bf16_served
 
     pick = {"flash_prefill": ("prefill", "bf16", 0),
             "flash_decode": ("decode", "bf16", 1023),
@@ -2824,6 +3417,10 @@ def main(argv=None) -> int:
     home = {"flash_prefill": "bf16", "flash_decode": "bf16",
             "w8a8_matmul": "w8a8", "fused_norm_qmm": "w8a8",
             "fused_layer_tail": "w8a8", "q4_matmul": "q4", "q8_matmul": "q4"}
+    # each path's self-drafting wave (phase 8, 8w, 8q)
+    spec_launches = {m: (e2e["spec"]["waves"]["self_graphs"] if m == "bf16"
+                         else e2e[m]["spec"]["waves"]["self"])["launches"]
+                     for m in PATHS}
     kernels = []
     for name in srcs:
         if name.startswith("flash"):
@@ -2840,7 +3437,11 @@ def main(argv=None) -> int:
             max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], shape=shapes[name],
-            launches_by_path={m: launches[m][name] for m in PATHS}))
+            launches_by_path={m: launches[m][name] for m in PATHS},
+            launches_self_draft={m: spec_launches[m][name] for m in PATHS},
+            launches_spec_bf16={
+                k: e2e["spec"]["waves"][k + "_graphs"]["launches"][name]
+                for k in ("ngram", "self", "draft2")}))
     e2e.update(card=card, seconds=time.perf_counter() - t_start)
     if args.profile:
         for label in MODES:
@@ -2879,6 +3480,26 @@ def main(argv=None) -> int:
             + f"; plain greedy tok/s beside {h['plain_beside_tok_s']:.1f}, "
             f"alone {h['plain_alone_tok_s']:.1f}; rate-limited "
             f"{h['rate_tok_s']:.2f} tok/s (header {RATE_TPS})")
+    sp = e2e["spec"]
+    log("  phase 8, bf16: decode tok/s (acceptance) " + ", ".join(
+        f"{k} {w['decode_tok_s']:.1f}"
+        + (f" ({w['acceptance']:.3f})" if w["acceptance"] is not None
+           else "") for k, w in sp["waves"].items()))
+    log(f"  phase 8, bf16: verify pass (T {1 + SPEC_DRAFT}) "
+        f"{sp['verify_costs']['verify_ms']:.5f} ms, one-row pass "
+        f"{sp['verify_costs']['one_ms']:.5f} ms, 16-step chain "
+        f"{sp['verify_costs']['chain16_ms']:.5f} ms device; pool MiB plain "
+        f"{sp['waves']['plain16']['graph_pool_mib']:.1f}, self-draft "
+        f"{sp['waves']['self_graphs']['graph_pool_mib']:.1f}, 2-layer draft "
+        f"{sp['waves']['draft2_graphs']['graph_pool_mib']:.1f}")
+    for m in PATHS:
+        bits = (sp if m == "bf16" else e2e[m]["spec"])["bits"]
+        log(f"  phase 8, {m}: verify rows = one-row steps bit for bit: "
+            + ", ".join(f"{k} cache logits {v['logits_equal']} (max diff "
+                        f"{v['max_abs_diff']:.3e}) kv {v['kv_equal']}"
+                        + (f", first parting op {v['first_parting_op']}"
+                           if "first_parting_op" in v else "")
+                        for k, v in bits.items()))
     log("e2e " + json.dumps(e2e))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -86,6 +86,38 @@ def build_parser() -> argparse.ArgumentParser:
                         "(4-bit ones nibble-packed unless Q4_INT8) with bf16 "
                         "scales (f32 under Q4_F32SCALES)")
 
+    g = p.add_argument_group("speculative")
+    g.add_argument("-md", "--model-draft", default=None,
+                   help="draft model GGUF for speculative decoding (loaded "
+                        "with the main model's --weights-dtype)")
+    g.add_argument("--draft-max", "--draft", "--draft-n", dest="draft_max",
+                   type=int, default=8,
+                   help="max drafted tokens a verify pass")
+    g.add_argument("--draft-min", "--draft-n-min", dest="draft_min",
+                   type=int, default=1)
+    g.add_argument("--draft-p-min", dest="draft_p_min", type=float,
+                   default=0.75)
+    g.add_argument("--lookup-ngram-min", type=int, default=0,
+                   help="n-gram prompt-lookup drafting (0 = off)")
+    g.add_argument("--spec-rounds", dest="spec_rounds", type=int, default=4,
+                   help="draft-model draft + verify rounds a device pass")
+    g.add_argument("--lookup-min-accept", dest="lookup_min_accept",
+                   type=float, default=0.66,
+                   help="n-gram drafting holds below this moving "
+                        "acceptance (0 = never)")
+    g.add_argument("--lookup-probe-every", dest="lookup_probe_every",
+                   type=int, default=64)
+    # the draft's device placement: one card holds both models
+    g.add_argument("-ngld", "--gpu-layers-draft", "--n-gpu-layers-draft",
+                   dest="ngld", type=int, default=None, help="ignored")
+    g.add_argument("-devd", "--device-draft", default=None, help="ignored")
+    g.add_argument("-otd", "--override-tensor-draft", action="append",
+                   default=None, help="ignored")
+    g.add_argument("-cmoed", "--cpu-moe-draft", action="store_true",
+                   help="ignored")
+    g.add_argument("-ncmoed", "--n-cpu-moe-draft", type=int, default=None,
+                   help="ignored")
+
     g = p.add_argument_group("completion")
     g.add_argument("--temp", type=float, default=0.8)
     g.add_argument("--top-k", type=int, default=40)
@@ -218,8 +250,14 @@ def build_server(argv: list[str]):
              "quantized": torch.bfloat16}[args.weights_dtype]
     with GGUFFile(args.model) as g:
         tokenizer = Tokenizer.from_gguf(g)
+    quantized = args.weights_dtype == "quantized"
     cfg, params = load_model(args.model, dtype=dtype, device=device,
-                             quantized=args.weights_dtype == "quantized")
+                             quantized=quantized)
+    draft = None
+    if args.model_draft:
+        SRV_INF("main", "loading draft model %s", args.model_draft)
+        draft = load_model(args.model_draft, dtype=dtype, device=device,
+                           quantized=quantized)
     template = args.chat_template
     if args.chat_template_file:
         with open(args.chat_template_file) as f:
@@ -230,8 +268,14 @@ def build_server(argv: list[str]):
         n_keep_default=args.n_keep, prompt_cache=args.prompt_cache,
         cache_share_min=args.prompt_cache_share_min,
         decode_chain=max(1, args.decode_chain),
-        pipeline_chain=args.pipeline_chain)
-    engine = Engine(cfg, params, tokenizer, ecfg, device=str(device))
+        pipeline_chain=args.pipeline_chain, draft_max=args.draft_max,
+        draft_min=args.draft_min, draft_p_min=args.draft_p_min,
+        lookup_ngram_min=args.lookup_ngram_min,
+        lookup_min_accept=args.lookup_min_accept,
+        lookup_probe_every=args.lookup_probe_every,
+        spec_rounds=max(1, args.spec_rounds))
+    engine = Engine(cfg, params, tokenizer, ecfg, device=str(device),
+                    draft=draft)
     engine.start()
     max_tps = args.tokens_per_second
     if max_tps < 0:     # -1: probe the decode rate (reference -tps -1)

@@ -8,14 +8,16 @@ rows reach it in ONE scatter afterwards; the kernels see the JAX
 semantics:
 - prefill: the cache below pos0, plus the chunk's rows (rows operand);
 - decode: the cache below the chain start cpos-(nv-1), plus the chain's
-  rows 0..nv-1 with the current token's row last.
+  rows 0..nv-1 with the current token's row last;
+- verify (T rows a slot, a speculative pass): row j is a decode query at
+  cpos = pos0 + j whose chain rows are the verify rows 0..j.
 Every operand of a forward is computed on the device from fixed-shape
 buffers (a prefill's tokens [S, T], pos_base [S], n_valid [S]; a chain's
 token0, pos0 and active [S]), so a forward replays as one CUDA graph. The
-scatter keeps a fixed shape too: all S x T (prefill) or S x K (decode)
-rows are written, row t of slot b to position (start + t) mod C, and a
-row that is padding, inactive or past the capacity writes back the value
-it overwrites (gathered first). A slot's positions are distinct when
+scatter keeps a fixed shape too: all S x T (prefill, verify) or S x K
+(decode) rows are written, row t of slot b to position (start + t) mod C,
+and a row that is padding, inactive or past the capacity writes back the
+value it overwrites (gathered first). A slot's positions are distinct when
 T <= C, so no index repeats, the result is deterministic and an idle
 slot's prefix-cache rows keep their bits. (JAX dropped writes at the
 position >= C sentinel; an out-of-range index on CUDA is a device fault,
@@ -425,7 +427,7 @@ def write_rows(kv: KVCache, fields: list, writes: RowWrites) -> None:
 
 def _attn_layer(x, lp, li: int, kv: KVCache, cfg: ModelConfig, cos, sin,
                 rows: list, win, flash_meta=None, chain=None, step=0,
-                decode_meta=None):
+                decode_meta=None, verify_meta=None):
     """x [B, T, E] -> x after attention and the layer tail. cos/sin are the
     tables gathered at the rows' positions ([B, T, rot/2])."""
     B, T, E = x.shape
@@ -449,12 +451,39 @@ def _attn_layer(x, lp, li: int, kv: KVCache, cfg: ModelConfig, cos, sin,
     v = v.reshape(B, T, Hkv, D)
     return _attn_deferred(x, lp, li, kv, cfg, q, k, v, rows, win,
                           flash_meta=flash_meta, chain=chain, step=step,
-                          decode_meta=decode_meta)
+                          decode_meta=decode_meta, verify_meta=verify_meta)
+
+
+def _attn_verify(q, k, v, kc, vc, ks, vs, stored, meta, win, adt, scale):
+    """The T query rows of a verify forward, each through the flash decode
+    kernel with the verify rows as its chain operand: query j has meta
+    (pos0 + j, j + 1), so it attends the cache below pos0 and rows 0..j,
+    the rows before it as the cache holds them (dequantized for an int8
+    cache) and its own at full precision, as step j of a decode chain
+    does. q [B, T, H, D] -> [B, T, H*D] in adt."""
+    B, T, H, D = q.shape
+    Hkv = k.shape[2]
+    kf, vf = k.to(adt).contiguous(), v.to(adt).contiguous()
+    if ks is not None:
+        kq, vq, ksr, vsr = stored
+        kd = (kq.float() * ksr.float()[..., None]).to(adt)
+        vd = (vq.float() * vsr.float()[..., None]).to(adt)
+    outs = []
+    for j in range(T):
+        kr, vr = kf, vf
+        if ks is not None and j > 0:
+            kr = torch.cat([kd[:, :j], kf[:, j:]], dim=1)
+            vr = torch.cat([vd[:, :j], vf[:, j:]], dim=1)
+        qd = q[:, j].to(adt).reshape(B, Hkv, H // Hkv, D).contiguous()
+        o = flash_decode(qd, kc, vc, kr, vr, meta[j], win, k_scale=ks,
+                         v_scale=vs, scale=scale)
+        outs.append(o.to(adt).reshape(B, H * D))
+    return torch.stack(outs, dim=1)
 
 
 def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
                    rows: list, win, flash_meta=None, chain=None, step=0,
-                   decode_meta=None):
+                   decode_meta=None, verify_meta=None):
     """Attention against the cache as it stood before this forward plus
     the new rows (through the flash kernels), then the layer tail. The
     layer's rows, as the cache stores them, are appended to `rows` for the
@@ -476,6 +505,9 @@ def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
                                   v.to(adt), flash_meta, win,
                                   k_scale=ks, v_scale=vs, scale=scale)
         attn = o.permute(0, 3, 1, 2, 4).reshape(B, T, H * D)
+    elif verify_meta is not None:
+        attn = _attn_verify(q, k, v, kc, vc, ks, vs, stored, verify_meta,
+                            win, adt, scale)
     else:
         # chained decode: the current row rides chain index `step`
         kr, vr = chain.k[li], chain.v[li]
@@ -497,7 +529,7 @@ def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
 
 def _run_stack(params, cfg: ModelConfig, x, kv: KVCache, cos, sin,
                rows: list, flash_meta=None, chain=None, step=0,
-               decode_meta=None):
+               decode_meta=None, verify_meta=None):
     """The layer loop (the JAX package's lax.scan); appends each layer's
     rows to `rows`."""
     win = _no_window(x.device)
@@ -506,7 +538,7 @@ def _run_stack(params, cfg: ModelConfig, x, kv: KVCache, cos, sin,
         lp = {k: v[li] for k, v in layers.items()}
         x = _attn_layer(x, lp, li, kv, cfg, cos, sin, rows, win,
                         flash_meta=flash_meta, chain=chain, step=step,
-                        decode_meta=decode_meta)
+                        decode_meta=decode_meta, verify_meta=verify_meta)
     return x
 
 
@@ -613,32 +645,83 @@ def write_chain_rows(kv: KVCache, steps: list, writes: RowWrites) -> None:
     write_rows(kv, fields, writes)
 
 
+class VerifyOperands(NamedTuple):
+    """Device operands of a T-row verify forward, all computed from pos0,
+    n_draft and active [S]: flash decode meta [T, S, 2] (query j: cpos =
+    pos0 + j, nv = j + 1; cpos 0 for a sentinel row), the rope tables
+    gathered at the rows' positions ([S, T, rot/2]) and the row writes
+    ([S, T])."""
+    meta: torch.Tensor
+    cos: torch.Tensor
+    sin: torch.Tensor
+    writes: RowWrites
+
+
+def verify_operands(pos0: torch.Tensor, n_draft: torch.Tensor,
+                    active: torch.Tensor, capacity: int, T: int, rope_cos,
+                    rope_sin) -> VerifyOperands:
+    """The operands of T verify rows from each slot's first position pos0
+    [S] (int64), its draft count n_draft [S] and its active mask [S]: row
+    j of slot b lies at pos0[b] + j and is kept iff the slot is active, j
+    <= n_draft[b] and the position is inside the cache; every other row is
+    a sentinel (position C), attended by nothing and never written (JAX
+    `_decode_verify_rows`'s positions and seq_lens)."""
+    C = capacity
+    S = pos0.shape[0]
+    j = torch.arange(T, device=pos0.device)
+    pos = pos0[:, None] + j[None, :]                            # [S, T]
+    kept = active[:, None] & (j[None, :] <= n_draft[:, None])
+    positions = torch.where(kept, pos, C)
+    cpos = torch.where(positions >= C, 0, positions)
+    meta = torch.stack([cpos.T, (j + 1)[:, None].expand(T, S)],
+                       dim=-1).to(torch.int32)
+    cos, sin = _rope_at(rope_cos, rope_sin, positions)
+    b = torch.arange(S, device=pos0.device)[:, None].expand(S, T)
+    writes = RowWrites(b, pos % C, kept & (pos < C))
+    return VerifyOperands(meta, cos, sin, writes)
+
+
+def verify_forward(params, cfg: ModelConfig, tokens, ops: VerifyOperands,
+                   kv: KVCache):
+    """The verify forward (JAX `forward_rows_impl` + `apply_rows_impl`):
+    tokens [S, T] (column 0 the accepted token, then the drafts) through
+    the stack at once, every query row's attention through the flash
+    decode kernel (_attn_verify), the kept rows written into the cache in
+    place by one scatter. At T = 1 it is a one-step decode chain, bit for
+    bit. Returns logits [S, T, V] f32."""
+    x = _embed_tokens(params, cfg, tokens)
+    rows: list = []
+    x = _run_stack(params, cfg, x, kv, ops.cos, ops.sin, rows,
+                   verify_meta=ops.meta)
+    fields = [torch.stack([r[f] for r in rows]) for f in range(len(rows[0]))]
+    write_rows(kv, fields, ops.writes)
+    return _output_logits(params, cfg, x)
+
+
 def forward_impl(params, cfg: ModelConfig, tokens, positions, kv: KVCache,
                  rope_cos, rope_sin):
-    """One batched decode step (a one-step chain) through the flash decode
-    kernel.
+    """One batched decode forward of T rows a slot (a verify forward).
 
-    tokens:    [B, 1] int
-    positions: [B, 1] int (host or device); >= C marks an inactive slot
-    The new rows are written into the cache in place. Returns
-    (logits [B, 1, V] f32, kv)."""
+    tokens:    [B, T] int
+    positions: [B, T] int (host or device): row j of slot b at
+               positions[b, 0] + j, or >= C (a sentinel: its row is neither
+               attended nor kept); a slot's sentinels follow its live rows,
+               and a slot whose first row is one is inactive
+    The live rows are written into the cache in place. Returns
+    (logits [B, T, V] f32, kv)."""
     dev = kv.k.device
+    C = kv.capacity
     positions = torch.as_tensor(positions).to(dev, torch.int64)
-    if positions.shape[1] != 1:
-        raise NotImplementedError("decode forward takes one row per slot "
-                                  "(speculative verify is not ported yet)")
     pos0 = positions[:, 0]
-    ops = decode_operands(pos0, pos0 < kv.capacity, kv.capacity, 1,
+    n_draft = (positions < C).sum(dim=1) - 1
+    ops = verify_operands(pos0, n_draft, pos0 < C, C, positions.shape[1],
                           rope_cos, rope_sin)
-    rows: list = []
-    logits = decode_step_impl(params, cfg, tokens.to(dev), ops, kv,
-                              init_chain_rows(cfg, kv, 1), 0, rows)
-    write_chain_rows(kv, [rows], ops.writes)
-    return logits, kv
+    return verify_forward(params, cfg, torch.as_tensor(tokens).to(dev), ops,
+                          kv), kv
 
 
 def prefill_batch_impl(params, cfg: ModelConfig, tokens, pos_base, n_valid,
-                       kv: KVCache, rope_cos, rope_sin):
+                       kv: KVCache, rope_cos, rope_sin, logits: bool = True):
     """Batched prefill: one chunk per slot through the flash prefill kernel.
 
     tokens:   [S, T] int — row s is slot s's next chunk (padded), T <= C
@@ -647,7 +730,7 @@ def prefill_batch_impl(params, cfg: ModelConfig, tokens, pos_base, n_valid,
     Host arrays or tensors; on the cache's device every operand below is
     computed there, so the pass replays as one CUDA graph. The rows are
     written into the cache in place (write_rows). Returns (last-token
-    logits [S, V] f32, kv)."""
+    logits [S, V] f32, or None when `logits` is false, kv)."""
     dev = kv.k.device
     tokens = torch.as_tensor(tokens).to(dev)
     pos_base = torch.as_tensor(pos_base).to(dev, torch.int64)
@@ -671,6 +754,8 @@ def prefill_batch_impl(params, cfg: ModelConfig, tokens, pos_base, n_valid,
     b = torch.arange(S, device=dev)[:, None].expand(S, T)
     fields = [torch.stack([r[f] for r in rows]) for f in range(len(rows[0]))]
     write_rows(kv, fields, RowWrites(b, pos % C, inside & (pos < C)))
+    if not logits:
+        return None, kv
     last = (n_valid - 1).clamp_min(0)
     x_last = x[torch.arange(S, device=dev), last]
     return _output_logits(params, cfg, x_last), kv

@@ -580,6 +580,49 @@ def sample_impl(logits: torch.Tensor, state: SamplerState,
     return tokens, top_ids, top_probs, tok_prob, state
 
 
+def verify_impl(logits: torch.Tensor, draft: torch.Tensor,
+                n_draft: torch.Tensor, state: SamplerState,
+                arrs: SamplerArrays, active: torch.Tensor,
+                extras: bool = True, kcap: int = 0):
+    """Speculative verify+sample over T drafted positions (JAX
+    `verify_impl`; the reference's verify loop, httpserver.hpp:4300-4334):
+    the sampler runs at each position in turn, a row accepts drafts while
+    it reproduces them and emits one replacement or bonus token at the
+    first mismatch.
+
+    logits: [B, T, V] from the verify forward (row j's logits from input
+    token j); draft: [B, T] the input tokens (column 0 the accepted token,
+    1.. the drafts); n_draft: [B] drafts per row (0: plain decode). A
+    position samples (and advances the slot's step and penalty ring) only
+    while every earlier one matched, so a seeded row draws what a plain
+    run draws token by token. Returns (tokens [B, T] i32, n_emitted [B],
+    top_ids [B, T, N_PROBS], top_probs, tok_probs [B, T], state); row b
+    emits tokens[b, :n_emitted[b]]."""
+    B, T, _ = logits.shape
+    alive = torch.ones_like(active)
+    outs = []
+    for j in range(T):
+        act_j = active & alive & (j <= n_draft)
+        tok, ids, probs, tokp, state = sample_impl(
+            logits[:, j], state, arrs, act_j, extras=extras, kcap=kcap)
+        match = act_j & (j + 1 <= n_draft) & (tok == draft[:, min(j + 1,
+                                                                  T - 1)])
+        alive = alive & match
+        outs.append((tok, ids, probs, tokp))
+    toks, ids, probs, tokps = (torch.stack(x, dim=1) for x in zip(*outs))
+    # position j is emitted iff every earlier one matched its draft; the
+    # cumulative product is monotone, so a later accidental equality of a
+    # dead position's sample cannot resurrect a row
+    cols = torch.arange(1, T, device=logits.device)[None, :]
+    match = torch.cat([torch.ones_like(active)[:, None],
+                       (toks[:, :-1] == draft[:, 1:])
+                       & (cols <= n_draft[:, None])], dim=1)
+    n_emitted = torch.cumprod(match.long(), dim=1).sum(dim=1)
+    n_emitted = torch.where(active, n_emitted, 0)
+    n_emitted = torch.minimum(n_emitted, n_draft.long() + 1)
+    return toks, n_emitted, ids, probs, tokps, state
+
+
 class HostSampler:
     """Host-side sampler for grammar-constrained slots.
 

@@ -14,9 +14,12 @@ persistent device buffers that returns its output tensors:
   stream, then replays it; every later use replays it (on the caller's
   current stream);
 - a capture or replay error raises; nothing falls back to eager.
-All graphs of one runner share one memory pool: they replay one after
-another on one stream, and each graph's outputs stay allocated while it
-lives. A replay does not call the kernel wrappers, so the runner keeps
+Each graph has a memory pool of its own. The engine reads a graph's
+outputs after other graphs have replayed (the next chain's first token,
+a speculative pass's carry), and in a pool shared by graphs that replay
+in another order than they were captured, a graph captured earlier
+writes its intermediates over memory that a later capture gave to its
+outputs. A replay does not call the kernel wrappers, so the runner keeps
 their `launches` counts: it takes back what the capture added and adds it
 again on every replay. Disabled (the CPU, or EngineConfig.cuda_graphs
 off), `run` calls `fn` each time.
@@ -55,7 +58,6 @@ class GraphRunner:
         self.pool_bytes = 0       # reserved memory the captures added
         if self.enabled:
             self.stream = torch.cuda.Stream(dev)
-            self.pool = torch.cuda.graph_pool_handle()
             self._wrappers = kernel_wrappers()
 
     @property
@@ -92,7 +94,7 @@ class GraphRunner:
         torch.cuda.empty_cache()        # as the capture's entry does
         reserved = torch.cuda.memory_reserved()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+        with torch.cuda.graph(graph, stream=self.stream):
             outputs = fn()
         delta = []
         for w, n in zip(self._wrappers, before):

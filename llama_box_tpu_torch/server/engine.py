@@ -48,9 +48,27 @@ programs replay on, with no host wait.
   back gathered by a staged index vector; no chain is dispatched or
   speculated, and a chain in flight when such a task arrives is consumed
   first. A slot whose bucket is empty sits the pass out.
+- Speculative decoding (the JAX engine's, the reference's draft model and
+  prompt lookup): the one-token pass widens to T = 1 + draft_max rows a
+  slot (`_decode_verify_sample`: the verify forward, each query row
+  through the flash decode kernel with the verify rows as its chain, then
+  sampling.verify_impl; one graph a key ("verify", T, extras, kcap)).
+  n-gram drafts (server/ngram.py, a cache per task built at admission,
+  gated by its moving acceptance) are made on the host from the synced
+  history; a pass where no slot drafts runs a chain, and no chain is
+  speculated while a slot could draft. A draft model (`draft=`) drafts on
+  the device: with no slot under host control, one program drafts and
+  verifies (`_spec_rounds`), M = spec_rounds rounds a pass, each round's
+  acceptance and advance on the device, the host catching the draft
+  cache up before the first (the draft's prefill kernel) and syncing once
+  a pass; further passes go out off the newest's device-resident token,
+  position and catch-up carry (`_fill_spec_queue`), near capacity M
+  shrinks, then one round a pass, then the one-token pass (two syncs:
+  the drafts, then the verify) and its shift, which shifts the draft
+  cache too.
 
-Not ported yet (the JAX engine has them): speculative and n-gram
-drafting, embeddings, multimodal prompts and the other model families.
+Not ported yet (the JAX engine has them): embeddings, multimodal prompts
+and the other model families.
 """
 
 from __future__ import annotations
@@ -68,16 +86,18 @@ from ..models.llama import (check_supported, copy_kv_prefix,
                             decode_operands, decode_step_impl,
                             init_chain_rows, init_kv_cache, make_delta_rope,
                             make_rope, prefill_batch_impl, shift_kv,
+                            verify_forward, verify_operands,
                             write_chain_rows)
 from ..ops.qmatmul import _SPLIT_MAX_ROWS, QTensor
 from ..sampling import (N_PROBS, RING_CAP, HostSampler, SamplerBuffers,
                         SamplerParams, init_sampler_state, sample_impl,
-                        seed_slot, window_size)
-from ..utils.logging import SRV_DBG, SRV_ERR
+                        seed_slot, verify_impl, window_size)
+from ..utils.logging import SRV_DBG, SRV_ERR, SRV_WRN
 from ..utils.staging import HostCopies, StagedBuffer
 from ..utils.text import longest_common_prefix
 from .cuda_graph import GraphRunner
 from .metrics import Metrics
+from .ngram import NgramCache
 from .task import BaseTask, CompletionsTask
 
 DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
@@ -141,26 +161,110 @@ def _decode_chain(params, cfg: ModelConfig, token0, pos0, kv, sstate, arrs,
     return toks, ids, probs, tokps, kv, sstate
 
 
-def _decode_verify_sample(params, cfg: ModelConfig, token0, pos0, kv,
+def _decode_verify_sample(params, cfg: ModelConfig, tokens, pos0, n_draft, kv,
                           sstate, arrs, fwd_active, samp_active, cos, sin,
                           samp_extras: bool = True, samp_kcap: int = 0):
-    """One decode step over the full slot batch (JAX
-    `_decode_verify_sample` at T = 1): forward every fwd_active slot,
-    write its row, and sample only the samp_active ones; the others (the
-    host-sampled slots) neither draw a kept token nor advance their
-    sampler state, and are sampled on the host from the returned logits.
-    Returns (tokens [S], ids [S,NP], probs [S,NP], tokps [S], logits
-    [S, V] f32, kv, sstate), all on the device."""
-    ops = decode_operands(pos0, fwd_active, kv.capacity, 1, cos, sin)
-    chain = init_chain_rows(cfg, kv, 1)
-    rows: list = []
-    logits = decode_step_impl(params, cfg, token0[:, None], ops, kv, chain,
-                              0, rows)[:, -1]
-    write_chain_rows(kv, [rows], ops.writes)
-    tok, ids, probs, tokp, sstate = sample_impl(
-        logits, sstate, arrs, samp_active, extras=samp_extras,
-        kcap=samp_kcap)
-    return tok, ids, probs, tokp, logits, kv, sstate
+    """Decode forward + speculative verify + sampling over the full slot
+    batch (JAX `_decode_verify_sample`): tokens [S, T] (column 0 each
+    slot's next token, then its n_draft [S] drafts) at pos0 [S] on; every
+    fwd_active slot's kept rows are written, and only the samp_active ones
+    sample (sampling.verify_impl). The others (the host-sampled slots)
+    neither draw a kept token nor advance their sampler state, and are
+    sampled on the host from their row 0 logits. T = 1 is a plain decode
+    step. Returns (tokens [S, T], n_emitted [S], ids [S, T, NP], probs
+    [S, T, NP], tokps [S, T], row 0 logits [S, V] f32, kv, sstate), all on
+    the device."""
+    ops = verify_operands(pos0, n_draft, fwd_active, kv.capacity,
+                          tokens.shape[1], cos, sin)
+    logits = verify_forward(params, cfg, tokens, ops, kv)
+    toks, n_em, ids, probs, tokps, sstate = verify_impl(
+        logits, tokens, n_draft, sstate, arrs, samp_active,
+        extras=samp_extras, kcap=samp_kcap)
+    return toks, n_em, ids, probs, tokps, logits[:, 0], kv, sstate
+
+
+def _draft_chain_greedy(params, cfg: ModelConfig, token0, pos0, kv, active,
+                        cos, sin, p_min: float, n_steps: int):
+    """n_steps greedy draft-model steps with no host sync in between (JAX
+    `_draft_chain_greedy`), each feeding its argmax to the next, as a
+    decode chain: step j's rows ride the chain operand of the flash decode
+    kernel and one scatter writes them at the end. The p >= p_min gate
+    runs on the device: n_ok is the length of the leading confident run.
+    Returns (tokens [S, n_steps], n_ok [S], 0 for an inactive slot)."""
+    ops = decode_operands(pos0, active, kv.capacity, n_steps, cos, sin)
+    chain = init_chain_rows(cfg, kv, n_steps)
+    tok = token0
+    toks, ps, steps = [], [], []
+    for j in range(n_steps):
+        rows: list = []
+        logits = decode_step_impl(params, cfg, tok[:, None], ops, kv, chain,
+                                  j, rows)[:, -1]
+        steps.append(rows)
+        tok = torch.argmax(logits, dim=-1)
+        ps.append(torch.softmax(logits, dim=-1).gather(1, tok[:, None])[:, 0])
+        toks.append(tok)
+    write_chain_rows(kv, steps, ops.writes)
+    ok = (torch.stack(ps, dim=1) >= p_min).long()
+    n_ok = torch.where(active, torch.cumprod(ok, dim=1).sum(dim=1), 0)
+    return torch.stack(toks, dim=1), n_ok
+
+
+def _spec_rounds(params, cfg: ModelConfig, dparams, dcfg: ModelConfig,
+                 token0, pos0, kv, dkv, sstate, arrs, active, dactive, cos,
+                 sin, dcos, dsin, p_min: float, pcarry, n_rounds: int,
+                 draft_k: int, samp_extras: bool = True, samp_kcap: int = 0):
+    """n_rounds speculative draft + verify rounds with the accept and
+    advance bookkeeping on the device (JAX `_spec_chain`; one CUDA graph on
+    the card). Round m:
+      1. catch-up: the previous round's accepted tokens a_0..a_{n-2} into
+         the draft cache at positions p+1.., a batched prefill chunk of the
+         draft (rewrites rows it already holds; fills the one the draft
+         chain never fed, after a round that accepted every draft);
+      2. draft_k greedy draft steps from (token, position), the slots of
+         dactive only (_draft_chain_greedy);
+      3. the verify forward of [token | drafts] (T = draft_k + 1 rows),
+         sampling.verify_impl and the row write (_decode_verify_sample);
+      4. token <- the last emitted token, position += n_emitted.
+    pcarry (ptoks [S, T], pnem [S], ppos [S], pvalid [S]): a previous
+    pass's last round, whose accepted tail round 0 catches up first (a
+    pipelined pass; pvalid false makes it a no-op); None: round 0 has no
+    catch-up (the host caught the draft cache up before the dispatch).
+    Returns (packed [M, S, T + 2] int32: tokens | n_emitted | n_draft,
+    ids [M, S, T, NP], probs, tokps [M, S, T], token_next [S], pos_end
+    [S], carry (tokens, n_emitted, start position) of the last round, kv,
+    dkv, sstate)."""
+    K = draft_k
+    outs, ids_l, probs_l, tokps_l = [], [], [], []
+    prev = None
+    if pcarry is not None:
+        ptoks, pnem, ppos, pvalid = pcarry
+        prev = (ptoks, torch.where(pvalid, pnem, 0), ppos)
+    tok_cur, pos_cur = token0, pos0
+    for _ in range(n_rounds):
+        if prev is not None:
+            ptoks, pnem, ppos = prev
+            lens = torch.where(dactive, (pnem - 1).clamp_min(0), 0)
+            prefill_batch_impl(dparams, dcfg, ptoks[:, :K],
+                               torch.where(lens > 0, ppos + 1, 0), lens, dkv,
+                               dcos, dsin, logits=False)
+        dtoks, n_draft = _draft_chain_greedy(dparams, dcfg, tok_cur, pos_cur,
+                                             dkv, dactive, dcos, dsin, p_min,
+                                             K)
+        tokens = torch.cat([tok_cur[:, None], dtoks], dim=1)
+        toks, n_em, ids, probs, tokps, _, kv, sstate = _decode_verify_sample(
+            params, cfg, tokens, pos_cur, n_draft, kv, sstate, arrs, active,
+            active, cos, sin, samp_extras, samp_kcap)
+        outs.append(torch.cat([toks, n_em[:, None].to(torch.int32),
+                               n_draft[:, None].to(torch.int32)], dim=1))
+        ids_l.append(ids)
+        probs_l.append(probs)
+        tokps_l.append(tokps)
+        prev = (toks, n_em, pos_cur)
+        last = toks.gather(1, (n_em - 1).clamp_min(0)[:, None])[:, 0]
+        tok_cur = torch.where(active, last.long(), token0)
+        pos_cur = pos_cur + torch.where(active, n_em, 0)
+    return (torch.stack(outs), torch.stack(ids_l), torch.stack(probs_l),
+            torch.stack(tokps_l), tok_cur, pos_cur, prev, kv, dkv, sstate)
 
 
 def _host_controlled(task) -> bool:
@@ -200,6 +304,36 @@ class EngineConfig:
     # on a CUDA device, replay each decode chain and prefill pass as one
     # captured CUDA graph; False runs them eagerly (for comparison)
     cuda_graphs: bool = True
+    # speculative decoding (the reference's draft model and prompt lookup)
+    draft_max: int = 8            # max drafted tokens a pass (T = this + 1)
+    draft_min: int = 1            # drop draft runs shorter than this
+    draft_p_min: float = 0.75     # stop drafting below this draft prob
+    lookup_ngram_min: int = 0     # n-gram prompt-lookup drafting; 0 = off
+    # n-gram gate: a task whose moving acceptance (its last <= 4 drafted
+    # passes) dips below this stops drafting and rejoins chained decode,
+    # re-probing with one drafted pass every lookup_probe_every tokens
+    # (0 disables the gate)
+    lookup_min_accept: float = 0.66
+    lookup_probe_every: int = 64
+    # draft-model rounds a pass (one graph; the host syncs once a pass)
+    spec_rounds: int = 4
+
+
+@dataclasses.dataclass
+class _Spec:
+    """A dispatched speculative pass (M draft + verify rounds) whose tokens
+    the host has not consumed yet."""
+    copy: tuple                 # its HostCopies handle
+    pos0: np.ndarray | None     # [S] start positions; None until the pass
+                                # before it is emitted
+    tasks: list                 # [S] the task each slot ran it for
+    m: int                      # rounds
+    drafted: frozenset          # slots whose draft model ran
+    t0: float                   # dispatch time
+    tok_next: torch.Tensor      # [S] device: the next pass's token0
+    pos_end: torch.Tensor       # [S] device: ... and its pos0
+    carry: tuple                # device (tokens, n_emitted, pos) of the
+                                # last round: the next pass's catch-up
 
 
 @dataclasses.dataclass
@@ -215,7 +349,8 @@ class _Chain:
 
 class Slot:
     __slots__ = ("idx", "capacity", "task", "cache_tokens", "pos", "state",
-                 "cursor", "next_token", "last_used", "chain_ramp")
+                 "cursor", "next_token", "last_used", "chain_ramp", "drafts",
+                 "draft_pos")
 
     def __init__(self, idx: int, capacity: int):
         self.idx = idx
@@ -228,11 +363,16 @@ class Slot:
         self.next_token = -1                # sampled, not yet in KV
         self.last_used = 0.0
         self.chain_ramp = 0                 # >0 caps the next chain's K
+        self.drafts: list[int] = []         # drafted tokens for next verify
+        self.draft_pos = 0                  # draft-model KV progress
 
 
 class Engine:
     def __init__(self, cfg: ModelConfig, params, tokenizer,
-                 ecfg: EngineConfig | None = None, device: str = "cuda"):
+                 ecfg: EngineConfig | None = None, device: str = "cuda",
+                 draft: tuple | None = None):
+        """draft: (ModelConfig, params) of a draft model for speculative
+        decoding (the reference's draft-model path), on `device`."""
         self.device = resolve_device(device)
         check_supported(cfg, params, self.device)
         if ecfg is not None and ecfg.kv_dtype not in _KV_DTYPES:
@@ -244,12 +384,32 @@ class Engine:
         self.ecfg = ecfg or EngineConfig()
         S = self.ecfg.n_slots
         self.slot_ctx = max(16, self.ecfg.n_ctx // S)
-        self.kv = init_kv_cache(cfg, S, self.slot_ctx,
-                                _KV_DTYPES[self.ecfg.kv_dtype], self.device)
+        if self.ecfg.lookup_ngram_min > 0 and self._ngram_dominated():
+            SRV_WRN("engine", "n-gram lookup drafting is dominated by "
+                    "chained decode (decode_chain=%d > draft_max+1=%d "
+                    "tokens per host sync) and will not engage; lower "
+                    "--decode-chain or raise --draft-max to use it",
+                    self.ecfg.decode_chain, self.ecfg.draft_max + 1)
+        kv_dtype = _KV_DTYPES[self.ecfg.kv_dtype]
+        self.kv = init_kv_cache(cfg, S, self.slot_ctx, kv_dtype, self.device)
         self.rope_cos, self.rope_sin = make_rope(cfg, self.slot_ctx,
                                                  self.device)
         self.delta_cos, self.delta_sin = make_delta_rope(cfg, self.slot_ctx,
                                                          self.device)
+        self.draft_cfg = self.draft_params = self.draft_kv = None
+        if draft is not None:
+            self.draft_cfg, self.draft_params = draft
+            if self.draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    "draft model vocab differs from main model "
+                    f"({self.draft_cfg.vocab_size} vs {cfg.vocab_size})")
+            check_supported(self.draft_cfg, self.draft_params, self.device)
+            self.draft_kv = init_kv_cache(self.draft_cfg, S, self.slot_ctx,
+                                          kv_dtype, self.device)
+            self.draft_cos, self.draft_sin = make_rope(
+                self.draft_cfg, self.slot_ctx, self.device)
+            self.draft_delta_cos, self.draft_delta_sin = make_delta_rope(
+                self.draft_cfg, self.slot_ctx, self.device)
         self.sstate = init_sampler_state(S, cfg.vocab_size, self.device)
         self.eog_ids = sorted(tokenizer.eog_ids) if tokenizer else []
         self._default_sp = SamplerParams()
@@ -272,24 +432,34 @@ class Engine:
                 or buckets[-1:]
         self.buckets = tuple(buckets)
         # the programs' operands: decode token0 | pos0 | active, prefill
-        # pos_base | n_valid | sample-active | tokens [S, bucket], one-token
-        # pass token0 | pos0 | active | sample-active | host-row index
+        # pos_base | n_valid | sample-active | tokens [S, bucket] (the
+        # draft's catch-up the same), one-token (verify) pass pos0 | active
+        # | sample-active | host-row index | n_draft | tokens [S, T], spec
+        # pass token0 | pos0 | active | draft-active | carry tokens [S, T]
+        # | n_emitted | pos | valid
+        T = 1 + self.ecfg.draft_max
         self._dec_in = StagedBuffer(3 * S, torch.int64, self.device, ring)
-        self._one_in = StagedBuffer(5 * S, torch.int64, self.device, ring)
+        self._one_in = StagedBuffer(S * (5 + T), torch.int64, self.device,
+                                    ring)
+        self._spec_in = StagedBuffer(S * (7 + T), torch.int64, self.device,
+                                     ring)
         self._pre_in = StagedBuffer(S * (3 + self.buckets[-1]), torch.int64,
                                     self.device, ring)
         # an admitted slot's penalty window (one pass may admit S)
         self._win_in = StagedBuffer(window_size(cfg.vocab_size), torch.int32,
                                     self.device, S + ring)
         # the outputs of the programs in flight: tokens, top ids, top
-        # probs, token probs of up to S x decode_chain samples, and the
+        # probs, token probs of up to S x decode_chain samples (a verify
+        # or spec pass: its packed tokens, n_emitted and n_draft), and the
         # logits rows of a one-token pass's host-sampled slots
-        n = S * max(1, self.ecfg.decode_chain)
+        n = S * max(1, self.ecfg.decode_chain, T + 1,
+                    max(1, self.ecfg.spec_rounds) * (T + 2))
         self._copies = HostCopies(ring, [
             (n, torch.int32), (n * N_PROBS, torch.int32),
             (n * N_PROBS, torch.float32), (n, torch.float32),
             (S * cfg.vocab_size, torch.float32)], self.device)
         self._chain_q: list[_Chain] = []    # speculated, oldest first
+        self._spec_q: list[_Spec] = []      # spec passes, oldest first
         self.graphs = GraphRunner(self.device, self.ecfg.cuda_graphs)
         self.slots = [Slot(i, self.slot_ctx) for i in range(S)]
         self.queue: queue.Queue[BaseTask] = queue.Queue()
@@ -313,6 +483,11 @@ class Engine:
         from ..models.loader import deinterleave_rope, fuse_projections
         self.params, self.cfg = deinterleave_rope(self.params, self.cfg)
         self.params = fuse_projections(self.params, self.cfg)
+        if self.draft_params is not None:
+            self.draft_params, self.draft_cfg = deinterleave_rope(
+                self.draft_params, self.draft_cfg)
+            self.draft_params = fuse_projections(self.draft_params,
+                                                 self.draft_cfg)
 
     def stop(self) -> None:
         self._stop.set()
@@ -346,6 +521,7 @@ class Engine:
 
     def _fail_all(self, exc: Exception) -> None:
         self._chain_q.clear()
+        self._spec_q.clear()
         self._copies.reset()     # the queue's sets and the failed pass's
         for s in self.slots:
             if s.task is not None:
@@ -464,6 +640,14 @@ class Engine:
         if sp.needs_host_sampler and task.host_sampler is None:
             task.host_sampler = HostSampler(sp, sp.grammar, self.tokenizer)
             task.host_sampler.push_prompt(task.prompt_tokens)
+        # the n-gram prompt-lookup cache (httpserver.hpp:4752-4767); not
+        # built when chained decode dominates drafting
+        if self.ecfg.lookup_ngram_min > 0 and not self._ngram_dominated() \
+                and task.ngram is None:
+            task.ngram = NgramCache(n_min=self.ecfg.lookup_ngram_min)
+            task.ngram.update(task.prompt_tokens)
+        s.drafts = []
+        s.draft_pos = 0
         SRV_DBG("admit", "task %s -> slot %d reuse=%d prompt=%d",
                 task.rid, s.idx, reuse, len(task.prompt_tokens))
 
@@ -597,7 +781,12 @@ class Engine:
         `_speculate_post_prefill`). Consumed or dropped as every
         speculated chain is (_consume_pending_chain). Returns True when
         it went out (it has set the slots' ramps)."""
-        if not self.ecfg.pipeline_chain or self._chain_q:
+        if not self.ecfg.pipeline_chain or self._chain_q or self._spec_q:
+            return False
+        # no chain while a slot may draft (the JAX gate)
+        if self.draft_params is not None or (
+                self.ecfg.lookup_ngram_min > 0
+                and not self._ngram_dominated()):
             return False
         # every decoding slot must ride a joint chain; slots still
         # prefilling later chunks are inactive rows
@@ -665,105 +854,523 @@ class Engine:
     # -- decode --------------------------------------------------------------
 
     def _decode_pass(self, dec: list) -> None:
-        # a speculated chain holds the tokens these slots consume next
-        # (their device sampler state already advanced through it): use
-        # it, never re-dispatch
+        # a speculated chain or spec pass holds the tokens these slots
+        # consume next (their device sampler state already advanced
+        # through it): use it, never re-dispatch
         if self._chain_q and self._consume_pending_chain(dec):
             return
-        # per-token host control (a host sampler or a rate bucket): ONE
-        # one-token pass for every decoding slot, no chain (the JAX gates)
-        if any(_host_controlled(s.task) for s in dec):
-            self._one_token_pass(dec)
+        if self._spec_q and self._consume_spec_chain(dec):
             return
-        # chains shrink toward the boundary, so a slot reaches its
-        # capacity at the end of one; it shifts before the next (the JAX
-        # engine's one-token pass), and the chain shrinks to fit
-        for s in dec:
-            if s.pos >= s.capacity:
-                self._context_shift(s)
-        K = self._chain_k(dec)
-        K = max(1, min(K, _pow2_floor(min(s.capacity - s.pos for s in dec))))
-        self._decode_pass_chain(dec, K)
+        # n-gram lookup: the drafts first, so that a pass where no slot
+        # drafts (no match, or the acceptance gate holds) runs a chain
+        ngram_drafts = None
+        if self.draft_params is None and self.ecfg.lookup_ngram_min > 0:
+            ngram_drafts = {s.idx: self._make_drafts(s) for s in dec}
+        host = any(_host_controlled(s.task) for s in dec)
+        if not host and self.draft_params is None \
+                and not (ngram_drafts and any(ngram_drafts.values())):
+            # chains shrink toward the boundary, so a slot reaches its
+            # capacity at the end of one; it shifts before the next (the
+            # JAX engine's one-token pass), and the chain shrinks to fit
+            for s in dec:
+                if s.pos >= s.capacity:
+                    self._context_shift(s)
+            K = self._chain_k(dec)
+            K = max(1, min(K, _pow2_floor(min(s.capacity - s.pos
+                                              for s in dec))))
+            self._decode_pass_chain(dec, K)
+            return
+        # a draft model: draft and verify on the device, one host sync a
+        # pass, while no slot needs host control or could shift
+        if (self.draft_params is not None and not host
+                and self.ecfg.draft_min <= 1
+                and all(s.pos + 1 + self.ecfg.draft_max <= s.capacity
+                        for s in dec)):
+            # M rounds a pass while every slot has room for the pass's
+            # most; near capacity M shrinks to what fits (>= 2), then the
+            # one-round pass, then the one-token pass's shift at the
+            # boundary
+            per_round = 1 + self.ecfg.draft_max
+            room = min(s.capacity - s.pos for s in dec)
+            M = min(self.ecfg.spec_rounds, room // per_round)
+            if M > 1:
+                self._decode_pass_spec_chain(dec, M)
+            else:
+                self._decode_pass_fused_draft(dec)
+            return
+        # per-token host control (a host sampler or a rate bucket), or
+        # drafts verified by the host: ONE one-token (verify) pass for
+        # every decoding slot, no chain (the JAX gates)
+        self._one_token_pass(dec, ngram_drafts)
 
-    def _one_token_pass(self, dec: list) -> None:
-        """One decode step for every decoding slot (the JAX engine's
-        per-token pass: `_decode_verify_sample` at T = 1). The device
-        samples the device-sampled slots; the host-sampled ones get their
-        logits rows (one gather by a staged index vector, one copy) and
-        sample on the host, their device sampler state left as it was. A
-        slot at its capacity shifts first; a slot whose rate bucket is
-        empty sits the pass out (a 5 ms sleep when no slot is left, so
-        the loop does not spin). The chain queue is empty here."""
+    def _one_token_pass(self, dec: list, ngram_drafts=None) -> None:
+        """One decode step for every decoding slot, verifying each slot's
+        drafts (the JAX engine's per-token pass: `_decode_verify_sample`
+        at T = 1 + draft_max when a slot drafts, else T = 1). The drafts
+        come from the draft model (two host syncs: the drafts, then the
+        verify) or the n-gram cache. The device samples the device-sampled
+        slots; the host-sampled ones draft nothing and get their logits
+        rows (one gather by a staged index vector, one copy) and sample on
+        the host, their device sampler state left as it was. A slot
+        without room for its drafts shifts first; a slot whose rate bucket
+        lacks 1 + its drafts sits the pass out (a 5 ms sleep when no slot
+        is left, so the loop does not spin). The chain queue is empty
+        here."""
+        if self.draft_params is not None:
+            self._draft_model_pass(dec)
+        else:
+            for s in dec:
+                s.drafts = (ngram_drafts[s.idx] if ngram_drafts is not None
+                            else self._make_drafts(s))
         for s in dec:
-            if s.pos >= s.capacity:
+            if s.pos + 1 + len(s.drafts) > s.capacity:
                 self._context_shift(s)
         dec = [s for s in dec if s.task.rate_bucket is None
-               or s.task.rate_bucket.try_acquire(1)]
+               or s.task.rate_bucket.try_acquire(1 + len(s.drafts))]
         if not dec:
             time.sleep(0.005)
             return
         self._refresh_arrs()
         t0 = time.monotonic()
         S = len(self.slots)
+        T = 1 + (self.ecfg.draft_max if any(s.drafts for s in dec) else 0)
         hs = [s for s in dec if s.task.host_sampler is not None]
         tokens, pos = [None] * S, [0] * S
         for s in dec:
-            tokens[s.idx], pos[s.idx] = s.next_token, s.pos
+            tokens[s.idx] = [s.next_token] + s.drafts[:T - 1]
+            pos[s.idx] = s.pos
         self._stage_one(tokens, pos, [s.idx for s in hs])
         kw = self._chain_fast_kw([s for s in dec if s not in hs])
-        outs = self.graphs.run(
-            ("one", kw["samp_extras"], kw.get("samp_kcap", 0)),
-            lambda: self._one_token_program(**kw))
+        extras, kcap = kw["samp_extras"], kw.get("samp_kcap", 0)
+        key = ("one", extras, kcap) if T == 1 else \
+            ("verify", T, extras, kcap)
+        outs = self.graphs.run(key,
+                               lambda: self._one_token_program(T, **kw))
         want = any(s.task.n_probs > 0 for s in dec)
         copy = self._copies.start(
             (outs[0],) + (outs[1:4] if want else (None,) * 3)
             + (outs[4][:len(hs)] if hs else None,))
-        toks_h, ids_h, probs_h, tokps_h, rows_h = self._copies.wait(copy)
-        self._acct_decode(len(dec), t0)
-        for s in dec:
-            s.cache_tokens.append(s.next_token)
-            s.pos += 1
-            if s in hs:
-                tok, ids_row, probs_row, tok_prob = \
-                    s.task.host_sampler.sample(rows_h[hs.index(s)])
-                self._accept_token(s, tok, ids_row, probs_row, tok_prob)
-                continue
-            self._accept_token(
-                s, int(toks_h[s.idx]),
-                ids_h[s.idx] if ids_h is not None else None,
-                probs_h[s.idx] if probs_h is not None else None,
-                float(tokps_h[s.idx]) if tokps_h is not None else 0.0)
+        packed_h, ids_h, probs_h, tokps_h, rows_h = self._copies.wait(copy)
+        n_em = packed_h[:, T]
+        self._acct_decode(int(n_em.sum()) + len(hs), t0)
+        self._emit_verify(dec, packed_h[:, :T], n_em, ids_h, probs_h,
+                          tokps_h, {s.idx: rows_h[k]
+                                    for k, s in enumerate(hs)})
 
     def _stage_one(self, tokens: list, pos: list, host: list) -> None:
-        """Stage a one-token pass's operands (token0 | pos0 | active |
-        sample-active | host-row index, S each): slot b decodes tokens[b]
-        at pos[b] (None: it sits out, at position slot_ctx); the device
-        samples the active slots not in `host`, and the rows of the slots
-        in `host` come out in that order."""
+        """Stage a one-token pass's operands (pos0 | active | sample-active
+        | host-row index | n_draft, S each, then tokens [S, T]): slot b
+        decodes tokens[b] (its next token, or a list: the next token and
+        its drafts) from pos[b] (None: it sits out, at position slot_ctx);
+        T is the longest list. The device samples the active slots not in
+        `host`, and the rows of the slots in `host` come out in that
+        order."""
         S = len(self.slots)
+        rows = [[t] if isinstance(t, int) else t for t in tokens]
+        T = max(len(r) for r in rows if r is not None)
         h = self._one_in.host()
         h[:] = 0
-        h[S:2 * S] = self.slot_ctx
-        for b, (t, p) in enumerate(zip(tokens, pos)):
-            if t is not None:
-                h[b], h[S + b], h[2 * S + b] = t, p, 1
-                h[3 * S + b] = int(b not in host)
+        h[:S] = self.slot_ctx
+        tok = h[5 * S:S * (5 + T)].reshape(S, T)
+        for b, (r, p) in enumerate(zip(rows, pos)):
+            if r is not None:
+                h[b], h[S + b] = p, 1
+                h[2 * S + b] = int(b not in host)
+                h[4 * S + b] = len(r) - 1
+                tok[b, :len(r)] = r
         for k, b in enumerate(host):
-            h[4 * S + k] = b
-        self._one_in.push()
+            h[3 * S + k] = b
+        self._one_in.push(S * (5 + T))
 
-    def _one_token_program(self, **kw):
-        """One one-token pass over the staged operands; the host-sampled
-        slots' logits rows come first in its last output ([S, V], gathered
-        by the staged index vector, so the graph's shapes are fixed)."""
+    def _one_token_program(self, T: int = 1, **kw):
+        """One one-token pass of T rows a slot over the staged operands:
+        (tokens | n_emitted [S, T + 1] int32, ids, probs, tokps [S, T, ..],
+        the host-sampled slots' row 0 logits first in [S, V], gathered by
+        the staged index vector, so the graph's shapes are fixed)."""
         S = len(self.slots)
         d = self._one_in.dev
-        tok, ids, probs, tokp, logits, self.kv, self.sstate = \
+        toks, n_em, ids, probs, tokps, logits0, self.kv, self.sstate = \
             _decode_verify_sample(
-                self.params, self.cfg, d[:S], d[S:2 * S], self.kv,
-                self.sstate, self.arrs, d[2 * S:3 * S] != 0,
-                d[3 * S:4 * S] != 0, self.rope_cos, self.rope_sin, **kw)
-        return tok, ids, probs, tokp, logits.index_select(0, d[4 * S:])
+                self.params, self.cfg, d[5 * S:S * (5 + T)].view(S, T),
+                d[:S], d[4 * S:5 * S], self.kv, self.sstate, self.arrs,
+                d[S:2 * S] != 0, d[2 * S:3 * S] != 0, self.rope_cos,
+                self.rope_sin, **kw)
+        packed = torch.cat([toks, n_em[:, None].to(torch.int32)], dim=1)
+        return (packed, ids, probs, tokps,
+                logits0.index_select(0, d[3 * S:4 * S]))
+
+    def _emit_verify(self, dec: list, toks_h, n_emitted_h, ids_h, probs_h,
+                     tokps_h, hs_rows=None) -> None:
+        """Emit a verify pass's accepted tokens (JAX `_emit_verify`; the
+        reference's per-token postprocess scan, httpserver.hpp:4284-4334):
+        a host-sampled slot samples its row 0 logits; a device-sampled one
+        keeps its next token and the accepted drafts in the cache and
+        emits n_emitted tokens."""
+        for s in dec:
+            task = s.task
+            hs = task.host_sampler
+            if hs is not None:
+                s.cache_tokens.append(s.next_token)
+                s.pos += 1
+                token, top_ids, top_probs, tok_prob = hs.sample(
+                    hs_rows[s.idx])
+                self._accept_token(s, token, top_ids, top_probs, tok_prob)
+                continue
+            n_em = int(n_emitted_h[s.idx])
+            acc = n_em - 1
+            if s.drafts:
+                task.n_drafted += len(s.drafts)
+                task.n_draft_accepted += acc
+                self.metrics.on_draft(len(s.drafts), acc)
+                if task.ngram is not None:
+                    self._ngram_observe(task, len(s.drafts), acc)
+            # the cache now holds next_token and the accepted drafts
+            kept = [s.next_token] + s.drafts[:acc]
+            s.cache_tokens.extend(kept)
+            s.pos += len(kept)
+            ngram = task.ngram
+            for j in range(n_em):
+                self._accept_token(
+                    s, int(toks_h[s.idx, j]),
+                    ids_h[s.idx, j] if ids_h is not None else None,
+                    probs_h[s.idx, j] if probs_h is not None else None,
+                    float(tokps_h[s.idx, j]) if tokps_h is not None else 0.0)
+                if ngram is not None:
+                    ngram.push(task.prompt_tokens + task.generated)
+                if s.task is None:  # finished/cancelled mid-emission
+                    break
+
+    # -- drafting ------------------------------------------------------------
+
+    def _make_drafts(self, s: Slot) -> list[int]:
+        """Draft continuation tokens for one slot by n-gram lookup (JAX
+        `_make_drafts`; the draft model drafts in _draft_model_pass)."""
+        task = s.task
+        if task.host_sampler is not None:
+            return []   # host-sampled slots draft nothing
+        k = min(self.ecfg.draft_max, max(task.budget_left() - 1, 0))
+        if k <= 0 or task.ngram is None or not self._ngram_gate(task):
+            return []
+        return task.ngram.draft(task.prompt_tokens + task.generated, k)
+
+    def _ngram_dominated(self) -> bool:
+        """n-gram drafting needs the synced history, so a drafted pass
+        costs one host sync for at most 1 + draft_max tokens and cannot
+        pipeline; when a chain moves more tokens a sync, drafting is
+        skipped altogether (JAX `_ngram_dominated`)."""
+        return self.ecfg.decode_chain > self.ecfg.draft_max + 1
+
+    def _ngram_gate(self, task) -> bool:
+        """May this task n-gram-draft this pass? (JAX `_ngram_gate`.) A
+        held task rejoins chained decode and re-probes with ONE drafted
+        pass every lookup_probe_every tokens (its n-gram cache keeps
+        learning from chain-emitted tokens meanwhile)."""
+        if self._ngram_dominated():
+            return False
+        if self.ecfg.lookup_min_accept <= 0:
+            return True
+        if not hasattr(task, "spec_window"):
+            task.spec_window = []       # last <= 4 per-pass accept ratios
+            task.spec_resume_at = -1    # generated count to re-probe at
+            task.spec_probe = False     # the next drafted pass is a probe
+            return True
+        if task.spec_resume_at >= 0:
+            if len(task.generated) < task.spec_resume_at:
+                return False
+            task.spec_resume_at = -1
+            task.spec_window = []
+            task.spec_probe = True      # one pass decides
+        return True
+
+    def _ngram_may_draft(self, task, ahead: int = 0) -> bool:
+        """Could this task draft within the next `ahead` emitted tokens
+        (no change to its gate; JAX `_ngram_may_draft`)?"""
+        if self.ecfg.lookup_min_accept <= 0:
+            return True
+        ra = getattr(task, "spec_resume_at", -1)
+        return ra < 0 or len(task.generated) + ahead >= ra
+
+    def _ngram_observe(self, task, drafted: int, accepted: int) -> None:
+        """Fold one drafted pass's acceptance into the task's moving
+        window; hold drafting when its mean dips below the threshold (JAX
+        `_ngram_observe`)."""
+        th = self.ecfg.lookup_min_accept
+        if th <= 0 or drafted <= 0 or not hasattr(task, "spec_window"):
+            return
+        win = task.spec_window
+        win.append(accepted / drafted)
+        if len(win) > 4:
+            win.pop(0)
+        need = 1 if task.spec_probe else 2
+        if len(win) >= need and sum(win) / len(win) < th:
+            task.spec_resume_at = (len(task.generated)
+                                   + self.ecfg.lookup_probe_every)
+        task.spec_probe = False
+
+    def _draft_eligible(self, dec: list) -> list:
+        """Clear every slot's drafts; the slots the draft model drafts
+        for: device-sampled, with a budget past the next token and room
+        for 1 + draft_max positions (JAX `_draft_model_pass`)."""
+        K = self.ecfg.draft_max
+        for s in dec:
+            s.drafts = []
+        return [s for s in dec if s.task.host_sampler is None
+                and s.task.budget_left() > 1
+                and s.pos + 1 + K <= s.capacity]
+
+    def _draft_model_pass(self, dec: list) -> None:
+        """The draft model's drafts for every eligible slot, on the host
+        (the one-token pass's two-sync path, JAX `_draft_model_pass` with
+        sync): catch the draft cache up, then one greedy draft chain of
+        draft_max steps whose confident run (p >= draft_p_min, on the
+        device) becomes the slot's drafts, or none when shorter than
+        draft_min."""
+        eligible = self._draft_eligible(dec)
+        if not eligible:
+            return
+        self._draft_catch_up(eligible)
+        K = self.ecfg.draft_max
+        S = len(self.slots)
+        h = self._dec_in.host()
+        h[:] = 0
+        h[S:2 * S] = self.slot_ctx
+        for s in eligible:
+            h[s.idx], h[S + s.idx], h[2 * S + s.idx] = \
+                s.next_token, s.pos, 1
+        self._dec_in.push()
+        packed = self.graphs.run(("draft", K),
+                                 lambda: self._draft_program(K))
+        packed_h = self._copies.wait(self._copies.start(
+            (packed,) + (None,) * 4))[0]
+        for s in eligible:
+            s.draft_pos = s.pos + 1     # next_token is in the draft cache
+            d = packed_h[s.idx, :int(packed_h[s.idx, K])].tolist()
+            s.drafts = d if len(d) >= self.ecfg.draft_min else []
+
+    def _draft_program(self, K: int):
+        """One greedy draft chain of K steps over the staged decode
+        operands: (tokens | n_ok [S, K + 1] int32)."""
+        S = len(self.slots)
+        d = self._dec_in.dev
+        toks, n_ok = _draft_chain_greedy(
+            self.draft_params, self.draft_cfg, d[:S], d[S:2 * S],
+            self.draft_kv, d[2 * S:] != 0, self.draft_cos, self.draft_sin,
+            self.ecfg.draft_p_min, K)
+        return torch.cat([toks, n_ok[:, None]], dim=1).to(torch.int32)
+
+    def _draft_catch_up(self, eligible: list) -> None:
+        """Feed the draft cache the tokens it has not seen, in chunks of
+        at most n_ubatch (after a context shift, the whole history), each
+        chunk one batched prefill pass of the draft (the flash prefill
+        kernel), through next_token's predecessor, so drafting can start
+        from next_token (JAX `_draft_catch_up`)."""
+        S = len(self.slots)
+        missing = {s.idx: s.cache_tokens[s.draft_pos:] for s in eligible}
+        while any(missing.values()):
+            T = self._bucket(min(max(len(m) for m in missing.values()),
+                                 self.ecfg.n_ubatch))
+            h = self._pre_in.host()
+            h[:S * (3 + T)] = 0
+            tokens = h[3 * S:S * (3 + T)].reshape(S, T)
+            for s in eligible:
+                m = missing[s.idx][:T]
+                if not m:
+                    continue
+                tokens[s.idx, :len(m)] = m
+                h[s.idx] = s.pos - len(missing[s.idx])
+                h[S + s.idx] = len(m)
+                missing[s.idx] = missing[s.idx][len(m):]
+            self._pre_in.push(S * (3 + T))
+            self.graphs.run(("draft_prefill", T),
+                            lambda T=T: self._draft_prefill_program(T))
+
+    def _draft_prefill_program(self, T: int) -> tuple:
+        """One batched prefill pass of the draft, bucket T, over the staged
+        prefill operands; no logits, no sample."""
+        S = len(self.slots)
+        d = self._pre_in.dev
+        prefill_batch_impl(
+            self.draft_params, self.draft_cfg, d[3 * S:S * (3 + T)].view(S, T),
+            d[:S], d[S:2 * S], self.draft_kv, self.draft_cos, self.draft_sin,
+            logits=False)
+        return ()
+
+    # -- speculative passes (a draft model, no slot under host control) ------
+
+    def _decode_pass_fused_draft(self, dec: list) -> None:
+        """Draft + verify with ONE host sync a pass (JAX
+        `_decode_pass_fused_draft`): the host catches the draft cache up,
+        then one program drafts for the eligible slots and verifies every
+        slot off the draft chain's device-resident tokens (_spec_rounds at
+        M = 1, no carry)."""
+        eligible = self._draft_eligible(dec)
+        if eligible:
+            self._draft_catch_up(eligible)
+        self._refresh_arrs()
+        rec = self._dispatch_spec(dec, 1, drafted=eligible)
+        self._emit_spec(dec, rec)
+
+    def _decode_pass_spec_chain(self, dec: list, M: int) -> None:
+        """M draft + verify rounds in ONE program and ONE host sync (see
+        _spec_rounds), pipelined as chains are: the next passes go out off
+        this one's device-resident token, position and catch-up carry
+        before the host waits for it (_consume_spec_chain). Tokens past a
+        task's end are discarded on the host."""
+        self._draft_catch_up(dec)
+        self._refresh_arrs()
+        self._spec_q.append(self._dispatch_spec(dec, M, drafted=dec))
+        self._consume_spec_chain(dec)
+
+    def _dispatch_spec(self, dec: list, M: int, drafted: list,
+                       newest: _Spec | None = None) -> _Spec:
+        """Stage a spec pass's operands, run it and start the copy of its
+        outputs. Each slot of `dec` verifies from its position, the slots
+        of `drafted` draft. M = 1 without `newest` is the one-round pass
+        (no carry); an M-round pass takes a carry, valid for its slots
+        when it follows `newest` (a pass in flight, whose device-resident
+        next token, position and carry it copies on the device; its host
+        start positions are then unknown until `newest` is emitted)."""
+        t0 = time.monotonic()
+        S = len(self.slots)
+        T = 1 + self.ecfg.draft_max
+        h = self._spec_in.host()
+        h[:] = 0
+        pos0 = np.full(S, self.slot_ctx, np.int64)
+        for s in dec:
+            h[s.idx], pos0[s.idx], h[2 * S + s.idx] = s.next_token, s.pos, 1
+            h[S * (6 + T) + s.idx] = int(newest is not None)
+        h[S:2 * S] = pos0
+        for s in drafted:
+            h[3 * S + s.idx] = 1
+        self._spec_in.push()
+        if newest is not None:
+            d = self._spec_in.dev
+            ptoks, pnem, ppos = newest.carry
+            d[:S].copy_(newest.tok_next)
+            d[S:2 * S].copy_(newest.pos_end)
+            d[4 * S:S * (4 + T)].view(S, T).copy_(ptoks)
+            d[S * (4 + T):S * (5 + T)].copy_(pnem)
+            d[S * (5 + T):S * (6 + T)].copy_(ppos)
+        kw = self._chain_fast_kw(dec)
+        carry = M > 1
+        key = ("spec" if carry else "fused", M, T - 1, kw["samp_extras"],
+               kw.get("samp_kcap", 0))
+        outs = self.graphs.run(key, lambda: self._spec_program(
+            M, carry, **kw))
+        want = any(s.task.n_probs > 0 for s in dec)
+        copy = self._copies.start(
+            (outs[0],) + (tuple(outs[1:4]) if want else (None,) * 3)
+            + (None,))
+        tasks = [None] * S
+        for s in dec:
+            tasks[s.idx] = s.task
+        return _Spec(copy, None if newest is not None else pos0, tasks, M,
+                     frozenset(s.idx for s in drafted), t0, outs[4],
+                     outs[5], outs[6])
+
+    def _spec_program(self, M: int, carry: bool, **kw):
+        """One spec pass of M rounds over the staged operands (see
+        _spec_rounds)."""
+        S = len(self.slots)
+        T = 1 + self.ecfg.draft_max
+        d = self._spec_in.dev
+        pcarry = None
+        if carry:
+            pcarry = (d[4 * S:S * (4 + T)].view(S, T),
+                      d[S * (4 + T):S * (5 + T)], d[S * (5 + T):S * (6 + T)],
+                      d[S * (6 + T):S * (7 + T)] != 0)
+        packed, ids, probs, tokps, tok_next, pos_end, last, self.kv, \
+            self.draft_kv, self.sstate = _spec_rounds(
+                self.params, self.cfg, self.draft_params, self.draft_cfg,
+                d[:S], d[S:2 * S], self.kv, self.draft_kv, self.sstate,
+                self.arrs, d[2 * S:3 * S] != 0, d[3 * S:4 * S] != 0,
+                self.rope_cos, self.rope_sin, self.draft_cos, self.draft_sin,
+                self.ecfg.draft_p_min, pcarry, M, T - 1, **kw)
+        return packed, ids, probs, tokps, tok_next, pos_end, last
+
+    def _fill_spec_queue(self, dec: list, pend: _Spec) -> None:
+        """Top the spec queue up to pipeline_depth, each new pass going out
+        off the newest pass's device-resident token, position and carry
+        (JAX `_fill_spec_queue`); `pend` is the pass being consumed, its
+        rounds still in flight. Only while even full acceptance of the
+        rounds in flight cannot cover every slot's budget, and only while
+        every position a pass may reach stays inside the cache (no shift
+        can be needed mid-flight)."""
+        if not self.ecfg.pipeline_chain:
+            return
+        per_round = 1 + self.ecfg.draft_max
+        while len(self._spec_q) < max(1, self.ecfg.pipeline_depth):
+            newest = self._spec_q[-1] if self._spec_q else pend
+            inflight = pend.m + sum(p.m for p in self._spec_q)
+            if max(self._remaining(s) for s in dec) <= inflight * per_round:
+                return
+            M = self.ecfg.spec_rounds
+            if any(s.pos + (inflight + M) * per_round > s.capacity
+                   for s in dec):
+                return
+            self._spec_q.append(self._dispatch_spec(dec, M, dec, newest))
+            self.metrics.on_speculate(post_prefill=False)
+
+    def _consume_spec_chain(self, dec: list) -> bool:
+        """Emit the OLDEST spec pass in flight (JAX `_consume_spec_chain`).
+        Covered = the same task at the expected position. Returns False,
+        the whole queue dropped, when nothing is covered; admission
+        rebuilds a dropped slot's device state, as for dropped chains."""
+        pend = self._spec_q.pop(0)
+        covered = [s for s in dec
+                   if s.task is not None and pend.tasks[s.idx] is s.task
+                   and (pend.pos0 is None or s.pos == int(pend.pos0[s.idx]))]
+        if not covered:
+            self._copies.drop(pend.copy)
+            self._drop_queue()
+            return False
+        if len(covered) == len(dec):
+            self._fill_spec_queue(covered, pend)
+        self._emit_spec(covered, pend)
+        # the next pass starts where this one ended
+        if self._spec_q and self._spec_q[0].pos0 is None:
+            nxt = np.full(len(self.slots), -1, np.int64)
+            for s in covered:
+                if s.task is not None:
+                    nxt[s.idx] = s.pos
+            self._spec_q[0].pos0 = nxt
+        return True
+
+    def _emit_spec(self, covered: list, rec: _Spec) -> None:
+        """Wait for a spec pass's outputs and emit its rounds in turn, as
+        verify passes whose drafts are the verify tokens' first n_draft
+        (the accepted ones are equal to them, and only those are read)."""
+        T = 1 + self.ecfg.draft_max
+        packed_h, ids_h, probs_h, tokps_h, _ = self._copies.wait(rec.copy)
+        tasks0 = [s.task for s in self.slots]
+        gen0 = {s.idx: len(s.task.generated) for s in covered}
+        last_nem = {s.idx: 0 for s in covered}
+        for m in range(rec.m):
+            alive = [s for s in covered
+                     if s.task is not None and s.task is tasks0[s.idx]]
+            if not alive:
+                break
+            toks_m = packed_h[m, :, :T]
+            nem_m = packed_h[m, :, T]
+            for s in alive:
+                s.drafts = toks_m[s.idx, :int(packed_h[m, s.idx, T + 1])
+                                  ].tolist()
+                last_nem[s.idx] = int(nem_m[s.idx])
+            self._emit_verify(
+                alive, toks_m, nem_m,
+                ids_h[m] if ids_h is not None else None,
+                probs_h[m] if probs_h is not None else None,
+                tokps_h[m] if tokps_h is not None else None)
+        for s in covered:
+            # the draft cache holds every row before the last round's
+            # start and that start's token; the next pass's catch-up
+            # feeds the rest
+            if s.task is not None and s.task is tasks0[s.idx] \
+                    and s.idx in rec.drafted:
+                s.draft_pos = s.pos - last_nem[s.idx] + 1
+            s.drafts = []
+        self._acct_decode(sum(len(tasks0[s.idx].generated) - gen0[s.idx]
+                              for s in covered), rec.t0)
 
     def _context_shift(self, s: Slot) -> None:
         """Drop min(n_left / 4, n_ubatch) rows after n_keep and re-rotate
@@ -771,7 +1378,8 @@ class Engine:
         shift). Enqueued on the stream the programs replay on; a chain in
         flight over the slot would move its rows under it, so none may
         be. The sampler's step is not a position and stays."""
-        if any(c.tasks[s.idx] is not None for c in self._chain_q):
+        if any(c.tasks[s.idx] is not None
+               for c in self._chain_q + self._spec_q):
             raise RuntimeError(f"context shift of slot {s.idx} with a "
                                "chain in flight over it")
         task = s.task
@@ -781,6 +1389,17 @@ class Engine:
                  self.delta_sin, self.cfg.rope_mode)
         del s.cache_tokens[n_keep:n_keep + n_discard]
         s.pos -= n_discard
+        s.drafts = []
+        if self.draft_kv is not None and s.draft_pos >= n_keep + n_discard:
+            # the draft cache shifts alongside the target's (the reference
+            # shifts the draft context too, httpserver.hpp:3508-3524); one
+            # that has not reached the discarded rows keeps its prefix
+            shift_kv(self.draft_kv, s.idx, n_keep, n_discard,
+                     self.draft_delta_cos, self.draft_delta_sin,
+                     self.draft_cfg.rope_mode)
+            s.draft_pos -= n_discard
+        else:
+            s.draft_pos = min(s.draft_pos, n_keep)
         if task:
             task.n_shifted += 1
         SRV_DBG("shift", "slot %d keep=%d discard=%d pos=%d", s.idx, n_keep,
@@ -913,6 +1532,18 @@ class Engine:
         if any(s.state == "decode" and _host_controlled(s.task)
                for s in self.slots):
             return
+        if self.ecfg.lookup_ngram_min > 0 and not self._ngram_dominated():
+            # the JAX gate: a slot with an n-gram match on the tokens
+            # synced so far drafts next pass, so no chain goes out (a
+            # speculated chain must be consumed by its slots); slots
+            # without a match, or held by the acceptance gate, pipeline
+            for s in dec:
+                task = s.task
+                if task is None or task.ngram is None \
+                        or not self._ngram_may_draft(task, k_unemitted):
+                    continue
+                if task.ngram.draft(task.prompt_tokens + task.generated, 1):
+                    return
         waiting = not self.queue.empty()
         idle = any(s.state == "idle" for s in self.slots)
         if waiting and idle:
@@ -967,9 +1598,11 @@ class Engine:
         return True
 
     def _drop_queue(self) -> None:
-        for c in self._chain_q:
+        """Drop every chain and spec pass in flight, unread."""
+        for c in self._chain_q + self._spec_q:
             self._copies.drop(c.copy)
         self._chain_q.clear()
+        self._spec_q.clear()
 
     def _emit_chain(self, dec: list, rec: _Chain) -> None:
         """Wait for a chain's tokens and hand them to its slots."""
@@ -977,6 +1610,7 @@ class Engine:
         n_tok = 0
         for s in dec:
             inp = s.next_token
+            ngram = s.task.ngram if s.task is not None else None
             for j in range(rec.k):
                 if s.task is None:   # finished/cancelled mid-chain
                     break
@@ -988,6 +1622,8 @@ class Engine:
                     s, tok, ids_h[s.idx, j] if ids_h is not None else None,
                     probs_h[s.idx, j] if probs_h is not None else None,
                     float(tokps_h[s.idx, j]) if tokps_h is not None else 0.0)
+                if ngram is not None and s.task is not None:
+                    ngram.push(s.task.prompt_tokens + s.task.generated)
                 inp = tok
         self._acct_decode(n_tok, rec.t0)
 

@@ -206,7 +206,9 @@ class HTTPServer:
                     "support_image": False,
                     "support_vision": False,
                     "support_audio": False,
-                    "support_speculative": False,
+                    "support_speculative": (
+                        self.engine.draft_params is not None
+                        or self.engine.ecfg.lookup_ngram_min > 0),
                     "support_tool_calls": self.chat.source is not None,
                     "support_reasoning": self.reasoning_markers is not None,
                 },

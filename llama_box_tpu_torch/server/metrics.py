@@ -18,8 +18,8 @@ class Metrics:
         self.n_requests = 0
         self.n_image_steps_forward = 0
         self.n_image_steps_reverse = 0
-        # decode chains dispatched before the host synced the one before
-        # (all; those off a prefill's first tokens)
+        # decode chains and speculative passes dispatched before the host
+        # synced the one before (all; those off a prefill's first tokens)
         self.n_spec_chains = 0
         self.n_spec_post_prefill = 0
 

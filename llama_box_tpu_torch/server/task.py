@@ -147,6 +147,7 @@ class CompletionsTask(BaseTask):
         self.reasoning_text = ""
         self.rate_bucket = rate_bucket
         self.host_sampler = None    # sampling.HostSampler, set at admission
+        self.ngram = None           # ngram.NgramCache, set at admission
         self.chunks = chunks        # None => plain text prompt
 
         # mutable generation state

@@ -1264,6 +1264,50 @@ def test_engine_programs_replay_the_eager_bits(cuda, tiny_model):
     assert engines[1].graphs.n_graphs == 0
 
 
+def test_a_graphs_outputs_survive_the_other_graphs_replays(cuda,
+                                                          tiny_model):
+    """Two prefill buckets and three decode chains captured in turn; then
+    each one replays and keeps its outputs while every other one replays
+    after it: no replay writes over another graph's outputs. The engine
+    reads them after other programs ran (the newest chain's last tokens
+    start the next chain, dispatched after a new request's prefill; a
+    speculative pass's carry starts the next pass)."""
+    eng = _engine(tiny_model, True)
+    rng = np.random.default_rng(95)
+    progs = {}
+    for T in (16, 32):
+        ids = rng.integers(300, 500, T).tolist()
+
+        def run(T=T, ids=ids):
+            _stage_prefill(eng, {0: (0, ids), 2: (0, ids[:T // 2])}, T)
+            eng._refresh_arrs()
+            return eng.graphs.run(("prefill", T),
+                                  lambda: eng._prefill_program(T))
+        progs["prefill", T] = run
+    for K in (1, 4, 16):
+        def run(K=K):
+            _stage_decode(eng, [401, None, 402, 403], [40, 0, 20, 9])
+            return eng.graphs.run(("decode", K, False, 64),
+                                  lambda: eng._decode_program(
+                                      K, samp_extras=False, samp_kcap=64))
+        progs["decode", K] = run
+    for run in progs.values():
+        run()           # eager first use
+        run()           # capture + replay
+    assert eng.graphs.n_graphs == len(progs)
+    for key, run in progs.items():
+        outs = run()
+        torch.cuda.synchronize()
+        want = [t.clone() for t in outs]
+        for other, run2 in progs.items():
+            if other == key:
+                continue
+            run2()
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(outs, want)), \
+                f"replaying {other} changed the outputs of {key}"
+
+
 def test_engine_greedy_tokens_with_and_without_graphs(cuda, tiny_model):
     """Four greedy requests (one repeated) through the started engine:
     graphs on and off, K = 1 and 16, give the same tokens; with graphs on,
@@ -1646,3 +1690,200 @@ def test_engine_host_sampled_tokens_with_and_without_graphs(cuda,
     text = tiny_model[3].decode(out[True][0])
     assert Grammar('root ::= [a-e]+ "."', native=False).accept_bytes(
         text.encode()), text
+
+
+# -- speculative decoding: the verify rows, the spec passes --------------------
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16cache", "int8"])
+def test_verify_rows_are_the_one_row_queries(cuda, quant):
+    """T = 9 verify rows a slot at the served shape (C 2048, 4 KV heads of
+    8 queries, D 64): query j through flash decode with the verify rows as
+    its chain (meta (pos0 + j, j + 1)) gives, bit for bit, the one-row
+    query at pos0 + j whose earlier rows are in the cache as the verify
+    writes them (a decode step at K = 1). Cache positions from pos0 on
+    hold NaN in the verify call: it must not read them."""
+    from llama_box_tpu_torch.models.llama import (KVCache, _attn_verify,
+                                                  _cache_rows)
+    rng = np.random.default_rng(95)
+    B, C, Hkv, G, D, T = 4, 2048, 4, 8, 64, 9
+    bf = torch.bfloat16
+    pos0 = [17, 1023, 2030, 500]
+    q = _x(rng, B * T * Hkv * G, D, cuda).reshape(B, T, Hkv * G, D)
+    k = _x(rng, B * T * Hkv, D, cuda).reshape(B, T, Hkv, D)
+    v = _x(rng, B * T * Hkv, D, cuda).reshape(B, T, Hkv, D)
+    base = _x(rng, B * C * Hkv, D, cuda, torch.float32).reshape(B, C, Hkv, D)
+    if quant:
+        sc = (base.abs().amax(-1) / 127).to(bf)
+        codes = (base / sc.float()[..., None]).round().clamp(-127, 127).to(
+            torch.int8)
+        kv = KVCache(codes.clone(), codes.clone(), sc.clone(), sc.clone())
+    else:
+        kv = KVCache(base.to(bf), base.flip(0).to(bf))
+    stored = _cache_rows(kv, k, v)
+    poisoned = [t.clone() for t in kv if t is not None]
+    for b, p in enumerate(pos0):
+        poisoned[-1 if quant else 0][b, p:] = float("nan")
+        poisoned[-2 if quant else 1][b, p:] = float("nan")
+    win = torch.zeros(2, dtype=torch.int32, device=cuda)
+    j = torch.arange(T, device=cuda)
+    p0 = torch.tensor(pos0, device=cuda)
+    meta = torch.stack([(p0[None] + j[:, None]),
+                        (j + 1)[:, None].expand(T, B)], -1).to(torch.int32)
+    ks, vs = (poisoned[2], poisoned[3]) if quant else (None, None)
+    got = _attn_verify(q, k, v, poisoned[0], poisoned[1], ks, vs, stored,
+                       meta, win, bf, None)
+    flash_decode.launches = 0
+    for jj in range(T):
+        caches = [t.clone() for t in kv if t is not None]
+        for f, new in enumerate(stored):
+            for b, p in enumerate(pos0):
+                caches[f][b, p:p + jj] = new[b, :jj]
+        qd = q[:, jj].reshape(B, Hkv, G, D).contiguous()
+        m1 = torch.tensor([[p + jj, 1] for p in pos0], dtype=torch.int32,
+                          device=cuda)
+        sc_kw = dict(k_scale=caches[2], v_scale=caches[3]) if quant else {}
+        one = flash_decode(qd, caches[0], caches[1], k[:, jj:jj + 1].to(bf),
+                           v[:, jj:jj + 1].to(bf), m1, win, **sc_kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got[:, jj].float()).all()
+        assert torch.equal(got[:, jj], one.to(bf).reshape(B, -1)), jj
+    assert flash_decode.launches == T
+
+
+def _spec_engine(tiny, graphs, start=False, **kw):
+    """An engine over the tiny model drafting for itself (draft_p_min 0:
+    every draft is the target's own greedy token)."""
+    from llama_box_tpu_torch.server.engine import Engine, EngineConfig
+    _, cfg, params, tok = tiny
+    kw = dict(dict(n_slots=4, n_ctx=4 * 256, n_ubatch=32,
+                   kv_dtype="bfloat16", decode_chain=16, draft_max=4,
+                   draft_p_min=0.0), **kw)
+    eng = Engine(cfg, params, tok, EngineConfig(cuda_graphs=graphs, **kw),
+                 device="cuda", draft=(cfg, params))
+    eng.fuse_params()
+    if start:
+        eng.start()
+    return eng
+
+
+def _stage_spec(eng, tokens, pos, carry=False):
+    """Stage a spec pass: slot b verifies from tokens[b] at pos[b] (None:
+    inactive) and drafts; carry: round 0's catch-up is valid."""
+    S = len(eng.slots)
+    T = 1 + eng.ecfg.draft_max
+    h = eng._spec_in.host()
+    h[:] = 0
+    h[S:2 * S] = eng.slot_ctx
+    for b, (t, p) in enumerate(zip(tokens, pos)):
+        if t is not None:
+            h[b], h[S + b], h[2 * S + b], h[3 * S + b] = t, p, 1, 1
+            h[S * (4 + T) + b] = 2
+            h[S * (5 + T) + b] = max(p - 2, 0)
+            h[S * (6 + T) + b] = int(carry)
+    eng._spec_in.push()
+
+
+def _warm_spec_keys(eng):
+    """Every program key a self-drafting wave of plain requests meets, run
+    twice (its eager first use, then its capture): the prefill and the
+    draft's catch-up buckets, the M-round spec pass and the one-round
+    pass."""
+    S = len(eng.slots)
+    K = eng.ecfg.draft_max
+    for T in eng.buckets:
+        for key, prog in ((("prefill", T), eng._prefill_program),
+                          (("draft_prefill", T), eng._draft_prefill_program)):
+            for _ in range(2):
+                _stage_prefill(eng, {0: (0, [400] * T)}, T)
+                eng._refresh_arrs()
+                eng.graphs.run(key, lambda T=T, prog=prog: prog(T))
+    for M, carry, name in ((eng.ecfg.spec_rounds, True, "spec"),
+                           (1, False, "fused")):
+        for extras, kcap in ((True, 0), (False, 0), (False, 64)):
+            kw = dict(samp_extras=extras, samp_kcap=kcap)
+            for _ in range(2):
+                _stage_spec(eng, [400] + [None] * (S - 1), [0] * S, carry)
+                eng.graphs.run((name, M, K, extras, kcap),
+                               lambda M=M, c=carry, kw=kw:
+                               eng._spec_program(M, c, **kw))
+    torch.cuda.synchronize()
+
+
+def test_spec_pass_replays_the_eager_bits_and_counts_its_kernels(
+        cuda, tiny_model, tmp_path):
+    """One M-round spec pass (M 2, K 4, three slots, one idle) on an
+    engine with graphs and on one without, three times with its carry:
+    every output, both KV caches and the sampler state equal bit for bit;
+    its graph holds, a round, one flash prefill launch a draft layer (the
+    catch-up), K flash decode launches a draft layer (the draft steps) and
+    K + 1 a target layer (the verify rows)."""
+    engines = [_spec_engine(tiny_model, g, spec_rounds=2) for g in
+               (True, False)]
+    key = ("spec", 2, 4, False, 64)
+    for it in range(3):
+        outs = []
+        for eng in engines:
+            _stage_spec(eng, [400 + it, 401, None, 403], [20, 33, 0, 7],
+                        carry=it > 0)
+            eng._refresh_arrs()
+            out = eng.graphs.run(key, lambda e=eng: e._spec_program(
+                2, True, samp_extras=False, samp_kcap=64))
+            torch.cuda.synchronize()
+            outs.append(_cloned(out[:6]) + _cloned(out[6])
+                        + _cloned(eng.kv) + _cloned(eng.draft_kv)
+                        + _cloned(eng.sstate))
+        for a, b in zip(*outs):
+            assert torch.equal(a, b), it
+        packed = outs[0][0]
+        assert (packed[:, 2, 5] == 0).all() and (packed[:, 0, 6] == 4).all()
+    assert engines[0].graphs.n_graphs == 1
+    eng = engines[1]
+    L = eng.cfg.n_layers
+    names, graph = _graph_kernels(lambda: eng._spec_program(
+        2, True, samp_extras=False, samp_kcap=64), tmp_path)
+    graph.replay()
+    torch.cuda.synchronize()
+    fp = [n for n in names if "flash_prefill" in n]
+    fd = [n for n in names if "flash_decode" in n]
+    assert len(fp) == 2 * L
+    assert len(fd) == 2 * (L * 4 + L * 5)
+
+
+def test_spec_wave_pipelined_syncs_only_at_consume(cuda, tiny_model):
+    """Self-drafting, every key captured first: a wave of four plain
+    requests (greedy and seeded) runs under set_sync_debug_mode("error")
+    with spec passes pipelined (pass N + 1 off pass N's device-resident
+    carry), captures nothing, accepts every draft and gives the tokens of
+    plain chained decode."""
+    rng = np.random.default_rng(96)
+    specs = _pipeline_specs(rng, n=40, penalty=1.0)
+    eng = _spec_engine(tiny_model, True, spec_rounds=2)
+    _warm_spec_keys(eng)
+    n_graphs = eng.graphs.n_graphs
+    filled = []
+    fill = eng._fill_spec_queue
+
+    def spy(dec, pend):
+        n0 = len(eng._spec_q)
+        fill(dec, pend)
+        filled.append(len(eng._spec_q) - n0)
+    eng._fill_spec_queue = spy
+    eng.start()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = _serve(eng, specs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert eng.graphs.n_graphs == n_graphs
+        assert sum(filled) > 0
+        m = eng.metrics
+        assert m.n_drafted_total > 0
+    finally:
+        eng.stop()
+    ref = _engine(tiny_model, True, chain=16, start=True)
+    try:
+        assert _serve(ref, specs) == out
+    finally:
+        ref.stop()
