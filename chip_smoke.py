@@ -150,11 +150,35 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     on every path, whether a verify forward's logits and cache rows are
     bit-equal to those of its rows' one-row decode steps (bf16 and int8
     caches);
+ 10/10w/10q. embeddings and rerank. 10w and 10q, after each path's main
+    path: one /v1/embeddings request of 9 inputs (a pass of 8 rows of
+    more than 64 token rows, then one of 1 row: on w8a8 the fused
+    kernels), the kernel counts from 0 around it (the path's projection
+    kernels and flash prefill must run, flash decode not). 10, after
+    phase 8: a synthetic BERT GGUF at BAAI/bge-base-en-v1.5's widths (12
+    x 768, 12 heads, FF 3072, 512 positions, a 30522-piece WordPiece
+    vocab, pooling cls, random floats from --seed) served by the CLI with
+    --embeddings: one request of 64 texts of 16 to 500 tokens, float then
+    base64 (equal), every vector against the f32 CPU encoder (cosine >=
+    BERT_COS); a cross-encoder of the same widths (cls and cls.output
+    heads, pooling rank) with --rerank: a query with 32 documents,
+    normalized and not, the raw scores within RERANK_ATOL of the f32 CPU
+    encoder's and the top 5 in its order but for near ties; each request
+    sent twice first, no graph captured in the measured ones. Then the
+    bf16 path's model: three greedy chats at -np 4 alone and with a
+    32-input /v1/embeddings request sent once all three decode (fresh
+    engines, graphs, pipelined): the same texts, every vector against the
+    f32 CPU forward_embeddings (cosine >= LLAMA_COS), flash prefill
+    launched in the request. On both models, one ("embed", 8, 512)
+    replay bit-equal to the eager pass and its device ms beside its
+    bound; printed: embeddings tok/s, rerank docs/s;
  9. print a `kernels` line (seven kernels; launches count graph replays;
-    each also with its launches in the self-drafting waves of 8/8w/8q
-    and in phase 8's n-gram, self-draft and 2-layer draft waves), an
-    `e2e` line (three paths and phases 6, 7 and 8), the card line, and as
-    the last line {"ok": true, "device": {...}}.
+    each also with its launches in the self-drafting waves of 8/8w/8q,
+    in phase 8's n-gram, self-draft and 2-layer draft waves and in each
+    path's embeddings request of phase 10, where bf16's window also holds
+    the chats' chains), an `e2e` line (three paths and phases 6, 7, 8 and
+    10), the card line, and as the last line {"ok": true, "device":
+    {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without CUDA,
 or without the llama_box_tpu_torch package beside it, it exits non-zero
@@ -1419,6 +1443,8 @@ def _serve(engine, app, url, seed, dev, profile, mode):
     log(f"  CUDA graphs: {engine.graphs.n_graphs} captured, pool "
         f"{engine.graphs.pool_bytes / 2**20:.1f} MiB")
     e2e = wave_metrics(wave, m)
+    if mode != "bf16":              # bf16: phase 10, after phase 8
+        e2e["embed"] = embed_path_check(engine, url, seed, mode)
     e2e.update(graphs=engine.graphs.n_graphs,
                graph_pool_mib=engine.graphs.pool_bytes / 2**20)
 
@@ -3324,6 +3350,526 @@ def spec_shift_run(engine, seed) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: embeddings and rerank (the BERT encoder at BAAI/bge-base-en-v1.5's
+# widths; the llama embedding pass on each served path)
+
+# bge-base-en-v1.5's published widths (BERT-base): 12 layers, 768 wide, 12
+# heads, FF 3072, 512 positions, a 30522-piece WordPiece vocab
+BL, BE, BH, BFF, BPOS, BV = 12, 768, 12, 3072, 512, 30522
+EMB_INPUTS, EMB_LENS = 64, (16, 500)      # one /v1/embeddings request
+RERANK_DOCS, RERANK_LENS = 32, (20, 200)  # one /v1/rerank query
+LLAMA_EMB_INPUTS, LLAMA_EMB_LENS = 32, (16, 64)
+LLAMA_CHATS, LLAMA_CHAT_TOKENS = 3, 256
+BERT_COS, LLAMA_COS = 0.999, 0.99         # against the f32 CPU forward
+# a raw rerank score (cls_out's column 0, about N(0, 0.3) on these weights)
+# within RERANK_ATOL of the f32 CPU encoder's; two documents whose CPU
+# scores lie within twice that may swap places in the top 5
+RERANK_ATOL = 0.02
+EMBED_KEY_ROWS, EMBED_KEY_T = 8, 512      # the replay timed on each model
+
+
+def wordpiece_vocab() -> list:
+    """[PAD] [UNK] [CLS] [SEP] [MASK], then the 1- to 3-letter words and
+    their ## continuations, up to BV pieces."""
+    letters = [chr(c) for c in range(ord("a"), ord("z") + 1)]
+    words = letters + [a + b for a in letters for b in letters]
+    words += [a + b + c for a in letters for b in letters for c in letters]
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words \
+        + ["##" + w for w in words]
+    return vocab[:BV]
+
+
+def write_bert(path: str, seed: int, rank: bool) -> None:
+    """A BERT GGUF at bge-base's widths (pooling cls) or, with `rank`, a
+    cross-encoder of the same widths with a classification head
+    (cls.weight [768, 768], cls.output.weight [1, 768], pooling rank).
+    F16 matrices and F32 vectors of random floats from `seed`: weights and
+    biases N(0, 0.02) (BERT's initializer range), norm weights 1 + N(0,
+    0.02). The tokenizer keys are a BERT conversion's: [CLS] as BOS and
+    [SEP] as EOS, both added."""
+    from llama_box_tpu_torch.gguf import GGMLType, GGUFWriter
+    rng = np.random.default_rng(seed + (1 if rank else 0))
+    vocab = wordpiece_vocab()
+    w = GGUFWriter(path, architecture="bert")
+    for k, v in (("general.name", "synthetic-bge-base-en-v1.5"
+                  + ("-reranker" if rank else "")),
+                 ("bert.block_count", BL), ("bert.context_length", BPOS),
+                 ("bert.embedding_length", BE),
+                 ("bert.feed_forward_length", BFF),
+                 ("bert.attention.head_count", BH),
+                 ("bert.attention.layer_norm_epsilon", 1e-12),
+                 ("bert.attention.causal", False),
+                 ("bert.pooling_type", 4 if rank else 2),
+                 ("tokenizer.ggml.model", "bert"),
+                 ("tokenizer.ggml.tokens", vocab),
+                 ("tokenizer.ggml.token_type", np.asarray(
+                     [3] * 5 + [1] * (BV - 5), np.int32)),
+                 ("tokenizer.ggml.unknown_token_id", 1),
+                 ("tokenizer.ggml.padding_token_id", 0),
+                 ("tokenizer.ggml.cls_token_id", 2),
+                 ("tokenizer.ggml.seperator_token_id", 3),
+                 ("tokenizer.ggml.bos_token_id", 2),
+                 ("tokenizer.ggml.eos_token_id", 3),
+                 ("tokenizer.ggml.add_bos_token", True),
+                 ("tokenizer.ggml.add_eos_token", True)):
+        w.add_kv(k, v)
+
+    def rand(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * 0.02
+
+    f16 = GGMLType.F16
+    w.add_tensor("token_embd.weight", rand(BV, BE), f16)
+    w.add_tensor("token_types.weight", rand(2, BE), f16)
+    w.add_tensor("position_embd.weight", rand(BPOS, BE), f16)
+    w.add_tensor("token_embd_norm.weight", 1.0 + rand(BE))
+    w.add_tensor("token_embd_norm.bias", rand(BE))
+    for i in range(BL):
+        p = f"blk.{i}."
+        for name, (o, n) in (("attn_q", (BE, BE)), ("attn_k", (BE, BE)),
+                             ("attn_v", (BE, BE)),
+                             ("attn_output", (BE, BE)),
+                             ("ffn_up", (BFF, BE)), ("ffn_down", (BE, BFF))):
+            w.add_tensor(p + name + ".weight", rand(o, n), f16)
+            w.add_tensor(p + name + ".bias", rand(o))
+        for name in ("attn_output_norm", "layer_output_norm"):
+            w.add_tensor(p + name + ".weight", 1.0 + rand(BE))
+            w.add_tensor(p + name + ".bias", rand(BE))
+    if rank:
+        w.add_tensor("cls.weight", rand(BE, BE), f16)
+        w.add_tensor("cls.bias", rand(BE))
+        w.add_tensor("cls.output.weight", rand(1, BE), f16)
+        w.add_tensor("cls.output.bias", rand(1))
+    w.write()
+
+
+def make_text(tok, rng, n_target: int) -> str:
+    """Random letter words whose tokens (specials included) come close to
+    n_target."""
+    words = ["".join(chr(ord("a") + c) for c in rng.integers(0, 26, n))
+             for n in rng.integers(2, 7, 2 * n_target)]
+    lo, hi = 1, len(words)
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if len(tok.encode(" ".join(words[:mid]))) <= n_target:
+            lo = mid
+        else:
+            hi = mid - 1
+    return " ".join(words[:lo])
+
+
+def _unit(v) -> np.ndarray:
+    v = np.asarray(v, np.float64)
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def _row_cos(a, b) -> np.ndarray:
+    return (_unit(a) * _unit(b)).sum(-1)
+
+
+def cpu_pooled(fwd, ids: list, group: int = 8) -> np.ndarray:
+    """fwd(tokens [B, T], lens [B]) on the CPU over token lists, in groups
+    of `group` sorted by length (padding changes no pooled row); rows back
+    in input order, f64."""
+    order = sorted(range(len(ids)), key=lambda i: len(ids[i]))
+    out = [None] * len(ids)
+    for k in range(0, len(order), group):
+        g = order[k:k + group]
+        T = max(len(ids[j]) for j in g)
+        toks = np.zeros((len(g), T), np.int64)
+        for b, j in enumerate(g):
+            toks[b, :len(ids[j])] = ids[j]
+        with torch.no_grad():
+            res = fwd(torch.from_numpy(toks),
+                      torch.tensor([len(ids[j]) for j in g]))
+        for b, j in enumerate(g):
+            out[j] = res[b].double().numpy()
+    return np.stack(out)
+
+
+def _stage_embed(eng, lists, R, T):
+    """Stage an embed pass as Engine._embed_pass does: seq_lens [R] then
+    tokens [R, T]."""
+    h = eng._emb_in.host()
+    h[:R * (1 + T)] = 0
+    toks = h[R:R * (1 + T)].reshape(R, T)
+    for b, ids in enumerate(lists):
+        toks[b, :len(ids)] = ids[:T]
+        h[b] = min(len(ids), T)
+    eng._emb_in.push(R * (1 + T))
+
+
+def embed_work(eng, R, T) -> tuple[float, float]:
+    """(bytes, operations) of one embed pass of R full rows of T tokens:
+    every 2D weight the stack multiplies read once, the token rows read
+    and the pooled rows written; 2 x rows x in x out a product, and the
+    attention's q.k and p.v over the pairs the mask keeps (all T^2 for
+    the BERT encoder, T(T+1)/2 causal), a head each."""
+    cfg, p = eng.cfg, eng.params
+    lay = p["layers"]
+    mats = [k for k in lay if k.startswith("w")]
+    per_layer = sum(int(np.prod(lay[k].shape[1:])) for k in mats)
+    bytes_w = sum(lay[k].numel() * lay[k].element_size() for k in mats)
+    rows = R * T
+    pairs = T * T if eng.bert else T * (T + 1) // 2
+    D = cfg.head_dim or cfg.n_embd // cfg.n_heads
+    flops = 2 * rows * per_layer * cfg.n_layers \
+        + 2 * 2 * R * cfg.n_heads * pairs * D * cfg.n_layers
+    emb = p["tok_embd"]
+    nbytes = bytes_w + rows * (8 + cfg.n_embd * emb.element_size()) \
+        + R * 4 * cfg.n_embd
+    return nbytes, flops
+
+
+def embed_replay(eng, lists, pooling, flush) -> dict:
+    """One ("embed", R, T, pooling) key at R = 8 rows of T = 512 tokens:
+    staged, run eagerly (Engine._embed_program, no runner), then through
+    the runner (its eager first use, its capture, then replays): the
+    replay bit-equal to the eager output; the device ms of one replay
+    (median of 15, L2 flushed) beside its bound."""
+    R, T = EMBED_KEY_ROWS, EMBED_KEY_T
+    key = ("embed", R, T, pooling)
+    fn = lambda: eng._embed_program(R, T, pooling)  # noqa: E731
+    _stage_embed(eng, lists, R, T)
+    eager = fn().clone()
+    for _ in range(3):
+        out = eng.graphs.run(key, fn)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(out, eager))
+    assert equal, f"{key}: the replay differs from the eager pass"
+    ms = device_ms(lambda: eng.graphs.run(key, fn), flush)
+    nbytes, flops = embed_work(eng, R, T)
+    bms, by = bound_ms(nbytes, flops)
+    return dict(key=list(key), replay_equals_eager=equal, ms=ms,
+                bound_ms=bms, bound_by=by, tflop=flops / 1e12)
+
+
+def _post_ok(url, body):
+    st, text, ms = http(url, body)
+    assert st == 200, (st, text[:300])
+    return json.loads(text), ms
+
+
+def bert_embed_phase(dev, seed, tmp, flush) -> dict:
+    """bge-base's widths through the CLI with --embeddings: one request of
+    EMB_INPUTS texts (float, then base64), warmed first; every vector
+    against the f32 CPU encoder."""
+    import base64
+
+    from llama_box_tpu_torch import cli
+    from llama_box_tpu_torch.models.bert import bert_forward
+    path = f"{tmp}/synthetic-bge-base-en-v1.5-f16.gguf"
+    t0 = time.perf_counter()
+    write_bert(path, seed, rank=False)
+    eng, srv = cli.build_server(["-m", path, "--port", "0", "--device",
+                                 dev.type, "--embeddings"])
+    os.remove(path)
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    log(f"  bge-base width (bert, {BL} x {BE}, pooling {eng.cfg.pooling}, "
+        f"{eng.params['tok_embd'].dtype}): written and served in "
+        f"{time.perf_counter() - t0:.1f} s")
+    try:
+        tok = eng.tokenizer
+        rng = np.random.default_rng(seed + 71)
+        texts = [make_text(tok, rng, int(n)) for n in
+                 rng.integers(EMB_LENS[0], EMB_LENS[1] + 1, EMB_INPUTS)]
+        ids = [tok.encode(t) for t in texts]
+        body = {"input": texts}
+        for _ in range(2):        # each key's eager first use, its capture
+            _post_ok(url + "/v1/embeddings", body)
+        n_graphs, seen = eng.graphs.n_graphs, set(eng.graphs._seen)
+        got, ms = _post_ok(url + "/v1/embeddings", body)
+        b64, _ = _post_ok(url + "/v1/embeddings",
+                          dict(body, encoding_format="base64"))
+        assert eng.graphs.n_graphs == n_graphs and \
+            eng.graphs._seen == seen, "a graph was captured in phase 10"
+        vecs = np.array([d["embedding"] for d in got["data"]])
+        dec = np.array([np.frombuffer(base64.b64decode(d["embedding"]),
+                                      np.float32) for d in b64["data"]])
+        assert vecs.shape == (EMB_INPUTS, BE) and np.isfinite(vecs).all()
+        assert np.array_equal(dec, vecs.astype(np.float32)), \
+            "base64 differs from the float vectors"
+        n_tok = got["usage"]["prompt_tokens"]
+        assert n_tok == sum(len(i) for i in ids)
+        t1 = time.perf_counter()
+        cpu = _moved(eng.params, "cpu", torch.float32)
+        want = cpu_pooled(lambda t, n: bert_forward(
+            cpu, eng.cfg, t, n, pooling=eng.cfg.pooling), ids)
+        cos = _row_cos(vecs, want)
+        log(f"  /v1/embeddings: {EMB_INPUTS} inputs of "
+            f"{min(map(len, ids))} to {max(map(len, ids))} tokens, {n_tok} "
+            f"tokens, {ms:.1f} ms = {n_tok / ms * 1e3:.1f} tok/s (graphs "
+            f"warmed, none captured); base64 = float; min cosine vs the f32 "
+            f"CPU encoder {cos.min():.6f} (tol {BERT_COS}; CPU "
+            f"{time.perf_counter() - t1:.1f} s)")
+        assert cos.min() >= BERT_COS, cos.min()
+        replay = embed_replay(eng, [i[:EMBED_KEY_T] for i in
+                                    sorted(ids, key=len)[-EMBED_KEY_ROWS:]],
+                              eng.cfg.pooling, flush)
+        log(f"  one {tuple(replay['key'])} replay: {replay['ms']:.4f} ms "
+            f"device (bound {replay['bound_ms']:.4f} ms by "
+            f"{replay['bound_by']}, {replay['tflop']:.3f} TFLOP); bit-equal "
+            "to the eager pass")
+        return dict(n_inputs=EMB_INPUTS, tokens=n_tok, ms=ms,
+                    tok_s=n_tok / ms * 1e3, min_cos=float(cos.min()),
+                    graphs=eng.graphs.n_graphs,
+                    graph_pool_mib=eng.graphs.pool_bytes / 2**20,
+                    replay=replay)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        eng.stop()
+        thread.join(timeout=30)
+
+
+def _pair_ids(tok, q: str, d: str) -> list:
+    """The route's [CLS|BOS] q [SEP] d [SEP] [EOS] (server/http.rerank)."""
+    q_ids = tok.encode(q, add_special=False)
+    d_ids = tok.encode(d, add_special=False)
+    bos = [tok.cls_id] if tok.cls_id is not None else (
+        [tok.bos_id] if tok.bos_id is not None else [])
+    sep = [tok.sep_id] if tok.sep_id is not None else (
+        [tok.eos_id] if tok.eos_id is not None else [])
+    eos = [] if tok.sep_id is not None and tok.eos_id is None else (
+        [tok.eos_id] if tok.eos_id is not None else [])
+    return bos + q_ids + sep + d_ids + sep + eos
+
+
+def bert_rerank_phase(dev, seed, tmp) -> dict:
+    """The cross-encoder through the CLI with --rerank: a query with
+    RERANK_DOCS documents, normalized and not, warmed first; the scores
+    against the f32 CPU encoder's."""
+    from llama_box_tpu_torch import cli
+    from llama_box_tpu_torch.models.bert import bert_forward
+    path = f"{tmp}/synthetic-bge-base-reranker-f16.gguf"
+    t0 = time.perf_counter()
+    write_bert(path, seed, rank=True)
+    eng, srv = cli.build_server(["-m", path, "--port", "0", "--device",
+                                 dev.type, "--embeddings", "--rerank"])
+    os.remove(path)
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    log(f"  bge-base-width cross-encoder (pooling {eng.cfg.pooling}): "
+        f"written and served in {time.perf_counter() - t0:.1f} s")
+    try:
+        tok = eng.tokenizer
+        rng = np.random.default_rng(seed + 73)
+        query = make_text(tok, rng, 16)
+        docs = [make_text(tok, rng, int(n)) for n in
+                rng.integers(RERANK_LENS[0], RERANK_LENS[1] + 1,
+                             RERANK_DOCS)]
+        bodies = {norm: {"query": query, "documents": docs,
+                         "normalize": norm, "top_n": RERANK_DOCS}
+                  for norm in (True, False)}
+        for _ in range(2):
+            for b in bodies.values():
+                _post_ok(url + "/v1/rerank", b)
+        n_graphs, seen = eng.graphs.n_graphs, set(eng.graphs._seen)
+        res = {norm: _post_ok(url + "/v1/rerank", b)
+               for norm, b in bodies.items()}
+        assert eng.graphs.n_graphs == n_graphs and \
+            eng.graphs._seen == seen, "a graph was captured in phase 10"
+        scores = {norm: np.zeros(RERANK_DOCS) for norm in bodies}
+        for norm, (b, _) in res.items():
+            assert len(b["results"]) == RERANK_DOCS
+            for r in b["results"]:
+                scores[norm][r["index"]] = r["relevance_score"]
+        pairs = [_pair_ids(tok, query, d) for d in docs] \
+            + [_pair_ids(tok, query, query), _pair_ids(tok, query, "unknown")]
+        cpu = _moved(eng.params, "cpu", torch.float32)
+        want = cpu_pooled(lambda t, n: bert_forward(cpu, eng.cfg, t, n,
+                                                    pooling="rank"), pairs)
+        raw_err = float(np.abs(scores[False] - want[:RERANK_DOCS]).max())
+        lo = min(want[-1], want[:RERANK_DOCS].min())
+        hi = max(want[-2], want[:RERANK_DOCS].max())
+        want_norm = (want[:RERANK_DOCS] - lo) / max(hi - lo, 1e-6)
+        norm_err = float(np.abs(scores[True] - want_norm).max())
+        top_got = list(np.argsort(-scores[False], kind="stable")[:5])
+        top_want = list(np.argsort(-want[:RERANK_DOCS], kind="stable")[:5])
+        for g, w_ in zip(top_got, top_want):
+            assert g == w_ or abs(want[g] - want[w_]) <= 2 * RERANK_ATOL, \
+                (top_got, top_want)
+        ms = res[True][1]
+        log(f"  /v1/rerank: {RERANK_DOCS} documents of "
+            f"{min(map(len, pairs))} to {max(map(len, pairs))} pair tokens, "
+            f"{ms:.1f} ms = {RERANK_DOCS / ms * 1e3:.1f} docs/s normalized "
+            f"({res[False][1]:.1f} ms raw); raw score max err vs the f32 CPU "
+            f"encoder {raw_err:.4f} (tol {RERANK_ATOL}; scores in "
+            f"[{want.min():.3f}, {want.max():.3f}]), normalized max err "
+            f"{norm_err:.4f} (tol {2 * RERANK_ATOL / (hi - lo):.4f}); top 5 "
+            f"{top_got} (CPU {top_want})")
+        assert raw_err <= RERANK_ATOL, raw_err
+        assert norm_err <= 2 * RERANK_ATOL / (hi - lo), norm_err
+        return dict(n_docs=RERANK_DOCS, ms=ms, docs_s=RERANK_DOCS / ms * 1e3,
+                    ms_raw=res[False][1], raw_max_err=raw_err,
+                    norm_max_err=norm_err, top5=[int(x) for x in top_got],
+                    top5_cpu=[int(x) for x in top_want])
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        eng.stop()
+        thread.join(timeout=30)
+
+
+def _chat_wave(url, texts, embed_body=None, eng=None, counters=None):
+    """LLAMA_CHATS greedy chats at once; with `embed_body`, one
+    /v1/embeddings request sent once every chat decodes, the kernel counts
+    from 0 around it (set from this thread while the engine runs: every
+    key the wave meets is captured first, since a capture takes back the
+    launches it made from the counts it found before it). Returns (chat
+    contents, {embed response, its ms, launches, whether a chat still
+    decoded when it returned})."""
+    def chat(t):
+        b, _ = _post_ok(url + "/v1/chat/completions", dict(
+            messages=[{"role": "user", "content": t}],
+            max_tokens=LLAMA_CHAT_TOKENS, temperature=0, ignore_eos=True))
+        assert b["usage"]["completion_tokens"] == LLAMA_CHAT_TOKENS
+        return b["choices"][0]["message"]["content"]
+    result = {}
+
+    def embed():
+        deadline = time.monotonic() + 120
+        while sum(s.state == "decode" for s in eng.slots) < LLAMA_CHATS:
+            assert time.monotonic() < deadline, "the chats never decoded"
+            time.sleep(0.002)
+        for fn in counters.values():
+            fn.launches = 0
+        result["body"], result["ms"] = _post_ok(url + "/v1/embeddings",
+                                                embed_body)
+        result["launches"] = {k: fn.launches for k, fn in counters.items()}
+        result["mid_decode"] = any(s.state == "decode" for s in eng.slots)
+    fns = [lambda t=t: chat(t) for t in texts]
+    if embed_body is not None:
+        fns.append(embed)
+    out = concurrently(fns)
+    return out[:len(texts)], result
+
+
+def llama_embed_phase(dev, seed, engine, app, flush) -> dict:
+    """The bf16 path's model (its weights as served): LLAMA_CHATS greedy
+    chats at -np 4, alone and with a LLAMA_EMB_INPUTS-input embeddings
+    request arriving mid-decode (fresh engines, graphs, pipelined); the
+    vectors against the f32 CPU forward_embeddings."""
+    from llama_box_tpu_torch.models.llama import forward_embeddings, make_rope
+    counters = kernel_counters()
+    tok = engine.tokenizer
+    rng = np.random.default_rng(seed + 79)
+    chats = [make_prompt(tok, rng, 480) for _ in range(LLAMA_CHATS)]
+    texts = [make_text(tok, rng, int(n)) for n in
+             rng.integers(LLAMA_EMB_LENS[0], LLAMA_EMB_LENS[1] + 1,
+                          LLAMA_EMB_INPUTS)]
+    ids = [tok.encode(t) for t in texts]
+    body = {"input": texts}
+    runs = {}
+    for label in ("alone", "beside"):
+        eng = _spec_engine(engine, None, engine.ecfg)
+        if label == "beside":
+            warm_every_key(eng)         # the chats' keys
+        eng.start()
+        url, close = _serve_engine(app, eng)
+        try:
+            if label == "beside":
+                for _ in range(2):      # the embed keys: eager, capture
+                    _post_ok(url + "/v1/embeddings", body)
+                n_graphs, seen = eng.graphs.n_graphs, set(eng.graphs._seen)
+            runs[label] = _chat_wave(
+                url, chats, body if label == "beside" else None, eng,
+                counters)
+            if label == "beside":
+                assert eng.graphs.n_graphs == n_graphs and \
+                    eng.graphs._seen == seen, \
+                    "a graph was captured in phase 10's chats"
+                lists = [i[:EMBED_KEY_T] for i in ids[:EMBED_KEY_ROWS]]
+                lists = [(li * (EMBED_KEY_T // len(li) + 1))[:EMBED_KEY_T]
+                         for li in lists]
+                replay = embed_replay(eng, lists, "mean", flush)
+        finally:
+            close()
+    same = runs["alone"][0] == runs["beside"][0]
+    r = runs["beside"][1]
+    vecs = np.array([d["embedding"] for d in r["body"]["data"]])
+    n_tok = r["body"]["usage"]["prompt_tokens"]
+    cfg = engine.cfg
+    cpu = _moved(engine.params, "cpu", torch.float32)
+    cos_t, sin_t = make_rope(cfg, LLAMA_EMB_LENS[1] + 8, device="cpu")
+    t1 = time.perf_counter()
+    want = cpu_pooled(lambda t, n: forward_embeddings(
+        cpu, cfg, t, n, cos_t, sin_t, pooling="mean"), ids)
+    cos = _row_cos(vecs, want)
+    log(f"  {LLAMA_CHATS} greedy chats ({LLAMA_CHAT_TOKENS} tokens) with a "
+        f"{LLAMA_EMB_INPUTS}-input /v1/embeddings request mid-decode "
+        f"({n_tok} tokens, {r['ms']:.1f} ms = {n_tok / r['ms'] * 1e3:.1f} "
+        f"tok/s; a chat still decoding at its end: {r['mid_decode']}): "
+        f"texts {'identical to' if same else 'DIFFERENT from'} the chats "
+        f"alone; min cosine vs the f32 CPU forward {cos.min():.6f} (tol "
+        f"{LLAMA_COS}; CPU {time.perf_counter() - t1:.1f} s); launches in "
+        f"the request {r['launches']}")
+    log(f"  one {tuple(replay['key'])} replay: {replay['ms']:.4f} ms device "
+        f"(bound {replay['bound_ms']:.4f} ms by {replay['bound_by']}, "
+        f"{replay['tflop']:.3f} TFLOP); bit-equal to the eager pass")
+    assert same, "an embed request beside the chats changed their texts"
+    assert cos.min() >= LLAMA_COS, cos.min()
+    assert min(r["launches"].values()) >= 0, r["launches"]
+    assert r["launches"]["flash_prefill"] > 0, "no flash prefill launch"
+    return dict(tokens=n_tok, ms=r["ms"], tok_s=n_tok / r["ms"] * 1e3,
+                min_cos=float(cos.min()), texts_equal=same,
+                mid_decode=r["mid_decode"], launches=r["launches"],
+                replay=replay)
+
+
+# the projection kernels an embeddings request must launch on each
+# quantized path (its attention: flash prefill)
+EMBED_PATH_KERNELS = {
+    "w8a8": ("flash_prefill", "w8a8_matmul", "fused_norm_qmm",
+             "fused_layer_tail"),
+    "q4": ("flash_prefill", "q4_matmul", "q8_matmul")}
+
+
+def embed_path_check(engine, url, seed, mode) -> dict:
+    """Phase 10w/10q on the served quantized model: one /v1/embeddings
+    request of 8 short inputs (one pass of 8 rows: more than 64 token
+    rows) and one longer one (a pass of 1 row: at most 64 on w8a8, the
+    fused kernels), the kernel counts from 0 around it."""
+    counters = kernel_counters()
+    tok = engine.tokenizer
+    rng = np.random.default_rng(seed + 83)
+    texts = [make_text(tok, rng, 14) for _ in range(8)] \
+        + [make_text(tok, rng, 60)]
+    for fn in counters.values():
+        fn.launches = 0
+    b, ms = _post_ok(url + "/v1/embeddings", {"input": texts})
+    launches = {k: fn.launches for k, fn in counters.items()}
+    vecs = np.array([d["embedding"] for d in b["data"]])
+    assert vecs.shape == (9, E) and np.isfinite(vecs).all()
+    assert np.allclose(np.linalg.norm(vecs, axis=1), 1.0)
+    log(f"  phase 10{'w' if mode == 'w8a8' else 'q'}: /v1/embeddings of 9 "
+        f"inputs ({b['usage']['prompt_tokens']} tokens) in {ms:.1f} ms; "
+        f"launches {launches}")
+    for k, n in launches.items():
+        if k in EMBED_PATH_KERNELS[mode]:
+            assert n > 0, f"{k} was never launched by the {mode} embed pass"
+        else:
+            assert n == 0, f"{k} launched by the {mode} embed pass"
+    return dict(ms=ms, launches=launches)
+
+
+def embed_phase(dev, seed, tmp, engine, app) -> dict:
+    """Phase 10 (see the module docstring)."""
+    log("== phase 10: embeddings and rerank: bge-base-width BERT encoder "
+        "and cross-encoder, the bf16 path's TinyLlama beside greedy chats")
+    t0 = time.perf_counter()
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    out = dict(bert=bert_embed_phase(dev, seed, tmp, flush),
+               rerank=bert_rerank_phase(dev, seed, tmp),
+               llama=llama_embed_phase(dev, seed, engine, app, flush))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 10: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -3380,6 +3926,7 @@ def main(argv=None) -> int:
         e2e["spec"] = spec_phase(
             dev, args.seed, tmp, f"{tmp}/synthetic-tinyllama-1.1b-f16.gguf",
             *bf16_served)
+        e2e["embed"] = embed_phase(dev, args.seed, tmp, *bf16_served)
         del bf16_served
 
     pick = {"flash_prefill": ("prefill", "bf16", 0),
@@ -3421,6 +3968,10 @@ def main(argv=None) -> int:
     spec_launches = {m: (e2e["spec"]["waves"]["self_graphs"] if m == "bf16"
                          else e2e[m]["spec"]["waves"]["self"])["launches"]
                      for m in PATHS}
+    # each path's embeddings request (phase 10, 10w, 10q); bf16's window
+    # also holds the chats' decode chains
+    embed_launches = {m: (e2e["embed"]["llama"] if m == "bf16"
+                          else e2e[m]["embed"])["launches"] for m in PATHS}
     kernels = []
     for name in srcs:
         if name.startswith("flash"):
@@ -3441,7 +3992,8 @@ def main(argv=None) -> int:
             launches_self_draft={m: spec_launches[m][name] for m in PATHS},
             launches_spec_bf16={
                 k: e2e["spec"]["waves"][k + "_graphs"]["launches"][name]
-                for k in ("ngram", "self", "draft2")}))
+                for k in ("ngram", "self", "draft2")},
+            launches_embed={m: embed_launches[m][name] for m in PATHS}))
     e2e.update(card=card, seconds=time.perf_counter() - t_start)
     if args.profile:
         for label in MODES:
@@ -3500,6 +4052,15 @@ def main(argv=None) -> int:
                         + (f", first parting op {v['first_parting_op']}"
                            if "first_parting_op" in v else "")
                         for k, v in bits.items()))
+    em = e2e["embed"]
+    log(f"  phase 10: /v1/embeddings bge-base width {em['bert']['tok_s']:.1f} "
+        f"tok/s, TinyLlama beside 3 chats {em['llama']['tok_s']:.1f} tok/s; "
+        f"/v1/rerank {em['rerank']['docs_s']:.1f} docs/s; one ('embed', "
+        f"{EMBED_KEY_ROWS}, {EMBED_KEY_T}) replay: bge-base "
+        f"{em['bert']['replay']['ms']:.4f} ms (bound "
+        f"{em['bert']['replay']['bound_ms']:.4f}), TinyLlama "
+        f"{em['llama']['replay']['ms']:.4f} ms (bound "
+        f"{em['llama']['replay']['bound_ms']:.4f})")
     log("e2e " + json.dumps(e2e))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

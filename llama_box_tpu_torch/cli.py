@@ -3,6 +3,11 @@ llama_box_tpu/cli.py): a subset of its flags, same names and defaults.
 
     python -m llama_box_tpu_torch.cli -m model.gguf [--device cpu]
 
+A BERT-family file (bert, nomic-bert, jina-bert-v2, new) is loaded by
+models/bert.load_bert and serves /v1/embeddings, and /v1/rerank with
+--rerank or a `rank` pooling; completions are off for it and under
+--embeddings.
+
 The server runs on the CUDA card unless `--device cpu` is given; without a
 card and without that flag it exits with an error. `build_server(argv)`
 returns the engine (started) and the HTTP server (bound, not serving), so
@@ -12,6 +17,7 @@ a caller can serve it from a thread.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import signal
 import sys
 import threading
@@ -117,6 +123,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ignored")
     g.add_argument("-ncmoed", "--n-cpu-moe-draft", type=int, default=None,
                    help="ignored")
+
+    g = p.add_argument_group("embedding")
+    g.add_argument("--embeddings", "--embedding", dest="embeddings",
+                   action="store_true", default=False,
+                   help="serve embeddings only (completions off)")
+    g.add_argument("--rerank", "--reranking", dest="rerank",
+                   action="store_true", default=False,
+                   help="serve /v1/rerank")
+    g.add_argument("--pooling", default=None,
+                   choices=["none", "mean", "cls", "last", "rank"],
+                   help="the embedding pool mode of a llama-family model")
 
     g = p.add_argument_group("completion")
     g.add_argument("--temp", type=float, default=0.8)
@@ -226,6 +243,7 @@ def build_server(argv: list[str]):
     import torch
 
     from .gguf import GGUFFile
+    from .models.bert import BERT_ARCHS, load_bert
     from .models.loader import load_model
     from .server.chat import ChatTemplates, jinja_available
     from .server.engine import Engine, EngineConfig, resolve_device
@@ -249,10 +267,20 @@ def build_server(argv: list[str]):
     dtype = {"bf16": torch.bfloat16, "f32": torch.float32,
              "quantized": torch.bfloat16}[args.weights_dtype]
     with GGUFFile(args.model) as g:
+        arch = g.architecture
         tokenizer = Tokenizer.from_gguf(g)
     quantized = args.weights_dtype == "quantized"
-    cfg, params = load_model(args.model, dtype=dtype, device=device,
-                             quantized=quantized)
+    is_bert = arch in BERT_ARCHS
+    if is_bert:
+        # every tensor dequantized to the activation dtype, as the JAX CLI
+        cfg, params = load_bert(args.model, dtype=dtype, device=device)
+        if args.rerank or cfg.pooling == "rank":
+            cfg = dataclasses.replace(cfg, pooling="rank")
+    else:
+        cfg, params = load_model(args.model, dtype=dtype, device=device,
+                                 quantized=quantized)
+        if args.pooling:    # --pooling overrides the embedding pool mode
+            cfg = dataclasses.replace(cfg, pooling=args.pooling)
     draft = None
     if args.model_draft:
         SRV_INF("main", "loading draft model %s", args.model_draft)
@@ -288,7 +316,11 @@ def build_server(argv: list[str]):
         chat_templates=ChatTemplates(tokenizer, template, args.jinja),
         default_max_tokens=args.n_predict,
         default_stop=tuple(args.reverse_prompt),
-        max_tps=max_tps, default_grammar=_default_grammar_text(args))
+        max_tps=max_tps, default_grammar=_default_grammar_text(args),
+        capabilities={"completion": not is_bert and not args.embeddings,
+                      "embedding": True,
+                      "reranking": args.rerank
+                      or (is_bert and cfg.pooling == "rank")})
     return engine, app.make_server(args.host, args.port)
 
 

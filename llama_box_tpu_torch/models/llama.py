@@ -54,6 +54,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import _kernels
+from ..ops.attention import softmax_attend
 from ..ops.flash_decode import flash_decode
 from ..ops.flash_prefill import flash_prefill_batched
 from ..ops.fused_decode import (_MAX_ROWS, _pick_tile, fused_layer_tail,
@@ -427,7 +428,7 @@ def write_rows(kv: KVCache, fields: list, writes: RowWrites) -> None:
 
 def _attn_layer(x, lp, li: int, kv: KVCache, cfg: ModelConfig, cos, sin,
                 rows: list, win, flash_meta=None, chain=None, step=0,
-                decode_meta=None, verify_meta=None):
+                decode_meta=None, verify_meta=None, dense_mask=None):
     """x [B, T, E] -> x after attention and the layer tail. cos/sin are the
     tables gathered at the rows' positions ([B, T, rot/2])."""
     B, T, E = x.shape
@@ -451,7 +452,8 @@ def _attn_layer(x, lp, li: int, kv: KVCache, cfg: ModelConfig, cos, sin,
     v = v.reshape(B, T, Hkv, D)
     return _attn_deferred(x, lp, li, kv, cfg, q, k, v, rows, win,
                           flash_meta=flash_meta, chain=chain, step=step,
-                          decode_meta=decode_meta, verify_meta=verify_meta)
+                          decode_meta=decode_meta, verify_meta=verify_meta,
+                          dense_mask=dense_mask)
 
 
 def _attn_verify(q, k, v, kc, vc, ks, vs, stored, meta, win, adt, scale):
@@ -483,11 +485,13 @@ def _attn_verify(q, k, v, kc, vc, ks, vs, stored, meta, win, adt, scale):
 
 def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
                    rows: list, win, flash_meta=None, chain=None, step=0,
-                   decode_meta=None, verify_meta=None):
+                   decode_meta=None, verify_meta=None, dense_mask=None):
     """Attention against the cache as it stood before this forward plus
     the new rows (through the flash kernels), then the layer tail. The
     layer's rows, as the cache stores them, are appended to `rows` for the
-    forward's one scatter (write_rows)."""
+    forward's one scatter (write_rows). dense_mask [B, T, T]: the rows
+    attend only each other under that mask, written out in torch
+    (softmax_attend; the non-causal embeddings forward)."""
     B, T = q.shape[:2]
     H, Hkv, D = q.shape[2], k.shape[2], q.shape[-1]
     G = H // Hkv
@@ -499,7 +503,12 @@ def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
     rows.append(stored)
     scale = cfg.attn_scale or None
 
-    if flash_meta is not None:
+    if dense_mask is not None:
+        qg = q.to(adt).reshape(B, T, Hkv, G, D).permute(0, 2, 3, 1, 4)
+        o = softmax_attend(qg, k.to(adt), v.to(adt), dense_mask,
+                           D ** -0.5 if scale is None else scale)
+        attn = o.permute(0, 3, 1, 2, 4).reshape(B, T, H * D)
+    elif flash_meta is not None:
         qg = q.to(adt).reshape(B, T, Hkv, G, D).permute(0, 2, 3, 1, 4)
         o = flash_prefill_batched(qg.contiguous(), kc, vc, k.to(adt),
                                   v.to(adt), flash_meta, win,
@@ -529,7 +538,7 @@ def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
 
 def _run_stack(params, cfg: ModelConfig, x, kv: KVCache, cos, sin,
                rows: list, flash_meta=None, chain=None, step=0,
-               decode_meta=None, verify_meta=None):
+               decode_meta=None, verify_meta=None, dense_mask=None):
     """The layer loop (the JAX package's lax.scan); appends each layer's
     rows to `rows`."""
     win = _no_window(x.device)
@@ -538,7 +547,8 @@ def _run_stack(params, cfg: ModelConfig, x, kv: KVCache, cos, sin,
         lp = {k: v[li] for k, v in layers.items()}
         x = _attn_layer(x, lp, li, kv, cfg, cos, sin, rows, win,
                         flash_meta=flash_meta, chain=chain, step=step,
-                        decode_meta=decode_meta, verify_meta=verify_meta)
+                        decode_meta=decode_meta, verify_meta=verify_meta,
+                        dense_mask=dense_mask)
     return x
 
 
@@ -759,3 +769,60 @@ def prefill_batch_impl(params, cfg: ModelConfig, tokens, pos_base, n_valid,
     last = (n_valid - 1).clamp_min(0)
     x_last = x[torch.arange(S, device=dev), last]
     return _output_logits(params, cfg, x_last), kv
+
+
+def forward_embeddings(params, cfg: ModelConfig, tokens, seq_lens, rope_cos,
+                       rope_sin, pooling: str = "mean") -> torch.Tensor:
+    """The embedding forward (JAX `forward_embeddings`): tokens [B, T] and
+    seq_lens [B] (host arrays or tensors; no KV cache kept) through the
+    stack, output_norm, then f32, pooled over each row's valid positions:
+    "mean", "cls" or "last" give [B, E]; any other pooling returns every
+    row, [B, T, E] (the JAX function's fall-through, which its engine's
+    llama rerank reads).
+
+    The JAX mask (valid query and key, and causal unless the file says
+    `attention.causal` false) is what a prefill from position 0 attends,
+    so a causal model runs the batched prefill's layer loop through the
+    flash prefill kernel, on a scratch cache of B slots x T positions
+    (pos_base 0, n_valid = seq_lens: the kernel reads none of it, and the
+    rows are not written back) in the activations' dtype, as the JAX
+    forward attends zeros of x's dtype; its projections take the weights'
+    own kernels (ops/qmatmul.mm and the fused w8a8 gates). A non-causal
+    model attends under the dense [B, T, T] mask through
+    ops/attention.softmax_attend, as JAX's `_run_stack` does without
+    flash_meta. Rows are at positions 0..T-1, padding included."""
+    emb = params["tok_embd"]
+    dev = emb.device
+    tokens = torch.as_tensor(tokens).to(dev)
+    seq_lens = torch.as_tensor(seq_lens).to(dev, torch.int64)
+    B, T = tokens.shape
+    x = _embed_tokens(params, cfg, tokens)
+    t = torch.arange(T, device=dev)
+    valid = t[None, :] < seq_lens[:, None]                     # [B, T]
+    cos, sin = _rope_at(rope_cos, rope_sin, t[None, :].expand(B, T))
+    adt = torch.float32 if x.dtype == torch.float32 else torch.bfloat16
+    # one zero layer serves every layer: nothing below position 0 is read
+    z = torch.zeros((1, B, T, cfg.n_kv_heads, cfg.head_dim), dtype=adt,
+                    device=dev).expand(cfg.n_layers, -1, -1, -1, -1)
+    scratch = KVCache(z, z)
+    rows: list = []
+    if cfg.causal:
+        zeros = torch.zeros_like(seq_lens)
+        meta = torch.stack([zeros, seq_lens, zeros, zeros], dim=1).to(
+            torch.int32)
+        x = _run_stack(params, cfg, x, scratch, cos, sin, rows,
+                       flash_meta=meta)
+    else:
+        mask = valid[:, :, None] & valid[:, None, :]
+        x = _run_stack(params, cfg, x, scratch, cos, sin, rows,
+                       dense_mask=mask)
+    x = rms_norm(x, params["output_norm"], cfg.rms_eps).float()
+    if pooling == "mean":
+        w = valid.float()
+        return (x * w[:, :, None]).sum(1) / w.sum(1)[:, None].clamp_min(1.0)
+    if pooling == "cls":
+        return x[:, 0]
+    if pooling == "last":
+        idx = (seq_lens - 1).clamp_min(0)
+        return x[torch.arange(B, device=dev), idx]
+    return x

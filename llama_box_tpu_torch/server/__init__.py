@@ -1,4 +1,5 @@
 from .engine import Engine, EngineConfig
-from .task import CompletionsTask
+from .task import CompletionsTask, EmbeddingsTask, RerankTask
 
-__all__ = ["Engine", "EngineConfig", "CompletionsTask"]
+__all__ = ["Engine", "EngineConfig", "CompletionsTask", "EmbeddingsTask",
+           "RerankTask"]

@@ -66,9 +66,21 @@ programs replay on, with no host wait.
   shrinks, then one round a pass, then the one-token pass (two syncs:
   the drafts, then the verify) and its shift, which shifts the draft
   cache too.
+- Embeddings and rerank (JAX `_admit_embed`, `_embed_pass`): a task's
+  inputs, sorted by length, go in groups of at most max_embed_batch, ONE
+  group a reconcile pass, before prefill and decode, so decoding slots
+  keep streaming beside a large batch. A group pads its rows to a power
+  of two and its length to the engine's bucket (longer inputs are cut to
+  the largest, as in JAX) and runs the BERT encoder (models/bert.py) or
+  the llama embedding forward (models/llama.forward_embeddings: the
+  flash prefill kernel on a scratch cache); on the card one graph a key
+  ("embed", rows, T, pooling), enqueued between the other programs'
+  replays on the same stream, its output read back by a sync of its own
+  right after the replay. As in JAX, a task is admitted only while a slot
+  is idle: an embeddings request waits while every slot decodes.
 
-Not ported yet (the JAX engine has them): embeddings, multimodal prompts
-and the other model families.
+Not ported yet (the JAX engine has them): multimodal prompts and the other
+model families.
 """
 
 from __future__ import annotations
@@ -81,13 +93,14 @@ import time
 import numpy as np
 import torch
 
+from ..models.bert import BERT_ARCHS, bert_forward, check_bert_supported
 from ..models.config import ModelConfig
 from ..models.llama import (check_supported, copy_kv_prefix,
                             decode_operands, decode_step_impl,
-                            init_chain_rows, init_kv_cache, make_delta_rope,
-                            make_rope, prefill_batch_impl, shift_kv,
-                            verify_forward, verify_operands,
-                            write_chain_rows)
+                            forward_embeddings, init_chain_rows,
+                            init_kv_cache, make_delta_rope, make_rope,
+                            prefill_batch_impl, shift_kv, verify_forward,
+                            verify_operands, write_chain_rows)
 from ..ops.qmatmul import _SPLIT_MAX_ROWS, QTensor
 from ..sampling import (N_PROBS, RING_CAP, HostSampler, SamplerBuffers,
                         SamplerParams, init_sampler_state, sample_impl,
@@ -98,7 +111,7 @@ from ..utils.text import longest_common_prefix
 from .cuda_graph import GraphRunner
 from .metrics import Metrics
 from .ngram import NgramCache
-from .task import BaseTask, CompletionsTask
+from .task import BaseTask, CompletionsTask, EmbeddingsTask, RerankTask
 
 DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 
@@ -288,6 +301,7 @@ class EngineConfig:
     # (-1 disables; --prompt-cache-share-min)
     cache_share_min: int = 32
     defrag_headroom: int = 4      # free positions to leave after a squeeze
+    max_embed_batch: int = 8      # inputs an embeddings/rerank pass
     # chained decode: tokens sampled per device chain (1 = per token)
     decode_chain: int = 1
     # first chains after a prefill are this long (x4 per chain until
@@ -374,7 +388,16 @@ class Engine:
         """draft: (ModelConfig, params) of a draft model for speculative
         decoding (the reference's draft-model path), on `device`."""
         self.device = resolve_device(device)
-        check_supported(cfg, params, self.device)
+        # an encoder-only BERT file serves embeddings and rerank only; it
+        # passes its own check and holds no KV cache
+        self.bert = cfg.arch in BERT_ARCHS
+        if self.bert:
+            check_bert_supported(cfg, params)
+            if draft is not None:
+                raise ValueError("speculative decoding needs a decoder; a "
+                                 "BERT encoder serves embeddings and rerank")
+        else:
+            check_supported(cfg, params, self.device)
         if ecfg is not None and ecfg.kv_dtype not in _KV_DTYPES:
             raise ValueError(f"KV cache type {ecfg.kv_dtype!r} is not "
                              f"supported (one of {sorted(_KV_DTYPES)})")
@@ -391,7 +414,8 @@ class Engine:
                     "--decode-chain or raise --draft-max to use it",
                     self.ecfg.decode_chain, self.ecfg.draft_max + 1)
         kv_dtype = _KV_DTYPES[self.ecfg.kv_dtype]
-        self.kv = init_kv_cache(cfg, S, self.slot_ctx, kv_dtype, self.device)
+        self.kv = None if self.bert else init_kv_cache(
+            cfg, S, self.slot_ctx, kv_dtype, self.device)
         self.rope_cos, self.rope_sin = make_rope(cfg, self.slot_ctx,
                                                  self.device)
         self.delta_cos, self.delta_sin = make_delta_rope(cfg, self.slot_ctx,
@@ -445,6 +469,10 @@ class Engine:
                                      ring)
         self._pre_in = StagedBuffer(S * (3 + self.buckets[-1]), torch.int64,
                                     self.device, ring)
+        # an embed pass: seq_lens [rows] | tokens [rows, bucket]
+        self._emb_in = StagedBuffer(
+            self.ecfg.max_embed_batch * (1 + self.buckets[-1]), torch.int64,
+            self.device, ring)
         # an admitted slot's penalty window (one pass may admit S)
         self._win_in = StagedBuffer(window_size(cfg.vocab_size), torch.int32,
                                     self.device, S + ring)
@@ -458,6 +486,7 @@ class Engine:
             (n, torch.int32), (n * N_PROBS, torch.int32),
             (n * N_PROBS, torch.float32), (n, torch.float32),
             (S * cfg.vocab_size, torch.float32)], self.device)
+        self.embed_tasks: list = []         # embeddings/rerank, oldest first
         self._chain_q: list[_Chain] = []    # speculated, oldest first
         self._spec_q: list[_Spec] = []      # spec passes, oldest first
         self.graphs = GraphRunner(self.device, self.ecfg.cuda_graphs)
@@ -479,7 +508,9 @@ class Engine:
     def fuse_params(self) -> None:
         """Rope layout to half-split and fused q/k/v and gate/up
         projections (both change no outputs beyond f32 summation order;
-        see models/loader.py)."""
+        see models/loader.py). The BERT encoder reads the unfused keys."""
+        if self.bert:
+            return
         from ..models.loader import deinterleave_rope, fuse_projections
         self.params, self.cfg = deinterleave_rope(self.params, self.cfg)
         self.params = fuse_projections(self.params, self.cfg)
@@ -530,6 +561,7 @@ class Engine:
 
     def _reconcile(self) -> None:
         self._admit()
+        embed_busy = self._embed_pass()
         pre = [s for s in self.slots if s.state == "prefill"]
         if pre:
             self._prefill_batch(pre)
@@ -537,6 +569,8 @@ class Engine:
         dec = [s for s in self.slots if s.state == "decode"]
         if dec:
             self._decode_pass(dec)
+            return
+        if embed_busy:
             return
         try:
             task = self.queue.get(timeout=0.2)
@@ -563,10 +597,21 @@ class Engine:
             return
         task._dispatched = True
         try:
-            if not isinstance(task, CompletionsTask):
+            if isinstance(task, CompletionsTask):
+                if self.bert:
+                    raise ValueError("a BERT encoder serves embeddings and "
+                                     "rerank, not completions")
+                self._admit_completion(task)
+            elif isinstance(task, EmbeddingsTask):
+                self._admit_embed(task, task.inputs,
+                                  self.cfg.pooling
+                                  if self.cfg.pooling not in ("none", "rank")
+                                  else "mean")
+            elif isinstance(task, RerankTask):
+                self._admit_embed(task, task.pairs, "rank")
+            else:
                 raise NotImplementedError(
                     f"{task.kind} tasks are not ported yet")
-            self._admit_completion(task)
         except Exception as exc:  # noqa: BLE001
             SRV_ERR("dispatch", "task %s failed: %r", task.rid, exc)
             task.fail(exc)
@@ -1690,6 +1735,127 @@ class Engine:
             task.t_decoded = time.monotonic()
             task.emit("final", task)
             self._release(s, keep_cache=self.ecfg.prompt_cache)
+
+    # -- embeddings / rerank -------------------------------------------------
+
+    def _embed_forward(self, toks, lens, pooling: str):
+        """Arch dispatch (JAX `_embed_forward`): the BERT encoder, or the
+        llama-family embedding forward."""
+        if self.bert:
+            return bert_forward(self.params, self.cfg, toks, lens,
+                                pooling=pooling)
+        return forward_embeddings(self.params, self.cfg, toks, lens,
+                                  self.rope_cos, self.rope_sin,
+                                  pooling=pooling)
+
+    def _admit_embed(self, task, token_lists: list[list[int]],
+                     pooling: str) -> None:
+        """Queue an embeddings/rerank task as groups of at most
+        max_embed_batch inputs, sorted by length; _embed_pass runs ONE
+        group a reconcile pass (JAX `_admit_embed`)."""
+        order = sorted(range(len(token_lists)),
+                       key=lambda i: len(token_lists[i]))
+        nb = self.ecfg.max_embed_batch
+        task._groups = [order[i:i + nb] for i in range(0, len(order), nb)]
+        task._token_lists = token_lists
+        task._pooling = pooling
+        task._results = [None] * len(token_lists)
+        task._t0 = time.monotonic()
+        self.embed_tasks.append(task)
+
+    def _embed_rows(self, n: int) -> int:
+        """The rows of a pass of n inputs: the next power of two, at most
+        max_embed_batch (one graph a row count and bucket)."""
+        return min(1 << (n - 1).bit_length(),
+                   max(n, self.ecfg.max_embed_batch))
+
+    def _embed_pass(self) -> bool:
+        """Run ONE group of the oldest queued embeddings/rerank task (JAX
+        `_embed_pass`): rows padded to _embed_rows, length to the group's
+        bucket, inputs cut to it; one program ("embed", rows, T, pooling)
+        over the staged operands, its output read back right after it.
+        Returns whether tasks remain."""
+        while self.embed_tasks and (self.embed_tasks[0].cancelled
+                                    or not self.embed_tasks[0]._groups):
+            t = self.embed_tasks.pop(0)
+            if not t.cancelled:
+                self._finish_embed(t)
+        if not self.embed_tasks:
+            return False
+        task = self.embed_tasks[0]
+        group = task._groups.pop(0)
+        try:
+            token_lists = task._token_lists
+            T = self._bucket(max(len(token_lists[j]) for j in group))
+            B = len(group)
+            R = self._embed_rows(B)
+            h = self._emb_in.host()
+            h[:R * (1 + T)] = 0
+            toks = h[R:R * (1 + T)].reshape(R, T)
+            for b, j in enumerate(group):
+                seq = token_lists[j][:T]
+                toks[b, :len(seq)] = seq
+                h[b] = len(seq)
+            self._emb_in.push(R * (1 + T))
+            pooling = task._pooling
+            out = self.graphs.run(
+                ("embed", R, T, pooling),
+                lambda: self._embed_program(R, T, pooling))
+            # a sync of its own: the replay's output, read before any
+            # later program is enqueued
+            emb_h = out[:B].cpu().numpy()
+            for b, j in enumerate(group):
+                task._results[j] = emb_h[b]
+            if not task._groups:
+                self.embed_tasks.pop(0)
+                self._finish_embed(task)
+        except Exception as exc:  # noqa: BLE001
+            SRV_ERR("embed", "task %s failed: %r", task.rid, exc)
+            task.fail(exc)
+            if task in self.embed_tasks:
+                self.embed_tasks.remove(task)
+        return bool(self.embed_tasks)
+
+    def _embed_program(self, R: int, T: int, pooling: str) -> torch.Tensor:
+        """One embed pass of R rows of bucket T over the staged operands:
+        the pooled rows [R, E] (BERT rank: [R]; llama rank: [R, T, E]) in
+        f32."""
+        d = self._emb_in.dev
+        return self._embed_forward(d[R:R * (1 + T)].view(R, T), d[:R],
+                                   pooling).float()
+
+    def _finish_embed(self, task) -> None:
+        if isinstance(task, RerankTask):
+            self._finish_rerank(task)
+            return
+        for e in task._results:
+            v = e.astype(np.float64)
+            if task.normalize:
+                n = np.linalg.norm(v)
+                v = v / n if n > 0 else v
+            task.embeddings.append(v.tolist())
+        self.metrics.on_prefill(task.n_prompt,
+                                (time.monotonic() - task._t0) * 1e3)
+        task.emit("final", task)
+
+    def _finish_rerank(self, task: RerankTask) -> None:
+        """Scores (JAX `_finish_rerank`): each pair's first output value
+        (a BERT rank head's score; on a llama model, the first feature of
+        its first token, the JAX engine's quirk), min-maxed between the
+        query-self and query-unknown anchors when normalize."""
+        embs = task._results
+        scores = [float(np.asarray(e).reshape(-1)[0]) for e in embs]
+        if task.normalize and len(scores) >= task.n_documents + 2:
+            doc_scores = scores[:task.n_documents]
+            s_self, s_unk = scores[-2], scores[-1]
+            lo, hi = min(s_unk, min(doc_scores)), max(s_self, max(doc_scores))
+            rng = max(hi - lo, 1e-6)
+            task.scores = [(x - lo) / rng for x in doc_scores]
+        else:
+            task.scores = scores[:task.n_documents]
+        self.metrics.on_prefill(task.n_prompt,
+                                (time.monotonic() - task._t0) * 1e3)
+        task.emit("final", task)
 
     def probe_decode_tps(self, n_tokens: int = 32) -> float:
         """Timed greedy decode to measure tokens/sec (the reference's

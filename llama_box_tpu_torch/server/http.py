@@ -14,19 +14,26 @@ Routes: GET /health, GET /metrics (Prometheus text, `llamabox:*`), GET
 tools and tool_choice (tool_calls in the message and in SSE deltas),
 reasoning splitting (reasoning_content) and the per-request rate limit
 (X-Request-Tokens-Per-Second: 400 when it is not a number, 410 above the
-server's -tps cap). Multimodal content, LoRA, embeddings, rerank and
-images are not ported yet and are refused with a 400 or a 404; the port
-loads no adapter, so /lora-adapters lists none.
+server's -tps cap); POST /v1/embeddings (/embeddings; float or base64
+f32) and POST /v1/rerank (/rerank). The capabilities (`capabilities=`,
+the JAX server's names and defaults) gate the completion, embedding and
+reranking routes: a route that is off answers 404, and /v1/models
+reports them. Multimodal content, LoRA and images are not ported yet and
+are refused with a 400 or a 404; the port loads no adapter, so
+/lora-adapters lists none.
 """
 
 from __future__ import annotations
 
+import base64
 import dataclasses
 import json
 import queue
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
+
+import numpy as np
 
 from ..grammar import Grammar, GrammarError
 from ..ops.qmatmul import QTensor
@@ -41,7 +48,7 @@ from .protocol import (RequestError, bad_request, chat_chunk_json,
                        parse_prompt_tokens, parse_sampling, parse_stop,
                        parse_stream_options, usage_json)
 from .reasoning import ReasoningSplitter, detect_reasoning_markers
-from .task import CompletionsTask
+from .task import CompletionsTask, EmbeddingsTask, RerankTask
 from .toolcall import ToolCallScanner, migrate_functions, tools_grammar
 
 RESULT_TIMEOUT_S = 600.0
@@ -58,10 +65,13 @@ class HTTPServer:
                  chat_template_kwargs: dict | None = None,
                  default_stop: tuple = (),
                  max_tps: float = 0.0,
-                 default_grammar: str | None = None):
+                 default_grammar: str | None = None,
+                 capabilities: dict | None = None):
         """max_tps: the server's decode-rate cap a request (-tps; 0 =
         none); default_grammar: the server-wide GBNF (--grammar,
-        --grammar-file, --json-schema)."""
+        --grammar-file, --json-schema); capabilities: overrides of the
+        route switches (completion and embedding on, reranking off by
+        default, as in the JAX server)."""
         self.engine = engine
         self.model_name = model_name
         self.defaults = defaults or SamplerParams()
@@ -73,6 +83,14 @@ class HTTPServer:
         self.max_tps = max_tps
         self.default_grammar = default_grammar
         self.reasoning_markers = detect_reasoning_markers(self.chat.source)
+        self.caps = {"completion": True, "embedding": True,
+                     "reranking": False}
+        self.caps.update(capabilities or {})
+        self.post_routes = {"/tokenize": "tokenize",
+                            "/detokenize": "detokenize"}
+        for cap, routes in _CAP_ROUTES.items():
+            if self.caps[cap]:
+                self.post_routes.update(routes)
         self.created = int(time.time())
 
     def make_server(self, host: str = "127.0.0.1",
@@ -200,9 +218,9 @@ class HTTPServer:
                     "n_params": int(sum(t.numel() for t in leaves)),
                     "size": int(sum(t.numel() * t.element_size()
                                     for t in leaves)),
-                    "support_completion": True,
-                    "support_embedding": False,
-                    "support_reranking": False,
+                    "support_completion": self.caps["completion"],
+                    "support_embedding": self.caps["embedding"],
+                    "support_reranking": self.caps["reranking"],
                     "support_image": False,
                     "support_vision": False,
                     "support_audio": False,
@@ -214,6 +232,102 @@ class HTTPServer:
                 },
             }],
         }
+
+    # -- embeddings / rerank -------------------------------------------------
+
+    def embeddings(self, body: dict, rid: str, headers=None) -> dict:
+        """JAX `handle_embeddings`: input (or content) as a string, a list
+        of strings, a token list or a list of token lists; the vectors L2
+        normalized, as float lists or base64 of their f32 bytes."""
+        tok = self.engine.tokenizer
+        inp = body.get("input", body.get("content"))
+        if inp is None:
+            raise bad_request("\"input\" must be provided", "input")
+        if isinstance(inp, str) or (
+                isinstance(inp, list) and inp
+                and all(isinstance(x, int) and not isinstance(x, bool)
+                        for x in inp)):
+            inputs = [inp]
+        elif isinstance(inp, list) and inp:
+            inputs = inp
+        else:
+            raise bad_request("\"input\" must be a string, array of "
+                              "strings, or token arrays", "input")
+        token_lists = [parse_prompt_tokens(x, tok, "input") for x in inputs]
+        for i, t in enumerate(token_lists):
+            if not t:
+                raise bad_request(f"\"input\"[{i}] must not be empty",
+                                  "input")
+        enc = body.get("encoding_format", "float")
+        if enc not in ("float", "base64"):
+            raise bad_request("\"encoding_format\" must be \"float\" or "
+                              "\"base64\"", "encoding_format")
+        task = EmbeddingsTask(token_lists, rid=rid)
+        self.engine.submit(task)
+        payload = self._wait_final(task, lambda t: t)
+        if enc == "base64":
+            data = [{"object": "embedding", "index": i,
+                     "embedding": base64.b64encode(np.asarray(
+                         e, np.float32).tobytes()).decode()}
+                    for i, e in enumerate(payload.embeddings)]
+        else:
+            data = [{"object": "embedding", "index": i, "embedding": e}
+                    for i, e in enumerate(payload.embeddings)]
+        return {"object": "list", "data": data, "model": self.model_name,
+                "usage": {"prompt_tokens": task.n_prompt,
+                          "total_tokens": task.n_prompt}}
+
+    def rerank(self, body: dict, rid: str, headers=None) -> dict:
+        """JAX `handle_rerank`: each document paired with the query as
+        [CLS|BOS] q [SEP] d [SEP] [EOS], plus the query-self and
+        query-unknown anchors when normalize; results sorted by score, the
+        first top_n."""
+        tok = self.engine.tokenizer
+        query = body.get("query")
+        docs = body.get("documents")
+        if not isinstance(query, str) or not query:
+            raise bad_request("\"query\" must be a non-empty string",
+                              "query")
+        if not isinstance(docs, list) or not docs or not all(
+                isinstance(d, str) for d in docs):
+            raise bad_request("\"documents\" must be a non-empty array of "
+                              "strings", "documents")
+        top_n = body.get("top_n", len(docs))
+        normalize = bool(body.get("normalize", True))
+
+        def pair(q: str, d: str) -> list[int]:
+            """[BOS/CLS] q [SEP] d [SEP] [EOS] (httpserver.hpp:6189-6231)."""
+            q_ids = tok.encode(q, add_special=False)
+            d_ids = tok.encode(d, add_special=False)
+            cls = getattr(tok, "cls_id", None)
+            bos = [cls] if cls is not None else (
+                [tok.bos_id] if tok.bos_id is not None else [])
+            sep = [tok.sep_id] if tok.sep_id is not None else (
+                [tok.eos_id] if tok.eos_id is not None else [])
+            eos = [] if tok.sep_id is not None and tok.eos_id is None else (
+                [tok.eos_id] if tok.eos_id is not None else [])
+            return bos + q_ids + sep + d_ids + sep + eos
+
+        pairs = [pair(query, d) for d in docs]
+        if normalize:
+            pairs.append(pair(query, query))      # query-self anchor
+            pairs.append(pair(query, "unknown"))  # query-unknown anchor
+        task = RerankTask(pairs, n_documents=len(docs), normalize=normalize,
+                          rid=rid)
+        self.engine.submit(task)
+        payload = self._wait_final(task, lambda t: t)
+        results = sorted(
+            [{"index": i, "relevance_score": sc,
+              "document": {"text": docs[i]} if body.get("return_documents")
+              else None}
+             for i, sc in enumerate(payload.scores)],
+            key=lambda r: -r["relevance_score"])[:top_n]
+        for r in results:
+            if r["document"] is None:
+                del r["document"]
+        return {"model": self.model_name, "results": results,
+                "usage": {"prompt_tokens": task.n_prompt,
+                          "total_tokens": task.n_prompt}}
 
     # -- completions ---------------------------------------------------------
 
@@ -400,6 +514,18 @@ def _normalize_messages(messages: list) -> list[dict]:
     return out
 
 
+# the POST routes each capability switches on (JAX `build_app`)
+_CAP_ROUTES = {
+    "completion": {"/v1/completions": "completions",
+                   "/completions": "completions",
+                   "/v1/chat/completions": "chat_completions",
+                   "/chat/completions": "chat_completions"},
+    "embedding": {"/v1/embeddings": "embeddings",
+                  "/embeddings": "embeddings"},
+    "reranking": {"/v1/rerank": "rerank", "/rerank": "rerank"},
+}
+
+
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     routes: HTTPServer = None   # bound by HTTPServer.make_server
@@ -407,10 +533,6 @@ class _Handler(BaseHTTPRequestHandler):
     _GET = {"/health": "health", "/metrics": "metrics",
             "/v1/models": "models", "/models": "models",
             "/lora-adapters": "lora_adapters"}
-    _POST = {"/v1/completions": "completions", "/completions": "completions",
-             "/v1/chat/completions": "chat_completions",
-             "/chat/completions": "chat_completions",
-             "/tokenize": "tokenize", "/detokenize": "detokenize"}
 
     def log_message(self, fmt, *args):   # access log goes through SRV_INF
         pass
@@ -422,7 +544,7 @@ class _Handler(BaseHTTPRequestHandler):
         self._dispatch(self._GET)
 
     def do_POST(self):
-        self._dispatch(self._POST)
+        self._dispatch(self.routes.post_routes)
 
     def _dispatch(self, table: dict) -> None:
         rid = self.headers.get("X-Request-ID") or new_request_id()

@@ -214,3 +214,31 @@ class CompletionsTask(BaseTask):
             "draft_tokens_acceptance": (
                 self.n_draft_accepted / self.n_drafted if self.n_drafted else None),
         }
+
+
+class EmbeddingsTask(BaseTask):
+    kind = "embeddings"
+
+    def __init__(self, inputs: list[list[int]], normalize: bool = True,
+                 rid: str = ""):
+        super().__init__(rid)
+        self.inputs = inputs
+        self.normalize = normalize
+        self.embeddings: list[list[float]] = []
+        self.n_prompt = sum(len(i) for i in inputs)
+
+
+class RerankTask(BaseTask):
+    kind = "rerank"
+
+    def __init__(self, pairs: list[list[int]], n_documents: int,
+                 normalize: bool = True, rid: str = ""):
+        """pairs: tokenized [BOS]query[SEP]doc[SEP][EOS] sequences; when
+        normalize, the last two are the query-self / query-unknown anchors
+        (httpserver.hpp:6189-6231)."""
+        super().__init__(rid)
+        self.pairs = pairs
+        self.n_documents = n_documents
+        self.normalize = normalize
+        self.scores: list[float] = []
+        self.n_prompt = sum(len(p) for p in pairs)

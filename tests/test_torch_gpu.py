@@ -1068,10 +1068,10 @@ def test_draws_on_the_card_are_the_cpu_draws(cuda):
 _TINY = dict(L=2, E=256, H=4, HKV=2, D=64, FF=512, V=512)
 
 
-def _tiny_gguf(path, fmt):
+def _tiny_gguf(path, fmt, dims=None):
     from llama_box_tpu_torch.gguf import GGMLType, GGUFWriter
     from llama_box_tpu_torch.tokenizer.tokenizer import TokenType
-    L, E, H, HKV, D, FF, V = (_TINY[k] for k in
+    L, E, H, HKV, D, FF, V = ((dims or _TINY)[k] for k in
                               ("L", "E", "H", "HKV", "D", "FF", "V"))
     alpha = ["▁"] + [chr(c) for c in range(ord("a"), ord("z") + 1)]
     pieces = (alpha + [a + b for a in alpha for b in alpha])[:V - 259]
@@ -1887,3 +1887,331 @@ def test_spec_wave_pipelined_syncs_only_at_consume(cuda, tiny_model):
         assert _serve(ref, specs) == out
     finally:
         ref.stop()
+
+
+# -- embeddings and rerank -----------------------------------------------------
+
+# TinyLlama-1.1B's and BERT-base's (bge-base-en-v1.5) widths, two layers each
+_TINYLLAMA_WIDTH = dict(L=2, E=2048, H=32, HKV=4, D=64, FF=5632, V=512)
+_BERT_BASE = dict(L=2, E=768, H=12, FF=3072, V=512, P=512)
+
+
+def _bert_gguf(path, rank=True, dims=_BERT_BASE, seed=6):
+    """A BERT GGUF (a WordPiece vocab of letter pieces; with `rank`, a
+    classification head and pooling rank, else pooling cls), random F16
+    matrices and F32 vectors from `seed`."""
+    from llama_box_tpu_torch.gguf import GGMLType, GGUFWriter
+    L, E, H, FF, V, P = (dims[k] for k in ("L", "E", "H", "FF", "V", "P"))
+    alpha = [chr(c) for c in range(ord("a"), ord("z") + 1)]
+    words = alpha + [a + b for a in alpha for b in alpha]
+    vocab = (["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words
+             + ["##" + w for w in words])[:V]
+    rng = np.random.default_rng(seed)
+    w = GGUFWriter(str(path), architecture="bert")
+    for k, v in (("bert.block_count", L), ("bert.context_length", P),
+                 ("bert.embedding_length", E),
+                 ("bert.feed_forward_length", FF),
+                 ("bert.attention.head_count", H),
+                 ("bert.attention.layer_norm_epsilon", 1e-12),
+                 ("bert.pooling_type", 4 if rank else 2),
+                 ("tokenizer.ggml.model", "bert"),
+                 ("tokenizer.ggml.tokens", vocab),
+                 ("tokenizer.ggml.token_type", np.asarray(
+                     [3] * 5 + [1] * (V - 5), np.int32)),
+                 ("tokenizer.ggml.unknown_token_id", 1),
+                 ("tokenizer.ggml.cls_token_id", 2),
+                 ("tokenizer.ggml.seperator_token_id", 3)):
+        w.add_kv(k, v)
+
+    def rand(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * 0.02
+
+    f16 = GGMLType.F16
+    w.add_tensor("token_embd.weight", rand(V, E), f16)
+    w.add_tensor("token_types.weight", rand(2, E), f16)
+    w.add_tensor("position_embd.weight", rand(P, E), f16)
+    w.add_tensor("token_embd_norm.weight", 1.0 + rand(E))
+    w.add_tensor("token_embd_norm.bias", rand(E))
+    for i in range(L):
+        for name, (o, n) in (("attn_q", (E, E)), ("attn_k", (E, E)),
+                             ("attn_v", (E, E)), ("attn_output", (E, E)),
+                             ("ffn_up", (FF, E)), ("ffn_down", (E, FF))):
+            w.add_tensor(f"blk.{i}.{name}.weight", rand(o, n), f16)
+            w.add_tensor(f"blk.{i}.{name}.bias", rand(o))
+        for name in ("attn_output_norm", "layer_output_norm"):
+            w.add_tensor(f"blk.{i}.{name}.weight", 1.0 + rand(E))
+            w.add_tensor(f"blk.{i}.{name}.bias", rand(E))
+    if rank:
+        w.add_tensor("cls.weight", rand(E, E), f16)
+        w.add_tensor("cls.bias", rand(E))
+        w.add_tensor("cls.output.weight", rand(1, E), f16)
+        w.add_tensor("cls.output.bias", rand(1))
+    w.write()
+
+
+@pytest.fixture(scope="module")
+def bert_model(tmp_path_factory):
+    """("bert", cfg, bf16 params on the card, tokenizer) of a BERT-base
+    width cross-encoder."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from llama_box_tpu_torch.gguf import GGUFFile
+    from llama_box_tpu_torch.models.bert import load_bert
+    from llama_box_tpu_torch.tokenizer import Tokenizer
+    path = tmp_path_factory.mktemp("bert") / "bert-base.gguf"
+    _bert_gguf(path)
+    cfg, params = load_bert(str(path), dtype=torch.bfloat16, device="cuda")
+    with GGUFFile(str(path)) as g:
+        tok = Tokenizer.from_gguf(g)
+    return "bert", cfg, params, tok
+
+
+@pytest.fixture(scope="module")
+def wide_model(tmp_path_factory):
+    """A TinyLlama-width two-layer llama file, bf16 weights on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from llama_box_tpu_torch.gguf import GGUFFile
+    from llama_box_tpu_torch.models.loader import load_model
+    from llama_box_tpu_torch.tokenizer import Tokenizer
+    path = tmp_path_factory.mktemp("wide") / "tinyllama-width.gguf"
+    _tiny_gguf(path, "f16", _TINYLLAMA_WIDTH)
+    cfg, params = load_model(str(path), dtype=torch.bfloat16, device="cuda")
+    with GGUFFile(str(path)) as g:
+        tok = Tokenizer.from_gguf(g)
+    return "bf16", cfg, params, tok
+
+
+def _embed_lists(rng, lens, lo=10, hi=500):
+    return [rng.integers(lo, hi, n).tolist() for n in lens]
+
+
+def _stage_embed(eng, lists, R, T):
+    h = eng._emb_in.host()
+    h[:R * (1 + T)] = 0
+    toks = h[R:R * (1 + T)].reshape(R, T)
+    for b, ids in enumerate(lists):
+        toks[b, :len(ids)] = ids
+        h[b] = len(ids)
+    eng._emb_in.push(R * (1 + T))
+
+
+def _run_embed(eng, lists, R, T, pooling):
+    _stage_embed(eng, lists, R, T)
+    return eng.graphs.run(("embed", R, T, pooling),
+                          lambda: eng._embed_program(R, T, pooling))
+
+
+@pytest.mark.parametrize("pooling", ["mean", "rank"])
+def test_embed_graph_replays_the_eager_bits(cuda, tiny_model, pooling):
+    """An embed pass (4 rows, bucket 32; pooled, or every row under the
+    rank pooling) three times on an engine with graphs and on one
+    without: the outputs equal bit for bit each time; the replays count
+    the pass's kernels (flash prefill once a layer)."""
+    from llama_box_tpu_torch.ops.flash_prefill import flash_prefill_batched
+    engines = [_engine(tiny_model, g) for g in (True, False)]
+    lists = _embed_lists(np.random.default_rng(97), (32, 9, 20))
+    for it in range(3):
+        outs = []
+        for eng in engines:
+            n0 = flash_prefill_batched.launches
+            out = _run_embed(eng, lists, 4, 32, pooling)
+            torch.cuda.synchronize()
+            assert flash_prefill_batched.launches - n0 == eng.cfg.n_layers
+            outs.append(out.clone())
+        assert torch.equal(*outs), it
+        assert torch.isfinite(outs[0]).all()
+    assert engines[0].graphs.n_graphs == 1
+    assert engines[1].graphs.n_graphs == 0
+
+
+@pytest.mark.parametrize("pooling", ["cls", "rank"])
+def test_bert_embed_graph_replays_the_eager_bits(cuda, bert_model, pooling):
+    from llama_box_tpu_torch.server.engine import Engine, EngineConfig
+    _, cfg, params, tok = bert_model
+    engines = [Engine(cfg, params, tok, EngineConfig(
+        n_slots=1, n_ctx=512, n_ubatch=64, cuda_graphs=g), device="cuda")
+        for g in (True, False)]
+    lists = _embed_lists(np.random.default_rng(98), (64, 17, 40, 3, 64),
+                         5, 500)
+    for it in range(3):
+        outs = []
+        for eng in engines:
+            out = _run_embed(eng, lists, 8, 64, pooling)
+            torch.cuda.synchronize()
+            outs.append(out.clone())
+        assert torch.equal(*outs), it
+    assert outs[0].shape == ((8,) if pooling == "rank" else (8, cfg.n_embd))
+    assert engines[0].graphs.n_graphs == 1
+
+
+def _plain_on_card(mp):
+    """Route the embedding pass's kernels to their plain versions, on the
+    card's tensors."""
+    from llama_box_tpu_torch.models import llama as tl
+    from llama_box_tpu_torch.ops import fused_decode as fdm
+    from llama_box_tpu_torch.ops import qmatmul as qm
+    mp.setattr(tl, "flash_prefill_batched", fp_mod.flash_prefill_plain)
+    mp.setattr(tl, "fused_norm_qmm", fdm.fused_norm_qmm_plain)
+    mp.setattr(tl, "fused_layer_tail", fdm.fused_layer_tail_plain)
+    mp.setattr(qm, "w8a8_matmul", lambda x, qs, sc, out_dtype=torch.float32:
+               qm.w8a8_matmul_plain(x, qs, sc).to(out_dtype))
+    mp.setattr(qm, "q_matmul", lambda x, w, out_dtype=torch.float32:
+               qm.q_matmul_ref(x, w).to(out_dtype))
+
+
+def _card_against_plain(model, lists, T, monkeypatch):
+    from llama_box_tpu_torch.models.llama import (forward_embeddings,
+                                                  make_rope)
+    from llama_box_tpu_torch.ops.flash_prefill import flash_prefill_batched
+    _, cfg, params, _ = model
+    cos, sin = make_rope(cfg, T, device="cuda")
+    toks = torch.zeros((len(lists), T), dtype=torch.int64)
+    for b, ids in enumerate(lists):
+        toks[b, :len(ids)] = torch.tensor(ids)
+    lens = torch.tensor([len(x) for x in lists])
+    n0 = flash_prefill_batched.launches
+    got = forward_embeddings(params, cfg, toks, lens, cos, sin)
+    assert flash_prefill_batched.launches - n0 == cfg.n_layers
+    with monkeypatch.context() as mp:
+        _plain_on_card(mp)
+        want = forward_embeddings(params, cfg, toks, lens, cos, sin)
+    assert flash_prefill_batched.launches - n0 == cfg.n_layers
+    cos_sim = torch.nn.functional.cosine_similarity(got, want)
+    assert torch.isfinite(got).all()
+    assert float(cos_sim.min()) >= 0.999, cos_sim
+
+
+def test_embedding_vectors_against_the_plain_versions(cuda, tiny_model,
+                                                      monkeypatch):
+    """Every weight path at the tiny widths, 3 rows of bucket 64 (more
+    than 64 token rows) and 1 row of 32 (w8a8: the fused kernels): the
+    card's vectors against the same pass through the plain versions on
+    the card, cosine >= 0.999."""
+    rng = np.random.default_rng(99)
+    _card_against_plain(tiny_model, _embed_lists(rng, (64, 30, 51)), 64,
+                        monkeypatch)
+    _card_against_plain(tiny_model, _embed_lists(rng, (32,)), 32,
+                        monkeypatch)
+
+
+def test_tinyllama_width_vectors_against_the_plain_versions(
+        cuda, wide_model, monkeypatch):
+    rng = np.random.default_rng(100)
+    _card_against_plain(wide_model, _embed_lists(rng, (512, 300, 77, 16)),
+                        512, monkeypatch)
+
+
+def test_bert_base_width_vectors_against_the_cpu(cuda, bert_model):
+    """The BERT encoder runs no kernel of the port: its bf16 vectors and
+    rank scores on the card against the f32 encoder on the CPU."""
+    from llama_box_tpu_torch.models.bert import bert_forward
+    _, cfg, params, _ = bert_model
+    cpu = {k: ({kk: vv.float().cpu() for kk, vv in v.items()}
+               if isinstance(v, dict) else v.float().cpu())
+           for k, v in params.items()}
+    lists = _embed_lists(np.random.default_rng(101), (512, 300, 77, 16),
+                         5, 500)
+    toks = torch.zeros((4, 512), dtype=torch.int64)
+    for b, ids in enumerate(lists):
+        toks[b, :len(ids)] = torch.tensor(ids)
+    lens = torch.tensor([len(x) for x in lists])
+    for pooling in ("cls", "mean"):
+        got = bert_forward(params, cfg, toks, lens, pooling).float().cpu()
+        want = bert_forward(cpu, cfg, toks, lens, pooling)
+        sim = torch.nn.functional.cosine_similarity(got, want)
+        assert float(sim.min()) >= 0.999, (pooling, sim)
+    got = bert_forward(params, cfg, toks, lens, "rank").float().cpu()
+    want = bert_forward(cpu, cfg, toks, lens, "rank")
+    assert float((got - want).abs().max()) <= 0.02, (got, want)
+
+
+def test_embed_pass_between_pipelined_chains_leaves_their_tokens(
+        cuda, tiny_model):
+    """Three requests decoding in pipelined chains (graphs, chains of 4,
+    the prefix cache off) with a 12-input embeddings task beside them (in
+    passes of 2 rows, one a reconcile pass, enqueued between the chains'
+    replays): their tokens equal those of the same requests alone, the
+    chains were speculated, and the vectors are those of a quiet
+    engine."""
+    from llama_box_tpu_torch.server.task import (CompletionsTask,
+                                                 EmbeddingsTask)
+    specs = _pipeline_specs(np.random.default_rng(102), n=40)[:3]
+    lists = _embed_lists(np.random.default_rng(103),
+                         [5, 9, 31, 17, 2, 30, 11, 25, 7, 19, 3, 28])
+    res = {}
+    for beside in (False, True):
+        eng = _engine(tiny_model, True, chain=4, start=True,
+                      max_embed_batch=2, prompt_cache=False)
+        try:
+            task = EmbeddingsTask(lists)
+            tasks = [CompletionsTask(list(p), sp, tokenizer=eng.tokenizer,
+                                     max_tokens=n) for p, sp, n in specs]
+            for t in tasks + ([task] if beside else []):
+                eng.submit(t)
+            out = [list(_final(t).generated) for t in tasks]
+            if beside:
+                assert eng.metrics.n_spec_chains > 0
+            else:
+                eng.submit(task)
+            res[beside] = (out, np.asarray(_final(task).embeddings))
+        finally:
+            eng.stop()
+    assert res[True][0] == res[False][0]
+    assert np.array_equal(res[True][1], res[False][1])
+
+
+def _final(task, timeout=300):
+    while True:
+        kind, payload = task.result_q.get(timeout=timeout)
+        if kind == "error":
+            raise payload
+        if kind == "final":
+            return payload
+
+
+def test_embed_graph_outputs_survive_the_other_graphs_replays(cuda,
+                                                              tiny_model):
+    """Two embed keys, a prefill bucket and two decode chains captured in
+    turn; each replays and keeps its outputs while every other replays
+    after it (test_a_graphs_outputs_survive_the_other_graphs_replays with
+    the embed graphs among them)."""
+    eng = _engine(tiny_model, True)
+    rng = np.random.default_rng(104)
+    progs = {}
+    for R, T, pooling in ((4, 32, "mean"), (2, 64, "rank")):
+        lists = _embed_lists(rng, [T, T // 2][:R])
+
+        def run(R=R, T=T, pooling=pooling, lists=lists):
+            return (_run_embed(eng, lists, R, T, pooling),)
+        progs["embed", R, T, pooling] = run
+    ids = rng.integers(300, 500, 32).tolist()
+
+    def prefill():
+        _stage_prefill(eng, {0: (0, ids), 2: (0, ids[:16])}, 32)
+        eng._refresh_arrs()
+        return eng.graphs.run(("prefill", 32),
+                              lambda: eng._prefill_program(32))
+    progs["prefill", 32] = prefill
+    for K in (1, 16):
+        def run(K=K):
+            _stage_decode(eng, [401, None, 402, 403], [40, 0, 20, 9])
+            return eng.graphs.run(("decode", K, False, 64),
+                                  lambda: eng._decode_program(
+                                      K, samp_extras=False, samp_kcap=64))
+        progs["decode", K] = run
+    for run in progs.values():
+        run()           # eager first use
+        run()           # capture + replay
+    assert eng.graphs.n_graphs == len(progs)
+    for key, run in progs.items():
+        outs = run()
+        torch.cuda.synchronize()
+        want = [t.clone() for t in outs]
+        for other, run2 in progs.items():
+            if other == key:
+                continue
+            run2()
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(outs, want)), \
+                f"replaying {other} changed the outputs of {key}"

@@ -8,8 +8,15 @@ each SSE stream carries the same text and ends with `data: [DONE]`. The
 host-side routes: /tokenize as the JAX tokenizer, /detokenize back,
 /metrics under the JAX server's names, /lora-adapters empty, the
 X-Request-Tokens-Per-Second cases, and reasoning_content and tool_calls
-in SSE deltas."""
+in SSE deltas. /v1/embeddings and /v1/rerank (and their aliases) against
+the JAX package's own aiohttp server on the same engine inputs, on
+tests/test_bert.py's tiny BERT files and on the llama fixture: the same
+vectors (float, and base64 of their f32 bytes), scores, order, status
+codes and error params, capabilities in /v1/models and 404s for the
+routes that are off, as the JAX CLI sets them from --embeddings,
+--rerank and the file."""
 
+import dataclasses
 import json
 import threading
 import time
@@ -479,3 +486,266 @@ def test_tps_minus_one_probes_the_decode_rate(model_path):
     finally:
         srv.server_close()
         engine.stop()
+
+
+# -- embeddings and rerank -----------------------------------------------------
+
+
+def _jax_server(engine, caps):
+    """The JAX package's aiohttp server over a started JAX engine, with
+    `caps` as its CLI would set them: (url, stop)."""
+    import asyncio
+    import socket
+
+    from llama_box_tpu.server.http import HTTPServer as JHTTPServer, run_app
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    app = JHTTPServer(engine, model_name="m", capabilities=caps)
+    loop = asyncio.new_event_loop()
+    started = threading.Event()
+
+    def run():
+        asyncio.set_event_loop(loop)
+
+        async def go():
+            await run_app(app, "127.0.0.1", port)
+            started.set()
+        loop.run_until_complete(go())
+        loop.run_forever()
+    threading.Thread(target=run, daemon=True).start()
+    assert started.wait(timeout=30)
+
+    def stop():
+        loop.call_soon_threadsafe(loop.stop)
+        engine.stop()
+    return f"http://127.0.0.1:{port}", stop
+
+
+def _port_server(argv):
+    engine, srv = cli.build_server(argv + [
+        "--device", "cpu", "--port", "0", "--no-jinja", "--weights-dtype",
+        "f32", "-np", "1", "-c", "256", "-ctk", "f32", "-ctv", "f32"])
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+
+    def stop():
+        srv.shutdown()
+        srv.server_close()
+        engine.stop()
+    return f"http://127.0.0.1:{srv.server_address[1]}", stop
+
+
+def _call(url, body):
+    """(status, json) of a POST, errors included (None: a body that is not
+    JSON, as aiohttp's 404 page)."""
+    try:
+        status, text = _post(url, body)
+    except urllib.error.HTTPError as e:
+        status, text = e.code, e.read().decode()
+    try:
+        return status, json.loads(text)
+    except ValueError:
+        return status, None
+
+
+def _jax_bert(path):
+    from llama_box_tpu.models.bert import load_bert as j_load_bert
+    cfg, params = j_load_bert(path)
+    with JGGUFFile(path) as g:
+        tok = JTokenizer.from_gguf(g)
+    return cfg, params, tok
+
+
+@pytest.fixture(scope="module")
+def bert_paths(tmp_path_factory):
+    from tests.test_bert import write_tiny_bert
+    d = tmp_path_factory.mktemp("bert")
+    out = {"rank": str(d / "bert-rank.gguf"), "mean": str(d / "bert.gguf")}
+    write_tiny_bert(out["rank"], seed=0, with_cls=True)
+    write_tiny_bert(out["mean"], seed=1, with_cls=False)
+    return out
+
+
+@pytest.fixture(scope="module")
+def bert_pair(bert_paths):
+    """The cross-encoder file behind the JAX server and the port's CLI
+    (capabilities as the JAX CLI sets them for a `rank` BERT file:
+    completions off, embeddings and rerank on)."""
+    cfg, params, tok = _jax_bert(bert_paths["rank"])
+    eng = JEngine(cfg, params, tok, JEngineConfig(n_slots=1, n_ctx=256))
+    eng.start()
+    jurl, jstop = _jax_server(eng, {"completion": False, "embedding": True,
+                                    "reranking": True})
+    purl, pstop = _port_server(["-m", bert_paths["rank"]])
+    yield jurl, purl
+    pstop()
+    jstop()
+
+
+EMB_INPUTS = ["the quick brown fox", ["a dog", "cat runs fast", "good"],
+              [2, 20, 21, 3], [[2, 20, 3], [2, 30, 31, 32, 3]]]
+
+
+@pytest.mark.parametrize("inp", EMB_INPUTS,
+                         ids=["string", "strings", "tokens", "token_lists"])
+def test_embeddings_float_and_base64_match_jax(bert_pair, inp):
+    import base64
+
+    import numpy as np
+    jurl, purl = bert_pair
+    for route in ("/v1/embeddings", "/embeddings"):
+        js, jb = _call(jurl + route, {"input": inp})
+        ps, pb = _call(purl + route, {"input": inp})
+        assert ps == js == 200
+        assert pb["object"] == "list" and pb["usage"] == jb["usage"]
+        assert [d["index"] for d in pb["data"]] == \
+            [d["index"] for d in jb["data"]]
+        got = np.array([d["embedding"] for d in pb["data"]])
+        want = np.array([d["embedding"] for d in jb["data"]])
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    _, b64 = _call(purl + "/v1/embeddings",
+                   {"content": inp, "encoding_format": "base64"})
+    dec = np.array([np.frombuffer(base64.b64decode(d["embedding"]),
+                                  np.float32) for d in b64["data"]])
+    np.testing.assert_array_equal(dec, got.astype(np.float32))
+
+
+@pytest.mark.parametrize("body", [
+    {"query": "quick fox", "documents": ["the quick brown fox",
+                                         "a slow dog", "cat runs fast"]},
+    {"query": "quick fox", "documents": ["the quick brown fox",
+                                         "a slow dog", "cat runs fast"],
+     "normalize": False, "top_n": 2},
+    {"query": "dog", "documents": ["a slow dog", "the cat", "dog dog"],
+     "return_documents": True, "top_n": 1},
+], ids=["normalized", "raw_top2", "documents_top1"])
+def test_rerank_matches_jax(bert_pair, body):
+    jurl, purl = bert_pair
+    for route in ("/v1/rerank", "/rerank"):
+        js, jb = _call(jurl + route, body)
+        ps, pb = _call(purl + route, body)
+        assert ps == js == 200
+        assert pb["usage"] == jb["usage"]
+        assert [r["index"] for r in pb["results"]] == \
+            [r["index"] for r in jb["results"]]
+        assert [r.get("document") for r in pb["results"]] == \
+            [r.get("document") for r in jb["results"]]
+        for p, j in zip(pb["results"], jb["results"]):
+            assert p["relevance_score"] == pytest.approx(
+                j["relevance_score"], abs=1e-4)
+    scores = [r["relevance_score"] for r in pb["results"]]
+    assert scores == sorted(scores, reverse=True)
+
+
+@pytest.mark.parametrize("route,body", [
+    ("/v1/embeddings", {}),
+    ("/v1/embeddings", {"input": []}),
+    ("/v1/embeddings", {"input": 5}),
+    ("/v1/embeddings", {"input": [{"a": 1}]}),
+    ("/v1/embeddings", {"input": "x", "encoding_format": "hex"}),
+    ("/v1/rerank", {"documents": ["a"]}),
+    ("/v1/rerank", {"query": "", "documents": ["a"]}),
+    ("/v1/rerank", {"query": "q", "documents": []}),
+    ("/v1/rerank", {"query": "q", "documents": ["a", 3]}),
+], ids=["no_input", "empty_list", "number", "objects", "encoding",
+        "no_query", "empty_query", "no_documents", "bad_document"])
+def test_embedding_and_rerank_errors_match_jax(bert_pair, route, body):
+    jurl, purl = bert_pair
+    js, jb = _call(jurl + route, body)
+    ps, pb = _call(purl + route, body)
+    assert ps == js == 400
+    for k in ("type", "param", "message"):
+        assert pb["error"][k] == jb["error"][k], k
+
+
+def test_bert_capabilities_match_jax(bert_pair):
+    jurl, purl = bert_pair
+    flags = ("support_completion", "support_embedding", "support_reranking")
+    jm = _get(jurl + "/v1/models")[1]["data"][0]["meta"]
+    pm = _get(purl + "/v1/models")[1]["data"][0]["meta"]
+    assert [pm[f] for f in flags] == [jm[f] for f in flags] \
+        == [False, True, True]
+    for route in ("/v1/completions", "/v1/chat/completions"):
+        assert _call(purl + route, {"prompt": "x"})[0] \
+            == _call(jurl + route, {"prompt": "x"})[0] == 404
+
+
+def test_bert_file_served_with_rerank(bert_paths):
+    """A BERT file without a classification head, pooling mean, behind
+    --rerank: rerank scores the [CLS] row's first feature (the `rank`
+    pooling with no `cls` tensors), as the JAX server does."""
+    cfg, params, tok = _jax_bert(bert_paths["mean"])
+    cfg = dataclasses.replace(cfg, pooling="rank")
+    eng = JEngine(cfg, params, tok, JEngineConfig(n_slots=1, n_ctx=256))
+    eng.start()
+    jurl, jstop = _jax_server(eng, {"completion": False, "embedding": True,
+                                    "reranking": True})
+    purl, pstop = _port_server(["-m", bert_paths["mean"], "--rerank"])
+    try:
+        body = {"query": "the fox", "documents": ["a fox", "dog", "cat"],
+                "normalize": False}
+        (js, jb), (ps, pb) = _call(jurl + "/v1/rerank", body), \
+            _call(purl + "/v1/rerank", body)
+        assert ps == js == 200
+        assert [r["index"] for r in pb["results"]] == \
+            [r["index"] for r in jb["results"]]
+        for p, j in zip(pb["results"], jb["results"]):
+            assert p["relevance_score"] == pytest.approx(
+                j["relevance_score"], abs=1e-5)
+        meta = _get(purl + "/v1/models")[1]["data"][0]["meta"]
+        assert meta["support_reranking"] is True
+    finally:
+        pstop()
+        jstop()
+
+
+@pytest.mark.parametrize("flags,caps", [
+    ([], {"completion": True, "embedding": True, "reranking": False}),
+    (["--embeddings"], {"completion": False, "embedding": True,
+                        "reranking": False}),
+    (["--embedding", "--reranking"], {"completion": False,
+                                      "embedding": True,
+                                      "reranking": True}),
+], ids=["default", "embeddings", "aliases"])
+def test_llama_capability_flags_match_jax(model_path, flags, caps):
+    """A llama file: the CLI's embedding group sets the routes as the JAX
+    CLI does; a route that is off answers 404 in both servers, and both
+    give the same embeddings."""
+    cfg, params = jax_load(model_path, dtype=jnp.float32)
+    with JGGUFFile(model_path) as g:
+        tok = JTokenizer.from_gguf(g)
+    eng = JEngine(cfg, params, tok, JEngineConfig(
+        n_slots=1, n_ctx=256, kv_dtype="float32"))
+    eng.start()
+    jurl, jstop = _jax_server(eng, caps)
+    purl, pstop = _port_server(["-m", model_path] + flags)
+    try:
+        meta = _get(purl + "/v1/models")[1]["data"][0]["meta"]
+        jmeta = _get(jurl + "/v1/models")[1]["data"][0]["meta"]
+        for k in ("completion", "embedding", "reranking"):
+            assert meta[f"support_{k}"] == jmeta[f"support_{k}"] == caps[k]
+        requests = {"/v1/completions": {"prompt": "hi", "max_tokens": 2,
+                                        "temperature": 0},
+                    "/v1/embeddings": {"input": ["hello", "the world"]},
+                    "/v1/rerank": {"query": "hello",
+                                   "documents": ["world", "the test"]}}
+        for route, body in requests.items():
+            (ps, pb), (js, jb) = _call(purl + route, body), \
+                _call(jurl + route, body)
+            assert ps == js, route
+            if route == "/v1/embeddings":
+                import numpy as np
+                np.testing.assert_allclose(
+                    [d["embedding"] for d in pb["data"]],
+                    [d["embedding"] for d in jb["data"]], rtol=0, atol=1e-5)
+            if route == "/v1/rerank" and ps == 200:
+                assert [r["index"] for r in pb["results"]] == \
+                    [r["index"] for r in jb["results"]]
+                assert [r["relevance_score"] for r in pb["results"]] == \
+                    pytest.approx([r["relevance_score"]
+                                   for r in jb["results"]], abs=1e-5)
+    finally:
+        pstop()
+        jstop()
