@@ -29,6 +29,15 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     (bound: M*K*3 + 4*M bytes), the fused kernels at Llama-3-8B's widths
     (kernel only, not served) and counts the kernels each w8a8 call runs
     (torch.profiler);
+ 3n/4n. the row-norm kernel (csrc/norm.cu: RMSNorm and LayerNorm, with
+    an optional bias and per-head weights) against its plain version at
+    the rows the served models give it (4 decode rows and a 4 x 512
+    prefill of TinyLlama, Qwen3's per-head q norm, Pythia's biased
+    LayerNorm) and variants (chameleon's per-head weights, an odd width,
+    f32 rows of an FF width), within one bf16 rounding; a row's bits the
+    same alone, among 4 rows and among 36 (a verify pass); then its
+    times beside the bound (bytes), the plain version and torch's
+    rms_norm / layer_norm (never used by the port);
  5. end to end, bf16 path: a synthetic TinyLlama-1.1B-width GGUF (random
     F16 weights from --seed, a 32000-piece SPM vocab, a chatml template)
     is served by the port's own HTTP server at -np 4 -c 8192 -ub 512
@@ -172,13 +181,32 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     launched in the request. On both models, one ("embed", 8, 512)
     replay bit-equal to the eager pass and its device ms beside its
     bound; printed: embeddings tok/s, rerank docs/s;
- 9. print a `kernels` line (seven kernels; launches count graph replays;
+ 11. the dense llama variants at published widths, after phase 10: two
+    synthetic GGUFs (Q8_0 matrices, F32 vectors, random from --seed, every
+    layer, a synthetic vocabulary of the published size, chatml): Qwen3-
+    1.7B's (Qwen/Qwen3-1.7B config.json: 28 x 2048, 16 / 8 heads of 128,
+    FF 6144, vocab 151936, tied embeddings, per-head q/k RMS norms) and
+    Pythia-1.4B's (EleutherAI/pythia-1.4b config.json: 24 x 2048, 16 heads
+    of 128, rotary 32 of them, parallel residual, LayerNorm with biases,
+    fused biased qkv, ungated GELU FFN with biases, untied output). Each is
+    served by the CLI on the bf16 path (the file dequantized to bf16) and
+    on the w8a8 path (--weights-dtype quantized): two warm-up waves, then 4
+    greedy chats of about 200 prompt tokens and 64 tokens with graphs
+    and chains pipelined, the same on a fresh eager engine (texts equal),
+    one more request counting its kernels from 0 (the row-norm kernel,
+    flash prefill and decode must run, and on w8a8 w8a8_matmul, for
+    Qwen3 the fused kernels too; no other), small_forward's logits
+    against the f32 CPU forward of the same file (cosine >= VARIANT_COS),
+    and one captured decode step: its kernels a layer with the row-norm
+    kernel and with the norms' plain torch versions, its row-norm
+    launches, and no torch mean reduction (a norm's) in it;
+ 9. print a `kernels` line (eight kernels; launches count graph replays;
     each also with its launches in the self-drafting waves of 8/8w/8q,
     in phase 8's n-gram, self-draft and 2-layer draft waves and in each
     path's embeddings request of phase 10, where bf16's window also holds
-    the chats' chains), an `e2e` line (three paths and phases 6, 7, 8 and
-    10), the card line, and as the last line {"ok": true, "device":
-    {...}}.
+    the chats' chains, and in one request of each phase 11 model and
+    path), an `e2e` line (three paths and phases 6, 7, 8, 10 and 11), the
+    card line, and as the last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without CUDA,
 or without the llama_box_tpu_torch package beside it, it exits non-zero
@@ -992,9 +1020,9 @@ def q_kernel_phase(dev, seed):
 # synthetic TinyLlama-1.1B-width GGUF
 
 
-def spm_vocab():
+def spm_vocab(n_vocab: int = V):
     """<unk>, <s>, </s>, 256 byte-fallback pieces, the chatml markers, then
-    letter pieces up to 32000 (shorter first, scored by rank)."""
+    letter pieces up to n_vocab (shorter first, scored by rank)."""
     from llama_box_tpu_torch.tokenizer.tokenizer import TokenType
     toks = ["<unk>", "<s>", "</s>"] + [f"<0x{i:02X}>" for i in range(256)] \
         + ["<|im_start|>", "<|im_end|>"]
@@ -1006,7 +1034,10 @@ def spm_vocab():
     pieces += [a + b + c for a in alpha for b in alpha[1:] for c in alpha[1:]]
     pieces += ["▁" + a + b + c for a in alpha[1:] for b in alpha[1:]
                for c in alpha[1:]]
-    pieces = pieces[:V - len(toks)]
+    if len(pieces) < n_vocab - len(toks):
+        pieces += ["▁" + a + b + c + d for a in alpha[1:] for b in alpha[1:]
+                   for c in alpha[1:] for d in alpha[1:]]
+    pieces = pieces[:n_vocab - len(toks)]
     scores = [0.0] * len(toks) + [-float(i) for i in range(len(pieces))]
     return toks + pieces, scores, types + [TokenType.NORMAL] * len(pieces)
 
@@ -1159,7 +1190,7 @@ def small_forward(params, cfg, device, kv_dtype):
     from llama_box_tpu_torch.models import llama
     S, T, C = 2, 16, 64
     rng = np.random.default_rng(5)
-    toks = rng.integers(3, V, (3, S, T)).astype(np.int32)
+    toks = rng.integers(3, cfg.vocab_size, (3, S, T)).astype(np.int32)
     chunks = [(np.zeros(S, np.int64), np.array([T, 11])),
               (np.array([T, 11]), np.array([T, 7]))]
     kv = llama.init_kv_cache(cfg, S, C, kv_dtype, device=device)
@@ -1277,25 +1308,28 @@ def kernel_counters() -> dict:
     from llama_box_tpu_torch.ops.flash_prefill import flash_prefill_batched
     from llama_box_tpu_torch.ops.fused_decode import (fused_layer_tail,
                                                       fused_norm_qmm)
+    from llama_box_tpu_torch.ops.norm import row_norm
     from llama_box_tpu_torch.ops.qmatmul import (q4_matmul, q8_matmul,
                                                  w8a8_matmul)
     return {"flash_prefill": flash_prefill_batched,
             "flash_decode": flash_decode, "w8a8_matmul": w8a8_matmul,
             "fused_norm_qmm": fused_norm_qmm,
             "fused_layer_tail": fused_layer_tail, "q4_matmul": q4_matmul,
-            "q8_matmul": q8_matmul}
+            "q8_matmul": q8_matmul, "row_norm": row_norm}
 
 
 # each served path: phase name, GGUF types, extra CLI flags, environment,
 # and the kernels its main path must launch (all others: none)
 PATHS = {
-    "bf16": ("5", "f16", [], {}, ("flash_prefill", "flash_decode")),
+    "bf16": ("5", "f16", [], {}, ("flash_prefill", "flash_decode",
+                                  "row_norm")),
     "w8a8": ("5w", "q8_0", ["--weights-dtype", "quantized"], {},
              ("flash_prefill", "flash_decode", "w8a8_matmul",
-              "fused_norm_qmm", "fused_layer_tail")),
+              "fused_norm_qmm", "fused_layer_tail", "row_norm")),
     "q4": ("5q", "q4_k_m", ["--weights-dtype", "quantized"],
            {"LLAMA_BOX_TPU_PACKED4": "1"},
-           ("flash_prefill", "flash_decode", "q4_matmul", "q8_matmul")),
+           ("flash_prefill", "flash_decode", "q4_matmul", "q8_matmul",
+            "row_norm")),
 }
 
 
@@ -2973,7 +3007,7 @@ def verify_bits(engine, seed) -> dict:
     return out
 
 
-_RECORDED = ("_embed_tokens", "rms_norm", "mm", "apply_rope",
+_RECORDED = ("_embed_tokens", "norm_any", "rms_norm", "mm", "apply_rope",
              "flash_decode", "_act", "fused_norm_qmm", "fused_layer_tail")
 
 
@@ -3823,8 +3857,8 @@ def llama_embed_phase(dev, seed, engine, app, flush) -> dict:
 # quantized path (its attention: flash prefill)
 EMBED_PATH_KERNELS = {
     "w8a8": ("flash_prefill", "w8a8_matmul", "fused_norm_qmm",
-             "fused_layer_tail"),
-    "q4": ("flash_prefill", "q4_matmul", "q8_matmul")}
+             "fused_layer_tail", "row_norm"),
+    "q4": ("flash_prefill", "q4_matmul", "q8_matmul", "row_norm")}
 
 
 def embed_path_check(engine, url, seed, mode) -> dict:
@@ -3870,6 +3904,457 @@ def embed_phase(dev, seed, tmp, engine, app) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the row-norm kernel (csrc/norm.cu): phases 3n and 4n
+
+# label -> (x shape, style, weight groups, x dtype): the shapes the served
+# paths give it (TinyLlama's and the phase 11 models' rows) and variants
+NORM_CASES = {
+    "rms x[4,2048] bf16 (decode rows)": ((4, E), "rms", 1, torch.bfloat16),
+    "rms x[2048,2048] bf16 (a 4 x 512 prefill)": ((4 * N_UBATCH, E), "rms",
+                                                  1, torch.bfloat16),
+    "rms x[4,16,128] bf16 (qwen3 q norm, 4 rows)": ((4, 16, 128), "rms", 1,
+                                                    torch.bfloat16),
+    "ln+bias x[4,2048] bf16 (pythia decode rows)": ((4, E), "ln", 1,
+                                                    torch.bfloat16),
+    "ln+bias x[2048,2048] bf16 (pythia prefill)": ((4 * N_UBATCH, E), "ln",
+                                                   1, torch.bfloat16),
+    "ln per head x[4,16,128] bf16 (chameleon)": ((4, 16, 128), "ln", 16,
+                                                 torch.bfloat16),
+    "rms x[9,100] bf16 (an odd width)": ((9, 100), "rms", 1, torch.bfloat16),
+    "ln+bias x[4,6144] f32 (an FF row)": ((4, 6144), "ln", 1, torch.float32),
+}
+# timed cases, and the one the kernels line reports
+NORM_TIMED = ("rms x[4,2048] bf16 (decode rows)",
+              "rms x[2048,2048] bf16 (a 4 x 512 prefill)",
+              "rms x[4,16,128] bf16 (qwen3 q norm, 4 rows)",
+              "ln+bias x[2048,2048] bf16 (pythia prefill)")
+# float32 outside the tensor cores (the norm's few operations an element)
+F32_FLOPS = 67e12
+
+
+def _norm_inputs(g, dev, shape, style, groups, dt):
+    n = shape[-1]
+    x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.3).to(dt)
+    w = (1 + 0.1 * torch.randn(groups * n, generator=g, device=dev)).to(
+        torch.bfloat16)
+    b = None if style != "ln" else (0.1 * torch.randn(
+        groups * n, generator=g, device=dev)).to(torch.bfloat16)
+    return x, w, b
+
+
+def _norm_fns(x, w, b, style, groups):
+    """(kernel call, plain call, one library call or None) of a case."""
+    from llama_box_tpu_torch.ops import norm as nm
+    F = torch.nn.functional
+    n = x.shape[-1]
+    if groups > 1:
+        return (lambda: nm.ln_per_head(x, w, b),
+                lambda: nm.ln_per_head_plain(x, w, b), None)
+    if style == "ln":
+        lib = lambda: F.layer_norm(x, (n,), w.to(x.dtype), b.to(x.dtype),
+                                   1e-6)
+    else:
+        lib = lambda: F.rms_norm(x, (n,), w.to(x.dtype), 1e-6)
+    return (lambda: nm.norm_any(x, w, b, style, 1e-6),
+            lambda: nm.norm_any_plain(x, w, b, style, 1e-6), lib)
+
+
+def norm_kernel_phase(dev, seed):
+    """Phase 3n: the row-norm kernel against its plain version (within
+    one bf16 rounding, rtol 2**-7; f32 within 1e-5 relative: the sums run
+    in another order); a row's bits the same alone, among 4 rows and among
+    36 (a verify pass of 4 slots x 9 rows). Phase 4n: its device times
+    beside the bound (each input read once, the output written once; bytes
+    bound it), the plain version and torch's rms_norm / layer_norm (never
+    used by the port)."""
+    from llama_box_tpu_torch.ops import norm as nm
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 17)
+    log("== phase 3n: the row-norm kernel (csrc/norm.cu) vs plain")
+    err, cases = 0.0, {}
+    for label, (shape, style, groups, dt) in NORM_CASES.items():
+        x, w, b = _norm_inputs(g, dev, shape, style, groups, dt)
+        kern, plain, lib = _norm_fns(x, w, b, style, groups)
+        before = nm.row_norm.launches
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        assert nm.row_norm.launches == before + 1, "one launch a call"
+        assert got.dtype == dt and torch.isfinite(got).all(), label
+        d = (got.float() - want.float()).abs()
+        rel = 2 ** -7 if dt == torch.bfloat16 else 1e-5
+        bad = int((d > rel * want.float().abs() + 1e-5).sum())
+        e = float(d.max())
+        log(f"  row_norm {label:<46s} max_abs_err {e:.3e}  (tol "
+            f"{rel:g} x |plain| + 1e-5; {bad} outside)")
+        assert bad == 0, label
+        err = max(err, e)
+        cases[label] = (x, w, b, style, groups)
+    for n, style in ((E, "rms"), (E, "ln"), (128, "rms"), (6144, "ln")):
+        x, w, b = _norm_inputs(g, dev, (36, n), style, 1, torch.bfloat16)
+        full = nm.norm_any(x, w, b, style, 1e-6)
+        same = torch.equal(full[8:12], nm.norm_any(x[8:12], w, b, style,
+                                                   1e-6))
+        for i in (0, 13, 35):
+            same &= torch.equal(full[i:i + 1],
+                                nm.norm_any(x[i:i + 1], w, b, style, 1e-6))
+        log(f"  row_norm {style} n={n}: a row's bits alone = among 4 = "
+            f"among 36: {same}")
+        assert same, (n, style)
+
+    log("== phase 4n: row_norm device times (median of 15, cold L2)")
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for label in NORM_TIMED:
+        x, w, b, style, groups = cases[label]
+        kern, plain, lib = _norm_fns(x, w, b, style, groups)
+        nbytes = 2 * x.numel() * x.element_size() + w.numel() * 2 \
+            + (0 if b is None else b.numel() * 2)
+        flops = x.numel() * (7 if style == "ln" else 4)
+        b_ms, b_by = bound_ms(nbytes, flops, F32_FLOPS)
+        r = dict(kind="row_norm", case=label, ms=device_ms(kern, flush),
+                 plain_ms=device_ms(plain, flush),
+                 library_ms=None if lib is None else device_ms(lib, flush),
+                 bound_ms=b_ms, bound_by=b_by, mbytes=nbytes / 1e6)
+        rows.append(r)
+        log("  " + json.dumps(r))
+    return {"row_norm": err}, rows
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the dense llama variants at published widths
+
+# name -> the published config's widths (every layer; the vocabulary a
+# synthetic one of the published size)
+VARIANTS = {
+    # Qwen/Qwen3-1.7B config.json: RMS, per-head q/k RMS norms, tied
+    # embeddings, GQA 2
+    "qwen3-1.7b": dict(arch="qwen3", L=28, E=2048, H=16, HKV=8, D=128,
+                       FF=6144, V=151936, rot=128, eps=1e-6, base=1e6,
+                       ctx=40960),
+    # EleutherAI/pythia-1.4b config.json (gpt_neox): LayerNorm with
+    # biases, parallel residual, fused biased qkv, rotary_pct 0.25,
+    # ungated GELU FFN with biases, untied output
+    "pythia-1.4b": dict(arch="gptneox", L=24, E=2048, H=16, HKV=16, D=128,
+                        FF=8192, V=50304, rot=32, eps=1e-5, base=10000.0,
+                        ctx=2048),
+}
+VARIANT_PROMPT, VARIANT_TOKENS = 200, 64
+VARIANT_COS = 0.99
+
+
+def _q8_random(rng, shape, std=0.02) -> bytes:
+    """A Q8_0 tensor of uniform random codes (std `std`) in its block
+    layout (an f16 scale, then 32 int8 codes): written directly, as
+    quantizing a billion floats in numpy would take a minute."""
+    n = int(np.prod(shape))
+    blocks = np.empty((n // 32, 34), np.uint8)
+    d = np.float16(std * 3 ** 0.5 / 127)
+    blocks[:, 0:2] = np.frombuffer(d.tobytes(), np.uint8)
+    blocks[:, 2:] = rng.integers(-127, 128, (n // 32, 32),
+                                 dtype=np.int8).view(np.uint8)
+    return blocks.tobytes()
+
+
+def write_variant(path: str, name: str, seed: int) -> None:
+    """The synthetic GGUF of VARIANTS[name]: Q8_0 matrices, F32 vectors,
+    random from `seed`, a synthetic vocabulary of the published size and
+    the chatml template."""
+    from llama_box_tpu_torch.gguf import GGMLType, GGUFWriter
+    c = VARIANTS[name]
+    a, L_, E_, H_, HKV_, D_, FF_, V_ = (c[k] for k in (
+        "arch", "L", "E", "H", "HKV", "D", "FF", "V"))
+    rng = np.random.default_rng(seed + 111)
+    vocab, scores, types = spm_vocab(V_)
+    w = GGUFWriter(path, architecture=a)
+    for k, v in ((f"{a}.block_count", L_), (f"{a}.context_length", c["ctx"]),
+                 (f"{a}.embedding_length", E_),
+                 (f"{a}.feed_forward_length", FF_),
+                 (f"{a}.attention.head_count", H_),
+                 (f"{a}.attention.head_count_kv", HKV_),
+                 (f"{a}.attention.layer_norm_rms_epsilon", c["eps"]),
+                 (f"{a}.attention.layer_norm_epsilon", c["eps"]),
+                 (f"{a}.rope.freq_base", c["base"]),
+                 (f"{a}.rope.dimension_count", c["rot"]),
+                 (f"{a}.vocab_size", V_),
+                 ("general.name", f"synthetic-{name}"),
+                 ("tokenizer.ggml.model", "llama"),
+                 ("tokenizer.ggml.tokens", vocab),
+                 ("tokenizer.ggml.scores", np.asarray(scores, np.float32)),
+                 ("tokenizer.ggml.token_type", np.asarray(types, np.int32)),
+                 ("tokenizer.ggml.bos_token_id", 1),
+                 ("tokenizer.ggml.eos_token_id", 2),
+                 ("tokenizer.ggml.unknown_token_id", 0),
+                 ("tokenizer.ggml.add_bos_token", True),
+                 ("tokenizer.chat_template", CHATML)):
+        w.add_kv(k, v)
+    if a == "gptneox":
+        w.add_kv(f"{a}.use_parallel_residual", True)
+    q8 = GGMLType.Q8_0
+    ln = a == "gptneox"
+
+    def mat(tname, out_dim, in_dim):
+        w.add_raw_tensor(tname, (out_dim, in_dim), q8,
+                         _q8_random(rng, (out_dim, in_dim)))
+
+    def vec(tname, n, one=False):
+        x = rng.standard_normal(n, dtype=np.float32) * 0.02
+        w.add_tensor(tname, x + 1.0 if one else x)
+
+    mat("token_embd.weight", V_, E_)
+    vec("output_norm.weight", E_, one=True)
+    if ln:
+        vec("output_norm.bias", E_)
+        mat("output.weight", V_, E_)         # qwen3 ties its embeddings
+    qd, kvd = H_ * D_, HKV_ * D_
+    for i in range(L_):
+        p = f"blk.{i}."
+        vec(p + "attn_norm.weight", E_, one=True)
+        vec(p + "ffn_norm.weight", E_, one=True)
+        if ln:
+            vec(p + "attn_norm.bias", E_)
+            vec(p + "ffn_norm.bias", E_)
+            mat(p + "attn_qkv.weight", qd + 2 * kvd, E_)
+            vec(p + "attn_qkv.bias", qd + 2 * kvd)
+            mat(p + "attn_output.weight", E_, qd)
+            vec(p + "attn_output.bias", E_)
+            mat(p + "ffn_up.weight", FF_, E_)
+            vec(p + "ffn_up.bias", FF_)
+            mat(p + "ffn_down.weight", E_, FF_)
+            vec(p + "ffn_down.bias", E_)
+        else:
+            mat(p + "attn_q.weight", qd, E_)
+            mat(p + "attn_k.weight", kvd, E_)
+            mat(p + "attn_v.weight", kvd, E_)
+            vec(p + "attn_q_norm.weight", D_, one=True)
+            vec(p + "attn_k_norm.weight", D_, one=True)
+            mat(p + "attn_output.weight", E_, qd)
+            mat(p + "ffn_gate.weight", FF_, E_)
+            mat(p + "ffn_up.weight", FF_, E_)
+            mat(p + "ffn_down.weight", E_, FF_)
+    w.write()
+
+
+def _chats(url, texts) -> tuple[list, float]:
+    """Greedy ignore_eos chats of `texts` at once (VARIANT_TOKENS each):
+    their contents and the wave's wall seconds."""
+    def chat(text):
+        return http(url + "/v1/chat/completions", dict(
+            messages=[{"role": "user", "content": text}],
+            max_tokens=VARIANT_TOKENS, temperature=0, ignore_eos=True))
+    t0 = time.perf_counter()
+    res = concurrently([lambda t=t: chat(t) for t in texts])
+    wall = time.perf_counter() - t0
+    out = []
+    for st, text, _ in res:
+        assert st == 200, st
+        b = json.loads(text)
+        assert b["usage"]["completion_tokens"] == VARIANT_TOKENS, b["usage"]
+        out.append(b["choices"][0]["message"]["content"])
+    return out, wall
+
+
+_NORM_NAMES = ("11norm_kernel", "norm_kernel<")
+
+
+def step_kernels(eng, tmp) -> list:
+    """Names of the kernels one decode step (a one-step chain of four
+    active slots) runs, from the kernel nodes of a CUDA graph capturing
+    it (its debug dump; torch.profiler sometimes reports no device
+    activity in a long process)."""
+    import re
+    S = len(eng.slots)
+    _stage_decode(eng, [400 + b for b in range(S)],
+                  [300 + 10 * b for b in range(S)])
+    fn = lambda: eng._decode_program(1)
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    path = f"{tmp}/decode-step.dot"
+    graph.debug_dump(path)
+    with open(path) as f:
+        nodes = re.findall(r'label="\{(\w+)\s*\n\| \{ID \| [^|]*\| ([^\\|]+)',
+                           f.read())
+    os.remove(path)
+    return [n for kind, n in nodes if kind == "KERNEL"]
+
+
+def ops_a_layer(eng, tmp) -> dict:
+    """Kernels a layer a decode step with the row-norm kernel (the port's
+    norms) and with the norms' plain torch versions in its place (the
+    code before the kernel), each from one captured step; the row-norm
+    launches a step; and whether a torch mean reduction (a norm's, in the
+    plain versions) runs in the step."""
+    from llama_box_tpu_torch.models import llama
+    from llama_box_tpu_torch.ops import norm as nm
+    names = step_kernels(eng, tmp)
+    saved = {k: getattr(llama, k) for k in ("norm_any", "rms_norm",
+                                             "ln_per_head")}
+    try:
+        llama.norm_any = nm.norm_any_plain
+        llama.rms_norm = nm.rms_norm_plain
+        llama.ln_per_head = nm.ln_per_head_plain
+        plain = step_kernels(eng, tmp)
+    finally:
+        for k, f in saved.items():
+            setattr(llama, k, f)
+    L_ = eng.cfg.n_layers
+    return dict(
+        kernels_a_step=len(names), ops_a_layer=len(names) / L_,
+        ops_a_layer_plain_norms=len(plain) / L_,
+        norm_launches_a_step=sum(any(t in n for t in _NORM_NAMES)
+                                 for n in names),
+        mean_reductions_a_step=sum("MeanOps" in n for n in names),
+        mean_reductions_plain=sum("MeanOps" in n for n in plain))
+
+
+# each phase 11 path: CLI flags, and the kernels one request must launch
+# per model (all others: none)
+VARIANT_PATHS = {
+    "bf16": ([], {"qwen3-1.7b": ("row_norm", "flash_prefill",
+                                 "flash_decode"),
+                  "pythia-1.4b": ("row_norm", "flash_prefill",
+                                  "flash_decode")}),
+    "w8a8": (["--weights-dtype", "quantized"],
+             {"qwen3-1.7b": ("row_norm", "flash_prefill", "flash_decode",
+                             "w8a8_matmul", "fused_norm_qmm",
+                             "fused_layer_tail"),
+              # LayerNorm, biases and the parallel residual keep the
+              # fused gates shut: every projection takes w8a8_matmul
+              # (the split qkv stays dense, as in the JAX loader)
+              "pythia-1.4b": ("row_norm", "flash_prefill", "flash_decode",
+                              "w8a8_matmul")}),
+}
+
+
+def variant_serve(dev, seed, tmp, name, path, mode, ref) -> dict:
+    """One phase 11 model on one path, served by the CLI: a warm-up wave
+    pair (other prompts: a key's first use runs eagerly, its second
+    captures; the captures left in the measured wave are counted), the
+    measured wave of 4 greedy chats with graphs and chains pipelined
+    (the defaults), the same wave on a fresh eager engine behind the same
+    routes (texts equal), one more request counting its kernels from 0,
+    small_forward's logits against the f32 CPU forward `ref` (cosine >=
+    VARIANT_COS), and the kernels of one decode step."""
+    from llama_box_tpu_torch import cli
+    from llama_box_tpu_torch.server.engine import Engine
+    from llama_box_tpu_torch.server.metrics import Metrics
+    flags, must = VARIANT_PATHS[mode]
+    t0 = time.perf_counter()
+    engine, srv = cli.build_server([
+        "-m", path, "--port", "0", "-np", str(N_SLOTS), "-c", "4096",
+        "-ub", str(N_UBATCH), "--decode-chain", str(CHAIN), "--no-jinja",
+        "--device", dev.type] + flags)
+    load_s = time.perf_counter() - t0
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    counters = kernel_counters()
+    routes = srv.RequestHandlerClass.routes
+    try:
+        tok = engine.tokenizer
+        rng = np.random.default_rng(seed + 121)
+        warm = [[make_prompt(tok, rng, VARIANT_PROMPT)
+                 for _ in range(N_SLOTS)] for _ in range(2)]
+        texts = [make_prompt(tok, rng, VARIANT_PROMPT)
+                 for _ in range(N_SLOTS)]
+        one = [make_prompt(tok, rng, VARIANT_PROMPT)]
+        for w_texts in warm:
+            _chats(url, w_texts)
+        n_graphs = engine.graphs.n_graphs
+        engine.metrics = Metrics()
+        graphs_texts, wall = _chats(url, texts)
+        m = engine.metrics.snapshot()
+        captured = engine.graphs.n_graphs - n_graphs
+        eager = Engine(engine.cfg, engine.params, tok, dataclasses.replace(
+            engine.ecfg, cuda_graphs=False, pipeline_chain=False),
+            device=str(engine.device))
+        ops = ops_a_layer(eager, tmp)      # before it serves: no thread
+        eager.start()
+        e_url, close = _serve_engine(routes, eager)
+        try:
+            eager_texts, e_wall = _chats(e_url, texts)
+        finally:
+            close()
+        same = eager_texts == graphs_texts
+        for fn in counters.values():
+            fn.launches = 0
+        _chats(url, one)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        got = small_forward(engine.params, engine.cfg, dev, torch.bfloat16)
+        assert torch.isfinite(got).all()
+        cos = _cosine(got, ref)
+        pool_mib = engine.graphs.pool_bytes / 2**20
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.stop()
+        thread.join(timeout=30)
+    res = dict(load_s=load_s, texts_equal=same, cosine=cos,
+               captured_in_wave=captured,
+               launches_one_request=launches,
+               decode_tok_s=m["n_decode_total"] / m["t_decode_total_ms"] * 1e3,
+               prefill_tok_s=m["n_prefill_total"]
+               / m["t_prefill_total_ms"] * 1e3,
+               window_tok_s=N_SLOTS * VARIANT_TOKENS / wall,
+               eager_window_tok_s=N_SLOTS * VARIANT_TOKENS / e_wall,
+               graph_pool_mib=pool_mib, **ops)
+    log(f"  {name} {mode}: loaded in {load_s:.1f} s; texts graphs = eager: "
+        f"{same}; cosine to the f32 CPU forward {cos:.6f} (tol "
+        f"{VARIANT_COS}); {captured} captures in the measured wave; decode "
+        f"tok/s {res['decode_tok_s']:.1f}, window "
+        f"tok/s {res['window_tok_s']:.1f} (eager "
+        f"{res['eager_window_tok_s']:.1f}); a decode step: "
+        f"{ops['kernels_a_step']} kernels, {ops['ops_a_layer']:.2f} a layer "
+        f"({ops['ops_a_layer_plain_norms']:.2f} with the plain norms), "
+        f"{ops['norm_launches_a_step']} row_norm launches, "
+        f"{ops['mean_reductions_a_step']} mean reductions "
+        f"({ops['mean_reductions_plain']} with the plain norms); launches "
+        f"of one request {launches}")
+    assert same, f"{name} {mode}: graphs and eager texts differ"
+    assert cos >= VARIANT_COS, (name, mode, cos)
+    assert ops["mean_reductions_a_step"] == 0, "a norm's torch reduction"
+    assert ops["norm_launches_a_step"] > 0
+    for k, n in launches.items():
+        if k in must[name]:
+            assert n > 0, f"{k} was never launched ({name}, {mode})"
+        else:
+            assert n == 0, f"{k} launched ({name}, {mode})"
+    return res
+
+
+def variant_phase(dev, seed, tmp) -> dict:
+    """Phase 11 (see the module docstring)."""
+    from llama_box_tpu_torch.models.loader import load_model
+    log("== phase 11: dense llama variants at published widths: "
+        + ", ".join(VARIANTS))
+    t_phase = time.perf_counter()
+    out = {}
+    for name in VARIANTS:
+        path = f"{tmp}/synthetic-{name}-q8_0.gguf"
+        t0 = time.perf_counter()
+        write_variant(path, name, seed)
+        log(f"  wrote {path} in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cfg, params = load_model(path, dtype=torch.float32, device="cpu")
+        ref = small_forward(params, cfg, "cpu", torch.float32)
+        del params
+        log(f"  f32 CPU forward of the file in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out[name] = {mode: variant_serve(dev, seed, tmp, name, path, mode,
+                                         ref) for mode in VARIANT_PATHS}
+        os.remove(path)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 11: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -3902,7 +4387,7 @@ def main(argv=None) -> int:
                 log(f"  [{name}] {line.strip()}")
     names = ("flash_prefill_mma_kernel", "flash_decode_mma_kernel",
              "grouped_gemm_kernel", "norm_qmm_kernel", "tail_phase_kernel",
-             "w8a8_gemm", "quant_rows_kernel")
+             "w8a8_gemm", "quant_rows_kernel", "11norm_kernel")
     for entry, used, spill in ptxas_entries(
             "\n".join(_kernels.ptxas_report.values()), names):
         short = entry[min(entry.find(n) for n in names if n in entry):]
@@ -3911,8 +4396,10 @@ def main(argv=None) -> int:
     errs, rows = kernel_phase(dev, args.seed)
     w_errs, w_rows = w8a8_kernel_phase(dev, args.seed)
     q_errs, q_rows = q_kernel_phase(dev, args.seed)
+    n_errs, n_rows = norm_kernel_phase(dev, args.seed)
     errs.update(w_errs)
     errs.update(q_errs)
+    errs.update(n_errs)
     launches, e2e = {}, {}
     capture_failure_check()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3928,6 +4415,7 @@ def main(argv=None) -> int:
             *bf16_served)
         e2e["embed"] = embed_phase(dev, args.seed, tmp, *bf16_served)
         del bf16_served
+        e2e["variants"] = variant_phase(dev, args.seed, tmp)
 
     pick = {"flash_prefill": ("prefill", "bf16", 0),
             "flash_decode": ("decode", "bf16", 1023),
@@ -3935,7 +4423,8 @@ def main(argv=None) -> int:
             "fused_norm_qmm": [4, E, V],
             "fused_layer_tail": [4, H * D, E, FF],
             "q4_matmul": [4, E, 2 * FF],
-            "q8_matmul": [4, E, V]}
+            "q8_matmul": [4, E, V],
+            "row_norm": NORM_TIMED[0]}
     shapes = {"flash_prefill": "q[4,4,8,512,64] bf16, C=2048, pos0=0",
               "flash_decode": "q[4,4,8,64] bf16, C=2048, cpos=1023, R=16",
               "w8a8_matmul": "x[2048,2048] bf16 . qs[2048,11264] (gate|up)",
@@ -3944,7 +4433,8 @@ def main(argv=None) -> int:
               "q4_matmul": "x[4,2048] bf16 . Q4_K packed qs[1024,11264] "
                            "(gate|up), bf16 out",
               "q8_matmul": "x[4,2048] bf16 . Q6_K codes qs[2048,32000] "
-                           "(output), bf16 out"}
+                           "(output), bf16 out",
+              "row_norm": "rms x[4,2048] bf16, weight [2048] bf16"}
     srcs = {"flash_prefill": ("llama_box_tpu_torch/csrc/flash_prefill.cu",
                               "llama_box_tpu/ops/flash_prefill.py:75"),
             "flash_decode": ("llama_box_tpu_torch/csrc/flash_decode.cu",
@@ -3959,11 +4449,17 @@ def main(argv=None) -> int:
             "q4_matmul": ("llama_box_tpu_torch/csrc/q_matmul.cu",
                           "llama_box_tpu/ops/qmatmul.py:202"),
             "q8_matmul": ("llama_box_tpu_torch/csrc/q_matmul.cu",
-                          "llama_box_tpu/ops/qmatmul.py:237")}
+                          "llama_box_tpu/ops/qmatmul.py:237"),
+            # no Pallas kernel: the JAX norms are XLA (ops/norm.py:9,
+            # models/llama.py:503, :442); added for one order a row
+            "row_norm": ("llama_box_tpu_torch/csrc/norm.cu",
+                         "none (port-only; XLA in llama_box_tpu/ops/"
+                         "norm.py:9)")}
     # the path whose main-path run counts each kernel's launches
     home = {"flash_prefill": "bf16", "flash_decode": "bf16",
             "w8a8_matmul": "w8a8", "fused_norm_qmm": "w8a8",
-            "fused_layer_tail": "w8a8", "q4_matmul": "q4", "q8_matmul": "q4"}
+            "fused_layer_tail": "w8a8", "q4_matmul": "q4", "q8_matmul": "q4",
+            "row_norm": "bf16"}
     # each path's self-drafting wave (phase 8, 8w, 8q)
     spec_launches = {m: (e2e["spec"]["waves"]["self_graphs"] if m == "bf16"
                          else e2e[m]["spec"]["waves"]["self"])["launches"]
@@ -3977,6 +4473,8 @@ def main(argv=None) -> int:
         if name.startswith("flash"):
             r = next(x for x in rows if (x["kind"], x["cache"], x["pos"])
                      == pick[name])
+        elif name == "row_norm":
+            r = next(x for x in n_rows if x["case"] == pick[name])
         else:
             # the grouped kernels: the bf16 output the server asks for
             r = next(x for x in w_rows + q_rows if x["kind"] == name
@@ -3993,7 +4491,10 @@ def main(argv=None) -> int:
             launches_spec_bf16={
                 k: e2e["spec"]["waves"][k + "_graphs"]["launches"][name]
                 for k in ("ngram", "self", "draft2")},
-            launches_embed={m: embed_launches[m][name] for m in PATHS}))
+            launches_embed={m: embed_launches[m][name] for m in PATHS},
+            launches_variants={
+                f"{v} {m}": e2e["variants"][v][m]["launches_one_request"][
+                    name] for v in VARIANTS for m in VARIANT_PATHS}))
     e2e.update(card=card, seconds=time.perf_counter() - t_start)
     if args.profile:
         for label in MODES:
@@ -4061,6 +4562,16 @@ def main(argv=None) -> int:
         f"{em['bert']['replay']['bound_ms']:.4f}), TinyLlama "
         f"{em['llama']['replay']['ms']:.4f} ms (bound "
         f"{em['llama']['replay']['bound_ms']:.4f})")
+    for name, r in e2e["variants"].items():
+        if name == "seconds":
+            continue
+        for mode, x in r.items():
+            log(f"  phase 11, {name} {mode}: decode tok/s "
+                f"{x['decode_tok_s']:.1f}, window tok/s "
+                f"{x['window_tok_s']:.1f}, cosine {x['cosine']:.6f}, "
+                f"{x['norm_launches_a_step']} row_norm launches a step, ops "
+                f"a layer {x['ops_a_layer']:.2f} (plain norms "
+                f"{x['ops_a_layer_plain_norms']:.2f})")
     log("e2e " + json.dumps(e2e))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

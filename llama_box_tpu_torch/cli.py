@@ -18,12 +18,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import signal
 import sys
 import threading
 
 from .sampling import SamplerParams
-from .utils.logging import SRV_INF, set_verbosity
+from .utils.logging import SRV_INF, SRV_WRN, set_verbosity
 
 VERSION = "0.1.0"
 
@@ -92,6 +93,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "(4-bit ones nibble-packed unless Q4_INT8) with bf16 "
                         "scales (f32 under Q4_F32SCALES)")
 
+    # the model overrides of the JAX CLI, applied to the loaded config
+    g.add_argument("--rope-scaling", default=None,
+                   choices=["none", "linear", "yarn"])
+    g.add_argument("--rope-freq-base", type=float, default=0.0)
+    g.add_argument("--rope-freq-scale", type=float, default=0.0)
+    g.add_argument("--yarn-orig-ctx", type=int, default=0)
+    g.add_argument("--rope-scale", type=float, default=0.0,
+                   help="RoPE context scale factor N (freq scale = 1/N)")
+    g.add_argument("--yarn-ext-factor", type=float, default=None)
+    g.add_argument("--yarn-attn-factor", type=float, default=None)
+    g.add_argument("--yarn-beta-fast", type=float, default=None)
+    g.add_argument("--yarn-beta-slow", type=float, default=None)
+    g.add_argument("--attention", default=None,
+                   choices=["causal", "non-causal"],
+                   help="override the attention type probe")
+    g.add_argument("--override-kv", action="append", default=[],
+                   help="KEY=TYPE:VALUE metadata overrides")
+
     g = p.add_argument_group("speculative")
     g.add_argument("-md", "--model-draft", default=None,
                    help="draft model GGUF for speculative decoding (loaded "
@@ -134,6 +153,82 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--pooling", default=None,
                    choices=["none", "mean", "cls", "last", "rank"],
                    help="the embedding pool mode of a llama-family model")
+
+    # accepted for llama-box command lines, as in the JAX CLI: ignored
+    # (one card holds the whole model) or mapped; the port keeps its own
+    # --device, so llama-box's -dev is a flag of its own here
+    g = p.add_argument_group("compat (accepted for llama-box command-line "
+                             "compatibility; mapped or ignored)")
+    g.add_argument("-ngl", "--gpu-layers", "--n-gpu-layers", dest="ngl",
+                   type=int, default=None,
+                   help="ignored: every layer runs on the card")
+    g.add_argument("-ts", "--tensor-split", default=None, help="ignored")
+    g.add_argument("-sm", "--split-mode", default=None,
+                   choices=["none", "layer", "row"], help="ignored")
+    g.add_argument("-mg", "--main-gpu", type=int, default=None,
+                   help="ignored")
+    g.add_argument("-dev", dest="dev", default=None,
+                   help="ignored (--device picks cuda or cpu)")
+    g.add_argument("--rpc", default=None, help="ignored")
+    g.add_argument("-fa", "--flash-attn", action="store_true", default=None,
+                   help="always on: the flash kernels are the attention")
+    g.add_argument("--no-flash-attn", action="store_true",
+                   help="ignored: the flash kernels are the only attention "
+                        "path of the card")
+    g.add_argument("--no-mmap", action="store_true", help="ignored")
+    g.add_argument("--mlock", action="store_true", help="ignored")
+    g.add_argument("--swa-full", action="store_true", help="ignored")
+    g.add_argument("-kvu", "--kv-unified", action="store_true",
+                   help="accepted: the KV cache is already one buffer")
+    g.add_argument("-t", "--threads", type=int, default=None,
+                   help="host CPU threads (sets OMP_NUM_THREADS, as the "
+                        "JAX CLI does)")
+    g.add_argument("-tb", "--threads-batch", type=int, default=None,
+                   help="accepted")
+    for flag in ("--cpu-mask", "--cpu-mask-batch", "--cpu-range",
+                 "--cpu-range-batch", "--numa"):
+        g.add_argument(flag, default=None, help="ignored")
+    for flag in ("--cpu-strict", "--cpu-strict-batch", "--poll",
+                 "--poll-batch", "--prio", "--prio-batch"):
+        g.add_argument(flag, type=int, default=None, help="ignored")
+    g.add_argument("-nkvo", "--no-kv-offload", action="store_true",
+                   help="ignored: the KV cache lives on the card")
+    g.add_argument("-ot", "--override-tensor", action="append",
+                   default=None, help="ignored")
+    g.add_argument("-cmoe", "--cpu-moe", action="store_true",
+                   help="ignored")
+    g.add_argument("-ncmoe", "--n-cpu-moe", type=int, default=None,
+                   help="ignored")
+    g.add_argument("-b", "--batch-size", dest="n_batch", type=int,
+                   default=2048, help="accepted: prompts run in -ub chunks")
+    g.add_argument("--cache-reuse", type=int, default=0,
+                   help="accepted: prefix prompt-cache reuse is always on")
+    g.add_argument("-dt", "--defrag-thold", type=float, default=None,
+                   help="accepted: slot KV is defragmented by shifting")
+    g.add_argument("--conn-idle", type=int, default=60, help="accepted")
+    g.add_argument("--conn-keepalive", type=int, default=15,
+                   help="accepted")
+    g.add_argument("--slot-save-path", default=None, help="accepted")
+    g.add_argument("--images", action="store_true", default=None,
+                   help="accepted")
+    g.add_argument("--log-colors", action="store_true", help="accepted")
+    g.add_argument("--log-verbose", dest="log_verbose_flag",
+                   action="store_true", help="alias of high --log-verbosity")
+    g.add_argument("--verbosity", dest="log_verbosity", type=int,
+                   default=0, help="alias of -lv")
+    g.add_argument("--usage", action="help",
+                   help="print usage (alias of --help)")
+    g.add_argument("--list-buffer-types", action="store_true",
+                   help="list device memory kinds and exit")
+    g.add_argument("--rpc-server-host", default=None, help="unsupported")
+    g.add_argument("--rpc-server-port", type=int, default=None,
+                   help="unsupported")
+    for flag in ("--rpc-server-main-gpu", "--rpc-server-threads",
+                 "--rpc-server-reserve-memory"):
+        g.add_argument(flag, type=int, default=None, help="ignored")
+    g.add_argument("--rpc-server-cache", action="store_true",
+                   help="ignored")
+    g.add_argument("--rpc-server-cache-dir", default=None, help="ignored")
 
     g = p.add_argument_group("completion")
     g.add_argument("--temp", type=float, default=0.8)
@@ -234,6 +329,62 @@ def _default_grammar_text(args) -> str | None:
     return None
 
 
+def _apply_compat(args) -> None:
+    """The compat flags that do something, as the JAX CLI's main applies
+    them: --log-verbose, -t (OMP_NUM_THREADS), the warnings of the ignored
+    placement flags."""
+    if args.log_verbose_flag:
+        args.log_verbosity = max(args.log_verbosity, 3)
+    set_verbosity(args.verbose + args.log_verbosity)
+    if args.threads:
+        os.environ.setdefault("OMP_NUM_THREADS", str(args.threads))
+    for flag, val in (("-ngl", args.ngl), ("--tensor-split",
+                                           args.tensor_split),
+                      ("--split-mode", args.split_mode),
+                      ("--main-gpu", args.main_gpu), ("-dev", args.dev),
+                      ("--rpc", args.rpc),
+                      ("--no-flash-attn", args.no_flash_attn or None),
+                      ("--rpc-server-host", args.rpc_server_host)):
+        if val is not None:
+            SRV_WRN("main", "%s has no effect on the port (one card holds "
+                    "the whole model)", flag)
+
+
+def config_overrides(args) -> dict:
+    """The model config fields the command line overrides (the JAX CLI's
+    rope, YaRN and attention-type overrides)."""
+    over: dict = {}
+    if args.rope_scaling:
+        over["rope_scaling_type"] = args.rope_scaling
+    if args.rope_freq_base > 0:
+        over["rope_freq_base"] = args.rope_freq_base
+    if args.rope_freq_scale > 0:
+        over["rope_freq_scale"] = args.rope_freq_scale
+    elif args.rope_scale > 0:
+        over["rope_freq_scale"] = 1.0 / args.rope_scale
+    if args.yarn_orig_ctx > 0:
+        over["rope_orig_ctx"] = args.yarn_orig_ctx
+    for name in ("yarn_ext_factor", "yarn_attn_factor", "yarn_beta_fast",
+                 "yarn_beta_slow"):
+        if getattr(args, name) is not None:
+            over[name] = getattr(args, name)
+    if args.attention:
+        over["causal"] = args.attention == "causal"
+    return over
+
+
+def list_buffer_types() -> None:
+    """--list-buffer-types: the card's memory (torch's view of it)."""
+    import torch
+    print(f"llama-box-tpu-torch {VERSION}")
+    if not torch.cuda.is_available():
+        print("  cpu (no CUDA card)")
+    for i in range(torch.cuda.device_count() if torch.cuda.is_available()
+                   else 0):
+        prop = torch.cuda.get_device_properties(i)
+        print(f"  {i}: {prop.name} (cuda) hbm={prop.total_memory / 1e9:.1f}GB")
+
+
 def build_server(argv: list[str]):
     """Parse argv, load the model and start the engine; return
     (engine, server) with the server bound but not serving. Raises
@@ -244,14 +395,14 @@ def build_server(argv: list[str]):
 
     from .gguf import GGUFFile
     from .models.bert import BERT_ARCHS, load_bert
-    from .models.loader import load_model
+    from .models.loader import load_model, parse_kv_overrides
     from .server.chat import ChatTemplates, jinja_available
     from .server.engine import Engine, EngineConfig, resolve_device
     from .server.http import HTTPServer
     from .tokenizer import Tokenizer
 
     args = build_parser().parse_args(argv)
-    set_verbosity(args.verbose + args.log_verbosity)
+    _apply_compat(args)
     if not args.model:
         raise SystemExit("error: -m/--model is required")
     if args.jinja and not jinja_available():
@@ -277,10 +428,15 @@ def build_server(argv: list[str]):
         if args.rerank or cfg.pooling == "rank":
             cfg = dataclasses.replace(cfg, pooling="rank")
     else:
-        cfg, params = load_model(args.model, dtype=dtype, device=device,
-                                 quantized=quantized)
+        cfg, params = load_model(
+            args.model, dtype=dtype, device=device, quantized=quantized,
+            metadata_overrides=parse_kv_overrides(args.override_kv))
         if args.pooling:    # --pooling overrides the embedding pool mode
             cfg = dataclasses.replace(cfg, pooling=args.pooling)
+        over = config_overrides(args)
+        if over:
+            cfg = dataclasses.replace(cfg, **over)
+            SRV_INF("main", "config overrides: %s", over)
     draft = None
     if args.model_draft:
         SRV_INF("main", "loading draft model %s", args.model_draft)
@@ -328,6 +484,9 @@ def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if "--version" in argv:
         print(f"llama-box-tpu-torch {VERSION}")
+        return 0
+    if "--list-buffer-types" in argv:
+        list_buffer_types()
         return 0
     engine, server = build_server(argv)
     host, port = server.server_address[:2]

@@ -128,6 +128,18 @@ class GGUFWriter:
         self.tensor_data.append(data + b"\x00" * pad)
         self._data_size += len(data) + pad
 
+    def add_raw_tensor(self, name: str, shape: tuple, ggml_type: GGMLType,
+                       data: bytes) -> None:
+        """A tensor whose bytes are already in ggml_type's block layout
+        (shape in numpy row-major logical order, as add_tensor)."""
+        offset = self._data_size
+        self.tensor_meta.append((name, tuple(shape), ggml_type, offset))
+        pad = (-len(data)) % self.alignment
+        self.tensor_data.append(data)
+        if pad:
+            self.tensor_data.append(b"\x00" * pad)
+        self._data_size += len(data) + pad
+
     def write(self) -> None:
         with open(self.path, "wb") as f:
             f.write(GGUF_MAGIC)

@@ -9,7 +9,9 @@ that turns the [CLS] hidden state into a relevance score (pooling
 
 In the JAX package every op of the encoder is XLA (einsum, softmax, layer
 norm): none is a Pallas kernel. So the port writes them as plain torch
-ops, with the products in torch.matmul, on the card as on the CPU. The
+ops, with the products in torch.matmul, on the card as on the CPU, but
+for its LayerNorms, which take the port's row-norm kernel
+(ops/norm.norm_any: one launch where the torch ops were five). The
 attention is written out, not a library attention kernel, so that its
 masked softmax rounds where the JAX one does. Weights are dequantized to
 one dtype at load, as in the JAX loader: a BERT file is never held in a
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from ..gguf.reader import GGUFFile
+from ..ops.norm import norm_any
 from ..utils.logging import SRV_INF
 from .config import ModelConfig
 from .loader import _torch_dtype_of
@@ -125,14 +128,11 @@ def check_bert_supported(cfg: ModelConfig, params: dict) -> None:
 
 
 def _ln(x, w, b, eps):
-    mu = x.mean(-1, keepdim=True)
-    var = ((x - mu) ** 2).mean(-1, keepdim=True)
-    y = (x - mu) * torch.rsqrt(var + eps)
-    if w is not None:
-        y = y * w
-    if b is not None:
-        y = y + b
-    return y
+    """JAX bert `_ln` through the row-norm kernel on the card (f32
+    statistics, one rounding to x's dtype; a missing weight is ones)."""
+    if w is None:
+        w = torch.ones(x.shape[-1], dtype=x.dtype, device=x.device)
+    return norm_any(x, w, b, "ln", eps)
 
 
 def bert_forward(params, cfg: ModelConfig, tokens, seq_lens,

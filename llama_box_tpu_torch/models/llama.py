@@ -1,6 +1,10 @@
-"""Llama decoder in PyTorch (counterpart of the dense-llama branches of
-llama_box_tpu/models/llama.py), with bf16/f32 weights or QTensors (w8a8
-or grouped, ops/qmatmul).
+"""Llama decoder in PyTorch (counterpart of the dense branches of
+llama_box_tpu/models/llama.py: the llama graph and its dense variants,
+LayerNorm and biases, q/k norms, post and sub norms, parallel residual,
+ungated FFN, scales, learned positions, longrope), with bf16/f32 weights
+or QTensors (w8a8 or grouped, ops/qmatmul). Every norm runs the row-norm
+kernel (ops/norm) on the card, one order a row, so a verify pass's rows
+equal its one-row decode steps bit for bit.
 
 As in the JAX package, the KV cache stays read-only through a forward
 (a prefill pass, or a whole K-step decode chain) and every layer's new
@@ -59,7 +63,7 @@ from ..ops.flash_decode import flash_decode
 from ..ops.flash_prefill import flash_prefill_batched
 from ..ops.fused_decode import (_MAX_ROWS, _pick_tile, fused_layer_tail,
                                 fused_norm_qmm)
-from ..ops.norm import rms_norm
+from ..ops.norm import ln_per_head, norm_any, rms_norm
 from ..ops.qmatmul import QTensor, mm
 from ..ops.rope import RopeParams, apply_rope, compute_rope_cache
 from .config import ModelConfig
@@ -112,8 +116,15 @@ def attn_dtype(kv: KVCache) -> torch.dtype:
 
 # -- what this slice of the port covers --------------------------------------
 
-_LAYER_KEYS = {"attn_norm", "wq", "wk", "wv", "wqkv", "wo", "ffn_norm",
-               "w_gate", "w_up", "w_gateup", "w_down"}
+_LAYER_KEYS = {
+    "attn_norm", "attn_norm_b", "attn_norm_2", "attn_norm_2_b", "ffn_norm",
+    "ffn_norm_b", "wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up",
+    "w_gateup", "w_down", "bq", "bk", "bv", "bo", "b_gate", "b_up", "b_down",
+    "q_norm", "k_norm", "q_norm_b", "k_norm_b", "attn_post_norm",
+    "attn_post_norm_b", "ffn_post_norm", "ffn_post_norm_b", "attn_sub_norm",
+    "ffn_sub_norm", "xielu"}
+_ROOT_KEYS = {"tok_embd", "pos_embd", "tok_embd_norm", "tok_embd_norm_b",
+              "output_norm", "output_norm_b", "output", "output_b", "layers"}
 # the keys that may hold a QTensor (the JAX loader's quantizable 2D
 # projections; token_embd and the norms stay dense)
 _Q_KEYS = {"wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up", "w_gateup",
@@ -127,10 +138,11 @@ _KERNEL_HEAD_DIMS, _KERNEL_MAX_GROUP = (64, 128), 16
 
 
 def check_supported(cfg: ModelConfig, params: dict, device=None) -> None:
-    """Raise NotImplementedError for a model outside the dense llama path
-    (the other families are later slices; nothing runs half-supported), or,
-    on a CUDA `device`, for attention shapes the kernels do not take: the
-    engine refuses such a model at load, not at its first request."""
+    """Raise NotImplementedError for a model outside the dense llama graph
+    and its dense variants (the other families are later slices; nothing
+    runs half-supported), or, on a CUDA `device`, for attention shapes the
+    kernels do not take: the engine refuses such a model at load, not at
+    its first request."""
     unsupported = {
         "recurrent": getattr(cfg, "recurrent", False),
         "mrope_sections": bool(cfg.mrope_sections),
@@ -141,32 +153,21 @@ def check_supported(cfg: ModelConfig, params: dict, device=None) -> None:
         "nope_layer_step": cfg.nope_layer_step > 0,
         "alibi_max_bias": cfg.alibi_max_bias > 0.0,
         "attn_softcap": cfg.attn_softcap > 0.0,
-        "logit_softcap": cfg.logit_softcap > 0.0,
         "attn_temp_scale": cfg.attn_temp_scale > 0.0,
         "qk_l2_norm": cfg.qk_l2_norm,
-        "attn_clamp": cfg.attn_clamp > 0.0,
-        "norm_style": cfg.norm_style != "rms",
-        "parallel_residual": cfg.parallel_residual,
-        "ffn_gated": not cfg.ffn_gated,
-        "act_fn": cfg.act_fn not in ("silu", "gelu", "relu2"),
-        "embd_scale": cfg.embd_scale != 1.0,
-        "residual_scale": cfg.residual_scale != 1.0,
-        "logit_scale": cfg.logit_scale != 1.0,
-        "rope_scaling_type": cfg.rope_scaling_type == "longrope"
-        or bool(cfg.extra.get("rope_factors_long")),
+        "act_fn": cfg.act_fn not in ("silu", "gelu", "relu2", "xielu"),
         "v_head_dim": bool(cfg.v_head_dim)
         and cfg.v_head_dim != cfg.head_dim,
     }
     extra_keys = set(params.get("layers", {})) - _LAYER_KEYS
     bad = [k for k, v in unsupported.items() if v]
-    if bad or extra_keys or "layer_groups" in params \
-            or set(params) - {"tok_embd", "output_norm", "output", "layers"}:
+    if bad or extra_keys or set(params) - _ROOT_KEYS:
         raise NotImplementedError(
-            f"{cfg.arch}: not on the ported dense llama path "
-            f"(config: {bad}, tensors: {sorted(extra_keys)})")
-    leaves = dict(params.get("layers", {}), tok_embd=params.get("tok_embd"),
-                  output_norm=params.get("output_norm"),
-                  output=params.get("output"))
+            f"{cfg.arch}: not on the ported dense llama graph "
+            f"(config: {bad}, tensors: "
+            f"{sorted(extra_keys | (set(params) - _ROOT_KEYS))})")
+    leaves = dict(params.get("layers", {}),
+                  **{k: v for k, v in params.items() if k != "layers"})
     for key, w in leaves.items():
         if isinstance(w, QTensor) and key not in _Q_KEYS:
             raise NotImplementedError(f"{cfg.arch}: {key} as a QTensor")
@@ -186,21 +187,39 @@ def check_supported(cfg: ModelConfig, params: dict, device=None) -> None:
 # -- rope --------------------------------------------------------------------
 
 
-def _rope_params(cfg: ModelConfig) -> RopeParams:
+def _rope_params(cfg: ModelConfig, max_pos: int = 0) -> RopeParams:
+    """The JAX `_rope_params`: longrope (phi3) when the GGUF ships the
+    factor tensors, whose long set applies when the runtime context
+    max_pos exceeds the original window, with the magnitude factor
+    sqrt(1 + ln(scale) / ln(orig)) where the file gives none."""
+    attn_factor = cfg.yarn_attn_factor
+    factors = ()
+    scaling_type = cfg.rope_scaling_type
+    if cfg.extra.get("rope_factors_short") \
+            or cfg.extra.get("rope_factors_long"):
+        scaling_type = "longrope"
+    if scaling_type == "longrope":
+        orig = cfg.rope_orig_ctx or cfg.n_ctx_train
+        factors = tuple(cfg.extra.get(
+            "rope_factors_long" if max_pos > orig else "rope_factors_short",
+            ()))
+        scale = cfg.n_ctx_train / max(orig, 1)
+        if attn_factor == 1.0 and scale > 1.0:
+            attn_factor = math.sqrt(1.0 + math.log(scale) / math.log(orig))
     return RopeParams(
         head_dim=cfg.head_dim, n_rot=cfg.rope_dim,
         freq_base=cfg.rope_freq_base, freq_scale=cfg.rope_freq_scale,
-        scaling_type=cfg.rope_scaling_type,
+        scaling_type=scaling_type,
         yarn_orig_ctx=cfg.rope_orig_ctx or cfg.n_ctx_train,
         yarn_ext_factor=cfg.yarn_ext_factor,
-        yarn_attn_factor=cfg.yarn_attn_factor,
+        yarn_attn_factor=attn_factor,
         yarn_beta_fast=cfg.yarn_beta_fast, yarn_beta_slow=cfg.yarn_beta_slow,
-        mode=cfg.rope_mode)
+        mode=cfg.rope_mode, freq_factors=factors)
 
 
 def make_rope(cfg: ModelConfig, max_pos: int, device="cuda"):
     """(cos, sin) tables [max_pos, rot/2] f32 on `device`."""
-    return compute_rope_cache(_rope_params(cfg), max_pos, device)
+    return compute_rope_cache(_rope_params(cfg, max_pos), max_pos, device)
 
 
 def make_delta_rope(cfg: ModelConfig, max_pos: int, device="cuda"):
@@ -219,7 +238,7 @@ def make_delta_rope(cfg: ModelConfig, max_pos: int, device="cuda"):
             cos, sin = cos / mscale, sin / mscale
         return cos, sin
 
-    rp = _rope_params(cfg)
+    rp = _rope_params(cfg, max_pos)
     cos, sin = pure(rp)
     if cfg.nope_layer_step > 0:
         return (torch.stack([torch.ones_like(cos), cos]),
@@ -294,6 +313,31 @@ def copy_kv_prefix(kv: KVCache, src: int, dst: int, n: int) -> KVCache:
 # -- layers ------------------------------------------------------------------
 
 
+def _weak(s: float, dtype) -> float:
+    """The Python scalar s rounded to `dtype`, as JAX takes a weak-typed
+    scalar in an array's dtype."""
+    return float(torch.tensor(s, dtype=dtype))
+
+
+def _scaled(t: torch.Tensor, s: float) -> torch.Tensor:
+    """t * s as JAX computes it (skipped at 1, where it changes no bit)."""
+    return t if s == 1.0 else t * _weak(s, t.dtype)
+
+
+def _norm_any(x, w, b, cfg: ModelConfig):
+    """RMS or LayerNorm (biased) per cfg.norm_style (JAX `_norm_any`),
+    through the row-norm kernel on the card."""
+    return norm_any(x, w, b, cfg.norm_style, cfg.rms_eps)
+
+
+def _pre_norm(x, lp, key, cfg: ModelConfig):
+    """Input norm; an absent tensor is the identity (olmo2's post-norm-only
+    blocks)."""
+    if key not in lp:
+        return x
+    return _norm_any(x, lp[key], lp.get(key + "_b"), cfg)
+
+
 def _act(gate: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.act_fn == "gelu":
         return torch.nn.functional.gelu(gate, approximate="tanh")
@@ -302,15 +346,51 @@ def _act(gate: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return torch.nn.functional.silu(gate)
 
 
+def _xielu(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """apertus xIELU (JAX `_xielu`): p = raw [alpha_p, alpha_n, beta, eps],
+    softplus applied here."""
+    sp = torch.nn.functional.softplus
+    ap = sp(p[0])
+    beta = p[2]
+    an = beta + sp(p[1])
+    return torch.where(x > 0, ap * x * x + beta * x,
+                       (torch.expm1(torch.minimum(x, p[3])) - x) * an
+                       + beta * x)
+
+
 def _ffn_block(h, lp, cfg: ModelConfig, dtype):
+    """JAX `_ffn_block` without experts: an ungated up -> act -> down
+    (falcon, gptneox, phi2, starcoder2, gpt2) or the gated one, each with
+    its optional biases; bitnet's sub norm before the down projection."""
+    if not cfg.ffn_gated:
+        up = mm(h, lp["w_up"])
+        if "b_up" in lp:
+            up = up + lp["b_up"]
+        if cfg.act_fn == "xielu" and "xielu" in lp:
+            act = _xielu(up.float(), lp["xielu"]).to(dtype)
+        else:
+            act = _act(up.float(), cfg).to(dtype)
+        out = mm(act, lp["w_down"])
+        if "b_down" in lp:
+            out = out + lp["b_down"]
+        return out.to(dtype)
     if "w_gateup" in lp:
         gu = mm(h, lp["w_gateup"])
         ff = gu.shape[-1] // 2
         gate, up = gu[..., :ff], gu[..., ff:]
     else:
         gate, up = mm(h, lp["w_gate"]), mm(h, lp["w_up"])
+    if "b_gate" in lp:          # jais biased SwiGLU
+        gate = gate + lp["b_gate"]
+    if "b_up" in lp:
+        up = up + lp["b_up"]
     act = (_act(gate.float(), cfg) * up.float()).to(dtype)
-    return mm(act, lp["w_down"]).to(dtype)
+    if "ffn_sub_norm" in lp:    # bitnet: a norm before the down projection
+        act = _norm_any(act, lp["ffn_sub_norm"], None, cfg)
+    out = mm(act, lp["w_down"])
+    if "b_down" in lp:
+        out = out + lp["b_down"]
+    return out.to(dtype)
 
 
 # -- fused w8a8 decode kernels: the JAX package's gates ------------------------
@@ -359,7 +439,12 @@ def _fuse_tail_ok(cfg: ModelConfig, lp, x) -> bool:
 
 
 def _layer_tail(x, lp, cfg: ModelConfig, attn):
-    """Output projection + residual, then the FFN block + residual."""
+    """The output projection and the FFN block with their residuals (JAX
+    `_layer_tail` without experts, mixture-of-attention or an extra
+    residual): bitnet's attention sub norm, the output bias, the post norms
+    (gemma, olmo2), granite's residual scale, and the parallel residual
+    (falcon, gptneox, phi2, command-r) whose FFN input is attn_norm_2,
+    ffn_norm or the shared attention-input norm."""
     if _fuse_tail_ok(cfg, lp, x):
         # decode widths: the whole tail through ops/fused_decode
         B, T, E = x.shape
@@ -370,10 +455,35 @@ def _layer_tail(x, lp, cfg: ModelConfig, attn):
             lp["w_down"].scales, eps=cfg.rms_eps, rs=cfg.residual_scale,
             act_fn=cfg.act_fn)
         return out.reshape(B, T, E).to(x.dtype)
-    attn_out = mm(attn.to(x.dtype), lp["wo"]).to(x.dtype)
-    x = x + attn_out
-    h = rms_norm(x, lp["ffn_norm"], cfg.rms_eps)
-    return x + _ffn_block(h, lp, cfg, x.dtype)
+    ao = attn.to(x.dtype)
+    if "attn_sub_norm" in lp:   # bitnet: a norm before the output proj
+        ao = _norm_any(ao, lp["attn_sub_norm"], None, cfg)
+    attn_out = mm(ao, lp["wo"]).to(x.dtype)
+    if "bo" in lp:
+        attn_out = attn_out + lp["bo"].to(x.dtype)
+    if "attn_post_norm" in lp:
+        attn_out = _norm_any(attn_out, lp["attn_post_norm"],
+                             lp.get("attn_post_norm_b"), cfg)
+    rs = cfg.residual_scale
+    if cfg.parallel_residual:
+        if "attn_norm_2" in lp:
+            h = _norm_any(x, lp["attn_norm_2"], lp.get("attn_norm_2_b"), cfg)
+        elif "ffn_norm" in lp:
+            h = _pre_norm(x, lp, "ffn_norm", cfg)
+        else:
+            h = _pre_norm(x, lp, "attn_norm", cfg)
+        ffn_out = _ffn_block(h, lp, cfg, x.dtype)
+        if "ffn_post_norm" in lp:
+            ffn_out = _norm_any(ffn_out, lp["ffn_post_norm"],
+                                lp.get("ffn_post_norm_b"), cfg)
+        return x + _scaled(attn_out + ffn_out, rs)
+    x = x + _scaled(attn_out, rs)
+    h = _pre_norm(x, lp, "ffn_norm", cfg)
+    ffn_out = _ffn_block(h, lp, cfg, x.dtype)
+    if "ffn_post_norm" in lp:
+        ffn_out = _norm_any(ffn_out, lp["ffn_post_norm"],
+                            lp.get("ffn_post_norm_b"), cfg)
+    return x + _scaled(ffn_out, rs)
 
 
 class ChainRows(NamedTuple):
@@ -426,11 +536,31 @@ def write_rows(kv: KVCache, fields: list, writes: RowWrites) -> None:
         cache[:, writes.b, writes.p] = torch.where(keep, new, old)
 
 
+def _qk_norms(q, k, lp, cfg: ModelConfig):
+    """The q/k norms before the rotation (JAX `_attn_layer`): chameleon's
+    biased per-head LayerNorm, a per-head RMSNorm over rows of D (qwen3),
+    or a whole-row RMSNorm over H * D (olmo2). q [B, T, H, D]."""
+    if "q_norm_b" in lp:
+        return (ln_per_head(q, lp["q_norm"], lp["q_norm_b"]),
+                ln_per_head(k, lp["k_norm"], lp["k_norm_b"]))
+    if lp["q_norm"].shape[-1] == q.shape[-1]:
+        return (rms_norm(q, lp["q_norm"], cfg.rms_eps),
+                rms_norm(k, lp["k_norm"], cfg.rms_eps))
+    B, T = q.shape[:2]
+    return (rms_norm(q.reshape(B, T, -1), lp["q_norm"],
+                     cfg.rms_eps).reshape(q.shape),
+            rms_norm(k.reshape(B, T, -1), lp["k_norm"],
+                     cfg.rms_eps).reshape(k.shape))
+
+
 def _attn_layer(x, lp, li: int, kv: KVCache, cfg: ModelConfig, cos, sin,
                 rows: list, win, flash_meta=None, chain=None, step=0,
                 decode_meta=None, verify_meta=None, dense_mask=None):
     """x [B, T, E] -> x after attention and the layer tail. cos/sin are the
-    tables gathered at the rows' positions ([B, T, rot/2])."""
+    tables gathered at the rows' positions ([B, T, rot/2]). The input norm
+    (absent: olmo2), the q/k/v biases, olmo's clamp and the q/k norms
+    (before the rotation, or after it for hunyuan) as in JAX
+    `_attn_layer`."""
     B, T, E = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if "wqkv" in lp:
@@ -441,15 +571,29 @@ def _attn_layer(x, lp, li: int, kv: KVCache, cfg: ModelConfig, cos, sin,
                                  eps=cfg.rms_eps)
             qkv = qkv.reshape(B, T, -1).to(x.dtype)
         else:
-            qkv = mm(rms_norm(x, lp["attn_norm"], cfg.rms_eps), lp["wqkv"])
+            qkv = mm(_pre_norm(x, lp, "attn_norm", cfg), lp["wqkv"])
         nq, nk = H * D, Hkv * D
         q, k, v = qkv[..., :nq], qkv[..., nq:nq + nk], qkv[..., nq + nk:]
     else:
-        h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+        h = _pre_norm(x, lp, "attn_norm", cfg)
         q, k, v = mm(h, lp["wq"]), mm(h, lp["wk"]), mm(h, lp["wv"])
-    q = apply_rope(q.reshape(B, T, H, D), None, cos, sin, cfg.rope_mode)
-    k = apply_rope(k.reshape(B, T, Hkv, D), None, cos, sin, cfg.rope_mode)
+    if "bq" in lp:              # qwen2-style attention biases
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    if cfg.attn_clamp > 0.0:    # olmo clip_qkv
+        c = cfg.attn_clamp
+        q, k, v = (t.clamp(-c, c) for t in (q, k, v))
+    q = q.reshape(B, T, H, D)
+    k = k.reshape(B, T, Hkv, D)
     v = v.reshape(B, T, Hkv, D)
+    if "q_norm" in lp and not cfg.qk_norm_post_rope:
+        q, k = _qk_norms(q, k, lp, cfg)
+    q = apply_rope(q, None, cos, sin, cfg.rope_mode)
+    k = apply_rope(k, None, cos, sin, cfg.rope_mode)
+    if cfg.qk_norm_post_rope and "q_norm" in lp:
+        # hunyuan: per-head q/k RMSNorm after the rotation; the cache keeps
+        # the normed keys
+        q = rms_norm(q, lp["q_norm"], cfg.rms_eps)
+        k = rms_norm(k, lp["k_norm"], cfg.rms_eps)
     return _attn_deferred(x, lp, li, kv, cfg, q, k, v, rows, win,
                           flash_meta=flash_meta, chain=chain, step=step,
                           decode_meta=decode_meta, verify_meta=verify_meta,
@@ -553,6 +697,11 @@ def _run_stack(params, cfg: ModelConfig, x, kv: KVCache, cos, sin,
 
 
 def _output_logits(params, cfg: ModelConfig, x):
+    """The output norm and projection (JAX `_output_logits`): the fused
+    w8a8 kernel at decode widths when the norm is an unbiased RMSNorm and
+    the projection has no bias, else the norm (biased LayerNorm for the LN
+    families), the projection or tied embeddings and phi2's output bias;
+    then command-r / granite's logit scale and the final softcap."""
     out_w = params.get("output")
     R = _n_rows(x)
     if (_fused_on() and _w8(out_w) and R <= _MAX_ROWS
@@ -563,16 +712,42 @@ def _output_logits(params, cfg: ModelConfig, x):
         logits = fused_norm_qmm(x.reshape(R, x.shape[-1]),
                                 params["output_norm"], out_w.qs,
                                 out_w.scales, eps=cfg.rms_eps)
-        return logits.reshape(*x.shape[:-1], out_w.out_dim).float()
-    x = rms_norm(x, params["output_norm"], cfg.rms_eps)
-    if out_w is None:   # tied word embeddings
-        return torch.matmul(x, params["tok_embd"].T.to(x.dtype)).float()
-    return mm(x, out_w).float()
+        logits = logits.reshape(*x.shape[:-1], out_w.out_dim)
+    else:
+        x = _norm_any(x, params["output_norm"], params.get("output_norm_b"),
+                      cfg)
+        if out_w is None:   # tied word embeddings
+            logits = torch.matmul(x, params["tok_embd"].T.to(x.dtype))
+        else:
+            logits = mm(x, out_w)
+        if params.get("output_b") is not None:
+            logits = logits + params["output_b"]
+    logits = _scaled(logits, cfg.logit_scale)
+    if cfg.logit_softcap > 0.0:
+        c = cfg.logit_softcap
+        logits = _scaled(torch.tanh(logits / _weak(c, logits.dtype)), c)
+    return logits.float()
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor):
+    """Token rows, times embd_scale (granite, minicpm), then bloom's
+    embedding LayerNorm (JAX `_embed_tokens`)."""
     emb = params["tok_embd"]
-    return emb[tokens.long().clamp(0, emb.shape[0] - 1)]
+    x = _scaled(emb[tokens.long().clamp(0, emb.shape[0] - 1)],
+                cfg.embd_scale)
+    if "tok_embd_norm" in params:
+        x = _norm_any(x, params["tok_embd_norm"],
+                      params.get("tok_embd_norm_b"), cfg)
+    return x
+
+
+def _add_pos_embd(params, x, positions: torch.Tensor):
+    """Learned absolute positions (gpt2; JAX `_add_pos_embd`): a sentinel
+    position clips to the table's last row, whose row is never kept."""
+    pe = params.get("pos_embd")
+    if pe is None:
+        return x
+    return x + pe[positions.clamp(0, pe.shape[0] - 1)].to(x.dtype)
 
 
 def _rope_at(cos, sin, positions: torch.Tensor):
@@ -637,7 +812,8 @@ def decode_step_impl(params, cfg: ModelConfig, tokens, ops: DecodeOperands,
     """Step `step` of a decode chain through the flash decode kernel; the
     step's rows are appended to `rows` (one entry per layer), for the
     chain's write_rows. Returns logits [B, 1, V] f32."""
-    x = _embed_tokens(params, cfg, tokens)
+    x = _add_pos_embd(params, _embed_tokens(params, cfg, tokens),
+                      ops.positions[step][:, None])
     x = _run_stack(params, cfg, x, kv, ops.cos[step], ops.sin[step], rows,
                    chain=chain, step=step, decode_meta=ops.meta[step])
     return _output_logits(params, cfg, x)
@@ -657,10 +833,11 @@ def write_chain_rows(kv: KVCache, steps: list, writes: RowWrites) -> None:
 
 class VerifyOperands(NamedTuple):
     """Device operands of a T-row verify forward, all computed from pos0,
-    n_draft and active [S]: flash decode meta [T, S, 2] (query j: cpos =
-    pos0 + j, nv = j + 1; cpos 0 for a sentinel row), the rope tables
-    gathered at the rows' positions ([S, T, rot/2]) and the row writes
-    ([S, T])."""
+    n_draft and active [S]: the rows' positions [S, T] (C for a sentinel
+    row), flash decode meta [T, S, 2] (query j: cpos = pos0 + j, nv = j +
+    1; cpos 0 for a sentinel row), the rope tables gathered at the
+    positions ([S, T, rot/2]) and the row writes ([S, T])."""
+    positions: torch.Tensor
     meta: torch.Tensor
     cos: torch.Tensor
     sin: torch.Tensor
@@ -688,7 +865,7 @@ def verify_operands(pos0: torch.Tensor, n_draft: torch.Tensor,
     cos, sin = _rope_at(rope_cos, rope_sin, positions)
     b = torch.arange(S, device=pos0.device)[:, None].expand(S, T)
     writes = RowWrites(b, pos % C, kept & (pos < C))
-    return VerifyOperands(meta, cos, sin, writes)
+    return VerifyOperands(positions, meta, cos, sin, writes)
 
 
 def verify_forward(params, cfg: ModelConfig, tokens, ops: VerifyOperands,
@@ -699,7 +876,8 @@ def verify_forward(params, cfg: ModelConfig, tokens, ops: VerifyOperands,
     decode kernel (_attn_verify), the kept rows written into the cache in
     place by one scatter. At T = 1 it is a one-step decode chain, bit for
     bit. Returns logits [S, T, V] f32."""
-    x = _embed_tokens(params, cfg, tokens)
+    x = _add_pos_embd(params, _embed_tokens(params, cfg, tokens),
+                      ops.positions)
     rows: list = []
     x = _run_stack(params, cfg, x, kv, ops.cos, ops.sin, rows,
                    verify_meta=ops.meta)
@@ -758,7 +936,7 @@ def prefill_batch_impl(params, cfg: ModelConfig, tokens, pos_base, n_valid,
     meta = torch.stack([pos_base, n_valid, zeros, zeros], dim=1).to(
         torch.int32)
     cos, sin = _rope_at(rope_cos, rope_sin, positions)
-    x = _embed_tokens(params, cfg, tokens)
+    x = _add_pos_embd(params, _embed_tokens(params, cfg, tokens), positions)
     rows: list = []
     x = _run_stack(params, cfg, x, kv, cos, sin, rows, flash_meta=meta)
     b = torch.arange(S, device=dev)[:, None].expand(S, T)
@@ -775,7 +953,8 @@ def forward_embeddings(params, cfg: ModelConfig, tokens, seq_lens, rope_cos,
                        rope_sin, pooling: str = "mean") -> torch.Tensor:
     """The embedding forward (JAX `forward_embeddings`): tokens [B, T] and
     seq_lens [B] (host arrays or tensors; no KV cache kept) through the
-    stack, output_norm, then f32, pooled over each row's valid positions:
+    stack, output_norm as an RMSNorm whatever cfg.norm_style (the JAX
+    function's own), then f32, pooled over each row's valid positions:
     "mean", "cls" or "last" give [B, E]; any other pooling returns every
     row, [B, T, E] (the JAX function's fall-through, which its engine's
     llama rerank reads).
@@ -796,8 +975,11 @@ def forward_embeddings(params, cfg: ModelConfig, tokens, seq_lens, rope_cos,
     tokens = torch.as_tensor(tokens).to(dev)
     seq_lens = torch.as_tensor(seq_lens).to(dev, torch.int64)
     B, T = tokens.shape
-    x = _embed_tokens(params, cfg, tokens)
     t = torch.arange(T, device=dev)
+    # the JAX function's own embedding: the token rows and the learned
+    # positions, without _embed_tokens' scale and norm (mirrored as it is)
+    x = _add_pos_embd(params, emb[tokens.long().clamp(0, emb.shape[0] - 1)],
+                      t[None, :].expand(B, T))
     valid = t[None, :] < seq_lens[:, None]                     # [B, T]
     cos, sin = _rope_at(rope_cos, rope_sin, t[None, :].expand(B, T))
     adt = torch.float32 if x.dtype == torch.float32 else torch.bfloat16

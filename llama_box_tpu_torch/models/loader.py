@@ -41,18 +41,53 @@ from ..ops.qmatmul import QTensor, pack_repacked
 from ..utils.logging import SRV_INF
 from .config import ModelConfig
 
+# the quantizable per-layer projections (JAX `_LAYER_WEIGHTS`, the dense
+# llama graph's part of it)
 _LAYER_WEIGHTS = {
-    "attn_norm": ("blk.{i}.attn_norm.weight", False),
     "wq": ("blk.{i}.attn_q.weight", True),
     "wk": ("blk.{i}.attn_k.weight", True),
     "wv": ("blk.{i}.attn_v.weight", True),
     "wo": ("blk.{i}.attn_output.weight", True),
-    "ffn_norm": ("blk.{i}.ffn_norm.weight", False),
     "w_gate": ("blk.{i}.ffn_gate.weight", True),
     "w_up": ("blk.{i}.ffn_up.weight", True),
     "w_down": ("blk.{i}.ffn_down.weight", True),
 }
-_ROOT = ("token_embd.weight", "output_norm.weight", "output.weight")
+# optional per-layer tensors, always dense (JAX `_LAYER_OPTIONAL`, the part
+# the dense variants read): norms (absent attn_norm: olmo2's post-norm-only
+# blocks) and their biases, falcon-40b's second input norm, the projection
+# biases, q/k norms (per head, whole row, or chameleon's biased per-head
+# LayerNorm), gemma/olmo2 post norms and bitnet's sub norms
+_LAYER_OPTIONAL = {
+    "attn_norm": ("blk.{i}.attn_norm.weight", False),
+    "attn_norm_b": ("blk.{i}.attn_norm.bias", False),
+    "attn_norm_2": ("blk.{i}.attn_norm_2.weight", False),
+    "attn_norm_2_b": ("blk.{i}.attn_norm_2.bias", False),
+    "ffn_norm": ("blk.{i}.ffn_norm.weight", False),
+    "ffn_norm_b": ("blk.{i}.ffn_norm.bias", False),
+    "attn_post_norm_b": ("blk.{i}.post_attention_norm.bias", False),
+    "ffn_post_norm_b": ("blk.{i}.post_ffw_norm.bias", False),
+    "bo": ("blk.{i}.attn_output.bias", False),
+    "b_gate": ("blk.{i}.ffn_gate.bias", False),
+    "b_up": ("blk.{i}.ffn_up.bias", False),
+    "b_down": ("blk.{i}.ffn_down.bias", False),
+    "bq": ("blk.{i}.attn_q.bias", False),
+    "bk": ("blk.{i}.attn_k.bias", False),
+    "bv": ("blk.{i}.attn_v.bias", False),
+    "q_norm": ("blk.{i}.attn_q_norm.weight", False),
+    "k_norm": ("blk.{i}.attn_k_norm.weight", False),
+    "attn_sub_norm": ("blk.{i}.attn_sub_norm.weight", False),
+    "ffn_sub_norm": ("blk.{i}.ffn_sub_norm.weight", False),
+    "q_norm_b": ("blk.{i}.attn_q_norm.bias", False),
+    "k_norm_b": ("blk.{i}.attn_k_norm.bias", False),
+    "attn_post_norm": ("blk.{i}.post_attention_norm.weight", False),
+    "ffn_post_norm": ("blk.{i}.post_ffw_norm.weight", False),
+}
+# fused tensors split at load (phi3/gptneox attn_qkv, phi3 gate|up ffn_up)
+_LAYER_FUSED = ("blk.{i}.attn_qkv.weight", "blk.{i}.attn_qkv.bias")
+_ROOT = ("token_embd.weight", "output_norm.weight", "output.weight",
+         "position_embd.weight", "token_embd_norm.weight",
+         "token_embd_norm.bias", "output_norm.bias", "output.bias",
+         "rope_factors_long.weight", "rope_factors_short.weight")
 
 
 def _torch_dtype_of(arr: np.ndarray) -> torch.Tensor:
@@ -100,25 +135,69 @@ def _stack_qtensors(qts: list[QTensor], key: str,
         w8a8=qts[0].w8a8)
 
 
+def parse_kv_overrides(specs: list[str]) -> dict:
+    """--override-kv KEY=TYPE:VALUE (the reference's semantics: types
+    int/float/bool/str); a copy of the JAX loader's."""
+    out = {}
+    for spec in specs or []:
+        key, _, rest = spec.partition("=")
+        typ, _, val = rest.partition(":")
+        if not key or not typ or val == "":
+            raise ValueError(f"bad --override-kv {spec!r} "
+                             "(KEY=TYPE:VALUE)")
+        if typ == "int":
+            out[key] = int(val)
+        elif typ == "float":
+            out[key] = float(val)
+        elif typ == "bool":
+            out[key] = val.lower() in ("1", "true", "yes")
+        elif typ == "str":
+            out[key] = val
+        else:
+            raise ValueError(f"bad --override-kv type {typ!r}")
+    return out
+
+
 def load_model(path: str, dtype=torch.bfloat16, device="cuda",
-               quantized: bool = False) -> tuple[ModelConfig, dict]:
-    """Load a llama-family GGUF into a stacked-layer param tree of `dtype`
+               quantized: bool = False,
+               metadata_overrides: dict | None = None
+               ) -> tuple[ModelConfig, dict]:
+    """Load a llama-graph GGUF into a stacked-layer param tree of `dtype`
     tensors on `device`; with `quantized`, the block-quant projections as
-    QTensors (w8a8 or grouped: see the module docstring)."""
+    QTensors (w8a8 or grouped: see the module docstring). The dense
+    variants' tensors are read as the JAX loader reads them: the optional
+    per-layer norms and biases (_LAYER_OPTIONAL), learned positions, the
+    embedding norm, the output norm's and projection's biases, longrope
+    factors (into cfg.extra), a fused attn_qkv (and its bias) or phi3's
+    fused gate|up ffn_up split into their parts (dense, as in JAX), olmo's
+    non-parametric norms as unit weights and apertus's xIELU parameters.
+    A layer stack whose layers differ in their tensors (the JAX loader's
+    layer_groups) and any tensor outside these are refused."""
     dev = torch.device(device)
     with GGUFFile(path) as g:
+        for k, v in (metadata_overrides or {}).items():
+            SRV_INF("load_model", "override %s = %r", k, v)
+            g.metadata[k] = v
         cfg = ModelConfig.from_gguf(g)
         SRV_INF("load_model", "arch=%s layers=%d embd=%d heads=%d/%d ff=%d "
                 "vocab=%d dtype=%s quantized=%s device=%s", cfg.arch,
                 cfg.n_layers, cfg.n_embd, cfg.n_heads, cfg.n_kv_heads,
                 cfg.n_ff, cfg.vocab_size, dtype, quantized, dev)
         known = set(_ROOT) | {pat.format(i=i)
-                              for pat, _ in _LAYER_WEIGHTS.values()
-                              for i in range(cfg.n_layers)}
+                              for pat, _ in (*_LAYER_WEIGHTS.values(),
+                                             *_LAYER_OPTIONAL.values())
+                              for i in range(cfg.n_layers)} \
+            | {pat.format(i=i) for pat in _LAYER_FUSED
+               for i in range(cfg.n_layers)}
         extra = sorted(set(g.tensors) - known)
+        if {"head_count_arr", "head_count_kv_arr",
+                "n_ff_arr"} & set(cfg.extra):
+            raise NotImplementedError(
+                f"{cfg.arch}: per-layer head counts or FFN widths (the JAX "
+                "loader pads them to the largest) are not ported yet")
         if extra:
             raise NotImplementedError(
-                f"{cfg.arch}: tensors outside the dense llama path are not "
+                f"{cfg.arch}: tensors outside the dense llama graph are not "
                 f"ported yet: {extra[:8]}")
 
         def fetch(name: str, transpose: bool) -> torch.Tensor:
@@ -137,30 +216,121 @@ def load_model(path: str, dtype=torch.bfloat16, device="cuda",
                 return pack_repacked(rt, (in_dim, out_dim))
             return fetch(name, transpose)
 
-        def stack(key: str, names: list[str], ws: list):
+        def stack(key: str, ws: list):
             if any(isinstance(w, QTensor) for w in ws):
                 if not all(isinstance(w, QTensor) for w in ws):
                     raise ValueError(f"{key}: some layers are quantized "
                                      "QTensors and some dense")
+                pattern = _LAYER_WEIGHTS[key][0]
                 return _stack_qtensors(
-                    ws, key, [g.tensors[n].ggml_type.name for n in names]
-                ).to(dev)
+                    ws, key, [g.tensors[pattern.format(i=i)].ggml_type.name
+                              for i in range(len(ws))]).to(dev)
             return torch.stack(ws)
 
-        params: dict = {"tok_embd": fetch("token_embd.weight", False),
-                        "output_norm": fetch("output_norm.weight", False)}
+        # phi3 LongRoPE per-dim frequency factors (make_rope picks long or
+        # short by the slot context against the original window)
+        extra_cfg = dict(cfg.extra)
+        for tname, key in (("rope_factors_long.weight", "rope_factors_long"),
+                           ("rope_factors_short.weight",
+                            "rope_factors_short")):
+            if tname in g.tensors:
+                extra_cfg[key] = tuple(
+                    float(x) for x in g.tensor_f32(tname).reshape(-1))
+        cfg = dataclasses.replace(cfg, extra=extra_cfg)
+
+        params: dict = {"tok_embd": fetch("token_embd.weight", False)}
+        for key, name in (("pos_embd", "position_embd.weight"),
+                          ("tok_embd_norm", "token_embd_norm.weight"),
+                          ("tok_embd_norm_b", "token_embd_norm.bias")):
+            if name in g.tensors:
+                params[key] = fetch(name, False)
+        if "output_norm.weight" in g.tensors:
+            params["output_norm"] = fetch("output_norm.weight", False)
+        else:
+            # olmo (v1): non-parametric LayerNorm; unit weights are exact
+            params["output_norm"] = torch.ones(cfg.n_embd, dtype=dtype,
+                                               device=dev)
+        if "output_norm.bias" in g.tensors:
+            params["output_norm_b"] = fetch("output_norm.bias", False)
         if "output.weight" in g.tensors:
             out_w = fetch_maybe_q("output.weight", True)
             params["output"] = (out_w.to(dev) if isinstance(out_w, QTensor)
                                 else out_w)
         else:
             SRV_INF("load_model", "output.weight absent -> tied embeddings")
-        layers = {}
-        for key, (pattern, transpose) in _LAYER_WEIGHTS.items():
-            names = [pattern.format(i=i) for i in range(cfg.n_layers)]
-            layers[key] = stack(key, names, [fetch_maybe_q(n, transpose)
-                                             for n in names])
-        params["layers"] = layers
+        if "output.bias" in g.tensors:        # phi2
+            params["output_b"] = fetch("output.bias", False)
+
+        def split_qkv(i: int) -> dict:
+            """A fused attn_qkv (and its bias) -> wq/wk/wv (bq/bk/bv),
+            dense, as the JAX loader splits it."""
+            name = f"blk.{i}.attn_qkv.weight"
+            if name not in g.tensors:
+                return {}
+            w = fetch(name, True)                     # [in, q + k + v]
+            qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+            out = {"wq": w[:, :qd], "wk": w[:, qd:qd + kvd],
+                   "wv": w[:, qd + kvd:qd + 2 * kvd]}
+            bname = f"blk.{i}.attn_qkv.bias"
+            if bname in g.tensors:
+                b = fetch(bname, False)
+                out.update(bq=b[:qd], bk=b[qd:qd + kvd],
+                           bv=b[qd + kvd:qd + 2 * kvd])
+            return out
+
+        def split_gate_up(i: int) -> dict:
+            """phi3's fused ffn_up ([E, 2 FF], gate columns first) ->
+            w_gate/w_up, dense, as the JAX loader splits it."""
+            name = f"blk.{i}.ffn_up.weight"
+            if (name not in g.tensors or not cfg.ffn_gated or cfg.n_ff <= 0
+                    or f"blk.{i}.ffn_gate.weight" in g.tensors
+                    or g.tensors[name].shape[0] != 2 * cfg.n_ff):
+                return {}
+            w = fetch(name, True)
+            return {"w_gate": w[:, :cfg.n_ff], "w_up": w[:, cfg.n_ff:]}
+
+        per_layer: list[dict] = []
+        for i in range(cfg.n_layers):
+            # the split gate|up first (its ffn_up name is the fused
+            # tensor's), then the GGUF's own tensors, then a split attn_qkv
+            lp = split_gate_up(i)
+            for key, (pattern, transpose) in _LAYER_WEIGHTS.items():
+                name = pattern.format(i=i)
+                if key not in lp and name in g.tensors:
+                    lp[key] = fetch_maybe_q(name, transpose)
+            for key, (pattern, transpose) in _LAYER_OPTIONAL.items():
+                name = pattern.format(i=i)
+                if name in g.tensors:
+                    lp[key] = fetch(name, transpose)
+            for key, w in split_qkv(i).items():
+                lp.setdefault(key, w)
+            per_layer.append(lp)
+        if cfg.arch == "olmo":
+            # olmo (v1): unit weights for the non-parametric LayerNorms
+            ones = torch.ones(cfg.n_embd, dtype=dtype, device=dev)
+            for lp in per_layer:
+                lp.setdefault("attn_norm", ones)
+                lp.setdefault("ffn_norm", ones)
+        # apertus xIELU per-layer parameters ride metadata arrays (raw
+        # learned values; the forward applies softplus)
+        xap = g.metadata.get(f"{cfg.arch}.xielu.alpha_p")
+        if xap is not None:
+            xan = g.metadata.get(f"{cfg.arch}.xielu.alpha_n")
+            xb = g.metadata.get(f"{cfg.arch}.xielu.beta",
+                                [0.5] * cfg.n_layers)
+            xe = g.metadata.get(f"{cfg.arch}.xielu.eps",
+                                [-1e-6] * cfg.n_layers)
+            for i, lp in enumerate(per_layer):
+                lp["xielu"] = torch.tensor(
+                    [xap[i], xan[i], xb[i], xe[i]], dtype=torch.float32
+                ).to(dev, dtype)
+        sigs = {frozenset(lp) for lp in per_layer}
+        if len(sigs) > 1:
+            raise NotImplementedError(
+                f"{cfg.arch}: layers with different tensor sets (the JAX "
+                "loader's layer_groups) are not ported yet")
+        params["layers"] = {key: stack(key, [lp[key] for lp in per_layer])
+                            for key in (per_layer[0] if per_layer else {})}
     return cfg, params
 
 
@@ -197,7 +367,8 @@ def deinterleave_rope(params: dict, cfg: ModelConfig):
     rotation order to half-split ('neox') order; attention is invariant
     and the runtime rotation takes the neox path. Returns (params, cfg')
     with cfg'.rope_mode == 'neox', or the inputs unchanged when the
-    transform does not apply."""
+    transform does not apply. The q/k biases and norms follow the columns
+    (a per-head norm's weight by the in-head permutation), as in JAX."""
     lay = params.get("layers")
     if (cfg.rope_mode != "norm" or cfg.mrope_sections or cfg.kv_lora_rank
             or not isinstance(lay, dict)
@@ -224,6 +395,17 @@ def deinterleave_rope(params: dict, cfg: ModelConfig):
     lay = dict(lay)
     lay["wq"] = perm_cols(lay["wq"], H)
     lay["wk"] = perm_cols(lay["wk"], Hkv)
+    for key, n in (("bq", H), ("bk", Hkv)):
+        if key in lay:
+            lay[key] = perm_cols(lay[key], n)
+    for key in ("q_norm", "k_norm", "q_norm_b", "k_norm_b"):
+        if key in lay:
+            w = lay[key]
+            if w.shape[-1] == D:      # per-head norm, shared across heads
+                lay[key] = torch.index_select(
+                    w, -1, torch.from_numpy(base).to(w.device))
+            else:                     # whole-row [H * D]
+                lay[key] = perm_cols(w, H if key[0] == "q" else Hkv)
     out = dict(params)
     out["layers"] = lay
     return out, dataclasses.replace(cfg, rope_mode="neox")

@@ -1,0 +1,133 @@
+"""The port's command line (llama_box_tpu_torch/cli.py) against the JAX
+CLI's: the compat group (llama-box flags accepted and ignored or mapped)
+and the model overrides (rope, YaRN, attention type, --override-kv) parse
+to the same values as the JAX parser gives, and set the config the JAX
+CLI sets (llama_box_tpu/cli.py's main: the overrides applied to the
+loaded config, --override-kv to the GGUF metadata before it is read)."""
+
+import argparse
+import dataclasses
+
+import jax.numpy as jnp
+import pytest
+import torch
+
+from llama_box_tpu import cli as jcli
+from llama_box_tpu.models import load_model as jax_load
+from llama_box_tpu.models.loader import parse_kv_overrides as j_parse_kv
+from llama_box_tpu_torch import cli
+from llama_box_tpu_torch.models.loader import load_model, parse_kv_overrides
+from .fixtures.make_tiny_model import write_tiny_model
+
+
+def _compat_actions():
+    jp = jcli.build_parser()
+    return [a for g in jp._action_groups if g.title.startswith("compat")
+            for a in g._group_actions]
+
+
+def _argv_for(action) -> list:
+    """A command line that sets `action` (a value both parsers take)."""
+    flag = action.option_strings[0]
+    if action.nargs == 0:
+        return [flag]
+    if action.choices:
+        return [flag, sorted(action.choices)[-1]]
+    return [flag, "3" if action.type in (int, float) else "x"]
+
+
+@pytest.mark.parametrize("action", [
+    a for a in _compat_actions()
+    if a.dest != "device" and not isinstance(a, argparse._HelpAction)],
+    ids=lambda a: a.option_strings[-1])
+def test_compat_flags_parse_as_jax(action):
+    """Every flag of the JAX compat group parses in the port (as each of
+    its spellings) to the JAX value; unset, to the JAX default. The port
+    keeps its own --device, so llama-box's -dev is a flag of its own."""
+    p, jp = cli.build_parser(), jcli.build_parser()
+    port_dest = "dev" if action.option_strings == ["-dev", "--device"] \
+        else action.dest
+    assert getattr(p.parse_args([]), port_dest) \
+        == getattr(jp.parse_args([]), action.dest)
+    for spelling in action.option_strings:
+        if spelling == "--device":
+            continue
+        argv = [spelling] + _argv_for(action)[1:]
+        assert getattr(p.parse_args(argv), port_dest) \
+            == getattr(jp.parse_args(argv), action.dest), argv
+
+
+OVERRIDES = [
+    (["--rope-scaling", "yarn", "--rope-scale", "4", "--yarn-orig-ctx",
+      "64", "--yarn-beta-fast", "16"],
+     dict(rope_scaling_type="yarn", rope_freq_scale=0.25, rope_orig_ctx=64,
+          yarn_beta_fast=16.0)),
+    (["--rope-freq-base", "5e5", "--rope-freq-scale", "0.5",
+      "--rope-scale", "4", "--yarn-ext-factor", "0.5",
+      "--yarn-attn-factor", "1.5", "--yarn-beta-slow", "2"],
+     dict(rope_freq_base=5e5, rope_freq_scale=0.5, yarn_ext_factor=0.5,
+          yarn_attn_factor=1.5, yarn_beta_slow=2.0)),
+    (["--attention", "non-causal"], dict(causal=False)),
+    (["--rope-scaling", "linear", "--attention", "causal"],
+     dict(rope_scaling_type="linear", causal=True)),
+    ([], {}),
+]
+
+
+@pytest.mark.parametrize("argv,want", OVERRIDES)
+def test_model_overrides_parse_and_set_the_jax_config(argv, want):
+    """The parsed values equal the JAX parser's, and config_overrides
+    gives the fields JAX cli.main sets from them (--rope-freq-scale wins
+    over --rope-scale, which sets the scale to 1 / N)."""
+    p, jp = cli.build_parser(), jcli.build_parser()
+    a, ja = p.parse_args(argv), jp.parse_args(argv)
+    for dest in ("rope_scaling", "rope_freq_base", "rope_freq_scale",
+                 "yarn_orig_ctx", "rope_scale", "yarn_ext_factor",
+                 "yarn_attn_factor", "yarn_beta_fast", "yarn_beta_slow",
+                 "attention", "override_kv"):
+        assert getattr(a, dest) == getattr(ja, dest), dest
+    assert cli.config_overrides(a) == want
+
+
+@pytest.fixture(scope="module")
+def model_path(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("cli") / "tiny.gguf")
+    write_tiny_model(path)
+    return path
+
+
+def test_overrides_reach_the_served_config(model_path):
+    """build_server applies --override-kv to the metadata before the
+    config is read (as the JAX loader does) and the rope overrides after,
+    so the engine serves the config the JAX CLI would."""
+    kv = ["llama.rope.freq_base=float:20000", "llama.context_length=int:512"]
+    argv = ["--rope-scaling", "linear", "--rope-scale", "2", "--attention",
+            "causal", "-ngl", "99", "-fa", "-t", "2", "-b", "512", "--mlock"]
+    engine, srv = cli.build_server(
+        ["-m", model_path, "--device", "cpu", "--port", "0", "--no-jinja",
+         "-np", "2", "-c", "128", "--weights-dtype", "f32"]
+        + sum((["--override-kv", s] for s in kv), []) + argv)
+    try:
+        jcfg, _ = jax_load(model_path, dtype=jnp.float32,
+                           metadata_overrides=j_parse_kv(kv))
+        # the engine's load-time rope de-interleave makes the mode neox
+        jcfg = dataclasses.replace(jcfg, rope_scaling_type="linear",
+                                   rope_freq_scale=0.5, causal=True,
+                                   rope_mode="neox")
+        assert dataclasses.asdict(engine.cfg) == dataclasses.asdict(jcfg)
+        assert engine.cfg.rope_freq_base == 20000.0
+        assert engine.cfg.n_ctx_train == 512
+    finally:
+        srv.server_close()
+        engine.stop()
+
+
+def test_override_kv_parses_as_jax(model_path):
+    specs = ["a=int:3", "b=float:0.5", "c=bool:true", "d=str:x"]
+    assert parse_kv_overrides(specs) == j_parse_kv(specs)
+    for bad in (["a=int"], ["a=list:1"], ["=int:1"]):
+        with pytest.raises(ValueError):
+            parse_kv_overrides(bad)
+    cfg, _ = load_model(model_path, dtype=torch.float32, device="cpu",
+                        metadata_overrides={"llama.rope.freq_base": 1e4 + 1})
+    assert cfg.rope_freq_base == 1e4 + 1

@@ -2052,6 +2052,8 @@ def _plain_on_card(mp):
     from llama_box_tpu_torch.ops import fused_decode as fdm
     from llama_box_tpu_torch.ops import qmatmul as qm
     mp.setattr(tl, "flash_prefill_batched", fp_mod.flash_prefill_plain)
+    mp.setattr(tl, "norm_any", norm_mod.norm_any_plain)
+    mp.setattr(tl, "rms_norm", norm_mod.rms_norm_plain)
     mp.setattr(tl, "fused_norm_qmm", fdm.fused_norm_qmm_plain)
     mp.setattr(tl, "fused_layer_tail", fdm.fused_layer_tail_plain)
     mp.setattr(qm, "w8a8_matmul", lambda x, qs, sc, out_dtype=torch.float32:
@@ -2215,3 +2217,174 @@ def test_embed_graph_outputs_survive_the_other_graphs_replays(cuda,
             torch.cuda.synchronize()
             assert all(torch.equal(a, b) for a, b in zip(outs, want)), \
                 f"replaying {other} changed the outputs of {key}"
+
+
+# -- the row-norm kernel (csrc/norm.cu) ---------------------------------------
+#
+# Against its plain versions: f32 rows within 1e-5 (the sums run in another
+# order), bf16 rows within one bf16 rounding (rtol 2**-7: the f32 result
+# before the cast moves by a few f32 ulps, which can cross a bf16 rounding
+# point). A row's bits must not depend on how many rows share the call.
+
+from llama_box_tpu_torch.ops import norm as norm_mod  # noqa: E402
+
+NORM_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+
+
+def _norm_inputs(shape, dtype, wdtype, groups=1, seed=30):
+    g = torch.Generator().manual_seed(seed)
+    n = shape[-1]
+    x = (torch.randn(shape, generator=g) * 2 + 0.3).to(dtype)
+    w = (1 + 0.1 * torch.randn(groups * n, generator=g)).to(wdtype)
+    b = (0.1 * torch.randn(groups * n, generator=g)).to(wdtype)
+    return x, w, b
+
+
+@pytest.mark.parametrize("shape", [(4, 2048), (2048, 2048), (64, 128),
+                                   (9, 100), (3, 6144)])
+@pytest.mark.parametrize("style", ["rms", "ln", "ln_nobias"])
+@pytest.mark.parametrize("dtype,wdtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32)])
+def test_row_norm_kernel_matches_plain(cuda, shape, style, dtype, wdtype):
+    x, w, b = _norm_inputs(shape, dtype, wdtype)
+    b = b if style == "ln" else None
+    st = "ln" if style.startswith("ln") else "rms"
+    before = norm_mod.row_norm.launches
+    got = norm_mod.norm_any(x.to(cuda), w.to(cuda),
+                            None if b is None else b.to(cuda), st, 1e-5)
+    torch.cuda.synchronize()
+    assert norm_mod.row_norm.launches == before + 1
+    want = norm_mod.norm_any_plain(x.to(cuda), w.to(cuda),
+                                   None if b is None else b.to(cuda), st,
+                                   1e-5)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=NORM_RTOL[dtype], atol=1e-5)
+    if st == "rms":
+        assert torch.equal(got, norm_mod.rms_norm(x.to(cuda), w.to(cuda)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_row_norm_kernel_per_head_weights(cuda, dtype):
+    """chameleon's per-head LayerNorm: row r of [B, T, H, D] takes the
+    weight and bias of head r mod H."""
+    x, w, b = _norm_inputs((4, 9, 16, 128), dtype, dtype, groups=16)
+    got = norm_mod.ln_per_head(x.to(cuda), w.to(cuda), b.to(cuda))
+    want = norm_mod.ln_per_head_plain(x.to(cuda), w.to(cuda), b.to(cuda))
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=NORM_RTOL[dtype], atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [2048, 128, 6144, 100])
+@pytest.mark.parametrize("style", ["rms", "ln"])
+def test_row_norm_rows_do_not_depend_on_the_row_count(cuda, n, style):
+    """The bits of a row normed among 36 rows (a verify pass of 4 slots x
+    9 rows), among 4 (a decode step) and alone are the same."""
+    x, w, b = _norm_inputs((36, n), torch.bfloat16, torch.bfloat16, seed=31)
+    x, w, b = x.to(cuda), w.to(cuda), b.to(cuda)
+    b = b if style == "ln" else None
+    full = norm_mod.norm_any(x, w, b, style, 1e-6)
+    four = norm_mod.norm_any(x[8:12], w, b, style, 1e-6)
+    assert torch.equal(full[8:12], four)
+    for i in (0, 13, 35):
+        assert torch.equal(full[i:i + 1],
+                           norm_mod.norm_any(x[i:i + 1], w, b, style, 1e-6))
+
+
+def test_row_norm_cuda_tensors_never_take_the_plain_version(cuda,
+                                                            monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+    for name in ("rms_norm_plain", "norm_any_plain", "ln_per_head_plain"):
+        monkeypatch.setattr(norm_mod, name, boom)
+    x, w, b = _norm_inputs((4, 256), torch.bfloat16, torch.bfloat16)
+    x, w, b = x.to(cuda), w.to(cuda), b.to(cuda)
+    norm_mod.rms_norm(x, w)
+    norm_mod.norm_any(x, w, b, "ln", 1e-5)
+    norm_mod.ln_per_head(x.reshape(4, 2, 128), w, b)
+    with pytest.raises(ValueError):
+        norm_mod.rms_norm(x.half(), w)
+
+
+def test_row_norm_in_a_cuda_graph(cuda):
+    x, w, b = _norm_inputs((36, 2048), torch.bfloat16, torch.bfloat16)
+    x, w, b = x.to(cuda), w.to(cuda), b.to(cuda)
+    eager = norm_mod.norm_any(x, w, b, "ln", 1e-5)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=side):
+        out = norm_mod.norm_any(x, w, b, "ln", 1e-5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.fixture(scope="module", params=["bf16", "q4", "w8a8"])
+def wide_path_model(request, tmp_path_factory):
+    """A TinyLlama-width two-layer llama file on each path: F16 (bf16
+    weights, cuBLAS), Q4_K_M's types under LLAMA_BOX_TPU_PACKED4 (the
+    grouped kernels) or Q8_0 (w8a8, the fused kernels at decode widths)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from llama_box_tpu_torch.gguf import GGUFFile
+    from llama_box_tpu_torch.models.loader import load_model
+    from llama_box_tpu_torch.tokenizer import Tokenizer
+    fmt, env = _FORMATS[request.param]
+    path = tmp_path_factory.mktemp("widep") / f"tinyllama-width-{fmt}.gguf"
+    _tiny_gguf(path, fmt, _TINYLLAMA_WIDTH)
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in env.items():
+            mp.setenv(k, v)
+        cfg, params = load_model(str(path), dtype=torch.bfloat16,
+                                 device="cuda",
+                                 quantized=request.param != "bf16")
+    with GGUFFile(str(path)) as g:
+        tok = Tokenizer.from_gguf(g)
+    return request.param, cfg, params, tok
+
+
+def test_spec_greedy_text_equals_plain_decode_at_tinyllama_width(
+        cuda, wide_path_model):
+    """The engine invariant at TinyLlama's widths, on every path: a verify
+    forward of 4 slots x 9 rows gives the logits of its rows' one-row
+    decode steps bit for bit (the row-norm kernel sums each row in one
+    order; the grouped and fused matmuls split the in-dim by the weight
+    alone up to 64 rows; cuBLAS keeps a row's bits at M 36 and M 4 at
+    these widths), so self-drafting greedy chats give the tokens of plain
+    chained decode exactly, near ties and all."""
+    from llama_box_tpu_torch.models import llama
+    from llama_box_tpu_torch.sampling import SamplerParams
+    _, cfg, params, _ = wide_path_model
+    S, C, T = 4, 512, 9
+    rng = np.random.default_rng(97)
+    n = np.array([100, 37, 211, 64])
+    pre = torch.from_numpy(rng.integers(300, 500, (S, 256)))
+    rows = torch.from_numpy(rng.integers(300, 500, (S, T)))
+    pos = n[:, None] + np.arange(T)
+    cos, sin = llama.make_rope(cfg, C, cuda)
+    kv = llama.init_kv_cache(cfg, S, C, torch.bfloat16, cuda)
+    llama.prefill_batch_impl(params, cfg, pre, np.zeros(S, np.int64), n, kv,
+                             cos, sin)
+    kv2 = llama.KVCache(*[x.clone() if x is not None else None for x in kv])
+    got = llama.forward_impl(params, cfg, rows, pos, kv, cos, sin)[0]
+    want = torch.cat([llama.forward_impl(
+        params, cfg, rows[:, j:j + 1], pos[:, j:j + 1].copy(), kv2, cos,
+        sin)[0] for j in range(T)], dim=1)
+    assert torch.equal(got, want)
+    prompts = [rng.integers(300, 500, k).tolist() for k in (40, 23, 9, 17)]
+    specs = [(p, SamplerParams(temp=0.0, ignore_eos=True), 48)
+             for p in prompts]
+    eng = _spec_engine(wide_path_model, True, draft_max=8, start=True)
+    try:
+        out = _serve(eng, specs)
+        assert eng.metrics.n_drafted_total > 0
+    finally:
+        eng.stop()
+    ref = _engine(wide_path_model, True, chain=16, start=True)
+    try:
+        assert _serve(ref, specs) == out
+    finally:
+        ref.stop()
