@@ -18,14 +18,23 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     cold 500-token prefill must equal, bit for bit, the same prompts with
     their first 137 / 64 / 1 / 300 positions in a bf16 cache, and a decode
     query with nv = 16 chain rows must equal, bit for bit, the same query
-    with nv = 1 (its other keys in the cache; bf16 and int8 caches);
+    with nv = 1 (its other keys in the cache; bf16 and int8 caches).
+    Then the attention variants at their families' published heads
+    (ATTN_KERNEL_CASES): Gemma-3-1B's 4 / 1 heads of 256 at C 4096 under
+    a local layer's 512 window and a global layer's none (prefill at pos0
+    0 and 1024, decode at cpos 1023 and 3000), gemma-2-2b's 8 / 4 heads
+    of 256 under its softcap 50, BLOOM-560m's 16 heads of 64 under ALiBi,
+    phi-2's 32 heads of 80 and phi-3-mini's 32 of 96; f32 and int8-cache
+    variants at D 80, 96, 256 with a window and ALiBi; and both bit checks
+    again at D 256 under the 512 window;
  4. times: kernel, plain version and a library yardstick (SDPA for the
     attention kernels; for w8a8_matmul torch._int_mm on the codes with
     the weight K-major, beside it _int_mm on the weight as stored and
     torch.matmul in bf16 on the dequantized weight; never used by the
-    port) with CUDA events on a cold L2, beside the bound max(bytes /
-    3.35 TB/s, ops / peak), the peak being 989 TFLOP/s bf16 or 1979 TOP/s
-    int8; phase 4w also times w8a8_matmul's row-quantize pass alone
+    port; under a window or ALiBi SDPA gets the same float mask) with
+    CUDA events on a cold L2, beside the bound max(bytes / 3.35 TB/s, ops
+    / peak), the peak being 989 TFLOP/s bf16 or 1979 TOP/s int8, the
+    bytes and operations those of the keys each call's window leaves; phase 4w also times w8a8_matmul's row-quantize pass alone
     (bound: M*K*3 + 4*M bytes), the fused kernels at Llama-3-8B's widths
     (kernel only, not served) and counts the kernels each w8a8 call runs
     (torch.profiler);
@@ -39,7 +48,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     times beside the bound (bytes), the plain version and torch's
     rms_norm / layer_norm (never used by the port);
  5. end to end, bf16 path: a synthetic TinyLlama-1.1B-width GGUF (random
-    F16 weights from --seed, a 32000-piece SPM vocab, a chatml template)
+    F16 weights from --seed, a 32000-piece SPM vocab, a chatml template;
+    it and 5w's and 5q's files are written by three worker processes
+    while phases 3 and 4 run, all three done before phase 5 starts)
     is served by the port's own HTTP server at -np 4 -c 8192 -ub 512
     --decode-chain 16, CUDA graphs on and chains pipelined (the
     defaults: up to two further chains go out before the host waits for
@@ -182,13 +193,14 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     replay bit-equal to the eager pass and its device ms beside its
     bound; printed: embeddings tok/s, rerank docs/s;
  11. the dense llama variants at published widths, after phase 10: two
-    synthetic GGUFs (Q8_0 matrices, F32 vectors, random from --seed, every
-    layer, a synthetic vocabulary of the published size, chatml): Qwen3-
-    1.7B's (Qwen/Qwen3-1.7B config.json: 28 x 2048, 16 / 8 heads of 128,
-    FF 6144, vocab 151936, tied embeddings, per-head q/k RMS norms) and
-    Pythia-1.4B's (EleutherAI/pythia-1.4b config.json: 24 x 2048, 16 heads
-    of 128, rotary 32 of them, parallel residual, LayerNorm with biases,
-    fused biased qkv, ungated GELU FFN with biases, untied output). Each is
+    synthetic GGUFs (Q8_0 matrices, F32 vectors, random from --seed, a
+    synthetic vocabulary of the published size, chatml; depth cut to 8
+    layers): Qwen3-1.7B's (Qwen/Qwen3-1.7B config.json: 28 x 2048, 16 / 8
+    heads of 128, FF 6144, vocab 151936, tied embeddings, per-head q/k RMS
+    norms) and Pythia-1.4B's (EleutherAI/pythia-1.4b config.json: 24 x
+    2048, 16 heads of 128, rotary 32 of them, parallel residual, LayerNorm
+    with biases, fused biased qkv, ungated GELU FFN with biases, untied
+    output). Each is
     served by the CLI on the bf16 path (the file dequantized to bf16) and
     on the w8a8 path (--weights-dtype quantized): two warm-up waves, then 4
     greedy chats of about 200 prompt tokens and 64 tokens with graphs
@@ -200,12 +212,23 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     and one captured decode step: its kernels a layer with the row-norm
     kernel and with the norms' plain torch versions, its row-norm
     launches, and no torch mean reduction (a norm's) in it;
+ 12. the attention variants at published widths, after phase 11, on
+    phase 11's machinery (every layer): Gemma-3-1B's (google/gemma-3-1b-pt
+    config.json: 26 x 1152, 4 / 1 heads of 256, FF 6912, vocab 262144,
+    a 512 window on 5 layers of 6, rope bases 1e6 and 1e4, q/k norms, post
+    norms, tied embeddings) and BLOOM-560m's (bigscience/bloom-560m: 24 x
+    1024, 16 heads of 64, FF 4096, vocab 250880, ALiBi, embedding
+    LayerNorm, biases, tied embeddings), each on the bf16 and w8a8 paths
+    at -np 4 -c 4096 with prompts of about 700 tokens (past the window);
+    the cosine is long_forward's (640 positions, the second chunk reading
+    the first from the cache, then a decode step) to the f32 CPU forward;
  9. print a `kernels` line (eight kernels; launches count graph replays;
     each also with its launches in the self-drafting waves of 8/8w/8q,
     in phase 8's n-gram, self-draft and 2-layer draft waves and in each
     path's embeddings request of phase 10, where bf16's window also holds
-    the chats' chains, and in one request of each phase 11 model and
-    path), an `e2e` line (three paths and phases 6, 7, 8, 10 and 11), the
+    the chats' chains, and in one request of each phase 11 and 12 model
+    and path; the attention kernels also with their variant shapes' times),
+    an `e2e` line (three paths and phases 6, 7, 8, 10, 11 and 12), the
     card line, and as the last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without CUDA,
@@ -218,6 +241,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -226,6 +250,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -329,29 +354,38 @@ def _nan_fill(x: torch.Tensor, starts, axis_pos: int) -> None:
         x[tuple(idx)] = float("nan")
 
 
-def make_cache(g, B, C, dtype, quant, dev):
+def make_cache(g, B, C, dtype, quant, dev, hkv=HKV, d=D):
     """K/V cache [B, C, Hkv, D] in dtype, or int8 codes + bf16 scales."""
-    k = torch.randn(B, C, HKV, D, generator=g, device=dev)
-    v = torch.randn(B, C, HKV, D, generator=g, device=dev)
+    k = torch.randn(B, C, hkv, d, generator=g, device=dev)
+    v = torch.randn(B, C, hkv, d, generator=g, device=dev)
     if not quant:
         return k.to(dtype), v.to(dtype), None, None
-    ks = (torch.rand(B, C, HKV, generator=g, device=dev) * 0.04 + 0.01)
-    vs = (torch.rand(B, C, HKV, generator=g, device=dev) * 0.04 + 0.01)
+    ks = (torch.rand(B, C, hkv, generator=g, device=dev) * 0.04 + 0.01)
+    vs = (torch.rand(B, C, hkv, generator=g, device=dev) * 0.04 + 0.01)
     kq = (k / ks[..., None]).round().clamp(-127, 127).to(torch.int8)
     vq = (v / vs[..., None]).round().clamp(-127, 127).to(torch.int8)
     return kq, vq, ks.to(torch.bfloat16), vs.to(torch.bfloat16)
 
 
+def alibi_slopes(n_heads, hkv, dev, max_bias=8.0):
+    """[Hkv, G] ALiBi slopes of n_heads heads (the model's formula,
+    models/llama.alibi_values)."""
+    from llama_box_tpu_torch.models.llama import alibi_values
+    return torch.tensor(alibi_values(n_heads, max_bias), dtype=torch.float32,
+                        device=dev).view(hkv, -1)
+
+
 def prefill_case(g, dev, *, B=4, G=8, T=512, C=SLOT_CTX, pos0=(0,) * 4,
                  n_valid=None, quant=False, dtype=torch.bfloat16,
-                 win=(0, 0), spans=None, sinks=False, softcap=0.0):
+                 win=(0, 0), spans=None, sinks=False, softcap=0.0,
+                 hkv=HKV, d=D, alibi=False):
     n_valid = n_valid or (T,) * B
-    q = torch.randn(B, HKV, G, T, D, generator=g, device=dev).to(dtype)
-    kc, vc, ks, vs = make_cache(g, B, C, dtype, quant, dev)
+    q = torch.randn(B, hkv, G, T, d, generator=g, device=dev).to(dtype)
+    kc, vc, ks, vs = make_cache(g, B, C, dtype, quant, dev, hkv, d)
     _nan_fill(ks if quant else kc, pos0, 1)      # never read: >= pos0
     _nan_fill(vs if quant else vc, pos0, 1)
-    kr = torch.randn(B, T, HKV, D, generator=g, device=dev).to(dtype)
-    vr = torch.randn(B, T, HKV, D, generator=g, device=dev).to(dtype)
+    kr = torch.randn(B, T, hkv, d, generator=g, device=dev).to(dtype)
+    vr = torch.randn(B, T, hkv, d, generator=g, device=dev).to(dtype)
     meta = torch.zeros(B, 4, dtype=torch.int32)
     meta[:, 0] = torch.tensor(pos0)
     meta[:, 1] = torch.tensor(n_valid)
@@ -360,27 +394,30 @@ def prefill_case(g, dev, *, B=4, G=8, T=512, C=SLOT_CTX, pos0=(0,) * 4,
     args = (q, kc, vc, kr, vr, meta.to(dev),
             torch.tensor(win, dtype=torch.int32, device=dev))
     kw = dict(k_scale=ks, v_scale=vs, softcap=softcap,
-              sinks=(torch.randn(HKV, G, generator=g, device=dev)
-                     if sinks else None))
+              sinks=(torch.randn(hkv, G, generator=g, device=dev)
+                     if sinks else None),
+              alibi=alibi_slopes(hkv * G, hkv, dev) if alibi else None)
     return args, kw
 
 
 def decode_case(g, dev, *, B=4, G=8, C=SLOT_CTX, R=CHAIN, cpos=(1023,) * 4,
                 nv=(CHAIN,) * 4, quant=False, dtype=torch.bfloat16,
-                win=(0, 0), sinks=False, softcap=0.0):
-    q = torch.randn(B, HKV, G, D, generator=g, device=dev).to(dtype)
-    kc, vc, ks, vs = make_cache(g, B, C, dtype, quant, dev)
+                win=(0, 0), sinks=False, softcap=0.0, hkv=HKV, d=D,
+                alibi=False):
+    q = torch.randn(B, hkv, G, d, generator=g, device=dev).to(dtype)
+    kc, vc, ks, vs = make_cache(g, B, C, dtype, quant, dev, hkv, d)
     cstart = [c - n + 1 for c, n in zip(cpos, nv)]
     _nan_fill(ks if quant else kc, cstart, 1)    # never read: >= chain start
     _nan_fill(vs if quant else vc, cstart, 1)
-    kr = torch.randn(B, R, HKV, D, generator=g, device=dev).to(dtype)
-    vr = torch.randn(B, R, HKV, D, generator=g, device=dev).to(dtype)
+    kr = torch.randn(B, R, hkv, d, generator=g, device=dev).to(dtype)
+    vr = torch.randn(B, R, hkv, d, generator=g, device=dev).to(dtype)
     meta = torch.tensor(list(zip(cpos, nv)), dtype=torch.int32, device=dev)
     args = (q, kc, vc, kr, vr, meta,
             torch.tensor(win, dtype=torch.int32, device=dev))
     kw = dict(k_scale=ks, v_scale=vs, softcap=softcap,
-              sinks=(torch.randn(HKV, G, generator=g, device=dev)
-                     if sinks else None))
+              sinks=(torch.randn(hkv, G, generator=g, device=dev)
+                     if sinks else None),
+              alibi=alibi_slopes(hkv * G, hkv, dev) if alibi else None)
     return args, kw
 
 
@@ -412,85 +449,119 @@ def _elem(t):
 
 
 def prefill_work(args, kw):
-    q, kc, vc, kr, vr, meta, _ = args
+    """Bytes and operations of one prefill call on these inputs: the cache
+    positions some row of a slot sees (window floor to pos0) read once,
+    and each row's visible keys (causal, under the window) scored and
+    weighted."""
+    q, kc, vc, kr, vr, meta, win = args
     B, Hkv, G, T, Dq = q.shape
+    w = int(win[0])
     pos0 = meta[:, 0].tolist()
     nval = meta[:, 1].tolist()
     nbytes = q.numel() * q.element_size() + (kr.numel() + vr.numel()) \
         * kr.element_size() + B * Hkv * G * T * Dq * 4      # out f32
     keys = 0
     for b in range(B):
-        # causal, no window: row t sees pos0 + t + 1 keys
-        keys += sum(pos0[b] + t + 1 for t in range(nval[b]))
-        nbytes += pos0[b] * Hkv * Dq * 2 * (
+        # row t (position pos0 + t) sees pos0 + t + 1 keys, or w
+        keys += sum(min(pos0[b] + t + 1, w) if w > 0 else pos0[b] + t + 1
+                    for t in range(nval[b]))
+        lo = max(0, pos0[b] - w + 1) if w > 0 else 0
+        nbytes += max(0, pos0[b] - lo) * Hkv * Dq * 2 * (
             kc.element_size() + _elem(kw["k_scale"]) / Dq)
     return nbytes, keys * Hkv * G * 4 * Dq
 
 
 def decode_work(args, kw):
-    q, kc, vc, kr, vr, meta, _ = args
+    """Bytes and operations of one decode call on these inputs: the keys
+    in the window (cache below the chain start, then the chain's rows)
+    read once and scored."""
+    q, kc, vc, kr, vr, meta, win = args
     B, Hkv, G, Dq = q.shape
+    w = int(win[0])
     nbytes = q.numel() * q.element_size() + B * Hkv * G * Dq * 4
     keys = 0
     for cpos, nv in meta.tolist():
         cstart = cpos - nv + 1
-        keys += cstart + nv
-        nbytes += cstart * Hkv * Dq * 2 * (
+        lo = max(0, cpos - w + 1) if w > 0 else 0
+        n_cache, n_rows = max(0, cstart - lo), min(nv, cpos + 1 - lo)
+        keys += n_cache + n_rows
+        nbytes += n_cache * Hkv * Dq * 2 * (
             kc.element_size() + _elem(kw["k_scale"]) / Dq)
-        nbytes += nv * Hkv * Dq * 2 * kr.element_size()
+        nbytes += n_rows * Hkv * Dq * 2 * kr.element_size()
     return nbytes, keys * Hkv * G * 4 * Dq
 
 
-def sdpa_prefill(args):
+def _sdpa_mask(qpos, kpos, win, kw, dtype):
+    """SDPA's mask for keys kpos from queries qpos: bool (causal, in the
+    window) without ALiBi, else a mask [Hkv * G, T, K] in the queries'
+    dtype holding each head's slope x (kpos - qpos) and -inf outside."""
+    w = int(win[0])
+    ok = kpos[None, :] <= qpos[:, None]
+    if w > 0:
+        ok = ok & (kpos[None, :] > qpos[:, None] - w)
+    if kw.get("alibi") is None:
+        return ok
+    dist = (kpos[None, :] - qpos[:, None]).float()
+    m = kw["alibi"].reshape(-1, 1, 1) * dist[None]
+    return m.masked_fill(~ok[None], float("-inf")).to(dtype)
+
+
+def sdpa_prefill(args, kw):
     """SDPA on the same function: keys = cache[:pos0] ++ rows (slots share
-    pos0 in the timed cases), bool causal mask, GQA."""
-    q, kc, vc, kr, vr, meta, _ = args
+    pos0 in the timed cases), a causal mask under the window (a float one
+    with ALiBi's bias), GQA; the softcap has no SDPA form and is left
+    out."""
+    q, kc, vc, kr, vr, meta, win = args
     B, Hkv, G, T, Dq = q.shape
     p0 = int(meta[0, 0])
     k = torch.cat([kc[:, :p0], kr], 1).nan_to_num().transpose(1, 2)
     v = torch.cat([vc[:, :p0], vr], 1).nan_to_num().transpose(1, 2)
     qq = q.reshape(B, Hkv * G, T, Dq)
     kpos = torch.arange(p0 + T, device=q.device)
-    mask = (kpos[None, :] <= (p0 + torch.arange(T, device=q.device))[:, None])
+    mask = _sdpa_mask(p0 + torch.arange(T, device=q.device), kpos, win, kw,
+                      q.dtype)
     k, v = k.contiguous(), v.contiguous()
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         qq, k, v, attn_mask=mask, enable_gqa=True)
 
 
-def sdpa_decode(args):
-    q, kc, vc, kr, vr, meta, _ = args
+def sdpa_decode(args, kw):
+    q, kc, vc, kr, vr, meta, win = args
     B, Hkv, G, Dq = q.shape
     cpos, nv = (int(x) for x in meta[0])
     cs = cpos - nv + 1
     k = torch.cat([kc[:, :cs], kr[:, :nv]], 1).nan_to_num().transpose(1, 2)
     v = torch.cat([vc[:, :cs], vr[:, :nv]], 1).nan_to_num().transpose(1, 2)
     qq = q.reshape(B, Hkv * G, 1, Dq)
-    mask = torch.ones(1, cs + nv, dtype=torch.bool, device=q.device)
+    kpos = torch.arange(cs + nv, device=q.device)
+    mask = _sdpa_mask(torch.tensor([cpos], device=q.device), kpos, win, kw,
+                      q.dtype)
     k, v = k.contiguous(), v.contiguous()
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         qq, k, v, attn_mask=mask, enable_gqa=True)
 
 
-def cold_cached_check(g, dev, T=500, prefix=(137, 64, 1, 300)):
+def cold_cached_check(g, dev, T=500, prefix=(137, 64, 1, 300), hkv=HKV,
+                      G=H // HKV, d=D, C=SLOT_CTX, win=(0, 0)):
     """flash_prefill at the served shape: 4 slots of a T-token prompt
     prefilled cold (pos0 0) against the same prompts with their first
     prefix[b] positions already in a bf16 cache and the rest as rows.
-    Tiles are aligned to absolute key positions, so every output row must
-    be bit-identical. Returns the number of rows compared."""
+    Tiles are aligned to absolute key positions (a tile wholly below a
+    row's window skipped), so every output row must be bit-identical.
+    Returns the number of rows compared."""
     from llama_box_tpu_torch.ops.flash_prefill import flash_prefill_batched
-    B, G, bf = len(prefix), H // HKV, torch.bfloat16
-    q = torch.randn(B, HKV, G, T, D, generator=g, device=dev).to(bf)
-    kr = torch.randn(B, T, HKV, D, generator=g, device=dev).to(bf)
-    vr = torch.randn(B, T, HKV, D, generator=g, device=dev).to(bf)
-    kc = torch.full((B, SLOT_CTX, HKV, D), float("nan"), device=dev,
-                    dtype=bf)
+    B, bf = len(prefix), torch.bfloat16
+    q = torch.randn(B, hkv, G, T, d, generator=g, device=dev).to(bf)
+    kr = torch.randn(B, T, hkv, d, generator=g, device=dev).to(bf)
+    vr = torch.randn(B, T, hkv, d, generator=g, device=dev).to(bf)
+    kc = torch.full((B, C, hkv, d), float("nan"), device=dev, dtype=bf)
     vc = kc.clone()
-    win = torch.zeros(2, dtype=torch.int32, device=dev)
+    win = torch.tensor(win, dtype=torch.int32, device=dev)
     meta = torch.tensor([[0, T, 0, 0]] * B, dtype=torch.int32, device=dev)
     cold = flash_prefill_batched(q, kc, vc, kr, vr, meta, win)
     Tw = T - min(prefix)
-    qw = torch.zeros(B, HKV, G, Tw, D, device=dev, dtype=bf)
-    krw = torch.zeros(B, Tw, HKV, D, device=dev, dtype=bf)
+    qw = torch.zeros(B, hkv, G, Tw, d, device=dev, dtype=bf)
+    krw = torch.zeros(B, Tw, hkv, d, device=dev, dtype=bf)
     vrw = torch.zeros_like(krw)
     for b, p in enumerate(prefix):
         kc[b, :p], vc[b, :p] = kr[b, :p], vr[b, :p]
@@ -509,12 +580,13 @@ def cold_cached_check(g, dev, T=500, prefix=(137, 64, 1, 300)):
                                  f"from the cold prefill in {n} elements")
         rows += T - p
     log(f"  flash_prefill cold vs cached prefix {list(prefix)} "
-        f"(q[{B},{HKV},{G},{T},{D}] bf16, C={SLOT_CTX}): {rows} rows x "
-        f"{G * HKV} heads bit-identical")
+        f"(q[{B},{hkv},{G},{T},{d}] bf16, C={C}, window {int(win[0])}): "
+        f"{rows} rows x {G * hkv} heads bit-identical")
     return rows
 
 
-def chain_rows_check(g, dev, cposes=(17, 1023, 2040)):
+def chain_rows_check(g, dev, cposes=(17, 1023, 2040), hkv=HKV, G=H // HKV,
+                     d=D, C=SLOT_CTX, win=(0, 0)):
     """flash_decode at the served shape: each query with nv = 16 (its last
     16 keys as chain rows) against the same query with nv = 1 (all but
     its own key in the cache), the rows holding what the cache holds (an
@@ -522,24 +594,24 @@ def chain_rows_check(g, dev, cposes=(17, 1023, 2040)):
     Splits and tiles follow absolute positions, so the outputs must be
     bit-identical (greedy K=1 = K=16). Returns the cases compared."""
     from llama_box_tpu_torch.ops.flash_decode import flash_decode
-    B, G, C, R, bf = 4, H // HKV, SLOT_CTX, CHAIN, torch.bfloat16
+    B, R, bf = 4, CHAIN, torch.bfloat16
     n = 0
     for quant in (False, True):
         for cpos in cposes:
-            q = torch.randn(B, HKV, G, D, generator=g, device=dev).to(bf)
-            kc, vc, ks, vs = make_cache(g, B, C, bf, quant, dev)
-            cur = [torch.randn(B, HKV, D, generator=g, device=dev).to(bf)
+            q = torch.randn(B, hkv, G, d, generator=g, device=dev).to(bf)
+            kc, vc, ks, vs = make_cache(g, B, C, bf, quant, dev, hkv, d)
+            cur = [torch.randn(B, hkv, d, generator=g, device=dev).to(bf)
                    for _ in range(2)]
             if quant:
                 kd = (kc.float() * ks.float()[..., None]).to(bf)
                 vd = (vc.float() * vs.float()[..., None]).to(bf)
             else:
                 kd, vd = kc, vc
-            win = torch.zeros(2, dtype=torch.int32, device=dev)
+            w = torch.tensor(win, dtype=torch.int32, device=dev)
             out = {}
             for nv in (1, R):
                 cs = cpos - nv + 1
-                kr = torch.zeros(B, R, HKV, D, device=dev, dtype=bf)
+                kr = torch.zeros(B, R, hkv, d, device=dev, dtype=bf)
                 vr = torch.zeros_like(kr)
                 kr[:, :nv - 1], vr[:, :nv - 1] = kd[:, cs:cpos], vd[:, cs:cpos]
                 kr[:, nv - 1], vr[:, nv - 1] = cur
@@ -551,7 +623,7 @@ def chain_rows_check(g, dev, cposes=(17, 1023, 2040)):
                     k2[:, cs:], v2[:, cs:] = float("nan"), float("nan")
                 meta = torch.tensor([[cpos, nv]] * B, dtype=torch.int32,
                                     device=dev)
-                out[nv] = flash_decode(q, k2, v2, kr, vr, meta, win,
+                out[nv] = flash_decode(q, k2, v2, kr, vr, meta, w,
                                        k_scale=ks2, v_scale=vs2)
             torch.cuda.synchronize()
             a, b = out[1], out[R]
@@ -561,10 +633,27 @@ def chain_rows_check(g, dev, cposes=(17, 1023, 2040)):
                     f" cache): nv = 1 and nv = {R} differ in "
                     f"{int((a != b).sum())} elements")
             n += 1
-    log(f"  flash_decode nv=1 vs nv={R} (q[{B},{HKV},{G},{D}] bf16, C={C}, "
-        f"cpos {list(cposes)}, bf16 and int8 caches): {n} cases "
-        "bit-identical")
+    log(f"  flash_decode nv=1 vs nv={R} (q[{B},{hkv},{G},{d}] bf16, C={C}, "
+        f"window {win[0]}, cpos {list(cposes)}, bf16 and int8 caches): {n} "
+        "cases bit-identical")
     return n
+
+
+# the attention variants' shapes (phases 3 and 4): the published heads of
+# each family, what its layers pass the kernels, and the cache capacity
+ATTN_KERNEL_CASES = {
+    # google/gemma-3-1b-pt: 4 / 1 heads of 256; local layers a 512 window,
+    # global ones none
+    "gemma3-1b local": dict(hkv=1, G=4, d=256, C=4096, win=(512, 0)),
+    "gemma3-1b global": dict(hkv=1, G=4, d=256, C=4096),
+    # google/gemma-2-2b: 8 / 4 heads of 256, attention softcap 50
+    "gemma2-2b softcap": dict(hkv=4, G=2, d=256, C=4096, softcap=50.0),
+    # bigscience/bloom-560m: 16 heads of 64, MHA, ALiBi
+    "bloom-560m alibi": dict(hkv=16, G=1, d=64, C=2048, alibi=True),
+    # microsoft/phi-2: 32 heads of 80; phi-3-mini: 32 heads of 96 (MHA)
+    "phi2 d80": dict(hkv=32, G=1, d=80, C=2048),
+    "phi3-mini d96": dict(hkv=32, G=1, d=96, C=2048),
+}
 
 
 def kernel_phase(dev, seed):
@@ -624,6 +713,32 @@ def kernel_phase(dev, seed):
     cold_cached_check(g, dev)
     chain_rows_check(g, dev)
 
+    log("== phase 3, attention variants: head widths 80, 96, 256, a "
+        "layer's window row, the softcap, ALiBi")
+    for name, c in ATTN_KERNEL_CASES.items():
+        C = c["C"]
+        for p0 in ((0, 1024) if name.startswith("gemma3") else (1024,)):
+            main[("prefill", name, p0)] = pf(
+                f"{name} q[4,{c['hkv']},{c['G']},512,{c['d']}] C={C} "
+                f"pos0={p0}", pos0=(p0,) * 4, **c)
+        for cp in ((1023, 3000) if C > 3000 else (1023,)):
+            main[("decode", name, cp)] = dc(
+                f"{name} q[4,{c['hkv']},{c['G']},{c['d']}] C={C} R=16 "
+                f"cpos={cp}", cpos=(cp,) * 4, **c)
+    for d in (80, 96, 256):
+        v = dict(B=2, C=256, hkv=2, G=2, d=d, win=(24, 0), alibi=True)
+        pf(f"d{d} f32 window alibi", T=80, pos0=(150, 40),
+           dtype=torch.float32, atol=F32_ATOL, **v)
+        pf(f"d{d} int8 window alibi", T=80, pos0=(150, 40), quant=True, **v)
+        dc(f"d{d} f32 window alibi", cpos=(200, 40), nv=(5, 1),
+           dtype=torch.float32, atol=F32_ATOL, **v)
+        dc(f"d{d} int8 window alibi", cpos=(200, 40), nv=(5, 1), quant=True,
+           **v)
+    cold_cached_check(g, dev, T=700, prefix=(137, 300, 1, 600), hkv=1, G=4,
+                      d=256, C=4096, win=(512, 0))
+    chain_rows_check(g, dev, cposes=(1023, 3000), hkv=1, G=4, d=256, C=4096,
+                     win=(512, 0))
+
     log("== phase 4: device times (median of 15, cold L2)")
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     rows = []
@@ -633,14 +748,16 @@ def kernel_phase(dev, seed):
             kern = lambda a=args, k=kws: flash_prefill_batched(*a, **k)
             plain = lambda a=args, k=kws: flash_prefill_plain(*a, **k)
             nbytes, flops = prefill_work(args, kws)
-            lib = None if tag == "int8" else sdpa_prefill(args)
+            lib = None if tag == "int8" else sdpa_prefill(args, kws)
         else:
             kern = lambda a=args, k=kws: flash_decode(*a, **k)
             plain = lambda a=args, k=kws: flash_decode_plain(*a, **k)
             nbytes, flops = decode_work(args, kws)
-            lib = None if tag == "int8" else sdpa_decode(args)
+            lib = None if tag == "int8" else sdpa_decode(args, kws)
         b_ms, b_by = bound_ms(nbytes, flops)
-        r = dict(kind=kind, cache=tag, pos=pos,
+        q = args[0]
+        r = dict(kind=kind, cache=tag, pos=pos, q=list(q.shape),
+                 C=args[1].shape[1],
                  ms=device_ms(kern, flush), plain_ms=device_ms(plain, flush),
                  library_ms=None if lib is None else device_ms(lib, flush),
                  bound_ms=b_ms, bound_by=b_by, mbytes=nbytes / 1e6,
@@ -1049,6 +1166,10 @@ MODEL_TYPES = {"f16": ("F16", "F16"), "q8_0": ("Q8_0", "Q8_0"),
                "q4_k_m": ("Q4_K", "Q6_K")}
 
 
+def _model_path(tmp: str, fmt: str) -> str:
+    return f"{tmp}/synthetic-tinyllama-1.1b-{fmt}.gguf"
+
+
 def write_model(path: str, seed: int, fmt: str = "f16",
                 n_layers: int = L) -> None:
     """The synthetic model with the 2D weight types of MODEL_TYPES[fmt]
@@ -1340,10 +1461,7 @@ def e2e_phase(dev, seed, tmp, profile=False, mode="bf16"):
     log(f"== phase {phase}: end to end, {mode} path ({fmt} GGUF"
         f"{', ' + ' '.join(flags) if flags else ''}"
         f"{', ' + ' '.join(f'{k}={v}' for k, v in env.items()) if env else ''})")
-    path = f"{tmp}/synthetic-tinyllama-1.1b-{fmt}.gguf"
-    t0 = time.perf_counter()
-    write_model(path, seed, fmt)
-    log(f"  wrote {path} in {time.perf_counter() - t0:.1f} s")
+    path = _model_path(tmp, fmt)      # written beside the kernel phases
     t0 = time.perf_counter()
     os.environ.update(env)            # the residency switches: load time
     try:
@@ -4027,16 +4145,33 @@ def norm_kernel_phase(dev, seed):
 # synthetic one of the published size)
 VARIANTS = {
     # Qwen/Qwen3-1.7B config.json: RMS, per-head q/k RMS norms, tied
-    # embeddings, GQA 2
-    "qwen3-1.7b": dict(arch="qwen3", L=28, E=2048, H=16, HKV=8, D=128,
+    # embeddings, GQA 2; depth cut from 28 to 8 layers (the script's time
+    # limit, with phase 12 beside it)
+    "qwen3-1.7b": dict(arch="qwen3", L=8, E=2048, H=16, HKV=8, D=128,
                        FF=6144, V=151936, rot=128, eps=1e-6, base=1e6,
                        ctx=40960),
     # EleutherAI/pythia-1.4b config.json (gpt_neox): LayerNorm with
     # biases, parallel residual, fused biased qkv, rotary_pct 0.25,
-    # ungated GELU FFN with biases, untied output
-    "pythia-1.4b": dict(arch="gptneox", L=24, E=2048, H=16, HKV=16, D=128,
+    # ungated GELU FFN with biases, untied output; depth cut from 24 to 8
+    "pythia-1.4b": dict(arch="gptneox", L=8, E=2048, H=16, HKV=16, D=128,
                         FF=8192, V=50304, rot=32, eps=1e-5, base=10000.0,
                         ctx=2048),
+}
+# phase 12: the attention variants at published widths, every layer
+ATTN_VARIANTS = {
+    # google/gemma-3-1b-pt config.json: 26 x 1152, 4 / 1 heads of 256, FF
+    # 6912, vocab 262144, sliding window 512 on 5 layers of 6, rope bases
+    # 1e6 (global) and 1e4 (local), per-head q/k RMS norms, post norms,
+    # GELU-gated FFN, embeddings scaled by sqrt(1152) and tied
+    "gemma3-1b": dict(arch="gemma3", L=26, E=1152, H=4, HKV=1, D=256,
+                      FF=6912, V=262144, rot=256, eps=1e-6, base=1e6,
+                      ctx=32768, window=512),
+    # bigscience/bloom-560m config.json: 24 x 1024, 16 heads of 64 (MHA),
+    # FF 4096, vocab 250880, ALiBi (no rotary), embedding LayerNorm,
+    # LayerNorms and projections with biases, fused qkv, tied embeddings
+    "bloom-560m": dict(arch="bloom", L=24, E=1024, H=16, HKV=16, D=64,
+                       FF=4096, V=250880, rot=64, eps=1e-5, base=10000.0,
+                       ctx=2048),
 }
 VARIANT_PROMPT, VARIANT_TOKENS = 200, 64
 VARIANT_COS = 0.99
@@ -4060,7 +4195,7 @@ def write_variant(path: str, name: str, seed: int) -> None:
     random from `seed`, a synthetic vocabulary of the published size and
     the chatml template."""
     from llama_box_tpu_torch.gguf import GGMLType, GGUFWriter
-    c = VARIANTS[name]
+    c = {**VARIANTS, **ATTN_VARIANTS}[name]
     a, L_, E_, H_, HKV_, D_, FF_, V_ = (c[k] for k in (
         "arch", "L", "E", "H", "HKV", "D", "FF", "V"))
     rng = np.random.default_rng(seed + 111)
@@ -4089,8 +4224,15 @@ def write_variant(path: str, name: str, seed: int) -> None:
         w.add_kv(k, v)
     if a == "gptneox":
         w.add_kv(f"{a}.use_parallel_residual", True)
+    if a == "gemma3":
+        for k, v in (("attention.key_length", D_),
+                     ("attention.value_length", D_),
+                     ("attention.sliding_window", c["window"]),
+                     ("attention.sliding_window_pattern", 6),
+                     ("rope.local_freq_base", 10000.0)):
+            w.add_kv(f"{a}.{k}", v)
     q8 = GGMLType.Q8_0
-    ln = a == "gptneox"
+    ln = a in ("gptneox", "bloom")
 
     def mat(tname, out_dim, in_dim):
         w.add_raw_tensor(tname, (out_dim, in_dim), q8,
@@ -4101,15 +4243,22 @@ def write_variant(path: str, name: str, seed: int) -> None:
         w.add_tensor(tname, x + 1.0 if one else x)
 
     mat("token_embd.weight", V_, E_)
+    if a == "bloom":
+        vec("token_embd_norm.weight", E_, one=True)
+        vec("token_embd_norm.bias", E_)
     vec("output_norm.weight", E_, one=True)
     if ln:
         vec("output_norm.bias", E_)
-        mat("output.weight", V_, E_)         # qwen3 ties its embeddings
+    if a == "gptneox":
+        mat("output.weight", V_, E_)     # qwen3, gemma3, bloom tie theirs
     qd, kvd = H_ * D_, HKV_ * D_
     for i in range(L_):
         p = f"blk.{i}."
         vec(p + "attn_norm.weight", E_, one=True)
         vec(p + "ffn_norm.weight", E_, one=True)
+        if a == "gemma3":
+            vec(p + "post_attention_norm.weight", E_, one=True)
+            vec(p + "post_ffw_norm.weight", E_, one=True)
         if ln:
             vec(p + "attn_norm.bias", E_)
             vec(p + "ffn_norm.bias", E_)
@@ -4232,19 +4381,24 @@ VARIANT_PATHS = {
 }
 
 
-def variant_serve(dev, seed, tmp, name, path, mode, ref) -> dict:
+def variant_serve(dev, seed, tmp, name, path, mode, ref, paths=None,
+                  prompt_len=VARIANT_PROMPT, forward=None) -> dict:
     """One phase 11 model on one path, served by the CLI: a warm-up wave
     pair (other prompts: a key's first use runs eagerly, its second
     captures; the captures left in the measured wave are counted), the
     measured wave of 4 greedy chats with graphs and chains pipelined
     (the defaults), the same wave on a fresh eager engine behind the same
     routes (texts equal), one more request counting its kernels from 0,
-    small_forward's logits against the f32 CPU forward `ref` (cosine >=
-    VARIANT_COS), and the kernels of one decode step."""
+    small_forward's logits (or `forward`'s) against the f32 CPU forward
+    `ref` (cosine >= VARIANT_COS), and the kernels of one decode step.
+    `paths` (VARIANT_PATHS by default) gives the CLI flags and the
+    kernels one request must launch; prompts are about `prompt_len`
+    tokens."""
     from llama_box_tpu_torch import cli
     from llama_box_tpu_torch.server.engine import Engine
     from llama_box_tpu_torch.server.metrics import Metrics
-    flags, must = VARIANT_PATHS[mode]
+    flags, must = (paths or VARIANT_PATHS)[mode]
+    forward = forward or small_forward
     t0 = time.perf_counter()
     engine, srv = cli.build_server([
         "-m", path, "--port", "0", "-np", str(N_SLOTS), "-c", "4096",
@@ -4259,11 +4413,11 @@ def variant_serve(dev, seed, tmp, name, path, mode, ref) -> dict:
     try:
         tok = engine.tokenizer
         rng = np.random.default_rng(seed + 121)
-        warm = [[make_prompt(tok, rng, VARIANT_PROMPT)
+        warm = [[make_prompt(tok, rng, prompt_len)
                  for _ in range(N_SLOTS)] for _ in range(2)]
-        texts = [make_prompt(tok, rng, VARIANT_PROMPT)
+        texts = [make_prompt(tok, rng, prompt_len)
                  for _ in range(N_SLOTS)]
-        one = [make_prompt(tok, rng, VARIANT_PROMPT)]
+        one = [make_prompt(tok, rng, prompt_len)]
         for w_texts in warm:
             _chats(url, w_texts)
         n_graphs = engine.graphs.n_graphs
@@ -4286,7 +4440,7 @@ def variant_serve(dev, seed, tmp, name, path, mode, ref) -> dict:
             fn.launches = 0
         _chats(url, one)
         launches = {k: fn.launches for k, fn in counters.items()}
-        got = small_forward(engine.params, engine.cfg, dev, torch.bfloat16)
+        got = forward(engine.params, engine.cfg, dev, torch.bfloat16)
         assert torch.isfinite(got).all()
         cos = _cosine(got, ref)
         pool_mib = engine.graphs.pool_bytes / 2**20
@@ -4355,6 +4509,76 @@ def variant_phase(dev, seed, tmp) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the attention variants at published widths
+
+ATTN_PROMPT = 700        # past Gemma-3-1B's 512 window
+# each phase 12 path: CLI flags, and the kernels one request must launch
+ATTN_PATHS = {
+    "bf16": ([], {n: ("row_norm", "flash_prefill", "flash_decode")
+                  for n in ATTN_VARIANTS}),
+    "w8a8": (["--weights-dtype", "quantized"],
+             # gemma3's unbiased RMS q/k/v projections take the fused
+             # norm-quantize-matmul at decode widths; its post norms keep
+             # the fused tail shut, tied logits stay dense; bloom's
+             # LayerNorms and biases keep every fused gate shut
+             {"gemma3-1b": ("row_norm", "flash_prefill", "flash_decode",
+                            "w8a8_matmul", "fused_norm_qmm"),
+              "bloom-560m": ("row_norm", "flash_prefill", "flash_decode",
+                             "w8a8_matmul")}),
+}
+
+
+def long_forward(params, cfg, device, kv_dtype):
+    """One slot: two 320-token prefill chunks (positions 0..639, past a
+    512 window, the second attending the first from the cache), then one
+    decode step. Returns the logits [3, V] f32 on the CPU."""
+    from llama_box_tpu_torch.models import llama
+    T, C = 320, 1024
+    rng = np.random.default_rng(6)
+    toks = rng.integers(3, cfg.vocab_size, (2, 1, T)).astype(np.int32)
+    kv = llama.init_kv_cache(cfg, 1, C, kv_dtype, device=device)
+    cos, sin = llama.make_rope(cfg, C, device=device)
+    out = []
+    for i in range(2):
+        lg, kv = llama.prefill_batch_impl(
+            params, cfg, torch.from_numpy(toks[i]), np.array([i * T]),
+            np.array([T]), kv, cos, sin)
+        out.append(lg.float().cpu())
+    lg, kv = llama.forward_impl(params, cfg, torch.from_numpy(toks[0, :, :1]),
+                                np.array([[2 * T]]), kv, cos, sin)
+    out.append(lg[:, 0].float().cpu())
+    return torch.cat(out)
+
+
+def attn_variant_phase(dev, seed, tmp) -> dict:
+    """Phase 12 (see the module docstring)."""
+    from llama_box_tpu_torch.models.loader import load_model
+    log("== phase 12: attention variants at published widths: "
+        + ", ".join(ATTN_VARIANTS))
+    t_phase = time.perf_counter()
+    out = {}
+    for name in ATTN_VARIANTS:
+        path = f"{tmp}/synthetic-{name}-q8_0.gguf"
+        t0 = time.perf_counter()
+        write_variant(path, name, seed)
+        log(f"  wrote {path} in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cfg, params = load_model(path, dtype=torch.float32, device="cpu")
+        ref = long_forward(params, cfg, "cpu", torch.float32)
+        del params
+        log(f"  f32 CPU forward of the file (640 positions) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out[name] = {mode: variant_serve(
+            dev, seed, tmp, name, path, mode, ref, paths=ATTN_PATHS,
+            prompt_len=ATTN_PROMPT, forward=long_forward)
+            for mode in ATTN_PATHS}
+        os.remove(path)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 12: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -4393,16 +4617,30 @@ def main(argv=None) -> int:
         short = entry[min(entry.find(n) for n in names if n in entry):]
         log(f"  kernel {short[:80]}: {used}; {spill}")
 
-    errs, rows = kernel_phase(dev, args.seed)
-    w_errs, w_rows = w8a8_kernel_phase(dev, args.seed)
-    q_errs, q_rows = q_kernel_phase(dev, args.seed)
-    n_errs, n_rows = norm_kernel_phase(dev, args.seed)
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tmp = tmp_dir.name
+    # phase 5's three GGUFs are written by worker processes (numpy on the
+    # host) while the kernel phases run on the card; every write is done
+    # before the first served request, so no measured wave shares the host
+    with ProcessPoolExecutor(len(MODEL_TYPES), mp_context=multiprocessing
+                             .get_context("spawn")) as pool:
+        t_w = time.perf_counter()
+        writes = {fmt: pool.submit(write_model, _model_path(tmp, fmt),
+                                   args.seed, fmt) for fmt in MODEL_TYPES}
+        errs, rows = kernel_phase(dev, args.seed)
+        w_errs, w_rows = w8a8_kernel_phase(dev, args.seed)
+        q_errs, q_rows = q_kernel_phase(dev, args.seed)
+        n_errs, n_rows = norm_kernel_phase(dev, args.seed)
+        for w in writes.values():
+            w.result()
+        log(f"  phase 5's GGUFs written beside the kernel phases: "
+            f"{time.perf_counter() - t_w:.1f} s from their start")
     errs.update(w_errs)
     errs.update(q_errs)
     errs.update(n_errs)
     launches, e2e = {}, {}
     capture_failure_check()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+    with tmp_dir:
         for mode in PATHS:
             launches[mode], e2e[mode], served = e2e_phase(
                 dev, args.seed, tmp, args.profile, mode)
@@ -4410,12 +4648,12 @@ def main(argv=None) -> int:
                 bf16_served = served
             del served
         e2e["kv_edit"] = kv_edit_phase(dev, args.seed, *bf16_served)
-        e2e["spec"] = spec_phase(
-            dev, args.seed, tmp, f"{tmp}/synthetic-tinyllama-1.1b-f16.gguf",
-            *bf16_served)
+        e2e["spec"] = spec_phase(dev, args.seed, tmp,
+                                 _model_path(tmp, "f16"), *bf16_served)
         e2e["embed"] = embed_phase(dev, args.seed, tmp, *bf16_served)
         del bf16_served
         e2e["variants"] = variant_phase(dev, args.seed, tmp)
+        e2e["attn_variants"] = attn_variant_phase(dev, args.seed, tmp)
 
     pick = {"flash_prefill": ("prefill", "bf16", 0),
             "flash_decode": ("decode", "bf16", 1023),
@@ -4493,8 +4731,17 @@ def main(argv=None) -> int:
                 for k in ("ngram", "self", "draft2")},
             launches_embed={m: embed_launches[m][name] for m in PATHS},
             launches_variants={
-                f"{v} {m}": e2e["variants"][v][m]["launches_one_request"][
-                    name] for v in VARIANTS for m in VARIANT_PATHS}))
+                f"{v} {m}": e2e[ph][v][m]["launches_one_request"][name]
+                for ph, vs in (("variants", VARIANTS),
+                               ("attn_variants", ATTN_VARIANTS))
+                for v in vs for m in VARIANT_PATHS},
+            **({} if not name.startswith("flash") else {"variant_shapes": [
+                dict(case=x["cache"], q=x["q"], C=x["C"], pos=x["pos"],
+                     ms=x["ms"], plain_ms=x["plain_ms"],
+                     bound_ms=x["bound_ms"], bound_by=x["bound_by"],
+                     library_ms=x["library_ms"])
+                for x in rows if x["kind"] == name[6:]
+                and x["cache"] in ATTN_KERNEL_CASES]})))
     e2e.update(card=card, seconds=time.perf_counter() - t_start)
     if args.profile:
         for label in MODES:
@@ -4562,16 +4809,18 @@ def main(argv=None) -> int:
         f"{em['bert']['replay']['bound_ms']:.4f}), TinyLlama "
         f"{em['llama']['replay']['ms']:.4f} ms (bound "
         f"{em['llama']['replay']['bound_ms']:.4f})")
-    for name, r in e2e["variants"].items():
-        if name == "seconds":
-            continue
-        for mode, x in r.items():
-            log(f"  phase 11, {name} {mode}: decode tok/s "
-                f"{x['decode_tok_s']:.1f}, window tok/s "
-                f"{x['window_tok_s']:.1f}, cosine {x['cosine']:.6f}, "
-                f"{x['norm_launches_a_step']} row_norm launches a step, ops "
-                f"a layer {x['ops_a_layer']:.2f} (plain norms "
-                f"{x['ops_a_layer_plain_norms']:.2f})")
+    for ph, key in ((11, "variants"), (12, "attn_variants")):
+        for name, r in e2e[key].items():
+            if name == "seconds":
+                continue
+            for mode, x in r.items():
+                log(f"  phase {ph}, {name} {mode}: load s "
+                    f"{x['load_s']:.1f}, decode tok/s "
+                    f"{x['decode_tok_s']:.1f}, window tok/s "
+                    f"{x['window_tok_s']:.1f}, cosine {x['cosine']:.6f}, "
+                    f"{x['norm_launches_a_step']} row_norm launches a "
+                    f"step, kernels a layer {x['ops_a_layer']:.2f} (plain "
+                    f"norms {x['ops_a_layer_plain_norms']:.2f})")
     log("e2e " + json.dumps(e2e))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import signal
 import sys
@@ -110,6 +111,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="override the attention type probe")
     g.add_argument("--override-kv", action="append", default=[],
                    help="KEY=TYPE:VALUE metadata overrides")
+    # the JAX CLI's other model flags: an alias, and three accepted
+    g.add_argument("--no-cache-prompt", dest="prompt_cache",
+                   action="store_false", help="alias of --no-prompt-cache")
+    g.add_argument("-nr", "--no-repack", action="store_true",
+                   help="accepted: the loader picks the layout")
+    g.add_argument("--mmap", action="store_true",
+                   help="accepted: GGUF tensors are always mmapped")
+    g.add_argument("--warmup", action="store_true", default=True,
+                   help="accepted: a program is warmed at its first use")
+    g.add_argument("--no-warmup", dest="warmup", action="store_false",
+                   default=True)
 
     g = p.add_argument_group("speculative")
     g.add_argument("-md", "--model-draft", default=None,
@@ -252,6 +264,12 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--dry-sequence-breaker", action="append", default=None,
                    help="DRY sequence breaker (repeatable; 'none' clears; "
                         "default: newline ':' '\"' '*')")
+    g.add_argument("--dynatemp-range", type=float, default=0.0)
+    g.add_argument("--dynatemp-exp", dest="dynatemp_exponent", type=float,
+                   default=1.0)
+    g.add_argument("--xtc-probability", type=float, default=0.0)
+    g.add_argument("--xtc-threshold", type=float, default=0.10)
+    g.add_argument("--top-nsigma", type=float, default=-1.0)
     g.add_argument("--grammar", default="",
                    help="server default GBNF grammar")
     g.add_argument("--grammar-file", default=None)
@@ -263,6 +281,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "non-canonical order samples on the host")
     g.add_argument("-r", "--reverse-prompt", action="append", default=[],
                    help="stop strings added to every request")
+    g.add_argument("-sp", "--special", action="store_true", default=False,
+                   help="accepted and ignored, as in the JAX CLI")
+    g.add_argument("-s", "--seed", type=int, default=-1,
+                   help="accepted and ignored, as in the JAX CLI (a "
+                        "request's own seed seeds its draws)")
     g.add_argument("-n", "--predict", dest="n_predict", type=int, default=-1)
     g.add_argument("--keep", dest="n_keep", type=int, default=0,
                    help="accepted and stored; a request's own n_keep sets "
@@ -271,6 +294,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--no-jinja", dest="jinja", action="store_false")
     g.add_argument("--chat-template", default=None)
     g.add_argument("--chat-template-file", default=None)
+    g.add_argument("--chat-template-kwargs", default=None,
+                   help="JSON object merged into the template context")
     # Parsed and ignored, as in the JAX package: reasoning blocks are
     # always split when the chat template has markers.
     g.add_argument("--enable-reasoning", dest="enable_reasoning",
@@ -307,6 +332,11 @@ def _default_sampling(args) -> SamplerParams:
         penalty_last_n=args.repeat_last_n,
         penalty_freq=args.frequency_penalty,
         penalty_present=args.presence_penalty,
+        xtc_probability=args.xtc_probability,
+        xtc_threshold=args.xtc_threshold,
+        top_n_sigma=args.top_nsigma,
+        dynatemp_range=args.dynatemp_range,
+        dynatemp_exponent=args.dynatemp_exponent,
         mirostat=args.mirostat, mirostat_tau=args.mirostat_tau,
         mirostat_eta=args.mirostat_eta,
         dry_multiplier=args.dry_multiplier, dry_base=args.dry_base,
@@ -322,8 +352,6 @@ def _default_grammar_text(args) -> str | None:
         with open(args.grammar_file) as f:
             return f.read()
     if args.json_schema:
-        import json
-
         from .grammar import json_schema_to_grammar
         return json_schema_to_grammar(json.loads(args.json_schema))
     return None
@@ -473,6 +501,8 @@ def build_server(argv: list[str]):
         default_max_tokens=args.n_predict,
         default_stop=tuple(args.reverse_prompt),
         max_tps=max_tps, default_grammar=_default_grammar_text(args),
+        chat_template_kwargs=(json.loads(args.chat_template_kwargs)
+                              if args.chat_template_kwargs else None),
         capabilities={"completion": not is_bert and not args.embeddings,
                       "embedding": True,
                       "reranking": args.rerank

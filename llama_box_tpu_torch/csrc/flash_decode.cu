@@ -44,6 +44,14 @@
 // resets the counter, so a call is one launch. Calls that share the
 // counters must run on one stream.
 //
+// Scores: s = q.k * scale, plus slope * (kpos - cpos) under ALiBi (one
+// slope per query head, [Hkv, G] f32, null without), then the softcap,
+// then the masks, as the JAX model's _attn_deferred orders them. Head
+// widths D = DV in {64, 80, 96, 128, 256}; at D 256 the bf16 kernel reads
+// Q from shared memory by ldmatrix (its 64 registers a thread would sit
+// beside the 128 of the O accumulator), three 64-key stages of K and V
+// plus Q staying under the 227 KB a block may hold.
+//
 // flash_decode_fma_kernel: one block per (slot, KV head), one warp per
 // query head. Tiles are loaded 16 bytes per thread into registers one tile
 // ahead of the compute. Lanes score the tile's keys in parallel; a warp
@@ -52,6 +60,7 @@
 // into (l, acc) in key order is a chain of multiplies and adds only. The
 // fold depends on the sequence of keys alone and not on how they were cut
 // into tiles, which gives the same independence of where the cache ends.
+// Its tiles live in dynamic shared memory (86 KB at D 256 in f32).
 #include "common.cuh"
 
 namespace {
@@ -118,6 +127,18 @@ __device__ __forceinline__ void tile_store(const TileRegs<T, W, BK>& r,
   }
 }
 
+// the FMA kernel's keys a tile: 64 for 128-byte rows, 32 for wider ones
+template <typename QT, int D>
+constexpr int kFmaBK = (D * sizeof(QT) > 128) ? 32 : 64;
+
+// its dynamic shared memory: K and V tiles, Q, each key's probability and
+// rescale
+template <typename QT, int D, int DV>
+constexpr int fma_smem() {
+  return kFmaBK<QT, D> * ((D + 16 / sizeof(QT)) + DV) * sizeof(QT) +
+         kMaxG * (D + 2 * kFmaBK<QT, D>) * 4;
+}
+
 // q . k over D, in d order; k is a 16-byte aligned row of shared memory
 template <typename QT, int D>
 __device__ __forceinline__ float lbt_dot(const float* q, const QT* k) {
@@ -140,19 +161,19 @@ __global__ void __launch_bounds__(32 * kMaxG) flash_decode_fma_kernel(
     const ST* __restrict__ vs, const QT* __restrict__ kr,
     const QT* __restrict__ vr, const int* __restrict__ meta,
     const int* __restrict__ win, const float* __restrict__ sinks,
-    float* __restrict__ out, int G, int C, int R, int Hkv, float scale,
-    float softcap) {
-  // keys per tile: 64 for 128-byte rows, 32 for wider ones (shared memory
-  // stays under the 48 KB static limit)
-  constexpr int BK = (D * sizeof(QT) > 128) ? 32 : 64;
+    const float* __restrict__ alibi, float* __restrict__ out, int G, int C,
+    int R, int Hkv, float scale, float softcap) {
+  constexpr int BK = kFmaBK<QT, D>;
   constexpr int KPL = BK / 32;                   // keys per lane
   constexpr int LDK = D + 16 / sizeof(QT);       // padded: conflict-free
-  constexpr int NA = DV / 32;                    // output dims per lane
-  __shared__ __align__(16) QT Ks[BK][LDK];
-  __shared__ __align__(16) QT Vs[BK][DV];
-  __shared__ float qs[kMaxG][D];
-  __shared__ float ps[kMaxG][BK];   // each key's exp(s - running max)
-  __shared__ float as[kMaxG][BK];   // the rescale it applies (1 = none)
+  constexpr int NA = (DV + 31) / 32;             // output dims per lane
+  extern __shared__ __align__(16) unsigned char fsm[];
+  QT(*Ks)[LDK] = reinterpret_cast<QT(*)[LDK]>(fsm);
+  QT(*Vs)[DV] = reinterpret_cast<QT(*)[DV]>(&Ks[BK][0]);
+  float(*qs)[D] = reinterpret_cast<float(*)[D]>(&Vs[BK][0]);
+  float(*ps)[BK] = reinterpret_cast<float(*)[BK]>(&qs[kMaxG][0]);
+  float(*as)[BK] = ps + kMaxG;  // ps: each key's exp(s - running max);
+                                // as: the rescale it applies (1 = none)
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, nthr = blockDim.x;
@@ -161,6 +182,7 @@ __global__ void __launch_bounds__(32 * kMaxG) flash_decode_fma_kernel(
   const int cpos = meta[2 * b], nv = meta[2 * b + 1];
   const int window = win[0], chunk = win[1];
   const int cstart = cpos - nv + 1;  // first position owned by chain rows
+  const float slope = alibi != nullptr && g < G ? alibi[h * G + g] : 0.f;
 
   for (int i = tid; i < G * D; i += nthr)
     qs[i / D][i % D] = lbt_f(q[(long)(b * Hkv + h) * G * D + i]);
@@ -186,6 +208,7 @@ __global__ void __launch_bounds__(32 * kMaxG) flash_decode_fma_kernel(
       float s = LBT_NEG_INF;
       if (ok) {
         s = lbt_dot<QT, D>(&qs[g][0], &Ks[j][0]) * scale;
+        if (alibi != nullptr) s += slope * (float)(kpos - cpos);
         if (softcap > 0.f) s = softcap * tanhf(s / softcap);
       }
       sk[kk] = s;
@@ -220,7 +243,8 @@ __global__ void __launch_bounds__(32 * kMaxG) flash_decode_fma_kernel(
       const float pr = lbt_round<QT>(p);
 #pragma unroll
       for (int i = 0; i < NA; ++i)
-        acc[i] = fmaf(pr, lbt_f(Vs[j][lane + 32 * i]), acc[i] * a);
+        if (DV % 32 == 0 || lane + 32 * i < DV)
+          acc[i] = fmaf(pr, lbt_f(Vs[j][lane + 32 * i]), acc[i] * a);
     }
     __syncwarp();
   };
@@ -274,7 +298,8 @@ __global__ void __launch_bounds__(32 * kMaxG) flash_decode_fma_kernel(
   const float inv = f / fmaxf(den, 1e-30f);
   float* o = out + ((long)(b * Hkv + h) * G + g) * DV;
 #pragma unroll
-  for (int i = 0; i < NA; ++i) o[lane + 32 * i] = acc[i] * inv;
+  for (int i = 0; i < NA; ++i)
+    if (DV % 32 == 0 || lane + 32 * i < DV) o[lane + 32 * i] = acc[i] * inv;
 }
 
 using bf16 = __nv_bfloat16;
@@ -289,6 +314,16 @@ constexpr int kMaxSplits = 64;
 template <int DV>
 constexpr int kPart = kMaxG * (DV + 2);
 
+// Q in shared memory (read by ldmatrix) instead of registers, by width
+template <int D>
+constexpr bool kQShared = D > 128;
+
+template <int D, int DV>
+constexpr int mma_smem() {
+  return (kStages * BKEY * ((D + 8) + (DV + 8)) +
+          (kQShared<D> ? kMaxG * (D + 8) : 0)) * 2;
+}
+
 template <typename CT, typename ST, int D, int DV>
 __global__ void __launch_bounds__(kMmaThreads) flash_decode_mma_kernel(
     const bf16* __restrict__ q, const CT* __restrict__ kc,
@@ -296,16 +331,18 @@ __global__ void __launch_bounds__(kMmaThreads) flash_decode_mma_kernel(
     const ST* __restrict__ vs, const bf16* __restrict__ kr,
     const bf16* __restrict__ vr, const int* __restrict__ meta,
     const int* __restrict__ win, const float* __restrict__ sinks,
-    float* __restrict__ ws, unsigned* __restrict__ cnt,
-    float* __restrict__ out, int G, int C, int R, int Hkv, int L,
-    float scale, float softcap) {
+    const float* __restrict__ alibi, float* __restrict__ ws,
+    unsigned* __restrict__ cnt, float* __restrict__ out, int G, int C, int R,
+    int Hkv, int L, float scale, float softcap) {
   constexpr int KLD = D + 8, VLD = DV + 8;  // 16-byte pad: ldmatrix rows
   constexpr int KT = D / 16;                // k-steps of S = Q K^T
   constexpr int NO = DV / 8;                // n8 tiles of O
   constexpr int P = kPart<DV>;
+  constexpr bool QS = kQShared<D>;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* const Ks = reinterpret_cast<bf16*>(smem);   // [kStages][BKEY][KLD]
   bf16* const Vs = Ks + kStages * BKEY * KLD;       // [kStages][BKEY][VLD]
+  bf16* const Qs = Vs + kStages * BKEY * VLD;       // [kMaxG][KLD] if QS
   __shared__ float wt[kMaxSplits][kMaxG];           // the final merge's
   __shared__ float fin[kMaxG];                      // weights and scales
   __shared__ int is_last;
@@ -334,26 +371,48 @@ __global__ void __launch_bounds__(kMmaThreads) flash_decode_mma_kernel(
   };
 
   // Q as A fragments (rows: query heads, zero past G): a0/a2 row gq,
-  // a1/a3 row gq + 8; k 2*tig (+8)
-  uint32_t qf[KT][4];
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = gq + 8 * (j & 1), col = kk * 16 + 2 * tig + (j >> 1) * 8;
-      qf[kk][j] = r < G ? *reinterpret_cast<const uint32_t*>(
-                              q + ((long)(b * Hkv + h) * G + r) * D + col)
-                        : 0u;
+  // a1/a3 row gq + 8; k 2*tig (+8). In registers, or (QS) staged once in
+  // shared memory
+  uint32_t qf[QS ? 1 : KT][4];
+  if constexpr (QS) {
+    for (int e = tid; e < kMaxG * (D / 8); e += kMmaThreads) {
+      const int r = e / (D / 8), c = (e % (D / 8)) * 8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r < G)
+        v = *reinterpret_cast<const uint4*>(
+            q + ((long)(b * Hkv + h) * G + r) * D + c);
+      *reinterpret_cast<uint4*>(Qs + r * KLD + c) = v;
     }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = gq + 8 * (j & 1);
+        const int col = kk * 16 + 2 * tig + (j >> 1) * 8;
+        qf[kk][j] = r < G ? *reinterpret_cast<const uint32_t*>(
+                                q + ((long)(b * Hkv + h) * G + r) * D + col)
+                          : 0u;
+      }
+  }
   float o[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m[2] = {LBT_NEG_INF, LBT_NEG_INF}, l[2] = {0.f, 0.f};
-  // scores in base 2: p = 2^(s*log2(e) - m), the scale folded in
+  // scores in base 2: p = 2^(s*log2(e) - m), the scale folded in; the
+  // ALiBi slopes of heads gq and gq + 8 in the same units
   constexpr float kLog2e = 1.4426950408889634f;
   const float sl = softcap > 0.f ? scale : scale * kLog2e;
+  float slope[2] = {0.f, 0.f};
+  if (alibi != nullptr)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = gq + 8 * i;
+      slope[i] = (r < G ? alibi[h * G + r] : 0.f) *
+                 (softcap > 0.f ? 1.f : kLog2e);
+    }
 
   // tile t (absolute keys t*64 ..) -> stage i; keys not seen as zeros
   auto stage = [&](int t, int i) {
@@ -403,23 +462,32 @@ __global__ void __launch_bounds__(kMmaThreads) flash_decode_mma_kernel(
       for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KT; ++kk) {
+      uint32_t qa[4];
+      if constexpr (QS) {
+        lbt_ldsm4(qa, Qs + (lane & 15) * KLD + kk * 16 + (lane >> 4) * 8);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) qa[j] = qf[kk][j];
+      }
       uint32_t r[4];
       lbt_ldsm4(r, K_ + ((lane & 7) + (lane >> 4) * 8) * KLD + kk * 16 +
                        ((lane >> 3) & 1) * 8);
       const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-      lbt_mma_bf16(sc[0], qf[kk], b0);
-      lbt_mma_bf16(sc[1], qf[kk], b1);
+      lbt_mma_bf16(sc[0], qa, b0);
+      lbt_mma_bf16(sc[1], qa, b1);
     }
-    // softcap, mask, online softmax (c0, c1: head gq; c2, c3: head gq + 8;
-    // keys 2*tig, 2*tig + 1 of each n8 tile)
+    // ALiBi, softcap, mask, online softmax (c0, c1: head gq; c2, c3: head
+    // gq + 8; keys 2*tig, 2*tig + 1 of each n8 tile)
     float tmax[2] = {LBT_NEG_INF, LBT_NEG_INF};
 #pragma unroll
     for (int n = 0; n < 2; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
+        const int kp = kp0 + n * 8 + 2 * tig + (e & 1);
         float v = sc[n][e] * sl;
+        if (alibi != nullptr) v += slope[e >> 1] * (float)(kp - cpos);
         if (softcap > 0.f) v = softcap * tanhf(v / softcap) * kLog2e;
-        v = seen(kp0 + n * 8 + 2 * tig + (e & 1)) ? v : -INFINITY;
+        v = seen(kp) ? v : -INFINITY;
         sc[n][e] = v;
         tmax[e >> 1] = fmaxf(tmax[e >> 1], v);
       }
@@ -466,7 +534,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_decode_mma_kernel(
   };
 
   // the ring: stage (it - 1) % kStages is refilled only after the barrier
-  // that follows every warp's compute of tile it - 1
+  // that follows every warp's compute of tile it - 1 (the first barrier
+  // also publishes a shared Q)
   const int tlo = k_lo / BKEY, thi = k_hi >= k_lo ? k_hi / BKEY + 1 : tlo;
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
@@ -574,7 +643,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_decode_mma_kernel(
 }
 
 struct Call {
-  const void *q, *kc, *vc, *ks, *vs, *kr, *vr, *meta, *win, *sinks;
+  const void *q, *kc, *vc, *ks, *vs, *kr, *vr, *meta, *win, *sinks, *alibi;
   void *ws, *cnt, *out;
   int B, Hkv, G, C, R, L, S;
   float scale, softcap;
@@ -585,9 +654,11 @@ template <typename QT, typename CT, typename ST, int D, int DV>
 int launch(const Call& a) {
   if constexpr (std::is_same<QT, bf16>::value) {
     auto kern = flash_decode_mma_kernel<CT, ST, D, DV>;
-    constexpr int smem = kStages * BKEY * ((D + 8) + (DV + 8)) * 2;
+    constexpr int smem = mma_smem<D, DV>();
     static_assert(smem >= (8 * kMaxG + 4 * kMaxG * DV) * 4,
                   "the warps' merge fits in the ring");
+    static_assert(smem + (kMaxSplits + 1) * kMaxG * 4 + 16 <= 227 * 1024,
+                  "a block's shared memory");
     if (a.S < 1 || a.S > kMaxSplits || a.L < BKEY || a.L % BKEY ||
         !a.ws || !a.cnt)
       return LBT_UNSUPPORTED;
@@ -602,16 +673,24 @@ int launch(const Call& a) {
         (const bf16*)a.q, (const CT*)a.kc, (const CT*)a.vc, (const ST*)a.ks,
         (const ST*)a.vs, (const bf16*)a.kr, (const bf16*)a.vr,
         (const int*)a.meta, (const int*)a.win, (const float*)a.sinks,
-        (float*)a.ws, (unsigned*)a.cnt, (float*)a.out, a.G, a.C, a.R, a.Hkv,
-        a.L, a.scale, a.softcap);
+        (const float*)a.alibi, (float*)a.ws, (unsigned*)a.cnt, (float*)a.out,
+        a.G, a.C, a.R, a.Hkv, a.L, a.scale, a.softcap);
   } else {
+    auto kern = flash_decode_fma_kernel<QT, CT, ST, D, DV>;
+    constexpr int smem = fma_smem<QT, D, DV>();
+    static int allowed = 0;
+    if (!allowed) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+      allowed = 1;
+    }
     const int threads = 32 * a.G > kMinThreads ? 32 * a.G : kMinThreads;
-    flash_decode_fma_kernel<QT, CT, ST, D, DV>
-        <<<dim3(a.Hkv, a.B), threads, 0, a.st>>>(
-            (const QT*)a.q, (const CT*)a.kc, (const CT*)a.vc, (const ST*)a.ks,
-            (const ST*)a.vs, (const QT*)a.kr, (const QT*)a.vr,
-            (const int*)a.meta, (const int*)a.win, (const float*)a.sinks,
-            (float*)a.out, a.G, a.C, a.R, a.Hkv, a.scale, a.softcap);
+    kern<<<dim3(a.Hkv, a.B), threads, smem, a.st>>>(
+        (const QT*)a.q, (const CT*)a.kc, (const CT*)a.vc, (const ST*)a.ks,
+        (const ST*)a.vs, (const QT*)a.kr, (const QT*)a.vr, (const int*)a.meta,
+        (const int*)a.win, (const float*)a.sinks, (const float*)a.alibi,
+        (float*)a.out, a.G, a.C, a.R, a.Hkv, a.scale, a.softcap);
   }
   return (int)cudaGetLastError();
 }
@@ -637,8 +716,9 @@ int dispatch(int qd, int cd, int sd, const Call& a) {
 
 // q [B,Hkv,G,D]; kc/vc [B,C,Hkv,D|DV]; ks/vs [B,C,Hkv] or null;
 // kr/vr [B,R,Hkv,D|DV] in q's dtype; meta [B,2] (cpos, nv); win [2];
-// sinks [Hkv,G] f32 or null; out [B,Hkv,G,DV] f32. For a bf16 q: S splits
-// of L positions (L a multiple of 64, 1 <= S <= 64), ws f32
+// sinks [Hkv,G] f32 or null; alibi [Hkv,G] f32 slopes or null; out
+// [B,Hkv,G,DV] f32; D = DV in {64, 80, 96, 128, 256}. For a bf16 q: S
+// splits of L positions (L a multiple of 64, 1 <= S <= 64), ws f32
 // [B,Hkv,S,16*(DV+2)] scratch and counters, B*Hkv unsigned ints that are 0
 // before the call and are 0 again after it (both unused for an f32 q). All
 // contiguous, all on the device, the K/V operands 16-byte aligned. Returns
@@ -649,17 +729,18 @@ extern "C" int lbt_flash_decode(int q_dtype, int kv_dtype, int scale_dtype,
                                 const void* vc, const void* ks, const void* vs,
                                 const void* kr, const void* vr,
                                 const void* meta, const void* win,
-                                const void* sinks, void* ws, void* counters,
-                                void* out, int B, int Hkv, int G, int C,
-                                int R, int L, int S, float scale,
-                                float softcap, void* stream) {
-  if (G < 1 || G > kMaxG) return LBT_UNSUPPORTED;
-  const Call a{q,  kc,   vc, ks, vs, kr, vr, meta, win, sinks,   ws,
-               counters, out, B, Hkv, G, C, R, L, S, scale, softcap,
-               (cudaStream_t)stream};
-  if (D == 64 && DV == 64)
-    return dispatch<64, 64>(q_dtype, kv_dtype, scale_dtype, a);
-  if (D == 128 && DV == 128)
-    return dispatch<128, 128>(q_dtype, kv_dtype, scale_dtype, a);
+                                const void* sinks, const void* alibi,
+                                void* ws, void* counters, void* out, int B,
+                                int Hkv, int G, int C, int R, int L, int S,
+                                float scale, float softcap, void* stream) {
+  if (G < 1 || G > kMaxG || D != DV) return LBT_UNSUPPORTED;
+  const Call a{q,     kc,       vc,  ks, vs,  kr, vr, meta, win, sinks,
+               alibi, ws,       counters, out, B, Hkv, G, C, R,    L,
+               S,     scale,    softcap,  (cudaStream_t)stream};
+  if (D == 64) return dispatch<64, 64>(q_dtype, kv_dtype, scale_dtype, a);
+  if (D == 80) return dispatch<80, 80>(q_dtype, kv_dtype, scale_dtype, a);
+  if (D == 96) return dispatch<96, 96>(q_dtype, kv_dtype, scale_dtype, a);
+  if (D == 128) return dispatch<128, 128>(q_dtype, kv_dtype, scale_dtype, a);
+  if (D == 256) return dispatch<256, 256>(q_dtype, kv_dtype, scale_dtype, a);
   return LBT_UNSUPPORTED;
 }

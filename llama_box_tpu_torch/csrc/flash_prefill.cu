@@ -46,16 +46,22 @@
 // give the same bits (a tile a row cannot see leaves its state unchanged:
 // alpha = 1, p = 0).
 //
+// At D 256 the Q fragments (64 registers a thread beside the 128 of the O
+// accumulator) move to shared memory and are read by ldmatrix at every
+// k-step, and the ring has 2 stages: 2 x 64 keys x 528 bytes of K and V
+// plus 128 rows of Q is 198 KB of the 227 KB a block may hold. Rows of 80
+// and 96 elements are padded by 16 bytes as the others are (176 and 208
+// bytes: eight ldmatrix rows fall in distinct banks).
+//
 // flash_prefill_fma_kernel: one thread per row, each dot product as D f32
-// FMAs from 32-key shared tiles, keys folded one at a time in position
-// order (lbt_softmax_step), which gives the same independence of where the
-// cache ends.
+// FMAs from 32-key shared tiles (16 at D 256, under the 48 KB static
+// limit), keys folded one at a time in position order (lbt_softmax_step),
+// which gives the same independence of where the cache ends.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;  // flash_prefill_fma_kernel: one row a thread
-constexpr int BK = 32;         // keys per shared-memory tile (FMA kernel)
 
 template <typename QT, typename CT, typename ST, int D, int DV>
 __global__ void __launch_bounds__(kThreads) flash_prefill_fma_kernel(
@@ -64,8 +70,9 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_fma_kernel(
     const ST* __restrict__ vs, const QT* __restrict__ kr,
     const QT* __restrict__ vr, const int* __restrict__ meta,
     const int* __restrict__ win, const float* __restrict__ sinks,
-    float* __restrict__ out, int G, int T, int C, int Hkv, int BQ,
-    float scale, float softcap) {
+    const float* __restrict__ alibi, float* __restrict__ out, int G, int T,
+    int C, int Hkv, int BQ, float scale, float softcap) {
+  constexpr int BK = D > 128 ? 16 : 32;  // keys per shared-memory tile
   __shared__ QT Ks[BK][D];
   __shared__ QT Vs[BK][DV];
 
@@ -78,6 +85,7 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_fma_kernel(
   const int st = meta[4 * b + 2], en = meta[4 * b + 3];
   const int window = win[0], chunk = win[1];
   const int qpos = pos0 + t;
+  const float slope = alibi != nullptr && live ? alibi[h * G + g] : 0.f;
 
   float qr[D], acc[DV];
   const QT* qp = q + ((long)((b * Hkv + h) * G + g) * T + t) * D;
@@ -108,6 +116,7 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_fma_kernel(
 #pragma unroll
       for (int d = 0; d < D; ++d) dot += qr[d] * lbt_f(Ks[j][d]);
       float s = dot * scale;
+      if (alibi != nullptr) s += slope * (float)(kpos0 + j - qpos);
       if (softcap > 0.f) s = softcap * tanhf(s / softcap);
       const float p = lbt_softmax_step<QT, DV>(s, m, l, acc);
 #pragma unroll
@@ -179,7 +188,22 @@ constexpr int kRows = 128;        // rows (head, position) per block
 constexpr int BKEY = 64;          // keys per tile
 constexpr int kStages = 3;        // K/V tiles in the ring
 
+// Q in shared memory (read by ldmatrix) instead of registers, and the
+// ring's depth, by head width
+template <int D>
+constexpr bool kQShared = D > 128;
+template <int D>
+constexpr int kStagesFor = D > 128 ? 2 : kStages;
+
 template <typename CT, typename ST, int D, int DV>
+constexpr int mma_smem() {
+  return (kStagesFor<D> * BKEY * ((D + 8) + (DV + 8)) +
+          (kQShared<D> ? kRows * (D + 8) : 0)) * 2;
+}
+
+// AL: ALiBi slopes are given (a template parameter, so the kernel without
+// them keeps its registers: at D 64 two blocks an SM leave 128 a thread)
+template <typename CT, typename ST, int D, int DV, bool AL>
 __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 2 : 1)
     flash_prefill_mma_kernel(const bf16* __restrict__ q,
                              const CT* __restrict__ kc,
@@ -191,15 +215,19 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 2 : 1)
                              const int* __restrict__ meta,
                              const int* __restrict__ win,
                              const float* __restrict__ sinks,
+                             const float* __restrict__ alibi,
                              float* __restrict__ out, int G, int T, int C,
                              int Hkv, int BQ, float scale, float softcap) {
   constexpr int KLD = D + 8, VLD = DV + 8;  // 16-byte pad: ldmatrix rows
   constexpr int KT = D / 16;                // k-steps of S = Q K^T
   constexpr int NS = BKEY / 8;              // n8 tiles of S
   constexpr int NO = DV / 8;                // n8 tiles of O
+  constexpr int NST = kStagesFor<D>;        // K/V tiles in the ring
+  constexpr bool QS = kQShared<D>;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* const Ks = reinterpret_cast<bf16*>(smem);   // [kStages][BKEY][KLD]
-  bf16* const Vs = Ks + kStages * BKEY * KLD;       // [kStages][BKEY][VLD]
+  bf16* const Ks = reinterpret_cast<bf16*>(smem);   // [NST][BKEY][KLD]
+  bf16* const Vs = Ks + NST * BKEY * KLD;           // [NST][BKEY][VLD]
+  bf16* const Qs = Vs + NST * BKEY * VLD;           // [kRows][KLD] if QS
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -219,18 +247,40 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 2 : 1)
     live[i] = rg[i] < G && rt[i] < T;
     qpos[i] = pos0 + rt[i];
   }
-  // Q as A fragments: a0/a2 row gq, a1/a3 row gq + 8; k 2*tig (+8)
-  uint32_t qf[KT][4];
+  // ALiBi slopes of this thread's two rows, in the units of the scores
+  // below (base 2 unless the softcap comes first)
+  constexpr float kLog2e = 1.4426950408889634f;
+  float slope[2] = {0.f, 0.f};
+  if constexpr (AL)
 #pragma unroll
-  for (int kk = 0; kk < KT; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = j & 1, col = kk * 16 + 2 * tig + (j >> 1) * 8;
-      qf[kk][j] = live[i] ? *reinterpret_cast<const uint32_t*>(
-                                q + ((long)((b * Hkv + h) * G + rg[i]) * T +
-                                     rt[i]) * D + col)
-                          : 0u;
+    for (int i = 0; i < 2; ++i)
+      slope[i] = (live[i] ? alibi[h * G + rg[i]] : 0.f) *
+                 (softcap > 0.f ? 1.f : kLog2e);
+  // Q as A fragments: a0/a2 row gq, a1/a3 row gq + 8; k 2*tig (+8). In
+  // registers, or (QS) staged once in shared memory, zero for dead rows
+  uint32_t qf[QS ? 1 : KT][4];
+  if constexpr (QS) {
+    for (int e = tid; e < kRows * (D / 8); e += kMmaThreads) {
+      const int r = e / (D / 8), c = (e % (D / 8)) * 8;
+      const int g = r / BQ, t = qt * BQ + r % BQ;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (g < G && t < T)
+        v = *reinterpret_cast<const uint4*>(
+            q + ((long)((b * Hkv + h) * G + g) * T + t) * D + c);
+      *reinterpret_cast<uint4*>(Qs + r * KLD + c) = v;
     }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = j & 1, col = kk * 16 + 2 * tig + (j >> 1) * 8;
+        qf[kk][j] = live[i] ? *reinterpret_cast<const uint32_t*>(
+                                  q + ((long)((b * Hkv + h) * G + rg[i]) * T +
+                                       rt[i]) * D + col)
+                            : 0u;
+      }
+  }
   float o[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -260,7 +310,6 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 2 : 1)
            (k1 <= hi || ((hi == pos0 || k0 >= pos0) && k1 <= pos0 + rhi));
   };
   // scores in base 2: p = 2^(s*log2(e) - m), the scale folded in
-  constexpr float kLog2e = 1.4426950408889634f;
   const float sl = softcap > 0.f ? scale : scale * kLog2e;
 
   // tile t (absolute keys t*64 ..) -> stage i; unreadable keys as zeros
@@ -306,17 +355,27 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 2 : 1)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KT; ++kk)
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t qa[4];
+      if constexpr (QS) {
+        lbt_ldsm4(qa, Qs + (warp * 16 + (lane & 15)) * KLD + kk * 16 +
+                          (lane >> 4) * 8);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) qa[j] = qf[kk][j];
+      }
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t r[4];
         lbt_ldsm4(r, K_ + (np * 16 + (lane & 7) + (lane >> 4) * 8) * KLD +
                          kk * 16 + ((lane >> 3) & 1) * 8);
         const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-        lbt_mma_bf16(sc[2 * np], qf[kk], b0);
-        lbt_mma_bf16(sc[2 * np + 1], qf[kk], b1);
+        lbt_mma_bf16(sc[2 * np], qa, b0);
+        lbt_mma_bf16(sc[2 * np + 1], qa, b1);
       }
-    // masks (not on a tile the whole warp sees), softcap, online softmax
+    }
+    // ALiBi, softcap, masks (not on a tile the whole warp sees), online
+    // softmax
     // (c0, c1: row gq; c2, c3: row gq + 8; columns 2*tig, 2*tig + 1 of
     // each n8 tile)
     const bool all = whole(t);
@@ -327,6 +386,7 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 2 : 1)
       for (int e = 0; e < 4; ++e) {
         const int i2 = e >> 1, kp = t * BKEY + n * 8 + 2 * tig + (e & 1);
         float v = sc[n][e] * sl;
+        if constexpr (AL) v += slope[i2] * (float)(kp - qpos[i2]);
         if (softcap > 0.f) v = softcap * tanhf(v / softcap) * kLog2e;
         if (!all) {
           const bool vis =
@@ -383,21 +443,21 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 2 : 1)
     }
   };
 
-  // the ring: stage (it - 1) % kStages is refilled only after the barrier
-  // that follows every warp's compute of tile it - 1
+  // the ring: stage (it - 1) % NST is refilled only after the barrier
+  // that follows every warp's compute of tile it - 1 (the first barrier
+  // also publishes a shared Q)
 #pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
+  for (int i = 0; i < NST - 1; ++i) {
     if (tlo + i < thi) stage(tlo + i, i);
     lbt_cp_commit();
   }
   for (int t = tlo; t < thi; ++t) {
     const int it = t - tlo;
-    lbt_cp_wait<kStages - 2>();
+    lbt_cp_wait<NST - 2>();
     __syncthreads();
-    if (t + kStages - 1 < thi)
-      stage(t + kStages - 1, (it + kStages - 1) % kStages);
+    if (t + NST - 1 < thi) stage(t + NST - 1, (it + NST - 1) % NST);
     lbt_cp_commit();
-    compute(t, it % kStages);
+    compute(t, it % NST);
   }
   lbt_cp_wait<0>();
 
@@ -428,34 +488,37 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 2 : 1)
 template <typename QT, typename CT, typename ST, int D, int DV>
 int launch(const void* q, const void* kc, const void* vc, const void* ks,
            const void* vs, const void* kr, const void* vr, const void* meta,
-           const void* win, const void* sinks, void* out, int B, int Hkv,
-           int G, int T, int C, float scale, float softcap,
+           const void* win, const void* sinks, const void* alibi, void* out,
+           int B, int Hkv, int G, int T, int C, float scale, float softcap,
            cudaStream_t stream) {
   if constexpr (std::is_same<QT, bf16>::value) {
-    auto kern = flash_prefill_mma_kernel<CT, ST, D, DV>;
-    constexpr int smem = kStages * BKEY * ((D + 8) + (DV + 8)) * 2;
-    static int allowed = 0;
-    if (!allowed) {
+    auto kern = alibi != nullptr
+                    ? flash_prefill_mma_kernel<CT, ST, D, DV, true>
+                    : flash_prefill_mma_kernel<CT, ST, D, DV, false>;
+    constexpr int smem = mma_smem<CT, ST, D, DV>();
+    static_assert(smem <= 227 * 1024, "a block's shared memory");
+    static int allowed[2] = {0, 0};
+    if (!allowed[alibi != nullptr]) {
       const cudaError_t e = cudaFuncSetAttribute(
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return (int)e;
-      allowed = 1;
+      allowed[alibi != nullptr] = 1;
     }
     const int BQ = kRows / G;
     dim3 grid((T + BQ - 1) / BQ, Hkv, B);
     kern<<<grid, kMmaThreads, smem, stream>>>(
         (const bf16*)q, (const CT*)kc, (const CT*)vc, (const ST*)ks,
         (const ST*)vs, (const bf16*)kr, (const bf16*)vr, (const int*)meta,
-        (const int*)win, (const float*)sinks, (float*)out, G, T, C, Hkv, BQ,
-        scale, softcap);
+        (const int*)win, (const float*)sinks, (const float*)alibi,
+        (float*)out, G, T, C, Hkv, BQ, scale, softcap);
   } else {
     const int BQ = kThreads / G;
     dim3 grid((T + BQ - 1) / BQ, Hkv, B);
     flash_prefill_fma_kernel<QT, CT, ST, D, DV><<<grid, kThreads, 0, stream>>>(
         (const QT*)q, (const CT*)kc, (const CT*)vc, (const ST*)ks,
         (const ST*)vs, (const QT*)kr, (const QT*)vr, (const int*)meta,
-        (const int*)win, (const float*)sinks, (float*)out, G, T, C, Hkv, BQ,
-        scale, softcap);
+        (const int*)win, (const float*)sinks, (const float*)alibi,
+        (float*)out, G, T, C, Hkv, BQ, scale, softcap);
   }
   return (int)cudaGetLastError();
 }
@@ -464,11 +527,12 @@ template <int D, int DV>
 int dispatch(int qd, int cd, int sd, const void* q, const void* kc,
              const void* vc, const void* ks, const void* vs, const void* kr,
              const void* vr, const void* meta, const void* win,
-             const void* sinks, void* out, int B, int Hkv, int G, int T, int C,
-             float scale, float softcap, cudaStream_t st) {
-#define LBT_ARGS \
-  q, kc, vc, ks, vs, kr, vr, meta, win, sinks, out, B, Hkv, G, T, C, scale, \
-      softcap, st
+             const void* sinks, const void* alibi, void* out, int B, int Hkv,
+             int G, int T, int C, float scale, float softcap,
+             cudaStream_t st) {
+#define LBT_ARGS                                                            \
+  q, kc, vc, ks, vs, kr, vr, meta, win, sinks, alibi, out, B, Hkv, G, T, C, \
+      scale, softcap, st
   if (qd == LBT_BF16 && cd == LBT_BF16)
     return launch<bf16, bf16, float, D, DV>(LBT_ARGS);
   if (qd == LBT_F32 && cd == LBT_F32)
@@ -489,7 +553,8 @@ int dispatch(int qd, int cd, int sd, const void* q, const void* kc,
 
 // q [B,Hkv,G,T,D]; kc/vc [B,C,Hkv,D|DV]; ks/vs [B,C,Hkv] or null;
 // kr/vr [B,T,Hkv,D|DV] in q's dtype; meta [B,4] (pos0, n_valid, st, en);
-// win [2]; sinks [Hkv,G] f32 or null; out [B,Hkv,G,T,DV] f32. All
+// win [2]; sinks [Hkv,G] f32 or null; alibi [Hkv,G] f32 slopes or null;
+// out [B,Hkv,G,T,DV] f32; D = DV in {64, 80, 96, 128, 256}. All
 // contiguous, all on the device. Returns cudaGetLastError() after the
 // launch, or -1 for a configuration no instantiation covers.
 extern "C" int lbt_flash_prefill(int q_dtype, int kv_dtype, int scale_dtype,
@@ -498,18 +563,21 @@ extern "C" int lbt_flash_prefill(int q_dtype, int kv_dtype, int scale_dtype,
                                  const void* vs, const void* kr,
                                  const void* vr, const void* meta,
                                  const void* win, const void* sinks,
-                                 void* out, int B, int Hkv, int G, int T,
-                                 int C, float scale, float softcap,
-                                 void* stream) {
-  if (G < 1 || G > kThreads) return LBT_UNSUPPORTED;
+                                 const void* alibi, void* out, int B, int Hkv,
+                                 int G, int T, int C, float scale,
+                                 float softcap, void* stream) {
+  if (G < 1 || G > kThreads || D != DV) return LBT_UNSUPPORTED;
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 64 && DV == 64)
-    return dispatch<64, 64>(q_dtype, kv_dtype, scale_dtype, q, kc, vc, ks, vs,
-                            kr, vr, meta, win, sinks, out, B, Hkv, G, T, C,
-                            scale, softcap, st);
-  if (D == 128 && DV == 128)
-    return dispatch<128, 128>(q_dtype, kv_dtype, scale_dtype, q, kc, vc, ks,
-                              vs, kr, vr, meta, win, sinks, out, B, Hkv, G, T,
-                              C, scale, softcap, st);
+#define LBT_WIDTH(W)                                                        \
+  if (D == W)                                                               \
+    return dispatch<W, W>(q_dtype, kv_dtype, scale_dtype, q, kc, vc, ks, vs, \
+                          kr, vr, meta, win, sinks, alibi, out, B, Hkv, G, T, \
+                          C, scale, softcap, st);
+  LBT_WIDTH(64)
+  LBT_WIDTH(80)
+  LBT_WIDTH(96)
+  LBT_WIDTH(128)
+  LBT_WIDTH(256)
+#undef LBT_WIDTH
   return LBT_UNSUPPORTED;
 }

@@ -1,10 +1,23 @@
 """Llama decoder in PyTorch (counterpart of the dense branches of
 llama_box_tpu/models/llama.py: the llama graph and its dense variants,
 LayerNorm and biases, q/k norms, post and sub norms, parallel residual,
-ungated FFN, scales, learned positions, longrope), with bf16/f32 weights
-or QTensors (w8a8 or grouped, ops/qmatmul). Every norm runs the row-norm
-kernel (ops/norm) on the card, one order a row, so a verify pass's rows
-equal its one-row decode steps bit for bit.
+ungated FFN, scales, learned positions, longrope; and its attention
+variants, sliding windows with their per-layer pattern, gemma3's local
+rope base, cohere2/exaone4's unroped global layers, attention softcap and
+ALiBi), with bf16/f32 weights or QTensors (w8a8 or grouped, ops/qmatmul).
+Every norm runs the row-norm kernel (ops/norm) on the card, one order a
+row, so a verify pass's rows equal its one-row decode steps bit for bit.
+
+Attention variants, as JAX `_layer_is_local` and `_attn_deferred` give
+them: layer li is local or global by a host list (layer_is_local); its
+(window, chunk) kernel operand is row li of one [L, 2] buffer a device
+(layer_windows), the window where the layer is local under a pattern
+(everywhere without one), 0 elsewhere; rope tables are stacked [2, P,
+half] where layers rotate differently (global/local bases, or identity
+and rope for unroped global layers) and each layer takes branch
+is_local of the tables gathered at the rows' positions; the softcap and
+the ALiBi slopes (one [Hkv, G] buffer a device, alibi_slopes) go to every
+attention call.
 
 As in the JAX package, the KV cache stays read-only through a forward
 (a prefill pass, or a whole K-step decode chain) and every layer's new
@@ -60,7 +73,7 @@ import torch
 from ..ops import _kernels
 from ..ops.attention import softmax_attend
 from ..ops.flash_decode import flash_decode
-from ..ops.flash_prefill import flash_prefill_batched
+from ..ops.flash_prefill import HEAD_DIMS, flash_prefill_batched
 from ..ops.fused_decode import (_MAX_ROWS, _pick_tile, fused_layer_tail,
                                 fused_norm_qmm)
 from ..ops.norm import ln_per_head, norm_any, rms_norm
@@ -132,27 +145,25 @@ _Q_KEYS = {"wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up", "w_gateup",
 
 
 # what the attention kernels instantiate (csrc/flash_prefill.cu,
-# csrc/flash_decode.cu): K and V head widths, and the GQA group of flash
+# csrc/flash_decode.cu): head widths (K = V), and the GQA group of flash
 # decode (flash prefill takes up to 128)
-_KERNEL_HEAD_DIMS, _KERNEL_MAX_GROUP = (64, 128), 16
+_KERNEL_HEAD_DIMS, _KERNEL_MAX_GROUP = HEAD_DIMS, 16
 
 
 def check_supported(cfg: ModelConfig, params: dict, device=None) -> None:
-    """Raise NotImplementedError for a model outside the dense llama graph
-    and its dense variants (the other families are later slices; nothing
-    runs half-supported), or, on a CUDA `device`, for attention shapes the
-    kernels do not take: the engine refuses such a model at load, not at
-    its first request."""
+    """Raise NotImplementedError for a model outside the dense llama graph,
+    its dense variants and its attention variants (the other families are
+    later slices; nothing runs half-supported), or, on a CUDA `device`,
+    for attention shapes the kernels do not take: the engine refuses such
+    a model at load, not at its first request. llama4's chunked windows,
+    q/k L2 norm and temperature and gpt-oss's sinks stay refused with the
+    MoE families that use them."""
     unsupported = {
         "recurrent": getattr(cfg, "recurrent", False),
         "mrope_sections": bool(cfg.mrope_sections),
         "kv_lora_rank": cfg.kv_lora_rank > 0,
         "expert_count": cfg.expert_count > 0,
-        "swa_window": cfg.swa_window > 0,
         "chunked_window": cfg.chunked_window > 0,
-        "nope_layer_step": cfg.nope_layer_step > 0,
-        "alibi_max_bias": cfg.alibi_max_bias > 0.0,
-        "attn_softcap": cfg.attn_softcap > 0.0,
         "attn_temp_scale": cfg.attn_temp_scale > 0.0,
         "qk_l2_norm": cfg.qk_l2_norm,
         "act_fn": cfg.act_fn not in ("silu", "gelu", "relu2", "xielu"),
@@ -218,17 +229,46 @@ def _rope_params(cfg: ModelConfig, max_pos: int = 0) -> RopeParams:
 
 
 def make_rope(cfg: ModelConfig, max_pos: int, device="cuda"):
-    """(cos, sin) tables [max_pos, rot/2] f32 on `device`."""
-    return compute_rope_cache(_rope_params(cfg, max_pos), max_pos, device)
+    """(cos, sin) tables [max_pos, rot/2] f32 on `device`, or stacked [2,
+    max_pos, rot/2] where layers rotate differently (JAX `make_rope`):
+    identity at index 0 and rope at 1 for the unroped global layers of
+    nope_layer_step (cohere2, exaone4); gemma3's global base at 0 and its
+    local base rope_freq_base_swa at 1. Layer li takes index
+    layer_is_local(cfg)[li]."""
+    rp = _rope_params(cfg, max_pos)
+    cos, sin = compute_rope_cache(rp, max_pos, device)
+    if cfg.nope_layer_step > 0:
+        return (torch.stack([torch.ones_like(cos), cos]),
+                torch.stack([torch.zeros_like(sin), sin]))
+    if cfg.swa_pattern > 0 and cfg.rope_freq_base_swa > 0:
+        cos_l, sin_l = compute_rope_cache(dataclasses.replace(
+            rp, freq_base=cfg.rope_freq_base_swa), max_pos, device)
+        return torch.stack([cos, cos_l]), torch.stack([sin, sin_l])
+    return cos, sin
+
+
+def layer_is_local(cfg: ModelConfig) -> list[int]:
+    """Per layer, 1 where it is local (JAX `_layer_is_local`): under
+    nope_layer_step every step-th layer is global (full context, unroped);
+    under a sliding window every swa_pattern-th layer is global, or every
+    layer is local without a pattern; else none is."""
+    L = cfg.n_layers
+    if cfg.nope_layer_step > 0:
+        return [int((i + 1) % cfg.nope_layer_step != 0) for i in range(L)]
+    if cfg.swa_window <= 0:
+        return [0] * L
+    if cfg.swa_pattern <= 0:
+        return [1] * L
+    return [int((i + 1) % cfg.swa_pattern != 0) for i in range(L)]
 
 
 def make_delta_rope(cfg: ModelConfig, max_pos: int, device="cuda"):
     """Pure-rotation tables for shift_kv: make_rope's frequencies without
     the YaRN mscale amplitude (the stored keys carry it once already).
-    Stacked [2, P, half] where layers rotate differently (llama4's nope
-    layers: identity at index 0; gemma3's local base at index 1), as in
-    the JAX package, whose shift picks one per layer (those families are
-    not on the ported path yet)."""
+    Stacked [2, P, half] where layers rotate differently, as make_rope
+    (identity at index 0 for unroped layers; gemma3's local base at index
+    1): shift_kv then picks one per layer by layer_is_local, as the JAX
+    engine passes it as `layer_select`."""
     def pure(rp):
         cos, sin = compute_rope_cache(
             dataclasses.replace(rp, yarn_attn_factor=1.0), max_pos, device)
@@ -258,15 +298,15 @@ def make_delta_rope(cfg: ModelConfig, max_pos: int, device="cuda"):
 
 
 def shift_kv(kv: KVCache, slot: int, n_keep: int, n_discard: int,
-             delta_cos, delta_sin, rope_mode: str) -> KVCache:
-    """Context shift of one slot, in place (JAX `shift_kv_impl` with the
-    plain [P, half] tables; the stacked ones and their per-layer pick
-    wait for the families that use them): row i takes row i + n_discard
-    (clipped to C - 1) for i >= n_keep, and its key is rotated by
-    -n_discard positions (RoPE is additive in position at fixed
-    frequency); values (and their scales) only move. An int8 cache
-    re-quantizes every key row of the slot from the rotated f32 values,
-    the kept prefix too, as JAX does."""
+             delta_cos, delta_sin, rope_mode: str,
+             layer_select=None) -> KVCache:
+    """Context shift of one slot, in place (JAX `shift_kv_impl`): row i
+    takes row i + n_discard (clipped to C - 1) for i >= n_keep, and its
+    key is rotated by -n_discard positions (RoPE is additive in position
+    at fixed frequency); values (and their scales) only move. Stacked [2,
+    P, half] tables rotate layer l by branch layer_select[l] (a host list,
+    layer_is_local). An int8 cache re-quantizes every key row of the slot
+    from the rotated f32 values, the kept prefix too, as JAX does."""
     C = kv.capacity
     idx = torch.arange(C, device=kv.k.device)
     src = torch.where(idx < n_keep, idx, (idx + n_discard).clamp_max(C - 1))
@@ -280,9 +320,13 @@ def shift_kv(kv: KVCache, slot: int, n_keep: int, n_discard: int,
         k_f = k_g.float() * ks_g.float()[..., None]
     else:
         k_f = k_g.float()
-    # the rotation by n_discard for every row: cos(d), -sin(d)
-    c = delta_cos[n_discard:n_discard + 1]                # [1, half]
-    s = delta_sin[n_discard:n_discard + 1]
+    # the rotation by n_discard for every row: cos(d), -sin(d), [1, half],
+    # or [L, 1, half] from stacked tables by each layer's branch
+    c = delta_cos[..., n_discard:n_discard + 1, :]
+    s = delta_sin[..., n_discard:n_discard + 1, :]
+    if delta_cos.dim() == 3 and layer_select is not None:
+        sel = torch.tensor(layer_select, device=c.device)
+        c, s = c.index_select(0, sel), s.index_select(0, sel)
     k_rot = apply_rope(k_f, None, c, -s, rope_mode)
     if kv.quantized:
         k_rot_f = torch.where(moved, k_rot, k_f)
@@ -554,8 +598,9 @@ def _qk_norms(q, k, lp, cfg: ModelConfig):
 
 
 def _attn_layer(x, lp, li: int, kv: KVCache, cfg: ModelConfig, cos, sin,
-                rows: list, win, flash_meta=None, chain=None, step=0,
-                decode_meta=None, verify_meta=None, dense_mask=None):
+                rows: list, win, alibi=None, flash_meta=None, chain=None,
+                step=0, decode_meta=None, verify_meta=None,
+                dense_mask=None):
     """x [B, T, E] -> x after attention and the layer tail. cos/sin are the
     tables gathered at the rows' positions ([B, T, rot/2]). The input norm
     (absent: olmo2), the q/k/v biases, olmo's clamp and the q/k norms
@@ -594,13 +639,14 @@ def _attn_layer(x, lp, li: int, kv: KVCache, cfg: ModelConfig, cos, sin,
         # the normed keys
         q = rms_norm(q, lp["q_norm"], cfg.rms_eps)
         k = rms_norm(k, lp["k_norm"], cfg.rms_eps)
-    return _attn_deferred(x, lp, li, kv, cfg, q, k, v, rows, win,
+    return _attn_deferred(x, lp, li, kv, cfg, q, k, v, rows, win, alibi,
                           flash_meta=flash_meta, chain=chain, step=step,
                           decode_meta=decode_meta, verify_meta=verify_meta,
                           dense_mask=dense_mask)
 
 
-def _attn_verify(q, k, v, kc, vc, ks, vs, stored, meta, win, adt, scale):
+def _attn_verify(q, k, v, kc, vc, ks, vs, stored, meta, win, adt, scale,
+                 softcap=0.0, alibi=None):
     """The T query rows of a verify forward, each through the flash decode
     kernel with the verify rows as its chain operand: query j has meta
     (pos0 + j, j + 1), so it attends the cache below pos0 and rows 0..j,
@@ -622,20 +668,24 @@ def _attn_verify(q, k, v, kc, vc, ks, vs, stored, meta, win, adt, scale):
             vr = torch.cat([vd[:, :j], vf[:, j:]], dim=1)
         qd = q[:, j].to(adt).reshape(B, Hkv, H // Hkv, D).contiguous()
         o = flash_decode(qd, kc, vc, kr, vr, meta[j], win, k_scale=ks,
-                         v_scale=vs, scale=scale)
+                         v_scale=vs, scale=scale, softcap=softcap,
+                         alibi=alibi)
         outs.append(o.to(adt).reshape(B, H * D))
     return torch.stack(outs, dim=1)
 
 
 def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
-                   rows: list, win, flash_meta=None, chain=None, step=0,
-                   decode_meta=None, verify_meta=None, dense_mask=None):
+                   rows: list, win, alibi=None, flash_meta=None, chain=None,
+                   step=0, decode_meta=None, verify_meta=None,
+                   dense_mask=None):
     """Attention against the cache as it stood before this forward plus
     the new rows (through the flash kernels), then the layer tail. The
     layer's rows, as the cache stores them, are appended to `rows` for the
     forward's one scatter (write_rows). dense_mask [B, T, T]: the rows
-    attend only each other under that mask, written out in torch
-    (softmax_attend; the non-causal embeddings forward)."""
+    (at positions 0..T-1) attend only each other under that mask, written
+    out in torch (softmax_attend; the non-causal embeddings forward). win
+    is the layer's (window, chunk) row, alibi the [Hkv, G] slopes or
+    None; the softcap is cfg's."""
     B, T = q.shape[:2]
     H, Hkv, D = q.shape[2], k.shape[2], q.shape[-1]
     G = H // Hkv
@@ -646,21 +696,26 @@ def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
     stored = _cache_rows(kv, k, v)
     rows.append(stored)
     scale = cfg.attn_scale or None
+    cap = cfg.attn_softcap
 
     if dense_mask is not None:
         qg = q.to(adt).reshape(B, T, Hkv, G, D).permute(0, 2, 3, 1, 4)
+        t = torch.arange(T, device=q.device)
+        dist = (t[None, :] - t[:, None]).expand(B, T, T)
         o = softmax_attend(qg, k.to(adt), v.to(adt), dense_mask,
-                           D ** -0.5 if scale is None else scale)
+                           D ** -0.5 if scale is None else scale, cap,
+                           alibi=alibi, dist=dist)
         attn = o.permute(0, 3, 1, 2, 4).reshape(B, T, H * D)
     elif flash_meta is not None:
         qg = q.to(adt).reshape(B, T, Hkv, G, D).permute(0, 2, 3, 1, 4)
         o = flash_prefill_batched(qg.contiguous(), kc, vc, k.to(adt),
                                   v.to(adt), flash_meta, win,
-                                  k_scale=ks, v_scale=vs, scale=scale)
+                                  k_scale=ks, v_scale=vs, scale=scale,
+                                  softcap=cap, alibi=alibi)
         attn = o.permute(0, 3, 1, 2, 4).reshape(B, T, H * D)
     elif verify_meta is not None:
         attn = _attn_verify(q, k, v, kc, vc, ks, vs, stored, verify_meta,
-                            win, adt, scale)
+                            win, adt, scale, cap, alibi)
     else:
         # chained decode: the current row rides chain index `step`
         kr, vr = chain.k[li], chain.v[li]
@@ -668,7 +723,8 @@ def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
         vr[:, step] = v[:, 0].to(adt)
         qd = q.to(adt).reshape(B, Hkv, G, D).contiguous()
         o = flash_decode(qd, kc, vc, kr, vr, decode_meta, win,
-                         k_scale=ks, v_scale=vs, scale=scale)
+                         k_scale=ks, v_scale=vs, scale=scale, softcap=cap,
+                         alibi=alibi)
         attn = o.to(adt).reshape(B, 1, H * D)
         if kv.quantized:
             # later steps read this row as the cache holds it
@@ -682,14 +738,23 @@ def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
 
 def _run_stack(params, cfg: ModelConfig, x, kv: KVCache, cos, sin,
                rows: list, flash_meta=None, chain=None, step=0,
-               decode_meta=None, verify_meta=None, dense_mask=None):
+               decode_meta=None, verify_meta=None, dense_mask=None,
+               windows=None):
     """The layer loop (the JAX package's lax.scan); appends each layer's
-    rows to `rows`."""
-    win = _no_window(x.device)
+    rows to `rows`. cos/sin are gathered at the rows' positions, [B, T,
+    half] or stacked [2, B, T, half] (layer li takes branch is_local);
+    layer li attends under row li of `windows` ([L, 2], layer_windows by
+    default) or the one [2] row given."""
+    win = layer_windows(cfg, x.device) if windows is None else windows
+    alibi = alibi_slopes(cfg, x.device)
+    loc = layer_is_local(cfg)
+    stacked = cos.dim() == 4
     layers = {k: v.unbind(0) for k, v in params["layers"].items()}
     for li in range(cfg.n_layers):
         lp = {k: v[li] for k, v in layers.items()}
-        x = _attn_layer(x, lp, li, kv, cfg, cos, sin, rows, win,
+        c, s = (cos[loc[li]], sin[loc[li]]) if stacked else (cos, sin)
+        x = _attn_layer(x, lp, li, kv, cfg, c, s, rows,
+                        win[li] if win.dim() == 2 else win, alibi,
                         flash_meta=flash_meta, chain=chain, step=step,
                         decode_meta=decode_meta, verify_meta=verify_meta,
                         dense_mask=dense_mask)
@@ -751,33 +816,78 @@ def _add_pos_embd(params, x, positions: torch.Tensor):
 
 
 def _rope_at(cos, sin, positions: torch.Tensor):
-    """Tables gathered at positions [B, T] (sentinels clamp to the end)."""
-    p = positions.clamp(0, cos.shape[0] - 1)
-    return cos[p], sin[p]
+    """Tables gathered at positions (sentinels clamp to the end): [P, half]
+    tables give [*positions.shape, half], stacked [2, P, half] ones [2,
+    *positions.shape, half]."""
+    p = positions.clamp(0, cos.shape[-2] - 1)
+    return cos[..., p, :], sin[..., p, :]
 
 
-# one all-zero (swa_window, chunked_window) operand per device: the dense
-# llama path has no window (a constant, made at its first, eager, use)
-_NO_WINDOW: dict[torch.device, torch.Tensor] = {}
+# per-device constant operands of the attention kernels, made at their
+# first, eager, use (never inside a CUDA graph capture) and kept: the
+# graphs point into them
+_CONSTANTS: dict[tuple, torch.Tensor] = {}
+
+
+def _constant(device, key: tuple, make, what: str) -> torch.Tensor:
+    dev = torch.device(device)
+    t = _CONSTANTS.get((dev, key))
+    if t is None:
+        _kernels.no_capture(dev, what)
+        t = _CONSTANTS[(dev, key)] = make().to(dev)
+    return t
 
 
 def _no_window(device) -> torch.Tensor:
-    """The per-layer window operand of the attention kernels: all-zero on
-    the dense llama path, one buffer per device."""
-    dev = torch.device(device)
-    win = _NO_WINDOW.get(dev)
-    if win is None:
-        _kernels.no_capture(dev, "the window operand")
-        win = _NO_WINDOW[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
-    return win
+    """An all-zero (swa_window, chunked_window) operand, one buffer per
+    device: the embeddings forward's, whose JAX counterpart attends under
+    its own mask, with no window."""
+    return _constant(device, ("no_window",),
+                     lambda: torch.zeros(2, dtype=torch.int32),
+                     "the window operand")
+
+
+def layer_windows(cfg: ModelConfig, device) -> torch.Tensor:
+    """[L, 2] int32: row li is layer li's (swa_window, chunked_window)
+    kernel operand, as JAX `_attn_deferred` forms it: the window where the
+    layer is local under a pattern, everywhere without one, else 0 (no
+    chunk: check_supported refuses chunked windows). One buffer a device
+    and set of rows."""
+    rows = tuple((cfg.swa_window if loc or cfg.swa_pattern <= 0 else 0, 0)
+                 for loc in layer_is_local(cfg))
+    return _constant(device, ("windows", rows),
+                     lambda: torch.tensor(rows, dtype=torch.int32).view(-1, 2),
+                     "the window operand")
+
+
+def alibi_values(H: int, max_bias: float) -> list[float]:
+    """The ALiBi slopes of H heads (JAX `_alibi_slopes`: ggml soft_max_ext
+    with f_max_alibi_bias; 2^(-8i/H) for a power-of-two head count)."""
+    n = 2 ** int(math.floor(math.log2(H)))
+    m0 = 2.0 ** (-max_bias / n)
+    m1 = 2.0 ** (-max_bias / 2.0 / n)
+    return [m0 ** (i + 1) if i < n else m1 ** (2 * (i - n) + 1)
+            for i in range(H)]
+
+
+def alibi_slopes(cfg: ModelConfig, device) -> torch.Tensor | None:
+    """[Hkv, G] f32 ALiBi slopes, one buffer a device, or None without
+    ALiBi."""
+    if cfg.alibi_max_bias <= 0.0:
+        return None
+    vals = tuple(alibi_values(cfg.n_heads, cfg.alibi_max_bias))
+    G = cfg.n_heads // max(1, cfg.n_kv_heads)
+    return _constant(device, ("alibi", vals, G),
+                     lambda: torch.tensor(vals, dtype=torch.float32)
+                     .view(-1, G), "the ALiBi slopes")
 
 
 class DecodeOperands(NamedTuple):
     """Device operands of a K-step chain, all computed from pos0 and
     active [S]: step j's positions [K, S] (>= C marks an inactive slot),
     flash decode meta [K, S, 2] (cpos, nv = j + 1), the rope tables
-    gathered at the positions ([K, S, 1, rot/2]) and the chain's row
-    writes ([K, S])."""
+    gathered at the positions ([K, S, 1, rot/2], stacked tables [K, 2, S,
+    1, rot/2]) and the chain's row writes ([K, S])."""
     positions: torch.Tensor
     meta: torch.Tensor
     cos: torch.Tensor
@@ -802,6 +912,8 @@ def decode_operands(pos0: torch.Tensor, active: torch.Tensor, capacity: int,
     meta = torch.stack([cpos, (j + 1)[:, None].expand_as(cpos)],
                        dim=-1).to(torch.int32)
     cos, sin = _rope_at(rope_cos, rope_sin, positions[..., None])
+    if rope_cos.dim() == 3:     # stacked: step j's [2, S, 1, rot/2]
+        cos, sin = cos.movedim(0, 1), sin.movedim(0, 1)
     b = torch.arange(pos0.shape[0], device=pos0.device)
     writes = RowWrites(b[None, :].expand_as(pos), pos % C, live)
     return DecodeOperands(positions, meta, cos, sin, writes)
@@ -836,7 +948,8 @@ class VerifyOperands(NamedTuple):
     n_draft and active [S]: the rows' positions [S, T] (C for a sentinel
     row), flash decode meta [T, S, 2] (query j: cpos = pos0 + j, nv = j +
     1; cpos 0 for a sentinel row), the rope tables gathered at the
-    positions ([S, T, rot/2]) and the row writes ([S, T])."""
+    positions ([S, T, rot/2], stacked [2, S, T, rot/2]) and the row writes
+    ([S, T])."""
     positions: torch.Tensor
     meta: torch.Tensor
     cos: torch.Tensor
@@ -969,7 +1082,10 @@ def forward_embeddings(params, cfg: ModelConfig, tokens, seq_lens, rope_cos,
     own kernels (ops/qmatmul.mm and the fused w8a8 gates). A non-causal
     model attends under the dense [B, T, T] mask through
     ops/attention.softmax_attend, as JAX's `_run_stack` does without
-    flash_meta. Rows are at positions 0..T-1, padding included."""
+    flash_meta. Rows are at positions 0..T-1, padding included. As in the
+    JAX function, no layer attends under a sliding window (its mask is the
+    causal one alone); the per-layer rope branches, the softcap and ALiBi
+    apply."""
     emb = params["tok_embd"]
     dev = emb.device
     tokens = torch.as_tensor(tokens).to(dev)
@@ -993,7 +1109,7 @@ def forward_embeddings(params, cfg: ModelConfig, tokens, seq_lens, rope_cos,
         meta = torch.stack([zeros, seq_lens, zeros, zeros], dim=1).to(
             torch.int32)
         x = _run_stack(params, cfg, x, scratch, cos, sin, rows,
-                       flash_meta=meta)
+                       flash_meta=meta, windows=_no_window(dev))
     else:
         mask = valid[:, :, None] & valid[:, None, :]
         x = _run_stack(params, cfg, x, scratch, cos, sin, rows,

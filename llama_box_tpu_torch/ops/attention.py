@@ -11,12 +11,18 @@ NEG_INF = -1e30
 
 def softmax_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    mask: torch.Tensor, scale: float, softcap: float = 0.0,
-                   sinks: torch.Tensor | None = None) -> torch.Tensor:
+                   sinks: torch.Tensor | None = None,
+                   alibi: torch.Tensor | None = None,
+                   dist: torch.Tensor | None = None) -> torch.Tensor:
     """The arithmetic the flash kernels compute, written out in full: the
     core of their plain versions (ops/flash_prefill, ops/flash_decode).
 
     q [B, Hkv, G, T, D]; k/v [B, K, Hkv, D|Dv] already in q's dtype;
-    mask [B, T, K] bool; sinks [Hkv, G] per-head sink logits or None.
+    mask [B, T, K] bool; sinks [Hkv, G] per-head sink logits or None;
+    alibi [Hkv, G] f32 per-head ALiBi slopes with dist [B, T, K] (key
+    position minus query position), or None: each score gets slope x dist
+    after the scale and before the softcap and the mask (the order of the
+    JAX model's _attn_deferred).
     Scores accumulate in f32 from q's dtype; the unnormalized
     probabilities are rounded to q's dtype before they weight V (the
     kernels' rounding point); keys no row can see are zeroed first, so a
@@ -27,6 +33,9 @@ def softmax_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k = torch.where(vis, k, zero)
     v = torch.where(vis, v, zero)
     s = torch.einsum("bhgtd,bkhd->bhgtk", q.float(), k.float()) * scale
+    if alibi is not None:
+        sl = alibi.float().to(q.device)[None, :, :, None, None]
+        s = s + sl * dist.float()[:, None, None]
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
     m5 = mask[:, None, None]

@@ -17,9 +17,11 @@ Layouts (post-RoPE; B = slot batch):
                                    (row nv-1 is the current token's)
     meta:  [B, 2] int32            (cpos, nv)
     win:   [2] int32               (swa_window, chunked_window)
+    alibi: [Hkv, G] f32            ALiBi slopes, or None
 Cache index c is visible iff c < cpos - (nv-1) and c is inside the window
 and chunk; chain row i iff i < nv and its position is >= 0 and visible.
-Output [B, Hkv, G, Dv] f32.
+Under ALiBi a score gains slope x (key position - cpos) before the
+softcap. D = Dv in flash_prefill.HEAD_DIMS. Output [B, Hkv, G, Dv] f32.
 """
 
 from __future__ import annotations
@@ -28,12 +30,14 @@ import torch
 
 from . import _kernels
 from .attention import pos_visible, softmax_attend
-from .flash_prefill import _as_int_list, _int32_on, kv_dequant
+from .flash_prefill import (HEAD_DIMS, _as_int_list, _int32_on, _slopes_on,
+                            kv_dequant)
 
 
 def flash_decode_plain(q, k_cache, v_cache, k_rows, v_rows, meta, win,
                        k_scale=None, v_scale=None, *, layer=None, sinks=None,
-                       scale: float | None = None, softcap: float = 0.0):
+                       scale: float | None = None, softcap: float = 0.0,
+                       alibi=None):
     """The plain torch version of the kernel (any device)."""
     if layer is not None:
         k_cache, v_cache = k_cache[layer], v_cache[layer]
@@ -58,8 +62,9 @@ def flash_decode_plain(q, k_cache, v_cache, k_rows, v_rows, meta, win,
     mask = pos_visible(kpos, cpos[:, None], w, cw) & kvalid     # [B, K]
     k = torch.cat([kv_dequant(k_cache, k_scale, dt), k_rows.to(dt)], dim=1)
     v = torch.cat([kv_dequant(v_cache, v_scale, dt), v_rows.to(dt)], dim=1)
+    dist = (kpos - cpos[:, None])[:, None, :]
     out = softmax_attend(q[:, :, :, None], k, v, mask[:, None, :], scale,
-                         softcap, sinks)
+                         softcap, sinks, alibi, dist)
     return out[:, :, :, 0]
 
 
@@ -105,7 +110,8 @@ def _check(cond: bool, what: str) -> None:
 
 def flash_decode(q, k_cache, v_cache, k_rows, v_rows, meta, win,
                  k_scale=None, v_scale=None, *, layer=None, sinks=None,
-                 scale: float | None = None, softcap: float = 0.0):
+                 scale: float | None = None, softcap: float = 0.0,
+                 alibi=None):
     """Single-query chained-decode attention (see the module docstring).
     A CUDA q launches csrc/flash_decode.cu, one launch a call (a bf16 q:
     split across the SMs by _splits(C)); a CPU q takes the plain version.
@@ -114,7 +120,8 @@ def flash_decode(q, k_cache, v_cache, k_rows, v_rows, meta, win,
     if not q.is_cuda:
         return flash_decode_plain(q, k_cache, v_cache, k_rows, v_rows, meta,
                                   win, k_scale, v_scale, layer=layer,
-                                  sinks=sinks, scale=scale, softcap=softcap)
+                                  sinks=sinks, scale=scale, softcap=softcap,
+                                  alibi=alibi)
     if layer is not None:
         layer = int(layer)
         k_cache, v_cache = k_cache[layer], v_cache[layer]
@@ -134,7 +141,7 @@ def flash_decode(q, k_cache, v_cache, k_rows, v_rows, meta, win,
            and tuple(v_cache.shape) == (B, C, Hkv, Dv), "cache shape")
     _check(tuple(k_rows.shape) == (B, R, Hkv, D)
            and tuple(v_rows.shape) == (B, R, Hkv, Dv), "rows shape")
-    _check((D, Dv) in ((64, 64), (128, 128)), f"head dims {(D, Dv)}")
+    _check(D == Dv and D in HEAD_DIMS, f"head dims {(D, Dv)}")
     _check(1 <= G <= 16, f"group size {G}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         _check(t.device == dev and t.is_contiguous(),
@@ -148,7 +155,7 @@ def flash_decode(q, k_cache, v_cache, k_rows, v_rows, meta, win,
         k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
     k_rows = k_rows.to(dev, dt).contiguous()
     v_rows = v_rows.to(dev, dt).contiguous()
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                     ("k_rows", k_rows), ("v_rows", v_rows)):
         _check(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned "
                "(the kernel loads 16 bytes at a time)")
@@ -158,6 +165,7 @@ def flash_decode(q, k_cache, v_cache, k_rows, v_rows, meta, win,
     if sinks is not None:
         sinks = sinks.to(dev, torch.float32).contiguous()
         _check(tuple(sinks.shape) == (Hkv, G), "sinks shape")
+    alibi = _slopes_on(dev, alibi, Hkv, G, _check)
     out = torch.empty((B, Hkv, G, Dv), dtype=torch.float32, device=dev)
     L, S = _splits(C)
     ws = cnt = None
@@ -167,9 +175,9 @@ def flash_decode(q, k_cache, v_cache, k_rows, v_rows, meta, win,
     _kernels.call(
         "flash_decode", "lbt_flash_decode", codes[dt], codes[k_cache.dtype],
         codes[k_scale.dtype] if quant else 0, D, Dv, q, k_cache, v_cache,
-        k_scale, v_scale, k_rows, v_rows, meta, win, sinks, ws, cnt, out, B,
-        Hkv, G, C, R, L, S, float(D ** -0.5 if scale is None else scale),
-        float(softcap))
+        k_scale, v_scale, k_rows, v_rows, meta, win, sinks, alibi, ws, cnt,
+        out, B, Hkv, G, C, R, L, S,
+        float(D ** -0.5 if scale is None else scale), float(softcap))
     flash_decode.launches += 1
     return out
 

@@ -13,9 +13,12 @@ Layouts (all post-RoPE):
     k/v rows: [B, T, Hkv, D|Dv]  the chunk's own rows
     meta:     [B, 4] int32       (pos0, n_valid, bidir_st, bidir_en)
     win:      [2] int32          (swa_window, chunked_window) of this layer
+    alibi:    [Hkv, G] f32       ALiBi slopes, or None
 Row r of slot b (position pos0 + r) sees cache position c iff c < pos0 and
 c is causal/in-window/in-chunk, or c lies in [st, en); it sees row r' iff
-r' < n_valid under the same rule. Output [B, Hkv, G, T, Dv] f32.
+r' < n_valid under the same rule. Under ALiBi a score gains slope x (key
+position - query position) before the softcap. D = Dv in HEAD_DIMS.
+Output [B, Hkv, G, T, Dv] f32.
 """
 
 from __future__ import annotations
@@ -24,6 +27,9 @@ import torch
 
 from . import _kernels
 from .attention import pos_visible, softmax_attend
+
+# the head widths (D = Dv) both attention kernels instantiate
+HEAD_DIMS = (64, 80, 96, 128, 256)
 
 
 def _as_int_list(x) -> list[int]:
@@ -49,9 +55,20 @@ def kv_dequant(cache: torch.Tensor, scale: torch.Tensor | None,
     return (cache.float() * scale.float()[..., None]).to(dtype)
 
 
+def _slopes_on(dev, alibi, Hkv: int, G: int, check):
+    """The ALiBi slopes operand as the kernels take it: [Hkv, G] f32,
+    contiguous, on dev (None stays None)."""
+    if alibi is None:
+        return None
+    alibi = alibi.to(dev, torch.float32).contiguous()
+    check(tuple(alibi.shape) == (Hkv, G), "alibi shape")
+    return alibi
+
+
 def flash_prefill_plain(q, k_cache, v_cache, k_rows, v_rows, meta, win,
                         k_scale=None, v_scale=None, *, sinks=None,
-                        scale: float | None = None, softcap: float = 0.0):
+                        scale: float | None = None, softcap: float = 0.0,
+                        alibi=None):
     """The plain torch version of the kernel (any device)."""
     B, Hkv, G, T, D = q.shape
     C = k_cache.shape[1]
@@ -73,7 +90,8 @@ def flash_prefill_plain(q, k_cache, v_cache, k_rows, v_rows, meta, win,
     mask = mask & kvalid[:, None, :]
     k = torch.cat([kv_dequant(k_cache, k_scale, dt), k_rows.to(dt)], dim=1)
     v = torch.cat([kv_dequant(v_cache, v_scale, dt), v_rows.to(dt)], dim=1)
-    return softmax_attend(q, k, v, mask, scale, softcap, sinks)
+    return softmax_attend(q, k, v, mask, scale, softcap, sinks, alibi,
+                          kp - qpos)
 
 
 def _check(cond: bool, what: str) -> None:
@@ -83,13 +101,14 @@ def _check(cond: bool, what: str) -> None:
 
 def flash_prefill_batched(q, k_cache, v_cache, k_rows, v_rows, meta, win,
                           k_scale=None, v_scale=None, *, sinks=None,
-                          scale: float | None = None, softcap: float = 0.0):
+                          scale: float | None = None, softcap: float = 0.0,
+                          alibi=None):
     """Batched prefill attention (see the module docstring). A CUDA q
     launches csrc/flash_prefill.cu; a CPU q takes the plain version."""
     if not q.is_cuda:
         return flash_prefill_plain(q, k_cache, v_cache, k_rows, v_rows, meta,
                                    win, k_scale, v_scale, sinks=sinks,
-                                   scale=scale, softcap=softcap)
+                                   scale=scale, softcap=softcap, alibi=alibi)
     B, Hkv, G, T, D = q.shape
     C = k_cache.shape[1]
     Dv = v_cache.shape[-1]
@@ -103,7 +122,7 @@ def flash_prefill_batched(q, k_cache, v_cache, k_rows, v_rows, meta, win,
            and tuple(v_cache.shape) == (B, C, Hkv, Dv), "cache shape")
     _check(tuple(k_rows.shape) == (B, T, Hkv, D)
            and tuple(v_rows.shape) == (B, T, Hkv, Dv), "rows shape")
-    _check((D, Dv) in ((64, 64), (128, 128)), f"head dims {(D, Dv)}")
+    _check(D == Dv and D in HEAD_DIMS, f"head dims {(D, Dv)}")
     _check(1 <= G <= 128, f"group size {G}")
     k_rows = k_rows.to(dev, dt).contiguous()
     v_rows = v_rows.to(dev, dt).contiguous()
@@ -125,13 +144,14 @@ def flash_prefill_batched(q, k_cache, v_cache, k_rows, v_rows, meta, win,
     if sinks is not None:
         sinks = sinks.to(dev, torch.float32).contiguous()
         _check(tuple(sinks.shape) == (Hkv, G), "sinks shape")
+    alibi = _slopes_on(dev, alibi, Hkv, G, _check)
     out = torch.empty((B, Hkv, G, T, Dv), dtype=torch.float32, device=dev)
     codes = _kernels.DTYPE_CODES
     _kernels.call(
         "flash_prefill", "lbt_flash_prefill", codes[dt],
         codes[k_cache.dtype], codes[k_scale.dtype] if quant else 0, D, Dv,
         q, k_cache, v_cache, k_scale, v_scale, k_rows, v_rows, meta, win,
-        sinks, out, B, Hkv, G, T, C,
+        sinks, alibi, out, B, Hkv, G, T, C,
         float(D ** -0.5 if scale is None else scale), float(softcap))
     flash_prefill_batched.launches += 1
     return out

@@ -95,10 +95,11 @@ import torch
 
 from ..models.bert import BERT_ARCHS, bert_forward, check_bert_supported
 from ..models.config import ModelConfig
-from ..models.llama import (check_supported, copy_kv_prefix,
+from ..models.llama import (alibi_slopes, check_supported, copy_kv_prefix,
                             decode_operands, decode_step_impl,
                             forward_embeddings, init_chain_rows,
-                            init_kv_cache, make_delta_rope, make_rope,
+                            init_kv_cache, layer_is_local, layer_windows,
+                            make_delta_rope, make_rope,
                             prefill_batch_impl, shift_kv, verify_forward,
                             verify_operands, write_chain_rows)
 from ..ops.qmatmul import _SPLIT_MAX_ROWS, QTensor
@@ -420,6 +421,14 @@ class Engine:
                                                  self.device)
         self.delta_cos, self.delta_sin = make_delta_rope(cfg, self.slot_ctx,
                                                          self.device)
+        # stacked tables: each layer rotates by its own branch on a shift
+        self.delta_select = (layer_is_local(cfg)
+                             if self.delta_cos.dim() == 3 else None)
+        if self.kv is not None:
+            # the attention kernels' per-layer windows and ALiBi slopes:
+            # device constants made before any program is captured
+            layer_windows(cfg, self.device)
+            alibi_slopes(cfg, self.device)
         self.draft_cfg = self.draft_params = self.draft_kv = None
         if draft is not None:
             self.draft_cfg, self.draft_params = draft
@@ -434,6 +443,11 @@ class Engine:
                 self.draft_cfg, self.slot_ctx, self.device)
             self.draft_delta_cos, self.draft_delta_sin = make_delta_rope(
                 self.draft_cfg, self.slot_ctx, self.device)
+            self.draft_delta_select = (
+                layer_is_local(self.draft_cfg)
+                if self.draft_delta_cos.dim() == 3 else None)
+            layer_windows(self.draft_cfg, self.device)
+            alibi_slopes(self.draft_cfg, self.device)
         self.sstate = init_sampler_state(S, cfg.vocab_size, self.device)
         self.eog_ids = sorted(tokenizer.eog_ids) if tokenizer else []
         self._default_sp = SamplerParams()
@@ -654,6 +668,8 @@ class Engine:
         reuse = min(lcp, len(task.prompt_tokens) - 1)
         if not self.ecfg.prompt_cache:
             reuse = 0
+        if self.cfg.swa_window > 0 and reuse < len(task.prompt_tokens) - 1:
+            reuse = 0   # a partial reuse would dip below the SWA window
         reuse = self._share_prefix(best, task.prompt_tokens, reuse)
 
         s = best
@@ -700,8 +716,9 @@ class Engine:
         """Cross-slot prefix reuse (JAX `_admit_completion`): copy the
         rows of the slot sharing the longest prefix with `prompt` into
         `best` when it beats `best`'s own `reuse` by cache_share_min or
-        more; returns the rows `best` now holds. (The JAX rule also
-        excludes SWA and recurrent models; the port refuses both at load.)
+        more; returns the rows `best` now holds. Never under a sliding
+        window (the JAX rule; it also excludes recurrent models, which the
+        port refuses at load).
 
         The rows are valid under pipelining: a donor's cache_tokens and
         pos are host state that lags the device, and every row below
@@ -710,7 +727,8 @@ class Engine:
         `best` as an idle slot writes back the values it gathered itself,
         and it runs before the copy."""
         share_min = self.ecfg.cache_share_min
-        if not self.ecfg.prompt_cache or share_min < 0:
+        if not self.ecfg.prompt_cache or share_min < 0 \
+                or self.cfg.swa_window > 0:
             return reuse
         donor, donor_l = None, reuse
         for t in self.slots:
@@ -1431,7 +1449,7 @@ class Engine:
         n_keep = max(0, min(task.n_keep, s.pos - 2)) if task else 0
         n_discard = max(1, min((s.pos - n_keep) // 4, self.ecfg.n_ubatch))
         shift_kv(self.kv, s.idx, n_keep, n_discard, self.delta_cos,
-                 self.delta_sin, self.cfg.rope_mode)
+                 self.delta_sin, self.cfg.rope_mode, self.delta_select)
         del s.cache_tokens[n_keep:n_keep + n_discard]
         s.pos -= n_discard
         s.drafts = []
@@ -1441,7 +1459,7 @@ class Engine:
             # that has not reached the discarded rows keeps its prefix
             shift_kv(self.draft_kv, s.idx, n_keep, n_discard,
                      self.draft_delta_cos, self.draft_delta_sin,
-                     self.draft_cfg.rope_mode)
+                     self.draft_cfg.rope_mode, self.draft_delta_select)
             s.draft_pos -= n_discard
         else:
             s.draft_pos = min(s.draft_pos, n_keep)

@@ -131,3 +131,60 @@ def test_override_kv_parses_as_jax(model_path):
     cfg, _ = load_model(model_path, dtype=torch.float32, device="cpu",
                         metadata_overrides={"llama.rope.freq_base": 1e4 + 1})
     assert cfg.rope_freq_base == 1e4 + 1
+
+
+# the JAX CLI's flags the port took last (JAX cli.py's model and completion
+# groups): each parses to the JAX parser's value, unset to its default
+MORE_FLAGS = [
+    (["-s", "7"], "seed"), (["--seed", "7"], "seed"),
+    (["-sp"], "special"), (["--special"], "special"),
+    (["--chat-template-kwargs", '{"enable_thinking": false}'],
+     "chat_template_kwargs"),
+    (["--xtc-probability", "0.5"], "xtc_probability"),
+    (["--xtc-threshold", "0.2"], "xtc_threshold"),
+    (["--dynatemp-range", "0.3"], "dynatemp_range"),
+    (["--dynatemp-exp", "1.5"], "dynatemp_exponent"),
+    (["--top-nsigma", "2"], "top_nsigma"),
+    (["--no-cache-prompt"], "prompt_cache"),
+    (["-nr"], "no_repack"), (["--no-repack"], "no_repack"),
+    (["--mmap"], "mmap"), (["--warmup"], "warmup"),
+    (["--no-warmup"], "warmup"),
+]
+
+
+@pytest.mark.parametrize("argv,dest", MORE_FLAGS,
+                         ids=[a[0] for a, _ in MORE_FLAGS])
+def test_more_flags_parse_as_jax(argv, dest):
+    p, jp = cli.build_parser(), jcli.build_parser()
+    assert getattr(p.parse_args([]), dest) == getattr(jp.parse_args([]), dest)
+    assert getattr(p.parse_args(argv), dest) \
+        == getattr(jp.parse_args(argv), dest)
+
+
+def test_server_sampling_defaults_as_jax():
+    """--xtc-*, --dynatemp-* and --top-nsigma set the server-wide sampling
+    defaults the JAX CLI sets (its _default_sampling), field for field."""
+    argv = ["--xtc-probability", "0.5", "--xtc-threshold", "0.2",
+            "--dynatemp-range", "0.3", "--dynatemp-exp", "1.5",
+            "--top-nsigma", "2", "--temp", "0.7"]
+    got = cli._default_sampling(cli.build_parser().parse_args(argv))
+    want = jcli._default_sampling(jcli.build_parser().parse_args(argv))
+    for f in ("xtc_probability", "xtc_threshold", "top_n_sigma",
+              "dynatemp_range", "dynatemp_exponent", "temp"):
+        assert getattr(got, f) == getattr(want, f), f
+
+
+def test_chat_template_kwargs_and_no_cache_prompt_reach_the_server(
+        model_path):
+    engine, srv = cli.build_server(
+        ["-m", model_path, "--device", "cpu", "--port", "0", "--no-jinja",
+         "-np", "1", "-c", "64", "--weights-dtype", "f32",
+         "--no-cache-prompt", "--chat-template-kwargs",
+         '{"enable_thinking": false}', "-s", "3", "-sp", "--no-warmup"])
+    try:
+        assert srv.RequestHandlerClass.routes.chat_template_kwargs \
+            == {"enable_thinking": False}
+        assert engine.ecfg.prompt_cache is False
+    finally:
+        srv.server_close()
+        engine.stop()

@@ -49,8 +49,16 @@ from .test_arch_families import ARCHS as FAMILY_ARCHS, _write_family
 
 OWN_ARCHS = ["qwen2", "qwen3", "gpt2", "phi3", "bitnet", "hunyuan-dense",
              "olmo", "minicpm"]
-ALL_ARCHS = FAMILY_ARCHS + OWN_ARCHS
+# the attention variants: sliding windows with their layer pattern (and
+# gemma3's local rope base, cohere2/exaone4's unroped global layers),
+# attention softcap (gemma2), ALiBi (bloom, mpt, jais, refact)
+ATTN_ARCHS = ["gemma2", "gemma3", "cohere2", "exaone4", "olmo3", "bloom",
+              "mpt", "jais", "refact"]
+ALL_ARCHS = FAMILY_ARCHS + OWN_ARCHS + ATTN_ARCHS
 S, C, T = 2, 96, 12
+WINDOW = 8      # the SWA families' window: the tests' prompts pass it
+# enough layers that each pattern has a global layer
+ATTN_LAYERS = {"gemma3": 6, "cohere2": 4, "exaone4": 4, "olmo3": 4}
 
 
 def _header(path, arch, dims, extra=()):
@@ -161,9 +169,108 @@ def write_own(path, arch, seed=0, dims=(64, 4, 2, 16, 128),
     w.write()
 
 
+def write_attn(path, arch, seed=0, dims=(64, 4, 2, 16, 128),
+               quant=GGMLType.F32, n_layers=None, window=WINDOW):
+    """A GGUF of one of ATTN_ARCHS with the tensor names of its golden in
+    tests/test_arch_goldens.py (random floats from `seed`, the 2D
+    projections in `quant`): gemma2/3 with their sandwich norms (gemma3's
+    per-head q/k norms and dual rope bases), cohere2's shared-norm
+    parallel block, exaone4's and olmo3's post-norm-only blocks with
+    per-head or whole-row q/k norms, bloom's embedding LayerNorm and biased
+    fused qkv, mpt's bias-free LayerNorm, jais's biased SwiGLU and muP
+    scales, refact's single KV head; the SWA families under a window of
+    `window`."""
+    E, H, HKV, D, FF = dims
+    L = n_layers or ATTN_LAYERS.get(arch, 2)
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape, s=0.05):
+        return (rng.standard_normal(shape) * s).astype(np.float32)
+
+    def norm(n):
+        return np.ones(n, np.float32) + rand(n, s=0.1)
+
+    if arch in ("bloom", "mpt", "jais"):
+        HKV = H
+    if arch == "refact":
+        HKV = 1
+    if arch == "bloom":
+        FF = 4 * E
+    extra = {"block_count": L, "attention.head_count_kv": HKV,
+             "attention.key_length": D, "attention.value_length": D}
+    if arch in ("gemma2", "gemma3", "cohere2", "exaone4", "olmo3"):
+        extra["attention.sliding_window"] = window
+    if arch == "gemma2":
+        extra.update({"attn_logit_softcapping": 50.0,
+                      "final_logit_softcapping": 30.0})
+    if arch == "gemma3":
+        extra.update({"rope.freq_base": 1e6, "rope.local_freq_base": 1e4})
+    if arch == "cohere2":
+        extra["logit_scale"] = 0.5
+    if arch == "jais":
+        extra.update(embedding_scale=4.0, logit_scale=0.5)
+    if arch == "mpt":
+        extra["attention.max_alibi_bias"] = 8.0
+    w, V = _header(path, arch, (E, H, HKV, D, FF), extra.items())
+    qd, kvd = H * D, HKV * D
+    ln_b = arch in ("bloom", "jais")          # biased LayerNorms
+    w.add_tensor("token_embd.weight", rand(V, E))
+    if arch == "bloom":
+        w.add_tensor("token_embd_norm.weight", norm(E))
+        w.add_tensor("token_embd_norm.bias", rand(E))
+    w.add_tensor("output_norm.weight", norm(E))
+    if ln_b:
+        w.add_tensor("output_norm.bias", rand(E))
+    if arch not in ("gemma2", "gemma3", "cohere2"):   # those three tie
+        w.add_tensor("output.weight", rand(V, E), quant)
+    for i in range(L):
+        p = f"blk.{i}."
+        if arch not in ("exaone4", "olmo3"):
+            w.add_tensor(p + "attn_norm.weight", norm(E))
+            if ln_b:
+                w.add_tensor(p + "attn_norm.bias", rand(E))
+        if arch in ("gemma2", "gemma3", "exaone4", "olmo3"):
+            w.add_tensor(p + "post_attention_norm.weight", norm(E))
+            w.add_tensor(p + "post_ffw_norm.weight", norm(E))
+        if arch in ("gemma2", "gemma3", "bloom", "mpt", "jais", "refact"):
+            w.add_tensor(p + "ffn_norm.weight", norm(E))
+            if ln_b:
+                w.add_tensor(p + "ffn_norm.bias", rand(E))
+        if arch in ("gemma3", "exaone4"):
+            w.add_tensor(p + "attn_q_norm.weight", norm(D))
+            w.add_tensor(p + "attn_k_norm.weight", norm(D))
+        if arch == "olmo3":
+            w.add_tensor(p + "attn_q_norm.weight", norm(qd))
+            w.add_tensor(p + "attn_k_norm.weight", norm(kvd))
+        if arch in ("bloom", "mpt", "jais"):
+            w.add_tensor(p + "attn_qkv.weight", rand(qd + 2 * kvd, E), quant)
+            if ln_b:
+                w.add_tensor(p + "attn_qkv.bias", rand(qd + 2 * kvd))
+        else:
+            w.add_tensor(p + "attn_q.weight", rand(qd, E), quant)
+            w.add_tensor(p + "attn_k.weight", rand(kvd, E), quant)
+            w.add_tensor(p + "attn_v.weight", rand(kvd, E), quant)
+        w.add_tensor(p + "attn_output.weight", rand(E, qd), quant)
+        if ln_b:
+            w.add_tensor(p + "attn_output.bias", rand(E))
+        if arch not in ("bloom", "mpt"):
+            w.add_tensor(p + "ffn_gate.weight", rand(FF, E), quant)
+            if arch == "jais":
+                w.add_tensor(p + "ffn_gate.bias", rand(FF))
+        w.add_tensor(p + "ffn_up.weight", rand(FF, E), quant)
+        if ln_b:
+            w.add_tensor(p + "ffn_up.bias", rand(FF))
+        w.add_tensor(p + "ffn_down.weight", rand(E, FF), quant)
+        if ln_b:
+            w.add_tensor(p + "ffn_down.bias", rand(E))
+    w.write()
+
+
 def write_arch(path, arch, seed=0):
     if arch in FAMILY_ARCHS:
         _write_family(path, arch, seed=seed)
+    elif arch in ATTN_ARCHS:
+        write_attn(path, arch, seed=seed)
     else:
         write_own(path, arch, seed=seed)
 
@@ -245,7 +352,8 @@ def test_verify_forward_rows_equal_decode_steps(paths, arch):
 
 
 @pytest.mark.parametrize("arch", ["gpt2", "qwen2", "olmo2", "phi3",
-                                  "bitnet"])
+                                  "bitnet", "gemma3", "exaone4", "bloom",
+                                  "jais"])
 def test_params_from_numpy_carries_every_key(paths, arch):
     """The JAX loader's tree carried into torch (params_from_numpy) holds
     the port loader's keys and gives its prefill logits bit for bit."""
@@ -302,6 +410,28 @@ def test_embeddings_pass_matches_jax(w8_paths, arch, pooling):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("arch", ["gemma2", "gemma3", "cohere2", "bloom"])
+def test_embeddings_pass_matches_jax_on_attention_variants(paths, arch):
+    """The embeddings pass on the attention variants (rows past the
+    window of 8): as in the JAX forward_embeddings, whose mask is the
+    causal one alone, no layer attends under the window, while the rope
+    branches (gemma3's local base, cohere2's unroped layers), the softcap
+    (gemma2) and ALiBi (bloom) apply."""
+    jcfg, jp, tcfg, tp = _load_both(paths[arch], jnp.float32, torch.float32)
+    rng = np.random.default_rng(10)
+    toks = rng.integers(3, 280, (3, 16)).astype(np.int32)
+    lens = np.array([16, 12, 5], np.int32)
+    jcos, jsin = jllama.make_rope(jcfg, 16)
+    want = np.asarray(jllama.forward_embeddings(
+        jp, jcfg, jnp.asarray(toks), jnp.asarray(lens), jcos, jsin,
+        pooling="mean"))
+    cos, sin = tllama.make_rope(tcfg, 16, device="cpu")
+    got = tllama.forward_embeddings(tp, tcfg, torch.from_numpy(toks),
+                                    torch.from_numpy(lens), cos, sin,
+                                    pooling="mean").numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
 @pytest.mark.parametrize("arch", ["gpt2", "qwen3"])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_w8a8_prefill_logits_match_jax(w8_paths, arch, dt):
@@ -320,17 +450,34 @@ def test_w8a8_prefill_logits_match_jax(w8_paths, arch, dt):
                                atol=rel * np.abs(want).max() + floor)
 
 
+@pytest.mark.parametrize("heads", [(4, 4), (12, 4), (20, 20), (32, 8)])
+def test_alibi_slopes_match_jax(paths, heads):
+    """The [Hkv, G] ALiBi slopes, power-of-two head counts and others (the
+    ggml interleave past the largest power of two), bit for bit."""
+    H, Hkv = heads
+    tcfg, _ = load_model(paths["bloom"], dtype=torch.float32, device="cpu")
+    jcfg, _ = jax_load(paths["bloom"], dtype=jnp.float32)
+    got = tllama.alibi_slopes(dataclasses.replace(
+        tcfg, n_heads=H, n_kv_heads=Hkv), "cpu")
+    want = np.asarray(jllama._alibi_slopes(dataclasses.replace(
+        jcfg, n_heads=H, n_kv_heads=Hkv)))
+    assert got.shape == want.shape == (Hkv, H // Hkv)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 # -- what stays refused -----------------------------------------------------
 
 
 @pytest.mark.parametrize("flag,value,named", [
-    ("swa_window", 16, "swa_window"), ("alibi_max_bias", 8.0, "alibi"),
-    ("attn_softcap", 30.0, "attn_softcap"), ("qk_l2_norm", True, "qk_l2"),
+    ("chunked_window", 8192, "chunked_window"),
+    ("mrope_sections", (4, 2, 2), "mrope"), ("v_head_dim", 32, "v_head_dim"),
+    ("qk_l2_norm", True, "qk_l2"),
     ("attn_temp_scale", 0.1, "attn_temp"), ("expert_count", 4, "expert"),
     ("kv_lora_rank", 16, "kv_lora"), ("ssm_d_inner", 16, "recurrent")])
 def test_outside_the_slice_is_refused_at_load(tmp_path, flag, value, named):
-    """MoE, MLA, SWA, ALiBi, attention softcap, llama4's q/k L2 norm and
-    temperature, recurrent: still refused by the port's check."""
+    """MoE, MLA, M-RoPE, llama4's chunked window, q/k L2 norm and
+    temperature, a V head width other than K's, recurrent: still refused
+    by the port's check, by name."""
     path = str(tmp_path / "m.gguf")
     write_own(path, "qwen3")
     cfg, params = load_model(path, dtype=torch.float32, device="cpu")

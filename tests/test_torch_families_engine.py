@@ -3,9 +3,12 @@ every family of tests/test_torch_families.py, the port engine's greedy
 tokens at K 1 and K 4 equal the JAX engine's (f32 weights and KV cache),
 on prompts whose greedy steps all clear a top-2 log-prob margin of 1e-3
 (checked, so a near tie shows as one; the f32 noise between the packages
-is about 1e-6). And a context shift (models/llama.shift_kv) equals JAX
+is about 1e-6); the attention families' prompts are longer than their
+sliding window. And a context shift (models/llama.shift_kv) equals JAX
 `shift_kv_impl` on gpt2 (rope_mode "none": the keys only move), qwen3
-(neox) and phi3 (longrope delta tables), f32 within 1e-6."""
+(neox), phi3 (longrope delta tables), gemma3 (a local rope base) and
+cohere2 (unroped global layers), the last two through stacked tables
+picked per layer, f32 within 1e-6."""
 
 import math
 
@@ -29,7 +32,7 @@ from llama_box_tpu_torch.server.engine import Engine, EngineConfig
 from llama_box_tpu_torch.server.task import CompletionsTask
 from llama_box_tpu_torch.tokenizer import Tokenizer
 
-from .test_torch_families import ALL_ARCHS, write_arch
+from .test_torch_families import ALL_ARCHS, ATTN_ARCHS, WINDOW, write_arch
 
 N_GEN, MARGIN = 6, 1e-3
 
@@ -60,6 +63,10 @@ def _collect(tasks, timeout=180):
 # prompts whose greedy steps clear MARGIN in every family (the random
 # models' logits are flat, and other prompts meet near ties)
 PROMPTS = ([1, 106, 88, 120, 137, 202, 249], [1, 23, 261, 150, 102])
+# the attention families': past the window of 8, clearing MARGIN too
+ATTN_PROMPTS = ([1, 192, 167, 17, 254, 64, 73, 54, 95, 51, 99, 227],
+                [1, 74, 257, 50, 176, 145, 257, 174, 242, 131, 63, 55, 242,
+                 59])
 
 
 def _ecfg(cls, chain):
@@ -67,7 +74,7 @@ def _ecfg(cls, chain):
                decode_chain=chain)
 
 
-def _port_tokens(path, chain):
+def _port_tokens(path, chain, prompts):
     cfg, params = load_model(path, dtype=torch.float32, device="cpu")
     with GGUFFile(path) as g:
         tok = Tokenizer.from_gguf(g)
@@ -76,7 +83,7 @@ def _port_tokens(path, chain):
     try:
         tasks = [CompletionsTask(list(p), SamplerParams(temp=0.0),
                                  tokenizer=tok, max_tokens=N_GEN, n_probs=2)
-                 for p in PROMPTS]
+                 for p in prompts]
         for t in tasks:
             eng.submit(t)
         return _collect(tasks)
@@ -84,7 +91,7 @@ def _port_tokens(path, chain):
         eng.stop()
 
 
-def _jax_tokens(path):
+def _jax_tokens(path, prompts):
     cfg, params = jax_load(path, dtype=jnp.float32)
     with JGGUFFile(path) as g:
         tok = JTokenizer.from_gguf(g)
@@ -92,7 +99,7 @@ def _jax_tokens(path):
     eng.start()
     try:
         tasks = [JTask(list(p), JSamplerParams(temp=0.0), tokenizer=tok,
-                       max_tokens=N_GEN) for p in PROMPTS]
+                       max_tokens=N_GEN) for p in prompts]
         for t in tasks:
             eng.submit(t)
         return [t.generated for t in _collect(tasks)]
@@ -102,9 +109,11 @@ def _jax_tokens(path):
 
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_engine_greedy_matches_jax(paths, arch):
-    want = _jax_tokens(paths[arch])
+    prompts = ATTN_PROMPTS if arch in ATTN_ARCHS else PROMPTS
+    assert arch not in ATTN_ARCHS or min(map(len, prompts)) > WINDOW
+    want = _jax_tokens(paths[arch], prompts)
     for chain in (1, 4):
-        finals = _port_tokens(paths[arch], chain)
+        finals = _port_tokens(paths[arch], chain, prompts)
         for f in finals:
             for tp in f.probs:
                 p0, p1 = tp.top_probs[:2]
@@ -113,7 +122,8 @@ def test_engine_greedy_matches_jax(paths, arch):
         assert [f.generated for f in finals] == want, chain
 
 
-@pytest.mark.parametrize("arch", ["gpt2", "qwen3", "phi3"])
+@pytest.mark.parametrize("arch", ["gpt2", "qwen3", "phi3", "gemma3",
+                                  "cohere2"])
 def test_shift_kv_matches_jax(paths, arch):
     cfg, _ = load_model(paths[arch], dtype=torch.float32, device="cpu")
     jcfg, _ = jax_load(paths[arch], dtype=jnp.float32)
@@ -124,14 +134,18 @@ def test_shift_kv_matches_jax(paths, arch):
     kv = tllama.KVCache(torch.from_numpy(k).float(),
                         torch.from_numpy(v).float())
     dcos, dsin = tllama.make_delta_rope(cfg, C, device="cpu")
-    tllama.shift_kv(kv, 1, 4, 16, dcos, dsin, cfg.rope_mode)
+    select = tllama.layer_is_local(cfg) if dcos.dim() == 3 else None
+    assert (select is not None) == (arch in ("gemma3", "cohere2"))
+    tllama.shift_kv(kv, 1, 4, 16, dcos, dsin, cfg.rope_mode, select)
     jcos, jsin = jllama.make_delta_rope(jcfg, C)
     np.testing.assert_allclose(dcos.numpy(), np.asarray(jcos), rtol=0,
                                atol=1e-7)
     jkv = jllama.shift_kv_impl(
         jllama.KVCache(jnp.asarray(k, jnp.float32),
                        jnp.asarray(v, jnp.float32)),
-        1, 4, 16, jcos, jsin, jcfg.rope_mode)
+        1, 4, 16, jcos, jsin, jcfg.rope_mode,
+        layer_select=(None if select is None
+                      else jllama._layer_is_local(jcfg)))
     np.testing.assert_allclose(kv.k.numpy(), np.asarray(jkv.k), rtol=0,
                                atol=1e-6)
     np.testing.assert_allclose(kv.v.numpy(), np.asarray(jkv.v), rtol=0,
@@ -139,3 +153,64 @@ def test_shift_kv_matches_jax(paths, arch):
     if cfg.rope_mode == "none":
         assert np.array_equal(kv.k.numpy()[:, 1, 4:C - 16],
                               k[:, 1, 20:].astype(np.float32))
+
+
+def _reuse_port(path, prompts):
+    cfg, params = load_model(path, dtype=torch.float32, device="cpu")
+    with GGUFFile(path) as g:
+        tok = Tokenizer.from_gguf(g)
+    eng = Engine(cfg, params, tok, _ecfg(EngineConfig, 4), device="cpu")
+    eng.start()
+    try:
+        out = []
+        for p in prompts:      # one at a time: each meets the last's slot
+            t = CompletionsTask(list(p), SamplerParams(temp=0.0),
+                                tokenizer=tok, max_tokens=2)
+            eng.submit(t)
+            _collect([t])
+            out.append(t.n_cached)
+        return out, eng
+    finally:
+        eng.stop()
+
+
+def _reuse_jax(path, prompts):
+    cfg, params = jax_load(path, dtype=jnp.float32)
+    with JGGUFFile(path) as g:
+        tok = JTokenizer.from_gguf(g)
+    eng = JEngine(cfg, params, tok, _ecfg(JEngineConfig, 4))
+    eng.start()
+    try:
+        out = []
+        for p in prompts:
+            t = JTask(list(p), JSamplerParams(temp=0.0), tokenizer=tok,
+                      max_tokens=2)
+            eng.submit(t)
+            _collect([t])
+            out.append(t.n_cached)
+        return out
+    finally:
+        eng.stop()
+
+
+@pytest.mark.parametrize("arch", ["gemma2", "cohere2", "qwen3"])
+def test_swa_admission_gates_reuse_as_jax(paths, arch):
+    """The prefix cache's reuse a prompt is admitted with (task.n_cached)
+    equals the JAX engine's: under a sliding window (gemma2, cohere2) a
+    partial prefix reuse becomes 0, as it would dip below the window,
+    while a whole-prompt repeat keeps its reuse; without one (qwen3) the
+    partial reuse stays. No slot shares another's rows under a window
+    (`_share_prefix`, the JAX rule), where qwen3 shares them."""
+    a = ATTN_PROMPTS[0] + [7, 8, 9, 10]
+    b = a[:12] + [40, 41, 42, 43, 44]
+    got, eng = _reuse_port(paths[arch], [a, b, b])
+    assert got == _reuse_jax(paths[arch], [a, b, b])
+    swa = eng.cfg.swa_window > 0
+    assert got == ([0, 0, len(b) - 1] if swa else [0, 12, len(b) - 1])
+    # a donor slot holding a longer prefix of the prompt than `best`
+    donor, best = eng.slots
+    donor.cache_tokens, donor.pos = list(a), len(a)
+    best.cache_tokens, best.pos = [], 0
+    eng.ecfg.cache_share_min = 4
+    shared = eng._share_prefix(best, a + [50], 0)
+    assert shared == (0 if swa else len(a))

@@ -165,3 +165,49 @@ def test_decode_splits_depend_on_the_capacity_alone(C, want):
     assert (L, S) == want
     assert L % 64 == 0 and L >= 128 and 1 <= S <= 64
     assert (S - 1) * L < C <= S * L
+
+
+# the attention variants' head widths (phi-2's 80, phi-3's 96, gemma's 256)
+# under a layer pattern: row 0 of the per-layer window buffer is a local
+# layer's window, row 1 a global layer's 0; gemma-2's softcap on both
+WINDOWS = np.array([[24, 0], [0, 0]], np.int32)
+
+
+@pytest.mark.parametrize("D", [80, 96, 256])
+@pytest.mark.parametrize("layer", [0, 1], ids=["local", "global"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_prefill_plain_matches_pallas_at_head_widths(D, layer, dtype):
+    rng = np.random.default_rng(D + layer)
+    c = prefill_case(rng, D=D, T=40, C=96, pos0=(40, 8), n_valid=(40, 29))
+    win = WINDOWS[layer]
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    want = np.asarray(jax_prefill(
+        *(jnp.asarray(c[k], jdt) for k in ("q", "kc", "vc", "kr", "vr")),
+        jnp.asarray(c["meta"]), jnp.asarray(win), softcap=50.0, bq=32,
+        bc=32, interpret=True))
+    got = flash_prefill_batched(
+        *(as_t(c[k], tdt) for k in ("q", "kc", "vc", "kr", "vr")),
+        as_t(c["meta"]), as_t(win), softcap=50.0)
+    valid_rows(got.numpy(), want, c["meta"],
+               F32_ATOL if dtype == "f32" else BF16_ATOL)
+
+
+@pytest.mark.parametrize("D", [80, 96, 256])
+@pytest.mark.parametrize("layer", [0, 1], ids=["local", "global"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_decode_plain_matches_pallas_at_head_widths(D, layer, dtype):
+    rng = np.random.default_rng(D + layer)
+    c = decode_case(rng, D=D, C=96, R=8, cpos=(70, 9), nv=(6, 8))
+    win = WINDOWS[layer]
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    want = np.asarray(jax_decode(
+        *(jnp.asarray(c[k], jdt) for k in ("q", "kc", "vc", "kr", "vr")),
+        jnp.asarray(c["meta"]), jnp.asarray(win), softcap=50.0, bc=32,
+        interpret=True))
+    got = flash_decode(
+        *(as_t(c[k], tdt) for k in ("q", "kc", "vc", "kr", "vr")),
+        as_t(c["meta"]), as_t(win), softcap=50.0)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=F32_ATOL if dtype == "f32" else BF16_ATOL)

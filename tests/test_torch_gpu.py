@@ -886,7 +886,7 @@ def test_q4_mm_writes_the_dtype_of_x(cuda):
 
 
 def _served_decode(rng, cuda, cpos, nv, quant, C=2048, R=16, B=4, Hkv=4,
-                   G=8, D=64):
+                   G=8, D=64, win=(0, 0)):
     """One decode call at the served shape in which the chain's rows hold
     the values the cache holds (an int8 cache: its codes times their scale,
     rounded to bf16, as the model's rows hold them), and every cache
@@ -923,7 +923,7 @@ def _served_decode(rng, cuda, cpos, nv, quant, C=2048, R=16, B=4, Hkv=4,
     kr[:, nv - 1], vr[:, nv - 1] = cur_k, cur_v
     meta = torch.tensor([[cpos, nv]] * B, dtype=torch.int32, device=cuda)
     return (q, kc, vc, kr, vr, meta,
-            torch.zeros(2, dtype=torch.int32, device=cuda)), sc
+            torch.tensor(win, dtype=torch.int32, device=cuda)), sc
 
 
 @pytest.mark.parametrize("cpos", [17, 1023, 2040])
@@ -2388,3 +2388,119 @@ def test_spec_greedy_text_equals_plain_decode_at_tinyllama_width(
         assert _serve(ref, specs) == out
     finally:
         ref.stop()
+
+
+# -- the attention variants: head widths 80, 96 and 256, a layer's window
+# row, the softcap and ALiBi ---------------------------------------------------
+
+# (Hkv, G) a width: phi-2 / phi-3-mini are MHA, gemma-3-1b has 4 query
+# heads on one KV head
+_VARIANT_HEADS = {80: (2, 1), 96: (2, 2), 256: (1, 4)}
+_VARIANT_CASES = {"local": dict(win=(24, 0)),
+                  "global_softcap": dict(softcap=50.0),
+                  "alibi": dict(alibi=True),
+                  "alibi_int8": dict(alibi=True, quant=True)}
+
+
+def _variant_kw(case, Hkv, G, cuda):
+    kw = dict(_VARIANT_CASES[case])
+    win = torch.tensor(kw.pop("win", (0, 0)), dtype=torch.int32)
+    alibi = (torch.rand(Hkv, G, generator=torch.Generator().manual_seed(1))
+             * 0.5 + 0.01).to(cuda) if kw.pop("alibi", False) else None
+    return win, dict(softcap=kw.pop("softcap", 0.0), alibi=alibi), kw
+
+
+@pytest.mark.parametrize("D", sorted(_VARIANT_HEADS))
+@pytest.mark.parametrize("case", sorted(_VARIANT_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_kernel_variants_match_plain(cuda, D, case, dtype):
+    Hkv, G = _VARIANT_HEADS[D]
+    win, opts, kw = _variant_kw(case, Hkv, G, cuda)
+    if kw.get("quant") and dtype == torch.float32:
+        pytest.skip("int8 caches are served to bf16 queries")
+    c = prefill_case(np.random.default_rng(D), B=2, Hkv=Hkv, G=G, D=D,
+                     C=256, T=80, pos0=(150, 40), n_valid=(80, 33), **kw)
+    _poison(c, c["meta"][:, 0])
+    args, sc = _on(cuda, c, dtype)
+    meta = as_t(c["meta"]).to(cuda)
+    before = flash_prefill_batched.launches
+    got = flash_prefill_batched(*args, meta, win, **opts, **sc)
+    want = flash_prefill_plain(*args, meta, win, **opts, **sc)
+    torch.cuda.synchronize()
+    assert flash_prefill_batched.launches == before + 1
+    atol = F32_ATOL if dtype == torch.float32 and not kw else BF16_ATOL
+    for b, nv in enumerate(c["meta"][:, 1]):
+        assert torch.isfinite(got[b, :, :, :nv]).all()
+        torch.testing.assert_close(got[b, :, :, :nv], want[b, :, :, :nv],
+                                   rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("D", sorted(_VARIANT_HEADS))
+@pytest.mark.parametrize("case", sorted(_VARIANT_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_variants_match_plain(cuda, D, case, dtype):
+    Hkv, G = _VARIANT_HEADS[D]
+    win, opts, kw = _variant_kw(case, Hkv, G, cuda)
+    if kw.get("quant") and dtype == torch.float32:
+        pytest.skip("int8 caches are served to bf16 queries")
+    c = decode_case(np.random.default_rng(D), B=2, Hkv=Hkv, G=G, D=D, C=256,
+                    R=16, cpos=(200, 40), nv=(5, 1), **kw)
+    _poison(c, c["meta"][:, 0] - c["meta"][:, 1] + 1)
+    args, sc = _on(cuda, c, dtype)
+    meta = as_t(c["meta"]).to(cuda)
+    before = flash_decode.launches
+    got = flash_decode(*args, meta, win, **opts, **sc)
+    want = flash_decode_plain(*args, meta, win, **opts, **sc)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    assert torch.isfinite(got).all()
+    atol = F32_ATOL if dtype == torch.float32 and not kw else BF16_ATOL
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+def test_prefill_kernel_cold_equals_cached_prefix_at_d256_in_a_window(cuda):
+    """Gemma-3-1B's heads (1 x 4 of 256) under its 512 window: a 700-token
+    prompt prefilled cold and the same prompt with its first 300 positions
+    in a bf16 cache give the same bits (tiles stay aligned to absolute
+    key positions; a tile wholly below a row's window is skipped)."""
+    rng = np.random.default_rng(41)
+    T, P, C, D = 700, 300, 1024, 256
+    c = prefill_case(rng, B=2, Hkv=1, G=4, D=D, C=C, T=T, pos0=(0, 0),
+                     n_valid=(T, T))
+    bf = torch.bfloat16
+    q, kr, vr = (as_t(c[k]).to(cuda, bf) for k in ("q", "kr", "vr"))
+    kc = torch.full((2, C, 1, D), float("nan"), device=cuda, dtype=bf)
+    vc = kc.clone()
+    win = torch.tensor([512, 0], dtype=torch.int32, device=cuda)
+    meta = torch.tensor([[0, T, 0, 0]] * 2, dtype=torch.int32, device=cuda)
+    cold = flash_prefill_batched(q, kc, vc, kr, vr, meta, win)
+    want = flash_prefill_plain(q, kc, vc, kr, vr, meta, win)
+    kc[:, :P], vc[:, :P] = kr[:, :P], vr[:, :P]
+    meta = torch.tensor([[P, T - P, 0, 0]] * 2, dtype=torch.int32,
+                        device=cuda)
+    warm = flash_prefill_batched(q[:, :, :, P:].contiguous(), kc, vc,
+                                 kr[:, P:].contiguous(),
+                                 vr[:, P:].contiguous(), meta, win)
+    torch.cuda.synchronize()
+    assert torch.isfinite(warm).all()
+    assert torch.equal(warm, cold[:, :, :, P:])
+    torch.testing.assert_close(cold, want, rtol=0, atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("cpos", [1023, 3000])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16cache", "int8"])
+def test_decode_kernel_chain_rows_give_the_cache_bits_at_d256_in_a_window(
+        cuda, cpos, quant):
+    """The nv = 16 / nv = 1 bit check at Gemma-3-1B's heads under its 512
+    window, at C 4096 (most splits hold no visible key)."""
+    out = {}
+    for nv in (1, 16):
+        args, sc = _served_decode(np.random.default_rng(cpos), cuda, cpos, nv,
+                                  quant, C=4096, Hkv=1, G=4, D=256,
+                                  win=(512, 0))
+        out[nv] = flash_decode(*args, **sc)
+        want = flash_decode_plain(*args, **sc)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out[nv]).all()
+        torch.testing.assert_close(out[nv], want, rtol=0, atol=BF16_ATOL)
+    assert torch.equal(out[1], out[16])

@@ -153,18 +153,20 @@ def test_kv_quantize_matches_jax():
 
 
 @pytest.mark.parametrize("change,refused", [
-    (dict(head_dim=80), True), (dict(head_dim=96), True),
-    (dict(head_dim=256), True), (dict(), True),       # the fixture's 16
+    (dict(head_dim=112), True), (dict(head_dim=192), True),
+    (dict(head_dim=32), True), (dict(), True),        # the fixture's 16
     (dict(head_dim=64), False), (dict(head_dim=128), False),
     (dict(head_dim=64, v_head_dim=64), False),
     (dict(head_dim=64, n_heads=34, n_kv_heads=2), True),   # 17 a KV head
-    (dict(head_dim=64, n_heads=32, n_kv_heads=2), False)])
+    (dict(head_dim=64, n_heads=32, n_kv_heads=2), False),
+    (dict(head_dim=80), False), (dict(head_dim=96), False),
+    (dict(head_dim=256), False)])
 def test_cuda_refuses_head_shapes_the_kernels_cannot_take(models, change,
                                                           refused):
     """On a CUDA device the engine's check refuses, at load, a head width
-    the attention kernels do not instantiate (64, 128) or more than 16
-    query heads per KV head; the CPU's plain versions take any. (Building
-    torch.device("cuda") needs no card.)"""
+    the attention kernels do not instantiate (64, 80, 96, 128, 256) or
+    more than 16 query heads per KV head; the CPU's plain versions take
+    any. (Building torch.device("cuda") needs no card.)"""
     _, _, tcfg, tp = models
     cfg = dataclasses.replace(tcfg, **change)
     tllama.check_supported(cfg, tp, torch.device("cpu"))
