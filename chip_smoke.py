@@ -47,8 +47,19 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     same alone, among 4 rows and among 36 (a verify pass); then its
     times beside the bound (bytes), the plain version and torch's
     rms_norm / layer_norm (never used by the port);
- 5. end to end, bf16 path: a synthetic TinyLlama-1.1B-width GGUF (random
-    F16 weights from --seed, a 32000-piece SPM vocab, a chatml template;
+ 3m/4m. the routed-expert kernel (csrc/moe_ffn.cu, port-only) against
+    its plain version at the rows phase 13 gives it (Qwen3-30B-A3B's
+    layer, 128 experts, 8 a token, 2048 x 768: a decode step of 4 rows, a
+    verify pass of 36, a 4 x 512 prefill of 2048) and at gpt-oss-20b's
+    widths (32 experts, 4 a token, 2880 x 2880, swiglu_oai, biases, an
+    expert no row picks), within MOE_RTOL x max|plain|, NaN output guards
+    intact; a row's bits the same alone, among 36 and among 2048; then
+    its times beside the bound (the distinct experts' bytes, or 6 N K E F
+    operations), the plain version and torch._grouped_mm's three
+    products on the rows sorted by expert (never used by the port);
+ 5. end to end, bf16 path: a synthetic TinyLlama-1.1B-width GGUF (12 of
+    its 22 layers; random F16 weights from --seed, a 32000-piece SPM
+    vocab, a chatml template;
     it and 5w's and 5q's files are written by three worker processes
     while phases 3 and 4 run, all three done before phase 5 starts)
     is served by the port's own HTTP server at -np 4 -c 8192 -ub 512
@@ -213,7 +224,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     kernel and with the norms' plain torch versions, its row-norm
     launches, and no torch mean reduction (a norm's) in it;
  12. the attention variants at published widths, after phase 11, on
-    phase 11's machinery (every layer): Gemma-3-1B's (google/gemma-3-1b-pt
+    phase 11's machinery (depth cut to 12 and 8 layers for the script's
+    time limit): Gemma-3-1B's (google/gemma-3-1b-pt
     config.json: 26 x 1152, 4 / 1 heads of 256, FF 6912, vocab 262144,
     a 512 window on 5 layers of 6, rope bases 1e6 and 1e4, q/k norms, post
     norms, tied embeddings) and BLOOM-560m's (bigscience/bloom-560m: 24 x
@@ -222,14 +234,27 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     at -np 4 -c 4096 with prompts of about 700 tokens (past the window);
     the cosine is long_forward's (640 positions, the second chunk reading
     the first from the cache, then a decode step) to the f32 CPU forward;
- 9. print a `kernels` line (eight kernels; launches count graph replays;
+ 13. a mixture-of-experts model at published widths, after phase 12, on
+    phase 11's machinery: Qwen3-30B-A3B's (Qwen/Qwen3-30B-A3B
+    config.json: 48 x 2048, 32 / 4 heads of 128, per-head q/k norms, 128
+    experts, 8 a token, expert FF 768, norm_topk_prob, rope base 1e6,
+    vocab 151936, untied output; Q8_0 matrices and expert stacks, the
+    router F32; depth cut to 8 layers; the file, about 6 GB, written by a
+    worker beside phases 3 and 4), on the bf16 and w8a8 paths (the
+    experts bf16 on both): the routed-expert kernel must run; the cosine
+    to the f32 CPU forward of the file (the plain versions on the host);
+    then verify rows bit-equal to one-row steps (bf16 and int8 caches)
+    and, on bf16, a self-drafting wave counting its kernels;
+ 9. print a `kernels` line (nine kernels; launches count graph replays;
     each also with its launches in the self-drafting waves of 8/8w/8q,
     in phase 8's n-gram, self-draft and 2-layer draft waves and in each
     path's embeddings request of phase 10, where bf16's window also holds
-    the chats' chains, and in one request of each phase 11 and 12 model
-    and path; the attention kernels also with their variant shapes' times),
-    an `e2e` line (three paths and phases 6, 7, 8, 10, 11 and 12), the
-    card line, and as the last line {"ok": true, "device": {...}}.
+    the chats' chains, and in one request of each phase 11, 12 and 13
+    model and path; the attention kernels also with their variant shapes'
+    times, moe_ffn with all its timed shapes, its launches those of one
+    phase 13 bf16 request), an `e2e` line (three paths and phases 6, 7,
+    8, 10, 11, 12 and 13), the card line, and as the last line {"ok":
+    true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without CUDA,
 or without the llama_box_tpu_torch package beside it, it exits non-zero
@@ -255,8 +280,9 @@ from concurrent.futures import ProcessPoolExecutor
 import numpy as np
 import torch
 
-# TinyLlama-1.1B (BASELINE config 1): published widths, all 22 layers
-L, E, H, HKV, D, FF, V = 22, 2048, 32, 4, 64, 5632, 32000
+# TinyLlama-1.1B (BASELINE config 1): published widths; depth cut from 22
+# to 12 layers for the script's time limit with phase 13 beside it
+L, E, H, HKV, D, FF, V = 12, 2048, 32, 4, 64, 5632, 32000
 N_SLOTS, N_CTX, N_UBATCH, CHAIN = 4, 8192, 512, 16
 SLOT_CTX = N_CTX // N_SLOTS
 HBM_BPS, BF16_FLOPS = 3.35e12, 989e12          # H100 SXM data sheet peaks
@@ -1429,6 +1455,7 @@ def kernel_counters() -> dict:
     from llama_box_tpu_torch.ops.flash_prefill import flash_prefill_batched
     from llama_box_tpu_torch.ops.fused_decode import (fused_layer_tail,
                                                       fused_norm_qmm)
+    from llama_box_tpu_torch.ops.moe import moe_ffn
     from llama_box_tpu_torch.ops.norm import row_norm
     from llama_box_tpu_torch.ops.qmatmul import (q4_matmul, q8_matmul,
                                                  w8a8_matmul)
@@ -1436,7 +1463,7 @@ def kernel_counters() -> dict:
             "flash_decode": flash_decode, "w8a8_matmul": w8a8_matmul,
             "fused_norm_qmm": fused_norm_qmm,
             "fused_layer_tail": fused_layer_tail, "q4_matmul": q4_matmul,
-            "q8_matmul": q8_matmul, "row_norm": row_norm}
+            "q8_matmul": q8_matmul, "row_norm": row_norm, "moe_ffn": moe_ffn}
 
 
 # each served path: phase name, GGUF types, extra CLI flags, environment,
@@ -4139,6 +4166,159 @@ def norm_kernel_phase(dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# the routed-expert kernel (csrc/moe_ffn.cu): phases 3m and 4m
+
+# label -> (N rows, X experts, K picks, E, F, activation, gpt-oss's biases,
+# an expert no row picks): Qwen3-30B-A3B's layer at the rows phase 13 gives
+# it, and gpt-oss-20b's (32 experts, 4 a token, 2880 wide) with biases
+MOE_CASES = {
+    "qwen3-30b-a3b N 4 (a decode step)": (4, 128, 8, 2048, 768, "silu",
+                                          False, False),
+    "qwen3-30b-a3b N 36 (a verify pass)": (36, 128, 8, 2048, 768, "silu",
+                                           False, False),
+    "qwen3-30b-a3b N 2048 (a 4 x 512 prefill)": (2048, 128, 8, 2048, 768,
+                                                 "silu", False, False),
+    "gpt-oss-20b N 36, swiglu_oai, biases, an idle expert": (
+        36, 32, 4, 2880, 2880, "swiglu_oai", True, True),
+}
+MOE_MAIN = "qwen3-30b-a3b N 4 (a decode step)"
+# x max|plain|: f32 sums of the same exact bf16 products in another order;
+# the activation enters the down product as hi + lo bf16 parts
+MOE_RTOL = 1e-4
+
+
+def _moe_inputs(g, dev, case):
+    N, X, K, E, F, act, bias, idle = MOE_CASES[case]
+    bf = torch.bfloat16
+
+    def r(*shape, s=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(bf)
+    pool = X - 1 if idle else X
+    topi = torch.rand(N, pool, generator=g, device=dev).argsort(dim=1)[
+        :, :K].to(torch.int32)
+    topv = torch.rand(N, K, generator=g, device=dev) + 0.05
+    stacks = (r(X, E, F, s=E ** -0.5), r(X, E, F, s=E ** -0.5),
+              r(X, F, E, s=F ** -0.5))
+    kw = dict(act=act)
+    if bias:
+        kw.update(b_gate=r(X, F, s=0.5), b_up=r(X, F, s=0.5),
+                  b_down=r(X, E, s=0.1))
+    return r(N, E), topi, topv, stacks, kw
+
+
+def moe_work(h, topi, stacks, kw) -> tuple[float, float]:
+    """(bytes, operations) one call needs: the distinct experts' stacks
+    its rows pick (and their biases), h, the picks and y, each once; the
+    three products of every (row, pick) pair."""
+    N, E = h.shape
+    K = topi.shape[1]
+    F = stacks[0].shape[-1]
+    used = int(torch.unique(topi).numel())
+    nbytes = used * 3 * E * F * 2 + N * E * 2 + N * K * 8 + N * E * 4
+    if kw.get("b_gate") is not None:
+        nbytes += used * (2 * F + E) * 2
+    return nbytes, 2.0 * N * K * 3 * E * F
+
+
+def _grouped_mm_fn(h, topi, stacks, act):
+    """The library yardstick, never used by the port: torch._grouped_mm's
+    gate, up and down products over the rows sorted by expert beforehand
+    (the sort and the weighted sum are not in it), the activation between
+    them: (the call, ""), or (None, why) where the card's torch lacks it
+    or refuses the shapes."""
+    from llama_box_tpu_torch.ops.moe import expert_act
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "torch has no _grouped_mm"
+    K = topi.shape[1]
+    flat = topi.reshape(-1).long()
+    order = torch.sort(flat, stable=True).indices
+    rows = h.index_select(0, order // K).contiguous()
+    offs = torch.bincount(flat, minlength=stacks[0].shape[0]).cumsum(0).to(
+        torch.int32)
+    wg, wu, wd = stacks
+
+    def fn():
+        gate = torch._grouped_mm(rows, wg, offs=offs)
+        up = torch._grouped_mm(rows, wu, offs=offs)
+        a = expert_act(gate.float(), up.float(), act).to(torch.bfloat16)
+        return torch._grouped_mm(a, wd, offs=offs)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except Exception as exc:   # the yardstick only: its absence is logged
+        return None, f"{type(exc).__name__}: {str(exc)[:160]}"
+    return fn, ""
+
+
+def moe_kernel_phase(dev, seed):
+    """Phase 3m: the routed-expert kernel against its plain version at the
+    rows phase 13 gives it (Qwen3-30B-A3B's layer: a decode step of 4
+    rows, a verify pass of 36, a 4 x 512 prefill) and at gpt-oss-20b's
+    widths with swiglu_oai, biases and an expert no row picks, within
+    MOE_RTOL x max|plain|; output guards of NaN stay NaN; a row's bits the
+    same alone, among 36 and among 2048. Phase 4m: its device times beside
+    the bound (the distinct experts' bytes, or the pairs' operations), the
+    plain version and torch._grouped_mm (never used by the port)."""
+    from llama_box_tpu_torch.ops.moe import moe_ffn, moe_ffn_plain
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 23)
+    log("== phase 3m: the routed-expert kernel (csrc/moe_ffn.cu) vs plain")
+    err, cases = 0.0, {}
+    pad = 256
+    for label in MOE_CASES:
+        h, topi, topv, stacks, kw = _moe_inputs(g, dev, label)
+        N, E = h.shape
+        buf = torch.full((N * E + 2 * pad,), float("nan"), device=dev)
+        out = buf[pad:pad + N * E].view(N, E)
+        before = moe_ffn.launches
+        got = moe_ffn(h, topi, topv, *stacks, out=out, **kw)
+        want = moe_ffn_plain(h, topi, topv, *stacks, **kw)
+        torch.cuda.synchronize()
+        assert moe_ffn.launches == before + 1
+        assert torch.isnan(buf[:pad]).all() and torch.isnan(buf[-pad:]).all(), \
+            f"{label}: an output guard was written"
+        assert torch.isfinite(got).all(), label
+        e = float((got - want).abs().max())
+        tol = MOE_RTOL * float(want.abs().max())
+        log(f"  moe_ffn {label:<56s} max_abs_err {e:.3e} (tol {tol:.3e}; "
+            f"{int(torch.unique(topi).numel())} experts picked)")
+        assert e <= tol, label
+        err = max(err, e)
+        cases[label] = (h, topi, topv, stacks, kw)
+    h, topi, topv, stacks, kw = cases["qwen3-30b-a3b N 2048 (a 4 x 512 "
+                                      "prefill)"]
+    full = moe_ffn(h, topi, topv, *stacks, **kw)
+    some = moe_ffn(h[:36], topi[:36], topv[:36], *stacks, **kw)
+    same = torch.equal(full[:36], some)
+    for i in (0, 7, 35):
+        same &= torch.equal(full[i:i + 1], moe_ffn(
+            h[i:i + 1], topi[i:i + 1], topv[i:i + 1], *stacks, **kw))
+    log(f"  moe_ffn: a row's bits alone = among 36 = among 2048: {same}")
+    assert same
+
+    log("== phase 4m: moe_ffn device times (median of 15, cold L2)")
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for label, (h, topi, topv, stacks, kw) in cases.items():
+        nbytes, flops = moe_work(h, topi, stacks, kw)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        lib, why = _grouped_mm_fn(h, topi, stacks, kw["act"])
+        r = dict(kind="moe_ffn", case=label,
+                 ms=device_ms(lambda: moe_ffn(h, topi, topv, *stacks, **kw),
+                              flush),
+                 plain_ms=device_ms(lambda: moe_ffn_plain(
+                     h, topi, topv, *stacks, **kw), flush),
+                 library_ms=None if lib is None else device_ms(lib, flush),
+                 bound_ms=b_ms, bound_by=b_by, mbytes=nbytes / 1e6,
+                 gflop=flops / 1e9)
+        if why:
+            r["library_note"] = why
+        rows.append(r)
+        log("  " + json.dumps(r))
+    return {"moe_ffn": err}, rows
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the dense llama variants at published widths
 
 # name -> the published config's widths (every layer; the vocabulary a
@@ -4157,21 +4337,36 @@ VARIANTS = {
                         FF=8192, V=50304, rot=32, eps=1e-5, base=10000.0,
                         ctx=2048),
 }
-# phase 12: the attention variants at published widths, every layer
+# phase 12: the attention variants at published widths; depth cut (for
+# the script's time limit with phase 13 beside it) to two of
+# Gemma-3-1B's 6-layer local/global patterns and 8 of BLOOM-560m's layers
 ATTN_VARIANTS = {
     # google/gemma-3-1b-pt config.json: 26 x 1152, 4 / 1 heads of 256, FF
     # 6912, vocab 262144, sliding window 512 on 5 layers of 6, rope bases
     # 1e6 (global) and 1e4 (local), per-head q/k RMS norms, post norms,
-    # GELU-gated FFN, embeddings scaled by sqrt(1152) and tied
-    "gemma3-1b": dict(arch="gemma3", L=26, E=1152, H=4, HKV=1, D=256,
+    # GELU-gated FFN, embeddings scaled by sqrt(1152) and tied; 12 of 26
+    # layers
+    "gemma3-1b": dict(arch="gemma3", L=12, E=1152, H=4, HKV=1, D=256,
                       FF=6912, V=262144, rot=256, eps=1e-6, base=1e6,
                       ctx=32768, window=512),
     # bigscience/bloom-560m config.json: 24 x 1024, 16 heads of 64 (MHA),
     # FF 4096, vocab 250880, ALiBi (no rotary), embedding LayerNorm,
-    # LayerNorms and projections with biases, fused qkv, tied embeddings
-    "bloom-560m": dict(arch="bloom", L=24, E=1024, H=16, HKV=16, D=64,
+    # LayerNorms and projections with biases, fused qkv, tied embeddings;
+    # 8 of 24 layers
+    "bloom-560m": dict(arch="bloom", L=8, E=1024, H=16, HKV=16, D=64,
                        FF=4096, V=250880, rot=64, eps=1e-5, base=10000.0,
                        ctx=2048),
+}
+# phase 13: a mixture-of-experts model at published widths
+MOE_VARIANTS = {
+    # Qwen/Qwen3-30B-A3B config.json: 48 x 2048, 32 / 4 heads of 128,
+    # per-head q/k RMS norms, 128 experts, 8 a token, expert FF 768
+    # (moe_intermediate_size; intermediate_size 6144), norm_topk_prob,
+    # rope base 1e6, vocab 151936, untied output; depth cut from 48 to 8
+    # layers (the script's time limit)
+    "qwen3-30b-a3b": dict(arch="qwen3moe", L=8, E=2048, H=32, HKV=4, D=128,
+                          FF=6144, FFE=768, X=128, K=8, V=151936, rot=128,
+                          eps=1e-6, base=1e6, ctx=40960),
 }
 VARIANT_PROMPT, VARIANT_TOKENS = 200, 64
 VARIANT_COS = 0.99
@@ -4191,11 +4386,13 @@ def _q8_random(rng, shape, std=0.02) -> bytes:
 
 
 def write_variant(path: str, name: str, seed: int) -> None:
-    """The synthetic GGUF of VARIANTS[name]: Q8_0 matrices, F32 vectors,
-    random from `seed`, a synthetic vocabulary of the published size and
-    the chatml template."""
+    """The synthetic GGUF of VARIANTS[name] (or ATTN_VARIANTS',
+    MOE_VARIANTS'): Q8_0 matrices (the expert stacks too), F32 vectors and
+    the MoE router in F32 (as llama.cpp's converter writes it), random
+    from `seed`, a synthetic vocabulary of the published size and the
+    chatml template."""
     from llama_box_tpu_torch.gguf import GGMLType, GGUFWriter
-    c = {**VARIANTS, **ATTN_VARIANTS}[name]
+    c = {**VARIANTS, **ATTN_VARIANTS, **MOE_VARIANTS}[name]
     a, L_, E_, H_, HKV_, D_, FF_, V_ = (c[k] for k in (
         "arch", "L", "E", "H", "HKV", "D", "FF", "V"))
     rng = np.random.default_rng(seed + 111)
@@ -4224,6 +4421,12 @@ def write_variant(path: str, name: str, seed: int) -> None:
         w.add_kv(k, v)
     if a == "gptneox":
         w.add_kv(f"{a}.use_parallel_residual", True)
+    if a == "qwen3moe":
+        for k, v in (("expert_count", c["X"]), ("expert_used_count", c["K"]),
+                     ("expert_feed_forward_length", c["FFE"]),
+                     ("attention.key_length", D_),
+                     ("attention.value_length", D_)):
+            w.add_kv(f"{a}.{k}", v)
     if a == "gemma3":
         for k, v in (("attention.key_length", D_),
                      ("attention.value_length", D_),
@@ -4234,9 +4437,8 @@ def write_variant(path: str, name: str, seed: int) -> None:
     q8 = GGMLType.Q8_0
     ln = a in ("gptneox", "bloom")
 
-    def mat(tname, out_dim, in_dim):
-        w.add_raw_tensor(tname, (out_dim, in_dim), q8,
-                         _q8_random(rng, (out_dim, in_dim)))
+    def mat(tname, *shape):
+        w.add_raw_tensor(tname, shape, q8, _q8_random(rng, shape))
 
     def vec(tname, n, one=False):
         x = rng.standard_normal(n, dtype=np.float32) * 0.02
@@ -4249,7 +4451,7 @@ def write_variant(path: str, name: str, seed: int) -> None:
     vec("output_norm.weight", E_, one=True)
     if ln:
         vec("output_norm.bias", E_)
-    if a == "gptneox":
+    if a in ("gptneox", "qwen3moe"):
         mat("output.weight", V_, E_)     # qwen3, gemma3, bloom tie theirs
     qd, kvd = H_ * D_, HKV_ * D_
     for i in range(L_):
@@ -4277,6 +4479,14 @@ def write_variant(path: str, name: str, seed: int) -> None:
             vec(p + "attn_q_norm.weight", D_, one=True)
             vec(p + "attn_k_norm.weight", D_, one=True)
             mat(p + "attn_output.weight", E_, qd)
+            if a == "qwen3moe":
+                X_, FE = c["X"], c["FFE"]
+                w.add_tensor(p + "ffn_gate_inp.weight", rng.standard_normal(
+                    (X_, E_), dtype=np.float32) * 0.02)
+                mat(p + "ffn_gate_exps.weight", X_, FE, E_)
+                mat(p + "ffn_up_exps.weight", X_, FE, E_)
+                mat(p + "ffn_down_exps.weight", X_, E_, FE)
+                continue
             mat(p + "ffn_gate.weight", FF_, E_)
             mat(p + "ffn_up.weight", FF_, E_)
             mat(p + "ffn_down.weight", E_, FF_)
@@ -4382,7 +4592,8 @@ VARIANT_PATHS = {
 
 
 def variant_serve(dev, seed, tmp, name, path, mode, ref, paths=None,
-                  prompt_len=VARIANT_PROMPT, forward=None) -> dict:
+                  prompt_len=VARIANT_PROMPT, forward=None,
+                  extra=None) -> dict:
     """One phase 11 model on one path, served by the CLI: a warm-up wave
     pair (other prompts: a key's first use runs eagerly, its second
     captures; the captures left in the measured wave are counted), the
@@ -4393,7 +4604,8 @@ def variant_serve(dev, seed, tmp, name, path, mode, ref, paths=None,
     `ref` (cosine >= VARIANT_COS), and the kernels of one decode step.
     `paths` (VARIANT_PATHS by default) gives the CLI flags and the
     kernels one request must launch; prompts are about `prompt_len`
-    tokens."""
+    tokens. `extra(engine, routes, counters)`, run last while the server
+    is up, adds its dict to the result."""
     from llama_box_tpu_torch import cli
     from llama_box_tpu_torch.server.engine import Engine
     from llama_box_tpu_torch.server.metrics import Metrics
@@ -4444,6 +4656,7 @@ def variant_serve(dev, seed, tmp, name, path, mode, ref, paths=None,
         assert torch.isfinite(got).all()
         cos = _cosine(got, ref)
         pool_mib = engine.graphs.pool_bytes / 2**20
+        more = extra(engine, routes, counters) if extra else {}
     finally:
         srv.shutdown()
         srv.server_close()
@@ -4457,7 +4670,7 @@ def variant_serve(dev, seed, tmp, name, path, mode, ref, paths=None,
                / m["t_prefill_total_ms"] * 1e3,
                window_tok_s=N_SLOTS * VARIANT_TOKENS / wall,
                eager_window_tok_s=N_SLOTS * VARIANT_TOKENS / e_wall,
-               graph_pool_mib=pool_mib, **ops)
+               graph_pool_mib=pool_mib, **ops, **more)
     log(f"  {name} {mode}: loaded in {load_s:.1f} s; texts graphs = eager: "
         f"{same}; cosine to the f32 CPU forward {cos:.6f} (tol "
         f"{VARIANT_COS}); {captured} captures in the measured wave; decode "
@@ -4579,6 +4792,77 @@ def attn_variant_phase(dev, seed, tmp) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: a mixture-of-experts model at published widths
+
+MOE_NAME = "qwen3-30b-a3b"
+# each phase 13 path: CLI flags, and the kernels one request must launch
+# (all others: none). An MoE layer keeps the fused tail's gate shut: on
+# w8a8 the attention projections take w8a8_matmul (and the fused q/k/v
+# and output kernels at decode rows), the experts stay bf16
+MOE_PATHS = {
+    "bf16": ([], {MOE_NAME: ("row_norm", "flash_prefill", "flash_decode",
+                             "moe_ffn")}),
+    "w8a8": (["--weights-dtype", "quantized"],
+             {MOE_NAME: ("row_norm", "flash_prefill", "flash_decode",
+                         "moe_ffn", "w8a8_matmul", "fused_norm_qmm")}),
+}
+
+
+def moe_checks(seed, mode):
+    """Phase 13's checks on the served engine: the verify rows' bits
+    against one-row steps (phase 8's verify_bits, bf16 and int8 caches)
+    and, on the bf16 path, a self-drafting wave (the served params as the
+    draft, graphs) counting its kernels from 0."""
+    def run(engine, routes, counters):
+        out = {"bits": verify_bits(engine, seed)}
+        log(f"  {MOE_NAME} {mode}: verify rows vs one-row steps: "
+            f"{out['bits']}")
+        for tag, b in out["bits"].items():
+            assert b["logits_equal"] and b["kv_equal"], (mode, tag, b)
+        if mode == "bf16":
+            tok = engine.tokenizer
+            rng = np.random.default_rng(seed + 131)
+            texts = [make_prompt(tok, rng, SPEC_PROMPT)
+                     for _ in range(N_SLOTS)]
+            warm = [make_prompt(tok, rng, SPEC_PROMPT)
+                    for _ in range(N_SLOTS)]
+            w = spec_run(routes, _spec_engine(
+                engine, (engine.cfg, engine.params), dataclasses.replace(
+                    engine.ecfg, draft_max=SPEC_DRAFT, draft_p_min=0.0)),
+                texts, warm, counters)
+            w.pop("margins")
+            _log_wave("self-draft", w)
+            assert w["drafted"] > 0 and w["launches"]["moe_ffn"] > 0
+            out["self_draft"] = w
+        return out
+    return run
+
+
+def moe_phase(dev, seed, tmp, path) -> dict:
+    """Phase 13 (see the module docstring); `path` is the GGUF a worker
+    wrote beside the kernel phases."""
+    from llama_box_tpu_torch.models.loader import load_model
+    c = MOE_VARIANTS[MOE_NAME]
+    log(f"== phase 13: a mixture-of-experts model at published widths: "
+        f"{MOE_NAME}, {c['L']} of 48 layers, {c['X']} experts, {c['K']} a "
+        f"token")
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    cfg, params = load_model(path, dtype=torch.float32, device="cpu")
+    ref = small_forward(params, cfg, "cpu", torch.float32)
+    del params
+    log(f"  f32 CPU forward of the file (the plain versions; {cfg.n_layers} "
+        f"layers) in {time.perf_counter() - t0:.1f} s")
+    out = {MOE_NAME: {mode: variant_serve(
+        dev, seed, tmp, MOE_NAME, path, mode, ref, paths=MOE_PATHS,
+        extra=moe_checks(seed, mode)) for mode in MOE_PATHS}}
+    out["layers"] = cfg.n_layers
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 13: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -4611,7 +4895,9 @@ def main(argv=None) -> int:
                 log(f"  [{name}] {line.strip()}")
     names = ("flash_prefill_mma_kernel", "flash_decode_mma_kernel",
              "grouped_gemm_kernel", "norm_qmm_kernel", "tail_phase_kernel",
-             "w8a8_gemm", "quant_rows_kernel", "11norm_kernel")
+             "w8a8_gemm", "quant_rows_kernel", "11norm_kernel",
+             "align_kernel", "gate_up_kernel", "down_kernel",
+             "combine_kernel")
     for entry, used, spill in ptxas_entries(
             "\n".join(_kernels.ptxas_report.values()), names):
         short = entry[min(entry.find(n) for n in names if n in entry):]
@@ -4619,25 +4905,31 @@ def main(argv=None) -> int:
 
     tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     tmp = tmp_dir.name
-    # phase 5's three GGUFs are written by worker processes (numpy on the
-    # host) while the kernel phases run on the card; every write is done
-    # before the first served request, so no measured wave shares the host
-    with ProcessPoolExecutor(len(MODEL_TYPES), mp_context=multiprocessing
+    # phase 5's three GGUFs and phase 13's are written by worker processes
+    # (numpy on the host) while the kernel phases run on the card; every
+    # write is done before the first served request, so no measured wave
+    # shares the host
+    moe_path = f"{tmp}/synthetic-{MOE_NAME}-q8_0.gguf"
+    with ProcessPoolExecutor(len(MODEL_TYPES) + 1, mp_context=multiprocessing
                              .get_context("spawn")) as pool:
         t_w = time.perf_counter()
         writes = {fmt: pool.submit(write_model, _model_path(tmp, fmt),
                                    args.seed, fmt) for fmt in MODEL_TYPES}
+        writes["moe"] = pool.submit(write_variant, moe_path, MOE_NAME,
+                                    args.seed)
         errs, rows = kernel_phase(dev, args.seed)
         w_errs, w_rows = w8a8_kernel_phase(dev, args.seed)
         q_errs, q_rows = q_kernel_phase(dev, args.seed)
         n_errs, n_rows = norm_kernel_phase(dev, args.seed)
+        m_errs, m_rows = moe_kernel_phase(dev, args.seed)
         for w in writes.values():
             w.result()
-        log(f"  phase 5's GGUFs written beside the kernel phases: "
+        log(f"  phase 5's and 13's GGUFs written beside the kernel phases: "
             f"{time.perf_counter() - t_w:.1f} s from their start")
     errs.update(w_errs)
     errs.update(q_errs)
     errs.update(n_errs)
+    errs.update(m_errs)
     launches, e2e = {}, {}
     capture_failure_check()
     with tmp_dir:
@@ -4654,6 +4946,7 @@ def main(argv=None) -> int:
         del bf16_served
         e2e["variants"] = variant_phase(dev, args.seed, tmp)
         e2e["attn_variants"] = attn_variant_phase(dev, args.seed, tmp)
+        e2e["moe"] = moe_phase(dev, args.seed, tmp, moe_path)
 
     pick = {"flash_prefill": ("prefill", "bf16", 0),
             "flash_decode": ("decode", "bf16", 1023),
@@ -4733,7 +5026,8 @@ def main(argv=None) -> int:
             launches_variants={
                 f"{v} {m}": e2e[ph][v][m]["launches_one_request"][name]
                 for ph, vs in (("variants", VARIANTS),
-                               ("attn_variants", ATTN_VARIANTS))
+                               ("attn_variants", ATTN_VARIANTS),
+                               ("moe", MOE_VARIANTS))
                 for v in vs for m in VARIANT_PATHS},
             **({} if not name.startswith("flash") else {"variant_shapes": [
                 dict(case=x["cache"], q=x["q"], C=x["C"], pos=x["pos"],
@@ -4742,6 +5036,25 @@ def main(argv=None) -> int:
                      library_ms=x["library_ms"])
                 for x in rows if x["kind"] == name[6:]
                 and x["cache"] in ATTN_KERNEL_CASES]})))
+    # the routed-expert kernel (port-only): its main path is phase 13's
+    # bf16 path, one request counted from 0
+    moe = e2e["moe"][MOE_NAME]
+    r = next(x for x in m_rows if x["case"] == MOE_MAIN)
+    kernels.append(dict(
+        name="moe_ffn", route="cuda",
+        source="llama_box_tpu_torch/csrc/moe_ffn.cu",
+        replaces="none (port-only; XLA in llama_box_tpu/models/llama.py:"
+                 "1073, _moe_mix)",
+        launches=moe["bf16"]["launches_one_request"]["moe_ffn"],
+        max_abs_err=errs["moe_ffn"], ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        library_ms=r["library_ms"], shape=MOE_MAIN,
+        launches_by_path={m: moe[m]["launches_one_request"]["moe_ffn"]
+                          for m in MOE_PATHS},
+        launches_self_draft=moe["bf16"]["self_draft"]["launches"]["moe_ffn"],
+        timed_shapes=[{k: x[k] for k in ("case", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")} for x in m_rows]))
     e2e.update(card=card, seconds=time.perf_counter() - t_start)
     if args.profile:
         for label in MODES:
@@ -4809,9 +5122,9 @@ def main(argv=None) -> int:
         f"{em['bert']['replay']['bound_ms']:.4f}), TinyLlama "
         f"{em['llama']['replay']['ms']:.4f} ms (bound "
         f"{em['llama']['replay']['bound_ms']:.4f})")
-    for ph, key in ((11, "variants"), (12, "attn_variants")):
+    for ph, key in ((11, "variants"), (12, "attn_variants"), (13, "moe")):
         for name, r in e2e[key].items():
-            if name == "seconds":
+            if name in ("seconds", "layers"):
                 continue
             for mode, x in r.items():
                 log(f"  phase {ph}, {name} {mode}: load s "

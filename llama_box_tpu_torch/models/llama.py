@@ -4,9 +4,13 @@ LayerNorm and biases, q/k norms, post and sub norms, parallel residual,
 ungated FFN, scales, learned positions, longrope; and its attention
 variants, sliding windows with their per-layer pattern, gemma3's local
 rope base, cohere2/exaone4's unroped global layers, attention softcap and
-ALiBi), with bf16/f32 weights or QTensors (w8a8 or grouped, ops/qmatmul).
-Every norm runs the row-norm kernel (ops/norm) on the card, one order a
-row, so a verify pass's rows equal its one-row decode steps bit for bit.
+ALiBi; and its mixture-of-experts layers, every router, shared experts,
+heterogeneous layer groups, gpt-oss's sinks, llama4's chunked window, q/k
+L2 norm and temperature), with bf16/f32 weights or QTensors (w8a8 or
+grouped, ops/qmatmul). Every norm runs the row-norm kernel (ops/norm) on
+the card, one order a row, and the routed experts the expert kernel
+(ops/moe), one order a pair, so a verify pass's rows equal its one-row
+decode steps bit for bit.
 
 Attention variants, as JAX `_layer_is_local` and `_attn_deferred` give
 them: layer li is local or global by a host list (layer_is_local); its
@@ -76,6 +80,8 @@ from ..ops.flash_decode import flash_decode
 from ..ops.flash_prefill import HEAD_DIMS, flash_prefill_batched
 from ..ops.fused_decode import (_MAX_ROWS, _pick_tile, fused_layer_tail,
                                 fused_norm_qmm)
+from ..ops.moe import ACTS as MOE_ACTS
+from ..ops.moe import MAX_EXPERTS, MAX_PICKS, moe_ffn
 from ..ops.norm import ln_per_head, norm_any, rms_norm
 from ..ops.qmatmul import QTensor, mm
 from ..ops.rope import RopeParams, apply_rope, compute_rope_cache
@@ -135,9 +141,16 @@ _LAYER_KEYS = {
     "w_gateup", "w_down", "bq", "bk", "bv", "bo", "b_gate", "b_up", "b_down",
     "q_norm", "k_norm", "q_norm_b", "k_norm_b", "attn_post_norm",
     "attn_post_norm_b", "ffn_post_norm", "ffn_post_norm_b", "attn_sub_norm",
-    "ffn_sub_norm", "xielu"}
+    "ffn_sub_norm", "xielu",
+    # mixture of experts, gpt-oss's sinks
+    "w_gate_inp", "b_gate_inp", "w_gate_exps", "w_up_exps", "w_down_exps",
+    "b_gate_exps", "b_up_exps", "b_down_exps", "w_gate_shexp", "w_up_shexp",
+    "w_down_shexp", "w_gate_inp_shexp", "exp_probs_b", "ffn_norm_exps",
+    "sinks"}
 _ROOT_KEYS = {"tok_embd", "pos_embd", "tok_embd_norm", "tok_embd_norm_b",
-              "output_norm", "output_norm_b", "output", "output_b", "layers"}
+              "output_norm", "output_norm_b", "output", "output_b", "layers",
+              "layer_groups"}
+_EXPERT_STACKS = ("w_gate_exps", "w_up_exps", "w_down_exps")
 # the keys that may hold a QTensor (the JAX loader's quantizable 2D
 # projections; token_embd and the norms stay dense)
 _Q_KEYS = {"wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up", "w_gateup",
@@ -150,39 +163,73 @@ _Q_KEYS = {"wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up", "w_gateup",
 _KERNEL_HEAD_DIMS, _KERNEL_MAX_GROUP = HEAD_DIMS, 16
 
 
+def layer_groups(params: dict) -> list[dict]:
+    """The stacked layer groups in layer order: `layer_groups` where the
+    tree has them (heterogeneous layers), else the one `layers` stack."""
+    return params.get("layer_groups") or [params.get("layers", {})]
+
+
+def moe_act(cfg: ModelConfig) -> str:
+    """The expert activation of JAX `_moe_mix`: silu under llama4's
+    weight-before-FFN routing, else the configured one (JAX `_act` takes
+    any other name as silu; the CPU path does too, the card refuses it)."""
+    return "silu" if cfg.moe_weight_before_ffn else cfg.act_fn
+
+
 def check_supported(cfg: ModelConfig, params: dict, device=None) -> None:
     """Raise NotImplementedError for a model outside the dense llama graph,
-    its dense variants and its attention variants (the other families are
-    later slices; nothing runs half-supported), or, on a CUDA `device`,
-    for attention shapes the kernels do not take: the engine refuses such
-    a model at load, not at its first request. llama4's chunked windows,
-    q/k L2 norm and temperature and gpt-oss's sinks stay refused with the
-    MoE families that use them."""
+    its dense, attention and mixture-of-experts variants (the other
+    families are later slices; nothing runs half-supported), or, on a CUDA
+    `device`, for shapes the kernels do not take: attention head widths,
+    expert stacks that are not bf16, an expert activation or width
+    csrc/moe_ffn.cu lacks. The engine refuses such a model at load, not at
+    its first request, and nothing falls back to a plain version."""
     unsupported = {
         "recurrent": getattr(cfg, "recurrent", False),
         "mrope_sections": bool(cfg.mrope_sections),
         "kv_lora_rank": cfg.kv_lora_rank > 0,
-        "expert_count": cfg.expert_count > 0,
-        "chunked_window": cfg.chunked_window > 0,
-        "attn_temp_scale": cfg.attn_temp_scale > 0.0,
-        "qk_l2_norm": cfg.qk_l2_norm,
-        "act_fn": cfg.act_fn not in ("silu", "gelu", "relu2", "xielu"),
+        "act_fn": cfg.act_fn not in ("silu", "gelu", "relu2", "xielu",
+                                     "swiglu_oai"),
         "v_head_dim": bool(cfg.v_head_dim)
         and cfg.v_head_dim != cfg.head_dim,
     }
-    extra_keys = set(params.get("layers", {})) - _LAYER_KEYS
+    groups = layer_groups(params)
+    extra_keys = set().union(*groups) - _LAYER_KEYS
     bad = [k for k, v in unsupported.items() if v]
     if bad or extra_keys or set(params) - _ROOT_KEYS:
         raise NotImplementedError(
-            f"{cfg.arch}: not on the ported dense llama graph "
+            f"{cfg.arch}: not on the ported llama graph "
             f"(config: {bad}, tensors: "
             f"{sorted(extra_keys | (set(params) - _ROOT_KEYS))})")
-    leaves = dict(params.get("layers", {}),
-                  **{k: v for k, v in params.items() if k != "layers"})
-    for key, w in leaves.items():
+    leaves = [(k, v) for gp in groups for k, v in gp.items()] \
+        + [(k, v) for k, v in params.items()
+           if k not in ("layers", "layer_groups")]
+    for key, w in leaves:
         if isinstance(w, QTensor) and key not in _Q_KEYS:
             raise NotImplementedError(f"{cfg.arch}: {key} as a QTensor")
     if device is not None and torch.device(device).type == "cuda":
+        for gp in groups:
+            if "w_gate_exps" not in gp:
+                continue
+            dts = {str(gp[k].dtype) for k in _EXPERT_STACKS}
+            X, E, F = gp["w_gate_exps"].shape[-3:]
+            K = max(cfg.expert_used_count, 1)
+            if dts != {"torch.bfloat16"}:
+                raise NotImplementedError(
+                    f"{cfg.arch}: the CUDA expert kernel (csrc/moe_ffn.cu) "
+                    f"takes bf16 expert stacks, not {sorted(dts)}; "
+                    "--device cpu runs it")
+            if moe_act(cfg) not in MOE_ACTS:
+                raise NotImplementedError(
+                    f"{cfg.arch}: the CUDA expert kernel takes the "
+                    f"activations {MOE_ACTS}, not {moe_act(cfg)!r}; "
+                    "--device cpu runs it")
+            if E % 8 or F % 8 or K > min(X, MAX_PICKS) or X > MAX_EXPERTS:
+                raise NotImplementedError(
+                    f"{cfg.arch}: the CUDA expert kernel takes widths that "
+                    f"are multiples of 8, up to {MAX_PICKS} picks and "
+                    f"{MAX_EXPERTS} experts (this model: E {E}, FF {F}, "
+                    f"{K} of {X}); --device cpu runs it")
         dv = cfg.v_head_dim or cfg.head_dim
         group = cfg.n_heads / max(1, cfg.n_kv_heads)
         if cfg.head_dim not in _KERNEL_HEAD_DIMS \
@@ -402,10 +449,114 @@ def _xielu(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
                        + beta * x)
 
 
+def _top_k(x: torch.Tensor, k: int):
+    """jax.lax.top_k over the last dim: the k largest values and their
+    indices, ties to the lower index (a stable descending sort; bf16
+    router logits tie often enough to flip an expert otherwise)."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def _moe_ffn(h, lp, cfg: ModelConfig) -> torch.Tensor:
+    """The mixture-of-experts FFN (JAX `_moe_ffn`), h [..., E] -> [..., E]
+    f32: the router product in h's dtype, its bias (gpt-oss) and tanh cap
+    (grok), then in f32 phimoe's sparsemixer (gating func 3), or the
+    sigmoid (2) or softmax scores with deepseek3's bias-corrected,
+    group-limited selection (exp_probs_b) or a plain top-k, the weights
+    renormalized under expert_weights_norm; the experts in _moe_mix."""
+    X, K = cfg.expert_count, max(cfg.expert_used_count, 1)
+    router = mm(h, lp["w_gate_inp"])
+    if "b_gate_inp" in lp:
+        router = router + lp["b_gate_inp"]
+    if cfg.router_softcap > 0.0:
+        c = cfg.router_softcap
+        router = _scaled(torch.tanh(router / _weak(c, router.dtype)), c)
+    s = router.float()
+    if cfg.expert_gating_func == 3:
+        # phimoe's sparsemixer at inference (HF sparsemixer, training
+        # False): two rounds, each the argmax of the scores left, weighted
+        # by the softmax of the original scores masked to those within
+        # 2 x jitter_eps (relative) of the round's max; not renormalized
+        eps = cfg.router_jitter_eps
+
+        def pick(masked):
+            thr = masked.max(-1, keepdim=True).values
+            idx = masked.argmax(-1)
+            factor = torch.maximum(s.abs(), thr)
+            gates = torch.where((thr - s) / factor > 2.0 * eps,
+                                -torch.inf, masked)
+            w = torch.softmax(gates, dim=-1).gather(-1, idx[..., None])
+            return idx, w[..., 0]
+
+        i1, w1 = pick(s)
+        first = torch.nn.functional.one_hot(i1, X).bool()
+        i2, w2 = pick(torch.where(first, -torch.inf, s))
+        return _moe_mix(h, lp, cfg, torch.stack([i1, i2], -1),
+                        torch.stack([w1, w2], -1))
+    if cfg.expert_gating_func == 2:
+        probs = torch.sigmoid(s)
+    else:
+        probs = torch.softmax(s, dim=-1)
+    if "exp_probs_b" in lp:
+        # deepseek3 noaux_tc: select on bias-corrected scores, group-
+        # limited (the sum of each group's top 2 picks the groups; the
+        # others are zeroed, as HF does), weight by the uncorrected ones
+        choice = probs + lp["exp_probs_b"].float()
+        ng, ug = cfg.expert_group_count, cfg.expert_group_used_count
+        if ng > 1 and ug < ng:
+            gsc = choice.reshape(*choice.shape[:-1], ng, X // ng)
+            g2 = _top_k(gsc, min(2, X // ng))[0].sum(-1)
+            gmask = torch.zeros_like(g2).scatter(-1, _top_k(g2, ug)[1], 1.0)
+            choice = (gsc * gmask[..., None]).reshape(probs.shape)
+        topi = _top_k(choice, K)[1]
+        topv = probs.gather(-1, topi)
+    else:
+        topv, topi = _top_k(probs, K)
+    if cfg.expert_weights_norm:
+        topv = topv / (topv.sum(-1, keepdim=True) + 1e-9)
+    return _moe_mix(h, lp, cfg, topi, topv)
+
+
+def _f32_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x, w.float())
+
+
+def _moe_mix(h, lp, cfg: ModelConfig, topi, topv) -> torch.Tensor:
+    """The routed experts and the shared expert (JAX `_moe_mix`): the
+    picks through ops/moe (csrc/moe_ffn.cu on the card), with gpt-oss's
+    per-expert biases and llama4's weight-before-FFN routing, times
+    expert_weights_scale; then in f32 the always-on shared expert with its
+    sigmoid gate (qwen2moe) and jetmoe's bias after the sum."""
+    lead, E = h.shape[:-1], h.shape[-1]
+    K = topi.shape[-1]
+    wb = cfg.moe_weight_before_ffn
+    y = moe_ffn(
+        h.reshape(-1, E), topi.reshape(-1, K), topv.reshape(-1, K),
+        lp["w_gate_exps"], lp["w_up_exps"], lp["w_down_exps"],
+        act=moe_act(cfg), b_gate=None if wb else lp.get("b_gate_exps"),
+        b_up=None if wb else lp.get("b_up_exps"),
+        b_down=None if wb else lp.get("b_down_exps"), weight_before=wb,
+        scale=cfg.expert_weights_scale).view(*lead, E)
+    if "w_gate_shexp" in lp:
+        hf = h.float()
+        sg = torch.nn.functional.silu(_f32_mm(hf, lp["w_gate_shexp"]))
+        sy = _f32_mm(sg * _f32_mm(hf, lp["w_up_shexp"]),
+                     lp["w_down_shexp"])
+        if "w_gate_inp_shexp" in lp:
+            sy = sy * torch.sigmoid(_f32_mm(hf, lp["w_gate_inp_shexp"]))
+        y = y + sy
+    if "b_down" in lp:
+        y = y + lp["b_down"].float()
+    return y
+
+
 def _ffn_block(h, lp, cfg: ModelConfig, dtype):
-    """JAX `_ffn_block` without experts: an ungated up -> act -> down
-    (falcon, gptneox, phi2, starcoder2, gpt2) or the gated one, each with
-    its optional biases; bitnet's sub norm before the down projection."""
+    """JAX `_ffn_block`: the experts where the layer has a router, else an
+    ungated up -> act -> down (falcon, gptneox, phi2, starcoder2, gpt2) or
+    the gated one, each with its optional biases; bitnet's sub norm before
+    the down projection."""
+    if "w_gate_inp" in lp:
+        return _moe_ffn(h, lp, cfg).to(dtype)
     if not cfg.ffn_gated:
         up = mm(h, lp["w_up"])
         if "b_up" in lp:
@@ -484,11 +635,12 @@ def _fuse_tail_ok(cfg: ModelConfig, lp, x) -> bool:
 
 def _layer_tail(x, lp, cfg: ModelConfig, attn):
     """The output projection and the FFN block with their residuals (JAX
-    `_layer_tail` without experts, mixture-of-attention or an extra
-    residual): bitnet's attention sub norm, the output bias, the post norms
-    (gemma, olmo2), granite's residual scale, and the parallel residual
-    (falcon, gptneox, phi2, command-r) whose FFN input is attn_norm_2,
-    ffn_norm or the shared attention-input norm."""
+    `_layer_tail` without mixture-of-attention or an extra residual):
+    bitnet's attention sub norm, the output bias, the post norms (gemma,
+    olmo2, grok), granite's residual scale, the parallel residual (falcon,
+    gptneox, phi2, command-r) whose FFN input is attn_norm_2, ffn_norm or
+    the shared attention-input norm, and arctic's parallel dense and
+    expert branches."""
     if _fuse_tail_ok(cfg, lp, x):
         # decode widths: the whole tail through ops/fused_decode
         B, T, E = x.shape
@@ -522,6 +674,17 @@ def _layer_tail(x, lp, cfg: ModelConfig, attn):
                                 lp.get("ffn_post_norm_b"), cfg)
         return x + _scaled(attn_out + ffn_out, rs)
     x = x + _scaled(attn_out, rs)
+    if "ffn_norm_exps" in lp:
+        # arctic: the dense FFN and the experts in parallel off the
+        # attention residual, each behind its own norm; b_down belongs to
+        # the dense branch
+        h = _pre_norm(x, lp, "ffn_norm", cfg)
+        dense = _ffn_block(h, {k: v for k, v in lp.items()
+                               if k != "w_gate_inp"}, cfg, x.dtype)
+        hm = _norm_any(x, lp["ffn_norm_exps"], None, cfg)
+        moe = _moe_ffn(hm, {k: v for k, v in lp.items() if k != "b_down"},
+                       cfg).to(x.dtype)
+        return x + _scaled(dense + moe, rs)
     h = _pre_norm(x, lp, "ffn_norm", cfg)
     ffn_out = _ffn_block(h, lp, cfg, x.dtype)
     if "ffn_post_norm" in lp:
@@ -600,12 +763,14 @@ def _qk_norms(q, k, lp, cfg: ModelConfig):
 def _attn_layer(x, lp, li: int, kv: KVCache, cfg: ModelConfig, cos, sin,
                 rows: list, win, alibi=None, flash_meta=None, chain=None,
                 step=0, decode_meta=None, verify_meta=None,
-                dense_mask=None):
+                dense_mask=None, positions=None, is_local: int = 0):
     """x [B, T, E] -> x after attention and the layer tail. cos/sin are the
     tables gathered at the rows' positions ([B, T, rot/2]). The input norm
     (absent: olmo2), the q/k/v biases, olmo's clamp and the q/k norms
     (before the rotation, or after it for hunyuan) as in JAX
-    `_attn_layer`."""
+    `_attn_layer`; after the rotation llama4's weightless q/k L2 norm and,
+    on its global (unroped) layers, its query temperature from the rows'
+    `positions` [B, T]."""
     B, T, E = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if "wqkv" in lp:
@@ -639,6 +804,17 @@ def _attn_layer(x, lp, li: int, kv: KVCache, cfg: ModelConfig, cos, sin,
         # the normed keys
         q = rms_norm(q, lp["q_norm"], cfg.rms_eps)
         k = rms_norm(k, lp["k_norm"], cfg.rms_eps)
+    if cfg.qk_l2_norm:
+        q = q * torch.rsqrt(q.float().square().sum(-1, keepdim=True)
+                            + 1e-6).to(q.dtype)
+        k = k * torch.rsqrt(k.float().square().sum(-1, keepdim=True)
+                            + 1e-6).to(k.dtype)
+    if cfg.attn_temp_scale > 0.0 and not is_local:
+        # q *= 1 + scale x log1p(floor((pos + 1) / floor_scale)); a rope
+        # layer's factor is 1 in JAX, which changes no bit
+        pf = torch.floor((positions.float() + 1.0) / cfg.attn_temp_floor)
+        f = 1.0 + cfg.attn_temp_scale * torch.log1p(pf)
+        q = q * f[:, :, None, None].to(q.dtype)
     return _attn_deferred(x, lp, li, kv, cfg, q, k, v, rows, win, alibi,
                           flash_meta=flash_meta, chain=chain, step=step,
                           decode_meta=decode_meta, verify_meta=verify_meta,
@@ -646,7 +822,7 @@ def _attn_layer(x, lp, li: int, kv: KVCache, cfg: ModelConfig, cos, sin,
 
 
 def _attn_verify(q, k, v, kc, vc, ks, vs, stored, meta, win, adt, scale,
-                 softcap=0.0, alibi=None):
+                 softcap=0.0, alibi=None, sinks=None):
     """The T query rows of a verify forward, each through the flash decode
     kernel with the verify rows as its chain operand: query j has meta
     (pos0 + j, j + 1), so it attends the cache below pos0 and rows 0..j,
@@ -668,8 +844,8 @@ def _attn_verify(q, k, v, kc, vc, ks, vs, stored, meta, win, adt, scale,
             vr = torch.cat([vd[:, :j], vf[:, j:]], dim=1)
         qd = q[:, j].to(adt).reshape(B, Hkv, H // Hkv, D).contiguous()
         o = flash_decode(qd, kc, vc, kr, vr, meta[j], win, k_scale=ks,
-                         v_scale=vs, scale=scale, softcap=softcap,
-                         alibi=alibi)
+                         v_scale=vs, sinks=sinks, scale=scale,
+                         softcap=softcap, alibi=alibi)
         outs.append(o.to(adt).reshape(B, H * D))
     return torch.stack(outs, dim=1)
 
@@ -685,7 +861,7 @@ def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
     (at positions 0..T-1) attend only each other under that mask, written
     out in torch (softmax_attend; the non-causal embeddings forward). win
     is the layer's (window, chunk) row, alibi the [Hkv, G] slopes or
-    None; the softcap is cfg's."""
+    None; the softcap is cfg's, gpt-oss's sink logits the layer's."""
     B, T = q.shape[:2]
     H, Hkv, D = q.shape[2], k.shape[2], q.shape[-1]
     G = H // Hkv
@@ -697,6 +873,7 @@ def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
     rows.append(stored)
     scale = cfg.attn_scale or None
     cap = cfg.attn_softcap
+    snk = lp["sinks"].float().reshape(Hkv, G) if "sinks" in lp else None
 
     if dense_mask is not None:
         qg = q.to(adt).reshape(B, T, Hkv, G, D).permute(0, 2, 3, 1, 4)
@@ -704,18 +881,18 @@ def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
         dist = (t[None, :] - t[:, None]).expand(B, T, T)
         o = softmax_attend(qg, k.to(adt), v.to(adt), dense_mask,
                            D ** -0.5 if scale is None else scale, cap,
-                           alibi=alibi, dist=dist)
+                           sinks=snk, alibi=alibi, dist=dist)
         attn = o.permute(0, 3, 1, 2, 4).reshape(B, T, H * D)
     elif flash_meta is not None:
         qg = q.to(adt).reshape(B, T, Hkv, G, D).permute(0, 2, 3, 1, 4)
         o = flash_prefill_batched(qg.contiguous(), kc, vc, k.to(adt),
                                   v.to(adt), flash_meta, win,
-                                  k_scale=ks, v_scale=vs, scale=scale,
-                                  softcap=cap, alibi=alibi)
+                                  k_scale=ks, v_scale=vs, sinks=snk,
+                                  scale=scale, softcap=cap, alibi=alibi)
         attn = o.permute(0, 3, 1, 2, 4).reshape(B, T, H * D)
     elif verify_meta is not None:
         attn = _attn_verify(q, k, v, kc, vc, ks, vs, stored, verify_meta,
-                            win, adt, scale, cap, alibi)
+                            win, adt, scale, cap, alibi, snk)
     else:
         # chained decode: the current row rides chain index `step`
         kr, vr = chain.k[li], chain.v[li]
@@ -723,8 +900,8 @@ def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
         vr[:, step] = v[:, 0].to(adt)
         qd = q.to(adt).reshape(B, Hkv, G, D).contiguous()
         o = flash_decode(qd, kc, vc, kr, vr, decode_meta, win,
-                         k_scale=ks, v_scale=vs, scale=scale, softcap=cap,
-                         alibi=alibi)
+                         k_scale=ks, v_scale=vs, sinks=snk, scale=scale,
+                         softcap=cap, alibi=alibi)
         attn = o.to(adt).reshape(B, 1, H * D)
         if kv.quantized:
             # later steps read this row as the cache holds it
@@ -736,28 +913,37 @@ def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
     return _layer_tail(x, lp, cfg, attn)
 
 
+def layer_params(params) -> list[dict]:
+    """Each layer's parameters, in layer order, over the layer groups."""
+    out = []
+    for gp in layer_groups(params):
+        cols = {k: v.unbind(0) for k, v in gp.items()}
+        n = len(next(iter(cols.values()))) if cols else 0
+        out.extend({k: v[j] for k, v in cols.items()} for j in range(n))
+    return out
+
+
 def _run_stack(params, cfg: ModelConfig, x, kv: KVCache, cos, sin,
-               rows: list, flash_meta=None, chain=None, step=0,
+               rows: list, positions, flash_meta=None, chain=None, step=0,
                decode_meta=None, verify_meta=None, dense_mask=None,
                windows=None):
-    """The layer loop (the JAX package's lax.scan); appends each layer's
-    rows to `rows`. cos/sin are gathered at the rows' positions, [B, T,
-    half] or stacked [2, B, T, half] (layer li takes branch is_local);
-    layer li attends under row li of `windows` ([L, 2], layer_windows by
-    default) or the one [2] row given."""
+    """The layer loop (the JAX package's lax.scan, one a layer group);
+    appends each layer's rows to `rows`. cos/sin are gathered at the rows'
+    `positions` [B, T], [B, T, half] or stacked [2, B, T, half] (layer li
+    takes branch is_local); layer li attends under row li of `windows`
+    ([L, 2], layer_windows by default) or the one [2] row given."""
     win = layer_windows(cfg, x.device) if windows is None else windows
     alibi = alibi_slopes(cfg, x.device)
     loc = layer_is_local(cfg)
     stacked = cos.dim() == 4
-    layers = {k: v.unbind(0) for k, v in params["layers"].items()}
-    for li in range(cfg.n_layers):
-        lp = {k: v[li] for k, v in layers.items()}
+    for li, lp in enumerate(layer_params(params)):
         c, s = (cos[loc[li]], sin[loc[li]]) if stacked else (cos, sin)
         x = _attn_layer(x, lp, li, kv, cfg, c, s, rows,
                         win[li] if win.dim() == 2 else win, alibi,
                         flash_meta=flash_meta, chain=chain, step=step,
                         decode_meta=decode_meta, verify_meta=verify_meta,
-                        dense_mask=dense_mask)
+                        dense_mask=dense_mask, positions=positions,
+                        is_local=loc[li])
     return x
 
 
@@ -850,10 +1036,11 @@ def _no_window(device) -> torch.Tensor:
 def layer_windows(cfg: ModelConfig, device) -> torch.Tensor:
     """[L, 2] int32: row li is layer li's (swa_window, chunked_window)
     kernel operand, as JAX `_attn_deferred` forms it: the window where the
-    layer is local under a pattern, everywhere without one, else 0 (no
-    chunk: check_supported refuses chunked windows). One buffer a device
+    layer is local under a pattern, everywhere without one, else 0; the
+    chunk (llama4) where the layer is local, else 0. One buffer a device
     and set of rows."""
-    rows = tuple((cfg.swa_window if loc or cfg.swa_pattern <= 0 else 0, 0)
+    rows = tuple((cfg.swa_window if loc or cfg.swa_pattern <= 0 else 0,
+                  cfg.chunked_window if loc else 0)
                  for loc in layer_is_local(cfg))
     return _constant(device, ("windows", rows),
                      lambda: torch.tensor(rows, dtype=torch.int32).view(-1, 2),
@@ -927,7 +1114,8 @@ def decode_step_impl(params, cfg: ModelConfig, tokens, ops: DecodeOperands,
     x = _add_pos_embd(params, _embed_tokens(params, cfg, tokens),
                       ops.positions[step][:, None])
     x = _run_stack(params, cfg, x, kv, ops.cos[step], ops.sin[step], rows,
-                   chain=chain, step=step, decode_meta=ops.meta[step])
+                   ops.positions[step][:, None], chain=chain, step=step,
+                   decode_meta=ops.meta[step])
     return _output_logits(params, cfg, x)
 
 
@@ -993,7 +1181,7 @@ def verify_forward(params, cfg: ModelConfig, tokens, ops: VerifyOperands,
                       ops.positions)
     rows: list = []
     x = _run_stack(params, cfg, x, kv, ops.cos, ops.sin, rows,
-                   verify_meta=ops.meta)
+                   ops.positions, verify_meta=ops.meta)
     fields = [torch.stack([r[f] for r in rows]) for f in range(len(rows[0]))]
     write_rows(kv, fields, ops.writes)
     return _output_logits(params, cfg, x)
@@ -1051,7 +1239,8 @@ def prefill_batch_impl(params, cfg: ModelConfig, tokens, pos_base, n_valid,
     cos, sin = _rope_at(rope_cos, rope_sin, positions)
     x = _add_pos_embd(params, _embed_tokens(params, cfg, tokens), positions)
     rows: list = []
-    x = _run_stack(params, cfg, x, kv, cos, sin, rows, flash_meta=meta)
+    x = _run_stack(params, cfg, x, kv, cos, sin, rows, positions,
+                   flash_meta=meta)
     b = torch.arange(S, device=dev)[:, None].expand(S, T)
     fields = [torch.stack([r[f] for r in rows]) for f in range(len(rows[0]))]
     write_rows(kv, fields, RowWrites(b, pos % C, inside & (pos < C)))
@@ -1097,7 +1286,8 @@ def forward_embeddings(params, cfg: ModelConfig, tokens, seq_lens, rope_cos,
     x = _add_pos_embd(params, emb[tokens.long().clamp(0, emb.shape[0] - 1)],
                       t[None, :].expand(B, T))
     valid = t[None, :] < seq_lens[:, None]                     # [B, T]
-    cos, sin = _rope_at(rope_cos, rope_sin, t[None, :].expand(B, T))
+    pos = t[None, :].expand(B, T)
+    cos, sin = _rope_at(rope_cos, rope_sin, pos)
     adt = torch.float32 if x.dtype == torch.float32 else torch.bfloat16
     # one zero layer serves every layer: nothing below position 0 is read
     z = torch.zeros((1, B, T, cfg.n_kv_heads, cfg.head_dim), dtype=adt,
@@ -1108,11 +1298,11 @@ def forward_embeddings(params, cfg: ModelConfig, tokens, seq_lens, rope_cos,
         zeros = torch.zeros_like(seq_lens)
         meta = torch.stack([zeros, seq_lens, zeros, zeros], dim=1).to(
             torch.int32)
-        x = _run_stack(params, cfg, x, scratch, cos, sin, rows,
+        x = _run_stack(params, cfg, x, scratch, cos, sin, rows, pos,
                        flash_meta=meta, windows=_no_window(dev))
     else:
         mask = valid[:, :, None] & valid[:, None, :]
-        x = _run_stack(params, cfg, x, scratch, cos, sin, rows,
+        x = _run_stack(params, cfg, x, scratch, cos, sin, rows, pos,
                        dense_mask=mask)
     x = rms_norm(x, params["output_norm"], cfg.rms_eps).float()
     if pooling == "mean":

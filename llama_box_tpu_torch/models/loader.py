@@ -20,12 +20,19 @@ Two weight formats:
   mins). Tensors are packed on the host one at a time and moved to the
   device once per layer stack. token_embd, the norms and formats without
   a repacker stay dense, as in JAX.
+Mixture-of-experts layers (the router, the expert stacks [X, E, FF] /
+[X, FF, E], shared experts, gpt-oss's sinks and biases) load dense, as in
+JAX. Consecutive layers with the same tensor set stack as one group;
+where the layers form several (leading dense layers, interleaved dense
+and MoE layers), the tree holds `layer_groups`, a list of stacked groups,
+in place of `layers`, as the JAX loader's does.
 A layer key whose layers pack to different layouts (a llama.cpp Q4_K_M
 gives Q6_K to some layers' attn_v and ffn_down) cannot be stacked: the
 JAX loader's np.stack fails on it under the grouped residency, and this
 loader refuses it by name. The other families' tensors are later slices
 of the port: a GGUF that carries a tensor this path does not know is
-refused, never half-loaded.
+refused, never half-loaded (jetmoe's mixture-of-attention, MLA and the
+recurrent mixers by their cause).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFFile
 from ..gguf.repack import REPACKERS, repack
 from ..ops.qmatmul import QTensor, pack_repacked
@@ -81,7 +89,38 @@ _LAYER_OPTIONAL = {
     "k_norm_b": ("blk.{i}.attn_k_norm.bias", False),
     "attn_post_norm": ("blk.{i}.post_attention_norm.weight", False),
     "ffn_post_norm": ("blk.{i}.post_ffw_norm.weight", False),
+    # dbrx's pre-MoE norm, or grok's post-attention sandwich norm (renamed
+    # after load, as in JAX), and grok's post-MoE norm
+    "attn_out_norm": ("blk.{i}.attn_output_norm.weight", False),
+    "attn_out_norm_b": ("blk.{i}.attn_output_norm.bias", False),
+    "layer_out_norm": ("blk.{i}.layer_output_norm.weight", False),
+    # mixture of experts: the router [E, X], the expert stacks (stored (X,
+    # FF, E) / (X, E, FF) -> [X, E, FF] / [X, FF, E] by the "3d" swap), the
+    # shared expert and its sigmoid gate, gpt-oss's attention sinks and
+    # router / expert biases, deepseek3's selection bias, arctic's MoE
+    # pre-norm. Always dense, as in JAX (its optional keys never quantize)
+    "w_gate_inp": ("blk.{i}.ffn_gate_inp.weight", True),
+    "w_gate_exps": ("blk.{i}.ffn_gate_exps.weight", "3d"),
+    "w_up_exps": ("blk.{i}.ffn_up_exps.weight", "3d"),
+    "w_down_exps": ("blk.{i}.ffn_down_exps.weight", "3d"),
+    "sinks": ("blk.{i}.attn_sinks.weight", False),
+    "exp_probs_b": ("blk.{i}.exp_probs_b.bias", False),
+    "ffn_norm_exps": ("blk.{i}.ffn_norm_exps.weight", False),
+    "b_gate_inp": ("blk.{i}.ffn_gate_inp.bias", False),
+    "b_gate_exps": ("blk.{i}.ffn_gate_exps.bias", False),
+    "b_up_exps": ("blk.{i}.ffn_up_exps.bias", False),
+    "b_down_exps": ("blk.{i}.ffn_down_exps.bias", False),
+    "w_gate_shexp": ("blk.{i}.ffn_gate_shexp.weight", True),
+    "w_up_shexp": ("blk.{i}.ffn_up_shexp.weight", True),
+    "w_down_shexp": ("blk.{i}.ffn_down_shexp.weight", True),
+    "w_gate_inp_shexp": ("blk.{i}.ffn_gate_inp_shexp.weight", True),
 }
+# tensors of families outside the port, refused at load by their cause
+_REFUSED = {"attn_q_exps": "jetmoe's mixture-of-attention (wq_exps / "
+            "wo_exps)", "attn_output_exps": "jetmoe's mixture-of-attention "
+            "(wq_exps / wo_exps)", "attn_kv_a_mqa": "multi-head latent "
+            "attention (deepseek2 / deepseek3 / kimi: MLA)",
+            "ssm_in": "a recurrent mixer (mamba / jamba)"}
 # fused tensors split at load (phi3/gptneox attn_qkv, phi3 gate|up ffn_up)
 _LAYER_FUSED = ("blk.{i}.attn_qkv.weight", "blk.{i}.attn_qkv.bias")
 _ROOT = ("token_embd.weight", "output_norm.weight", "output.weight",
@@ -98,6 +137,19 @@ def _torch_dtype_of(arr: np.ndarray) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
+
+
+def dequant_q8_0(raw: np.ndarray, shape, device) -> torch.Tensor:
+    """A Q8_0 payload (blocks of an f16 scale and 32 int8 codes) as f32
+    on `device`, dequantized there by torch: the bytes cross to the card
+    at about a quarter of the f32 size, and on the host torch's threads
+    share the work. Each value is its code times its scale in f32, one
+    rounding, the same bits as gguf/quants.dequantize_q8_0."""
+    b = torch.from_numpy(np.array(raw, copy=True)).to(device).view(-1, 34)
+    d = b[:, :2].contiguous().view(torch.float16).float()
+    q = b[:, 2:].contiguous().view(torch.int8).float()
+    n = int(np.prod(shape))
+    return (q * d).reshape(-1)[:n].reshape(tuple(shape))
 
 
 def _quantizable(info, shape) -> bool:
@@ -170,9 +222,10 @@ def load_model(path: str, dtype=torch.bfloat16, device="cuda",
     embedding norm, the output norm's and projection's biases, longrope
     factors (into cfg.extra), a fused attn_qkv (and its bias) or phi3's
     fused gate|up ffn_up split into their parts (dense, as in JAX), olmo's
-    non-parametric norms as unit weights and apertus's xIELU parameters.
-    A layer stack whose layers differ in their tensors (the JAX loader's
-    layer_groups) and any tensor outside these are refused."""
+    non-parametric norms as unit weights, apertus's xIELU parameters and
+    the mixture-of-experts tensors (dense; dbrx's and grok's output norms
+    renamed as in JAX). Layers that differ in their tensors stack in
+    `layer_groups`; any tensor outside these is refused."""
     dev = torch.device(device)
     with GGUFFile(path) as g:
         for k, v in (metadata_overrides or {}).items():
@@ -190,6 +243,10 @@ def load_model(path: str, dtype=torch.bfloat16, device="cuda",
             | {pat.format(i=i) for pat in _LAYER_FUSED
                for i in range(cfg.n_layers)}
         extra = sorted(set(g.tensors) - known)
+        for part, cause in _REFUSED.items():
+            if any(f".{part}." in name for name in extra):
+                raise NotImplementedError(
+                    f"{cfg.arch}: {cause} is not ported")
         if {"head_count_arr", "head_count_kv_arr",
                 "n_ff_arr"} & set(cfg.extra):
             raise NotImplementedError(
@@ -200,11 +257,18 @@ def load_model(path: str, dtype=torch.bfloat16, device="cuda",
                 f"{cfg.arch}: tensors outside the dense llama graph are not "
                 f"ported yet: {extra[:8]}")
 
-        def fetch(name: str, transpose: bool) -> torch.Tensor:
-            x = g.tensor_f32(name)
-            if transpose and x.ndim == 2:
+        def fetch(name: str, transpose) -> torch.Tensor:
+            info = g.tensors[name]
+            if info.ggml_type == GGMLType.Q8_0:
+                x = dequant_q8_0(g.tensor_raw(name), info.shape, dev)
+            else:
+                x = torch.from_numpy(np.ascontiguousarray(
+                    g.tensor_f32(name)))
+            if transpose == "3d" and x.dim() == 3:
+                x = x.transpose(1, 2)        # (X, FF, E) -> (X, E, FF)
+            elif transpose and x.dim() == 2:
                 x = x.T
-            return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
+            return x.to(dev, dtype).contiguous()
 
         def fetch_maybe_q(name: str, transpose: bool):
             """A QTensor (host tensors) or a dense device tensor."""
@@ -305,6 +369,17 @@ def load_model(path: str, dtype=torch.bfloat16, device="cuda",
             for key, w in split_qkv(i).items():
                 lp.setdefault(key, w)
             per_layer.append(lp)
+        # dbrx: attn_output_norm is the pre-FFN norm; grok: it is the
+        # post-attention sandwich norm (ffn_norm exists there) and
+        # layer_output_norm the post-MoE one (the JAX loader's renames)
+        for lp in per_layer:
+            if "attn_out_norm" in lp:
+                key = "attn_post_norm" if "ffn_norm" in lp else "ffn_norm"
+                lp[key] = lp.pop("attn_out_norm")
+                if "attn_out_norm_b" in lp:
+                    lp[key + "_b"] = lp.pop("attn_out_norm_b")
+            if "layer_out_norm" in lp:
+                lp["ffn_post_norm"] = lp.pop("layer_out_norm")
         if cfg.arch == "olmo":
             # olmo (v1): unit weights for the non-parametric LayerNorms
             ones = torch.ones(cfg.n_embd, dtype=dtype, device=dev)
@@ -324,13 +399,23 @@ def load_model(path: str, dtype=torch.bfloat16, device="cuda",
                 lp["xielu"] = torch.tensor(
                     [xap[i], xan[i], xb[i], xe[i]], dtype=torch.float32
                 ).to(dev, dtype)
-        sigs = {frozenset(lp) for lp in per_layer}
-        if len(sigs) > 1:
-            raise NotImplementedError(
-                f"{cfg.arch}: layers with different tensor sets (the JAX "
-                "loader's layer_groups) are not ported yet")
-        params["layers"] = {key: stack(key, [lp[key] for lp in per_layer])
-                            for key in (per_layer[0] if per_layer else {})}
+        # consecutive layers with the same tensor set stack as one group;
+        # more than one group is the JAX loader's layer_groups (leading
+        # dense layers, llama4's interleaved dense and MoE layers)
+        groups: list[list[dict]] = []
+        for lp in per_layer:
+            if groups and set(groups[-1][0]) == set(lp):
+                groups[-1].append(lp)
+            else:
+                groups.append([lp])
+        stacked = [{key: stack(key, [lp[key] for lp in gr]) for key in gr[0]}
+                   for gr in groups]
+        if len(stacked) <= 1:
+            params["layers"] = stacked[0] if stacked else {}
+        else:
+            SRV_INF("load_model", "heterogeneous layers: %s",
+                    [len(gr) for gr in groups])
+            params["layer_groups"] = stacked
     return cfg, params
 
 
@@ -441,7 +526,7 @@ def fuse_projections(params: dict, cfg: ModelConfig) -> dict:
     (`wqkv` [L, E, (H+2*Hkv)*D], `w_gateup` [L, E, 2*FF]). Each output
     column is an independent contraction (and w8a8 activation scales are
     per row of x, shared by construction), so the split outputs equal the
-    separate matmuls'."""
+    separate matmuls'. Layer groups stay unfused, as in JAX."""
     del cfg
     layers = params.get("layers")
     if not isinstance(layers, dict):
@@ -449,6 +534,10 @@ def fuse_projections(params: dict, cfg: ModelConfig) -> dict:
     layers = dict(layers)
     for fused, keys in (("wqkv", ("wq", "wk", "wv")),
                         ("w_gateup", ("w_gate", "w_up"))):
+        # an MoE layer's dense gate and up (arctic's branch) stay apart,
+        # as in JAX
+        if fused == "w_gateup" and "w_gate_inp" in layers:
+            continue
         if all(k in layers for k in keys):
             f = _cat_weights([layers[k] for k in keys])
             if f is not None:

@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = ("flash_prefill", "flash_decode", "w8a8_matmul", "fused_norm_qmm",
-           "fused_layer_tail", "q_matmul", "norm")
+           "fused_layer_tail", "q_matmul", "norm", "moe_ffn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 

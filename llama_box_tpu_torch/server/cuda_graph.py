@@ -35,10 +35,11 @@ def kernel_wrappers() -> list:
     from ..ops.flash_decode import flash_decode
     from ..ops.flash_prefill import flash_prefill_batched
     from ..ops.fused_decode import fused_layer_tail, fused_norm_qmm
+    from ..ops.moe import moe_ffn
     from ..ops.norm import row_norm
     from ..ops.qmatmul import q4_matmul, q8_matmul, w8a8_matmul
     return [flash_prefill_batched, flash_decode, w8a8_matmul, fused_norm_qmm,
-            fused_layer_tail, q4_matmul, q8_matmul, row_norm]
+            fused_layer_tail, q4_matmul, q8_matmul, row_norm, moe_ffn]
 
 
 class _Graph:

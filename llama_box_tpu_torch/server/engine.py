@@ -98,7 +98,8 @@ from ..models.config import ModelConfig
 from ..models.llama import (alibi_slopes, check_supported, copy_kv_prefix,
                             decode_operands, decode_step_impl,
                             forward_embeddings, init_chain_rows,
-                            init_kv_cache, layer_is_local, layer_windows,
+                            init_kv_cache, layer_groups, layer_is_local,
+                            layer_windows,
                             make_delta_rope, make_rope,
                             prefill_batch_impl, shift_kv, verify_forward,
                             verify_operands, write_chain_rows)
@@ -465,7 +466,7 @@ class Engine:
         # GEMM splits (<= _SPLIT_MAX_ROWS rows take other bits), so a
         # prompt row's bits do not depend on how much of it was cached
         if any(isinstance(w, QTensor) and not w.w8a8
-               for w in params.get("layers", {}).values()):
+               for gp in layer_groups(params) for w in gp.values()):
             buckets = [b for b in buckets if S * b > _SPLIT_MAX_ROWS] \
                 or buckets[-1:]
         self.buckets = tuple(buckets)
@@ -846,6 +847,9 @@ class Engine:
         it went out (it has set the slots' ramps)."""
         if not self.ecfg.pipeline_chain or self._chain_q or self._spec_q:
             return False
+        # no chain over heterogeneous layer groups (the JAX gate)
+        if "layer_groups" in self.params:
+            return False
         # no chain while a slot may draft (the JAX gate)
         if self.draft_params is not None or (
                 self.ecfg.lookup_ngram_min > 0
@@ -930,7 +934,10 @@ class Engine:
         if self.draft_params is None and self.ecfg.lookup_ngram_min > 0:
             ngram_drafts = {s.idx: self._make_drafts(s) for s in dec}
         host = any(_host_controlled(s.task) for s in dec)
-        if not host and self.draft_params is None \
+        # heterogeneous layer groups decode a token a pass, never in a
+        # chain (the JAX engine's gate)
+        groups = "layer_groups" in self.params
+        if not host and self.draft_params is None and not groups \
                 and not (ngram_drafts and any(ngram_drafts.values())):
             # chains shrink toward the boundary, so a slot reaches its
             # capacity at the end of one; it shifts before the next (the

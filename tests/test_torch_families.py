@@ -469,15 +469,11 @@ def test_alibi_slopes_match_jax(paths, heads):
 
 
 @pytest.mark.parametrize("flag,value,named", [
-    ("chunked_window", 8192, "chunked_window"),
     ("mrope_sections", (4, 2, 2), "mrope"), ("v_head_dim", 32, "v_head_dim"),
-    ("qk_l2_norm", True, "qk_l2"),
-    ("attn_temp_scale", 0.1, "attn_temp"), ("expert_count", 4, "expert"),
     ("kv_lora_rank", 16, "kv_lora"), ("ssm_d_inner", 16, "recurrent")])
 def test_outside_the_slice_is_refused_at_load(tmp_path, flag, value, named):
-    """MoE, MLA, M-RoPE, llama4's chunked window, q/k L2 norm and
-    temperature, a V head width other than K's, recurrent: still refused
-    by the port's check, by name."""
+    """MLA, M-RoPE, a V head width other than K's, recurrent: still
+    refused by the port's check, by name."""
     path = str(tmp_path / "m.gguf")
     write_own(path, "qwen3")
     cfg, params = load_model(path, dtype=torch.float32, device="cpu")
@@ -486,15 +482,33 @@ def test_outside_the_slice_is_refused_at_load(tmp_path, flag, value, named):
         tllama.check_supported(cfg, params)
 
 
-def test_layer_groups_and_unknown_tensors_are_refused(tmp_path):
+@pytest.mark.parametrize("flag,value", [
+    ("chunked_window", 8192), ("qk_l2_norm", True), ("attn_temp_scale", 0.1),
+    ("expert_count", 4)])
+def test_moe_and_llama4_config_is_in_the_slice(tmp_path, flag, value):
+    """llama4's chunked window, q/k L2 norm and temperature and the
+    experts' config now pass the port's check (tests/test_torch_families_
+    moe.py runs them)."""
     path = str(tmp_path / "m.gguf")
     write_own(path, "qwen3")
     cfg, params = load_model(path, dtype=torch.float32, device="cpu")
-    params = dict(params, layer_groups=[params["layers"]])
-    with pytest.raises(NotImplementedError, match="layer_groups"):
-        tllama.check_supported(cfg, params)
-    lay = dict(params["layers"], sinks=params["layers"]["q_norm"])
-    with pytest.raises(NotImplementedError, match="sinks"):
-        tllama.check_supported(cfg, {"tok_embd": params["tok_embd"],
-                                     "output_norm": params["output_norm"],
-                                     "layers": lay})
+    tllama.check_supported(dataclasses.replace(cfg, **{flag: value}), params)
+
+
+def test_layer_groups_and_unknown_tensors_are_refused(tmp_path):
+    """A layer group, or the layer stack, holding a tensor the port does
+    not know (jetmoe's mixture-of-attention) is refused by its name; an
+    unknown root key too."""
+    path = str(tmp_path / "m.gguf")
+    write_own(path, "qwen3")
+    cfg, params = load_model(path, dtype=torch.float32, device="cpu")
+    lay = dict(params["layers"], wq_exps=params["layers"]["q_norm"])
+    base = {"tok_embd": params["tok_embd"],
+            "output_norm": params["output_norm"]}
+    with pytest.raises(NotImplementedError, match="wq_exps"):
+        tllama.check_supported(cfg, dict(base, layer_groups=[
+            params["layers"], lay]))
+    with pytest.raises(NotImplementedError, match="wq_exps"):
+        tllama.check_supported(cfg, dict(base, layers=lay))
+    with pytest.raises(NotImplementedError, match="altup"):
+        tllama.check_supported(cfg, dict(params, altup_proj=lay["q_norm"]))

@@ -1068,11 +1068,14 @@ def test_draws_on_the_card_are_the_cpu_draws(cuda):
 _TINY = dict(L=2, E=256, H=4, HKV=2, D=64, FF=512, V=512)
 
 
-def _tiny_gguf(path, fmt, dims=None):
+def _tiny_gguf(path, fmt, dims=None, moe=None):
+    """The tiny llama; with `moe` (X experts, K a token, expert FF) a
+    qwen3moe file whose FFNs are experts (bf16 stacks on the card)."""
     from llama_box_tpu_torch.gguf import GGMLType, GGUFWriter
     from llama_box_tpu_torch.tokenizer.tokenizer import TokenType
     L, E, H, HKV, D, FF, V = ((dims or _TINY)[k] for k in
                               ("L", "E", "H", "HKV", "D", "FF", "V"))
+    arch = "qwen3moe" if moe else "llama"
     alpha = ["▁"] + [chr(c) for c in range(ord("a"), ord("z") + 1)]
     pieces = (alpha + [a + b for a in alpha for b in alpha])[:V - 259]
     toks = ["<unk>", "<s>", "</s>"] + [f"<0x{i:02X}>" for i in range(256)] \
@@ -1080,16 +1083,17 @@ def _tiny_gguf(path, fmt, dims=None):
     types = [TokenType.UNKNOWN, TokenType.CONTROL, TokenType.CONTROL] \
         + [TokenType.BYTE] * 256 + [TokenType.NORMAL] * len(pieces)
     rng = np.random.default_rng(3)
-    w = GGUFWriter(str(path), architecture="llama")
-    for k, v in (("llama.block_count", L), ("llama.context_length", 512),
-                 ("llama.embedding_length", E),
-                 ("llama.feed_forward_length", FF),
-                 ("llama.attention.head_count", H),
-                 ("llama.attention.head_count_kv", HKV),
-                 ("llama.attention.layer_norm_rms_epsilon", 1e-5),
-                 ("llama.rope.freq_base", 10000.0),
-                 ("llama.rope.dimension_count", D),
-                 ("llama.vocab_size", V), ("tokenizer.ggml.model", "llama"),
+    w = GGUFWriter(str(path), architecture=arch)
+    a = arch
+    for k, v in ((f"{a}.block_count", L), (f"{a}.context_length", 512),
+                 (f"{a}.embedding_length", E),
+                 (f"{a}.feed_forward_length", FF),
+                 (f"{a}.attention.head_count", H),
+                 (f"{a}.attention.head_count_kv", HKV),
+                 (f"{a}.attention.layer_norm_rms_epsilon", 1e-5),
+                 (f"{a}.rope.freq_base", 10000.0),
+                 (f"{a}.rope.dimension_count", D),
+                 (f"{a}.vocab_size", V), ("tokenizer.ggml.model", "llama"),
                  ("tokenizer.ggml.tokens", toks),
                  ("tokenizer.ggml.scores", np.asarray(
                      [0.0] * 259 + [-float(i) for i in range(len(pieces))],
@@ -1099,6 +1103,9 @@ def _tiny_gguf(path, fmt, dims=None):
                  ("tokenizer.ggml.eos_token_id", 2),
                  ("tokenizer.ggml.unknown_token_id", 0)):
         w.add_kv(k, v)
+    if moe:
+        w.add_kv(f"{a}.expert_count", moe["X"])
+        w.add_kv(f"{a}.expert_used_count", moe["K"])
 
     def rand(*shape):
         return rng.standard_normal(shape, dtype=np.float32) * 0.05
@@ -1118,6 +1125,14 @@ def _tiny_gguf(path, fmt, dims=None):
         w.add_tensor(f"blk.{i}.attn_v.weight", rand(HKV * D, E), most)
         w.add_tensor(f"blk.{i}.attn_output.weight", rand(E, H * D), most)
         w.add_tensor(f"blk.{i}.ffn_norm.weight", norm_w())
+        if moe:
+            X, F = moe["X"], moe["FF"]
+            w.add_tensor(f"blk.{i}.ffn_gate_inp.weight", rand(X, E) * 10)
+            for k, shp in (("gate", (X, F, E)), ("up", (X, F, E)),
+                           ("down", (X, E, F))):
+                w.add_tensor(f"blk.{i}.ffn_{k}_exps.weight", rand(*shp),
+                             most)
+            continue
         w.add_tensor(f"blk.{i}.ffn_gate.weight", rand(FF, E), most)
         w.add_tensor(f"blk.{i}.ffn_up.weight", rand(FF, E), most)
         w.add_tensor(f"blk.{i}.ffn_down.weight", rand(E, FF), q6)
@@ -2504,3 +2519,165 @@ def test_decode_kernel_chain_rows_give_the_cache_bits_at_d256_in_a_window(
         assert torch.isfinite(out[nv]).all()
         torch.testing.assert_close(out[nv], want, rtol=0, atol=BF16_ATOL)
     assert torch.equal(out[1], out[16])
+
+
+# -- the routed-expert kernel (csrc/moe_ffn.cu) ---------------------------------
+
+# name -> (N rows, X experts, K picks, E, F, activation, biases,
+# weight_before, an expert no row picks): Qwen3-30B-A3B's layer at a
+# decode step, a verify pass and a 4 x 512 prefill; gpt-oss's swiglu_oai
+# with biases; and the edges (one pick, every expert, 60 experts, an FF
+# that is no multiple of the column tile, several tiles an expert, llama4's
+# weight before the FFN, N K not a multiple of the tile rows)
+_MOE_CASES = {
+    "qwen3_decode": (4, 128, 8, 2048, 768, "silu", False, False, False),
+    "qwen3_verify": (36, 128, 8, 2048, 768, "silu", False, False, False),
+    "qwen3_prefill": (2048, 128, 8, 2048, 768, "silu", False, False, False),
+    "gpt_oss": (36, 32, 4, 2880, 2880, "swiglu_oai", True, False, True),
+    "k1_gelu": (37, 8, 1, 256, 200, "gelu", False, False, False),
+    "k_all_relu2": (9, 8, 8, 256, 136, "relu2", False, False, False),
+    "x60": (129, 60, 4, 512, 1408, "silu", False, False, True),
+    "many_tiles": (700, 4, 2, 256, 512, "silu", False, False, False),
+    "weight_before": (33, 16, 1, 512, 1024, "silu", False, True, False),
+}
+# f32 sums of the same exact bf16 products in another order; act enters
+# the down product as hi + lo bf16 parts (about 2**-16 of it lost)
+MOE_RTOL = 1e-4
+
+
+def _moe_inputs(case, dev, seed=0):
+    N, X, K, E, F, act, bias, wb, idle = _MOE_CASES[case]
+    g = torch.Generator().manual_seed(seed)
+    bf = torch.bfloat16
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).to(dev, bf)
+    h = r(N, E)
+    pool = X - 1 if idle else X
+    topi = torch.stack([torch.randperm(pool, generator=g)[:K]
+                        for _ in range(N)]).to(dev, torch.int32)
+    topv = torch.rand(N, K, generator=g).to(dev) + 0.05
+    stacks = (r(X, E, F, s=E ** -0.5), r(X, E, F, s=E ** -0.5),
+              r(X, F, E, s=F ** -0.5))
+    kw = dict(act=act, weight_before=wb, scale=1.5 if case == "x60" else 1.0)
+    if bias:
+        kw.update(b_gate=r(X, F, s=0.5), b_up=r(X, F, s=0.5),
+                  b_down=r(X, E, s=0.1))
+    return h, topi, topv, stacks, kw
+
+
+@pytest.mark.parametrize("case", sorted(_MOE_CASES))
+def test_moe_kernel_matches_plain(cuda, case):
+    from llama_box_tpu_torch.ops.moe import moe_ffn, moe_ffn_plain
+    h, topi, topv, stacks, kw = _moe_inputs(case, cuda)
+    N, E = h.shape
+    pad = 256
+    buf = torch.full((N * E + 2 * pad,), float("nan"), device=cuda)
+    out = buf[pad:pad + N * E].view(N, E)
+    got = moe_ffn(h, topi, topv, *stacks, out=out, **kw)
+    want = moe_ffn_plain(h, topi, topv, *stacks, **kw)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.isnan(buf[:pad]).all() and torch.isnan(buf[-pad:]).all()
+    assert torch.isfinite(got).all()
+    tol = MOE_RTOL * want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("case", ["qwen3_prefill", "gpt_oss",
+                                  "weight_before"])
+def test_moe_kernel_rows_do_not_depend_on_the_row_count(cuda, case):
+    """A row's bits alone = among 36 (a verify pass) = among all N (a
+    prefill pass): its tile partners and tile positions change, its
+    products' order does not."""
+    from llama_box_tpu_torch.ops.moe import moe_ffn
+    h, topi, topv, stacks, kw = _moe_inputs(case, cuda, seed=5)
+    full = moe_ffn(h, topi, topv, *stacks, **kw)
+    some = moe_ffn(h[:36], topi[:36], topv[:36], *stacks, **kw)
+    assert torch.equal(full[:36], some)
+    for i in (0, 7, 35):
+        one = moe_ffn(h[i:i + 1], topi[i:i + 1], topv[i:i + 1], *stacks,
+                      **kw)
+        assert torch.equal(full[i:i + 1], one)
+
+
+def test_moe_kernel_in_a_cuda_graph_and_never_plain(cuda, monkeypatch):
+    from llama_box_tpu_torch.ops import moe as moe_mod
+
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+    h, topi, topv, stacks, kw = _moe_inputs("qwen3_verify", cuda)
+    eager = moe_mod.moe_ffn(h, topi, topv, *stacks, **kw)
+    monkeypatch.setattr(moe_mod, "moe_ffn_plain", boom)
+    n0 = moe_mod.moe_ffn.launches
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=side):
+        out = moe_mod.moe_ffn(h, topi, topv, *stacks, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert moe_mod.moe_ffn.launches == n0 + 1
+    with pytest.raises(ValueError):
+        moe_mod.moe_ffn(h.float(), topi, topv, *stacks, **kw)
+
+
+@pytest.fixture(scope="module")
+def tiny_moe_model(tmp_path_factory):
+    """A two-layer qwen3moe file at the tiny model's widths: 16 experts,
+    4 a token, expert FF 128, F16 (bf16 stacks on the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from llama_box_tpu_torch.gguf import GGUFFile
+    from llama_box_tpu_torch.models.loader import load_model
+    from llama_box_tpu_torch.tokenizer import Tokenizer
+    path = tmp_path_factory.mktemp("tinymoe") / "tiny-moe-f16.gguf"
+    _tiny_gguf(path, "f16", moe=dict(X=16, K=4, FF=128))
+    cfg, params = load_model(str(path), dtype=torch.bfloat16, device="cuda")
+    with GGUFFile(str(path)) as g:
+        tok = Tokenizer.from_gguf(g)
+    return "bf16", cfg, params, tok
+
+
+def test_moe_spec_greedy_text_equals_plain_decode(cuda, tiny_moe_model):
+    """On a small MoE model (bf16 path): a verify forward's rows are its
+    one-row decode steps bit for bit, and self-drafting greedy chats give
+    the tokens of plain chained decode; the expert kernel ran."""
+    from llama_box_tpu_torch.models import llama
+    from llama_box_tpu_torch.ops.moe import moe_ffn
+    from llama_box_tpu_torch.sampling import SamplerParams
+    _, cfg, params, _ = tiny_moe_model
+    S, C, T = 4, 512, 9
+    rng = np.random.default_rng(98)
+    n = np.array([100, 37, 211, 64])
+    pre = torch.from_numpy(rng.integers(300, 500, (S, 256)))
+    rows = torch.from_numpy(rng.integers(300, 500, (S, T)))
+    pos = n[:, None] + np.arange(T)
+    cos, sin = llama.make_rope(cfg, C, cuda)
+    kv = llama.init_kv_cache(cfg, S, C, torch.bfloat16, cuda)
+    n0 = moe_ffn.launches
+    llama.prefill_batch_impl(params, cfg, pre, np.zeros(S, np.int64), n, kv,
+                             cos, sin)
+    assert moe_ffn.launches == n0 + cfg.n_layers
+    kv2 = llama.KVCache(*[x.clone() if x is not None else None for x in kv])
+    got = llama.forward_impl(params, cfg, rows, pos, kv, cos, sin)[0]
+    want = torch.cat([llama.forward_impl(
+        params, cfg, rows[:, j:j + 1], pos[:, j:j + 1].copy(), kv2, cos,
+        sin)[0] for j in range(T)], dim=1)
+    assert torch.equal(got, want)
+    prompts = [rng.integers(300, 500, k).tolist() for k in (40, 23, 9, 17)]
+    specs = [(p, SamplerParams(temp=0.0, ignore_eos=True), 48)
+             for p in prompts]
+    eng = _spec_engine(tiny_moe_model, True, draft_max=8, start=True)
+    try:
+        out = _serve(eng, specs)
+        assert eng.metrics.n_drafted_total > 0
+    finally:
+        eng.stop()
+    ref = _engine(tiny_moe_model, True, chain=16, start=True)
+    try:
+        assert _serve(ref, specs) == out
+    finally:
+        ref.stop()
