@@ -26,7 +26,12 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     of 256 under its softcap 50, BLOOM-560m's 16 heads of 64 under ALiBi,
     phi-2's 32 heads of 80 and phi-3-mini's 32 of 96; f32 and int8-cache
     variants at D 80, 96, 256 with a window and ALiBi; and both bit checks
-    again at D 256 under the 512 window;
+    again at D 256 under the 512 window. Then multi-head latent attention
+    (MLA_KERNEL_CASES): K / V widths 192 / 128 at DeepSeek-V2-Lite's 16
+    heads and 96 / 64 at MiniCPM3-4B's 40, one query head a cache head, C
+    4096, bf16 and int8 caches (prefill q[4,H,1,512,D] at pos0 0 and 1024,
+    decode R 16 at cpos 1023 and 3000), f32 and windowed int8 variants, and
+    both bit checks at each pair;
  4. times: kernel, plain version and a library yardstick (SDPA for the
     attention kernels; for w8a8_matmul torch._int_mm on the codes with
     the weight K-major, beside it _int_mm on the weight as stored and
@@ -34,7 +39,10 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     port; under a window or ALiBi SDPA gets the same float mask) with
     CUDA events on a cold L2, beside the bound max(bytes / 3.35 TB/s, ops
     / peak), the peak being 989 TFLOP/s bf16 or 1979 TOP/s int8, the
-    bytes and operations those of the keys each call's window leaves; phase 4w also times w8a8_matmul's row-quantize pass alone
+    bytes and operations those of the keys each call's window leaves (K
+    read at D, V at Dv; 2 x keys x (D + Dv) operations a query row); at
+    unequal widths also the SDPA backend that took the call (the first of
+    flash, memory-efficient, cuDNN, math); phase 4w also times w8a8_matmul's row-quantize pass alone
     (bound: M*K*3 + 4*M bytes), the fused kernels at Llama-3-8B's widths
     (kernel only, not served) and counts the kernels each w8a8 call runs
     (torch.profiler);
@@ -245,16 +253,32 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     to the f32 CPU forward of the file (the plain versions on the host);
     then verify rows bit-equal to one-row steps (bf16 and int8 caches)
     and, on bf16, a self-drafting wave counting its kernels;
+ 14. multi-head latent attention at published widths, after phase 13, on
+    phase 11's machinery: DeepSeek-V2-Lite's (deepseek-ai/DeepSeek-V2-Lite
+    config.json: 2048 wide, 16 heads, no q rank (a plain wq), kv rank 512,
+    K 128 + 64 rope / V 128, the first layer dense with FF 10944, then 64
+    experts, 6 a token, expert FF 1408, 2 shared experts, YaRN factor 40
+    over 4096, vocab 102400, untied; 8 of 27 layers: two layer groups, so
+    a token a pass) and MiniCPM3-4B's (openbmb/MiniCPM3-4B: 2560 wide, 40
+    heads, q rank 768, kv rank 256, K 64 + 32 / V 64, FF 6400, vocab
+    73448, its embedding, residual and logit scales, longrope factors from
+    the seed; 8 of 62 layers, uniform: chains, graphs, pipelining), Q8_0
+    matrices written by two workers beside phases 3 and 4, each on the
+    bf16 and w8a8 paths as phase 13's: both attention kernels (and on
+    DeepSeek the expert kernel) must run; the cosine to the f32 forward of
+    the file on the host (the plain versions); verify rows bit-equal to
+    one-row steps (bf16 and int8 caches); on MiniCPM3 greedy K = 1 equal
+    to K = 16;
  9. print a `kernels` line (nine kernels; launches count graph replays;
     each also with its launches in the self-drafting waves of 8/8w/8q,
     in phase 8's n-gram, self-draft and 2-layer draft waves and in each
     path's embeddings request of phase 10, where bf16's window also holds
-    the chats' chains, and in one request of each phase 11, 12 and 13
-    model and path; the attention kernels also with their variant shapes'
-    times, moe_ffn with all its timed shapes, its launches those of one
-    phase 13 bf16 request), an `e2e` line (three paths and phases 6, 7,
-    8, 10, 11, 12 and 13), the card line, and as the last line {"ok":
-    true, "device": {...}}.
+    the chats' chains, and in one request of each phase 11, 12, 13 and 14
+    model and path; the attention kernels also with their variant and MLA
+    shapes' times, moe_ffn with all its timed shapes, its launches those
+    of one phase 13 bf16 request), an `e2e` line (three paths and phases
+    6, 7, 8, 10, 11, 12, 13 and 14), the card line, and as the last line
+    {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without CUDA,
 or without the llama_box_tpu_torch package beside it, it exits non-zero
@@ -380,10 +404,11 @@ def _nan_fill(x: torch.Tensor, starts, axis_pos: int) -> None:
         x[tuple(idx)] = float("nan")
 
 
-def make_cache(g, B, C, dtype, quant, dev, hkv=HKV, d=D):
-    """K/V cache [B, C, Hkv, D] in dtype, or int8 codes + bf16 scales."""
+def make_cache(g, B, C, dtype, quant, dev, hkv=HKV, d=D, dv=None):
+    """K cache [B, C, Hkv, D] and V cache [B, C, Hkv, Dv] (Dv = D unless
+    given) in dtype, or int8 codes + bf16 scales."""
     k = torch.randn(B, C, hkv, d, generator=g, device=dev)
-    v = torch.randn(B, C, hkv, d, generator=g, device=dev)
+    v = torch.randn(B, C, hkv, dv or d, generator=g, device=dev)
     if not quant:
         return k.to(dtype), v.to(dtype), None, None
     ks = (torch.rand(B, C, hkv, generator=g, device=dev) * 0.04 + 0.01)
@@ -404,14 +429,15 @@ def alibi_slopes(n_heads, hkv, dev, max_bias=8.0):
 def prefill_case(g, dev, *, B=4, G=8, T=512, C=SLOT_CTX, pos0=(0,) * 4,
                  n_valid=None, quant=False, dtype=torch.bfloat16,
                  win=(0, 0), spans=None, sinks=False, softcap=0.0,
-                 hkv=HKV, d=D, alibi=False):
+                 hkv=HKV, d=D, alibi=False, dv=None):
     n_valid = n_valid or (T,) * B
+    dv = dv or d
     q = torch.randn(B, hkv, G, T, d, generator=g, device=dev).to(dtype)
-    kc, vc, ks, vs = make_cache(g, B, C, dtype, quant, dev, hkv, d)
+    kc, vc, ks, vs = make_cache(g, B, C, dtype, quant, dev, hkv, d, dv)
     _nan_fill(ks if quant else kc, pos0, 1)      # never read: >= pos0
     _nan_fill(vs if quant else vc, pos0, 1)
     kr = torch.randn(B, T, hkv, d, generator=g, device=dev).to(dtype)
-    vr = torch.randn(B, T, hkv, d, generator=g, device=dev).to(dtype)
+    vr = torch.randn(B, T, hkv, dv, generator=g, device=dev).to(dtype)
     meta = torch.zeros(B, 4, dtype=torch.int32)
     meta[:, 0] = torch.tensor(pos0)
     meta[:, 1] = torch.tensor(n_valid)
@@ -429,14 +455,15 @@ def prefill_case(g, dev, *, B=4, G=8, T=512, C=SLOT_CTX, pos0=(0,) * 4,
 def decode_case(g, dev, *, B=4, G=8, C=SLOT_CTX, R=CHAIN, cpos=(1023,) * 4,
                 nv=(CHAIN,) * 4, quant=False, dtype=torch.bfloat16,
                 win=(0, 0), sinks=False, softcap=0.0, hkv=HKV, d=D,
-                alibi=False):
+                alibi=False, dv=None):
+    dv = dv or d
     q = torch.randn(B, hkv, G, d, generator=g, device=dev).to(dtype)
-    kc, vc, ks, vs = make_cache(g, B, C, dtype, quant, dev, hkv, d)
+    kc, vc, ks, vs = make_cache(g, B, C, dtype, quant, dev, hkv, d, dv)
     cstart = [c - n + 1 for c, n in zip(cpos, nv)]
     _nan_fill(ks if quant else kc, cstart, 1)    # never read: >= chain start
     _nan_fill(vs if quant else vc, cstart, 1)
     kr = torch.randn(B, R, hkv, d, generator=g, device=dev).to(dtype)
-    vr = torch.randn(B, R, hkv, d, generator=g, device=dev).to(dtype)
+    vr = torch.randn(B, R, hkv, dv, generator=g, device=dev).to(dtype)
     meta = torch.tensor(list(zip(cpos, nv)), dtype=torch.int32, device=dev)
     args = (q, kc, vc, kr, vr, meta,
             torch.tensor(win, dtype=torch.int32, device=dev))
@@ -476,45 +503,49 @@ def _elem(t):
 
 def prefill_work(args, kw):
     """Bytes and operations of one prefill call on these inputs: the cache
-    positions some row of a slot sees (window floor to pos0) read once,
-    and each row's visible keys (causal, under the window) scored and
-    weighted."""
+    positions some row of a slot sees (window floor to pos0) read once (K
+    at D, V at Dv, an int8 cache's two scales), and each row's visible
+    keys (causal, under the window) scored at D and weighted at Dv: 2 x
+    keys x (D + Dv) operations a query row."""
     q, kc, vc, kr, vr, meta, win = args
     B, Hkv, G, T, Dq = q.shape
+    Dv = vc.shape[-1]
     w = int(win[0])
     pos0 = meta[:, 0].tolist()
     nval = meta[:, 1].tolist()
     nbytes = q.numel() * q.element_size() + (kr.numel() + vr.numel()) \
-        * kr.element_size() + B * Hkv * G * T * Dq * 4      # out f32
+        * kr.element_size() + B * Hkv * G * T * Dv * 4      # out f32
     keys = 0
     for b in range(B):
         # row t (position pos0 + t) sees pos0 + t + 1 keys, or w
         keys += sum(min(pos0[b] + t + 1, w) if w > 0 else pos0[b] + t + 1
                     for t in range(nval[b]))
         lo = max(0, pos0[b] - w + 1) if w > 0 else 0
-        nbytes += max(0, pos0[b] - lo) * Hkv * Dq * 2 * (
-            kc.element_size() + _elem(kw["k_scale"]) / Dq)
-    return nbytes, keys * Hkv * G * 4 * Dq
+        nbytes += max(0, pos0[b] - lo) * Hkv * (
+            (Dq + Dv) * kc.element_size() + 2 * _elem(kw["k_scale"]))
+    return nbytes, keys * Hkv * G * 2 * (Dq + Dv)
 
 
 def decode_work(args, kw):
     """Bytes and operations of one decode call on these inputs: the keys
     in the window (cache below the chain start, then the chain's rows)
-    read once and scored."""
+    read once (K at D, V at Dv), scored and weighted: 2 x keys x (D + Dv)
+    operations a query head."""
     q, kc, vc, kr, vr, meta, win = args
     B, Hkv, G, Dq = q.shape
+    Dv = vc.shape[-1]
     w = int(win[0])
-    nbytes = q.numel() * q.element_size() + B * Hkv * G * Dq * 4
+    nbytes = q.numel() * q.element_size() + B * Hkv * G * Dv * 4
     keys = 0
     for cpos, nv in meta.tolist():
         cstart = cpos - nv + 1
         lo = max(0, cpos - w + 1) if w > 0 else 0
         n_cache, n_rows = max(0, cstart - lo), min(nv, cpos + 1 - lo)
         keys += n_cache + n_rows
-        nbytes += n_cache * Hkv * Dq * 2 * (
-            kc.element_size() + _elem(kw["k_scale"]) / Dq)
-        nbytes += n_rows * Hkv * Dq * 2 * kr.element_size()
-    return nbytes, keys * Hkv * G * 4 * Dq
+        nbytes += n_cache * Hkv * (
+            (Dq + Dv) * kc.element_size() + 2 * _elem(kw["k_scale"]))
+        nbytes += n_rows * Hkv * (Dq + Dv) * kr.element_size()
+    return nbytes, keys * Hkv * G * 2 * (Dq + Dv)
 
 
 def _sdpa_mask(qpos, kpos, win, kw, dtype):
@@ -568,7 +599,7 @@ def sdpa_decode(args, kw):
 
 
 def cold_cached_check(g, dev, T=500, prefix=(137, 64, 1, 300), hkv=HKV,
-                      G=H // HKV, d=D, C=SLOT_CTX, win=(0, 0)):
+                      G=H // HKV, d=D, C=SLOT_CTX, win=(0, 0), dv=None):
     """flash_prefill at the served shape: 4 slots of a T-token prompt
     prefilled cold (pos0 0) against the same prompts with their first
     prefix[b] positions already in a bf16 cache and the rest as rows.
@@ -576,19 +607,19 @@ def cold_cached_check(g, dev, T=500, prefix=(137, 64, 1, 300), hkv=HKV,
     row's window skipped), so every output row must be bit-identical.
     Returns the number of rows compared."""
     from llama_box_tpu_torch.ops.flash_prefill import flash_prefill_batched
-    B, bf = len(prefix), torch.bfloat16
+    B, bf, dv = len(prefix), torch.bfloat16, dv or d
     q = torch.randn(B, hkv, G, T, d, generator=g, device=dev).to(bf)
     kr = torch.randn(B, T, hkv, d, generator=g, device=dev).to(bf)
-    vr = torch.randn(B, T, hkv, d, generator=g, device=dev).to(bf)
+    vr = torch.randn(B, T, hkv, dv, generator=g, device=dev).to(bf)
     kc = torch.full((B, C, hkv, d), float("nan"), device=dev, dtype=bf)
-    vc = kc.clone()
+    vc = torch.full((B, C, hkv, dv), float("nan"), device=dev, dtype=bf)
     win = torch.tensor(win, dtype=torch.int32, device=dev)
     meta = torch.tensor([[0, T, 0, 0]] * B, dtype=torch.int32, device=dev)
     cold = flash_prefill_batched(q, kc, vc, kr, vr, meta, win)
     Tw = T - min(prefix)
     qw = torch.zeros(B, hkv, G, Tw, d, device=dev, dtype=bf)
     krw = torch.zeros(B, Tw, hkv, d, device=dev, dtype=bf)
-    vrw = torch.zeros_like(krw)
+    vrw = torch.zeros(B, Tw, hkv, dv, device=dev, dtype=bf)
     for b, p in enumerate(prefix):
         kc[b, :p], vc[b, :p] = kr[b, :p], vr[b, :p]
         qw[b, :, :, :T - p] = q[b, :, :, p:]
@@ -606,13 +637,13 @@ def cold_cached_check(g, dev, T=500, prefix=(137, 64, 1, 300), hkv=HKV,
                                  f"from the cold prefill in {n} elements")
         rows += T - p
     log(f"  flash_prefill cold vs cached prefix {list(prefix)} "
-        f"(q[{B},{hkv},{G},{T},{d}] bf16, C={C}, window {int(win[0])}): "
-        f"{rows} rows x {G * hkv} heads bit-identical")
+        f"(q[{B},{hkv},{G},{T},{d}] bf16, V {dv}, C={C}, window "
+        f"{int(win[0])}): {rows} rows x {G * hkv} heads bit-identical")
     return rows
 
 
 def chain_rows_check(g, dev, cposes=(17, 1023, 2040), hkv=HKV, G=H // HKV,
-                     d=D, C=SLOT_CTX, win=(0, 0)):
+                     d=D, C=SLOT_CTX, win=(0, 0), dv=None):
     """flash_decode at the served shape: each query with nv = 16 (its last
     16 keys as chain rows) against the same query with nv = 1 (all but
     its own key in the cache), the rows holding what the cache holds (an
@@ -620,14 +651,14 @@ def chain_rows_check(g, dev, cposes=(17, 1023, 2040), hkv=HKV, G=H // HKV,
     Splits and tiles follow absolute positions, so the outputs must be
     bit-identical (greedy K=1 = K=16). Returns the cases compared."""
     from llama_box_tpu_torch.ops.flash_decode import flash_decode
-    B, R, bf = 4, CHAIN, torch.bfloat16
+    B, R, bf, dv = 4, CHAIN, torch.bfloat16, dv or d
     n = 0
     for quant in (False, True):
         for cpos in cposes:
             q = torch.randn(B, hkv, G, d, generator=g, device=dev).to(bf)
-            kc, vc, ks, vs = make_cache(g, B, C, bf, quant, dev, hkv, d)
-            cur = [torch.randn(B, hkv, d, generator=g, device=dev).to(bf)
-                   for _ in range(2)]
+            kc, vc, ks, vs = make_cache(g, B, C, bf, quant, dev, hkv, d, dv)
+            cur = [torch.randn(B, hkv, w, generator=g, device=dev).to(bf)
+                   for w in (d, dv)]
             if quant:
                 kd = (kc.float() * ks.float()[..., None]).to(bf)
                 vd = (vc.float() * vs.float()[..., None]).to(bf)
@@ -638,7 +669,7 @@ def chain_rows_check(g, dev, cposes=(17, 1023, 2040), hkv=HKV, G=H // HKV,
             for nv in (1, R):
                 cs = cpos - nv + 1
                 kr = torch.zeros(B, R, hkv, d, device=dev, dtype=bf)
-                vr = torch.zeros_like(kr)
+                vr = torch.zeros(B, R, hkv, dv, device=dev, dtype=bf)
                 kr[:, :nv - 1], vr[:, :nv - 1] = kd[:, cs:cpos], vd[:, cs:cpos]
                 kr[:, nv - 1], vr[:, nv - 1] = cur
                 k2, v2, ks2, vs2 = kc.clone(), vc.clone(), ks, vs
@@ -659,9 +690,9 @@ def chain_rows_check(g, dev, cposes=(17, 1023, 2040), hkv=HKV, G=H // HKV,
                     f" cache): nv = 1 and nv = {R} differ in "
                     f"{int((a != b).sum())} elements")
             n += 1
-    log(f"  flash_decode nv=1 vs nv={R} (q[{B},{hkv},{G},{d}] bf16, C={C}, "
-        f"window {win[0]}, cpos {list(cposes)}, bf16 and int8 caches): {n} "
-        "cases bit-identical")
+    log(f"  flash_decode nv=1 vs nv={R} (q[{B},{hkv},{G},{d}] bf16, V {dv}, "
+        f"C={C}, window {win[0]}, cpos {list(cposes)}, bf16 and int8 "
+        f"caches): {n} cases bit-identical")
     return n
 
 
@@ -680,6 +711,34 @@ ATTN_KERNEL_CASES = {
     "phi2 d80": dict(hkv=32, G=1, d=80, C=2048),
     "phi3-mini d96": dict(hkv=32, G=1, d=96, C=2048),
 }
+
+
+# multi-head latent attention's shapes (phases 3 and 4): H heads of K at
+# nope + rope and of V at value_length (one query head a cache head), C 4096
+MLA_KERNEL_CASES = {
+    # deepseek-ai/DeepSeek-V2-Lite config.json: 16 heads, qk nope 128 +
+    # rope 64, v_head_dim 128
+    "deepseek-v2-lite": dict(hkv=16, G=1, d=192, dv=128, C=4096),
+    # openbmb/MiniCPM3-4B config.json: 40 heads, qk nope 64 + rope 32,
+    # v_head_dim 64
+    "minicpm3-4b": dict(hkv=40, G=1, d=96, dv=64, C=4096),
+}
+
+
+def sdpa_backend(fn) -> str:
+    """The first SDPA backend, in the order flash, memory-efficient,
+    cuDNN, math, that takes fn()'s call, or "refused"."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([b]):
+                fn()
+            torch.cuda.synchronize()
+            return b.name.lower()
+        except RuntimeError:
+            continue
+    return "refused"
 
 
 def kernel_phase(dev, seed):
@@ -765,6 +824,33 @@ def kernel_phase(dev, seed):
     chain_rows_check(g, dev, cposes=(1023, 3000), hkv=1, G=4, d=256, C=4096,
                      win=(512, 0))
 
+    log("== phase 3, multi-head latent attention: K / V widths 192 / 128 "
+        "and 96 / 64")
+    for name, c in MLA_KERNEL_CASES.items():
+        hkv, d, dv, C = c["hkv"], c["d"], c["dv"], c["C"]
+        for quant in (False, True):
+            tag = f"{name} {'int8' if quant else 'bf16'}"
+            for p0 in (0, 1024):
+                main[("prefill", tag, p0)] = pf(
+                    f"{tag} q[4,{hkv},1,512,{d}] V {dv} C={C} pos0={p0}",
+                    pos0=(p0,) * 4, quant=quant, **c)
+            for cp in (1023, 3000):
+                main[("decode", tag, cp)] = dc(
+                    f"{tag} q[4,{hkv},1,{d}] V {dv} C={C} R=16 cpos={cp}",
+                    cpos=(cp,) * 4, quant=quant, **c)
+        v = dict(B=2, C=256, hkv=2, G=1, d=d, dv=dv)
+        pf(f"{name} f32", T=80, pos0=(150, 40), dtype=torch.float32,
+           atol=F32_ATOL, **v)
+        pf(f"{name} int8 window", T=80, pos0=(150, 40), quant=True,
+           win=(24, 0), **v)
+        dc(f"{name} f32", cpos=(200, 40), nv=(5, 1), dtype=torch.float32,
+           atol=F32_ATOL, **v)
+        dc(f"{name} int8 window", cpos=(200, 40), nv=(5, 1), quant=True,
+           win=(24, 0), **v)
+        cold_cached_check(g, dev, hkv=hkv, G=1, d=d, dv=dv, C=C)
+        chain_rows_check(g, dev, cposes=(1023, 3000), hkv=hkv, G=1, d=d,
+                         dv=dv, C=C)
+
     log("== phase 4: device times (median of 15, cold L2)")
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     rows = []
@@ -774,12 +860,12 @@ def kernel_phase(dev, seed):
             kern = lambda a=args, k=kws: flash_prefill_batched(*a, **k)
             plain = lambda a=args, k=kws: flash_prefill_plain(*a, **k)
             nbytes, flops = prefill_work(args, kws)
-            lib = None if tag == "int8" else sdpa_prefill(args, kws)
+            lib = None if tag.endswith("int8") else sdpa_prefill(args, kws)
         else:
             kern = lambda a=args, k=kws: flash_decode(*a, **k)
             plain = lambda a=args, k=kws: flash_decode_plain(*a, **k)
             nbytes, flops = decode_work(args, kws)
-            lib = None if tag == "int8" else sdpa_decode(args, kws)
+            lib = None if tag.endswith("int8") else sdpa_decode(args, kws)
         b_ms, b_by = bound_ms(nbytes, flops)
         q = args[0]
         r = dict(kind=kind, cache=tag, pos=pos, q=list(q.shape),
@@ -787,7 +873,9 @@ def kernel_phase(dev, seed):
                  ms=device_ms(kern, flush), plain_ms=device_ms(plain, flush),
                  library_ms=None if lib is None else device_ms(lib, flush),
                  bound_ms=b_ms, bound_by=b_by, mbytes=nbytes / 1e6,
-                 gflop=flops / 1e9)
+                 gflop=flops / 1e9, dv=args[2].shape[-1])
+        if lib is not None and r["dv"] != q.shape[-1]:
+            r["sdpa_backend"] = sdpa_backend(lib)
         rows.append(r)
         log("  " + json.dumps(r))
     return errs, rows
@@ -4368,6 +4456,32 @@ MOE_VARIANTS = {
                           FF=6144, FFE=768, X=128, K=8, V=151936, rot=128,
                           eps=1e-6, base=1e6, ctx=40960),
 }
+# phase 14: multi-head latent attention at published widths
+MLA_VARIANTS = {
+    # deepseek-ai/DeepSeek-V2-Lite config.json: 27 x 2048, 16 heads,
+    # q_lora_rank null (a plain wq), kv_lora_rank 512, qk nope 128 + rope
+    # 64, v_head_dim 128; the first layer dense (FF 10944), the rest MoE:
+    # 64 experts, 6 a token, moe_intermediate_size 1408, 2 shared experts
+    # (one shexp of FF 2816), softmax scores, norm_topk_prob false,
+    # routed_scaling_factor 1.0; rope_theta 1e4 with YaRN (factor 40,
+    # original context 4096; mscale_all_dim 0.707 as the GGUF's
+    # yarn_log_multiplier 0.0707), rms eps 1e-6, vocab 102400, untied;
+    # depth cut from 27 to 8 layers (1 dense + 7 MoE)
+    "deepseek-v2-lite": dict(arch="deepseek2", L=8, E=2048, H=16, HKV=16,
+                             D=192, DV=128, rot=64, QLORA=0, KVLORA=512,
+                             FF=10944, FFE=1408, X=64, K=6, SHEXP=2,
+                             V=102400, eps=1e-6, base=10000.0, ctx=163840),
+    # openbmb/MiniCPM3-4B config.json: 62 x 2560, 40 heads, q_lora_rank
+    # 768, kv_lora_rank 256, qk nope 64 + rope 32, v_head_dim 64 (hidden /
+    # heads), FF 6400, vocab 73448, scale_emb 12, scale_depth 1.4 (the
+    # residual scale 1.4 / sqrt(62)), dim_model_base 256 (logits x 256 /
+    # 2560), longrope (16 factors a set, made from the seed: the published
+    # ones are not in the repo), rms eps 1e-5, untied; depth cut from 62 to
+    # 8 layers
+    "minicpm3-4b": dict(arch="minicpm3", L=8, E=2560, H=40, HKV=40, D=96,
+                        DV=64, rot=32, QLORA=768, KVLORA=256, FF=6400,
+                        V=73448, eps=1e-5, base=10000.0, ctx=32768),
+}
 VARIANT_PROMPT, VARIANT_TOKENS = 200, 64
 VARIANT_COS = 0.99
 
@@ -4387,12 +4501,12 @@ def _q8_random(rng, shape, std=0.02) -> bytes:
 
 def write_variant(path: str, name: str, seed: int) -> None:
     """The synthetic GGUF of VARIANTS[name] (or ATTN_VARIANTS',
-    MOE_VARIANTS'): Q8_0 matrices (the expert stacks too), F32 vectors and
-    the MoE router in F32 (as llama.cpp's converter writes it), random
-    from `seed`, a synthetic vocabulary of the published size and the
-    chatml template."""
+    MOE_VARIANTS', MLA_VARIANTS'): Q8_0 matrices (the expert stacks too),
+    F32 vectors and the MoE router in F32 (as llama.cpp's converter writes
+    it), random from `seed`, a synthetic vocabulary of the published size
+    and the chatml template."""
     from llama_box_tpu_torch.gguf import GGMLType, GGUFWriter
-    c = {**VARIANTS, **ATTN_VARIANTS, **MOE_VARIANTS}[name]
+    c = {**VARIANTS, **ATTN_VARIANTS, **MOE_VARIANTS, **MLA_VARIANTS}[name]
     a, L_, E_, H_, HKV_, D_, FF_, V_ = (c[k] for k in (
         "arch", "L", "E", "H", "HKV", "D", "FF", "V"))
     rng = np.random.default_rng(seed + 111)
@@ -4427,6 +4541,30 @@ def write_variant(path: str, name: str, seed: int) -> None:
                      ("attention.key_length", D_),
                      ("attention.value_length", D_)):
             w.add_kv(f"{a}.{k}", v)
+    if "KVLORA" in c:
+        for k, v in (("attention.key_length", D_),
+                     ("attention.value_length", c["DV"]),
+                     ("attention.q_lora_rank", c["QLORA"]),
+                     ("attention.kv_lora_rank", c["KVLORA"])):
+            w.add_kv(f"{a}.{k}", v)
+    if a == "deepseek2":
+        for k, v in (("expert_count", c["X"]), ("expert_used_count", c["K"]),
+                     ("expert_feed_forward_length", c["FFE"]),
+                     ("expert_shared_count", c["SHEXP"]),
+                     ("expert_weights_scale", 1.0),
+                     ("expert_weights_norm", False),
+                     ("expert_gating_func", 1),
+                     ("leading_dense_block_count", 1),
+                     ("rope.scaling.type", "yarn"),
+                     ("rope.scaling.factor", 40.0),
+                     ("rope.scaling.original_context_length", 4096),
+                     ("rope.scaling.yarn_log_multiplier", 0.0707)):
+            w.add_kv(f"{a}.{k}", v)
+    if a == "minicpm3":
+        for k, v in (("embedding_scale", 12.0),
+                     ("residual_scale", 1.4 / 62 ** 0.5),
+                     ("logit_scale", 256 / 2560)):
+            w.add_kv(f"{a}.{k}", v)
     if a == "gemma3":
         for k, v in (("attention.key_length", D_),
                      ("attention.value_length", D_),
@@ -4451,8 +4589,12 @@ def write_variant(path: str, name: str, seed: int) -> None:
     vec("output_norm.weight", E_, one=True)
     if ln:
         vec("output_norm.bias", E_)
-    if a in ("gptneox", "qwen3moe"):
+    if a in ("gptneox", "qwen3moe", "deepseek2", "minicpm3"):
         mat("output.weight", V_, E_)     # qwen3, gemma3, bloom tie theirs
+    if a == "minicpm3":
+        for t in ("long", "short"):
+            w.add_tensor(f"rope_factors_{t}.weight", (1.0 + rng.uniform(
+                0.0, 2.0, c["rot"] // 2)).astype(np.float32))
     qd, kvd = H_ * D_, HKV_ * D_
     for i in range(L_):
         p = f"blk.{i}."
@@ -4472,6 +4614,35 @@ def write_variant(path: str, name: str, seed: int) -> None:
             vec(p + "ffn_up.bias", FF_)
             mat(p + "ffn_down.weight", E_, FF_)
             vec(p + "ffn_down.bias", E_)
+        elif "KVLORA" in c:
+            # multi-head latent attention: q (low rank, or a plain wq), kv
+            # low rank with its shared rope part, H heads of V
+            qr, kvr, rot = c["QLORA"], c["KVLORA"], c["rot"]
+            if qr:
+                mat(p + "attn_q_a.weight", qr, E_)
+                vec(p + "attn_q_a_norm.weight", qr, one=True)
+                mat(p + "attn_q_b.weight", qd, qr)
+            else:
+                mat(p + "attn_q.weight", qd, E_)
+            mat(p + "attn_kv_a_mqa.weight", kvr + rot, E_)
+            vec(p + "attn_kv_a_norm.weight", kvr, one=True)
+            mat(p + "attn_kv_b.weight", H_ * (D_ - rot + c["DV"]), kvr)
+            mat(p + "attn_output.weight", E_, H_ * c["DV"])
+            if a == "deepseek2" and i > 0:
+                X_, FE = c["X"], c["FFE"]
+                FS = FE * c["SHEXP"]
+                w.add_tensor(p + "ffn_gate_inp.weight", rng.standard_normal(
+                    (X_, E_), dtype=np.float32) * 0.02)
+                mat(p + "ffn_gate_exps.weight", X_, FE, E_)
+                mat(p + "ffn_up_exps.weight", X_, FE, E_)
+                mat(p + "ffn_down_exps.weight", X_, E_, FE)
+                mat(p + "ffn_gate_shexp.weight", FS, E_)
+                mat(p + "ffn_up_shexp.weight", FS, E_)
+                mat(p + "ffn_down_shexp.weight", E_, FS)
+                continue
+            mat(p + "ffn_gate.weight", FF_, E_)
+            mat(p + "ffn_up.weight", FF_, E_)
+            mat(p + "ffn_down.weight", E_, FF_)
         else:
             mat(p + "attn_q.weight", qd, E_)
             mat(p + "attn_k.weight", kvd, E_)
@@ -4863,6 +5034,86 @@ def moe_phase(dev, seed, tmp, path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: multi-head latent attention at published widths
+
+# each phase 14 path: CLI flags, and the kernels one request must launch
+# (all others: none). The low-rank projections stay dense on w8a8 (the
+# JAX loader's optional keys); DeepSeek's plain wq, wo, dense FFN and
+# output quantize (w8a8_matmul; the output's norm-quantize-matmul at
+# decode rows; its layer groups are never fused, so no fused tail); the
+# experts stay bf16. MiniCPM3's wo and FFN quantize (w8a8_matmul at
+# prefill, the fused tail at decode); its output (73448 rows, no multiple
+# of 64) stays dense
+MLA_PATHS = {
+    "bf16": ([], {"deepseek-v2-lite": ("row_norm", "flash_prefill",
+                                       "flash_decode", "moe_ffn"),
+                  "minicpm3-4b": ("row_norm", "flash_prefill",
+                                  "flash_decode")}),
+    "w8a8": (["--weights-dtype", "quantized"],
+             {"deepseek-v2-lite": ("row_norm", "flash_prefill",
+                                   "flash_decode", "moe_ffn", "w8a8_matmul",
+                                   "fused_norm_qmm"),
+              "minicpm3-4b": ("row_norm", "flash_prefill", "flash_decode",
+                              "w8a8_matmul", "fused_layer_tail")}),
+}
+
+
+def mla_checks(seed, mode, name):
+    """Phase 14's checks on the served engine: the verify rows' bits
+    against one-row steps (phase 8's verify_bits, bf16 and int8 caches);
+    on MiniCPM3 (uniform layers: chains) greedy K = 1 against K = 16 on
+    fresh engines (graphs, the served params)."""
+    def run(engine, routes, counters):
+        from llama_box_tpu_torch.server.engine import Engine
+        out = {"bits": verify_bits(engine, seed)}
+        log(f"  {name} {mode}: verify rows vs one-row steps: {out['bits']}")
+        for tag, b in out["bits"].items():
+            assert b["logits_equal"] and b["kv_equal"], (name, mode, tag, b)
+        if name == "minicpm3-4b":
+            tok = engine.tokenizer
+            rng = np.random.default_rng(seed + 141)
+            prompts = [tok.encode(make_prompt(tok, rng, VARIANT_PROMPT))
+                       for _ in range(N_SLOTS)]
+            texts = {k: greedy_run(Engine, dataclasses.replace(
+                engine.ecfg, decode_chain=k), engine.cfg, engine.params,
+                tok, prompts, 48, engine.device) for k in (1, CHAIN)}
+            out["k1_equals_k16"] = texts[1] == texts[CHAIN]
+            log(f"  {name} {mode}: greedy K=1 vs K={CHAIN}: "
+                f"{'identical' if out['k1_equals_k16'] else 'DIFFERENT'}")
+            assert out["k1_equals_k16"], (name, mode)
+        return out
+    return run
+
+
+def mla_phase(dev, seed, tmp, paths) -> dict:
+    """Phase 14 (see the module docstring); `paths` are the GGUFs workers
+    wrote beside the kernel phases."""
+    from llama_box_tpu_torch.models.loader import load_model
+    log("== phase 14: multi-head latent attention at published widths: "
+        + ", ".join(MLA_VARIANTS))
+    t_phase = time.perf_counter()
+    out = {}
+    for name, path in paths.items():
+        t0 = time.perf_counter()
+        cfg, params = load_model(path, dtype=torch.float32, device="cpu")
+        ref = small_forward(params, cfg, "cpu", torch.float32)
+        groups = len(params.get("layer_groups") or [0])
+        del params
+        log(f"  {name}: {cfg.n_layers} layers in {groups} group(s), K "
+            f"{cfg.head_dim} / V {cfg.v_head_dim}, {cfg.n_heads} heads; the "
+            f"f32 forward of the file on the host (the plain versions) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out[name] = {mode: variant_serve(
+            dev, seed, tmp, name, path, mode, ref, paths=MLA_PATHS,
+            extra=mla_checks(seed, mode, name)) for mode in MLA_PATHS}
+        out.setdefault("layers", {})[name] = cfg.n_layers
+        os.remove(path)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 14: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -4910,13 +5161,17 @@ def main(argv=None) -> int:
     # write is done before the first served request, so no measured wave
     # shares the host
     moe_path = f"{tmp}/synthetic-{MOE_NAME}-q8_0.gguf"
-    with ProcessPoolExecutor(len(MODEL_TYPES) + 1, mp_context=multiprocessing
+    mla_paths = {n: f"{tmp}/synthetic-{n}-q8_0.gguf" for n in MLA_VARIANTS}
+    with ProcessPoolExecutor(len(MODEL_TYPES) + 1 + len(MLA_VARIANTS),
+                             mp_context=multiprocessing
                              .get_context("spawn")) as pool:
         t_w = time.perf_counter()
         writes = {fmt: pool.submit(write_model, _model_path(tmp, fmt),
                                    args.seed, fmt) for fmt in MODEL_TYPES}
         writes["moe"] = pool.submit(write_variant, moe_path, MOE_NAME,
                                     args.seed)
+        for n, pth in mla_paths.items():
+            writes[n] = pool.submit(write_variant, pth, n, args.seed)
         errs, rows = kernel_phase(dev, args.seed)
         w_errs, w_rows = w8a8_kernel_phase(dev, args.seed)
         q_errs, q_rows = q_kernel_phase(dev, args.seed)
@@ -4924,8 +5179,8 @@ def main(argv=None) -> int:
         m_errs, m_rows = moe_kernel_phase(dev, args.seed)
         for w in writes.values():
             w.result()
-        log(f"  phase 5's and 13's GGUFs written beside the kernel phases: "
-            f"{time.perf_counter() - t_w:.1f} s from their start")
+        log(f"  phase 5's, 13's and 14's GGUFs written beside the kernel "
+            f"phases: {time.perf_counter() - t_w:.1f} s from their start")
     errs.update(w_errs)
     errs.update(q_errs)
     errs.update(n_errs)
@@ -4947,6 +5202,8 @@ def main(argv=None) -> int:
         e2e["variants"] = variant_phase(dev, args.seed, tmp)
         e2e["attn_variants"] = attn_variant_phase(dev, args.seed, tmp)
         e2e["moe"] = moe_phase(dev, args.seed, tmp, moe_path)
+        os.remove(moe_path)
+        e2e["mla"] = mla_phase(dev, args.seed, tmp, mla_paths)
 
     pick = {"flash_prefill": ("prefill", "bf16", 0),
             "flash_decode": ("decode", "bf16", 1023),
@@ -5027,15 +5284,19 @@ def main(argv=None) -> int:
                 f"{v} {m}": e2e[ph][v][m]["launches_one_request"][name]
                 for ph, vs in (("variants", VARIANTS),
                                ("attn_variants", ATTN_VARIANTS),
-                               ("moe", MOE_VARIANTS))
+                               ("moe", MOE_VARIANTS),
+                               ("mla", MLA_VARIANTS))
                 for v in vs for m in VARIANT_PATHS},
             **({} if not name.startswith("flash") else {"variant_shapes": [
                 dict(case=x["cache"], q=x["q"], C=x["C"], pos=x["pos"],
-                     ms=x["ms"], plain_ms=x["plain_ms"],
+                     dv=x["dv"], ms=x["ms"], plain_ms=x["plain_ms"],
                      bound_ms=x["bound_ms"], bound_by=x["bound_by"],
-                     library_ms=x["library_ms"])
+                     library_ms=x["library_ms"],
+                     **({"sdpa_backend": x["sdpa_backend"]}
+                        if "sdpa_backend" in x else {}))
                 for x in rows if x["kind"] == name[6:]
-                and x["cache"] in ATTN_KERNEL_CASES]})))
+                and (x["cache"] in ATTN_KERNEL_CASES
+                     or x["cache"].split(" ")[0] in MLA_KERNEL_CASES)]})))
     # the routed-expert kernel (port-only): its main path is phase 13's
     # bf16 path, one request counted from 0
     moe = e2e["moe"][MOE_NAME]
@@ -5052,6 +5313,9 @@ def main(argv=None) -> int:
         launches_by_path={m: moe[m]["launches_one_request"]["moe_ffn"]
                           for m in MOE_PATHS},
         launches_self_draft=moe["bf16"]["self_draft"]["launches"]["moe_ffn"],
+        launches_mla={
+            f"{v} {m}": e2e["mla"][v][m]["launches_one_request"]["moe_ffn"]
+            for v in MLA_VARIANTS for m in MLA_PATHS},
         timed_shapes=[{k: x[k] for k in ("case", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
                                         "library_ms")} for x in m_rows]))
@@ -5122,7 +5386,8 @@ def main(argv=None) -> int:
         f"{em['bert']['replay']['bound_ms']:.4f}), TinyLlama "
         f"{em['llama']['replay']['ms']:.4f} ms (bound "
         f"{em['llama']['replay']['bound_ms']:.4f})")
-    for ph, key in ((11, "variants"), (12, "attn_variants"), (13, "moe")):
+    for ph, key in ((11, "variants"), (12, "attn_variants"), (13, "moe"),
+                    (14, "mla")):
         for name, r in e2e[key].items():
             if name in ("seconds", "layers"):
                 continue

@@ -47,10 +47,13 @@
 // Scores: s = q.k * scale, plus slope * (kpos - cpos) under ALiBi (one
 // slope per query head, [Hkv, G] f32, null without), then the softcap,
 // then the masks, as the JAX model's _attn_deferred orders them. Head
-// widths D = DV in {64, 80, 96, 128, 256}; at D 256 the bf16 kernel reads
-// Q from shared memory by ldmatrix (its 64 registers a thread would sit
-// beside the 128 of the O accumulator), three 64-key stages of K and V
-// plus Q staying under the 227 KB a block may hold.
+// widths D = DV in {64, 80, 96, 128, 256}, and multi-head latent
+// attention's unequal K / V widths 192 / 128 and 96 / 64 (K tiles and Q by
+// D, V tiles, the O accumulator, the partials and the output by DV); above
+// D 128 the bf16 kernel reads Q from shared memory by ldmatrix (at D 256
+// its 64 registers a thread would sit beside the 128 of the O
+// accumulator), three 64-key stages of K and V plus Q staying under the
+// 227 KB a block may hold.
 //
 // flash_decode_fma_kernel: one block per (slot, KV head), one warp per
 // query head. Tiles are loaded 16 bytes per thread into registers one tile
@@ -717,13 +720,13 @@ int dispatch(int qd, int cd, int sd, const Call& a) {
 // q [B,Hkv,G,D]; kc/vc [B,C,Hkv,D|DV]; ks/vs [B,C,Hkv] or null;
 // kr/vr [B,R,Hkv,D|DV] in q's dtype; meta [B,2] (cpos, nv); win [2];
 // sinks [Hkv,G] f32 or null; alibi [Hkv,G] f32 slopes or null; out
-// [B,Hkv,G,DV] f32; D = DV in {64, 80, 96, 128, 256}. For a bf16 q: S
-// splits of L positions (L a multiple of 64, 1 <= S <= 64), ws f32
-// [B,Hkv,S,16*(DV+2)] scratch and counters, B*Hkv unsigned ints that are 0
-// before the call and are 0 again after it (both unused for an f32 q). All
-// contiguous, all on the device, the K/V operands 16-byte aligned. Returns
-// cudaGetLastError() after the launch, or -1 for a configuration no
-// instantiation covers.
+// [B,Hkv,G,DV] f32; (D, DV) one of (64, 64), (80, 80), (96, 96), (128,
+// 128), (256, 256), (192, 128) and (96, 64). For a bf16 q: S splits of L
+// positions (L a multiple of 64, 1 <= S <= 64), ws f32 [B,Hkv,S,16*(DV+2)]
+// scratch and counters, B*Hkv unsigned ints that are 0 before the call and
+// are 0 again after it (both unused for an f32 q). All contiguous, all on
+// the device, the K/V operands 16-byte aligned. Returns cudaGetLastError()
+// after the launch, or -1 for a configuration no instantiation covers.
 extern "C" int lbt_flash_decode(int q_dtype, int kv_dtype, int scale_dtype,
                                 int D, int DV, const void* q, const void* kc,
                                 const void* vc, const void* ks, const void* vs,
@@ -733,14 +736,20 @@ extern "C" int lbt_flash_decode(int q_dtype, int kv_dtype, int scale_dtype,
                                 void* ws, void* counters, void* out, int B,
                                 int Hkv, int G, int C, int R, int L, int S,
                                 float scale, float softcap, void* stream) {
-  if (G < 1 || G > kMaxG || D != DV) return LBT_UNSUPPORTED;
+  if (G < 1 || G > kMaxG) return LBT_UNSUPPORTED;
   const Call a{q,     kc,       vc,  ks, vs,  kr, vr, meta, win, sinks,
                alibi, ws,       counters, out, B, Hkv, G, C, R,    L,
                S,     scale,    softcap,  (cudaStream_t)stream};
-  if (D == 64) return dispatch<64, 64>(q_dtype, kv_dtype, scale_dtype, a);
-  if (D == 80) return dispatch<80, 80>(q_dtype, kv_dtype, scale_dtype, a);
-  if (D == 96) return dispatch<96, 96>(q_dtype, kv_dtype, scale_dtype, a);
-  if (D == 128) return dispatch<128, 128>(q_dtype, kv_dtype, scale_dtype, a);
-  if (D == 256) return dispatch<256, 256>(q_dtype, kv_dtype, scale_dtype, a);
+#define LBT_WIDTHS(W, WV) \
+  if (D == W && DV == WV)  \
+    return dispatch<W, WV>(q_dtype, kv_dtype, scale_dtype, a);
+  LBT_WIDTHS(64, 64)
+  LBT_WIDTHS(80, 80)
+  LBT_WIDTHS(96, 96)
+  LBT_WIDTHS(128, 128)
+  LBT_WIDTHS(256, 256)
+  LBT_WIDTHS(192, 128)
+  LBT_WIDTHS(96, 64)
+#undef LBT_WIDTHS
   return LBT_UNSUPPORTED;
 }

@@ -53,8 +53,15 @@
 // and 96 elements are padded by 16 bytes as the others are (176 and 208
 // bytes: eight ldmatrix rows fall in distinct banks).
 //
+// K and V may differ in width (multi-head latent attention: D 192 / DV 128,
+// D 96 / DV 64): S = Q K^T runs D / 16 k-steps over K rows of D, O = P V
+// DV / 8 n8 tiles over V rows of DV, each padded by its own 16 bytes. The
+// choices that go by width go by D, the K width: at D 192 Q sits in shared
+// memory beside a 2-stage ring, as at D 256 (2 x 64 x (400 + 272) bytes
+// plus 128 rows of Q, 134 KB).
+//
 // flash_prefill_fma_kernel: one thread per row, each dot product as D f32
-// FMAs from 32-key shared tiles (16 at D 256, under the 48 KB static
+// FMAs from 32-key shared tiles (16 above D 128, under the 48 KB static
 // limit), keys folded one at a time in position order (lbt_softmax_step),
 // which gives the same independence of where the cache ends.
 #include "common.cuh"
@@ -554,9 +561,10 @@ int dispatch(int qd, int cd, int sd, const void* q, const void* kc,
 // q [B,Hkv,G,T,D]; kc/vc [B,C,Hkv,D|DV]; ks/vs [B,C,Hkv] or null;
 // kr/vr [B,T,Hkv,D|DV] in q's dtype; meta [B,4] (pos0, n_valid, st, en);
 // win [2]; sinks [Hkv,G] f32 or null; alibi [Hkv,G] f32 slopes or null;
-// out [B,Hkv,G,T,DV] f32; D = DV in {64, 80, 96, 128, 256}. All
-// contiguous, all on the device. Returns cudaGetLastError() after the
-// launch, or -1 for a configuration no instantiation covers.
+// out [B,Hkv,G,T,DV] f32; (D, DV) one of (64, 64), (80, 80), (96, 96),
+// (128, 128), (256, 256) and multi-head latent attention's (192, 128) and
+// (96, 64). All contiguous, all on the device. Returns cudaGetLastError()
+// after the launch, or -1 for a configuration no instantiation covers.
 extern "C" int lbt_flash_prefill(int q_dtype, int kv_dtype, int scale_dtype,
                                  int D, int DV, const void* q, const void* kc,
                                  const void* vc, const void* ks,
@@ -566,18 +574,20 @@ extern "C" int lbt_flash_prefill(int q_dtype, int kv_dtype, int scale_dtype,
                                  const void* alibi, void* out, int B, int Hkv,
                                  int G, int T, int C, float scale,
                                  float softcap, void* stream) {
-  if (G < 1 || G > kThreads || D != DV) return LBT_UNSUPPORTED;
+  if (G < 1 || G > kThreads) return LBT_UNSUPPORTED;
   cudaStream_t st = (cudaStream_t)stream;
-#define LBT_WIDTH(W)                                                        \
-  if (D == W)                                                               \
-    return dispatch<W, W>(q_dtype, kv_dtype, scale_dtype, q, kc, vc, ks, vs, \
-                          kr, vr, meta, win, sinks, alibi, out, B, Hkv, G, T, \
-                          C, scale, softcap, st);
-  LBT_WIDTH(64)
-  LBT_WIDTH(80)
-  LBT_WIDTH(96)
-  LBT_WIDTH(128)
-  LBT_WIDTH(256)
-#undef LBT_WIDTH
+#define LBT_WIDTHS(W, WV)                                                   \
+  if (D == W && DV == WV)                                                   \
+    return dispatch<W, WV>(q_dtype, kv_dtype, scale_dtype, q, kc, vc, ks,   \
+                           vs, kr, vr, meta, win, sinks, alibi, out, B, Hkv, \
+                           G, T, C, scale, softcap, st);
+  LBT_WIDTHS(64, 64)
+  LBT_WIDTHS(80, 80)
+  LBT_WIDTHS(96, 96)
+  LBT_WIDTHS(128, 128)
+  LBT_WIDTHS(256, 256)
+  LBT_WIDTHS(192, 128)
+  LBT_WIDTHS(96, 64)
+#undef LBT_WIDTHS
   return LBT_UNSUPPORTED;
 }

@@ -6,8 +6,10 @@ variants, sliding windows with their per-layer pattern, gemma3's local
 rope base, cohere2/exaone4's unroped global layers, attention softcap and
 ALiBi; and its mixture-of-experts layers, every router, shared experts,
 heterogeneous layer groups, gpt-oss's sinks, llama4's chunked window, q/k
-L2 norm and temperature), with bf16/f32 weights or QTensors (w8a8 or
-grouped, ops/qmatmul). Every norm runs the row-norm kernel (ops/norm) on
+L2 norm and temperature; and deepseek2's multi-head latent attention,
+low-rank q and kv projections into a per-head K / V cache of unequal
+widths), with bf16/f32 weights or QTensors (w8a8 or grouped,
+ops/qmatmul). Every norm runs the row-norm kernel (ops/norm) on
 the card, one order a row, and the routed experts the expert kernel
 (ops/moe), one order a pair, so a verify pass's rows equal its one-row
 decode steps bit for bit.
@@ -77,20 +79,21 @@ import torch
 from ..ops import _kernels
 from ..ops.attention import softmax_attend
 from ..ops.flash_decode import flash_decode
-from ..ops.flash_prefill import HEAD_DIMS, flash_prefill_batched
+from ..ops.flash_prefill import HEAD_PAIRS, flash_prefill_batched
 from ..ops.fused_decode import (_MAX_ROWS, _pick_tile, fused_layer_tail,
                                 fused_norm_qmm)
 from ..ops.moe import ACTS as MOE_ACTS
 from ..ops.moe import MAX_EXPERTS, MAX_PICKS, moe_ffn
 from ..ops.norm import ln_per_head, norm_any, rms_norm
-from ..ops.qmatmul import QTensor, mm
+from ..ops.qmatmul import QTensor, dense_matmul, mm
 from ..ops.rope import RopeParams, apply_rope, compute_rope_cache
 from .config import ModelConfig
 
 
 class KVCache(NamedTuple):
-    """[L, B, C, Hkv, D]; an int8 cache carries per-(token, head) bf16
-    scales [L, B, C, Hkv] (the reference's -ctk/-ctv q8_0 mode)."""
+    """K [L, B, C, Hkv, D], V [L, B, C, Hkv, Dv]; an int8 cache carries
+    per-(token, head) bf16 scales [L, B, C, Hkv] (the reference's
+    -ctk/-ctv q8_0 mode)."""
     k: torch.Tensor
     v: torch.Tensor
     k_scale: torch.Tensor | None = None
@@ -105,18 +108,31 @@ class KVCache(NamedTuple):
         return self.k_scale is not None
 
 
+def kv_heads(cfg: ModelConfig) -> int:
+    """The cache's heads: every query head under MLA, which decompresses
+    its latent into per-head K and V (JAX `init_kv_cache`), else Hkv."""
+    return cfg.n_heads if cfg.kv_lora_rank else cfg.n_kv_heads
+
+
+def v_width(cfg: ModelConfig) -> int:
+    """V's head width: value_length under MLA (128 where K has 192), else
+    the head width."""
+    return cfg.v_head_dim or cfg.head_dim
+
+
 def init_kv_cache(cfg: ModelConfig, n_slots: int, capacity: int,
                   dtype=torch.bfloat16, device="cuda") -> KVCache:
-    shape = (cfg.n_layers, n_slots, capacity, cfg.n_kv_heads, cfg.head_dim)
+    lead = (cfg.n_layers, n_slots, capacity, kv_heads(cfg))
+    kshape, vshape = lead + (cfg.head_dim,), lead + (v_width(cfg),)
     dev = torch.device(device)
     if dtype == torch.int8:
         return KVCache(
-            k=torch.zeros(shape, dtype=torch.int8, device=dev),
-            v=torch.zeros(shape, dtype=torch.int8, device=dev),
-            k_scale=torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev),
-            v_scale=torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev))
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
-                   v=torch.zeros(shape, dtype=dtype, device=dev))
+            k=torch.zeros(kshape, dtype=torch.int8, device=dev),
+            v=torch.zeros(vshape, dtype=torch.int8, device=dev),
+            k_scale=torch.zeros(lead, dtype=torch.bfloat16, device=dev),
+            v_scale=torch.zeros(lead, dtype=torch.bfloat16, device=dev))
+    return KVCache(k=torch.zeros(kshape, dtype=dtype, device=dev),
+                   v=torch.zeros(vshape, dtype=dtype, device=dev))
 
 
 def _kv_quantize(x: torch.Tensor):
@@ -146,7 +162,9 @@ _LAYER_KEYS = {
     "w_gate_inp", "b_gate_inp", "w_gate_exps", "w_up_exps", "w_down_exps",
     "b_gate_exps", "b_up_exps", "b_down_exps", "w_gate_shexp", "w_up_shexp",
     "w_down_shexp", "w_gate_inp_shexp", "exp_probs_b", "ffn_norm_exps",
-    "sinks"}
+    "sinks",
+    # multi-head latent attention (deepseek2 / deepseek3 / kimi, minicpm3)
+    "wq_a", "q_a_norm", "wq_b", "wkv_a", "kv_a_norm", "wkv_b"}
 _ROOT_KEYS = {"tok_embd", "pos_embd", "tok_embd_norm", "tok_embd_norm_b",
               "output_norm", "output_norm_b", "output", "output_b", "layers",
               "layer_groups"}
@@ -158,9 +176,9 @@ _Q_KEYS = {"wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up", "w_gateup",
 
 
 # what the attention kernels instantiate (csrc/flash_prefill.cu,
-# csrc/flash_decode.cu): head widths (K = V), and the GQA group of flash
-# decode (flash prefill takes up to 128)
-_KERNEL_HEAD_DIMS, _KERNEL_MAX_GROUP = HEAD_DIMS, 16
+# csrc/flash_decode.cu): (K, V) head width pairs, and the GQA group of
+# flash decode (flash prefill takes up to 128)
+_KERNEL_HEAD_PAIRS, _KERNEL_MAX_GROUP = HEAD_PAIRS, 16
 
 
 def layer_groups(params: dict) -> list[dict]:
@@ -178,22 +196,25 @@ def moe_act(cfg: ModelConfig) -> str:
 
 def check_supported(cfg: ModelConfig, params: dict, device=None) -> None:
     """Raise NotImplementedError for a model outside the dense llama graph,
-    its dense, attention and mixture-of-experts variants (the other
-    families are later slices; nothing runs half-supported), or, on a CUDA
-    `device`, for shapes the kernels do not take: attention head widths,
-    expert stacks that are not bf16, an expert activation or width
-    csrc/moe_ffn.cu lacks. The engine refuses such a model at load, not at
-    its first request, and nothing falls back to a plain version."""
+    its dense, attention, mixture-of-experts and latent-attention variants
+    (the other families are later slices; nothing runs half-supported),
+    or, on a CUDA `device`, for shapes the kernels do not take: a (K, V)
+    head width pair, expert stacks that are not bf16, an expert activation
+    or width csrc/moe_ffn.cu lacks. The engine refuses such a model at
+    load, not at its first request, and nothing falls back to a plain
+    version."""
+    groups = layer_groups(params)
+    mla = {"wkv_a" in gp for gp in groups}
     unsupported = {
         "recurrent": getattr(cfg, "recurrent", False),
         "mrope_sections": bool(cfg.mrope_sections),
-        "kv_lora_rank": cfg.kv_lora_rank > 0,
         "act_fn": cfg.act_fn not in ("silu", "gelu", "relu2", "xielu",
                                      "swiglu_oai"),
-        "v_head_dim": bool(cfg.v_head_dim)
-        and cfg.v_head_dim != cfg.head_dim,
+        # MLA in every layer (its tensors) exactly when the config has its
+        # rank; a V width other than K's only there
+        "kv_lora_rank": mla != {cfg.kv_lora_rank > 0},
+        "v_head_dim": v_width(cfg) != cfg.head_dim and mla != {True},
     }
-    groups = layer_groups(params)
     extra_keys = set().union(*groups) - _LAYER_KEYS
     bad = [k for k, v in unsupported.items() if v]
     if bad or extra_keys or set(params) - _ROOT_KEYS:
@@ -230,16 +251,16 @@ def check_supported(cfg: ModelConfig, params: dict, device=None) -> None:
                     f"are multiples of 8, up to {MAX_PICKS} picks and "
                     f"{MAX_EXPERTS} experts (this model: E {E}, FF {F}, "
                     f"{K} of {X}); --device cpu runs it")
-        dv = cfg.v_head_dim or cfg.head_dim
-        group = cfg.n_heads / max(1, cfg.n_kv_heads)
-        if cfg.head_dim not in _KERNEL_HEAD_DIMS \
-                or dv not in _KERNEL_HEAD_DIMS or group > _KERNEL_MAX_GROUP:
+        dv = v_width(cfg)
+        group = cfg.n_heads / max(1, kv_heads(cfg))
+        if (cfg.head_dim, dv) not in _KERNEL_HEAD_PAIRS \
+                or group > _KERNEL_MAX_GROUP:
             raise NotImplementedError(
-                f"{cfg.arch}: the CUDA attention kernels take head widths "
-                f"{_KERNEL_HEAD_DIMS} and up to {_KERNEL_MAX_GROUP} query "
-                f"heads per KV head (this model: K {cfg.head_dim}, V {dv}, "
-                f"{cfg.n_heads} / {cfg.n_kv_heads} heads); --device cpu "
-                "runs it")
+                f"{cfg.arch}: the CUDA attention kernels take the (K, V) "
+                f"head widths {_KERNEL_HEAD_PAIRS} and up to "
+                f"{_KERNEL_MAX_GROUP} query heads per KV head (this model: "
+                f"K {cfg.head_dim}, V {dv}, {cfg.n_heads} / "
+                f"{kv_heads(cfg)} heads); --device cpu runs it")
 
 
 # -- rope --------------------------------------------------------------------
@@ -518,7 +539,7 @@ def _moe_ffn(h, lp, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _f32_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(x, w.float())
+    return dense_matmul(x, w.float())
 
 
 def _moe_mix(h, lp, cfg: ModelConfig, topi, topv) -> torch.Tensor:
@@ -695,19 +716,21 @@ def _layer_tail(x, lp, cfg: ModelConfig, attn):
 
 class ChainRows(NamedTuple):
     """Rows of the current K-step decode chain as the attention reads them
-    ([L, B, K, Hkv, D] in adt): row j is step j's K/V, in the cache dtype's
-    values (dequantized for an int8 cache), except that the step being
-    computed sees its own row at full precision."""
+    (K [L, B, K, Hkv, D], V [L, B, K, Hkv, Dv] in adt): row j is step j's
+    K/V, in the cache dtype's values (dequantized for an int8 cache),
+    except that the step being computed sees its own row at full
+    precision."""
     k: torch.Tensor
     v: torch.Tensor
 
 
 def init_chain_rows(cfg: ModelConfig, kv: KVCache, n_steps: int) -> ChainRows:
     L, B = kv.k.shape[0], kv.k.shape[1]
-    shape = (L, B, n_steps, cfg.n_kv_heads, cfg.head_dim)
+    lead = (L, B, n_steps, kv_heads(cfg))
     dt = attn_dtype(kv)
-    return ChainRows(torch.zeros(shape, dtype=dt, device=kv.k.device),
-                     torch.zeros(shape, dtype=dt, device=kv.k.device))
+    return ChainRows(
+        torch.zeros(lead + (cfg.head_dim,), dtype=dt, device=kv.k.device),
+        torch.zeros(lead + (v_width(cfg),), dtype=dt, device=kv.k.device))
 
 
 class RowWrites(NamedTuple):
@@ -722,7 +745,8 @@ class RowWrites(NamedTuple):
 
 def _cache_rows(kv: KVCache, k, v):
     """A layer's new rows as the cache stores them: (k, v) in its dtype, or
-    int8 codes with their bf16 scales (k, v, k_scale, v_scale)."""
+    int8 codes with their bf16 scales (k, v, k_scale, v_scale), K and V
+    each quantized over its own width."""
     if kv.quantized:
         kq, ksr = _kv_quantize(k.float())
         vq, vsr = _kv_quantize(v.float())
@@ -760,6 +784,33 @@ def _qk_norms(q, k, lp, cfg: ModelConfig):
                      cfg.rms_eps).reshape(k.shape))
 
 
+def _mla_qkv(h, lp, cfg: ModelConfig):
+    """Multi-head latent attention's projections (JAX `_mla_qkv`), h [B,
+    T, E] -> per-head q, k [B, T, H, rope + nope] with the rope dims FIRST
+    in each head (so the plain rotation and shift apply) and v [B, T, H,
+    Dv]. q is wq_a -> q_a_norm -> wq_b, or plain wq without a q rank (GGUF
+    stores a head as (nope, rope): reordered here); kv is wkv_a -> [c_kv |
+    k_pe], then kv_a_norm(c_kv) @ wkv_b -> per head [k_nope | v]; k_pe is
+    one shared rope stream, broadcast to every head."""
+    B, T, _ = h.shape
+    H, rope = cfg.n_heads, cfg.rope_dim
+    nope = cfg.head_dim - rope
+    if "wq_a" in lp:
+        q = mm(rms_norm(mm(h, lp["wq_a"]), lp["q_a_norm"], cfg.rms_eps),
+               lp["wq_b"])
+    else:
+        q = mm(h, lp["wq"])
+    q = q.reshape(B, T, H, nope + rope)
+    q = torch.cat([q[..., nope:], q[..., :nope]], dim=-1)
+    c = mm(h, lp["wkv_a"])                          # [B, T, kv_lora + rope]
+    c_kv = rms_norm(c[..., :cfg.kv_lora_rank], lp["kv_a_norm"], cfg.rms_eps)
+    k_pe = c[..., cfg.kv_lora_rank:]
+    kv = mm(c_kv, lp["wkv_b"]).reshape(B, T, H, nope + v_width(cfg))
+    k = torch.cat([k_pe[:, :, None, :].expand(B, T, H, rope),
+                   kv[..., :nope]], dim=-1)
+    return q, k, kv[..., nope:]
+
+
 def _attn_layer(x, lp, li: int, kv: KVCache, cfg: ModelConfig, cos, sin,
                 rows: list, win, alibi=None, flash_meta=None, chain=None,
                 step=0, decode_meta=None, verify_meta=None,
@@ -770,10 +821,13 @@ def _attn_layer(x, lp, li: int, kv: KVCache, cfg: ModelConfig, cos, sin,
     (before the rotation, or after it for hunyuan) as in JAX
     `_attn_layer`; after the rotation llama4's weightless q/k L2 norm and,
     on its global (unroped) layers, its query temperature from the rows'
-    `positions` [B, T]."""
+    `positions` [B, T]. MLA layers (wkv_a) take _mla_qkv's per-head q, k,
+    v, H heads of K and V."""
     B, T, E = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if "wqkv" in lp:
+    if "wkv_a" in lp:
+        q, k, v = _mla_qkv(_pre_norm(x, lp, "attn_norm", cfg), lp, cfg)
+    elif "wqkv" in lp:
         if _fuse_qkv_ok(cfg, lp, x):
             # decode widths: norm + act-quantize fused into the matmul
             qkv = fused_norm_qmm(x.reshape(B * T, E), lp["attn_norm"],
@@ -787,16 +841,17 @@ def _attn_layer(x, lp, li: int, kv: KVCache, cfg: ModelConfig, cos, sin,
     else:
         h = _pre_norm(x, lp, "attn_norm", cfg)
         q, k, v = mm(h, lp["wq"]), mm(h, lp["wk"]), mm(h, lp["wv"])
-    if "bq" in lp:              # qwen2-style attention biases
-        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    if cfg.attn_clamp > 0.0:    # olmo clip_qkv
-        c = cfg.attn_clamp
-        q, k, v = (t.clamp(-c, c) for t in (q, k, v))
-    q = q.reshape(B, T, H, D)
-    k = k.reshape(B, T, Hkv, D)
-    v = v.reshape(B, T, Hkv, D)
-    if "q_norm" in lp and not cfg.qk_norm_post_rope:
-        q, k = _qk_norms(q, k, lp, cfg)
+    if "wkv_a" not in lp:
+        if "bq" in lp:          # qwen2-style attention biases
+            q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        if cfg.attn_clamp > 0.0:    # olmo clip_qkv
+            c = cfg.attn_clamp
+            q, k, v = (t.clamp(-c, c) for t in (q, k, v))
+        q = q.reshape(B, T, H, D)
+        k = k.reshape(B, T, Hkv, D)
+        v = v.reshape(B, T, Hkv, D)
+        if "q_norm" in lp and not cfg.qk_norm_post_rope:
+            q, k = _qk_norms(q, k, lp, cfg)
     q = apply_rope(q, None, cos, sin, cfg.rope_mode)
     k = apply_rope(k, None, cos, sin, cfg.rope_mode)
     if cfg.qk_norm_post_rope and "q_norm" in lp:
@@ -828,9 +883,9 @@ def _attn_verify(q, k, v, kc, vc, ks, vs, stored, meta, win, adt, scale,
     (pos0 + j, j + 1), so it attends the cache below pos0 and rows 0..j,
     the rows before it as the cache holds them (dequantized for an int8
     cache) and its own at full precision, as step j of a decode chain
-    does. q [B, T, H, D] -> [B, T, H*D] in adt."""
+    does. q [B, T, H, D] -> [B, T, H*Dv] in adt."""
     B, T, H, D = q.shape
-    Hkv = k.shape[2]
+    Hkv, Dv = k.shape[2], v.shape[-1]
     kf, vf = k.to(adt).contiguous(), v.to(adt).contiguous()
     if ks is not None:
         kq, vq, ksr, vsr = stored
@@ -846,7 +901,7 @@ def _attn_verify(q, k, v, kc, vc, ks, vs, stored, meta, win, adt, scale,
         o = flash_decode(qd, kc, vc, kr, vr, meta[j], win, k_scale=ks,
                          v_scale=vs, sinks=sinks, scale=scale,
                          softcap=softcap, alibi=alibi)
-        outs.append(o.to(adt).reshape(B, H * D))
+        outs.append(o.to(adt).reshape(B, H * Dv))
     return torch.stack(outs, dim=1)
 
 
@@ -863,7 +918,7 @@ def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
     is the layer's (window, chunk) row, alibi the [Hkv, G] slopes or
     None; the softcap is cfg's, gpt-oss's sink logits the layer's."""
     B, T = q.shape[:2]
-    H, Hkv, D = q.shape[2], k.shape[2], q.shape[-1]
+    H, Hkv, D, Dv = q.shape[2], k.shape[2], q.shape[-1], v.shape[-1]
     G = H // Hkv
     adt = attn_dtype(kv)
     kc, vc = kv.k[li], kv.v[li]
@@ -882,14 +937,14 @@ def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
         o = softmax_attend(qg, k.to(adt), v.to(adt), dense_mask,
                            D ** -0.5 if scale is None else scale, cap,
                            sinks=snk, alibi=alibi, dist=dist)
-        attn = o.permute(0, 3, 1, 2, 4).reshape(B, T, H * D)
+        attn = o.permute(0, 3, 1, 2, 4).reshape(B, T, H * Dv)
     elif flash_meta is not None:
         qg = q.to(adt).reshape(B, T, Hkv, G, D).permute(0, 2, 3, 1, 4)
         o = flash_prefill_batched(qg.contiguous(), kc, vc, k.to(adt),
                                   v.to(adt), flash_meta, win,
                                   k_scale=ks, v_scale=vs, sinks=snk,
                                   scale=scale, softcap=cap, alibi=alibi)
-        attn = o.permute(0, 3, 1, 2, 4).reshape(B, T, H * D)
+        attn = o.permute(0, 3, 1, 2, 4).reshape(B, T, H * Dv)
     elif verify_meta is not None:
         attn = _attn_verify(q, k, v, kc, vc, ks, vs, stored, verify_meta,
                             win, adt, scale, cap, alibi, snk)
@@ -902,7 +957,7 @@ def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
         o = flash_decode(qd, kc, vc, kr, vr, decode_meta, win,
                          k_scale=ks, v_scale=vs, sinks=snk, scale=scale,
                          softcap=cap, alibi=alibi)
-        attn = o.to(adt).reshape(B, 1, H * D)
+        attn = o.to(adt).reshape(B, 1, H * Dv)
         if kv.quantized:
             # later steps read this row as the cache holds it
             kq, vq, ksr, vsr = stored
@@ -968,7 +1023,7 @@ def _output_logits(params, cfg: ModelConfig, x):
         x = _norm_any(x, params["output_norm"], params.get("output_norm_b"),
                       cfg)
         if out_w is None:   # tied word embeddings
-            logits = torch.matmul(x, params["tok_embd"].T.to(x.dtype))
+            logits = dense_matmul(x, params["tok_embd"].T)
         else:
             logits = mm(x, out_w)
         if params.get("output_b") is not None:
@@ -1290,9 +1345,10 @@ def forward_embeddings(params, cfg: ModelConfig, tokens, seq_lens, rope_cos,
     cos, sin = _rope_at(rope_cos, rope_sin, pos)
     adt = torch.float32 if x.dtype == torch.float32 else torch.bfloat16
     # one zero layer serves every layer: nothing below position 0 is read
-    z = torch.zeros((1, B, T, cfg.n_kv_heads, cfg.head_dim), dtype=adt,
-                    device=dev).expand(cfg.n_layers, -1, -1, -1, -1)
-    scratch = KVCache(z, z)
+    zk, zv = (torch.zeros((1, B, T, kv_heads(cfg), w), dtype=adt,
+                          device=dev).expand(cfg.n_layers, -1, -1, -1, -1)
+              for w in (cfg.head_dim, v_width(cfg)))
+    scratch = KVCache(zk, zv)
     rows: list = []
     if cfg.causal:
         zeros = torch.zeros_like(seq_lens)

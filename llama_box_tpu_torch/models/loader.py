@@ -22,7 +22,11 @@ Two weight formats:
   a repacker stay dense, as in JAX.
 Mixture-of-experts layers (the router, the expert stacks [X, E, FF] /
 [X, FF, E], shared experts, gpt-oss's sinks and biases) load dense, as in
-JAX. Consecutive layers with the same tensor set stack as one group;
+JAX. Multi-head latent attention's projections and norms (wq_a,
+q_a_norm, wq_b, wkv_a, kv_a_norm, wkv_b: deepseek2, minicpm3) load dense
+too: they are the JAX loader's optional keys, which never quantize (a
+file without a q rank keeps its plain wq, which does). Consecutive layers
+with the same tensor set stack as one group;
 where the layers form several (leading dense layers, interleaved dense
 and MoE layers), the tree holds `layer_groups`, a list of stacked groups,
 in place of `layers`, as the JAX loader's does.
@@ -31,7 +35,7 @@ gives Q6_K to some layers' attn_v and ffn_down) cannot be stacked: the
 JAX loader's np.stack fails on it under the grouped residency, and this
 loader refuses it by name. The other families' tensors are later slices
 of the port: a GGUF that carries a tensor this path does not know is
-refused, never half-loaded (jetmoe's mixture-of-attention, MLA and the
+refused, never half-loaded (jetmoe's mixture-of-attention and the
 recurrent mixers by their cause).
 """
 
@@ -114,12 +118,19 @@ _LAYER_OPTIONAL = {
     "w_up_shexp": ("blk.{i}.ffn_up_shexp.weight", True),
     "w_down_shexp": ("blk.{i}.ffn_down_shexp.weight", True),
     "w_gate_inp_shexp": ("blk.{i}.ffn_gate_inp_shexp.weight", True),
+    # multi-head latent attention: the low-rank q (absent without a q
+    # rank: plain wq) and kv projections and their norms
+    "wq_a": ("blk.{i}.attn_q_a.weight", True),
+    "q_a_norm": ("blk.{i}.attn_q_a_norm.weight", False),
+    "wq_b": ("blk.{i}.attn_q_b.weight", True),
+    "wkv_a": ("blk.{i}.attn_kv_a_mqa.weight", True),
+    "kv_a_norm": ("blk.{i}.attn_kv_a_norm.weight", False),
+    "wkv_b": ("blk.{i}.attn_kv_b.weight", True),
 }
 # tensors of families outside the port, refused at load by their cause
 _REFUSED = {"attn_q_exps": "jetmoe's mixture-of-attention (wq_exps / "
             "wo_exps)", "attn_output_exps": "jetmoe's mixture-of-attention "
-            "(wq_exps / wo_exps)", "attn_kv_a_mqa": "multi-head latent "
-            "attention (deepseek2 / deepseek3 / kimi: MLA)",
+            "(wq_exps / wo_exps)",
             "ssm_in": "a recurrent mixer (mamba / jamba)"}
 # fused tensors split at load (phi3/gptneox attn_qkv, phi3 gate|up ffn_up)
 _LAYER_FUSED = ("blk.{i}.attn_qkv.weight", "blk.{i}.attn_qkv.bias")
@@ -526,7 +537,8 @@ def fuse_projections(params: dict, cfg: ModelConfig) -> dict:
     (`wqkv` [L, E, (H+2*Hkv)*D], `w_gateup` [L, E, 2*FF]). Each output
     column is an independent contraction (and w8a8 activation scales are
     per row of x, shared by construction), so the split outputs equal the
-    separate matmuls'. Layer groups stay unfused, as in JAX."""
+    separate matmuls'. Layer groups stay unfused, as in JAX, and so do
+    MLA's projections (no wk / wv; JAX's gate names wkv_a)."""
     del cfg
     layers = params.get("layers")
     if not isinstance(layers, dict):
@@ -536,7 +548,8 @@ def fuse_projections(params: dict, cfg: ModelConfig) -> dict:
                         ("w_gateup", ("w_gate", "w_up"))):
         # an MoE layer's dense gate and up (arctic's branch) stay apart,
         # as in JAX
-        if fused == "w_gateup" and "w_gate_inp" in layers:
+        if fused == "w_gateup" and "w_gate_inp" in layers \
+                or fused == "wqkv" and "wkv_a" in layers:
             continue
         if all(k in layers for k in keys):
             f = _cat_weights([layers[k] for k in keys])

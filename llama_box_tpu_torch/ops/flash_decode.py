@@ -21,7 +21,7 @@ Layouts (post-RoPE; B = slot batch):
 Cache index c is visible iff c < cpos - (nv-1) and c is inside the window
 and chunk; chain row i iff i < nv and its position is >= 0 and visible.
 Under ALiBi a score gains slope x (key position - cpos) before the
-softcap. D = Dv in flash_prefill.HEAD_DIMS. Output [B, Hkv, G, Dv] f32.
+softcap. (D, Dv) in flash_prefill.HEAD_PAIRS. Output [B, Hkv, G, Dv] f32.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import torch
 
 from . import _kernels
 from .attention import pos_visible, softmax_attend
-from .flash_prefill import (HEAD_DIMS, _as_int_list, _int32_on, _slopes_on,
+from .flash_prefill import (HEAD_PAIRS, _as_int_list, _int32_on, _slopes_on,
                             kv_dequant)
 
 
@@ -141,7 +141,8 @@ def flash_decode(q, k_cache, v_cache, k_rows, v_rows, meta, win,
            and tuple(v_cache.shape) == (B, C, Hkv, Dv), "cache shape")
     _check(tuple(k_rows.shape) == (B, R, Hkv, D)
            and tuple(v_rows.shape) == (B, R, Hkv, Dv), "rows shape")
-    _check(D == Dv and D in HEAD_DIMS, f"head dims {(D, Dv)}")
+    _check((D, Dv) in HEAD_PAIRS, f"head dims {(D, Dv)} (the kernel takes "
+           f"{HEAD_PAIRS})")
     _check(1 <= G <= 16, f"group size {G}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         _check(t.device == dev and t.is_contiguous(),

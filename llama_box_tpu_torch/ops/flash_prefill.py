@@ -17,8 +17,9 @@ Layouts (all post-RoPE):
 Row r of slot b (position pos0 + r) sees cache position c iff c < pos0 and
 c is causal/in-window/in-chunk, or c lies in [st, en); it sees row r' iff
 r' < n_valid under the same rule. Under ALiBi a score gains slope x (key
-position - query position) before the softcap. D = Dv in HEAD_DIMS.
-Output [B, Hkv, G, T, Dv] f32.
+position - query position) before the softcap. (D, Dv) in HEAD_PAIRS: the
+equal widths of HEAD_DIMS, and multi-head latent attention's K 192 / V 128
+(DeepSeek-V2/V3) and K 96 / V 64 (MiniCPM3). Output [B, Hkv, G, T, Dv] f32.
 """
 
 from __future__ import annotations
@@ -28,8 +29,10 @@ import torch
 from . import _kernels
 from .attention import pos_visible, softmax_attend
 
-# the head widths (D = Dv) both attention kernels instantiate
+# the head widths (D = Dv) both attention kernels instantiate, and the
+# (K, V) width pairs: those, and MLA's unequal ones
 HEAD_DIMS = (64, 80, 96, 128, 256)
+HEAD_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128), (96, 64))
 
 
 def _as_int_list(x) -> list[int]:
@@ -122,7 +125,8 @@ def flash_prefill_batched(q, k_cache, v_cache, k_rows, v_rows, meta, win,
            and tuple(v_cache.shape) == (B, C, Hkv, Dv), "cache shape")
     _check(tuple(k_rows.shape) == (B, T, Hkv, D)
            and tuple(v_rows.shape) == (B, T, Hkv, Dv), "rows shape")
-    _check(D == Dv and D in HEAD_DIMS, f"head dims {(D, Dv)}")
+    _check((D, Dv) in HEAD_PAIRS, f"head dims {(D, Dv)} (the kernel takes "
+           f"{HEAD_PAIRS})")
     _check(1 <= G <= 128, f"group size {G}")
     k_rows = k_rows.to(dev, dt).contiguous()
     v_rows = v_rows.to(dev, dt).contiguous()

@@ -498,14 +498,31 @@ def q_matmul_ref(x: torch.Tensor, w: QTensor) -> torch.Tensor:
 # -- dispatch ------------------------------------------------------------------
 
 
+def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w for a dense w in x's dtype (torch.matmul), except that on the
+    card a call of at most _SPLIT_MAX_ROWS rows runs at that many rows, the
+    rest zeros and dropped: cuBLAS picks its kernel (tiles, in-dim splits)
+    by the row count, so without it a verify pass's rows (slots x drafts)
+    could round otherwise than their one-row decode steps (DeepSeek-V2-
+    Lite's FF 10944 did, at 36 rows against 4), as the grouped and fused
+    kernels' calls of at most 64 rows do not."""
+    w = w.to(x.dtype)
+    M = x.numel() // x.shape[-1]
+    if not x.is_cuda or M >= _SPLIT_MAX_ROWS:
+        return torch.matmul(x, w)
+    xf = torch.nn.functional.pad(x.reshape(M, x.shape[-1]),
+                                 (0, 0, 0, _SPLIT_MAX_ROWS - M))
+    return torch.matmul(xf, w)[:M].reshape(*x.shape[:-1], w.shape[-1])
+
+
 def mm(x: torch.Tensor, w) -> torch.Tensor:
     """Matmul dispatch returning x's dtype, x: [..., in]: a dense tensor ->
-    torch.matmul; a w8a8 QTensor -> w8a8_matmul; a grouped QTensor ->
+    dense_matmul; a w8a8 QTensor -> w8a8_matmul; a grouped QTensor ->
     q_matmul on a CUDA x, q_matmul_ref on a CPU x. The kernels round a bf16
     x's result to bf16 themselves, so the final cast is a no-op on the
     card."""
     if not isinstance(w, QTensor):
-        return torch.matmul(x, w.to(x.dtype))
+        return dense_matmul(x, w)
     lead = x.shape[:-1]
     xf = x.reshape(-1, x.shape[-1])
     if w.w8a8:

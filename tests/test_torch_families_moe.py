@@ -20,9 +20,10 @@ For every family:
   tokens equal the JAX engine's;
 - a T-row verify forward gives its rows' one-row decode steps (f32,
   within 1e-5).
-jetmoe's mixture-of-attention, deepseek2's MLA and jamba's recurrent
-mixer stay refused at load, by their cause; on a CUDA device the check
-refuses expert stacks the kernel does not take."""
+jetmoe's mixture-of-attention and jamba's recurrent mixer stay refused
+at load, and qwen2vl's M-RoPE by the check, by their cause (deepseek2's
+MLA is ported: tests/test_torch_families_mla.py); on a CUDA device the
+check refuses expert stacks the kernel does not take."""
 
 import dataclasses
 
@@ -247,8 +248,8 @@ def test_llama4_attention_operands(paths):
     assert win.tolist() == [[0, WINDOW], [0, 0], [0, WINDOW], [0, 0]]
 
 
-def _write_refused(path, arch, names):
-    w, _ = _header(path, arch, DIMS, {"block_count": 1}.items())
+def _write_refused(path, arch, names, extra=()):
+    w, _ = _header(path, arch, DIMS, {"block_count": 1, **dict(extra)}.items())
     w.add_tensor("token_embd.weight", np.zeros((300, DIMS[0]), np.float32))
     for n in names:
         w.add_tensor(n, np.zeros((16, DIMS[0]), np.float32))
@@ -258,15 +259,19 @@ def _write_refused(path, arch, names):
 @pytest.mark.parametrize("arch,names,cause", [
     ("jetmoe", ["blk.0.attn_q_exps.weight", "blk.0.attn_output_exps.weight"],
      "mixture-of-attention"),
-    ("deepseek2", ["blk.0.attn_kv_a_mqa.weight", "blk.0.attn_q_a.weight"],
-     "MLA"),
+    # M-RoPE: the file loads, the check refuses it (MLA, this case until
+    # it was ported, loads and runs: tests/test_torch_families_mla.py)
+    ("qwen2vl", [], "mrope_sections"),
     ("jamba", ["blk.0.ssm_in.weight"], "recurrent")])
 def test_moa_mla_and_recurrent_files_are_refused(tmp_path, arch, names,
                                                  cause):
     path = str(tmp_path / f"{arch}.gguf")
-    _write_refused(path, arch, names)
+    _write_refused(path, arch, names, (("rope.dimension_sections",
+                                        [2, 3, 3, 0]),)
+                   if arch == "qwen2vl" else ())
     with pytest.raises(NotImplementedError, match=cause):
-        load_model(path, dtype=torch.float32, device="cpu")
+        cfg, params = load_model(path, dtype=torch.float32, device="cpu")
+        tllama.check_supported(cfg, params)
 
 
 @pytest.mark.parametrize("change,named", [

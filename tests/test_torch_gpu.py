@@ -886,17 +886,19 @@ def test_q4_mm_writes_the_dtype_of_x(cuda):
 
 
 def _served_decode(rng, cuda, cpos, nv, quant, C=2048, R=16, B=4, Hkv=4,
-                   G=8, D=64, win=(0, 0)):
+                   G=8, D=64, win=(0, 0), Dv=None):
     """One decode call at the served shape in which the chain's rows hold
     the values the cache holds (an int8 cache: its codes times their scale,
     rounded to bf16, as the model's rows hold them), and every cache
-    position at or past the chain start is NaN (int8: its scale)."""
+    position at or past the chain start is NaN (int8: its scale). V's
+    width is Dv (D by default)."""
     bf = torch.bfloat16
+    Dv = Dv or D
     q = _x(rng, B * Hkv * G, D, cuda).reshape(B, Hkv, G, D)
     k = _x(rng, B * C * Hkv, D, cuda, torch.float32).reshape(B, C, Hkv, D)
-    v = _x(rng, B * C * Hkv, D, cuda, torch.float32).reshape(B, C, Hkv, D)
+    v = _x(rng, B * C * Hkv, Dv, cuda, torch.float32).reshape(B, C, Hkv, Dv)
     cur_k = _x(rng, B * Hkv, D, cuda).reshape(B, Hkv, D)
-    cur_v = _x(rng, B * Hkv, D, cuda).reshape(B, Hkv, D)
+    cur_v = _x(rng, B * Hkv, Dv, cuda).reshape(B, Hkv, Dv)
     sc = {}
     if quant:
         ks = (k.abs().amax(-1) / 127).to(bf)
@@ -917,7 +919,7 @@ def _served_decode(rng, cuda, cpos, nv, quant, C=2048, R=16, B=4, Hkv=4,
         kc[:, cpos - nv + 1:] = float("nan")
         vc[:, cpos - nv + 1:] = float("nan")
     kr = _x(rng, B * R * Hkv, D, cuda).reshape(B, R, Hkv, D)   # dead rows
-    vr = _x(rng, B * R * Hkv, D, cuda).reshape(B, R, Hkv, D)
+    vr = _x(rng, B * R * Hkv, Dv, cuda).reshape(B, R, Hkv, Dv)
     kr[:, :nv - 1] = kd[:, cpos - nv + 1:cpos]
     vr[:, :nv - 1] = vd[:, cpos - nv + 1:cpos]
     kr[:, nv - 1], vr[:, nv - 1] = cur_k, cur_v
@@ -1068,14 +1070,19 @@ def test_draws_on_the_card_are_the_cpu_draws(cuda):
 _TINY = dict(L=2, E=256, H=4, HKV=2, D=64, FF=512, V=512)
 
 
-def _tiny_gguf(path, fmt, dims=None, moe=None):
+def _tiny_gguf(path, fmt, dims=None, moe=None, mla=None):
     """The tiny llama; with `moe` (X experts, K a token, expert FF) a
-    qwen3moe file whose FFNs are experts (bf16 stacks on the card)."""
+    qwen3moe file whose FFNs are experts (bf16 stacks on the card); with
+    `mla` (rope and nope dims, V width, q and kv ranks) a deepseek2 file
+    of dense layers whose attention is multi-head latent attention (K
+    width rope + nope, H heads)."""
     from llama_box_tpu_torch.gguf import GGMLType, GGUFWriter
     from llama_box_tpu_torch.tokenizer.tokenizer import TokenType
     L, E, H, HKV, D, FF, V = ((dims or _TINY)[k] for k in
                               ("L", "E", "H", "HKV", "D", "FF", "V"))
-    arch = "qwen3moe" if moe else "llama"
+    arch = "qwen3moe" if moe else "deepseek2" if mla else "llama"
+    if mla:
+        HKV, D = H, mla["rope"] + mla["nope"]
     alpha = ["▁"] + [chr(c) for c in range(ord("a"), ord("z") + 1)]
     pieces = (alpha + [a + b for a in alpha for b in alpha])[:V - 259]
     toks = ["<unk>", "<s>", "</s>"] + [f"<0x{i:02X}>" for i in range(256)] \
@@ -1106,6 +1113,13 @@ def _tiny_gguf(path, fmt, dims=None, moe=None):
     if moe:
         w.add_kv(f"{a}.expert_count", moe["X"])
         w.add_kv(f"{a}.expert_used_count", moe["K"])
+    if mla:
+        for k, v in (("attention.key_length", D),
+                     ("attention.value_length", mla["dv"]),
+                     ("attention.q_lora_rank", mla["q_lora"]),
+                     ("attention.kv_lora_rank", mla["kv_lora"]),
+                     ("rope.dimension_count", mla["rope"])):
+            w.add_kv(f"{a}.{k}", v)
 
     def rand(*shape):
         return rng.standard_normal(shape, dtype=np.float32) * 0.05
@@ -1120,10 +1134,27 @@ def _tiny_gguf(path, fmt, dims=None, moe=None):
     w.add_tensor("output.weight", rand(V, E), q6)
     for i in range(L):
         w.add_tensor(f"blk.{i}.attn_norm.weight", norm_w())
-        w.add_tensor(f"blk.{i}.attn_q.weight", rand(H * D, E), most)
-        w.add_tensor(f"blk.{i}.attn_k.weight", rand(HKV * D, E), most)
-        w.add_tensor(f"blk.{i}.attn_v.weight", rand(HKV * D, E), most)
-        w.add_tensor(f"blk.{i}.attn_output.weight", rand(E, H * D), most)
+        if mla:
+            p, qr, kvr = f"blk.{i}.", mla["q_lora"], mla["kv_lora"]
+            if qr:
+                w.add_tensor(p + "attn_q_a.weight", rand(qr, E), most)
+                w.add_tensor(p + "attn_q_a_norm.weight", norm_w()[:qr])
+                w.add_tensor(p + "attn_q_b.weight", rand(H * D, qr), most)
+            else:
+                w.add_tensor(p + "attn_q.weight", rand(H * D, E), most)
+            w.add_tensor(p + "attn_kv_a_mqa.weight",
+                         rand(kvr + mla["rope"], E), most)
+            w.add_tensor(p + "attn_kv_a_norm.weight", norm_w()[:kvr])
+            w.add_tensor(p + "attn_kv_b.weight",
+                         rand(H * (mla["nope"] + mla["dv"]), kvr), most)
+            w.add_tensor(p + "attn_output.weight", rand(E, H * mla["dv"]),
+                         most)
+        else:
+            w.add_tensor(f"blk.{i}.attn_q.weight", rand(H * D, E), most)
+            w.add_tensor(f"blk.{i}.attn_k.weight", rand(HKV * D, E), most)
+            w.add_tensor(f"blk.{i}.attn_v.weight", rand(HKV * D, E), most)
+            w.add_tensor(f"blk.{i}.attn_output.weight", rand(E, H * D),
+                         most)
         w.add_tensor(f"blk.{i}.ffn_norm.weight", norm_w())
         if moe:
             X, F = moe["X"], moe["FF"]
@@ -2681,3 +2712,214 @@ def test_moe_spec_greedy_text_equals_plain_decode(cuda, tiny_moe_model):
         assert _serve(ref, specs) == out
     finally:
         ref.stop()
+
+
+# -- multi-head latent attention: K and V of unequal widths --------------------
+
+# the (K, V) pairs both kernels take under MLA: DeepSeek-V2/V3's 192 / 128
+# and MiniCPM3's 96 / 64; H heads of each (G = 1)
+_MLA_PAIRS = [(192, 128), (96, 64)]
+
+
+@pytest.mark.parametrize("pair", _MLA_PAIRS, ids=str)
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
+def test_prefill_kernel_mla_widths_match_plain(cuda, pair, cache):
+    D, Dv = pair
+    dtype = torch.float32 if cache == "f32" else torch.bfloat16
+    c = prefill_case(np.random.default_rng(D), B=2, Hkv=4, G=1, D=D, Dv=Dv,
+                     C=256, T=80, pos0=(150, 40), n_valid=(80, 33),
+                     quant=cache == "int8")
+    _poison(c, c["meta"][:, 0])
+    args, sc = _on(cuda, c, dtype)
+    meta = as_t(c["meta"]).to(cuda)
+    win = torch.tensor([24, 0], dtype=torch.int32)
+    before = flash_prefill_batched.launches
+    for w in (torch.zeros(2, dtype=torch.int32), win):
+        got = flash_prefill_batched(*args, meta, w, **sc)
+        want = flash_prefill_plain(*args, meta, w, **sc)
+        torch.cuda.synchronize()
+        assert got.shape == (2, 4, 1, 80, Dv)
+        atol = F32_ATOL if cache == "f32" else BF16_ATOL
+        for b, nv in enumerate(c["meta"][:, 1]):
+            assert torch.isfinite(got[b, :, :, :nv]).all()
+            torch.testing.assert_close(got[b, :, :, :nv],
+                                       want[b, :, :, :nv], rtol=0, atol=atol)
+    assert flash_prefill_batched.launches == before + 2
+
+
+@pytest.mark.parametrize("pair", _MLA_PAIRS, ids=str)
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
+def test_decode_kernel_mla_widths_match_plain(cuda, pair, cache):
+    D, Dv = pair
+    dtype = torch.float32 if cache == "f32" else torch.bfloat16
+    c = decode_case(np.random.default_rng(D + 1), B=2, Hkv=4, G=1, D=D,
+                    Dv=Dv, C=256, R=16, cpos=(200, 40), nv=(5, 1),
+                    quant=cache == "int8")
+    _poison(c, c["meta"][:, 0] - c["meta"][:, 1] + 1)
+    args, sc = _on(cuda, c, dtype)
+    meta = as_t(c["meta"]).to(cuda)
+    before = flash_decode.launches
+    got = flash_decode(*args, meta, torch.zeros(2, dtype=torch.int32), **sc)
+    want = flash_decode_plain(*args, meta, torch.zeros(2, dtype=torch.int32),
+                              **sc)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    assert got.shape == (2, 4, 1, Dv) and torch.isfinite(got).all()
+    atol = F32_ATOL if cache == "f32" else BF16_ATOL
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+def test_attention_kernels_refuse_width_pairs_they_lack(cuda):
+    """A CUDA tensor at a (K, V) pair no instantiation covers raises,
+    naming the pairs; it never runs the plain version."""
+    c = decode_case(np.random.default_rng(5), B=1, Hkv=2, G=1, D=192,
+                    Dv=64, C=128)
+    args, sc = _on(cuda, c, torch.bfloat16)
+    with pytest.raises(ValueError, match=r"\(192, 128\)"):
+        flash_decode(*args, as_t(c["meta"]).to(cuda),
+                     torch.zeros(2, dtype=torch.int32))
+    c = prefill_case(np.random.default_rng(6), B=1, Hkv=2, G=1, D=192,
+                     Dv=64, C=128, pos0=(16,), n_valid=(64,))
+    args, sc = _on(cuda, c, torch.bfloat16)
+    with pytest.raises(ValueError, match=r"\(96, 64\)"):
+        flash_prefill_batched(*args, as_t(c["meta"]).to(cuda),
+                              torch.zeros(2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("pair", _MLA_PAIRS, ids=str)
+def test_prefill_kernel_cold_equals_cached_prefix_at_mla_widths(cuda, pair):
+    """A 500-token prompt prefilled cold and the same prompt with its
+    first 137 positions in a bf16 cache give the same bits at K and V
+    widths that differ."""
+    D, Dv = pair
+    rng = np.random.default_rng(43)
+    T, P, C = 500, 137, 1024
+    c = prefill_case(rng, B=2, Hkv=4, G=1, D=D, Dv=Dv, C=C, T=T,
+                     pos0=(0, 0), n_valid=(T, T))
+    bf = torch.bfloat16
+    q, kr, vr = (as_t(c[k]).to(cuda, bf) for k in ("q", "kr", "vr"))
+    kc = torch.full((2, C, 4, D), float("nan"), device=cuda, dtype=bf)
+    vc = torch.full((2, C, 4, Dv), float("nan"), device=cuda, dtype=bf)
+    win = torch.zeros(2, dtype=torch.int32, device=cuda)
+    meta = torch.tensor([[0, T, 0, 0]] * 2, dtype=torch.int32, device=cuda)
+    cold = flash_prefill_batched(q, kc, vc, kr, vr, meta, win)
+    want = flash_prefill_plain(q, kc, vc, kr, vr, meta, win)
+    kc[:, :P], vc[:, :P] = kr[:, :P], vr[:, :P]
+    meta = torch.tensor([[P, T - P, 0, 0]] * 2, dtype=torch.int32,
+                        device=cuda)
+    warm = flash_prefill_batched(q[:, :, :, P:].contiguous(), kc, vc,
+                                 kr[:, P:].contiguous(),
+                                 vr[:, P:].contiguous(), meta, win)
+    torch.cuda.synchronize()
+    assert torch.isfinite(warm).all()
+    assert torch.equal(warm, cold[:, :, :, P:])
+    torch.testing.assert_close(cold, want, rtol=0, atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("pair", _MLA_PAIRS, ids=str)
+@pytest.mark.parametrize("cpos", [1023, 3000])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16cache", "int8"])
+def test_decode_kernel_chain_rows_give_the_cache_bits_at_mla_widths(
+        cuda, pair, cpos, quant):
+    """The nv = 16 / nv = 1 bit check at K and V widths that differ, C
+    4096, H heads of each (G = 1)."""
+    D, Dv = pair
+    out = {}
+    for nv in (1, 16):
+        args, sc = _served_decode(np.random.default_rng(cpos), cuda, cpos, nv,
+                                  quant, C=4096, Hkv=4, G=1, D=D, Dv=Dv)
+        out[nv] = flash_decode(*args, **sc)
+        want = flash_decode_plain(*args, **sc)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out[nv]).all()
+        torch.testing.assert_close(out[nv], want, rtol=0, atol=BF16_ATOL)
+    assert torch.equal(out[1], out[16])
+
+
+# DeepSeek-V2's K 192 (rope 64 + nope 128) / V 128 at small widths
+_MLA_TINY = dict(L=2, E=512, H=4, HKV=4, D=192, FF=1024, V=512)
+_MLA_DIMS = dict(rope=64, nope=128, dv=128, q_lora=128, kv_lora=128)
+
+
+@pytest.fixture(scope="module")
+def mla_model(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from llama_box_tpu_torch.gguf import GGUFFile
+    from llama_box_tpu_torch.models.loader import load_model
+    from llama_box_tpu_torch.tokenizer import Tokenizer
+    path = tmp_path_factory.mktemp("mla") / "tiny-mla.gguf"
+    _tiny_gguf(path, "f16", _MLA_TINY, mla=_MLA_DIMS)
+    cfg, params = load_model(str(path), dtype=torch.bfloat16, device="cuda")
+    with GGUFFile(str(path)) as g:
+        tok = Tokenizer.from_gguf(g)
+    return "bf16", cfg, params, tok
+
+
+def test_spec_greedy_text_equals_plain_decode_on_an_mla_model(cuda,
+                                                             mla_model):
+    """A tiny uniform MLA model at K 192 / V 128: its cache holds H heads
+    of each width, both attention kernels run at that pair, a verify
+    forward's rows equal their one-row steps bit for bit, and
+    self-drafting greedy chats give plain chained decode's tokens."""
+    from llama_box_tpu_torch.models import llama
+    from llama_box_tpu_torch.sampling import SamplerParams
+    _, cfg, params, _ = mla_model
+    assert (cfg.head_dim, cfg.v_head_dim, cfg.kv_lora_rank) == (192, 128, 128)
+    S, C, T = 4, 512, 9
+    rng = np.random.default_rng(98)
+    n = np.array([100, 37, 211, 64])
+    pre = torch.from_numpy(rng.integers(300, 500, (S, 256)))
+    rows = torch.from_numpy(rng.integers(300, 500, (S, T)))
+    pos = n[:, None] + np.arange(T)
+    cos, sin = llama.make_rope(cfg, C, cuda)
+    kv = llama.init_kv_cache(cfg, S, C, torch.bfloat16, cuda)
+    assert kv.k.shape[-2:] == (4, 192) and kv.v.shape[-2:] == (4, 128)
+    n_pre, n_dec = flash_prefill_batched.launches, flash_decode.launches
+    llama.prefill_batch_impl(params, cfg, pre, np.zeros(S, np.int64), n, kv,
+                             cos, sin)
+    kv2 = llama.KVCache(*[x.clone() if x is not None else None for x in kv])
+    got = llama.forward_impl(params, cfg, rows, pos, kv, cos, sin)[0]
+    want = torch.cat([llama.forward_impl(
+        params, cfg, rows[:, j:j + 1], pos[:, j:j + 1].copy(), kv2, cos,
+        sin)[0] for j in range(T)], dim=1)
+    assert flash_prefill_batched.launches > n_pre
+    assert flash_decode.launches > n_dec
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(kv, kv2) if a is not None)
+    prompts = [rng.integers(300, 500, k).tolist() for k in (40, 23, 9, 17)]
+    specs = [(p, SamplerParams(temp=0.0, ignore_eos=True), 48)
+             for p in prompts]
+    eng = _spec_engine(mla_model, True, draft_max=8, start=True)
+    try:
+        out = _serve(eng, specs)
+        assert eng.metrics.n_drafted_total > 0
+    finally:
+        eng.stop()
+    ref = _engine(mla_model, True, chain=16, start=True)
+    try:
+        assert _serve(ref, specs) == out
+    finally:
+        ref.stop()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kn", [(10944, 2048), (2048, 2816), (512, 4096)],
+                         ids=str)
+def test_dense_mm_rows_keep_their_bits_up_to_64_rows(cuda, dtype, kn):
+    """A dense projection's rows (DeepSeek-V2-Lite's dense down, shared
+    experts' up, MLA's kv_b) are the same bits in a call of 4 rows, of 36
+    (a verify pass) and of 64: every call of at most 64 rows runs cuBLAS at
+    64 rows. Above 64 rows torch.matmul runs as it is."""
+    from llama_box_tpu_torch.ops.qmatmul import dense_matmul, mm
+    K, N = kn
+    rng = np.random.default_rng(K)
+    x = _x(rng, 100, K, cuda, dtype)
+    w = _x(rng, K, N, cuda, dtype) * 0.02
+    four = mm(x[8:12], w)
+    assert torch.equal(dense_matmul(x[:36], w)[8:12], four)
+    assert torch.equal(mm(x[:64].reshape(8, 8, K), w).reshape(64, N)[8:12],
+                       four)
+    assert torch.equal(mm(x[8:9], w), four[:1])
+    torch.testing.assert_close(mm(x, w), torch.matmul(x, w), rtol=0,
+                               atol=0)
