@@ -65,7 +65,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     its times beside the bound (the distinct experts' bytes, or 6 N K E F
     operations), the plain version and torch._grouped_mm's three
     products on the rows sorted by expert (never used by the port);
- 5. end to end, bf16 path: a synthetic TinyLlama-1.1B-width GGUF (12 of
+ 5. end to end, bf16 path: a synthetic TinyLlama-1.1B-width GGUF (8 of
     its 22 layers; random F16 weights from --seed, a 32000-piece SPM
     vocab, a chatml template;
     it and 5w's and 5q's files are written by three worker processes
@@ -213,8 +213,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     bound; printed: embeddings tok/s, rerank docs/s;
  11. the dense llama variants at published widths, after phase 10: two
     synthetic GGUFs (Q8_0 matrices, F32 vectors, random from --seed, a
-    synthetic vocabulary of the published size, chatml; depth cut to 8
-    layers): Qwen3-1.7B's (Qwen/Qwen3-1.7B config.json: 28 x 2048, 16 / 8
+    synthetic vocabulary of the published size, chatml; depth cut to 4
+    layers since phase 15, 8 before): Qwen3-1.7B's (Qwen/Qwen3-1.7B config.json: 28 x 2048, 16 / 8
     heads of 128, FF 6144, vocab 151936, tied embeddings, per-head q/k RMS
     norms) and Pythia-1.4B's (EleutherAI/pythia-1.4b config.json: 24 x
     2048, 16 heads of 128, rotary 32 of them, parallel residual, LayerNorm
@@ -232,7 +232,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     kernel and with the norms' plain torch versions, its row-norm
     launches, and no torch mean reduction (a norm's) in it;
  12. the attention variants at published widths, after phase 11, on
-    phase 11's machinery (depth cut to 12 and 8 layers for the script's
+    phase 11's machinery (depth cut to 6 and 4 layers for the script's
     time limit): Gemma-3-1B's (google/gemma-3-1b-pt
     config.json: 26 x 1152, 4 / 1 heads of 256, FF 6912, vocab 262144,
     a 512 window on 5 layers of 6, rope bases 1e6 and 1e4, q/k norms, post
@@ -247,7 +247,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     config.json: 48 x 2048, 32 / 4 heads of 128, per-head q/k norms, 128
     experts, 8 a token, expert FF 768, norm_topk_prob, rope base 1e6,
     vocab 151936, untied output; Q8_0 matrices and expert stacks, the
-    router F32; depth cut to 8 layers; the file, about 6 GB, written by a
+    router F32; depth cut to 4 layers; the file, about 3 GB, written by a
     worker beside phases 3 and 4), on the bf16 and w8a8 paths (the
     experts bf16 on both): the routed-expert kernel must run; the cosine
     to the f32 CPU forward of the file (the plain versions on the host);
@@ -258,23 +258,47 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     config.json: 2048 wide, 16 heads, no q rank (a plain wq), kv rank 512,
     K 128 + 64 rope / V 128, the first layer dense with FF 10944, then 64
     experts, 6 a token, expert FF 1408, 2 shared experts, YaRN factor 40
-    over 4096, vocab 102400, untied; 8 of 27 layers: two layer groups, so
+    over 4096, vocab 102400, untied; 4 of 27 layers: two layer groups, so
     a token a pass) and MiniCPM3-4B's (openbmb/MiniCPM3-4B: 2560 wide, 40
     heads, q rank 768, kv rank 256, K 64 + 32 / V 64, FF 6400, vocab
     73448, its embedding, residual and logit scales, longrope factors from
-    the seed; 8 of 62 layers, uniform: chains, graphs, pipelining), Q8_0
+    the seed; 4 of 62 layers, uniform: chains, graphs, pipelining), Q8_0
     matrices written by two workers beside phases 3 and 4, each on the
     bf16 and w8a8 paths as phase 13's: both attention kernels (and on
     DeepSeek the expert kernel) must run; the cosine to the f32 forward of
     the file on the host (the plain versions); verify rows bit-equal to
     one-row steps (bf16 and int8 caches); on MiniCPM3 greedy K = 1 equal
     to K = 16;
+ 15. image and audio chats with --mmproj at published widths, after phase
+    14: three synthetic GGUF + mmproj pairs written by workers beside
+    phases 3 and 4 (Q8_0 language models cut to 4 layers; F16 towers):
+    llava-1.5-7b (Llama-2-7B widths; CLIP ViT-L/14-336, 23 blocks, 576
+    image tokens, the mlp projector), on the bf16 and w8a8 paths;
+    Qwen2-VL-2B (Qwen2-1.5B widths with M-RoPE [16, 24, 24]; its ViT, 8 of
+    32 blocks, at two images' native grids); Qwen2-Audio-7B (Qwen-7B
+    widths; whisper-large-v3's encoder, 8 of 32 blocks, and the qwen2a
+    head; a 3 s WAV). Each served by the CLI with --mmproj at -np 4: on
+    bf16 each medium's projected rows on the card against the f32 host
+    tower (cosine >= MM_EMB_COS) and the tower's device ms; two warm-up
+    waves, then a measured wave of 4 greedy chats (a text-only chat beside
+    media chats; its captures, graphs and pool printed), the first media
+    chat again (the same text, its rows from the prefix cache), one media
+    request counting its kernels from 0 (flash prefill and decode must
+    run; on w8a8 w8a8_matmul) whose served first answer token's logits
+    (read from the engine's prefill program) are held against the f32
+    host forward of the chunks the server built (cosine >= MM_LOGIT_COS)
+    and, on Qwen2-VL, its decode steps' top log-prob gaps against the
+    host forward at position + mrope_delta (MM_DECODE_GAP), on llava
+    greedy K = 1 equal to K = 16. Phase 12 adds,
+    on Gemma-3-1B's bf16 path, an image chat through an mlp mmproj (its
+    image rows under the bidirectional span) and the spanned logits
+    through the kernel against its plain version;
  9. print a `kernels` line (nine kernels; launches count graph replays;
     each also with its launches in the self-drafting waves of 8/8w/8q,
     in phase 8's n-gram, self-draft and 2-layer draft waves and in each
     path's embeddings request of phase 10, where bf16's window also holds
-    the chats' chains, and in one request of each phase 11, 12, 13 and 14
-    model and path; the attention kernels also with their variant and MLA
+    the chats' chains, and in one request of each phase 11, 12, 13, 14
+    and 15 model and path; the attention kernels also with their variant and MLA
     shapes' times, moe_ffn with all its timed shapes, its launches those
     of one phase 13 bf16 request), an `e2e` line (three paths and phases
     6, 7, 8, 10, 11, 12, 13 and 14), the card line, and as the last line
@@ -305,8 +329,9 @@ import numpy as np
 import torch
 
 # TinyLlama-1.1B (BASELINE config 1): published widths; depth cut from 22
-# to 12 layers for the script's time limit with phase 13 beside it
-L, E, H, HKV, D, FF, V = 12, 2048, 32, 4, 64, 5632, 32000
+# to 12 layers for the script's time limit with phase 13 beside it, and to
+# 8 with phase 15 beside it
+L, E, H, HKV, D, FF, V = 8, 2048, 32, 4, 64, 5632, 32000
 N_SLOTS, N_CTX, N_UBATCH, CHAIN = 4, 8192, 512, 16
 SLOT_CTX = N_CTX // N_SLOTS
 HBM_BPS, BF16_FLOPS = 3.35e12, 989e12          # H100 SXM data sheet peaks
@@ -4413,35 +4438,35 @@ def moe_kernel_phase(dev, seed):
 # synthetic one of the published size)
 VARIANTS = {
     # Qwen/Qwen3-1.7B config.json: RMS, per-head q/k RMS norms, tied
-    # embeddings, GQA 2; depth cut from 28 to 8 layers (the script's time
+    # embeddings, GQA 2; depth cut from 28 to 4 layers (the script's time
     # limit, with phase 12 beside it)
-    "qwen3-1.7b": dict(arch="qwen3", L=8, E=2048, H=16, HKV=8, D=128,
+    "qwen3-1.7b": dict(arch="qwen3", L=4, E=2048, H=16, HKV=8, D=128,
                        FF=6144, V=151936, rot=128, eps=1e-6, base=1e6,
                        ctx=40960),
     # EleutherAI/pythia-1.4b config.json (gpt_neox): LayerNorm with
     # biases, parallel residual, fused biased qkv, rotary_pct 0.25,
-    # ungated GELU FFN with biases, untied output; depth cut from 24 to 8
-    "pythia-1.4b": dict(arch="gptneox", L=8, E=2048, H=16, HKV=16, D=128,
+    # ungated GELU FFN with biases, untied output; depth cut from 24 to 4
+    "pythia-1.4b": dict(arch="gptneox", L=4, E=2048, H=16, HKV=16, D=128,
                         FF=8192, V=50304, rot=32, eps=1e-5, base=10000.0,
                         ctx=2048),
 }
 # phase 12: the attention variants at published widths; depth cut (for
-# the script's time limit with phase 13 beside it) to two of
-# Gemma-3-1B's 6-layer local/global patterns and 8 of BLOOM-560m's layers
+# the script's time limit with phases 13 to 15 beside it) to one of
+# Gemma-3-1B's 6-layer local/global patterns and 4 of BLOOM-560m's layers
 ATTN_VARIANTS = {
     # google/gemma-3-1b-pt config.json: 26 x 1152, 4 / 1 heads of 256, FF
     # 6912, vocab 262144, sliding window 512 on 5 layers of 6, rope bases
     # 1e6 (global) and 1e4 (local), per-head q/k RMS norms, post norms,
-    # GELU-gated FFN, embeddings scaled by sqrt(1152) and tied; 12 of 26
+    # GELU-gated FFN, embeddings scaled by sqrt(1152) and tied; 6 of 26
     # layers
-    "gemma3-1b": dict(arch="gemma3", L=12, E=1152, H=4, HKV=1, D=256,
+    "gemma3-1b": dict(arch="gemma3", L=6, E=1152, H=4, HKV=1, D=256,
                       FF=6912, V=262144, rot=256, eps=1e-6, base=1e6,
                       ctx=32768, window=512),
     # bigscience/bloom-560m config.json: 24 x 1024, 16 heads of 64 (MHA),
     # FF 4096, vocab 250880, ALiBi (no rotary), embedding LayerNorm,
     # LayerNorms and projections with biases, fused qkv, tied embeddings;
-    # 8 of 24 layers
-    "bloom-560m": dict(arch="bloom", L=8, E=1024, H=16, HKV=16, D=64,
+    # 4 of 24 layers
+    "bloom-560m": dict(arch="bloom", L=4, E=1024, H=16, HKV=16, D=64,
                        FF=4096, V=250880, rot=64, eps=1e-5, base=10000.0,
                        ctx=2048),
 }
@@ -4450,9 +4475,9 @@ MOE_VARIANTS = {
     # Qwen/Qwen3-30B-A3B config.json: 48 x 2048, 32 / 4 heads of 128,
     # per-head q/k RMS norms, 128 experts, 8 a token, expert FF 768
     # (moe_intermediate_size; intermediate_size 6144), norm_topk_prob,
-    # rope base 1e6, vocab 151936, untied output; depth cut from 48 to 8
+    # rope base 1e6, vocab 151936, untied output; depth cut from 48 to 4
     # layers (the script's time limit)
-    "qwen3-30b-a3b": dict(arch="qwen3moe", L=8, E=2048, H=32, HKV=4, D=128,
+    "qwen3-30b-a3b": dict(arch="qwen3moe", L=4, E=2048, H=32, HKV=4, D=128,
                           FF=6144, FFE=768, X=128, K=8, V=151936, rot=128,
                           eps=1e-6, base=1e6, ctx=40960),
 }
@@ -4466,8 +4491,8 @@ MLA_VARIANTS = {
     # routed_scaling_factor 1.0; rope_theta 1e4 with YaRN (factor 40,
     # original context 4096; mscale_all_dim 0.707 as the GGUF's
     # yarn_log_multiplier 0.0707), rms eps 1e-6, vocab 102400, untied;
-    # depth cut from 27 to 8 layers (1 dense + 7 MoE)
-    "deepseek-v2-lite": dict(arch="deepseek2", L=8, E=2048, H=16, HKV=16,
+    # depth cut from 27 to 4 layers (1 dense + 3 MoE)
+    "deepseek-v2-lite": dict(arch="deepseek2", L=4, E=2048, H=16, HKV=16,
                              D=192, DV=128, rot=64, QLORA=0, KVLORA=512,
                              FF=10944, FFE=1408, X=64, K=6, SHEXP=2,
                              V=102400, eps=1e-6, base=10000.0, ctx=163840),
@@ -4477,8 +4502,8 @@ MLA_VARIANTS = {
     # residual scale 1.4 / sqrt(62)), dim_model_base 256 (logits x 256 /
     # 2560), longrope (16 factors a set, made from the seed: the published
     # ones are not in the repo), rms eps 1e-5, untied; depth cut from 62 to
-    # 8 layers
-    "minicpm3-4b": dict(arch="minicpm3", L=8, E=2560, H=40, HKV=40, D=96,
+    # 4 layers
+    "minicpm3-4b": dict(arch="minicpm3", L=4, E=2560, H=40, HKV=40, D=96,
                         DV=64, rot=32, QLORA=768, KVLORA=256, FF=6400,
                         V=73448, eps=1e-5, base=10000.0, ctx=32768),
 }
@@ -4506,7 +4531,8 @@ def write_variant(path: str, name: str, seed: int) -> None:
     it), random from `seed`, a synthetic vocabulary of the published size
     and the chatml template."""
     from llama_box_tpu_torch.gguf import GGMLType, GGUFWriter
-    c = {**VARIANTS, **ATTN_VARIANTS, **MOE_VARIANTS, **MLA_VARIANTS}[name]
+    c = {**VARIANTS, **ATTN_VARIANTS, **MOE_VARIANTS, **MLA_VARIANTS,
+         **MM_VARIANTS}[name]
     a, L_, E_, H_, HKV_, D_, FF_, V_ = (c[k] for k in (
         "arch", "L", "E", "H", "HKV", "D", "FF", "V"))
     rng = np.random.default_rng(seed + 111)
@@ -4535,6 +4561,9 @@ def write_variant(path: str, name: str, seed: int) -> None:
         w.add_kv(k, v)
     if a == "gptneox":
         w.add_kv(f"{a}.use_parallel_residual", True)
+    if "sections" in c:
+        w.add_kv(f"{a}.rope.dimension_sections",
+                 np.asarray(c["sections"], np.int32))
     if a == "qwen3moe":
         for k, v in (("expert_count", c["X"]), ("expert_used_count", c["K"]),
                      ("expert_feed_forward_length", c["FFE"]),
@@ -4589,8 +4618,10 @@ def write_variant(path: str, name: str, seed: int) -> None:
     vec("output_norm.weight", E_, one=True)
     if ln:
         vec("output_norm.bias", E_)
-    if a in ("gptneox", "qwen3moe", "deepseek2", "minicpm3"):
-        mat("output.weight", V_, E_)     # qwen3, gemma3, bloom tie theirs
+    if a in ("gptneox", "qwen3moe", "deepseek2", "minicpm3", "llama",
+             "qwen2"):
+        # qwen3, gemma3, bloom and qwen2vl tie theirs
+        mat("output.weight", V_, E_)
     if a == "minicpm3":
         for t in ("long", "short"):
             w.add_tensor(f"rope_factors_{t}.weight", (1.0 + rng.uniform(
@@ -4647,8 +4678,13 @@ def write_variant(path: str, name: str, seed: int) -> None:
             mat(p + "attn_q.weight", qd, E_)
             mat(p + "attn_k.weight", kvd, E_)
             mat(p + "attn_v.weight", kvd, E_)
-            vec(p + "attn_q_norm.weight", D_, one=True)
-            vec(p + "attn_k_norm.weight", D_, one=True)
+            if a in ("qwen2", "qwen2vl"):
+                vec(p + "attn_q.bias", qd)
+                vec(p + "attn_k.bias", kvd)
+                vec(p + "attn_v.bias", kvd)
+            elif a != "llama":
+                vec(p + "attn_q_norm.weight", D_, one=True)
+                vec(p + "attn_k_norm.weight", D_, one=True)
             mat(p + "attn_output.weight", E_, qd)
             if a == "qwen3moe":
                 X_, FE = c["X"], c["FFE"]
@@ -4954,7 +4990,9 @@ def attn_variant_phase(dev, seed, tmp) -> dict:
             f"{time.perf_counter() - t0:.1f} s")
         out[name] = {mode: variant_serve(
             dev, seed, tmp, name, path, mode, ref, paths=ATTN_PATHS,
-            prompt_len=ATTN_PROMPT, forward=long_forward)
+            prompt_len=ATTN_PROMPT, forward=long_forward,
+            extra=(gemma3_span_check(seed, tmp)
+                   if name == "gemma3-1b" and mode == "bf16" else None))
             for mode in ATTN_PATHS}
         os.remove(path)
     out["seconds"] = time.perf_counter() - t_phase
@@ -5116,6 +5154,668 @@ def mla_phase(dev, seed, tmp, paths) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 15: image and audio chats with --mmproj at published widths
+
+# the language models (write_variant's Q8_0 files; depth cut to 4 layers)
+MM_VARIANTS = {
+    # liuhaotian/llava-v1.5-7b: Llama-2-7B widths (32 x 4096, 32 heads of
+    # 128, FF 11008, vocab 32000, untied output)
+    "llava-1.5-7b": dict(arch="llama", L=4, E=4096, H=32, HKV=32, D=128,
+                         FF=11008, V=32000, rot=128, eps=1e-5,
+                         base=10000.0, ctx=4096),
+    # Qwen/Qwen2-VL-2B-Instruct: Qwen2-1.5B widths (28 x 1536, 12 / 2
+    # heads of 128, FF 8960, vocab 151936, qkv biases, tied embeddings),
+    # rope base 1e6, M-RoPE sections [16, 24, 24]
+    "qwen2-vl-2b": dict(arch="qwen2vl", L=4, E=1536, H=12, HKV=2, D=128,
+                        FF=8960, V=151936, rot=128, eps=1e-6, base=1e6,
+                        ctx=32768, sections=(16, 24, 24, 0)),
+    # Qwen/Qwen2-Audio-7B-Instruct: Qwen-7B widths (32 x 4096, 32 heads of
+    # 128, FF 11008, vocab 156032, qkv biases, untied output)
+    "qwen2-audio-7b": dict(arch="qwen2", L=4, E=4096, H=32, HKV=32, D=128,
+                           FF=11008, V=156032, rot=128, eps=1e-6,
+                           base=10000.0, ctx=8192),
+}
+# their mmproj towers (F16 matrices, F32 vectors, random from the seed)
+MM_TOWERS = {
+    # openai/clip-vit-large-patch14-336 as llama.cpp's llava converter
+    # keeps it: 23 of 24 blocks (the penultimate layer's output, no post
+    # norm), 1024 wide, 16 heads, FF 4096, quick GELU, image 336 / patch
+    # 14 (576 tokens and CLS), pre-LN; the mlp projector 1024 -> 4096 ->
+    # 4096
+    "llava-1.5-7b": dict(kind="clip", proj="mlp", E=1024, H=16, FF=4096,
+                         L=23, img=336, patch=14, out=4096),
+    # Qwen2-VL's ViT: 32 x 1280, 16 heads, FF 5120, patch 14, temporal
+    # patch 2 (two conv slices), quick GELU, LayerNorms with biases; the
+    # merger (ln_q, 2x2 merge, 5120 -> 5120 -> 1536); image_size 560 as
+    # llama.cpp's converter writes it; depth cut to 8 of 32 blocks (the f32
+    # host reference's time)
+    "qwen2-vl-2b": dict(kind="qwen2vl", proj="qwen2vl_merger", E=1280, H=16,
+                        FF=5120, L=8, img=560, patch=14, out=1536),
+    # whisper-large-v3's encoder: 32 x 1280, 20 heads, FF 5120, 128 mel
+    # bins, 1500 positions; Qwen2-Audio's head (frames pooled in pairs,
+    # then the post norm and one linear 1280 -> 4096); 8 of 32 blocks
+    "qwen2-audio-7b": dict(kind="whisper", proj="qwen2a", E=1280, H=20,
+                           FF=5120, L=8, mels=128, out=4096),
+}
+MM_PATHS = {"llava-1.5-7b": ("bf16", "w8a8"), "qwen2-vl-2b": ("bf16",),
+            "qwen2-audio-7b": ("bf16",)}
+MM_FLAGS = {"bf16": [], "w8a8": ["--weights-dtype", "quantized"]}
+MM_TOKENS = 32
+MM_EMB_COS, MM_LOGIT_COS = 0.999, 0.99
+# Qwen2-VL's served decode steps against the f32 host forward: steps
+# held, and the bound on their top log-prob gaps' RMS error over the RMS
+# of the host's centred logits (a bf16 forward through 4 layers: about
+# 0.02, as a first-token logits cosine of 0.9999 gives)
+MM_DECODE_STEPS, MM_DECODE_GAP = 4, 0.06
+# CLIP's normalization (llava and Qwen2-VL both take OpenAI CLIP's)
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def _f16_random(rng, shape, std=0.02) -> bytes:
+    return (rng.standard_normal(shape, dtype=np.float32) * std).astype(
+        np.float16).tobytes()
+
+
+def write_mmproj(path: str, name: str, seed: int, t=None) -> None:
+    """The synthetic mmproj of MM_TOWERS[name] (or the tower dict `t`):
+    tensor names and metadata as llama.cpp's converters write them."""
+    from llama_box_tpu_torch.gguf import GGMLType, GGUFWriter
+    t = t or MM_TOWERS[name]
+    rng = np.random.default_rng(seed + 151)
+    w = GGUFWriter(path, architecture="clip")
+    E_, FF_, L_ = t["E"], t["FF"], t["L"]
+    audio = t["kind"] == "whisper"
+    sec = "audio" if audio else "vision"
+    w.add_kv("clip.has_vision_encoder", not audio)
+    w.add_kv("clip.has_audio_encoder", audio)
+    w.add_kv("clip.projector_type", t["proj"])
+    for k, v in (("embedding_length", E_), ("feed_forward_length", FF_),
+                 ("block_count", L_), ("attention.head_count", t["H"]),
+                 ("attention.layer_norm_epsilon", 1e-5 if audio else 1e-6),
+                 ("projection_dim", t["out"])):
+        w.add_kv(f"clip.{sec}.{k}", v)
+    if audio:
+        w.add_kv("clip.audio.num_mel_bins", t["mels"])
+    else:
+        w.add_kv("clip.vision.image_size", t["img"])
+        w.add_kv("clip.vision.patch_size", t["patch"])
+        w.add_kv("clip.vision.image_mean", np.asarray(CLIP_MEAN, np.float32))
+        w.add_kv("clip.vision.image_std", np.asarray(CLIP_STD, np.float32))
+    f16 = GGMLType.F16
+
+    def mat(tname, *shape, std=0.02):
+        w.add_raw_tensor(tname, shape, f16, _f16_random(rng, shape, std))
+
+    def vec(tname, n, one=False):
+        x = rng.standard_normal(n, dtype=np.float32) * 0.02
+        w.add_tensor(tname, x + 1.0 if one else x)
+
+    pre = "a" if audio else "v"
+    if audio:
+        mat("a.conv1d.1.weight", E_, t["mels"], 3)
+        vec("a.conv1d.1.bias", E_)
+        mat("a.conv1d.2.weight", E_, E_, 3)
+        vec("a.conv1d.2.bias", E_)
+        mat("a.position_embd.weight", 1500, E_)
+    else:
+        P = t["patch"]
+        mat("v.patch_embd.weight", E_, 3, P, P)
+        if t["kind"] == "qwen2vl":
+            mat("v.patch_embd.weight.1", E_, 3, P, P)
+        elif t["kind"] == "clip":
+            vec("v.class_embd", E_)
+            mat("v.position_embd.weight", (t["img"] // P) ** 2 + 1, E_)
+            vec("v.pre_ln.weight", E_, one=True)
+            vec("v.pre_ln.bias", E_)
+        else:                       # siglip-like: learned positions only
+            mat("v.position_embd.weight", (t["img"] // P) ** 2, E_)
+    for i in range(L_):
+        p = f"{pre}.blk.{i}."
+        for nm in ("ln1", "ln2"):
+            vec(p + nm + ".weight", E_, one=True)
+            vec(p + nm + ".bias", E_)
+        for nm in ("attn_q", "attn_k", "attn_v", "attn_out"):
+            mat(p + nm + ".weight", E_, E_)
+            if not (audio and nm == "attn_k"):      # whisper: no k bias
+                vec(p + nm + ".bias", E_)
+        mat(p + "ffn_up.weight", FF_, E_)
+        vec(p + "ffn_up.bias", FF_)
+        mat(p + "ffn_down.weight", E_, FF_)
+        vec(p + "ffn_down.bias", E_)
+    if audio:
+        vec("a.post_ln.weight", E_, one=True)
+        vec("a.post_ln.bias", E_)
+        mat("mm.a.fc1.weight", t["out"], E_)
+        vec("mm.a.fc1.bias", t["out"])
+    elif t["kind"] == "qwen2vl":
+        vec("v.post_ln.weight", E_, one=True)       # the merger's ln_q
+        vec("v.post_ln.bias", E_)
+        mat("mm.0.weight", 4 * E_, 4 * E_)
+        vec("mm.0.bias", 4 * E_)
+        mat("mm.2.weight", t["out"], 4 * E_)
+        vec("mm.2.bias", t["out"])
+    else:
+        mat("mm.0.weight", t["out"], E_)
+        vec("mm.0.bias", t["out"])
+        mat("mm.2.weight", t["out"], t["out"])
+        vec("mm.2.bias", t["out"])
+    w.write()
+
+
+def write_mm_pair(tmp: str, name: str, seed: int) -> tuple[str, str]:
+    """Phase 15's two files of `name` (a worker writes them beside the
+    kernel phases): the language model and its mmproj."""
+    lm = f"{tmp}/synthetic-{name}-q8_0.gguf"
+    mm = f"{tmp}/synthetic-{name}-mmproj-f16.gguf"
+    write_variant(lm, name, seed)
+    write_mmproj(mm, name, seed)
+    return lm, mm
+
+
+def png_bytes(w: int, h: int, seed: int) -> bytes:
+    """An 8-bit RGB PNG written with zlib: smooth random colour fields
+    and noise from `seed` (filter 0 on every row)."""
+    import zlib
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.zeros((h, w, 3), np.float32)
+    for c in range(3):
+        fx, fy, ph = rng.uniform(0.005, 0.05, 2).tolist() + [
+            rng.uniform(0, 6.3)]
+        img[..., c] = 127 + 100 * np.sin(fx * xx + fy * yy + ph)
+    img += rng.normal(0, 12, img.shape)
+    px = np.clip(img, 0, 255).astype(np.uint8)
+    raw = b"".join(b"\x00" + px[r].tobytes() for r in range(h))
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        body = kind + data
+        return (len(data).to_bytes(4, "big") + body
+                + (zlib.crc32(body) & 0xFFFFFFFF).to_bytes(4, "big"))
+    ihdr = (w.to_bytes(4, "big") + h.to_bytes(4, "big")
+            + bytes([8, 2, 0, 0, 0]))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def wav_bytes(seconds: float, seed: int) -> bytes:
+    """A 16 kHz mono 16-bit WAV of tones and noise from `seed`."""
+    import io
+    import wave
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000
+    x = sum(rng.uniform(0.1, 0.3) * np.sin(2 * np.pi * rng.uniform(100, 3000)
+                                           * t) for _ in range(4))
+    x = x + 0.02 * rng.standard_normal(len(t))
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(16000)
+        f.writeframes((np.clip(x, -1, 1) * 32767).astype(np.int16).tobytes())
+    return buf.getvalue()
+
+
+def _media_part(kind: str, data: bytes) -> dict:
+    import base64
+    b64 = base64.b64encode(data).decode()
+    if kind == "audio":
+        return {"type": "input_audio",
+                "input_audio": {"data": b64, "format": "wav"}}
+    return {"type": "image_url",
+            "image_url": {"url": "data:image/png;base64," + b64}}
+
+
+def _mm_messages(text: str, media: list) -> list:
+    """A chat's one user message: the text, then the media parts."""
+    parts = [{"type": "text", "text": text}] \
+        + [_media_part(k, d) for k, d in media]
+    return [{"role": "user", "content": parts if media else text}]
+
+
+def mm_chat(url, text: str, media: list, n=MM_TOKENS, **extra):
+    """A greedy ignore_eos chat with media parts (and `extra` request
+    fields): (content, usage)."""
+    import urllib.error
+    try:
+        st, body, _ = http(url + "/v1/chat/completions", dict(
+            messages=_mm_messages(text, media), max_tokens=n, temperature=0,
+            ignore_eos=True, **extra))
+    except urllib.error.HTTPError as e:
+        raise AssertionError(f"{e.code}: {e.read()[:300]!r}") from None
+    assert st == 200, st
+    b = json.loads(body)
+    assert b["usage"]["completion_tokens"] == n, b["usage"]
+    return b["choices"][0]["message"]["content"], b["usage"]
+
+
+def _mm_media(name: str, seed: int) -> list:
+    """Each model's media: (kind, bytes) items."""
+    if name == "qwen2-audio-7b":
+        return [("audio", wav_bytes(3.0, seed + 1)),
+                ("audio", wav_bytes(3.0, seed + 2))]
+    if name == "qwen2-vl-2b":       # two aspects: 32 x 24 and 20 x 36 patches
+        return [("image", png_bytes(448, 336, seed + 3)),
+                ("image", png_bytes(280, 504, seed + 4))]
+    return [("image", png_bytes(640, 480, seed + 5)),
+            ("image", png_bytes(300, 420, seed + 6))]
+
+
+def _mm_prompt(routes, text: str, media: list):
+    """A chat's prompt as the server builds it, by the server's own code
+    (its message join, the chat template, _media_chunks): (flat ids,
+    chunks, mrope_delta)."""
+    from llama_box_tpu_torch.server.http import _normalize_messages
+    msgs, items = _normalize_messages(_mm_messages(text, media), routes.mp)
+    return routes._media_chunks(
+        routes.chat.apply(msgs, add_generation_prompt=True), items)
+
+
+def _prefill_chunks(params, cfg, chunks, device, kv_dtype, ubatch, span):
+    """A prompt's chunks prefilled in turn (ubatches of `ubatch` rows)
+    into a 1-slot cache, as the engine's _prefill_chunk does: M-RoPE
+    streams where the config has sections, the image span where `span`.
+    Returns (the last row's logits [1, V], kv, cos, sin, positions)."""
+    from llama_box_tpu_torch.models import llama
+    C = 1024
+    kv = llama.init_kv_cache(cfg, 1, C, kv_dtype, device=device)
+    cos, sin = llama.make_rope(cfg, C, device=device)
+    dt = params["tok_embd"].dtype
+    pos = 0
+    lg = None
+    for ch in chunks:
+        start = pos
+        for off in range(0, len(ch[1]), ubatch):
+            n = min(ubatch, len(ch[1]) - off)
+            kw = {}
+            if cfg.mrope_sections:
+                kw["mrope_pos"] = torch.from_numpy(np.ascontiguousarray(
+                    ch[-1][:, off:off + n]))[:, None].to(device)
+            if ch[0] == "tokens":
+                toks = torch.tensor([ch[1][off:off + n]], device=device)
+            else:
+                toks = None
+                kw["embeds"] = torch.from_numpy(np.array(
+                    ch[1][off:off + n], np.float32))[None].to(device, dt)
+                if span:
+                    kw["bidir"] = torch.tensor([[start, pos + n]],
+                                               device=device)
+            lg, kv = llama.prefill_batch_impl(params, cfg, toks, [pos], [n],
+                                              kv, cos, sin, **kw)
+            pos += n
+    return lg, kv, cos, sin, pos
+
+
+def chunk_logits(params, cfg, chunks, device, kv_dtype, ubatch=N_UBATCH,
+                 span=False):
+    """The last-row logits [V] f32 (on the CPU) of a prompt's chunks
+    prefilled in turn (_prefill_chunks)."""
+    lg = _prefill_chunks(params, cfg, chunks, device, kv_dtype, ubatch,
+                         span)[0]
+    return lg[0].float().cpu()
+
+
+def host_forward(params, cfg, chunks, tokens=(), delta=0) -> list:
+    """The f32 host forward (CPU) of a prompt's chunks, then of `tokens`
+    fed one at a time, each at its cache position and rotated at position
+    + delta (the engine's decode; under M-RoPE a text row's three streams
+    are equal): the logits [V] after the prompt and after each token."""
+    from llama_box_tpu_torch.models import llama
+    lg, kv, cos, sin, pos = _prefill_chunks(params, cfg, chunks, "cpu",
+                                            torch.float32, N_UBATCH, False)
+    out = [lg[0]]
+    for t in tokens:
+        kw = {}
+        if cfg.mrope_sections:
+            kw["mrope_pos"] = torch.full((3, 1, 1), pos + delta)
+        lg, kv = llama.prefill_batch_impl(params, cfg, torch.tensor([[t]]),
+                                          [pos], [1], kv, cos, sin, **kw)
+        out.append(lg[0])
+        pos += 1
+    return out
+
+
+def served_request(engine, fn):
+    """fn() (one request, alone on the served engine) under two spies on
+    the engine: the request's task as the route submits it, and its first
+    answer token's logits [V] f32 as the engine's prefill program
+    computed them, read from that program's output where the engine reads
+    it (before any later replay of its graph). Returns (fn's result, the
+    task, the logits)."""
+    tasks, rows = [], []
+    submit, finish = engine.submit, engine._finish_batch_sync
+
+    def spy_submit(task):
+        tasks.append(task)
+        return submit(task)
+
+    def spy_finish(done, pend, ramp_set, logits):
+        rows.extend(logits[s.idx].float().cpu() for s in done)
+        return finish(done, pend, ramp_set, logits)
+
+    engine.submit, engine._finish_batch_sync = spy_submit, spy_finish
+    try:
+        out = fn()
+    finally:
+        del engine.submit, engine._finish_batch_sync
+    assert len(tasks) == 1 and len(rows) == 1, (len(tasks), len(rows))
+    return out, tasks[0], rows[0]
+
+
+def decode_gap_err(task, host, steps: int) -> list:
+    """Decode steps 1..steps of a served greedy task held against the f32
+    host forward (host[j]: the logits before token j): the served top-N
+    log-prob gaps to the top token (log p_i - log p_0 = l_i - l_0 under
+    greedy: one softmax over the candidates) against the host's logit
+    gaps at the same ids; each step's RMS error over the RMS of the host's
+    centred logits."""
+    out = []
+    for j in range(1, steps + 1):
+        tp = task.probs[j]
+        ids = torch.tensor(tp.top_ids)
+        lp = torch.tensor(tp.top_probs, dtype=torch.float64).log()
+        h = host[j].double()
+        err = (lp - lp[0]) - (h[ids] - h[ids[0]])
+        out.append(float(err.square().mean().sqrt()
+                         / (h - h.mean()).square().mean().sqrt()))
+    return out
+
+
+def tower_checks(mp, host_mp, media, dev) -> dict:
+    """Each media item's projected rows on the card against the f32 host
+    tower (the same plain torch ops on the CPU; the lowest cosine of a
+    row), and the card's device ms of one run (CUDA events, warm)."""
+    from llama_box_tpu_torch.models.audio import (decode_wav, encode_audio,
+                                                  encode_audio_impl,
+                                                  log_mel_spectrogram)
+    out = {"emb_cos": [], "tower_ms": [], "rows": []}
+    for kind, data in media:
+        if kind == "audio":
+            host = encode_audio(host_mp.audio_cfg, host_mp.audio_params, data)
+            card = encode_audio(mp.audio_cfg, mp.audio_params, data)
+            mel = torch.from_numpy(log_mel_spectrogram(
+                decode_wav(data), mp.audio_cfg["n_mels"])).to(dev)
+
+            def run(mel=mel):
+                with torch.no_grad():
+                    return encode_audio_impl(mp.audio_cfg, mp.audio_params,
+                                             mel)
+        else:
+            pixels, grid = mp.pixels(data)
+            host = host_mp.tower(pixels, grid).numpy()
+            card = mp.tower(pixels, grid).float().cpu().numpy()
+
+            def run(pixels=pixels, grid=grid):
+                return mp.tower(pixels, grid)
+        run()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(3):
+            run()
+        e1.record()
+        torch.cuda.synchronize()
+        out["tower_ms"].append(e0.elapsed_time(e1) / 3)
+        out["emb_cos"].append(_cosine(torch.from_numpy(card),
+                                      torch.from_numpy(host)))
+        out["rows"].append(int(card.shape[0]))
+    return out
+
+
+def mm_greedy(eng, tok, prompts, chunks, n) -> list:
+    """Greedy ignore_eos tokens of chunked prompts on a started engine."""
+    from llama_box_tpu_torch.sampling import SamplerParams
+    from llama_box_tpu_torch.server.task import CompletionsTask
+    tasks = [CompletionsTask(p, SamplerParams(temp=0.0, ignore_eos=True),
+                             tokenizer=tok, max_tokens=n, chunks=c)
+             for p, c in zip(prompts, chunks)]
+    for t in tasks:
+        eng.submit(t)
+    return [list(wait_final(t).generated) for t in tasks]
+
+
+def mm_serve(dev, seed, name, lm, mm, mode, host) -> dict:
+    """One phase 15 model on one path, served by the CLI with --mmproj:
+    on bf16 the tower checks; two warm-up waves of the measured wave's
+    media (so its every program key has run and been captured), then the
+    measured wave of 4 greedy chats at -np 4 -c 8192 (a text-only chat
+    beside media chats, one with both media items), its captures and the
+    graphs' pool printed; the first media chat again (from the prefix
+    cache: the same text); one media request counting its kernels from
+    0, whose served first answer token's logits are held against the f32
+    host forward of the same chunks (on Qwen2-VL also its decode steps'
+    top log-prob gaps, at position + mrope_delta); on llava greedy K = 1
+    against K = 16 on fresh engines."""
+    from llama_box_tpu_torch import cli
+    from llama_box_tpu_torch.server.engine import Engine
+    from llama_box_tpu_torch.server.metrics import Metrics
+    t0 = time.perf_counter()
+    engine, srv = cli.build_server([
+        "-m", lm, "--mmproj", mm, "--port", "0", "-np", str(N_SLOTS),
+        "-c", str(N_CTX), "-ub", str(N_UBATCH), "--decode-chain", str(CHAIN),
+        "--no-jinja", "--device", dev.type] + MM_FLAGS[mode])
+    load_s = time.perf_counter() - t0
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    routes = srv.RequestHandlerClass.routes
+    mp, counters = routes.mp, kernel_counters()
+    media = _mm_media(name, seed)
+    res = dict(load_s=load_s)
+    try:
+        if mode == "bf16":
+            res.update(tower_checks(mp, host["mp"], media, dev))
+            log(f"  {name}: tower rows {res['rows']}, device ms "
+                + ", ".join(f"{x:.3f}" for x in res["tower_ms"])
+                + "; cosine to the f32 host tower "
+                + ", ".join(f"{x:.6f}" for x in res["emb_cos"]))
+            assert min(res["emb_cos"]) >= MM_EMB_COS, (name, res["emb_cos"])
+        tok = engine.tokenizer
+        rng = np.random.default_rng(seed + 161)
+        words = [make_prompt(tok, rng, 24) for _ in range(12)]
+
+        def wave_of(ask, w):
+            return [(w[0], []), (ask, media[:1]), (w[1], media[1:]),
+                    (ask + w[2], media)]
+        ask = "describe this "
+        wave = wave_of(ask, words)
+        # two waves of the same media and like texts (nothing from the
+        # prefix cache): the measured wave's program keys run eagerly,
+        # then are captured
+        for a, w in (("explain this ", words[6:9]), ("show me this ",
+                                                     words[9:12])):
+            concurrently([lambda t=t, m=m: mm_chat(url, t, m)
+                          for t, m in wave_of(a, w)])
+        engine.metrics = Metrics()
+        n_graphs = engine.graphs.n_graphs
+        t_w = time.perf_counter()
+        got = concurrently([lambda t=t, m=m: mm_chat(url, t, m)
+                            for t, m in wave])
+        wall = time.perf_counter() - t_w
+        m = engine.metrics.snapshot()
+        res["captured_in_wave"] = engine.graphs.n_graphs - n_graphs
+        res["graphs"] = engine.graphs.n_graphs
+        res["mm_graphs"] = sum(k[0] == "prefill_mm"
+                               for k in engine.graphs._graphs)
+        res["pool_mib"] = engine.graphs.pool_bytes / 2 ** 20
+        again, usage = mm_chat(url, ask, media[:1])
+        res["cached_again"] = usage["prompt_tokens_details"]["cached_tokens"]
+        res["same_from_cache"] = again == got[1][0]
+        for fn in counters.values():
+            fn.launches = 0
+        # one media request, its first token's logits (and on Qwen2-VL its
+        # top log-probs) read from the served request
+        steps = MM_DECODE_STEPS if engine.cfg.mrope_sections else 0
+        extra = dict(logprobs=True, top_logprobs=16) if steps else {}
+        (_, one_usage), task, card = served_request(
+            engine, lambda: mm_chat(url, words[5], media[:1], **extra))
+        res["launches_one_request"] = {k: fn.launches
+                                       for k, fn in counters.items()}
+        res.update(
+            prompt_tokens=[u["prompt_tokens"] for _, u in got],
+            prefill_tok_s=m["n_prefill_total"] / m["t_prefill_total_ms"] * 1e3,
+            decode_tok_s=m["n_decode_total"] / m["t_decode_total_ms"] * 1e3,
+            window_tok_s=len(wave) * MM_TOKENS / wall,
+            texts=[c for c, _ in got])
+        # the f32 host forward of the chunks the server built for it
+        flat, chunks, delta = _mm_prompt(routes, words[5], media[:1])
+        assert len(flat) == one_usage["prompt_tokens"] \
+            and list(task.prompt_tokens) == list(flat), len(flat)
+        ref = host_forward(host["params"], host["cfg"], chunks,
+                           task.generated[:steps], delta)
+        res["logits_cos"] = _cosine(card[None], ref[0][None])
+        if steps:
+            assert len(task.probs) == len(task.generated), len(task.probs)
+            res["mrope_delta"] = delta
+            res["decode_gap_err"] = decode_gap_err(task, ref, steps)
+            # the same steps held against the host rotated without delta
+            res["decode_gap_err_no_delta"] = decode_gap_err(
+                task, host_forward(host["params"], host["cfg"], chunks,
+                                   task.generated[:steps]), steps)
+        if name == "llava-1.5-7b":
+            built = [_mm_prompt(routes, t, md) for t, md in wave[1:]]
+            runs = {}
+            for k in (1, CHAIN):
+                eng = Engine(engine.cfg, engine.params, tok,
+                             dataclasses.replace(engine.ecfg,
+                                                 decode_chain=k),
+                             device=str(engine.device))
+                eng.start()
+                try:
+                    runs[k] = mm_greedy(eng, tok, [b[0] for b in built],
+                                        [b[1] for b in built], MM_TOKENS)
+                finally:
+                    eng.stop()
+            res["k1_equals_k16"] = runs[1] == runs[CHAIN]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.stop()
+        thread.join(timeout=30)
+    lc = res["launches_one_request"]
+    log(f"  {name} {mode}: loaded in {load_s:.1f} s; prompt tokens "
+        f"{res['prompt_tokens']}; prefill tok/s {res['prefill_tok_s']:.1f}, "
+        f"decode tok/s {res['decode_tok_s']:.1f}, window tok/s "
+        f"{res['window_tok_s']:.1f} ({res['captured_in_wave']} captures in "
+        f"the measured wave; {res['graphs']} graphs, {res['mm_graphs']} of "
+        f"them multimodal prefill, pool {res['pool_mib']:.1f} MiB); the "
+        f"served first-token logits' cosine to the f32 host forward "
+        f"{res['logits_cos']:.6f}"
+        + (f"; decode steps' top-16 log-prob gaps vs the host at position "
+           f"+ delta ({res['mrope_delta']}): RMS err / RMS logit "
+           + ", ".join(f"{x:.4f}" for x in res["decode_gap_err"])
+           + " (without delta: "
+           + ", ".join(f"{x:.4f}" for x in res["decode_gap_err_no_delta"])
+           + ")" if "decode_gap_err" in res else "")
+        + f"; again from the prefix cache "
+        f"({res['cached_again']} cached): same text {res['same_from_cache']}"
+        + (f"; greedy K=1 vs K={CHAIN}: {res['k1_equals_k16']}"
+           if "k1_equals_k16" in res else "")
+        + f"; one media request: flash_prefill {lc['flash_prefill']}, "
+        f"flash_decode {lc['flash_decode']} launches ({lc})")
+    for i, text in enumerate(res["texts"]):
+        log(f"    chat {i}: {(text or '')[:60]!r}")
+    assert res["logits_cos"] >= MM_LOGIT_COS, (name, mode, res["logits_cos"])
+    assert max(res.get("decode_gap_err", [0.0])) <= MM_DECODE_GAP, res
+    assert res["same_from_cache"], (name, mode)
+    assert res["cached_again"] >= res["prompt_tokens"][1] - 1, res
+    assert res.get("k1_equals_k16", True), (name, mode)
+    assert lc["flash_prefill"] > 0 and lc["flash_decode"] > 0, lc
+    if mode == "w8a8":
+        assert lc["w8a8_matmul"] > 0, lc
+    return res
+
+
+def mm_phase(dev, seed, pairs) -> dict:
+    """Phase 15 (see the module docstring); `pairs` are the files workers
+    wrote beside the kernel phases."""
+    from llama_box_tpu_torch.cli import load_multimodal
+    from llama_box_tpu_torch.models.loader import load_model
+    log("== phase 15: image and audio chats with --mmproj: "
+        + ", ".join(MM_VARIANTS))
+    t_phase = time.perf_counter()
+    out = {}
+    for name, (lm, mm) in pairs.items():
+        t0 = time.perf_counter()
+        cfg, params = load_model(lm, dtype=torch.float32, device="cpu")
+        host = dict(cfg=cfg, params=params,
+                    mp=load_multimodal(mm, cfg.n_embd, "cpu"))
+        log(f"  {name}: the f32 host model and towers loaded in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out[name] = {mode: mm_serve(dev, seed, name, lm, mm, mode, host)
+                     for mode in MM_PATHS[name]}
+        del host, params
+        os.remove(lm)
+        os.remove(mm)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 15: {out['seconds']:.1f} s")
+    return out
+
+
+# phase 12's gemma3 image file: an mlp mmproj at SigLIP-So400m's widths
+# (1152 wide, 16 heads, FF 4304, patch 14, image 224: 256 tokens; 2 of its
+# 27 blocks), projecting 1152 -> 1152 -> 1152 into Gemma-3-1B
+GEMMA_TOWER = dict(kind="siglip", proj="mlp", E=1152, H=16, FF=4304, L=2,
+                   img=224, patch=14, out=1152)
+
+
+def gemma3_span_check(seed, tmp):
+    """Phase 12's extra on Gemma-3-1B's bf16 path: an image chat through
+    the engine (its image rows prefilled under the bidirectional span,
+    the flash prefill kernel counted), and the logits of that prompt,
+    spanned, through the kernel against its plain version on the same
+    card and inputs (and against the same without the span)."""
+    def run(engine, routes, counters):
+        from llama_box_tpu_torch.cli import load_multimodal
+        from llama_box_tpu_torch.models import llama
+        from llama_box_tpu_torch.ops import flash_prefill as fp
+        path = f"{tmp}/synthetic-gemma3-mmproj-f16.gguf"
+        write_mmproj(path, "gemma3", seed, GEMMA_TOWER)
+        routes.mp = load_multimodal(path, engine.cfg.n_embd, engine.device)
+        os.remove(path)
+        media = [("image", png_bytes(320, 240, seed + 7))]
+        flat, chunks, _ = _mm_prompt(routes, "what is this ", media)
+        for fn in counters.values():
+            fn.launches = 0
+        gen = mm_greedy(engine, engine.tokenizer, [flat], [chunks], 8)[0]
+        launches = counters["flash_prefill"].launches
+        # the image's 256 rows in ubatches of 128: the span crosses one
+        kw = dict(device=engine.device, kv_dtype=torch.bfloat16, ubatch=128)
+        kern = chunk_logits(engine.params, engine.cfg, chunks, span=True,
+                            **kw)
+        causal = chunk_logits(engine.params, engine.cfg, chunks, **kw)
+        saved = llama.flash_prefill_batched
+        try:
+            llama.flash_prefill_batched = fp.flash_prefill_plain
+            plain = chunk_logits(engine.params, engine.cfg, chunks,
+                                 span=True, **kw)
+        finally:
+            llama.flash_prefill_batched = saved
+        err = float((kern - plain).abs().max() / plain.abs().max())
+        res = dict(span_prompt_tokens=len(flat),
+                   span_prefill_launches=launches,
+                   span_cos=_cosine(kern[None], plain[None]),
+                   span_rel_err=err,
+                   span_vs_causal_cos=_cosine(kern[None], causal[None]))
+        log(f"  gemma3-1b with an image: {len(flat)} prompt tokens, "
+            f"flash_prefill launches {launches}; the spanned logits, "
+            f"kernel vs plain version: cosine {res['span_cos']:.6f}, max "
+            f"err {err:.3e} x max|plain|; against the image rows causal: "
+            f"cosine {res['span_vs_causal_cos']:.6f}")
+        assert launches > 0 and len(gen) == 8
+        assert res["span_cos"] >= MM_LOGIT_COS and err <= SPAN_REL, res
+        assert not torch.equal(kern, causal), "the span changed nothing"
+        return res
+    return run
+
+
+# the spanned logits, kernel against plain version, x max|plain|: bf16
+# attention in another order through 6 layers
+SPAN_REL = 0.05
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5162,7 +5862,8 @@ def main(argv=None) -> int:
     # shares the host
     moe_path = f"{tmp}/synthetic-{MOE_NAME}-q8_0.gguf"
     mla_paths = {n: f"{tmp}/synthetic-{n}-q8_0.gguf" for n in MLA_VARIANTS}
-    with ProcessPoolExecutor(len(MODEL_TYPES) + 1 + len(MLA_VARIANTS),
+    with ProcessPoolExecutor(len(MODEL_TYPES) + 1 + len(MLA_VARIANTS)
+                             + len(MM_VARIANTS),
                              mp_context=multiprocessing
                              .get_context("spawn")) as pool:
         t_w = time.perf_counter()
@@ -5172,6 +5873,8 @@ def main(argv=None) -> int:
                                     args.seed)
         for n, pth in mla_paths.items():
             writes[n] = pool.submit(write_variant, pth, n, args.seed)
+        for n in MM_VARIANTS:
+            writes[n] = pool.submit(write_mm_pair, tmp, n, args.seed)
         errs, rows = kernel_phase(dev, args.seed)
         w_errs, w_rows = w8a8_kernel_phase(dev, args.seed)
         q_errs, q_rows = q_kernel_phase(dev, args.seed)
@@ -5179,8 +5882,10 @@ def main(argv=None) -> int:
         m_errs, m_rows = moe_kernel_phase(dev, args.seed)
         for w in writes.values():
             w.result()
-        log(f"  phase 5's, 13's and 14's GGUFs written beside the kernel "
-            f"phases: {time.perf_counter() - t_w:.1f} s from their start")
+        mm_pairs = {n: writes[n].result() for n in MM_VARIANTS}
+        log(f"  phase 5's, 13's, 14's and 15's GGUFs written beside the "
+            f"kernel phases: {time.perf_counter() - t_w:.1f} s from their "
+            f"start")
     errs.update(w_errs)
     errs.update(q_errs)
     errs.update(n_errs)
@@ -5204,6 +5909,7 @@ def main(argv=None) -> int:
         e2e["moe"] = moe_phase(dev, args.seed, tmp, moe_path)
         os.remove(moe_path)
         e2e["mla"] = mla_phase(dev, args.seed, tmp, mla_paths)
+        e2e["mm"] = mm_phase(dev, args.seed, mm_pairs)
 
     pick = {"flash_prefill": ("prefill", "bf16", 0),
             "flash_decode": ("decode", "bf16", 1023),
@@ -5287,6 +5993,9 @@ def main(argv=None) -> int:
                                ("moe", MOE_VARIANTS),
                                ("mla", MLA_VARIANTS))
                 for v in vs for m in VARIANT_PATHS},
+            launches_multimodal={
+                f"{v} {m}": e2e["mm"][v][m]["launches_one_request"][name]
+                for v in MM_VARIANTS for m in MM_PATHS[v]},
             **({} if not name.startswith("flash") else {"variant_shapes": [
                 dict(case=x["cache"], q=x["q"], C=x["C"], pos=x["pos"],
                      dv=x["dv"], ms=x["ms"], plain_ms=x["plain_ms"],
@@ -5399,6 +6108,20 @@ def main(argv=None) -> int:
                     f"{x['norm_launches_a_step']} row_norm launches a "
                     f"step, kernels a layer {x['ops_a_layer']:.2f} (plain "
                     f"norms {x['ops_a_layer_plain_norms']:.2f})")
+    for name in MM_VARIANTS:
+        for mode, x in e2e["mm"][name].items():
+            tw = e2e["mm"][name]["bf16"]
+            log(f"  phase 15, {name} {mode}: load s {x['load_s']:.1f}, tower "
+                f"ms {tw['tower_ms']}, embedding cosine {tw['emb_cos']}, "
+                f"logits cosine {x['logits_cos']:.6f}, decode gap err "
+                f"{x.get('decode_gap_err')}, captures in the measured wave "
+                f"{x['captured_in_wave']}, pool MiB {x['pool_mib']:.1f}, "
+                f"prefill tok/s "
+                f"{x['prefill_tok_s']:.1f}, decode tok/s "
+                f"{x['decode_tok_s']:.1f}, flash_prefill / flash_decode "
+                f"launches of one media request "
+                f"{x['launches_one_request']['flash_prefill']} / "
+                f"{x['launches_one_request']['flash_decode']}")
     log("e2e " + json.dumps(e2e))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

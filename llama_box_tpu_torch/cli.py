@@ -166,6 +166,16 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["none", "mean", "cls", "last", "rank"],
                    help="the embedding pool mode of a llama-family model")
 
+    g = p.add_argument_group("multimodal")
+    g.add_argument("--mmproj", default=None,
+                   help="a vision/audio projector GGUF: image_url and "
+                        "input_audio chat parts")
+    g.add_argument("--visual-max-image-size", type=int, default=0,
+                   help="downscale images so the long side <= N px")
+    g.add_argument("--visual-max-image-cache", "--max-projected-cache",
+                   dest="visual_max_image_cache", type=int, default=0,
+                   help="projected-embedding LRU entries (0: 8)")
+
     # accepted for llama-box command lines, as in the JAX CLI: ignored
     # (one card holds the whole model) or mapped; the port keeps its own
     # --device, so llama-box's -dev is a flag of its own here
@@ -486,6 +496,16 @@ def build_server(argv: list[str]):
         lookup_min_accept=args.lookup_min_accept,
         lookup_probe_every=args.lookup_probe_every,
         spec_rounds=max(1, args.spec_rounds))
+    multimodal = None
+    if args.mmproj:
+        if is_bert:
+            raise SystemExit("error: --mmproj needs a decoder; a BERT "
+                             "encoder serves embeddings and rerank")
+        multimodal = load_multimodal(args.mmproj, cfg.n_embd, device)
+        if args.visual_max_image_size > 0:
+            multimodal.max_image_size = args.visual_max_image_size
+        if args.visual_max_image_cache > 0:
+            multimodal.max_cache = args.visual_max_image_cache
     engine = Engine(cfg, params, tokenizer, ecfg, device=str(device),
                     draft=draft)
     engine.start()
@@ -506,8 +526,34 @@ def build_server(argv: list[str]):
         capabilities={"completion": not is_bert and not args.embeddings,
                       "embedding": True,
                       "reranking": args.rerank
-                      or (is_bert and cfg.pooling == "rank")})
+                      or (is_bert and cfg.pooling == "rank")},
+        multimodal=multimodal)
     return engine, app.make_server(args.host, args.port)
+
+
+def load_multimodal(path: str, n_embd: int, device):
+    """An mmproj's towers as a MultimodalProcessor on `device` (f32, as
+    the JAX CLI loads them): the vision tower, and the audio tower when
+    the file has `clip.has_audio_encoder`; each tower's projection must
+    be the model's embedding width (JAX checks the vision one even where
+    the file has no vision tower)."""
+    from .gguf import GGUFFile
+    from .models.clip import load_clip
+    from .server.multimodal import MultimodalProcessor
+    ccfg, cparams = load_clip(path, device=device)
+    acfg = aparams = None
+    with GGUFFile(path) as g:
+        has_audio = bool(g.metadata.get("clip.has_audio_encoder"))
+    if has_audio:
+        from .models.audio import load_audio_tower
+        acfg, aparams = load_audio_tower(path, device=device)
+    dims = ([ccfg.proj_dim] if cparams.get("patch_embd") is not None
+            else []) + ([acfg["proj_dim"]] if acfg else [])
+    if any(d != n_embd for d in dims) or not dims:
+        raise SystemExit(f"error: mmproj projection dims {dims} != model "
+                         f"embedding dim {n_embd}")
+    return MultimodalProcessor(ccfg, cparams, audio_cfg=acfg,
+                               audio_params=aparams)
 
 
 def main(argv: list[str] | None = None) -> int:

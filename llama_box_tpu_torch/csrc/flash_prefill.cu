@@ -1,5 +1,10 @@
 // Batched prefill attention over a read-only cache plus the chunk's rows.
 //
+// A meta row of five columns names the cache row (slot) that batch row b
+// reads, so a pass over one slot reads it in place from the whole cache
+// and one captured program serves every slot; of four, batch row b reads
+// cache row b.
+//
 // Replaces the Pallas kernel _flash_batched_kernel / flash_prefill_batched
 // (llama_box_tpu/ops/flash_prefill.py:75, :198): row r of slot b sits at
 // position pos0 + r and attends cache positions < pos0 and the chunk's own
@@ -78,7 +83,7 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_fma_kernel(
     const QT* __restrict__ vr, const int* __restrict__ meta,
     const int* __restrict__ win, const float* __restrict__ sinks,
     const float* __restrict__ alibi, float* __restrict__ out, int G, int T,
-    int C, int Hkv, int BQ, float scale, float softcap) {
+    int C, int Hkv, int BQ, int MC, float scale, float softcap) {
   constexpr int BK = D > 128 ? 16 : 32;  // keys per shared-memory tile
   __shared__ QT Ks[BK][D];
   __shared__ QT Vs[BK][DV];
@@ -88,8 +93,9 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_fma_kernel(
   const int g = tid / BQ, t = qt * BQ + tid % BQ;
   const bool live = g < G && t < T;
 
-  const int pos0 = meta[4 * b], nval = meta[4 * b + 1];
-  const int st = meta[4 * b + 2], en = meta[4 * b + 3];
+  const int pos0 = meta[MC * b], nval = meta[MC * b + 1];
+  const int st = meta[MC * b + 2], en = meta[MC * b + 3];
+  const int cb = MC > 4 ? meta[MC * b + 4] : b;  // the cache row read
   const int window = win[0], chunk = win[1];
   const int qpos = pos0 + t;
   const float slope = alibi != nullptr && live ? alibi[h * G + g] : 0.f;
@@ -138,16 +144,16 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_fma_kernel(
       const int j = i / D, d = i % D, c = base + j;
       float x = 0.f;
       if (c >= lo && c < hi)
-        x = lbt_kv<QT>(kc, ks, ((long)(b * C + c) * Hkv + h) * D + d,
-                       (long)(b * C + c) * Hkv + h);
+        x = lbt_kv<QT>(kc, ks, ((long)(cb * C + c) * Hkv + h) * D + d,
+                       (long)(cb * C + c) * Hkv + h);
       Ks[j][d] = lbt_from_f<QT>(x);
     }
     for (int i = tid; i < BK * DV; i += kThreads) {
       const int j = i / DV, d = i % DV, c = base + j;
       float x = 0.f;
       if (c >= lo && c < hi)
-        x = lbt_kv<QT>(vc, vs, ((long)(b * C + c) * Hkv + h) * DV + d,
-                       (long)(b * C + c) * Hkv + h);
+        x = lbt_kv<QT>(vc, vs, ((long)(cb * C + c) * Hkv + h) * DV + d,
+                       (long)(cb * C + c) * Hkv + h);
       Vs[j][d] = lbt_from_f<QT>(x);
     }
     __syncthreads();
@@ -224,7 +230,8 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 2 : 1)
                              const float* __restrict__ sinks,
                              const float* __restrict__ alibi,
                              float* __restrict__ out, int G, int T, int C,
-                             int Hkv, int BQ, float scale, float softcap) {
+                             int Hkv, int BQ, int MC, float scale,
+                             float softcap) {
   constexpr int KLD = D + 8, VLD = DV + 8;  // 16-byte pad: ldmatrix rows
   constexpr int KT = D / 16;                // k-steps of S = Q K^T
   constexpr int NS = BKEY / 8;              // n8 tiles of S
@@ -239,8 +246,9 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 2 : 1)
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, tig = lane & 3;
-  const int pos0 = meta[4 * b], nval = meta[4 * b + 1];
-  const int st = meta[4 * b + 2], en = meta[4 * b + 3];
+  const int pos0 = meta[MC * b], nval = meta[MC * b + 1];
+  const int st = meta[MC * b + 2], en = meta[MC * b + 3];
+  const int cb = MC > 4 ? meta[MC * b + 4] : b;  // the cache row read
   const int window = win[0], chunk = win[1];
 
   // this thread's rows of the m16 tiles: warp * 16 + gq (+ 8)
@@ -328,7 +336,7 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 2 : 1)
       const int kp = t * BKEY + j;
       const bool ok = readable(kp);
       if (kp < pos0) {
-        const long row = (long)(b * C + (ok ? kp : 0)) * Hkv + h;
+        const long row = (long)(cb * C + (ok ? kp : 0)) * Hkv + h;
         if constexpr (std::is_same<CT, bf16>::value) {
           lbt_cp16(dst, cache + row * W + c, ok);
         } else {
@@ -496,8 +504,8 @@ template <typename QT, typename CT, typename ST, int D, int DV>
 int launch(const void* q, const void* kc, const void* vc, const void* ks,
            const void* vs, const void* kr, const void* vr, const void* meta,
            const void* win, const void* sinks, const void* alibi, void* out,
-           int B, int Hkv, int G, int T, int C, float scale, float softcap,
-           cudaStream_t stream) {
+           int B, int Hkv, int G, int T, int C, int MC, float scale,
+           float softcap, cudaStream_t stream) {
   if constexpr (std::is_same<QT, bf16>::value) {
     auto kern = alibi != nullptr
                     ? flash_prefill_mma_kernel<CT, ST, D, DV, true>
@@ -517,7 +525,7 @@ int launch(const void* q, const void* kc, const void* vc, const void* ks,
         (const bf16*)q, (const CT*)kc, (const CT*)vc, (const ST*)ks,
         (const ST*)vs, (const bf16*)kr, (const bf16*)vr, (const int*)meta,
         (const int*)win, (const float*)sinks, (const float*)alibi,
-        (float*)out, G, T, C, Hkv, BQ, scale, softcap);
+        (float*)out, G, T, C, Hkv, BQ, MC, scale, softcap);
   } else {
     const int BQ = kThreads / G;
     dim3 grid((T + BQ - 1) / BQ, Hkv, B);
@@ -525,7 +533,7 @@ int launch(const void* q, const void* kc, const void* vc, const void* ks,
         (const QT*)q, (const CT*)kc, (const CT*)vc, (const ST*)ks,
         (const ST*)vs, (const QT*)kr, (const QT*)vr, (const int*)meta,
         (const int*)win, (const float*)sinks, (const float*)alibi,
-        (float*)out, G, T, C, Hkv, BQ, scale, softcap);
+        (float*)out, G, T, C, Hkv, BQ, MC, scale, softcap);
   }
   return (int)cudaGetLastError();
 }
@@ -535,11 +543,11 @@ int dispatch(int qd, int cd, int sd, const void* q, const void* kc,
              const void* vc, const void* ks, const void* vs, const void* kr,
              const void* vr, const void* meta, const void* win,
              const void* sinks, const void* alibi, void* out, int B, int Hkv,
-             int G, int T, int C, float scale, float softcap,
+             int G, int T, int C, int MC, float scale, float softcap,
              cudaStream_t st) {
 #define LBT_ARGS                                                            \
   q, kc, vc, ks, vs, kr, vr, meta, win, sinks, alibi, out, B, Hkv, G, T, C, \
-      scale, softcap, st
+      MC, scale, softcap, st
   if (qd == LBT_BF16 && cd == LBT_BF16)
     return launch<bf16, bf16, float, D, DV>(LBT_ARGS);
   if (qd == LBT_F32 && cd == LBT_F32)
@@ -558,8 +566,9 @@ int dispatch(int qd, int cd, int sd, const void* q, const void* kc,
 
 }  // namespace
 
-// q [B,Hkv,G,T,D]; kc/vc [B,C,Hkv,D|DV]; ks/vs [B,C,Hkv] or null;
-// kr/vr [B,T,Hkv,D|DV] in q's dtype; meta [B,4] (pos0, n_valid, st, en);
+// q [B,Hkv,G,T,D]; kc/vc [Bc,C,Hkv,D|DV]; ks/vs [Bc,C,Hkv] or null;
+// kr/vr [B,T,Hkv,D|DV] in q's dtype; meta [B,MC] (pos0, n_valid, st, en):
+// MC 4 reads cache row b (Bc = B), MC 5 the row in column 4 (< Bc);
 // win [2]; sinks [Hkv,G] f32 or null; alibi [Hkv,G] f32 slopes or null;
 // out [B,Hkv,G,T,DV] f32; (D, DV) one of (64, 64), (80, 80), (96, 96),
 // (128, 128), (256, 256) and multi-head latent attention's (192, 128) and
@@ -572,15 +581,16 @@ extern "C" int lbt_flash_prefill(int q_dtype, int kv_dtype, int scale_dtype,
                                  const void* vr, const void* meta,
                                  const void* win, const void* sinks,
                                  const void* alibi, void* out, int B, int Hkv,
-                                 int G, int T, int C, float scale,
-                                 float softcap, void* stream) {
-  if (G < 1 || G > kThreads) return LBT_UNSUPPORTED;
+                                 int G, int T, int C, int meta_cols,
+                                 float scale, float softcap, void* stream) {
+  if (G < 1 || G > kThreads || (meta_cols != 4 && meta_cols != 5))
+    return LBT_UNSUPPORTED;
   cudaStream_t st = (cudaStream_t)stream;
 #define LBT_WIDTHS(W, WV)                                                   \
   if (D == W && DV == WV)                                                   \
     return dispatch<W, WV>(q_dtype, kv_dtype, scale_dtype, q, kc, vc, ks,   \
                            vs, kr, vr, meta, win, sinks, alibi, out, B, Hkv, \
-                           G, T, C, scale, softcap, st);
+                           G, T, C, meta_cols, scale, softcap, st);
   LBT_WIDTHS(64, 64)
   LBT_WIDTHS(80, 80)
   LBT_WIDTHS(96, 96)

@@ -8,7 +8,11 @@ ALiBi; and its mixture-of-experts layers, every router, shared experts,
 heterogeneous layer groups, gpt-oss's sinks, llama4's chunked window, q/k
 L2 norm and temperature; and deepseek2's multi-head latent attention,
 low-rank q and kv projections into a per-head K / V cache of unequal
-widths), with bf16/f32 weights or QTensors (w8a8 or grouped,
+widths; and Qwen2-VL's M-RoPE, whose rotary half-dims take their
+sections' position streams (ops/rope.mrope_at: the tables gathered per
+section, then the plain rotation), and the prefill of an embedding chunk
+(a vision or audio tower's projected rows, bidirectional over gemma3's
+image span), with bf16/f32 weights or QTensors (w8a8 or grouped,
 ops/qmatmul). Every norm runs the row-norm kernel (ops/norm) on
 the card, one order a row, and the routed experts the expert kernel
 (ops/moe), one order a pair, so a verify pass's rows equal its one-row
@@ -86,7 +90,7 @@ from ..ops.moe import ACTS as MOE_ACTS
 from ..ops.moe import MAX_EXPERTS, MAX_PICKS, moe_ffn
 from ..ops.norm import ln_per_head, norm_any, rms_norm
 from ..ops.qmatmul import QTensor, dense_matmul, mm
-from ..ops.rope import RopeParams, apply_rope, compute_rope_cache
+from ..ops.rope import RopeParams, apply_rope, compute_rope_cache, mrope_at
 from .config import ModelConfig
 
 
@@ -207,7 +211,9 @@ def check_supported(cfg: ModelConfig, params: dict, device=None) -> None:
     mla = {"wkv_a" in gp for gp in groups}
     unsupported = {
         "recurrent": getattr(cfg, "recurrent", False),
-        "mrope_sections": bool(cfg.mrope_sections),
+        # M-RoPE gathers 2-D tables per section
+        "mrope_sections": bool(cfg.mrope_sections) and (
+            cfg.nope_layer_step > 0 or cfg.rope_freq_base_swa > 0),
         "act_fn": cfg.act_fn not in ("silu", "gelu", "relu2", "xielu",
                                      "swiglu_oai"),
         # MLA in every layer (its tensors) exactly when the config has its
@@ -1138,13 +1144,16 @@ class DecodeOperands(NamedTuple):
 
 
 def decode_operands(pos0: torch.Tensor, active: torch.Tensor, capacity: int,
-                    n_steps: int, rope_cos, rope_sin) -> DecodeOperands:
+                    n_steps: int, rope_cos, rope_sin,
+                    rope_delta=None) -> DecodeOperands:
     """The operands of n_steps chained steps from each slot's first
     position pos0 [S] (int64) and its active mask [S] (bool), as the JAX
     scan body computes them: positions where(active, pos0 + j, C), meta
     (cpos, j + 1) with cpos 0 for an inactive slot. Step j of slot b
     writes position (pos0[b] + j) mod C, kept only if active and inside
-    the cache."""
+    the cache. rope_delta [S] (M-RoPE's mrope_delta, or None): the rows
+    rotate at position + delta, every stream alike, as JAX passes
+    mrope_pos = positions + delta to its decode programs."""
     C = capacity
     j = torch.arange(n_steps, device=pos0.device)
     pos = pos0[None, :] + j[:, None]                           # [K, S]
@@ -1153,7 +1162,8 @@ def decode_operands(pos0: torch.Tensor, active: torch.Tensor, capacity: int,
     cpos = torch.where(positions >= C, 0, positions)
     meta = torch.stack([cpos, (j + 1)[:, None].expand_as(cpos)],
                        dim=-1).to(torch.int32)
-    cos, sin = _rope_at(rope_cos, rope_sin, positions[..., None])
+    rpos = positions if rope_delta is None else positions + rope_delta
+    cos, sin = _rope_at(rope_cos, rope_sin, rpos[..., None])
     if rope_cos.dim() == 3:     # stacked: step j's [2, S, 1, rot/2]
         cos, sin = cos.movedim(0, 1), sin.movedim(0, 1)
     b = torch.arange(pos0.shape[0], device=pos0.device)
@@ -1202,13 +1212,14 @@ class VerifyOperands(NamedTuple):
 
 def verify_operands(pos0: torch.Tensor, n_draft: torch.Tensor,
                     active: torch.Tensor, capacity: int, T: int, rope_cos,
-                    rope_sin) -> VerifyOperands:
+                    rope_sin, rope_delta=None) -> VerifyOperands:
     """The operands of T verify rows from each slot's first position pos0
     [S] (int64), its draft count n_draft [S] and its active mask [S]: row
     j of slot b lies at pos0[b] + j and is kept iff the slot is active, j
     <= n_draft[b] and the position is inside the cache; every other row is
     a sentinel (position C), attended by nothing and never written (JAX
-    `_decode_verify_rows`'s positions and seq_lens)."""
+    `_decode_verify_rows`'s positions and seq_lens); rope_delta [S] as in
+    decode_operands."""
     C = capacity
     S = pos0.shape[0]
     j = torch.arange(T, device=pos0.device)
@@ -1218,7 +1229,9 @@ def verify_operands(pos0: torch.Tensor, n_draft: torch.Tensor,
     cpos = torch.where(positions >= C, 0, positions)
     meta = torch.stack([cpos.T, (j + 1)[:, None].expand(T, S)],
                        dim=-1).to(torch.int32)
-    cos, sin = _rope_at(rope_cos, rope_sin, positions)
+    rpos = positions if rope_delta is None else \
+        positions + rope_delta[:, None]
+    cos, sin = _rope_at(rope_cos, rope_sin, rpos)
     b = torch.arange(S, device=pos0.device)[:, None].expand(S, T)
     writes = RowWrites(b, pos % C, kept & (pos < C))
     return VerifyOperands(positions, meta, cos, sin, writes)
@@ -1265,21 +1278,36 @@ def forward_impl(params, cfg: ModelConfig, tokens, positions, kv: KVCache,
 
 
 def prefill_batch_impl(params, cfg: ModelConfig, tokens, pos_base, n_valid,
-                       kv: KVCache, rope_cos, rope_sin, logits: bool = True):
+                       kv: KVCache, rope_cos, rope_sin, logits: bool = True,
+                       embeds=None, mrope_pos=None, bidir=None, slots=None):
     """Batched prefill: one chunk per slot through the flash prefill kernel.
 
     tokens:   [S, T] int — row s is slot s's next chunk (padded), T <= C
     pos_base: [S] int — absolute position of each row's start
     n_valid:  [S] int — valid tokens per row (0 = slot not prefilling)
+    embeds:   [S, T, E] — a chunk of projected media rows in place of
+              `tokens` (JAX `prefill_embed_impl`: cast to tok_embd's dtype,
+              no embedding scale or norm); tokens is then None
+    mrope_pos: [3, S, T] int — M-RoPE's (t, y, x) position streams of the
+              rows (JAX `mrope_pos`); None rotates at the rows' positions
+    bidir:    [S, 2] int — an (start, end) span of absolute positions that
+              every valid row attends regardless of causality (gemma3's
+              image; the kernel meta's bidir_st / bidir_en), else none
+    slots:    [S] int — the cache slot each row reads and writes (the
+              kernel meta's fifth column), else row s is slot s: one
+              program, its slot an operand, prefills any slot alone
     Host arrays or tensors; on the cache's device every operand below is
     computed there, so the pass replays as one CUDA graph. The rows are
-    written into the cache in place (write_rows). Returns (last-token
-    logits [S, V] f32, or None when `logits` is false, kv)."""
+    written into the cache in place (write_rows). Returns
+    (last-token logits [S, V] f32, or None when `logits` is false, kv)."""
     dev = kv.k.device
-    tokens = torch.as_tensor(tokens).to(dev)
     pos_base = torch.as_tensor(pos_base).to(dev, torch.int64)
     n_valid = torch.as_tensor(n_valid).to(dev, torch.int64)
-    S, T = tokens.shape
+    if embeds is None:
+        tokens = torch.as_tensor(tokens).to(dev)
+        S, T = tokens.shape
+    else:
+        S, T = embeds.shape[:2]
     C = kv.capacity
     if T > C:
         raise ValueError(f"a prefill chunk of {T} rows does not fit a cache "
@@ -1288,15 +1316,32 @@ def prefill_batch_impl(params, cfg: ModelConfig, tokens, pos_base, n_valid,
     pos = pos_base[:, None] + t                                 # [S, T]
     inside = t < n_valid[:, None]
     positions = torch.where(inside, pos, C)
-    zeros = torch.zeros_like(pos_base)
-    meta = torch.stack([pos_base, n_valid, zeros, zeros], dim=1).to(
-        torch.int32)
-    cos, sin = _rope_at(rope_cos, rope_sin, positions)
-    x = _add_pos_embd(params, _embed_tokens(params, cfg, tokens), positions)
+    if bidir is None:
+        st = en = torch.zeros_like(pos_base)
+    else:
+        st, en = torch.as_tensor(bidir).to(dev, torch.int64).unbind(1)
+    cols = [pos_base, n_valid, st, en]
+    if slots is not None:
+        slots = torch.as_tensor(slots).to(dev, torch.int64)
+        cols.append(slots)
+    meta = torch.stack(cols, dim=1).to(torch.int32)
+    if mrope_pos is not None:
+        p3 = torch.as_tensor(mrope_pos).to(dev, torch.int64)
+        cos, sin = mrope_at(rope_cos, rope_sin,
+                            p3.clamp(0, rope_cos.shape[-2] - 1),
+                            cfg.mrope_sections)
+    else:
+        cos, sin = _rope_at(rope_cos, rope_sin, positions)
+    if embeds is None:
+        x = _embed_tokens(params, cfg, tokens)
+    else:
+        x = embeds.to(dev, params["tok_embd"].dtype)
+    x = _add_pos_embd(params, x, positions)
     rows: list = []
     x = _run_stack(params, cfg, x, kv, cos, sin, rows, positions,
                    flash_meta=meta)
-    b = torch.arange(S, device=dev)[:, None].expand(S, T)
+    b = (torch.arange(S, device=dev) if slots is None else slots)
+    b = b[:, None].expand(S, T)
     fields = [torch.stack([r[f] for r in rows]) for f in range(len(rows[0]))]
     write_rows(kv, fields, RowWrites(b, pos % C, inside & (pos < C)))
     if not logits:

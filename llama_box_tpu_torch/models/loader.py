@@ -436,10 +436,14 @@ def params_from_numpy(params_np: dict, cfg: ModelConfig,
     into torch on `device`: same keys, same [in, out] layouts, same
     dtypes. The JAX package's QTensor nodes (numpy leaves) become the
     port's QTensors. The `smalls_all` bundle (a TPU layout of values the
-    tree already holds) is dropped."""
+    tree already holds) is dropped. The mmproj towers' trees (JAX
+    `load_clip`, `load_audio_tower`) carry over the same way, their
+    absent tensors (None) as None."""
     del cfg  # the tree carries its own shapes; kept for the JAX signature
 
     def conv(x):
+        if x is None:
+            return None
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items() if k != "smalls_all"}
         if isinstance(x, (list, tuple)):

@@ -9,12 +9,16 @@ runs `flash_prefill_plain`, the same function written out in torch.
 
 Layouts (all post-RoPE):
     q:        [B, Hkv, G, T, D]
-    k/v:      [B, C, Hkv, D|Dv]  cache (bf16/f32, or int8 + [B, C, Hkv] scales)
+    k/v:      [Bc, C, Hkv, D|Dv] cache (bf16/f32, or int8 + [Bc, C, Hkv]
+                                 scales)
     k/v rows: [B, T, Hkv, D|Dv]  the chunk's own rows
-    meta:     [B, 4] int32       (pos0, n_valid, bidir_st, bidir_en)
+    meta:     [B, 4|5] int32     (pos0, n_valid, bidir_st, bidir_en[, slot])
     win:      [2] int32          (swa_window, chunked_window) of this layer
     alibi:    [Hkv, G] f32       ALiBi slopes, or None
-Row r of slot b (position pos0 + r) sees cache position c iff c < pos0 and
+Batch row b reads cache row b (Bc = B), or with a fifth meta column cache
+row meta[b, 4] (< Bc, unchecked on the card): one program then prefills
+any slot in place. Row r of batch row b (position pos0 + r) sees cache
+position c iff c < pos0 and
 c is causal/in-window/in-chunk, or c lies in [st, en); it sees row r' iff
 r' < n_valid under the same rule. Under ALiBi a score gains slope x (key
 position - query position) before the softcap. (D, Dv) in HEAD_PAIRS: the
@@ -80,7 +84,12 @@ def flash_prefill_plain(q, k_cache, v_cache, k_rows, v_rows, meta, win,
         scale = D ** -0.5
     w, cw = _as_int_list(win)
     meta = torch.as_tensor(meta).to(dev, torch.long)
-    pos0, nval, st, en = meta.unbind(1)
+    if meta.shape[1] == 5:
+        rows = meta[:, 4]
+        k_cache, v_cache = k_cache[rows], v_cache[rows]
+        if k_scale is not None:
+            k_scale, v_scale = k_scale[rows], v_scale[rows]
+    pos0, nval, st, en = meta[:, :4].unbind(1)
     ar_c = torch.arange(C, device=dev)
     ar_t = torch.arange(T, device=dev)
     kpos = torch.cat([ar_c.expand(B, C), pos0[:, None] + ar_t], dim=1)
@@ -121,8 +130,12 @@ def flash_prefill_batched(q, k_cache, v_cache, k_rows, v_rows, meta, win,
     _check(k_cache.dtype == v_cache.dtype
            and k_cache.dtype == (torch.int8 if quant else dt),
            f"cache dtype {k_cache.dtype} with q {dt} (scales: {quant})")
-    _check(tuple(k_cache.shape) == (B, C, Hkv, D)
-           and tuple(v_cache.shape) == (B, C, Hkv, Dv), "cache shape")
+    meta, win = _int32_on(dev, meta), _int32_on(dev, win)
+    _check(meta.dim() == 2 and tuple(meta.shape) in ((B, 4), (B, 5))
+           and tuple(win.shape) == (2,), "meta/win shape")
+    Bc = k_cache.shape[0] if meta.shape[1] == 5 else B
+    _check(tuple(k_cache.shape) == (Bc, C, Hkv, D)
+           and tuple(v_cache.shape) == (Bc, C, Hkv, Dv), "cache shape")
     _check(tuple(k_rows.shape) == (B, T, Hkv, D)
            and tuple(v_rows.shape) == (B, T, Hkv, Dv), "rows shape")
     _check((D, Dv) in HEAD_PAIRS, f"head dims {(D, Dv)} (the kernel takes "
@@ -139,12 +152,9 @@ def flash_prefill_batched(q, k_cache, v_cache, k_rows, v_rows, meta, win,
         _check(v_scale is not None
                and k_scale.dtype in (torch.bfloat16, torch.float32)
                and k_scale.dtype == v_scale.dtype
-               and tuple(k_scale.shape) == (B, C, Hkv)
-               and tuple(v_scale.shape) == (B, C, Hkv), "scales")
+               and tuple(k_scale.shape) == (Bc, C, Hkv)
+               and tuple(v_scale.shape) == (Bc, C, Hkv), "scales")
         k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
-    meta, win = _int32_on(dev, meta), _int32_on(dev, win)
-    _check(tuple(meta.shape) == (B, 4) and tuple(win.shape) == (2,),
-           "meta/win shape")
     if sinks is not None:
         sinks = sinks.to(dev, torch.float32).contiguous()
         _check(tuple(sinks.shape) == (Hkv, G), "sinks shape")
@@ -155,7 +165,7 @@ def flash_prefill_batched(q, k_cache, v_cache, k_rows, v_rows, meta, win,
         "flash_prefill", "lbt_flash_prefill", codes[dt],
         codes[k_cache.dtype], codes[k_scale.dtype] if quant else 0, D, Dv,
         q, k_cache, v_cache, k_scale, v_scale, k_rows, v_rows, meta, win,
-        sinks, alibi, out, B, Hkv, G, T, C,
+        sinks, alibi, out, B, Hkv, G, T, C, meta.shape[1],
         float(D ** -0.5 if scale is None else scale), float(softcap))
     flash_prefill_batched.launches += 1
     return out

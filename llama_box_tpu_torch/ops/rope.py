@@ -121,3 +121,35 @@ def apply_rope(x: torch.Tensor, positions, cos: torch.Tensor,
     if rot_dim < d:
         rotated = torch.cat([rotated, x[..., rot_dim:]], dim=-1)
     return rotated
+
+
+def mrope_section_index(sections, half: int) -> list[int]:
+    """The position stream of each rotary half-dim under M-RoPE: the
+    sections' dims in turn, dims past them on stream 0."""
+    idx = [s for s, n in enumerate(sections) for _ in range(n)]
+    return idx[:half] + [0] * (half - len(idx))
+
+
+# (device, streams, sections, half) -> the stream index of each half-dim,
+# made at a program's first, eager, use: a CUDA graph capture may not copy
+# it from the host
+_SECTION_INDEX: dict[tuple, torch.Tensor] = {}
+
+
+def mrope_at(cos: torch.Tensor, sin: torch.Tensor, positions3: torch.Tensor,
+             sections) -> tuple[torch.Tensor, torch.Tensor]:
+    """The [P, half] tables gathered per M-RoPE section: half-dim i takes
+    its value at the position of its section's stream. positions3 [S,
+    ..., T] (the caller clamps sentinels; a stream the sections name past
+    S reuses the last one, as JAX clips) -> [..., T, half] each, what
+    apply_rope takes pre-gathered."""
+    half, S = cos.shape[-1], positions3.shape[0]
+    key = (positions3.device, S, tuple(sections), half)
+    sel = _SECTION_INDEX.get(key)
+    if sel is None:
+        sel = _SECTION_INDEX[key] = torch.tensor(
+            [min(i, S - 1) for i in mrope_section_index(sections, half)],
+            device=positions3.device)
+    p = positions3.index_select(0, sel).movedim(0, -1)    # [..., T, half]
+    d = torch.arange(half, device=cos.device)
+    return cos[p, d], sin[p, d]

@@ -23,11 +23,20 @@ outputs. A replay does not call the kernel wrappers, so the runner keeps
 their `launches` counts: it takes back what the capture added and adds it
 again on every replay. Disabled (the CPU, or EngineConfig.cuda_graphs
 off), `run` calls `fn` each time.
+
+A capture (in torch's default global mode) fails when another thread
+allocates device memory or copies synchronously meanwhile; the one other
+thread that works on the card is a request thread running a multimodal
+tower, so a capture and a tower's run take turns on CAPTURE_LOCK.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
+
+CAPTURE_LOCK = threading.Lock()
 
 
 def kernel_wrappers() -> list:
@@ -91,6 +100,10 @@ class GraphRunner:
         return out
 
     def _capture(self, fn) -> _Graph:
+        with CAPTURE_LOCK:
+            return self._capture_locked(fn)
+
+    def _capture_locked(self, fn) -> _Graph:
         before = [w.launches for w in self._wrappers]
         torch.cuda.synchronize()
         torch.cuda.empty_cache()        # as the capture's entry does

@@ -79,8 +79,21 @@ programs replay on, with no host wait.
   right after the replay. As in JAX, a task is admitted only while a slot
   is idle: an embeddings request waits while every slot decodes.
 
-Not ported yet (the JAX engine has them): multimodal prompts and the other
-model families.
+- Multimodal prompts (JAX `_prefill_chunk`'s embedding chunks): a task
+  with `chunks` (server/multimodal.build_chunks: token chunks and the
+  towers' projected rows, whose negative dummy ids key the prefix cache)
+  prefills one slot at a time, one ubatch of one chunk a pass, through
+  the batched prefill on that slot of the cache (the flash prefill
+  kernel, the slot a staged operand; an embedding chunk in place of
+  token rows, gemma3's image span bidirectional); on the card one graph a
+  key ("prefill_mm", kind, bucket) for every slot, its first token
+  sampled in it. M-RoPE models (Qwen2-VL)
+  take each chunk's (t, y, x) position streams and decode at position +
+  the task's mrope_delta, a staged operand of every chain, one-token and
+  one-round draft pass; as in JAX, no chain is speculated after their
+  prefill and a draft model runs one round a pass.
+
+Not ported yet (the JAX engine has them): the other model families.
 """
 
 from __future__ import annotations
@@ -95,7 +108,8 @@ import torch
 
 from ..models.bert import BERT_ARCHS, bert_forward, check_bert_supported
 from ..models.config import ModelConfig
-from ..models.llama import (alibi_slopes, check_supported, copy_kv_prefix,
+from ..models.llama import (alibi_slopes, check_supported,
+                            copy_kv_prefix,
                             decode_operands, decode_step_impl,
                             forward_embeddings, init_chain_rows,
                             init_kv_cache, layer_groups, layer_is_local,
@@ -145,7 +159,7 @@ def resolve_device(device: str) -> torch.device:
 
 def _decode_chain(params, cfg: ModelConfig, token0, pos0, kv, sstate, arrs,
                   active, cos, sin, n_steps: int, samp_extras: bool = True,
-                  samp_kcap: int = 0):
+                  samp_kcap: int = 0, rope_delta=None):
     """Chained multi-step decode: n_steps sequential forward+sample steps
     with no host sync in between (one CUDA graph on the card).
 
@@ -157,8 +171,9 @@ def _decode_chain(params, cfg: ModelConfig, token0, pos0, kv, sstate, arrs,
     the end, as in the JAX engine. Slots that hit EOG mid-chain keep
     generating; the host discards the tail. Returns (tokens [S,K],
     ids [S,K,NP], probs [S,K,NP], tokps [S,K], kv, sstate), all on the
-    device."""
-    ops = decode_operands(pos0, active, kv.capacity, n_steps, cos, sin)
+    device. rope_delta [S]: M-RoPE's mrope_delta (decode_operands)."""
+    ops = decode_operands(pos0, active, kv.capacity, n_steps, cos, sin,
+                          rope_delta)
     chain = init_chain_rows(cfg, kv, n_steps)
     tok = token0
     outs, steps = [], []
@@ -178,7 +193,8 @@ def _decode_chain(params, cfg: ModelConfig, token0, pos0, kv, sstate, arrs,
 
 def _decode_verify_sample(params, cfg: ModelConfig, tokens, pos0, n_draft, kv,
                           sstate, arrs, fwd_active, samp_active, cos, sin,
-                          samp_extras: bool = True, samp_kcap: int = 0):
+                          samp_extras: bool = True, samp_kcap: int = 0,
+                          rope_delta=None):
     """Decode forward + speculative verify + sampling over the full slot
     batch (JAX `_decode_verify_sample`): tokens [S, T] (column 0 each
     slot's next token, then its n_draft [S] drafts) at pos0 [S] on; every
@@ -190,7 +206,7 @@ def _decode_verify_sample(params, cfg: ModelConfig, tokens, pos0, n_draft, kv,
     [S, T, NP], tokps [S, T], row 0 logits [S, V] f32, kv, sstate), all on
     the device."""
     ops = verify_operands(pos0, n_draft, fwd_active, kv.capacity,
-                          tokens.shape[1], cos, sin)
+                          tokens.shape[1], cos, sin, rope_delta)
     logits = verify_forward(params, cfg, tokens, ops, kv)
     toks, n_em, ids, probs, tokps, sstate = verify_impl(
         logits, tokens, n_draft, sstate, arrs, samp_active,
@@ -227,7 +243,8 @@ def _draft_chain_greedy(params, cfg: ModelConfig, token0, pos0, kv, active,
 def _spec_rounds(params, cfg: ModelConfig, dparams, dcfg: ModelConfig,
                  token0, pos0, kv, dkv, sstate, arrs, active, dactive, cos,
                  sin, dcos, dsin, p_min: float, pcarry, n_rounds: int,
-                 draft_k: int, samp_extras: bool = True, samp_kcap: int = 0):
+                 draft_k: int, samp_extras: bool = True, samp_kcap: int = 0,
+                 rope_delta=None):
     """n_rounds speculative draft + verify rounds with the accept and
     advance bookkeeping on the device (JAX `_spec_chain`; one CUDA graph on
     the card). Round m:
@@ -247,7 +264,8 @@ def _spec_rounds(params, cfg: ModelConfig, dparams, dcfg: ModelConfig,
     Returns (packed [M, S, T + 2] int32: tokens | n_emitted | n_draft,
     ids [M, S, T, NP], probs, tokps [M, S, T], token_next [S], pos_end
     [S], carry (tokens, n_emitted, start position) of the last round, kv,
-    dkv, sstate)."""
+    dkv, sstate). rope_delta [S]: the target's M-RoPE mrope_delta (the
+    draft rotates at its own positions, as in JAX)."""
     K = draft_k
     outs, ids_l, probs_l, tokps_l = [], [], [], []
     prev = None
@@ -268,7 +286,7 @@ def _spec_rounds(params, cfg: ModelConfig, dparams, dcfg: ModelConfig,
         tokens = torch.cat([tok_cur[:, None], dtoks], dim=1)
         toks, n_em, ids, probs, tokps, _, kv, sstate = _decode_verify_sample(
             params, cfg, tokens, pos_cur, n_draft, kv, sstate, arrs, active,
-            active, cos, sin, samp_extras, samp_kcap)
+            active, cos, sin, samp_extras, samp_kcap, rope_delta)
         outs.append(torch.cat([toks, n_em[:, None].to(torch.int32),
                                n_draft[:, None].to(torch.int32)], dim=1))
         ids_l.append(ids)
@@ -470,18 +488,22 @@ class Engine:
             buckets = [b for b in buckets if S * b > _SPLIT_MAX_ROWS] \
                 or buckets[-1:]
         self.buckets = tuple(buckets)
-        # the programs' operands: decode token0 | pos0 | active, prefill
-        # pos_base | n_valid | sample-active | tokens [S, bucket] (the
-        # draft's catch-up the same), one-token (verify) pass pos0 | active
-        # | sample-active | host-row index | n_draft | tokens [S, T], spec
-        # pass token0 | pos0 | active | draft-active | carry tokens [S, T]
-        # | n_emitted | pos | valid
+        # the programs' operands: decode token0 | pos0 | active | rope
+        # delta, prefill pos_base | n_valid | sample-active | tokens [S,
+        # bucket] (the draft's catch-up the same), one-token (verify) pass
+        # pos0 | active | sample-active | host-row index | n_draft | rope
+        # delta | tokens [S, T], spec pass token0 | pos0 | active |
+        # draft-active | carry tokens [S, T] | n_emitted | pos | valid |
+        # rope delta (the delta: M-RoPE's mrope_delta a slot, else 0 and
+        # unread)
+        self.mrope = bool(cfg.mrope_sections)
         T = 1 + self.ecfg.draft_max
-        self._dec_in = StagedBuffer(3 * S, torch.int64, self.device, ring)
-        self._one_in = StagedBuffer(S * (5 + T), torch.int64, self.device,
+        self._dec_in = StagedBuffer(4 * S, torch.int64, self.device, ring)
+        self._one_in = StagedBuffer(S * (6 + T), torch.int64, self.device,
                                     ring)
-        self._spec_in = StagedBuffer(S * (7 + T), torch.int64, self.device,
+        self._spec_in = StagedBuffer(S * (8 + T), torch.int64, self.device,
                                      ring)
+        self._mm_in = self._mm_emb = None   # a multimodal chunk's, lazily
         self._pre_in = StagedBuffer(S * (3 + self.buckets[-1]), torch.int64,
                                     self.device, ring)
         # an embed pass: seq_lens [rows] | tokens [rows, bucket]
@@ -632,8 +654,6 @@ class Engine:
             task.fail(exc)
 
     def _admit_completion(self, task: CompletionsTask) -> None:
-        if task.chunks is not None:
-            raise NotImplementedError("multimodal prompts are not ported yet")
         if not task.prompt_tokens:
             bos = self.tokenizer.bos_id if self.tokenizer else None
             if bos is None:
@@ -651,6 +671,10 @@ class Engine:
         n_keep = min(n_keep, self.slot_ctx // 2)
         max_len = self.slot_ctx - self.ecfg.defrag_headroom
         if len(task.prompt_tokens) > max_len:
+            if task.chunks is not None:
+                raise ValueError(
+                    "multimodal prompt exceeds the per-slot context "
+                    f"({len(task.prompt_tokens)} > {max_len} tokens)")
             n_block = max(1, (max_len - n_keep) // 2)
             n_erased = (len(task.prompt_tokens) - n_keep - n_block) \
                 // n_block
@@ -771,11 +795,14 @@ class Engine:
         """Prefill every pending slot's next chunk in ONE batched pass;
         first tokens of every completed prompt are sampled in the same
         program and reach the host with one wait (after the first decode
-        chain has gone out, when it can)."""
+        chain has gone out, when it can). A multimodal task's slot
+        prefills on its own (_prefill_chunk), as in JAX."""
         slots = []
         for s in pre:
             if s.task.cancelled:
                 self._release(s)
+            elif s.task.chunks is not None:
+                self._prefill_chunk(s)
             else:
                 slots.append(s)
         if not slots:
@@ -838,6 +865,107 @@ class Engine:
             logits, self.sstate, self.arrs, d[2 * S:3 * S] != 0)
         return tok, ids, probs, tokp, logits
 
+    def _chunk_at(self, task, cursor: int):
+        """The prompt chunk holding flat position `cursor`: (its start, its
+        end, the chunk) (JAX `_chunk_at`)."""
+        start = 0
+        for ch in task.chunks:
+            n = len(ch[1])
+            if cursor < start + n:
+                return start, start + n, ch
+            start += n
+        raise RuntimeError("prefill cursor out of range")
+
+    def _mm_buffers(self):
+        """The staged operands of a multimodal chunk, made at the first
+        one (before its first, eager, program): pos_base | n_valid |
+        bidir start | end | sample-active | slot | M-RoPE streams [3,
+        bucket] | tokens [bucket], and the embedding rows [bucket, E]
+        (f32)."""
+        if self._mm_in is None:
+            ring = max(1, self.ecfg.pipeline_depth) + 2
+            Tm = self.buckets[-1]
+            self._mm_in = StagedBuffer(6 + 4 * Tm, torch.int64, self.device,
+                                       ring)
+            self._mm_emb = StagedBuffer(Tm * self.cfg.n_embd, torch.float32,
+                                        self.device, ring)
+        return self._mm_in, self._mm_emb
+
+    def _prefill_chunk(self, s: Slot) -> None:
+        """Prefill the next ubatch of one slot's current prompt chunk (JAX
+        `_prefill_chunk`): token rows or a tower's embedding rows, with
+        the chunk's M-RoPE streams on an M-RoPE model and, for gemma3's
+        image rows, the bidirectional span (s.pos - off, s.pos + n): the
+        image's rows so far and this ubatch's. One program a key
+        ("prefill_mm", kind, bucket), the slot among its staged operands,
+        whose first token, when it completes the prompt, is sampled in it
+        and handled as the batched pass's are."""
+        task = s.task
+        t0 = time.monotonic()
+        cstart, cend, ch = self._chunk_at(task, s.cursor)
+        off = s.cursor - cstart
+        n = min(cend - s.cursor, self.ecfg.n_ubatch)
+        T = self._bucket(n)
+        kind = ch[0]
+        done = s.cursor + n >= len(task.prompt_tokens)
+        dev_done = [s] if done and task.host_sampler is None else []
+        mm_in, mm_emb = self._mm_buffers()
+        h = mm_in.host()
+        h[:6 + 4 * T] = 0
+        h[0], h[1], h[4], h[5] = s.pos, n, int(bool(dev_done)), s.idx
+        if kind == "embed" and self.cfg.arch == "gemma3":
+            h[2], h[3] = s.pos - off, s.pos + n
+        if self.mrope:
+            h[6:6 + 3 * T].reshape(3, T)[:, :n] = ch[-1][:, off:off + n]
+        if kind == "tokens":
+            h[6 + 3 * T:6 + 3 * T + n] = ch[1][off:off + n]
+        else:
+            E = self.cfg.n_embd
+            he = mm_emb.host()
+            he[:T * E] = 0
+            he[:n * E] = np.asarray(ch[1][off:off + n],
+                                    np.float32).reshape(-1)
+            mm_emb.push(T * E)
+        mm_in.push(6 + 4 * T)
+        self._refresh_arrs()
+        outs = self.graphs.run(("prefill_mm", kind, T),
+                               lambda: self._prefill_mm_program(kind, T))
+        s.cache_tokens.extend(task.prompt_tokens[s.cursor:s.cursor + n])
+        s.cursor += n
+        s.pos += n
+        if done:
+            pend = (self._copy_out(dev_done, 1, outs, None, 0.0)
+                    if dev_done else None)
+            ramp_set = pend is not None and \
+                self._speculate_post_prefill([s], pend)
+            self._finish_batch_sync([s], pend, ramp_set, outs[4])
+        self.metrics.on_prefill(n, (time.monotonic() - t0) * 1e3)
+
+    def _prefill_mm_program(self, kind: str, T: int):
+        """One multimodal chunk of bucket T into the staged slot over the
+        staged operands (prefill_batch_impl on that slot of the cache),
+        then the sample when it completes the prompt. Returns
+        _prefill_program's (tok, ids, probs, tokp, logits [S, V] f32: the
+        slot's row set)."""
+        S = len(self.slots)
+        d = self._mm_in.dev
+        tokens = embeds = None
+        if kind == "tokens":
+            tokens = d[6 + 3 * T:6 + 4 * T].view(1, T)
+        else:
+            embeds = self._mm_emb.dev[:T * self.cfg.n_embd].view(1, T, -1)
+        logits, self.kv = prefill_batch_impl(
+            self.params, self.cfg, tokens, d[0:1], d[1:2], self.kv,
+            self.rope_cos, self.rope_sin, embeds=embeds,
+            mrope_pos=d[6:6 + 3 * T].view(3, 1, T) if self.mrope else None,
+            bidir=d[2:4].view(1, 2), slots=d[5:6])
+        at = torch.arange(S, device=d.device) == d[5]
+        full = torch.where(at[:, None], logits, 0.0)
+        active = at & (d[4] != 0)
+        tok, ids, probs, tokp, self.sstate = sample_impl(
+            full, self.sstate, self.arrs, active)
+        return tok, ids, probs, tokp, full
+
     def _speculate_post_prefill(self, done: list, pend: _Chain) -> bool:
         """Dispatch the first (ramped) decode chain off the prefill's
         device-resident first tokens before the host waits for them, so
@@ -847,8 +975,9 @@ class Engine:
         it went out (it has set the slots' ramps)."""
         if not self.ecfg.pipeline_chain or self._chain_q or self._spec_q:
             return False
-        # no chain over heterogeneous layer groups (the JAX gate)
-        if "layer_groups" in self.params:
+        # no chain over heterogeneous layer groups or after an M-RoPE
+        # prefill (the JAX gates)
+        if "layer_groups" in self.params or self.mrope:
             return False
         # no chain while a slot may draft (the JAX gate)
         if self.draft_params is not None or (
@@ -963,7 +1092,7 @@ class Engine:
             per_round = 1 + self.ecfg.draft_max
             room = min(s.capacity - s.pos for s in dec)
             M = min(self.ecfg.spec_rounds, room // per_round)
-            if M > 1:
+            if M > 1 and not self.mrope:    # the JAX gate
                 self._decode_pass_spec_chain(dec, M)
             else:
                 self._decode_pass_fused_draft(dec)
@@ -1029,7 +1158,8 @@ class Engine:
 
     def _stage_one(self, tokens: list, pos: list, host: list) -> None:
         """Stage a one-token pass's operands (pos0 | active | sample-active
-        | host-row index | n_draft, S each, then tokens [S, T]): slot b
+        | host-row index | n_draft | rope delta, S each, then tokens [S,
+        T]): slot b
         decodes tokens[b] (its next token, or a list: the next token and
         its drafts) from pos[b] (None: it sits out, at position slot_ctx);
         T is the longest list. The device samples the active slots not in
@@ -1041,16 +1171,17 @@ class Engine:
         h = self._one_in.host()
         h[:] = 0
         h[:S] = self.slot_ctx
-        tok = h[5 * S:S * (5 + T)].reshape(S, T)
+        tok = h[6 * S:S * (6 + T)].reshape(S, T)
         for b, (r, p) in enumerate(zip(rows, pos)):
             if r is not None:
                 h[b], h[S + b] = p, 1
                 h[2 * S + b] = int(b not in host)
                 h[4 * S + b] = len(r) - 1
+                h[5 * S + b] = self._rope_delta(b)
                 tok[b, :len(r)] = r
         for k, b in enumerate(host):
             h[3 * S + k] = b
-        self._one_in.push(S * (5 + T))
+        self._one_in.push(S * (6 + T))
 
     def _one_token_program(self, T: int = 1, **kw):
         """One one-token pass of T rows a slot over the staged operands:
@@ -1061,10 +1192,11 @@ class Engine:
         d = self._one_in.dev
         toks, n_em, ids, probs, tokps, logits0, self.kv, self.sstate = \
             _decode_verify_sample(
-                self.params, self.cfg, d[5 * S:S * (5 + T)].view(S, T),
+                self.params, self.cfg, d[6 * S:S * (6 + T)].view(S, T),
                 d[:S], d[4 * S:5 * S], self.kv, self.sstate, self.arrs,
                 d[S:2 * S] != 0, d[2 * S:3 * S] != 0, self.rope_cos,
-                self.rope_sin, **kw)
+                self.rope_sin, rope_delta=self._delta_operand(d, 5 * S),
+                **kw)
         packed = torch.cat([toks, n_em[:, None].to(torch.int32)], dim=1)
         return (packed, ids, probs, tokps,
                 logits0.index_select(0, d[3 * S:4 * S]))
@@ -1224,7 +1356,8 @@ class Engine:
         d = self._dec_in.dev
         toks, n_ok = _draft_chain_greedy(
             self.draft_params, self.draft_cfg, d[:S], d[S:2 * S],
-            self.draft_kv, d[2 * S:] != 0, self.draft_cos, self.draft_sin,
+            self.draft_kv, d[2 * S:3 * S] != 0, self.draft_cos,
+            self.draft_sin,
             self.ecfg.draft_p_min, K)
         return torch.cat([toks, n_ok[:, None]], dim=1).to(torch.int32)
 
@@ -1309,6 +1442,7 @@ class Engine:
         for s in dec:
             h[s.idx], pos0[s.idx], h[2 * S + s.idx] = s.next_token, s.pos, 1
             h[S * (6 + T) + s.idx] = int(newest is not None)
+            h[S * (7 + T) + s.idx] = self._rope_delta(s.idx)
         h[S:2 * S] = pos0
         for s in drafted:
             h[3 * S + s.idx] = 1
@@ -1355,7 +1489,8 @@ class Engine:
                 d[:S], d[S:2 * S], self.kv, self.draft_kv, self.sstate,
                 self.arrs, d[2 * S:3 * S] != 0, d[3 * S:4 * S] != 0,
                 self.rope_cos, self.rope_sin, self.draft_cos, self.draft_sin,
-                self.ecfg.draft_p_min, pcarry, M, T - 1, **kw)
+                self.ecfg.draft_p_min, pcarry, M, T - 1,
+                rope_delta=self._delta_operand(d, S * (7 + T)), **kw)
         return packed, ids, probs, tokps, tok_next, pos_end, last
 
     def _fill_spec_queue(self, dec: list, pend: _Spec) -> None:
@@ -1544,6 +1679,7 @@ class Engine:
             pos0[s.idx] = pos[s.idx]
             h[s.idx] = s.next_token
             h[2 * S + s.idx] = 1
+            h[3 * S + s.idx] = self._rope_delta(s.idx)
         h[S:2 * S] = pos0
         self._dec_in.push()
         if token0 is not None:
@@ -1573,9 +1709,21 @@ class Engine:
         d = self._dec_in.dev
         toks, ids, probs, tokps, self.kv, self.sstate = _decode_chain(
             self.params, self.cfg, d[:S], d[S:2 * S], self.kv, self.sstate,
-            self.arrs, d[2 * S:] != 0, self.rope_cos, self.rope_sin,
-            n_steps=K, **kw)
+            self.arrs, d[2 * S:3 * S] != 0, self.rope_cos, self.rope_sin,
+            n_steps=K, rope_delta=self._delta_operand(d, 3 * S), **kw)
         return toks, ids, probs, tokps
+
+    def _rope_delta(self, b: int) -> int:
+        """Slot b's M-RoPE decode delta (its task's mrope_delta; 0 for a
+        slot without one or a model without M-RoPE)."""
+        task = self.slots[b].task
+        return int(getattr(task, "mrope_delta", 0) or 0) if self.mrope \
+            else 0
+
+    def _delta_operand(self, d: torch.Tensor, off: int):
+        """The staged rope-delta operand at d[off:off + S] on an M-RoPE
+        model, else None (the program reads no delta)."""
+        return d[off:off + len(self.slots)] if self.mrope else None
 
     def _fill_chain_queue(self, dec: list, k_unemitted: int,
                           newest: _Chain) -> None:

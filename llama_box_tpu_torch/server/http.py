@@ -8,7 +8,7 @@ chunk per event, ending with `data: [DONE]`. The JSON shapes are the JAX
 server's (server/protocol.py).
 
 Routes: GET /health, GET /metrics (Prometheus text, `llamabox:*`), GET
-/v1/models (/models), GET /lora-adapters, POST /tokenize, POST
+/v1/models (/models), GET /props, GET /lora-adapters, POST /tokenize, POST
 /detokenize, POST /v1/completions (/completions) and POST
 /v1/chat/completions (/chat/completions), each streamed or not, with
 tools and tool_choice (tool_calls in the message and in SSE deltas),
@@ -18,9 +18,17 @@ server's -tps cap); POST /v1/embeddings (/embeddings; float or base64
 f32) and POST /v1/rerank (/rerank). The capabilities (`capabilities=`,
 the JAX server's names and defaults) gate the completion, embedding and
 reranking routes: a route that is off answers 404, and /v1/models
-reports them. Multimodal content, LoRA and images are not ported yet and
-are refused with a 400 or a 404; the port loads no adapter, so
-/lora-adapters lists none.
+reports them. With an mmproj (`multimodal=`, a MultimodalProcessor),
+chat messages take `image_url` parts (a data URI or an http(s) URL) and,
+when the mmproj has an audio encoder, `input_audio` parts (wav, or mp3
+where the platform's libmpg123 loads): each becomes a `<MTMD/>` marker
+in the templated prompt, wrapped in the family's scaffold and split into
+token and embedding chunks (server/multimodal.py; M-RoPE streams on a
+Qwen2-VL file); a part the server cannot take answers a 400. /props
+reports support_image and support_audio for that input (the JAX /v1/models
+meta's support_image names image generation, and stays false here). LoRA
+and image generation are not ported yet and are refused with a 400 or a
+404; the port loads no adapter, so /lora-adapters lists none.
 """
 
 from __future__ import annotations
@@ -66,13 +74,16 @@ class HTTPServer:
                  default_stop: tuple = (),
                  max_tps: float = 0.0,
                  default_grammar: str | None = None,
-                 capabilities: dict | None = None):
+                 capabilities: dict | None = None,
+                 multimodal=None):
         """max_tps: the server's decode-rate cap a request (-tps; 0 =
         none); default_grammar: the server-wide GBNF (--grammar,
         --grammar-file, --json-schema); capabilities: overrides of the
         route switches (completion and embedding on, reranking off by
-        default, as in the JAX server)."""
+        default, as in the JAX server); multimodal: the mmproj's
+        MultimodalProcessor, or None."""
         self.engine = engine
+        self.mp = multimodal
         self.model_name = model_name
         self.defaults = defaults or SamplerParams()
         self.chat = chat_templates or ChatTemplates(engine.tokenizer,
@@ -132,6 +143,21 @@ class HTTPServer:
 
     def lora_adapters(self, body: dict, rid: str, headers=None) -> list:
         return []
+
+    def props(self, body: dict, rid: str, headers=None) -> dict:
+        """The server's settings and its media inputs: support_image with
+        an mmproj, support_audio when it has an audio encoder."""
+        mp = self.mp
+        return {"model_alias": self.model_name,
+                "n_ctx": self.engine.slot_ctx,
+                "total_slots": len(self.engine.slots),
+                "chat_template": self.chat.source or "",
+                "support_image": mp is not None and mp.supports_image,
+                "support_audio": mp is not None and mp.supports_audio,
+                "modalities": {"vision": mp is not None
+                               and mp.supports_image,
+                               "audio": mp is not None
+                               and mp.supports_audio}}
 
     def metrics(self, body: dict, rid: str, headers=None) -> str:
         """Prometheus text exposition (JAX `handle_metrics`)."""
@@ -222,8 +248,9 @@ class HTTPServer:
                     "support_embedding": self.caps["embedding"],
                     "support_reranking": self.caps["reranking"],
                     "support_image": False,
-                    "support_vision": False,
-                    "support_audio": False,
+                    "support_vision": self.mp is not None,
+                    "support_audio": self.mp is not None
+                    and self.mp.supports_audio,
                     "support_speculative": (
                         self.engine.draft_params is not None
                         or self.engine.ecfg.lookup_ngram_min > 0),
@@ -352,7 +379,7 @@ class HTTPServer:
         if not isinstance(messages, list) or not messages:
             raise bad_request("\"messages\" must be a non-empty array",
                               "messages")
-        msgs = _normalize_messages(messages)
+        msgs, media = _normalize_messages(messages, self.mp)
         tools, tool_choice = migrate_functions(body)
         if tools is not None and not isinstance(tools, list):
             raise bad_request("\"tools\" must be an array", "tools")
@@ -364,8 +391,13 @@ class HTTPServer:
         prompt = self.chat.apply(msgs, tools=tools if use_tools else None,
                                  add_generation_prompt=True,
                                  extra_context=extra_ctx or None)
-        prompt_tokens = tok.encode(prompt, add_special=True,
-                                   parse_special=True)
+        chunks, mrope_delta = None, 0
+        if media:
+            prompt_tokens, chunks, mrope_delta = self._media_chunks(
+                prompt, media)
+        else:
+            prompt_tokens = tok.encode(prompt, add_special=True,
+                                       parse_special=True)
         reasoning = None
         if self.reasoning_markers is not None:
             reasoning = ReasoningSplitter(
@@ -378,7 +410,8 @@ class HTTPServer:
             if use_tools else None)
         task = self._task(body, rid, headers, prompt_tokens,
                           reasoning=reasoning, toolscan=toolscan,
-                          tools=tools if use_tools else None)
+                          tools=tools if use_tools else None, chunks=chunks,
+                          mrope_delta=mrope_delta)
         if not task.stream:
             def render(t):
                 extra = {}
@@ -416,9 +449,38 @@ class HTTPServer:
             return chat_chunk_json(t, self.model_name, delta, fr)
         return task, chunk_fn
 
+    def _media_chunks(self, prompt: str, media: list):
+        """The templated prompt with its media as prefill chunks (JAX
+        `handle_chat_completions`): the family's scaffold, then
+        build_chunks, or build_chunks_mrope on an M-RoPE model (the
+        trained grid as the fallback grid). A prompt longer than a slot
+        answers a 400. Returns (flat ids, chunks, mrope_delta)."""
+        from .multimodal import (build_chunks, build_chunks_mrope,
+                                 scaffold_prompt)
+        tok, mp = self.engine.tokenizer, self.mp
+        prompt = scaffold_prompt(prompt, self.engine.cfg.arch, media=media,
+                                 audio_family=mp.audio_family)
+        delta = 0
+        try:
+            if self.engine.cfg.mrope_sections:
+                side = mp.cfg.n_patches_side // max(mp.cfg.merge_size, 1)
+                flat, chunks, delta = build_chunks_mrope(
+                    prompt, media, tok, mp, [(side, side)] * len(media))
+            else:
+                flat, chunks = build_chunks(prompt, media, tok, mp)
+        except ValueError as exc:
+            raise bad_request(str(exc), "messages")
+        max_len = self.engine.slot_ctx - self.engine.ecfg.defrag_headroom
+        if len(flat) > max_len:
+            raise bad_request(
+                f"multimodal prompt is {len(flat)} tokens but the per-slot "
+                f"context allows {max_len}", "messages")
+        return flat, chunks, delta
+
     def _task(self, body: dict, rid: str, headers, prompt_tokens: list[int],
               n_keep: int = 0, reasoning=None, toolscan=None,
-              tools=None) -> CompletionsTask:
+              tools=None, chunks=None, mrope_delta: int = 0
+              ) -> CompletionsTask:
         tok = self.engine.tokenizer
         sparams = parse_sampling(body, self.defaults, tok.n_vocab,
                                  default_grammar=self.default_grammar)
@@ -443,7 +505,8 @@ class HTTPServer:
             stop_words=parse_stop(body, self.default_stop),
             stream=so["stream"], n_keep=n_keep, n_probs=sparams.n_probs,
             rid=rid, reasoning=reasoning, toolscan=toolscan,
-            rate_bucket=self._request_rate_bucket(headers))
+            rate_bucket=self._request_rate_bucket(headers), chunks=chunks)
+        task.mrope_delta = mrope_delta
         task.include_usage = so["include_usage"]
         self.engine.submit(task)
         return task
@@ -475,8 +538,42 @@ def _leaves(tree):
     return [tree]
 
 
-def _normalize_messages(messages: list) -> list[dict]:
-    out = []
+def _media_part(i: int, p: dict, mp) -> tuple:
+    """One image_url or input_audio content part as a (kind, bytes) media
+    item (JAX `_normalize_messages`); a part the server cannot take is a
+    400."""
+    ptype = p.get("type")
+    if ptype == "image_url" and mp is not None and mp.supports_image:
+        from .multimodal import fetch_image_bytes
+        url = (p.get("image_url") or {}).get("url", "")
+        try:
+            return "image", fetch_image_bytes(url)
+        except Exception as exc:  # noqa: BLE001
+            raise bad_request(f"messages[{i}] image fetch failed: {exc}",
+                              "messages")
+    if ptype == "input_audio" and mp is not None and mp.supports_audio:
+        from ..utils import mp3
+        ia = p.get("input_audio") or {}
+        fmt = ia.get("format", "wav")
+        ok_fmts = ("wav", "mp3") if mp3.available() else ("wav",)
+        if fmt not in ok_fmts:
+            raise bad_request(
+                f"messages[{i}] audio format \"{fmt}\" is not supported "
+                f"({'/'.join(ok_fmts)} only)", "messages")
+        try:
+            return "audio", base64.b64decode(ia.get("data", ""))
+        except Exception as exc:  # noqa: BLE001
+            raise bad_request(f"messages[{i}] audio decode failed: {exc}",
+                              "messages")
+    raise bad_request(f"messages[{i}].content type \"{ptype}\" is not "
+                      "supported by this model", "messages")
+
+
+def _normalize_messages(messages: list, mp=None) -> tuple[list[dict], list]:
+    """The chat messages with their content parts joined (a media part as
+    a `<MTMD/>` marker), and the media items in order."""
+    from .multimodal import MTMD_MARKER
+    out, media = [], []
     for i, m in enumerate(messages):
         if not isinstance(m, dict):
             raise bad_request(f"messages[{i}] must be an object", "messages")
@@ -491,11 +588,11 @@ def _normalize_messages(messages: list) -> list[dict]:
                     raise bad_request(
                         f"messages[{i}].content parts must be objects",
                         "messages")
-                if p.get("type") != "text":
-                    raise bad_request(
-                        f"messages[{i}].content type \"{p.get('type')}\" is "
-                        "not supported by this model", "messages")
-                parts.append(p.get("text", ""))
+                if p.get("type") == "text":
+                    parts.append(p.get("text", ""))
+                else:
+                    media.append(_media_part(i, p, mp))
+                    parts.append(MTMD_MARKER)
             content = "".join(parts)
         elif content is None:
             if m.get("tool_calls") is None:
@@ -511,7 +608,7 @@ def _normalize_messages(messages: list) -> list[dict]:
             if k in m:
                 nm[k] = m[k]
         out.append(nm)
-    return out
+    return out, media
 
 
 # the POST routes each capability switches on (JAX `build_app`)
@@ -532,7 +629,7 @@ class _Handler(BaseHTTPRequestHandler):
 
     _GET = {"/health": "health", "/metrics": "metrics",
             "/v1/models": "models", "/models": "models",
-            "/lora-adapters": "lora_adapters"}
+            "/lora-adapters": "lora_adapters", "/props": "props"}
 
     def log_message(self, fmt, *args):   # access log goes through SRV_INF
         pass

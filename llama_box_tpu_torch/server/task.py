@@ -149,6 +149,7 @@ class CompletionsTask(BaseTask):
         self.host_sampler = None    # sampling.HostSampler, set at admission
         self.ngram = None           # ngram.NgramCache, set at admission
         self.chunks = chunks        # None => plain text prompt
+        self.mrope_delta = 0        # M-RoPE: decode rotates at pos + this
 
         # mutable generation state
         self.generated: list[int] = []

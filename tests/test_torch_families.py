@@ -472,14 +472,18 @@ def test_alibi_slopes_match_jax(paths, heads):
     ("mrope_sections", (4, 2, 2), "mrope"), ("v_head_dim", 32, "v_head_dim"),
     ("kv_lora_rank", 16, "kv_lora"), ("ssm_d_inner", 16, "recurrent")])
 def test_outside_the_slice_is_refused_at_load(tmp_path, flag, value, named):
-    """M-RoPE, a V head width other than K's outside multi-head latent
-    attention, an MLA rank without its tensors, recurrent: still refused
-    by the port's check, by name (MLA files run:
-    tests/test_torch_families_mla.py)."""
+    """M-RoPE beside stacked rope tables (a local rope base), a V head
+    width other than K's outside multi-head latent attention, an MLA rank
+    without its tensors, recurrent: still refused by the port's check, by
+    name (MLA files run: tests/test_torch_families_mla.py; M-RoPE alone
+    passes the check and runs: tests/test_torch_multimodal_engine.py)."""
     path = str(tmp_path / "m.gguf")
     write_own(path, "qwen3")
     cfg, params = load_model(path, dtype=torch.float32, device="cpu")
     cfg = dataclasses.replace(cfg, **{flag: value})
+    if flag == "mrope_sections":
+        tllama.check_supported(cfg, params)
+        cfg = dataclasses.replace(cfg, rope_freq_base_swa=1e4)
     with pytest.raises(NotImplementedError, match=named):
         tllama.check_supported(cfg, params)
 

@@ -259,9 +259,10 @@ def _write_refused(path, arch, names, extra=()):
 @pytest.mark.parametrize("arch,names,cause", [
     ("jetmoe", ["blk.0.attn_q_exps.weight", "blk.0.attn_output_exps.weight"],
      "mixture-of-attention"),
-    # M-RoPE: the file loads, the check refuses it (MLA, this case until
-    # it was ported, loads and runs: tests/test_torch_families_mla.py)
-    ("qwen2vl", [], "mrope_sections"),
+    # M-RoPE: the file loads and, since M-RoPE was ported, passes the
+    # check (tests/test_torch_multimodal_engine.py runs it; MLA, this case
+    # before it was ported, loads and runs: tests/test_torch_families_mla.py)
+    ("qwen2vl", [], None),
     ("jamba", ["blk.0.ssm_in.weight"], "recurrent")])
 def test_moa_mla_and_recurrent_files_are_refused(tmp_path, arch, names,
                                                  cause):
@@ -269,6 +270,11 @@ def test_moa_mla_and_recurrent_files_are_refused(tmp_path, arch, names,
     _write_refused(path, arch, names, (("rope.dimension_sections",
                                         [2, 3, 3, 0]),)
                    if arch == "qwen2vl" else ())
+    if cause is None:
+        cfg, params = load_model(path, dtype=torch.float32, device="cpu")
+        assert cfg.mrope_sections == (2, 3, 3, 0)
+        tllama.check_supported(cfg, params)
+        return
     with pytest.raises(NotImplementedError, match=cause):
         cfg, params = load_model(path, dtype=torch.float32, device="cpu")
         tllama.check_supported(cfg, params)

@@ -211,3 +211,31 @@ def test_decode_plain_matches_pallas_at_head_widths(D, layer, dtype):
         as_t(c["meta"]), as_t(win), softcap=50.0)
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=F32_ATOL if dtype == "f32" else BF16_ATOL)
+
+
+@pytest.mark.parametrize("name", ["causal", "bidir", "int8", "dk_ne_dv"])
+def test_prefill_plain_reads_the_meta_slot(name):
+    """A fifth meta column names the cache row a batch row reads: the
+    same numbers as a four-column meta over those rows of the cache."""
+    kw = dict(PREFILL_CASES[name])
+    win = as_t(np.asarray(kw.pop("win", (0, 0)), np.int32))
+    rng = np.random.default_rng(11)
+    c = prefill_case(rng, B=4, pos0=(48, 16, 30, 5),
+                     n_valid=(64, 40, 10, 64), **(
+                         dict(spans=[(8, 40), (0, 0), (2, 20), (0, 0)])
+                         if name == "bidir" else kw))
+    scales = ({} if "ks" not in c else
+              dict(k_scale=as_t(c["ks"]), v_scale=as_t(c["vs"])))
+    rows = [3, 1]
+    meta5 = np.concatenate(
+        [c["meta"][rows], np.asarray(rows, np.int32)[:, None]], axis=1)
+    got = flash_prefill_batched(
+        as_t(c["q"][rows]), as_t(c["kc"]), as_t(c["vc"]),
+        as_t(c["kr"][rows]), as_t(c["vr"][rows]), as_t(meta5), win,
+        **scales)
+    want = flash_prefill_batched(
+        as_t(c["q"][rows]), as_t(c["kc"][rows]), as_t(c["vc"][rows]),
+        as_t(c["kr"][rows]), as_t(c["vr"][rows]), as_t(c["meta"][rows]), win,
+        **{k: v[rows] for k, v in scales.items()})
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -162,6 +162,50 @@ def test_prefill_kernel_ragged_edges(cuda, dtype, quant, G):
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16cache", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_kernel_reads_the_meta_slot(cuda, dtype, quant):
+    """A fifth meta column names the cache row each batch row reads (the
+    engine's one program for every slot): slots 2 and 0 of a 4-slot cache
+    whose other slots are all NaN give the bits of a four-column meta on
+    those slots' rows alone, and the plain version's numbers."""
+    rng = np.random.default_rng(41)
+    c = prefill_case(rng, B=4, Hkv=4, G=8, D=64, C=256, T=77,
+                     pos0=(131, 0, 90, 5), n_valid=(77, 0, 50, 13),
+                     spans=[(0, 0), (0, 0), (100, 140), (0, 0)],
+                     quant=quant)
+    _poison(c, c["meta"][:, 0])
+    _poison(c, [256, 0, 256, 0])         # slots 1 and 3 are never read
+    rows = [2, 0]
+    args, sc = _on(cuda, c, dtype)
+    q, kc, vc, kr, vr = args
+    meta5 = np.concatenate(
+        [c["meta"][rows], np.asarray(rows, np.int32)[:, None]], axis=1)
+    meta5 = as_t(meta5).to(cuda)
+    win = torch.zeros(2, dtype=torch.int32)
+    sub = [q[rows].contiguous(), kr[rows].contiguous(),
+           vr[rows].contiguous()]
+    before = flash_prefill_batched.launches
+    got = flash_prefill_batched(sub[0], kc, vc, sub[1], sub[2], meta5, win,
+                                **sc)
+    assert flash_prefill_batched.launches == before + 1
+    meta4 = as_t(c["meta"][rows]).to(cuda)
+    sc4 = {k: v[rows].contiguous() for k, v in sc.items()}
+    alone = flash_prefill_batched(sub[0], kc[rows].contiguous(),
+                                  vc[rows].contiguous(), sub[1], sub[2],
+                                  meta4, win, **sc4)
+    want = flash_prefill_plain(sub[0], kc, vc, sub[1], sub[2], meta5, win,
+                               **sc)
+    torch.cuda.synchronize()
+    atol = F32_ATOL if dtype == torch.float32 and not quant else BF16_ATOL
+    for i, b in enumerate(rows):
+        nv = int(c["meta"][b, 1])
+        assert torch.isfinite(got[i, :, :, :nv]).all()
+        assert torch.equal(got[i, :, :, :nv], alone[i, :, :, :nv])
+        torch.testing.assert_close(got[i, :, :, :nv], want[i, :, :, :nv],
+                                   rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16cache", "int8"])
 def test_prefill_kernel_cold_equals_cached_prefix(cuda, quant):
     """A 300-token prompt prefilled cold gives the same output rows as the
     same prompt with its first 137 positions in the cache: bit for bit on a
@@ -2923,3 +2967,139 @@ def test_dense_mm_rows_keep_their_bits_up_to_64_rows(cuda, dtype, kn):
     assert torch.equal(mm(x[8:9], w), four[:1])
     torch.testing.assert_close(mm(x, w), torch.matmul(x, w), rtol=0,
                                atol=0)
+
+
+# -- multimodal prompts: the towers and the embedding-chunk prefill ----------
+
+import chip_smoke  # noqa: E402  (its mmproj writer; no JAX there either)
+
+_TOWERS = {
+    "clip": dict(kind="clip", proj="mlp", E=64, H=4, FF=128, L=2, img=56,
+                 patch=14, out=64),
+    "qwen2vl": dict(kind="qwen2vl", proj="qwen2vl_merger", E=64, H=4,
+                    FF=128, L=2, img=56, patch=14, out=64),
+    "whisper": dict(kind="whisper", proj="qwen2a", E=64, H=4, FF=128, L=2,
+                    mels=128, out=64),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(_TOWERS))
+def test_tower_on_the_card_matches_its_cpu_run(cuda, tmp_path, kind):
+    """A vision or audio tower (plain torch ops in f32) on the card against
+    the same tower on the CPU, within 1e-4 x max|CPU|."""
+    from llama_box_tpu_torch.cli import load_multimodal
+    path = str(tmp_path / "mmproj.gguf")
+    chip_smoke.write_mmproj(path, kind, 0, _TOWERS[kind])
+    card = load_multimodal(path, 64, cuda)
+    host = load_multimodal(path, 64, "cpu")
+    if kind == "whisper":
+        data = chip_smoke.wav_bytes(1.0, 3)
+        got, _ = card.encode_audio(data)
+        want, _ = host.encode_audio(data)
+    else:
+        data = chip_smoke.png_bytes(90, 50, 3)
+        got, _ = card.encode(data)
+        want, _ = host.encode(data)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+
+
+def _span_logits(cfg, params, emb, span, plain=False):
+    """A 24-token text chunk, then the embedding rows at position 24 (with
+    the bidirectional span over them, or none), into slot 1 of a 2-slot
+    cache (the slot an operand, as the engine passes it): the last row's
+    logits, through the flash prefill kernel or its plain version."""
+    from llama_box_tpu_torch.models import llama
+    kv = llama.init_kv_cache(cfg, 2, 256, torch.bfloat16, device="cuda")
+    slot = torch.tensor([1], device="cuda")
+    cos, sin = llama.make_rope(cfg, 256, device="cuda")
+    n = emb.shape[1]
+    saved = llama.flash_prefill_batched
+    try:
+        if plain:
+            llama.flash_prefill_batched = fp_mod.flash_prefill_plain
+        llama.prefill_batch_impl(params, cfg,
+                                 torch.arange(3, 27, device="cuda")[None],
+                                 [0], [24], kv, cos, sin, slots=slot)
+        lg, _ = llama.prefill_batch_impl(
+            params, cfg, None, [24], [n], kv, cos, sin, embeds=emb,
+            bidir=torch.tensor([[24, 24 + n] if span else [0, 0]],
+                               device="cuda"), slots=slot)
+    finally:
+        llama.flash_prefill_batched = saved
+    assert not kv.k[:, 0].any()         # slot 0 untouched
+    return lg[0].float()
+
+
+def test_embedding_chunk_with_a_span_matches_the_plain_version(cuda,
+                                                              tiny_model):
+    """An embedding chunk under gemma3's bidirectional span, on each
+    weights path: the kernel's logits against its plain version (cosine
+    >= 0.999, 2e-2 x max), and the span changes them."""
+    _, cfg, params, _ = tiny_model
+    rng = np.random.default_rng(7)
+    emb = torch.from_numpy(rng.standard_normal(
+        (1, 40, cfg.n_embd)).astype(np.float32)).to(cuda, torch.bfloat16)
+    before = flash_prefill_batched.launches
+    kern = _span_logits(cfg, params, emb, True)
+    assert flash_prefill_batched.launches > before
+    plain = _span_logits(cfg, params, emb, True, plain=True)
+    causal = _span_logits(cfg, params, emb, False)
+    cos = torch.nn.functional.cosine_similarity(kern, plain, dim=0)
+    assert cos >= 0.999, float(cos)
+    torch.testing.assert_close(kern, plain, rtol=0,
+                               atol=BF16_ATOL * float(plain.abs().max()))
+    assert not torch.equal(kern, causal)
+
+
+def test_multimodal_chat_graphs_equal_eager(cuda, tiny_model):
+    """A chat of token and embedding chunks (the engine's single-slot
+    path, one graph a key) gives the same greedy tokens with graphs and
+    eagerly, and again from the prefix cache; four such chats at once, one
+    a slot, too, and the graphs' keys name no slot: one graph a (kind,
+    bucket) serves every slot."""
+    from llama_box_tpu_torch.sampling import SamplerParams
+    from llama_box_tpu_torch.server.task import CompletionsTask
+    _, cfg, _, tok = tiny_model
+    rng = np.random.default_rng(9)
+    emb = rng.standard_normal((45, cfg.n_embd)).astype(np.float32)
+    chunks = [("tokens", [1, 40, 41, 42, 43]),
+              ("embed", emb, [-(10 ** 6) - i for i in range(45)]),
+              ("tokens", [44, 45, 46])]
+    flat = [t for ch in chunks for t in (ch[2] if ch[0] == "embed"
+                                         else ch[1])]
+
+    def lead(i):        # the chat with another first chunk
+        ch = [("tokens", [1, 50 + i, 41, 42, 43])] + chunks[1:]
+        return [1, 50 + i] + flat[2:], ch
+
+    out = {}
+    for graphs in (True, False):
+        eng = _engine(tiny_model, graphs, start=True)
+        try:
+            runs = []
+            for _ in range(3):
+                t = CompletionsTask(list(flat),
+                                    SamplerParams(temp=0.0, ignore_eos=True),
+                                    tokenizer=tok, max_tokens=24,
+                                    chunks=chunks)
+                eng.submit(t)
+                runs.append(chip_smoke.wait_final(t))
+            assert runs[-1].n_cached >= len(flat) - 1
+            par = [CompletionsTask(f, SamplerParams(temp=0.0,
+                                                    ignore_eos=True),
+                                   tokenizer=tok, max_tokens=24, chunks=c)
+                   for f, c in map(lead, range(4))]
+            for t in par:
+                eng.submit(t)
+            runs += [chip_smoke.wait_final(t) for t in par]
+            out[graphs] = [r.generated for r in runs]
+            if graphs:
+                keys = [k for k in eng.graphs._graphs
+                        if k[0] == "prefill_mm"]
+                assert keys and all(len(k) == 3 for k in keys), keys
+        finally:
+            eng.stop()
+    assert out[True][0] == out[True][1] == out[True][2] == out[False][0]
+    assert out[True] == out[False]

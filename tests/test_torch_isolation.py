@@ -72,3 +72,24 @@ def test_grammar_core_is_the_ports_own_copy():
            if any(w in p.read_text() for w in ("libgguf_kernels",
                                                "LLAMA_BOX_TPU_NO_NATIVE"))]
     assert not bad, bad
+
+
+def test_multimodal_modules_are_covered():
+    """The multimodal modules (the towers, the pipeline, the mp3 binding)
+    are among the modules both checks above scan and import, and the
+    pipeline decodes images through Pillow, imported where an image is
+    decoded, never at import."""
+    names = _module_names()
+    for mod in ("llama_box_tpu_torch.models.clip",
+                "llama_box_tpu_torch.models.audio",
+                "llama_box_tpu_torch.server.multimodal",
+                "llama_box_tpu_torch.utils.mp3"):
+        assert mod in names
+    code = ("import sys\n"
+            "import llama_box_tpu_torch.server.multimodal, "
+            "llama_box_tpu_torch.models.clip, "
+            "llama_box_tpu_torch.models.audio, llama_box_tpu_torch.cli\n"
+            "assert 'PIL' not in sys.modules, 'Pillow at import'\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
