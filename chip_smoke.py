@@ -293,6 +293,27 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     on Gemma-3-1B's bf16 path, an image chat through an mlp mmproj (its
     image rows under the bidirectional span) and the spanned logits
     through the kernel against its plain version;
+ 16. LoRA adapters and a control vector, after phase 10, on phase 5's
+    TinyLlama-width files (8 layers, -np 4 -c 8192 -ub 512
+    --decode-chain 16): two adapters written from the seed (a: rank 16,
+    alpha 32, all seven projections of every layer and output.weight; b:
+    rank 8, alpha 16, q, v and down) and a control vector (every layer).
+    16a / 16w / 16q: --lora a --lora b --lora-per-request (the prefix
+    cache off, see lora_serve) on the bf16, w8a8 and q4 paths: a wave of
+    4 greedy chats, one adapter mix a slot (LORA_MIXES), whose texts
+    equal each request served alone, the wave at K = 1 and with n-gram
+    drafts; its captures against the same wave without `lora` fields and
+    against the base weights' engine after the same waves; decode tok/s,
+    TTFT p50 and kernels a layer a decode step against the base; one
+    request's kernels (the w8a8 tail never: the scale rows shut the fused
+    gates). 16b: --lora a merged on bf16, the served first answer token's
+    logits against the f32 host forward of the merged weights, and the
+    dynamic path at a's scale against the host merge of a's layer pairs
+    (cosine >= LORA_COS). 16c: --control-vector-scaled c 0.8
+    --control-vector-layer-range 2 6 on bf16 and w8a8 against the f32
+    host forward with the vector (CVEC_COS), on w8a8 also against the
+    plain versions on the host over the same QTensors (CVEC_PLAIN_COS),
+    the fused w8a8 kernels still launched;
  9. print a `kernels` line (nine kernels; launches count graph replays;
     each also with its launches in the self-drafting waves of 8/8w/8q,
     in phase 8's n-gram, self-draft and 2-layer draft waves and in each
@@ -303,6 +324,13 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     of one phase 13 bf16 request), an `e2e` line (three paths and phases
     6, 7, 8, 10, 11, 12, 13 and 14), the card line, and as the last line
     {"ok": true, "device": {...}}.
+
+Flags outside the default run: --families serves jetmoe/jetmoe-8b's
+widths (2 of 24 layers: mixture of attention and MoE FFNs) and
+apple/OpenELM-270M's (all 16 layers, per-layer heads and FFN widths) on
+the bf16 path on phase 11's machinery (cosine to the f32 host forward);
+--depth-check N holds Qwen3-1.7B's w8a8 path at N layers against the
+plain versions and f32, layer by layer (depth_check).
 
 It imports nothing of JAX and nothing of the JAX package. Without CUDA,
 or without the llama_box_tpu_torch package beside it, it exits non-zero
@@ -1612,8 +1640,6 @@ def e2e_phase(dev, seed, tmp, profile=False, mode="bf16"):
     finally:
         for k in env:
             del os.environ[k]
-        if mode != "bf16":          # phase 8 serves the bf16 file again
-            os.remove(path)
     url = f"http://127.0.0.1:{srv.server_address[1]}"
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
@@ -4524,17 +4550,20 @@ def _q8_random(rng, shape, std=0.02) -> bytes:
     return blocks.tobytes()
 
 
-def write_variant(path: str, name: str, seed: int) -> None:
+def write_variant(path: str, name: str, seed: int,
+                  n_layers: int | None = None) -> None:
     """The synthetic GGUF of VARIANTS[name] (or ATTN_VARIANTS',
-    MOE_VARIANTS', MLA_VARIANTS'): Q8_0 matrices (the expert stacks too),
-    F32 vectors and the MoE router in F32 (as llama.cpp's converter writes
-    it), random from `seed`, a synthetic vocabulary of the published size
-    and the chatml template."""
+    MOE_VARIANTS', MLA_VARIANTS', FAMILY_VARIANTS'): Q8_0 matrices (the
+    expert stacks too), F32 vectors and the MoE routers in F32 (as
+    llama.cpp's converter writes them), random from `seed`, a synthetic
+    vocabulary of the published size and the chatml template; n_layers in
+    place of the config's depth where given."""
     from llama_box_tpu_torch.gguf import GGMLType, GGUFWriter
     c = {**VARIANTS, **ATTN_VARIANTS, **MOE_VARIANTS, **MLA_VARIANTS,
-         **MM_VARIANTS}[name]
+         **MM_VARIANTS, **FAMILY_VARIANTS}[name]
     a, L_, E_, H_, HKV_, D_, FF_, V_ = (c[k] for k in (
         "arch", "L", "E", "H", "HKV", "D", "FF", "V"))
+    L_ = n_layers or L_
     rng = np.random.default_rng(seed + 111)
     vocab, scores, types = spm_vocab(V_)
     w = GGUFWriter(path, architecture=a)
@@ -4561,6 +4590,18 @@ def write_variant(path: str, name: str, seed: int) -> None:
         w.add_kv(k, v)
     if a == "gptneox":
         w.add_kv(f"{a}.use_parallel_residual", True)
+    if a == "openelm":
+        # the per-layer arrays after the scalars: a reader keeps the last
+        for k, v in (("attention.head_count", c["hc"]),
+                     ("attention.head_count_kv", c["hk"]),
+                     ("feed_forward_length", c["ffs"]),
+                     ("attention.key_length", D_)):
+            w.add_kv(f"{a}.{k}", v)
+    if a == "jetmoe":
+        for k, v in (("expert_count", c["X"]), ("expert_used_count", c["K"]),
+                     ("attention.key_length", D_),
+                     ("attention.value_length", D_)):
+            w.add_kv(f"{a}.{k}", v)
     if "sections" in c:
         w.add_kv(f"{a}.rope.dimension_sections",
                  np.asarray(c["sections"], np.int32))
@@ -4619,7 +4660,7 @@ def write_variant(path: str, name: str, seed: int) -> None:
     if ln:
         vec("output_norm.bias", E_)
     if a in ("gptneox", "qwen3moe", "deepseek2", "minicpm3", "llama",
-             "qwen2"):
+             "qwen2", "jetmoe"):
         # qwen3, gemma3, bloom and qwen2vl tie theirs
         mat("output.weight", V_, E_)
     if a == "minicpm3":
@@ -4644,6 +4685,32 @@ def write_variant(path: str, name: str, seed: int) -> None:
             mat(p + "ffn_up.weight", FF_, E_)
             vec(p + "ffn_up.bias", FF_)
             mat(p + "ffn_down.weight", E_, FF_)
+            vec(p + "ffn_down.bias", E_)
+        elif a == "openelm":
+            # the layer's own head counts and FFN width, a fused qkv
+            hq, hk, ff = c["hc"][i], c["hk"][i], c["ffs"][i]
+            mat(p + "attn_qkv.weight", (hq + 2 * hk) * D_, E_)
+            mat(p + "attn_output.weight", E_, hq * D_)
+            vec(p + "attn_q_norm.weight", D_, one=True)
+            vec(p + "attn_k_norm.weight", D_, one=True)
+            mat(p + "ffn_gate.weight", ff, E_)
+            mat(p + "ffn_up.weight", ff, E_)
+            mat(p + "ffn_down.weight", E_, ff)
+        elif a == "jetmoe":
+            # mixture of attention: q and output experts over the shared k
+            # and v, a router, the output bias; then the FFN's experts
+            X_ = c["X"]
+            mat(p + "attn_q_exps.weight", X_, kvd, E_)
+            mat(p + "attn_output_exps.weight", X_, E_, kvd)
+            mat(p + "attn_k.weight", kvd, E_)
+            mat(p + "attn_v.weight", kvd, E_)
+            vec(p + "attn_output.bias", E_)
+            for r in ("attn_gate_inp", "ffn_gate_inp"):
+                w.add_tensor(p + f"{r}.weight", rng.standard_normal(
+                    (X_, E_), dtype=np.float32) * 0.02)
+            mat(p + "ffn_gate_exps.weight", X_, FF_, E_)
+            mat(p + "ffn_up_exps.weight", X_, FF_, E_)
+            mat(p + "ffn_down_exps.weight", X_, E_, FF_)
             vec(p + "ffn_down.bias", E_)
         elif "KVLORA" in c:
             # multi-head latent attention: q (low rank, or a plain wq), kv
@@ -5816,12 +5883,582 @@ def gemma3_span_check(seed, tmp):
 SPAN_REL = 0.05
 
 
+# ---------------------------------------------------------------------------
+# phase 16: LoRA adapters (per request and merged) and a control vector on
+# phase 5's TinyLlama-width model
+
+# the adapters: name -> (rank, alpha, targets, with output.weight's pair);
+# a on all seven projections of every layer and the output projection, b
+# on q, v and down. Random from the seed at LORA_STD: a delta's std is
+# sqrt(rank) x LORA_STD^2 x alpha / rank, about a third of the weights'
+# 0.02, so each adapter moves the logits well past bf16 noise
+LORA_SHAPES = {"attn_q": (H * D, E), "attn_k": (HKV * D, E),
+               "attn_v": (HKV * D, E), "attn_output": (E, H * D),
+               "ffn_gate": (FF, E), "ffn_up": (FF, E), "ffn_down": (E, FF)}
+LORA_ADAPTERS = {"a": (16, 32.0, tuple(LORA_SHAPES), True),
+                 "b": (8, 16.0, ("attn_q", "attn_v", "ffn_down"), False)}
+LORA_STD = 0.03
+# one wave's adapter mixes, one a slot: the default scales (no field),
+# both off, b alone, half of each
+LORA_MIXES = (None, [{"id": 0, "scale": 0.0}, {"id": 1, "scale": 0.0}],
+              [{"id": 1, "scale": 1.0}],
+              [{"id": 0, "scale": 0.5}, {"id": 1, "scale": 0.5}])
+# adapter a at its default scale, b off: the static merge's counterpart
+LORA_A_ONLY = [{"id": 0, "scale": 1.0}, {"id": 1, "scale": 0.0}]
+LORA_PROMPT, LORA_TOKENS = 200, 64
+LORA_COS = 0.999
+# the control vector: every layer's direction (std CVEC_STD) at scale 0.8,
+# layers 2 to 6 (1-based) steered
+CVEC_STD, CVEC_SCALE, CVEC_RANGE = 0.2, "0.8", ("2", "6")
+# served logits against the f32 host forward with the vector; on w8a8 also
+# against the plain versions on the host over the same QTensors, within
+# phase 5's w8a8 bound (an int8 code the fused norm's other summation
+# order moves shifts a row by more than a bf16 rounding)
+CVEC_COS = {"bf16": 0.999, "w8a8": 0.995}
+CVEC_PLAIN_COS = 0.99
+# the kernels one request under per-request LoRA must launch on each path
+# (all others: none): the fused gates are shut by the scale rows, so the
+# w8a8 tail never runs; the output projection's norm-quantize-matmul does
+LORA_KERNELS = {
+    "bf16": ("flash_prefill", "flash_decode", "row_norm"),
+    "w8a8": ("flash_prefill", "flash_decode", "w8a8_matmul",
+             "fused_norm_qmm", "row_norm"),
+    "q4": ("flash_prefill", "flash_decode", "q4_matmul", "q8_matmul",
+           "row_norm")}
+
+
+def write_lora(path: str, name: str, seed: int) -> None:
+    """Adapter LORA_ADAPTERS[name] as a GGUF: lora_a [r, in] and lora_b
+    [out, r] f32 for each target of every layer (and output.weight's)."""
+    from llama_box_tpu_torch.gguf import GGUFWriter
+    rank, alpha, targets, with_output = LORA_ADAPTERS[name]
+    rng = np.random.default_rng(seed + 160 + len(name) + ord(name[0]))
+    w = GGUFWriter(path, architecture="llama")
+    for k, v in (("general.type", "adapter"), ("adapter.type", "lora"),
+                 ("general.name", f"synthetic-lora-{name}"),
+                 ("adapter.lora.alpha", alpha)):
+        w.add_kv(k, v)
+    pairs = [(f"blk.{i}.{t}", LORA_SHAPES[t]) for i in range(L)
+             for t in targets] + ([("output", (V, E))] if with_output else [])
+    for base, (n_out, n_in) in pairs:
+        for part, shape in (("a", (rank, n_in)), ("b", (n_out, rank))):
+            w.add_tensor(f"{base}.weight.lora_{part}", rng.standard_normal(
+                shape, dtype=np.float32) * LORA_STD)
+    w.write()
+
+
+def write_cvec(path: str, seed: int) -> None:
+    """A control vector GGUF: direction.<N> [E] for every layer N
+    (1-based)."""
+    from llama_box_tpu_torch.gguf import GGUFWriter
+    rng = np.random.default_rng(seed + 169)
+    w = GGUFWriter(path, architecture="controlvector")
+    for li in range(L):
+        w.add_tensor(f"direction.{li + 1}", rng.standard_normal(
+            E, dtype=np.float32) * CVEC_STD)
+    w.write()
+
+
+def _lora_chats(url, texts, mixes, n=LORA_TOKENS):
+    """Greedy ignore_eos chats of texts[i] under mixes[i] (None: no
+    `lora` field), at once: (contents, bodies, wall seconds)."""
+    def chat(text, mix):
+        body = dict(messages=[{"role": "user", "content": text}],
+                    max_tokens=n, temperature=0, ignore_eos=True)
+        if mix is not None:
+            body["lora"] = mix
+        return http(url + "/v1/chat/completions", body)
+    t0 = time.perf_counter()
+    res = concurrently([lambda t=t, m=m: chat(t, m)
+                        for t, m in zip(texts, mixes)])
+    wall = time.perf_counter() - t0
+    bodies = []
+    for st, text, _ in res:
+        assert st == 200, st
+        b = json.loads(text)
+        assert b["usage"]["completion_tokens"] == n, b["usage"]
+        bodies.append(b)
+    return [b["choices"][0]["message"]["content"] for b in bodies], bodies, \
+        wall
+
+
+def _rates(eng, fn):
+    """fn() (a wave on `eng`) under fresh metrics: its result, decode and
+    prefill tok/s (the engine's) and the chats' TTFT p50 (fn's bodies)."""
+    from llama_box_tpu_torch.server.metrics import Metrics
+    eng.metrics = Metrics()
+    out = fn()
+    m = eng.metrics.snapshot()
+    return out, dict(
+        decode_tok_s=m["n_decode_total"] / m["t_decode_total_ms"] * 1e3,
+        prefill_tok_s=m["n_prefill_total"] / m["t_prefill_total_ms"] * 1e3,
+        ttft_p50_ms=statistics.median(
+            b["usage"]["time_to_first_token_ms"] for b in out[1]))
+
+
+def _without_lora(params) -> dict:
+    """The param tree without the LoRA stacks and scale rows (the base
+    model in the same layout)."""
+    return {k: ({n: w for n, w in v.items() if not n.startswith("lora_")}
+                if k == "layers" else v)
+            for k, v in params.items() if k != "lora_scales"}
+
+
+def _host_logits(params, cfg, ids, kv_dtype=torch.float32) -> torch.Tensor:
+    """The host (CPU, plain versions) forward of one prompt, f32 unless
+    the params and `kv_dtype` say otherwise: its last row's logits [V]."""
+    from llama_box_tpu_torch.models import llama
+    C = -(-len(ids) // 64) * 64
+    kv = llama.init_kv_cache(cfg, 1, C, kv_dtype, device="cpu")
+    cos, sin = llama.make_rope(cfg, C, device="cpu")
+    lg, _ = llama.prefill_batch_impl(params, cfg, torch.tensor([ids]), [0],
+                                     [len(ids)], kv, cos, sin)
+    return lg[0]
+
+
+def _cos1(a, b) -> float:
+    return float(torch.nn.functional.cosine_similarity(
+        a.double()[None], b.double()[None])[0])
+
+
+def _lora_server(dev, mode, extra):
+    """The CLI's server of phase 5's `mode` file with `extra` flags, bound
+    and serving: (engine, server, url, thread, load seconds)."""
+    from llama_box_tpu_torch import cli
+    _, _, flags, env, _ = PATHS[mode]
+    t0 = time.perf_counter()
+    os.environ.update(env)            # the residency switches: load time
+    try:
+        engine, srv = cli.build_server([
+            "-m", _LORA_FILES["model"][mode], "--port", "0", "-np",
+            str(N_SLOTS), "-c", str(N_CTX), "-ub", str(N_UBATCH),
+            "--decode-chain", str(CHAIN), "--no-jinja", "--device",
+            dev.type] + flags + extra)
+    finally:
+        for k in env:
+            del os.environ[k]
+    load_s = time.perf_counter() - t0
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    return engine, srv, f"http://127.0.0.1:{srv.server_address[1]}", \
+        thread, load_s
+
+
+def _close(engine, srv, thread) -> None:
+    srv.shutdown()
+    srv.server_close()
+    engine.stop()
+    thread.join(timeout=30)
+
+
+_LORA_FILES: dict = {}
+
+
+def lora_serve(dev, seed, tmp, mode) -> dict:
+    """Phase 16a on one path: --lora a --lora b --lora-per-request. Two
+    warm-up waves of the four mixes (other prompts), then the measured
+    wave (4 greedy chats, LORA_MIXES one a slot: texts, captures, rates),
+    the same wave without `lora` fields (its captures), each request
+    served alone (texts equal the wave's), the wave at K = 1 (equal to K =
+    16), the wave with n-gram drafts (lookup 1, chain 1 as phase 8's;
+    equal to plain decode, the drafts counted), one request
+    counting its kernels from 0; then the same weights without the stacks
+    on a fresh engine behind the same routes (the base: its captures and
+    rates after the same waves) and one captured decode step of each
+    (kernels a layer). The prefix cache is off (--no-prompt-cache): a
+    slot's cached rows keep the adapter mix of the request that left them
+    and a request with another mix reuses them, as in JAX (ROADMAP: the
+    reference's quirks), so every request here prefills cold, its rows'
+    bits those of a cold pass of the same bucket. On bf16 also adapter a
+    alone at its default scale (b off), its served first answer token's
+    logits returned for the merge check."""
+    from llama_box_tpu_torch.server.engine import Engine
+    phase = PATHS[mode][0].replace("5", "16")
+    log(f"== phase {phase}: per-request LoRA, {mode} path")
+    engine, srv, url, thread, load_s = _lora_server(dev, mode, [
+        "--lora", _LORA_FILES["a"], "--lora", _LORA_FILES["b"],
+        "--lora-per-request", "--no-prompt-cache"])
+    routes = srv.RequestHandlerClass.routes
+    counters = kernel_counters()
+    out: dict = dict(load_s=load_s)
+    try:
+        tok = engine.tokenizer
+        assert engine.n_lora == 2 and engine.cfg.rope_mode == "norm"
+        rng = np.random.default_rng(seed + 163)
+        warm, texts = ([make_prompt(tok, rng, LORA_PROMPT)
+                        for _ in range(N_SLOTS)] for _ in range(2))
+        none = [None] * N_SLOTS
+        for _ in range(2):
+            _lora_chats(url, warm, LORA_MIXES)
+        n0 = engine.graphs.n_graphs
+        (mixed, bodies, _), rates = _rates(
+            engine, lambda: _lora_chats(url, texts, LORA_MIXES))
+        graphs_after = engine.graphs.n_graphs
+        out.update(lora=rates, captured_mixed=graphs_after - n0)
+        n0 = engine.graphs.n_graphs
+        _lora_chats(url, texts, none)
+        out["captured_no_fields"] = engine.graphs.n_graphs - n0
+        alone = [_lora_chats(url, [t], [m])[0][0]
+                 for t, m in zip(texts, LORA_MIXES)]
+        engine.ecfg = dataclasses.replace(engine.ecfg, decode_chain=1)
+        k1 = _lora_chats(url, texts, LORA_MIXES)[0]
+        engine.ecfg = dataclasses.replace(engine.ecfg, decode_chain=1,
+                                          lookup_ngram_min=1)
+        d0 = engine.metrics.n_drafted_total
+        ngram = _lora_chats(url, texts, LORA_MIXES)[0]
+        drafted = engine.metrics.n_drafted_total - d0
+        engine.ecfg = dataclasses.replace(engine.ecfg, decode_chain=CHAIN,
+                                          lookup_ngram_min=0)
+        for fn in counters.values():
+            fn.launches = 0
+        _lora_chats(url, texts[3:], LORA_MIXES[3:])
+        launches = {k: fn.launches for k, fn in counters.items()}
+        if mode == "bf16":
+            _, _, logits = served_request(engine, lambda: _lora_chats(
+                url, texts[:1], [LORA_A_ONLY]))
+            out.update(a_only_logits=logits, a_only_text=texts[0])
+        ecfg = dataclasses.replace(engine.ecfg)
+        step = Engine(engine.cfg, engine.params, tok, ecfg,
+                      device=str(engine.device))
+        base = Engine(engine.cfg, _without_lora(engine.params), tok, ecfg,
+                      device=str(engine.device))
+        if dev.type == "cuda":
+            out.update(kernels_a_step=len(step_kernels(step, tmp)),
+                       base_kernels_a_step=len(step_kernels(base, tmp)))
+        del step
+        base.start()
+        b_url, close = _serve_engine(routes, base)
+        try:
+            for _ in range(2):
+                _lora_chats(b_url, warm, none)
+            _, out["base"] = _rates(base, lambda: _lora_chats(
+                b_url, texts, none))
+            out["base_graphs_after"] = base.graphs.n_graphs
+        finally:
+            close()
+        out.update(graphs_after=graphs_after,
+                   pool_mib=engine.graphs.pool_bytes / 2**20)
+    finally:
+        _close(engine, srv, thread)
+    for k in ("kernels_a_step", "base_kernels_a_step"):
+        if k in out:
+            out[k.replace("kernels_a_step", "kernels_a_layer")] = \
+                out[k] / L
+    out.update(texts_alone_equal=alone == mixed, texts_k1_equal=k1 == mixed,
+               texts_ngram_equal=ngram == mixed, drafted=drafted,
+               mixes_differ=len(set(mixed)) == N_SLOTS,
+               launches_one_request=launches)
+    log(f"  {mode}: loaded in {load_s:.1f} s; the mixed wave's texts: alone "
+        f"= in the wave {out['texts_alone_equal']}, K=1 = K={CHAIN} "
+        f"{out['texts_k1_equal']}, n-gram drafts = plain "
+        f"{out['texts_ngram_equal']} ({drafted} drafted), four mixes four "
+        f"texts {out['mixes_differ']}; captures in the measured wave "
+        f"{out['captured_mixed']}, without lora fields "
+        f"{out['captured_no_fields']}; graphs after the same waves: LoRA "
+        f"{graphs_after}, base {out['base_graphs_after']}")
+    log(f"  {mode}: decode tok/s LoRA {out['lora']['decode_tok_s']:.1f} / "
+        f"base {out['base']['decode_tok_s']:.1f}; TTFT p50 ms "
+        f"{out['lora']['ttft_p50_ms']:.2f} / "
+        f"{out['base']['ttft_p50_ms']:.2f}; prefill tok/s "
+        f"{out['lora']['prefill_tok_s']:.1f} / "
+        f"{out['base']['prefill_tok_s']:.1f}; kernels a layer a decode step "
+        f"{out.get('kernels_a_layer', float('nan')):.2f} / "
+        f"{out.get('base_kernels_a_layer', float('nan')):.2f}; launches of "
+        f"one LoRA request {launches}")
+    assert out["texts_alone_equal"], (mode, "a slot's text in the wave "
+                                      "differs from the request alone")
+    assert out["texts_k1_equal"], (mode, f"K=1 and K={CHAIN} differ")
+    assert out["texts_ngram_equal"], (mode, "n-gram drafts change the text")
+    for k, n in launches.items():
+        if k in LORA_KERNELS[mode]:
+            assert n > 0, f"{k} was never launched ({mode}, LoRA)"
+        else:
+            assert n == 0, f"{k} launched ({mode}, LoRA)"
+    return out
+
+
+def served_one(dev, mode, extra, text) -> dict:
+    """One greedy chat of `text` on a fresh server of phase 5's `mode`
+    file with `extra` flags, alone: its first answer token's logits as
+    the engine's prefill program computed them, its prompt ids, the
+    kernels it launched, the load seconds."""
+    engine, srv, url, thread, load_s = _lora_server(dev, mode, extra)
+    counters = kernel_counters()
+    try:
+        _lora_chats(url, [text[::-1]], [None])        # first uses, eager
+        for fn in counters.values():
+            fn.launches = 0
+        _, task, logits = served_request(
+            engine, lambda: _lora_chats(url, [text], [None]))
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        _close(engine, srv, thread)
+    return dict(logits=logits, ids=task.prompt_tokens, launches=launches,
+                load_s=load_s)
+
+
+def lora_phase(dev, seed, tmp) -> dict:
+    """Phase 16 (see the module docstring)."""
+    from llama_box_tpu_torch.models.control_vector import \
+        combine_control_vectors
+    from llama_box_tpu_torch.models.loader import load_model
+    from llama_box_tpu_torch.models.lora import apply_lora, load_lora
+    log("== phase 16: LoRA adapters and a control vector (TinyLlama "
+        "widths, phase 5's files)")
+    t_phase = time.perf_counter()
+    _LORA_FILES.update(
+        model={m: _model_path(tmp, PATHS[m][1]) for m in PATHS},
+        a=f"{tmp}/lora-a.gguf", b=f"{tmp}/lora-b.gguf",
+        c=f"{tmp}/cvec-c.gguf")
+    for name in LORA_ADAPTERS:
+        write_lora(_LORA_FILES[name], name, seed)
+    write_cvec(_LORA_FILES["c"], seed)
+    out: dict = {}
+    for mode in PATHS:
+        out[mode] = lora_serve(dev, seed, tmp, mode)
+        if mode == "q4":
+            os.remove(_LORA_FILES["model"][mode])
+    # 16b: the static merge on bf16, and the dynamic path at a's default
+    # scale, each against the f32 host forward of the merged weights
+    log("== phase 16b: --lora a (merged) on bf16, against the f32 host "
+        "forward")
+    text = out["bf16"].pop("a_only_text")
+    dyn = out["bf16"].pop("a_only_logits")
+    static = served_one(dev, "bf16", ["--lora", _LORA_FILES["a"]], text)
+    cfg, host = load_model(_LORA_FILES["model"]["bf16"], dtype=torch.float32,
+                           device="cpu")
+    ids = static["ids"]
+    blk, out_pair = load_lora(_LORA_FILES["a"]), load_lora(_LORA_FILES["a"])
+    blk.pairs = {k: v for k, v in blk.pairs.items() if k.startswith("blk.")}
+    out_pair.pairs = {"output.weight": out_pair.pairs["output.weight"]}
+    merged_blk = apply_lora(dict(host, layers=dict(host["layers"])), cfg,
+                            [blk])
+    merged = apply_lora(dict(merged_blk), cfg, [out_pair])
+    want, want_blk, want_base = (_host_logits(p, cfg, ids)
+                                 for p in (merged, merged_blk, host))
+    cv = combine_control_vectors([(_LORA_FILES["c"], float(CVEC_SCALE))],
+                                 cfg.n_layers, cfg.n_embd,
+                                 layer_range=tuple(map(int, CVEC_RANGE)))
+    want_cv = _host_logits(dict(host, cvec=torch.from_numpy(cv)), cfg, ids)
+    del host, merged, merged_blk
+    out["static"] = dict(
+        cos_static_host=_cos1(static["logits"], want),
+        cos_dynamic_host=_cos1(dyn, want_blk),
+        cos_dynamic_static=_cos1(dyn, static["logits"]),
+        cos_host_merged_base=_cos1(want, want_base),
+        load_s=static["load_s"])
+    s = out["static"]
+    log(f"  the served first answer token's logits: static merge vs the "
+        f"f32 host merge {s['cos_static_host']:.6f}; dynamic (a at 1.0, b "
+        f"off) vs the f32 host merge of a's layer pairs "
+        f"{s['cos_dynamic_host']:.6f} (the dynamic path leaves "
+        f"output.weight's pair out, as JAX's stack_dynamic); dynamic vs "
+        f"static {s['cos_dynamic_static']:.6f}; the host's merge vs its "
+        f"base {s['cos_host_merged_base']:.6f} (what a moves)")
+    assert s["cos_static_host"] >= LORA_COS, s
+    assert s["cos_dynamic_host"] >= LORA_COS, s
+    # 16c: the control vector on bf16 and w8a8
+    log("== phase 16c: --control-vector-scaled c 0.8 "
+        "--control-vector-layer-range 2 6, against the f32 host forward")
+    cflags = ["--control-vector-scaled", _LORA_FILES["c"], CVEC_SCALE,
+              "--control-vector-layer-range", *CVEC_RANGE]
+    out["cvec"] = {}
+    for mode in ("bf16", "w8a8"):
+        r = served_one(dev, mode, cflags, text)
+        assert mode != "bf16" or r["ids"] == ids
+        x = {}
+        if mode == "w8a8":
+            cfg, host = load_model(_LORA_FILES["model"][mode],
+                                   dtype=torch.float32, device="cpu")
+            want_cv = _host_logits(dict(host, cvec=torch.from_numpy(cv)),
+                                   cfg, r["ids"])
+            want_base = _host_logits(host, cfg, r["ids"])
+            del host
+            cfg, host = load_model(_LORA_FILES["model"][mode],
+                                   dtype=torch.bfloat16, device="cpu",
+                                   quantized=True)
+            plain = _host_logits(dict(host, cvec=torch.from_numpy(cv).to(
+                torch.bfloat16)), cfg, r["ids"], torch.bfloat16)
+            del host
+            os.remove(_LORA_FILES["model"][mode])
+            x.update(cos_plain=_cos1(r["logits"], plain),
+                     cos_plain_f32=_cos1(plain, want_cv))
+        x.update(cos_host=_cos1(r["logits"], want_cv),
+                 cos_host_steered_base=_cos1(want_cv, want_base),
+                 launches_one_request=r["launches"], load_s=r["load_s"])
+        out["cvec"][mode] = x
+        log(f"  {mode}: served vs the f32 host forward with the vector "
+            f"{x['cos_host']:.6f}"
+            + f" (tol {CVEC_COS[mode]})"
+            + (f", vs the plain versions on the host over the same QTensors "
+               f"{x['cos_plain']:.6f} (tol {CVEC_PLAIN_COS}; those vs f32 "
+               f"{x['cos_plain_f32']:.6f})" if "cos_plain" in x else "")
+            + f"; the host's steered vs unsteered "
+            f"{x['cos_host_steered_base']:.6f}; launches of the request "
+            f"{r['launches']}")
+        assert x["cos_host"] >= CVEC_COS[mode], (mode, x)
+        assert x.get("cos_plain", 1.0) >= CVEC_PLAIN_COS, (mode, x)
+        if mode == "w8a8":
+            assert r["launches"]["fused_norm_qmm"] > 0 \
+                and r["launches"]["fused_layer_tail"] > 0, \
+                "the fused w8a8 kernels did not run under a control vector"
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 16: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# --families: jetmoe's mixture of attention and openelm's per-layer
+# geometry at published widths, on phase 11's machinery
+
+def _openelm_dims() -> dict:
+    """apple/OpenELM-270M's per-layer geometry as its config builds it:
+    16 layers, model_dim 1280, head_dim 64, 4 query heads a KV head, qkv
+    multipliers 0.5 to 1.0 and FFN multipliers 0.5 to 4.0 (linear over
+    the layers), each width made divisible by 256 (never below 0.9 of
+    it)."""
+    def divisible(v, d=256):
+        n = max(d, int(v + d / 2) // d * d)
+        return n + d if n < 0.9 * v else n
+    L_, E_, D_ = 16, 1280, 64
+    q = [divisible(E_ * (0.5 + 0.5 * i / (L_ - 1))) // D_ for i in range(L_)]
+    ffs = [divisible(E_ * (0.5 + 3.5 * i / (L_ - 1))) for i in range(L_)]
+    return dict(hc=q, hk=[h // 4 for h in q], ffs=ffs)
+
+
+FAMILY_VARIANTS = {
+    # jetmoe/jetmoe-8b config.json: 24 x 2048, 16 KV heads of 128
+    # (kv_channels), 8 attention experts and 8 FFN experts with 2 a token,
+    # FF 5632, vocab 32000, rope base 1e4, rms eps 1e-5; the GGUF's
+    # head_count is X x head_count_kv (every expert's query heads, the JAX
+    # package's convention); depth cut from 24 to 2 layers
+    "jetmoe-8b": dict(arch="jetmoe", L=2, E=2048, H=128, HKV=16, D=128,
+                      FF=5632, X=8, K=2, V=32000, rot=128, eps=1e-5,
+                      base=10000.0, ctx=4096),
+    # apple/OpenELM-270M: 16 x 1280, head dim 64, 12 to 20 query heads and
+    # 3 to 5 KV heads a layer, FFN widths 768 to 5120, vocab 32000, tied
+    # embeddings, per-head q/k norms, rms eps 1e-6; every layer
+    "openelm-270m": dict(arch="openelm", L=16, E=1280, H=20, HKV=5, D=64,
+                         FF=5120, V=32000, rot=64, eps=1e-6, base=10000.0,
+                         ctx=2048, **_openelm_dims()),
+}
+FAMILY_PATHS = {
+    "bf16": ([], {"jetmoe-8b": ("row_norm", "flash_prefill", "flash_decode",
+                                "moe_ffn"),
+                  "openelm-270m": ("row_norm", "flash_prefill",
+                                   "flash_decode")}),
+}
+
+
+def family_phase(dev, seed, tmp) -> dict:
+    """--families (see the module docstring)."""
+    from llama_box_tpu_torch.models.loader import load_model
+    log("== families: " + ", ".join(FAMILY_VARIANTS))
+    t_phase = time.perf_counter()
+    out = {}
+    for name in FAMILY_VARIANTS:
+        path = f"{tmp}/synthetic-{name}-q8_0.gguf"
+        t0 = time.perf_counter()
+        write_variant(path, name, seed)
+        cfg, params = load_model(path, dtype=torch.float32, device="cpu")
+        ref = small_forward(params, cfg, "cpu", torch.float32)
+        del params
+        log(f"  {name}: written and its f32 forward on the host in "
+            f"{time.perf_counter() - t0:.1f} s; {cfg.n_layers} layers, "
+            f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim} "
+            f"(padded), FF {cfg.n_ff}")
+        out[name] = {mode: variant_serve(dev, seed, tmp, name, path, mode,
+                                         ref, paths=FAMILY_PATHS)
+                     for mode in FAMILY_PATHS}
+        os.remove(path)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  families: {out['seconds']:.1f} s")
+    return out
+
+
+def depth_check(dev, seed, tmp, name, n_layers) -> dict:
+    """--depth-check: VARIANTS[name] at n_layers on the w8a8 path, layer by
+    layer. small_forward's first pass through the card's kernels, through
+    the plain versions on the host over the same QTensors (bf16
+    activations), and in f32 on the host over the file; each layer's
+    residual stream compared by its lowest row cosine. The first layer
+    where the card leaves the plain versions (below 0.9999) is where a
+    kernel parts from its definition; a card that follows them while both
+    drift from f32 layer by layer shows the path's rounding."""
+    from llama_box_tpu_torch.models import llama
+    from llama_box_tpu_torch.models.loader import (deinterleave_rope,
+                                                   fuse_projections,
+                                                   load_model)
+    log(f"== depth check: {name} at {n_layers} layers, w8a8")
+    path = f"{tmp}/synthetic-{name}-{n_layers}-q8_0.gguf"
+    write_variant(path, name, seed, n_layers)
+
+    def fused(cfg, params):
+        params, cfg = deinterleave_rope(params, cfg)
+        return cfg, fuse_projections(params, cfg)
+
+    def layers_of(params, cfg, device, kv_dtype):
+        seen = []
+        inner = llama._attn_layer
+
+        def spy(*a, **k):
+            x = inner(*a, **k)
+            seen.append(x.float().cpu())
+            return x
+        llama._attn_layer = spy
+        try:
+            logits = small_forward(params, cfg, device, kv_dtype)
+        finally:
+            llama._attn_layer = inner
+        return seen[:cfg.n_layers], logits
+
+    cfg, host = fused(*load_model(path, dtype=torch.float32, device="cpu"))
+    want, want_lg = layers_of(host, cfg, "cpu", torch.float32)
+    del host
+    cfg, card = fused(*load_model(path, dtype=torch.bfloat16, device=dev,
+                                  quantized=True))
+    got, got_lg = layers_of(card, cfg, dev, torch.bfloat16)
+    plain, plain_lg = layers_of(_moved(card, "cpu"), cfg, "cpu",
+                                torch.bfloat16)
+    os.remove(path)
+
+    def cos(a, b):
+        return float(torch.nn.functional.cosine_similarity(
+            a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])).min())
+    card_f32 = [cos(g, w) for g, w in zip(got, want)]
+    card_plain = [cos(g, p) for g, p in zip(got, plain)]
+    plain_f32 = [cos(p, w) for p, w in zip(plain, want)]
+    parting = next((i for i, c in enumerate(card_plain) if c < 0.9999), None)
+    out = dict(layers=n_layers, card_f32=card_f32, card_plain=card_plain,
+               plain_f32=plain_f32, first_parting_layer=parting,
+               logits_card_f32=_cosine(got_lg, want_lg),
+               logits_card_plain=_cosine(got_lg, plain_lg),
+               logits_plain_f32=_cosine(plain_lg, want_lg))
+    log(f"  residual stream min row cosine a layer, card vs f32: "
+        + " ".join(f"{c:.6f}" for c in card_f32))
+    log(f"  card vs the plain versions: "
+        + " ".join(f"{c:.6f}" for c in card_plain))
+    log(f"  plain versions vs f32: " + " ".join(f"{c:.6f}" for c in plain_f32))
+    log(f"  logits (small_forward's 6 rows, min cosine): card vs f32 "
+        f"{out['logits_card_f32']:.6f}, card vs plain "
+        f"{out['logits_card_plain']:.6f}, plain vs f32 "
+        f"{out['logits_plain_f32']:.6f}; first layer where the card leaves "
+        f"the plain versions: {parting}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace 4 greedy requests with torch.profiler, "
                     "graphs on and off")
+    ap.add_argument("--families", action="store_true",
+                    help="also serve jetmoe's and openelm's published "
+                    "widths (FAMILY_VARIANTS)")
+    ap.add_argument("--depth-check", type=int, default=0, metavar="LAYERS",
+                    help="also hold Qwen3-1.7B's w8a8 path at LAYERS layers "
+                    "against the plain versions and f32, layer by layer")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card (torch.cuda.is_available() "
@@ -5904,12 +6541,18 @@ def main(argv=None) -> int:
                                  _model_path(tmp, "f16"), *bf16_served)
         e2e["embed"] = embed_phase(dev, args.seed, tmp, *bf16_served)
         del bf16_served
+        e2e["lora"] = lora_phase(dev, args.seed, tmp)
         e2e["variants"] = variant_phase(dev, args.seed, tmp)
         e2e["attn_variants"] = attn_variant_phase(dev, args.seed, tmp)
         e2e["moe"] = moe_phase(dev, args.seed, tmp, moe_path)
         os.remove(moe_path)
         e2e["mla"] = mla_phase(dev, args.seed, tmp, mla_paths)
         e2e["mm"] = mm_phase(dev, args.seed, mm_pairs)
+        if args.families:
+            e2e["families"] = family_phase(dev, args.seed, tmp)
+        if args.depth_check:
+            e2e["depth"] = depth_check(dev, args.seed, tmp, "qwen3-1.7b",
+                                       args.depth_check)
 
     pick = {"flash_prefill": ("prefill", "bf16", 0),
             "flash_decode": ("decode", "bf16", 1023),
@@ -5996,6 +6639,11 @@ def main(argv=None) -> int:
             launches_multimodal={
                 f"{v} {m}": e2e["mm"][v][m]["launches_one_request"][name]
                 for v in MM_VARIANTS for m in MM_PATHS[v]},
+            launches_lora={m: e2e["lora"][m]["launches_one_request"][name]
+                           for m in PATHS},
+            launches_cvec={m: e2e["lora"]["cvec"][m]
+                           ["launches_one_request"][name]
+                           for m in ("bf16", "w8a8")},
             **({} if not name.startswith("flash") else {"variant_shapes": [
                 dict(case=x["cache"], q=x["q"], C=x["C"], pos=x["pos"],
                      dv=x["dv"], ms=x["ms"], plain_ms=x["plain_ms"],
@@ -6122,6 +6770,21 @@ def main(argv=None) -> int:
                 f"launches of one media request "
                 f"{x['launches_one_request']['flash_prefill']} / "
                 f"{x['launches_one_request']['flash_decode']}")
+    lo = e2e["lora"]
+    for m in PATHS:
+        x = lo[m]
+        log(f"  phase 16, {m}: LoRA vs base decode tok/s "
+            f"{x['lora']['decode_tok_s']:.1f} / "
+            f"{x['base']['decode_tok_s']:.1f}, TTFT p50 ms {x['lora']['ttft_p50_ms']:.2f} / "
+            f"{x['base']['ttft_p50_ms']:.2f}, kernels a layer a decode step "
+            f"{x['kernels_a_layer']:.2f} / {x['base_kernels_a_layer']:.2f}; "
+            f"captures in the mixed wave {x['captured_mixed']}, without "
+            f"fields {x['captured_no_fields']}; graphs LoRA "
+            f"{x['graphs_after']} / base {x['base_graphs_after']}; "
+            f"{x['drafted']} n-gram drafts")
+    log(f"  phase 16b/c: cosines {json.dumps(lo['static'])}; control vector "
+        + "; ".join(f"{m} {lo['cvec'][m]['cos_host']:.6f}"
+                    for m in lo["cvec"]))
     log("e2e " + json.dumps(e2e))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -8,6 +8,12 @@ models/bert.load_bert and serves /v1/embeddings, and /v1/rerank with
 --rerank or a `rank` pooling; completions are off for it and under
 --embeddings.
 
+LoRA adapters (--lora, --lora-scaled) are merged into the dense weights
+at load, or with --lora-per-request kept unmerged for requests' `lora`
+scales (models/lora.py); control vectors (--control-vector,
+--control-vector-scaled, --control-vector-layer-range) steer the
+residual stream (models/control_vector.py).
+
 The server runs on the CUDA card unless `--device cpu` is given; without a
 card and without that flag it exits with an error. `build_server(argv)`
 returns the engine (started) and the HTTP server (bound, not serving), so
@@ -20,6 +26,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import signal
 import sys
 import threading
@@ -41,10 +48,17 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("-lv", "--log-verbosity", type=int, default=0)
     g.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the model runs (default: the CUDA card)")
+    g.add_argument("--system-info", action="store_true",
+                   help="print the version, torch's and the cards, and exit")
+    g.add_argument("--list-devices", action="store_true",
+                   help="as --system-info")
 
     g = p.add_argument_group("server")
     g.add_argument("--host", default="127.0.0.1")
     g.add_argument("--port", type=int, default=8080)
+    g.add_argument("-to", "--timeout", type=int, default=600,
+                   help="server read/write timeout in seconds (accepted "
+                        "and stored, as in the JAX CLI)")
     g.add_argument("--threads-http", "-np", "--parallel", dest="n_parallel",
                    type=int, default=4, help="number of parallel slots")
     g.add_argument("--metrics", action="store_true", default=True,
@@ -280,6 +294,10 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--xtc-probability", type=float, default=0.0)
     g.add_argument("--xtc-threshold", type=float, default=0.10)
     g.add_argument("--top-nsigma", type=float, default=-1.0)
+    g.add_argument("-l", "--logit-bias", action="append", default=[],
+                   metavar="TOKEN_ID(+/-)BIAS",
+                   help="server default logit bias, e.g. 29871+1.5 "
+                        "or 29871-inf (repeatable)")
     g.add_argument("--grammar", default="",
                    help="server default GBNF grammar")
     g.add_argument("--grammar-file", default=None)
@@ -293,6 +311,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stop strings added to every request")
     g.add_argument("-sp", "--special", action="store_true", default=False,
                    help="accepted and ignored, as in the JAX CLI")
+    g.add_argument("-e", "--escape", action="store_true", default=True,
+                   help="process escape sequences (accepted; server "
+                        "prompts arrive via JSON which already unescapes)")
+    g.add_argument("--no-escape", dest="escape", action="store_false")
     g.add_argument("-s", "--seed", type=int, default=-1,
                    help="accepted and ignored, as in the JAX CLI (a "
                         "request's own seed seeds its draws)")
@@ -317,6 +339,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted and ignored")
     g.add_argument("--no-reasoning-in-content", dest="reasoning_in_content",
                    action="store_false")
+
+    g = p.add_argument_group("lora")
+    g.add_argument("--lora", action="append", default=[],
+                   help="LoRA adapter GGUF (repeatable)")
+    g.add_argument("--lora-scaled", action="append", nargs=2, default=[],
+                   metavar=("PATH", "SCALE"))
+    g.add_argument("--lora-init-without-apply", action="store_true",
+                   default=False)
+    g.add_argument("--lora-per-request", action="store_true", default=False,
+                   help="keep adapters unmerged; requests pick scales via "
+                        "the 'lora' field (slots batch together regardless)")
+
+    g = p.add_argument_group("control vectors")
+    g.add_argument("--control-vector", action="append", default=[],
+                   help="control vector GGUF added to the residual stream "
+                        "(repeatable)")
+    g.add_argument("--control-vector-scaled", action="append", nargs=2,
+                   default=[], metavar=("PATH", "SCALE"))
+    g.add_argument("--control-vector-layer-range", nargs=2, type=int,
+                   default=None, metavar=("START", "END"),
+                   help="1-based inclusive layer range to steer")
     return p
 
 
@@ -352,7 +395,25 @@ def _default_sampling(args) -> SamplerParams:
         dry_multiplier=args.dry_multiplier, dry_base=args.dry_base,
         dry_allowed_length=args.dry_allowed_length,
         dry_penalty_last_n=args.dry_penalty_last_n,
-        dry_sequence_breakers=tuple(brks))
+        dry_sequence_breakers=tuple(brks),
+        logit_bias=_parse_logit_bias_flags(args.logit_bias))
+
+
+def _parse_logit_bias_flags(entries: list[str]) -> dict[int, float]:
+    """TOKEN_ID(+/-)BIAS, e.g. 29871+1.5, 29871-0.5, 29871-inf
+    (engine_param.hpp --logit-bias); a malformed entry is ignored with a
+    warning, as in the JAX CLI."""
+    out: dict[int, float] = {}
+    for e in entries:
+        m = re.match(r"^(\d+)([+-])(inf|[0-9.]+)$", e.strip())
+        if not m:
+            SRV_WRN("main", "--logit-bias %r is malformed (want "
+                    "TOKEN_ID+BIAS or TOKEN_ID-inf); ignored", e)
+            continue
+        tid, sign, val = int(m.group(1)), m.group(2), m.group(3)
+        bias = float("-inf") if val == "inf" else float(val)
+        out[tid] = -bias if sign == "-" and val != "inf" else bias
+    return out
 
 
 def _default_grammar_text(args) -> str | None:
@@ -423,6 +484,18 @@ def list_buffer_types() -> None:
         print(f"  {i}: {prop.name} (cuda) hbm={prop.total_memory / 1e9:.1f}GB")
 
 
+def system_info() -> None:
+    """--system-info / --list-devices: the version, torch's, and the
+    cards (the JAX CLI prints jax's backend and devices)."""
+    import torch
+    print(f"llama-box-tpu-torch {VERSION}")
+    print(f"torch {torch.__version__}; cuda={torch.version.cuda}; "
+          f"available={torch.cuda.is_available()}")
+    for i in range(torch.cuda.device_count() if torch.cuda.is_available()
+                   else 0):
+        print(f"  {i}: {torch.cuda.get_device_name(i)} (cuda)")
+
+
 def build_server(argv: list[str]):
     """Parse argv, load the model and start the engine; return
     (engine, server) with the server bound but not serving. Raises
@@ -475,6 +548,22 @@ def build_server(argv: list[str]):
         if over:
             cfg = dataclasses.replace(cfg, **over)
             SRV_INF("main", "config overrides: %s", over)
+        if args.control_vector or args.control_vector_scaled:
+            params["cvec"] = load_cvec(args, cfg, dtype, device)
+    if is_bert and (args.lora or args.lora_scaled or args.control_vector
+                    or args.control_vector_scaled):
+        raise SystemExit("error: LoRA adapters and control vectors need a "
+                         "decoder; a BERT encoder takes neither")
+    adapters, lora_dynamic = [], 0
+    if args.lora or args.lora_scaled:
+        from .models.lora import apply_lora, load_lora, stack_dynamic
+        adapters = [load_lora(pth, 1.0) for pth in args.lora]
+        adapters += [load_lora(pth, float(sc))
+                     for pth, sc in args.lora_scaled]
+        if args.lora_per_request:
+            lora_dynamic = stack_dynamic(params, cfg, adapters)
+        elif not args.lora_init_without_apply:
+            params = apply_lora(params, cfg, adapters)
     draft = None
     if args.model_draft:
         SRV_INF("main", "loading draft model %s", args.model_draft)
@@ -508,6 +597,10 @@ def build_server(argv: list[str]):
             multimodal.max_cache = args.visual_max_image_cache
     engine = Engine(cfg, params, tokenizer, ecfg, device=str(device),
                     draft=draft)
+    if lora_dynamic:
+        engine.configure_lora(
+            lora_dynamic, [0.0 if args.lora_init_without_apply else a.scale
+                           for a in adapters])
     engine.start()
     max_tps = args.tokens_per_second
     if max_tps < 0:     # -1: probe the decode rate (reference -tps -1)
@@ -527,8 +620,28 @@ def build_server(argv: list[str]):
                       "embedding": True,
                       "reranking": args.rerank
                       or (is_bert and cfg.pooling == "rank")},
-        multimodal=multimodal)
+        multimodal=multimodal,
+        lora_adapters=[{"id": i, "path": a.path,
+                        "scale": 0.0 if args.lora_init_without_apply
+                        else a.scale} for i, a in enumerate(adapters)])
     return engine, app.make_server(args.host, args.port)
+
+
+def load_cvec(args, cfg, dtype, device):
+    """The control vectors of --control-vector / --control-vector-scaled,
+    summed and cut to --control-vector-layer-range (models/
+    control_vector.py), as one [L, E] tensor of the weights' dtype on
+    `device` (the JAX CLI's params["cvec"])."""
+    import torch
+
+    from .models.control_vector import combine_control_vectors
+    entries = [(pth, 1.0) for pth in args.control_vector]
+    entries += [(pth, float(sc)) for pth, sc in args.control_vector_scaled]
+    lr = (tuple(args.control_vector_layer_range)
+          if args.control_vector_layer_range else None)
+    cv = combine_control_vectors(entries, cfg.n_layers, cfg.n_embd,
+                                 layer_range=lr)
+    return torch.from_numpy(cv).to(device, dtype)
 
 
 def load_multimodal(path: str, n_embd: int, device):
@@ -563,6 +676,9 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     if "--list-buffer-types" in argv:
         list_buffer_types()
+        return 0
+    if "--system-info" in argv or "--list-devices" in argv:
+        system_info()
         return 0
     engine, server = build_server(argv)
     host, port = server.server_address[:2]

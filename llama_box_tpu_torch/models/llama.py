@@ -12,8 +12,12 @@ widths; and Qwen2-VL's M-RoPE, whose rotary half-dims take their
 sections' position streams (ops/rope.mrope_at: the tables gathered per
 section, then the plain rotation), and the prefill of an embedding chunk
 (a vision or audio tower's projected rows, bidirectional over gemma3's
-image span), with bf16/f32 weights or QTensors (w8a8 or grouped,
-ops/qmatmul). Every norm runs the row-norm kernel (ops/norm) on
+image span); and jetmoe's mixture of attention (every expert's query
+heads over one shared kv projection, the router's top k selecting at the
+output mix); and per-request LoRA (each dense projection's low-rank delta
+under its slot's scale row, _lora_delta) and control vectors (a [L, E]
+residual add after each layer), with bf16/f32 weights or QTensors (w8a8
+or grouped, ops/qmatmul). Every norm runs the row-norm kernel (ops/norm) on
 the card, one order a row, and the routed experts the expert kernel
 (ops/moe), one order a pair, so a verify pass's rows equal its one-row
 decode steps bit for bit.
@@ -59,8 +63,10 @@ cast to `adt`; matmuls return x's dtype; the FFN activation runs in f32.
 w8a8 weights: at decode widths (R = B*T <= 64 rows, bf16 activations)
 the fused q/k/v projection, the layer tail and the output projection take
 the fused kernels of ops/fused_decode, under the JAX package's own gates
-(_fuse_qkv_ok, _fuse_tail_ok); the gates count rows, so short prefill
-chunks and the prefill's last-token logits take them too. The JAX package
+(_fuse_qkv_ok, _fuse_tail_ok; both shut while LoRA scale rows are
+present, whose deltas ride the unfused projections); the gates count
+rows, so short prefill chunks and the prefill's last-token logits take
+them too. The JAX package
 makes them opt-in on the TPU; here they are on unless
 LLAMA_BOX_TPU_NO_FUSED is set. Both paths give the same rounding.
 
@@ -89,7 +95,7 @@ from ..ops.fused_decode import (_MAX_ROWS, _pick_tile, fused_layer_tail,
 from ..ops.moe import ACTS as MOE_ACTS
 from ..ops.moe import MAX_EXPERTS, MAX_PICKS, moe_ffn
 from ..ops.norm import ln_per_head, norm_any, rms_norm
-from ..ops.qmatmul import QTensor, dense_matmul, mm
+from ..ops.qmatmul import _SPLIT_MAX_ROWS, QTensor, dense_matmul, mm
 from ..ops.rope import RopeParams, apply_rope, compute_rope_cache, mrope_at
 from .config import ModelConfig
 
@@ -168,10 +174,16 @@ _LAYER_KEYS = {
     "w_down_shexp", "w_gate_inp_shexp", "exp_probs_b", "ffn_norm_exps",
     "sinks",
     # multi-head latent attention (deepseek2 / deepseek3 / kimi, minicpm3)
-    "wq_a", "q_a_norm", "wq_b", "wkv_a", "kv_a_norm", "wkv_b"}
+    "wq_a", "q_a_norm", "wq_b", "wkv_a", "kv_a_norm", "wkv_b",
+    # jetmoe's mixture of attention
+    "wq_exps", "wo_exps", "attn_gate_inp"} | {
+    # per-request LoRA stacks (models/lora.stack_dynamic; lora_Bt_ is the
+    # engine's layout of lora_B_, loader.fuse_projections)
+    f"lora_{p}_{k}" for p in ("A", "B", "Bt")
+    for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")}
 _ROOT_KEYS = {"tok_embd", "pos_embd", "tok_embd_norm", "tok_embd_norm_b",
               "output_norm", "output_norm_b", "output", "output_b", "layers",
-              "layer_groups"}
+              "layer_groups", "cvec", "lora_scales"}
 _EXPERT_STACKS = ("w_gate_exps", "w_up_exps", "w_down_exps")
 # the keys that may hold a QTensor (the JAX loader's quantizable 2D
 # projections; token_embd and the norms stay dense)
@@ -548,6 +560,80 @@ def _f32_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return dense_matmul(x, w.float())
 
 
+def _lora_delta(h, lp, key: str, scales):
+    """The per-slot scaled low-rank delta of projection `key` (JAX
+    `_lora_delta`; dynamic LoRA), h [B, T, in] -> [B, T, out] in h's dtype,
+    or None without stacks or scales. scales [S, n_ad]: row b scales
+    batch row b (one row broadcasts; other counts raise TypeError, where
+    JAX's broadcast fails). In f32, through dense_matmul (a row's bits do
+    not depend on the call's rows): t = h A^T over every adapter at once,
+    scaled per row and adapter, then ONE product against the adapters'
+    B^T stacked along the inner dim ([n_ad * r, out]: lora_Bt_<key>, or
+    made from lora_B_<key>), so the sum over adapters rides that product's
+    inner dim where JAX sums the per-adapter products after it (f32
+    rounding apart, tests/test_torch_lora.py)."""
+    A = lp.get(f"lora_A_{key}")
+    if A is None or scales is None:
+        return None
+    n_ad, r, E = A.shape
+    S, B = scales.shape[0], h.shape[0]
+    if S != B and S != 1:
+        raise TypeError(f"lora_scales rows {S} do not broadcast against "
+                        f"{B} batch rows")
+    Bt = lp.get(f"lora_Bt_{key}")
+    if Bt is None:
+        Bt = lp[f"lora_B_{key}"].transpose(1, 2).reshape(n_ad * r, -1)
+    lead = h.shape[:-1]
+    t = dense_matmul(h.float(), A.reshape(n_ad * r, E).T)
+    s = scales.float().view(S, *(1,) * (len(lead) - 1), n_ad, 1)
+    t = (t.view(*lead, n_ad, r) * s).view(*lead, n_ad * r)
+    return dense_matmul(t, Bt).to(h.dtype)
+
+
+def _plus_lora(y, h, lp, key: str, lora):
+    """y + _lora_delta(h, ...), or y where there is none."""
+    d = _lora_delta(h, lp, key, lora)
+    return y if d is None else y + d
+
+
+def _expert_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [M, in] against every expert's w [X, in, out] -> [X, M, out] in
+    x's dtype (one batched product; on the card a call of at most
+    _SPLIT_MAX_ROWS rows runs at that many, as dense_matmul does)."""
+    M = x.shape[0]
+    pad = x.is_cuda and M < _SPLIT_MAX_ROWS
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, _SPLIT_MAX_ROWS - M))
+    y = torch.matmul(x[None], w.to(x.dtype))
+    return y[:, :M] if pad else y
+
+
+def _moa_route(h, lp, cfg: ModelConfig) -> torch.Tensor:
+    """jetmoe's mixture-of-attention router (JAX `_attn_layer`): the
+    router product in h's dtype, softmax in f32, the top k renormalized
+    and scattered into a dense [B, T, X] mask (0 for unselected
+    experts)."""
+    pr = torch.softmax(dense_matmul(h, lp["attn_gate_inp"]).float(), dim=-1)
+    topv, topi = _top_k(pr, max(cfg.expert_used_count, 1))
+    topv = topv / (topv.sum(-1, keepdim=True) + 1e-9)
+    return torch.zeros_like(pr).scatter_add(-1, topi, topv)
+
+
+def _moa_qkv(h, lp, cfg: ModelConfig):
+    """jetmoe's queries (JAX `_attn_layer`'s MoA branch): every expert's
+    query heads, H = X * Hkv laid out [Hkv, X] (expert x's head for kv
+    head m is head m * X + x, GQA group slot x), over the one shared k
+    and v projection. Returns q [B, T, H, D], k, v [B, T, Hkv, D]."""
+    B, T, E = h.shape
+    Hkv, D = cfg.n_kv_heads, cfg.head_dim
+    Xe = lp["wq_exps"].shape[0]
+    q = _expert_mm(h.reshape(B * T, E), lp["wq_exps"])      # [X, BT, Hkv D]
+    q = q.view(Xe, B, T, Hkv, D).permute(1, 2, 3, 0, 4).reshape(
+        B, T, Hkv * Xe, D)
+    return (q, mm(h, lp["wk"]).reshape(B, T, Hkv, D),
+            mm(h, lp["wv"]).reshape(B, T, Hkv, -1))
+
+
 def _moe_mix(h, lp, cfg: ModelConfig, topi, topv) -> torch.Tensor:
     """The routed experts and the shared expert (JAX `_moe_mix`): the
     picks through ops/moe (csrc/moe_ffn.cu on the card), with gpt-oss's
@@ -577,22 +663,24 @@ def _moe_mix(h, lp, cfg: ModelConfig, topi, topv) -> torch.Tensor:
     return y
 
 
-def _ffn_block(h, lp, cfg: ModelConfig, dtype):
+def _ffn_block(h, lp, cfg: ModelConfig, dtype, lora=None):
     """JAX `_ffn_block`: the experts where the layer has a router, else an
     ungated up -> act -> down (falcon, gptneox, phi2, starcoder2, gpt2) or
-    the gated one, each with its optional biases; bitnet's sub norm before
-    the down projection."""
+    the gated one, each with its optional biases and, under per-request
+    LoRA (lora: the [S, n_ad] scale rows), each dense projection's delta;
+    bitnet's sub norm before the down projection. The routed experts take
+    no delta, as in JAX."""
     if "w_gate_inp" in lp:
         return _moe_ffn(h, lp, cfg).to(dtype)
     if not cfg.ffn_gated:
-        up = mm(h, lp["w_up"])
+        up = _plus_lora(mm(h, lp["w_up"]), h, lp, "w_up", lora)
         if "b_up" in lp:
             up = up + lp["b_up"]
         if cfg.act_fn == "xielu" and "xielu" in lp:
             act = _xielu(up.float(), lp["xielu"]).to(dtype)
         else:
             act = _act(up.float(), cfg).to(dtype)
-        out = mm(act, lp["w_down"])
+        out = _plus_lora(mm(act, lp["w_down"]), act, lp, "w_down", lora)
         if "b_down" in lp:
             out = out + lp["b_down"]
         return out.to(dtype)
@@ -602,6 +690,8 @@ def _ffn_block(h, lp, cfg: ModelConfig, dtype):
         gate, up = gu[..., :ff], gu[..., ff:]
     else:
         gate, up = mm(h, lp["w_gate"]), mm(h, lp["w_up"])
+    gate = _plus_lora(gate, h, lp, "w_gate", lora)
+    up = _plus_lora(up, h, lp, "w_up", lora)
     if "b_gate" in lp:          # jais biased SwiGLU
         gate = gate + lp["b_gate"]
     if "b_up" in lp:
@@ -609,7 +699,7 @@ def _ffn_block(h, lp, cfg: ModelConfig, dtype):
     act = (_act(gate.float(), cfg) * up.float()).to(dtype)
     if "ffn_sub_norm" in lp:    # bitnet: a norm before the down projection
         act = _norm_any(act, lp["ffn_sub_norm"], None, cfg)
-    out = mm(act, lp["w_down"])
+    out = _plus_lora(mm(act, lp["w_down"]), act, lp, "w_down", lora)
     if "b_down" in lp:
         out = out + lp["b_down"]
     return out.to(dtype)
@@ -633,19 +723,21 @@ def _n_rows(x: torch.Tensor) -> int:
     return x.numel() // x.shape[-1]
 
 
-def _fuse_qkv_ok(cfg: ModelConfig, lp, x) -> bool:
+def _fuse_qkv_ok(cfg: ModelConfig, lp, x, lora=None) -> bool:
+    """JAX `_fuse_qkv_ok`; like the tail's, false under per-request LoRA
+    (scale rows present), whose deltas ride the unfused projections."""
     return (_fused_on() and _n_rows(x) <= _MAX_ROWS
             and x.dtype == torch.bfloat16
-            and cfg.norm_style == "rms"
+            and cfg.norm_style == "rms" and lora is None
             and "attn_norm" in lp and "attn_norm_b" not in lp
             and "bq" not in lp and _w8(lp.get("wqkv"))
             and _pick_tile(lp["wqkv"].out_dim) != 0)
 
 
-def _fuse_tail_ok(cfg: ModelConfig, lp, x) -> bool:
+def _fuse_tail_ok(cfg: ModelConfig, lp, x, lora=None) -> bool:
     return (_fused_on() and _n_rows(x) <= _MAX_ROWS
             and x.dtype == torch.bfloat16
-            and cfg.norm_style == "rms"
+            and cfg.norm_style == "rms" and lora is None
             and not cfg.parallel_residual and cfg.ffn_gated
             and cfg.act_fn in ("silu", "gelu", "relu2")
             and _w8(lp.get("wo")) and _w8(lp.get("w_gateup"))
@@ -660,15 +752,18 @@ def _fuse_tail_ok(cfg: ModelConfig, lp, x) -> bool:
             and _pick_tile(lp["w_down"].in_dim, (512, 256, 128)) != 0)
 
 
-def _layer_tail(x, lp, cfg: ModelConfig, attn):
+def _layer_tail(x, lp, cfg: ModelConfig, attn, lora=None, route=None):
     """The output projection and the FFN block with their residuals (JAX
-    `_layer_tail` without mixture-of-attention or an extra residual):
-    bitnet's attention sub norm, the output bias, the post norms (gemma,
-    olmo2, grok), granite's residual scale, the parallel residual (falcon,
-    gptneox, phi2, command-r) whose FFN input is attn_norm_2, ffn_norm or
-    the shared attention-input norm, and arctic's parallel dense and
-    expert branches."""
-    if _fuse_tail_ok(cfg, lp, x):
+    `_layer_tail` without an extra residual): bitnet's attention sub norm,
+    jetmoe's expert output mix (route: the [B, T, X] routing mask; each
+    expert's heads through its own output matrix, as one product over
+    (expert, head) pairs), else the output projection and its LoRA delta,
+    the output bias, the post norms (gemma, olmo2, grok), granite's
+    residual scale, the parallel residual (falcon, gptneox, phi2,
+    command-r) whose FFN input is attn_norm_2, ffn_norm or the shared
+    attention-input norm, and arctic's parallel dense and expert
+    branches."""
+    if _fuse_tail_ok(cfg, lp, x, lora):
         # decode widths: the whole tail through ops/fused_decode
         B, T, E = x.shape
         out = fused_layer_tail(
@@ -681,7 +776,17 @@ def _layer_tail(x, lp, cfg: ModelConfig, attn):
     ao = attn.to(x.dtype)
     if "attn_sub_norm" in lp:   # bitnet: a norm before the output proj
         ao = _norm_any(ao, lp["attn_sub_norm"], None, cfg)
-    attn_out = mm(ao, lp["wo"]).to(x.dtype)
+    if route is not None:
+        B, T, HD = ao.shape
+        Xe = lp["wo_exps"].shape[0]
+        Dv = HD // (Xe * cfg.n_kv_heads)
+        a4 = ao.view(B, T, cfg.n_kv_heads, Xe, Dv).transpose(2, 3) \
+            * route[:, :, :, None, None].to(ao.dtype)
+        attn_out = dense_matmul(a4.reshape(B, T, HD),
+                                lp["wo_exps"].reshape(HD, -1)).to(x.dtype)
+    else:
+        attn_out = _plus_lora(mm(ao, lp["wo"]), ao, lp, "wo",
+                              lora).to(x.dtype)
     if "bo" in lp:
         attn_out = attn_out + lp["bo"].to(x.dtype)
     if "attn_post_norm" in lp:
@@ -695,7 +800,7 @@ def _layer_tail(x, lp, cfg: ModelConfig, attn):
             h = _pre_norm(x, lp, "ffn_norm", cfg)
         else:
             h = _pre_norm(x, lp, "attn_norm", cfg)
-        ffn_out = _ffn_block(h, lp, cfg, x.dtype)
+        ffn_out = _ffn_block(h, lp, cfg, x.dtype, lora)
         if "ffn_post_norm" in lp:
             ffn_out = _norm_any(ffn_out, lp["ffn_post_norm"],
                                 lp.get("ffn_post_norm_b"), cfg)
@@ -707,13 +812,13 @@ def _layer_tail(x, lp, cfg: ModelConfig, attn):
         # the dense branch
         h = _pre_norm(x, lp, "ffn_norm", cfg)
         dense = _ffn_block(h, {k: v for k, v in lp.items()
-                               if k != "w_gate_inp"}, cfg, x.dtype)
+                               if k != "w_gate_inp"}, cfg, x.dtype, lora)
         hm = _norm_any(x, lp["ffn_norm_exps"], None, cfg)
         moe = _moe_ffn(hm, {k: v for k, v in lp.items() if k != "b_down"},
                        cfg).to(x.dtype)
         return x + _scaled(dense + moe, rs)
     h = _pre_norm(x, lp, "ffn_norm", cfg)
-    ffn_out = _ffn_block(h, lp, cfg, x.dtype)
+    ffn_out = _ffn_block(h, lp, cfg, x.dtype, lora)
     if "ffn_post_norm" in lp:
         ffn_out = _norm_any(ffn_out, lp["ffn_post_norm"],
                             lp.get("ffn_post_norm_b"), cfg)
@@ -820,34 +925,50 @@ def _mla_qkv(h, lp, cfg: ModelConfig):
 def _attn_layer(x, lp, li: int, kv: KVCache, cfg: ModelConfig, cos, sin,
                 rows: list, win, alibi=None, flash_meta=None, chain=None,
                 step=0, decode_meta=None, verify_meta=None,
-                dense_mask=None, positions=None, is_local: int = 0):
+                dense_mask=None, positions=None, is_local: int = 0,
+                lora=None):
     """x [B, T, E] -> x after attention and the layer tail. cos/sin are the
     tables gathered at the rows' positions ([B, T, rot/2]). The input norm
-    (absent: olmo2), the q/k/v biases, olmo's clamp and the q/k norms
-    (before the rotation, or after it for hunyuan) as in JAX
-    `_attn_layer`; after the rotation llama4's weightless q/k L2 norm and,
-    on its global (unroped) layers, its query temperature from the rows'
-    `positions` [B, T]. MLA layers (wkv_a) take _mla_qkv's per-head q, k,
-    v, H heads of K and V."""
+    (absent: olmo2), the q/k/v projections with their per-request LoRA
+    deltas (lora: the [S, n_ad] scale rows, or None), the q/k/v biases,
+    olmo's clamp and the q/k norms (before the rotation, or after it for
+    hunyuan) as in JAX `_attn_layer`; after the rotation llama4's
+    weightless q/k L2 norm and, on its global (unroped) layers, its query
+    temperature from the rows' `positions` [B, T]. MLA layers (wkv_a)
+    take _mla_qkv's per-head q, k, v, H heads of K and V; jetmoe's
+    mixture-of-attention layers (wq_exps) _moa_qkv's every expert's query
+    heads and the router's mask for the output mix; neither takes a q/k/v
+    delta, as in JAX."""
     B, T, E = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    route = None
     if "wkv_a" in lp:
         q, k, v = _mla_qkv(_pre_norm(x, lp, "attn_norm", cfg), lp, cfg)
+    elif "wq_exps" in lp:
+        h = _pre_norm(x, lp, "attn_norm", cfg)
+        route = _moa_route(h, lp, cfg)
+        q, k, v = _moa_qkv(h, lp, cfg)
     elif "wqkv" in lp:
-        if _fuse_qkv_ok(cfg, lp, x):
+        if _fuse_qkv_ok(cfg, lp, x, lora):
             # decode widths: norm + act-quantize fused into the matmul
             qkv = fused_norm_qmm(x.reshape(B * T, E), lp["attn_norm"],
                                  lp["wqkv"].qs, lp["wqkv"].scales,
                                  eps=cfg.rms_eps)
             qkv = qkv.reshape(B, T, -1).to(x.dtype)
+            h = None    # no delta: the gate is off under LoRA
         else:
-            qkv = mm(_pre_norm(x, lp, "attn_norm", cfg), lp["wqkv"])
+            h = _pre_norm(x, lp, "attn_norm", cfg)
+            qkv = mm(h, lp["wqkv"])
         nq, nk = H * D, Hkv * D
         q, k, v = qkv[..., :nq], qkv[..., nq:nq + nk], qkv[..., nq + nk:]
     else:
         h = _pre_norm(x, lp, "attn_norm", cfg)
         q, k, v = mm(h, lp["wq"]), mm(h, lp["wk"]), mm(h, lp["wv"])
-    if "wkv_a" not in lp:
+    if "wkv_a" not in lp and "wq_exps" not in lp:
+        if h is not None:
+            q = _plus_lora(q, h, lp, "wq", lora)
+            k = _plus_lora(k, h, lp, "wk", lora)
+            v = _plus_lora(v, h, lp, "wv", lora)
         if "bq" in lp:          # qwen2-style attention biases
             q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
         if cfg.attn_clamp > 0.0:    # olmo clip_qkv
@@ -879,7 +1000,7 @@ def _attn_layer(x, lp, li: int, kv: KVCache, cfg: ModelConfig, cos, sin,
     return _attn_deferred(x, lp, li, kv, cfg, q, k, v, rows, win, alibi,
                           flash_meta=flash_meta, chain=chain, step=step,
                           decode_meta=decode_meta, verify_meta=verify_meta,
-                          dense_mask=dense_mask)
+                          dense_mask=dense_mask, lora=lora, route=route)
 
 
 def _attn_verify(q, k, v, kc, vc, ks, vs, stored, meta, win, adt, scale,
@@ -914,9 +1035,10 @@ def _attn_verify(q, k, v, kc, vc, ks, vs, stored, meta, win, adt, scale,
 def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
                    rows: list, win, alibi=None, flash_meta=None, chain=None,
                    step=0, decode_meta=None, verify_meta=None,
-                   dense_mask=None):
+                   dense_mask=None, lora=None, route=None):
     """Attention against the cache as it stood before this forward plus
-    the new rows (through the flash kernels), then the layer tail. The
+    the new rows (through the flash kernels), then the layer tail (with
+    `lora` and `route` as _layer_tail takes them). The
     layer's rows, as the cache stores them, are appended to `rows` for the
     forward's one scatter (write_rows). dense_mask [B, T, T]: the rows
     (at positions 0..T-1) attend only each other under that mask, written
@@ -971,7 +1093,7 @@ def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
                            ).to(adt)
             vr[:, step] = (vq[:, 0].float() * vsr[:, 0].float()[..., None]
                            ).to(adt)
-    return _layer_tail(x, lp, cfg, attn)
+    return _layer_tail(x, lp, cfg, attn, lora, route)
 
 
 def layer_params(params) -> list[dict]:
@@ -992,10 +1114,15 @@ def _run_stack(params, cfg: ModelConfig, x, kv: KVCache, cos, sin,
     appends each layer's rows to `rows`. cos/sin are gathered at the rows'
     `positions` [B, T], [B, T, half] or stacked [2, B, T, half] (layer li
     takes branch is_local); layer li attends under row li of `windows`
-    ([L, 2], layer_windows by default) or the one [2] row given."""
+    ([L, 2], layer_windows by default) or the one [2] row given. The
+    per-request LoRA scale rows (params["lora_scales"], [S, n_ad]) reach
+    every projection's delta; a control vector (params["cvec"], [L, E])
+    adds its row li, cast to the activations' dtype, to the residual
+    stream after layer li (the reference's llama_apply_adapter_cvec)."""
     win = layer_windows(cfg, x.device) if windows is None else windows
     alibi = alibi_slopes(cfg, x.device)
     loc = layer_is_local(cfg)
+    lora, cvec = params.get("lora_scales"), params.get("cvec")
     stacked = cos.dim() == 4
     for li, lp in enumerate(layer_params(params)):
         c, s = (cos[loc[li]], sin[loc[li]]) if stacked else (cos, sin)
@@ -1004,7 +1131,9 @@ def _run_stack(params, cfg: ModelConfig, x, kv: KVCache, cos, sin,
                         flash_meta=flash_meta, chain=chain, step=step,
                         decode_meta=decode_meta, verify_meta=verify_meta,
                         dense_mask=dense_mask, positions=positions,
-                        is_local=loc[li])
+                        is_local=loc[li], lora=lora)
+        if cvec is not None:
+            x = x + cvec[li].to(x.dtype)
     return x
 
 
@@ -1295,7 +1424,9 @@ def prefill_batch_impl(params, cfg: ModelConfig, tokens, pos_base, n_valid,
               image; the kernel meta's bidir_st / bidir_en), else none
     slots:    [S] int — the cache slot each row reads and writes (the
               kernel meta's fifth column), else row s is slot s: one
-              program, its slot an operand, prefills any slot alone
+              program, its slot an operand, prefills any slot alone; the
+              rows take those slots' LoRA scale rows (JAX `_prefill_core`
+              slices its slot's)
     Host arrays or tensors; on the cache's device every operand below is
     computed there, so the pass replays as one CUDA graph. The rows are
     written into the cache in place (write_rows). Returns
@@ -1324,6 +1455,9 @@ def prefill_batch_impl(params, cfg: ModelConfig, tokens, pos_base, n_valid,
     if slots is not None:
         slots = torch.as_tensor(slots).to(dev, torch.int64)
         cols.append(slots)
+        if params.get("lora_scales") is not None:
+            params = dict(params, lora_scales=params["lora_scales"]
+                          .index_select(0, slots))
     meta = torch.stack(cols, dim=1).to(torch.int32)
     if mrope_pos is not None:
         p3 = torch.as_tensor(mrope_pos).to(dev, torch.int64)

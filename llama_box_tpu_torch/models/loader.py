@@ -33,10 +33,13 @@ in place of `layers`, as the JAX loader's does.
 A layer key whose layers pack to different layouts (a llama.cpp Q4_K_M
 gives Q6_K to some layers' attn_v and ffn_down) cannot be stacked: the
 JAX loader's np.stack fails on it under the grouped residency, and this
-loader refuses it by name. The other families' tensors are later slices
-of the port: a GGUF that carries a tensor this path does not know is
-refused, never half-loaded (jetmoe's mixture-of-attention and the
-recurrent mixers by their cause).
+loader refuses it by name. jetmoe's mixture of attention (q and output
+experts, their router) loads dense, as the JAX loader's optional keys;
+openelm's per-layer head counts and FFN widths are zero-padded to the
+largest, as the JAX loader pads them (_pad_openelm; a quantized load
+stays dense, with JAX's warning). The other families' tensors are later
+slices of the port: a GGUF that carries a tensor this path does not know
+is refused, never half-loaded (the recurrent mixers by their cause).
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFFile
 from ..gguf.repack import REPACKERS, repack
 from ..ops.qmatmul import QTensor, pack_repacked
-from ..utils.logging import SRV_INF
+from ..utils.logging import SRV_INF, SRV_WRN
 from .config import ModelConfig
 
 # the quantizable per-layer projections (JAX `_LAYER_WEIGHTS`, the dense
@@ -126,12 +129,15 @@ _LAYER_OPTIONAL = {
     "wkv_a": ("blk.{i}.attn_kv_a_mqa.weight", True),
     "kv_a_norm": ("blk.{i}.attn_kv_a_norm.weight", False),
     "wkv_b": ("blk.{i}.attn_kv_b.weight", True),
+    # jetmoe's mixture of attention: the q and output projections as
+    # experts ([X, E, Hkv * D] / [X, Hkv * D, E]) over the shared wk / wv,
+    # and their router [E, X]
+    "wq_exps": ("blk.{i}.attn_q_exps.weight", "3d"),
+    "wo_exps": ("blk.{i}.attn_output_exps.weight", "3d"),
+    "attn_gate_inp": ("blk.{i}.attn_gate_inp.weight", True),
 }
 # tensors of families outside the port, refused at load by their cause
-_REFUSED = {"attn_q_exps": "jetmoe's mixture-of-attention (wq_exps / "
-            "wo_exps)", "attn_output_exps": "jetmoe's mixture-of-attention "
-            "(wq_exps / wo_exps)",
-            "ssm_in": "a recurrent mixer (mamba / jamba)"}
+_REFUSED = {"ssm_in": "a recurrent mixer (mamba / jamba)"}
 # fused tensors split at load (phi3/gptneox attn_qkv, phi3 gate|up ffn_up)
 _LAYER_FUSED = ("blk.{i}.attn_qkv.weight", "blk.{i}.attn_qkv.bias")
 _ROOT = ("token_embd.weight", "output_norm.weight", "output.weight",
@@ -235,8 +241,10 @@ def load_model(path: str, dtype=torch.bfloat16, device="cuda",
     fused gate|up ffn_up split into their parts (dense, as in JAX), olmo's
     non-parametric norms as unit weights, apertus's xIELU parameters and
     the mixture-of-experts tensors (dense; dbrx's and grok's output norms
-    renamed as in JAX). Layers that differ in their tensors stack in
-    `layer_groups`; any tensor outside these is refused."""
+    renamed as in JAX), jetmoe's mixture-of-attention tensors (dense)
+    and openelm's per-layer geometry (padded). Layers that differ in
+    their tensors stack in `layer_groups`; any tensor outside these is
+    refused."""
     dev = torch.device(device)
     with GGUFFile(path) as g:
         for k, v in (metadata_overrides or {}).items():
@@ -258,11 +266,15 @@ def load_model(path: str, dtype=torch.bfloat16, device="cuda",
             if any(f".{part}." in name for name in extra):
                 raise NotImplementedError(
                     f"{cfg.arch}: {cause} is not ported")
-        if {"head_count_arr", "head_count_kv_arr",
-                "n_ff_arr"} & set(cfg.extra):
-            raise NotImplementedError(
-                f"{cfg.arch}: per-layer head counts or FFN widths (the JAX "
-                "loader pads them to the largest) are not ported yet")
+        hc_arr = cfg.extra.get("head_count_arr")
+        hckv_arr = cfg.extra.get("head_count_kv_arr")
+        varheads = cfg.arch == "openelm" and (
+            "head_count_arr" in cfg.extra or "n_ff_arr" in cfg.extra)
+        if varheads and quantized:
+            # per-layer geometry is padded to the largest after the load
+            SRV_WRN("load_model", "openelm: variable per-layer geometry — "
+                    "loading dense (padding precedes packing)")
+            quantized = False
         if extra:
             raise NotImplementedError(
                 f"{cfg.arch}: tensors outside the dense llama graph are not "
@@ -343,7 +355,10 @@ def load_model(path: str, dtype=torch.bfloat16, device="cuda",
             if name not in g.tensors:
                 return {}
             w = fetch(name, True)                     # [in, q + k + v]
-            qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+            # openelm: the layer's own head counts
+            qd = (hc_arr[i] if hc_arr else cfg.n_heads) * cfg.head_dim
+            kvd = (hckv_arr[i] if hckv_arr else cfg.n_kv_heads) \
+                * cfg.head_dim
             out = {"wq": w[:, :qd], "wk": w[:, qd:qd + kvd],
                    "wv": w[:, qd + kvd:qd + 2 * kvd]}
             bname = f"blk.{i}.attn_qkv.bias"
@@ -397,6 +412,8 @@ def load_model(path: str, dtype=torch.bfloat16, device="cuda",
             for lp in per_layer:
                 lp.setdefault("attn_norm", ones)
                 lp.setdefault("ffn_norm", ones)
+        if varheads:
+            per_layer, cfg = _pad_openelm(per_layer, cfg, hc_arr, hckv_arr)
         # apertus xIELU per-layer parameters ride metadata arrays (raw
         # learned values; the forward applies softplus)
         xap = g.metadata.get(f"{cfg.arch}.xielu.alpha_p")
@@ -428,6 +445,51 @@ def load_model(path: str, dtype=torch.bfloat16, device="cuda",
                     [len(gr) for gr in groups])
             params["layer_groups"] = stacked
     return cfg, params
+
+
+def _pad_openelm(per_layer: list[dict], cfg: ModelConfig, hc_arr,
+                 hckv_arr) -> tuple[list[dict], ModelConfig]:
+    """openelm's per-layer head counts and FFN widths, zero-padded to the
+    largest geometry (the JAX loader's padding), so every layer stacks and
+    runs the same programs: padded q heads contribute nothing (their wo
+    rows are zero), padded KV heads see k = v = 0, padded FFN columns give
+    act(0) * 0 = 0. Q heads are grouped by kv head at stride G_max, so a
+    head's kv head stays h // G_max, as HF's repeat_interleave maps it.
+    Returns the padded layers and the config at the padded widths."""
+    D, L = cfg.head_dim, cfg.n_layers
+    hc = list(hc_arr or [cfg.n_heads] * L)
+    hk = list(hckv_arr or [cfg.n_kv_heads] * L)
+    ffs = list(cfg.extra.get("n_ff_arr") or [cfg.n_ff] * L)
+    gmax = max(hc[i] // hk[i] for i in range(L))
+    hkv_max = max(hk)
+    h_pad = hkv_max * gmax
+    ff_max = max(ffs)
+
+    def pad(w, rows, cols):
+        out = w.new_zeros((rows, cols))
+        out[:w.shape[0], :w.shape[1]] = w
+        return out
+
+    for i, lp in enumerate(per_layer):
+        g_i = hc[i] // hk[i]
+        wq = lp["wq"].new_zeros((cfg.n_embd, h_pad * D))
+        wo = lp["wo"].new_zeros((h_pad * D, cfg.n_embd))
+        for k in range(hk[i]):
+            src = slice(k * g_i * D, (k + 1) * g_i * D)
+            dst = slice(k * gmax * D, (k * gmax + g_i) * D)
+            wq[:, dst] = lp["wq"][:, src]
+            wo[dst, :] = lp["wo"][src, :]
+        lp["wq"], lp["wo"] = wq, wo
+        lp["wk"] = pad(lp["wk"], cfg.n_embd, hkv_max * D)
+        lp["wv"] = pad(lp["wv"], cfg.n_embd, hkv_max * D)
+        if "w_gate" in lp:
+            lp["w_gate"] = pad(lp["w_gate"], cfg.n_embd, ff_max)
+        lp["w_up"] = pad(lp["w_up"], cfg.n_embd, ff_max)
+        lp["w_down"] = pad(lp["w_down"], ff_max, cfg.n_embd)
+    SRV_INF("load_model", "openelm: padded to %d/%d heads, ff=%d", h_pad,
+            hkv_max, ff_max)
+    return per_layer, dataclasses.replace(cfg, n_heads=h_pad,
+                                          n_kv_heads=hkv_max, n_ff=ff_max)
 
 
 def params_from_numpy(params_np: dict, cfg: ModelConfig,
@@ -542,12 +604,20 @@ def fuse_projections(params: dict, cfg: ModelConfig) -> dict:
     column is an independent contraction (and w8a8 activation scales are
     per row of x, shared by construction), so the split outputs equal the
     separate matmuls'. Layer groups stay unfused, as in JAX, and so do
-    MLA's projections (no wk / wv; JAX's gate names wkv_a)."""
+    MLA's projections (no wk / wv; JAX's gate names wkv_a). The
+    per-request LoRA stacks ride along, each `lora_B_<key>` [L, n_ad, out,
+    r] as `lora_Bt_<key>` [L, n_ad * r, out], the layout of the delta's
+    second product (models/llama._lora_delta), made here once."""
     del cfg
     layers = params.get("layers")
     if not isinstance(layers, dict):
         return params
     layers = dict(layers)
+    for key in [k for k in layers if k.startswith("lora_B_")]:
+        Bm = layers.pop(key)
+        L, n_ad, out, r = Bm.shape
+        layers["lora_Bt_" + key[len("lora_B_"):]] = \
+            Bm.transpose(2, 3).reshape(L, n_ad * r, out).contiguous()
     for fused, keys in (("wqkv", ("wq", "wk", "wv")),
                         ("w_gateup", ("w_gate", "w_up"))):
         # an MoE layer's dense gate and up (arctic's branch) stay apart,

@@ -93,6 +93,16 @@ programs replay on, with no host wait.
   one-round draft pass; as in JAX, no chain is speculated after their
   prefill and a draft model runs one round a pass.
 
+- Per-request LoRA (JAX `configure_lora`, `_set_lora_row`): with
+  adapters stacked unmerged (models/lora.stack_dynamic), each slot holds
+  a row of adapter scales, the adapters' defaults until a request's
+  `lora` field sets its own at admission; the [S, n_ad] rows are a staged
+  operand every program reads (the single-slot media prefill its slot's
+  row), so every graph key serves any mix. As in JAX, a slot's cached
+  prefix is reused whatever mix computed it, the embeddings pass reads
+  the rows against its own batch rows, and the rope layout stays the
+  file's (the stacks' q / k columns are in its order).
+
 Not ported yet (the JAX engine has them): the other model families.
 """
 
@@ -483,8 +493,15 @@ class Engine:
         # grouped weights: a prefill pass holds more rows than the grouped
         # GEMM splits (<= _SPLIT_MAX_ROWS rows take other bits), so a
         # prompt row's bits do not depend on how much of it was cached
+        # a multimodal chunk prefills one slot alone, so its pass holds
+        # the bucket's rows: on grouped weights only buckets of more than
+        # _SPLIT_MAX_ROWS, for the same reason
+        self.mm_buckets = tuple(buckets)
         if any(isinstance(w, QTensor) and not w.w8a8
                for gp in layer_groups(params) for w in gp.values()):
+            self.mm_buckets = tuple(b for b in buckets
+                                    if b > _SPLIT_MAX_ROWS) \
+                or tuple(buckets[-1:])
             buckets = [b for b in buckets if S * b > _SPLIT_MAX_ROWS] \
                 or buckets[-1:]
         self.buckets = tuple(buckets)
@@ -527,6 +544,11 @@ class Engine:
         self._chain_q: list[_Chain] = []    # speculated, oldest first
         self._spec_q: list[_Spec] = []      # spec passes, oldest first
         self.graphs = GraphRunner(self.device, self.ecfg.cuda_graphs)
+        # dynamic (per-request) adapters: configure_lora
+        self.n_lora = 0
+        self.lora_default: list[float] = []
+        self._lora_rows = self._lora_in = None
+        self._lora_stacked = False      # some layer holds a delta's stacks
         self.slots = [Slot(i, self.slot_ctx) for i in range(S)]
         self.queue: queue.Queue[BaseTask] = queue.Queue()
         self.metrics = Metrics()
@@ -545,17 +567,62 @@ class Engine:
     def fuse_params(self) -> None:
         """Rope layout to half-split and fused q/k/v and gate/up
         projections (both change no outputs beyond f32 summation order;
-        see models/loader.py). The BERT encoder reads the unfused keys."""
+        see models/loader.py), at start(), after a static LoRA merge and
+        the dynamic stacks. The BERT encoder reads the unfused keys. Under
+        per-request LoRA the rope layout stays the file's, as in JAX: the
+        stacks' q / k columns are in the file's order."""
         if self.bert:
             return
         from ..models.loader import deinterleave_rope, fuse_projections
-        self.params, self.cfg = deinterleave_rope(self.params, self.cfg)
+        if self.n_lora == 0:
+            self.params, self.cfg = deinterleave_rope(self.params, self.cfg)
         self.params = fuse_projections(self.params, self.cfg)
         if self.draft_params is not None:
             self.draft_params, self.draft_cfg = deinterleave_rope(
                 self.draft_params, self.draft_cfg)
             self.draft_params = fuse_projections(self.draft_params,
                                                  self.draft_cfg)
+
+    def configure_lora(self, n_adapters: int,
+                       default_scales: list[float]) -> None:
+        """Enable per-request LoRA (JAX `configure_lora`): a [S, n_ad] row
+        of adapter scales a slot feeds the forward's low-rank deltas
+        (models/lora.stack_dynamic), every slot at the default scales until
+        a request sets its own. The rows are a staged operand, one device
+        buffer the programs read and the graphs captured, so every graph
+        key serves any mix of adapters."""
+        S = len(self.slots)
+        self.n_lora = n_adapters
+        self.lora_default = list(default_scales)
+        self._lora_rows = np.tile(np.asarray(default_scales, np.float32),
+                                  (S, 1))
+        ring = max(1, self.ecfg.pipeline_depth) + 2
+        self._lora_in = StagedBuffer(S * n_adapters, torch.float32,
+                                     self.device, ring)
+        self._push_lora()
+        self.params["lora_scales"] = self._lora_in.dev.view(S, n_adapters)
+        self._lora_stacked = any(k.startswith("lora_A_")
+                                 for gp in layer_groups(self.params)
+                                 for k in gp)
+
+    def _push_lora(self) -> None:
+        self._lora_in.host()[:] = self._lora_rows.reshape(-1)
+        self._lora_in.push()
+
+    def _set_lora_row(self, slot: int, lora: tuple) -> None:
+        """A request's adapter scales into its slot's row (JAX
+        `_set_lora_row`, at admission): the defaults, then each (id,
+        scale) in order; pushed behind the programs already enqueued
+        when the row changes."""
+        if self.n_lora == 0:
+            return
+        row = np.asarray(self.lora_default, np.float32).copy()
+        for aid, scale in lora or ():
+            if 0 <= aid < self.n_lora:
+                row[aid] = scale
+        if not np.array_equal(self._lora_rows[slot], row):
+            self._lora_rows[slot] = row
+            self._push_lora()
 
     def stop(self) -> None:
         self._stop.set()
@@ -734,6 +801,9 @@ class Engine:
             task.ngram.update(task.prompt_tokens)
         s.drafts = []
         s.draft_pos = 0
+        # as in JAX, the prefix reused above may have been computed under
+        # another adapter mix (ROADMAP: the reference's quirks)
+        self._set_lora_row(s.idx, task.lora)
         SRV_DBG("admit", "task %s -> slot %d reuse=%d prompt=%d",
                 task.rid, s.idx, reuse, len(task.prompt_tokens))
 
@@ -785,11 +855,14 @@ class Engine:
 
     # -- prefill -------------------------------------------------------------
 
-    def _bucket(self, n: int) -> int:
-        for b in self.buckets:
+    def _bucket(self, n: int, buckets: tuple = ()) -> int:
+        """The first of `buckets` (the batched passes' by default) that
+        holds n rows, else the largest."""
+        buckets = buckets or self.buckets
+        for b in buckets:
             if n <= b:
                 return b
-        return self.buckets[-1]
+        return buckets[-1]
 
     def _prefill_batch(self, pre: list) -> None:
         """Prefill every pending slot's next chunk in ONE batched pass;
@@ -905,7 +978,7 @@ class Engine:
         cstart, cend, ch = self._chunk_at(task, s.cursor)
         off = s.cursor - cstart
         n = min(cend - s.cursor, self.ecfg.n_ubatch)
-        T = self._bucket(n)
+        T = self._bucket(n, self.mm_buckets)
         kind = ch[0]
         done = s.cursor + n >= len(task.prompt_tokens)
         dev_done = [s] if done and task.host_sampler is None else []
@@ -1138,7 +1211,7 @@ class Engine:
         for s in dec:
             tokens[s.idx] = [s.next_token] + s.drafts[:T - 1]
             pos[s.idx] = s.pos
-        self._stage_one(tokens, pos, [s.idx for s in hs])
+        self._stage_one(tokens, pos, [s.idx for s in hs], T)
         kw = self._chain_fast_kw([s for s in dec if s not in hs])
         extras, kcap = kw["samp_extras"], kw.get("samp_kcap", 0)
         key = ("one", extras, kcap) if T == 1 else \
@@ -1156,18 +1229,20 @@ class Engine:
                           tokps_h, {s.idx: rows_h[k]
                                     for k, s in enumerate(hs)})
 
-    def _stage_one(self, tokens: list, pos: list, host: list) -> None:
+    def _stage_one(self, tokens: list, pos: list, host: list,
+                   T: int | None = None) -> None:
         """Stage a one-token pass's operands (pos0 | active | sample-active
         | host-row index | n_draft | rope delta, S each, then tokens [S,
-        T]): slot b
-        decodes tokens[b] (its next token, or a list: the next token and
-        its drafts) from pos[b] (None: it sits out, at position slot_ctx);
-        T is the longest list. The device samples the active slots not in
-        `host`, and the rows of the slots in `host` come out in that
-        order."""
+        T]): slot b decodes tokens[b] (its next token, or a list: the next
+        token and its drafts) from pos[b] (None: it sits out, at position
+        slot_ctx). T is the program's rows a slot (a verify pass's 1 +
+        draft_max even when every slot drafts fewer), by default the
+        longest list. The device samples the active slots not in `host`,
+        and the rows of the slots in `host` come out in that order."""
         S = len(self.slots)
         rows = [[t] if isinstance(t, int) else t for t in tokens]
-        T = max(len(r) for r in rows if r is not None)
+        if T is None:
+            T = max(len(r) for r in rows if r is not None)
         h = self._one_in.host()
         h[:] = 0
         h[:S] = self.slot_ctx
@@ -1911,16 +1986,6 @@ class Engine:
 
     # -- embeddings / rerank -------------------------------------------------
 
-    def _embed_forward(self, toks, lens, pooling: str):
-        """Arch dispatch (JAX `_embed_forward`): the BERT encoder, or the
-        llama-family embedding forward."""
-        if self.bert:
-            return bert_forward(self.params, self.cfg, toks, lens,
-                                pooling=pooling)
-        return forward_embeddings(self.params, self.cfg, toks, lens,
-                                  self.rope_cos, self.rope_sin,
-                                  pooling=pooling)
-
     def _admit_embed(self, task, token_lists: list[list[int]],
                      pooling: str) -> None:
         """Queue an embeddings/rerank task as groups of at most
@@ -1962,6 +2027,12 @@ class Engine:
             T = self._bucket(max(len(token_lists[j]) for j in group))
             B = len(group)
             R = self._embed_rows(B)
+            S = len(self.slots)
+            if self._lora_stacked and B != S and S != 1:
+                # JAX's forward broadcasts the [S, n_ad] scale rows
+                # against the group's B rows, and fails otherwise
+                raise TypeError(f"lora_scales rows {S} do not broadcast "
+                                f"against {B} embedding rows")
             h = self._emb_in.host()
             h[:R * (1 + T)] = 0
             toks = h[R:R * (1 + T)].reshape(R, T)
@@ -1996,6 +2067,24 @@ class Engine:
         d = self._emb_in.dev
         return self._embed_forward(d[R:R * (1 + T)].view(R, T), d[:R],
                                    pooling).float()
+
+    def _embed_forward(self, toks, lens, pooling: str):
+        """Arch dispatch (JAX `_embed_forward`): the BERT encoder, or the
+        llama-family embedding forward. Under per-request LoRA, row b of a
+        group of S inputs takes slot b's scales, as in JAX; the pass's
+        padded rows take zero scales."""
+        if self.bert:
+            return bert_forward(self.params, self.cfg, toks, lens,
+                                pooling=pooling)
+        params = self.params
+        ls = params.get("lora_scales")
+        R = toks.shape[0]
+        if ls is not None and ls.shape[0] not in (1, R):
+            params = dict(params, lora_scales=torch.nn.functional.pad(
+                ls, (0, 0, 0, R - ls.shape[0])))
+        return forward_embeddings(params, self.cfg, toks, lens,
+                                  self.rope_cos, self.rope_sin,
+                                  pooling=pooling)
 
     def _finish_embed(self, task) -> None:
         if isinstance(task, RerankTask):

@@ -26,9 +26,11 @@ in the templated prompt, wrapped in the family's scaffold and split into
 token and embedding chunks (server/multimodal.py; M-RoPE streams on a
 Qwen2-VL file); a part the server cannot take answers a 400. /props
 reports support_image and support_audio for that input (the JAX /v1/models
-meta's support_image names image generation, and stays false here). LoRA
-and image generation are not ported yet and are refused with a 400 or a
-404; the port loads no adapter, so /lora-adapters lists none.
+meta's support_image names image generation, and stays false here). A
+request's `lora` field ([{"id", "scale"}]) sets its slot's adapter scales
+under --lora-per-request (with static adapters only, any id is out of
+range, as in JAX); /lora-adapters lists the CLI's adapters. Image
+generation is not ported yet (404).
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ from .engine import Engine
 from .protocol import (RequestError, bad_request, chat_chunk_json,
                        chat_completion_json, completion_chunk_json,
                        completion_json, new_request_id, parse_max_tokens,
-                       parse_prompt_tokens, parse_sampling, parse_stop,
+                       parse_lora, parse_prompt_tokens, parse_sampling,
+                       parse_stop,
                        parse_stream_options, usage_json)
 from .reasoning import ReasoningSplitter, detect_reasoning_markers
 from .task import CompletionsTask, EmbeddingsTask, RerankTask
@@ -75,14 +78,17 @@ class HTTPServer:
                  max_tps: float = 0.0,
                  default_grammar: str | None = None,
                  capabilities: dict | None = None,
-                 multimodal=None):
+                 multimodal=None, lora_adapters: list | None = None):
         """max_tps: the server's decode-rate cap a request (-tps; 0 =
         none); default_grammar: the server-wide GBNF (--grammar,
         --grammar-file, --json-schema); capabilities: overrides of the
         route switches (completion and embedding on, reranking off by
         default, as in the JAX server); multimodal: the mmproj's
-        MultimodalProcessor, or None."""
+        MultimodalProcessor, or None; lora_adapters: what GET
+        /lora-adapters lists ({"id", "path", "scale"} an adapter, as the
+        CLI builds it)."""
         self.engine = engine
+        self.lora_adapters_list = list(lora_adapters or [])
         self.mp = multimodal
         self.model_name = model_name
         self.defaults = defaults or SamplerParams()
@@ -142,7 +148,7 @@ class HTTPServer:
         return {"status": "ok"}
 
     def lora_adapters(self, body: dict, rid: str, headers=None) -> list:
-        return []
+        return self.lora_adapters_list
 
     def props(self, body: dict, rid: str, headers=None) -> dict:
         """The server's settings and its media inputs: support_image with
@@ -486,9 +492,6 @@ class HTTPServer:
                                  default_grammar=self.default_grammar)
         so = parse_stream_options(body)
         mt = parse_max_tokens(body, self.engine.slot_ctx)
-        if body.get("lora") is not None:
-            raise bad_request("\"lora\" is not supported by this server yet",
-                              "lora")
         if tools and sparams.grammar is None:
             # lazy tool grammar: unconstrained until a trigger string
             tg = tools_grammar(tools, self.chat.alias)
@@ -505,7 +508,8 @@ class HTTPServer:
             stop_words=parse_stop(body, self.default_stop),
             stream=so["stream"], n_keep=n_keep, n_probs=sparams.n_probs,
             rid=rid, reasoning=reasoning, toolscan=toolscan,
-            rate_bucket=self._request_rate_bucket(headers), chunks=chunks)
+            rate_bucket=self._request_rate_bucket(headers), chunks=chunks,
+            lora=parse_lora(body, self.engine.n_lora))
         task.mrope_delta = mrope_delta
         task.include_usage = so["include_usage"]
         self.engine.submit(task)

@@ -304,6 +304,30 @@ def parse_prompt_tokens(prompt: Any, tokenizer, param: str = "prompt"
     raise bad_request(f"\"{param}\" must be a string or an array", param)
 
 
+def parse_lora(body: dict, n_adapters: int) -> tuple:
+    """Per-request adapter scales: [{"id": N, "scale": S}, ...]
+    (reference per-request lora override, §2.1 #22)."""
+    lora = body.get("lora")
+    if lora is None:
+        return ()
+    if not isinstance(lora, list):
+        raise bad_request("\"lora\" must be an array of {id, scale}",
+                          "lora")
+    out = []
+    for e in lora:
+        if not isinstance(e, dict) or "id" not in e:
+            raise bad_request("\"lora\" entries must be {id, scale}",
+                              "lora")
+        aid = e["id"]
+        if not isinstance(aid, int) or not 0 <= aid < n_adapters:
+            raise bad_request(f"\"lora\" id {aid} is out of range", "lora")
+        scale = e.get("scale", 1.0)
+        if not isinstance(scale, (int, float)) or isinstance(scale, bool):
+            raise bad_request("\"lora\" scale must be a number", "lora")
+        out.append((aid, float(scale)))
+    return tuple(out)
+
+
 def parse_stream_options(body: dict) -> dict:
     stream = bool(body.get("stream", False))
     opts = body.get("stream_options") or {}

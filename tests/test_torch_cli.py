@@ -188,3 +188,106 @@ def test_chat_template_kwargs_and_no_cache_prompt_reach_the_server(
     finally:
         srv.server_close()
         engine.stop()
+
+
+LORA_CVEC_FLAGS = [
+    (["--lora", "a.gguf", "--lora", "b.gguf"], "lora"),
+    (["--lora-scaled", "a.gguf", "0.5", "--lora-scaled", "b.gguf", "2"],
+     "lora_scaled"),
+    (["--lora-init-without-apply"], "lora_init_without_apply"),
+    (["--lora-per-request"], "lora_per_request"),
+    (["--control-vector", "c.gguf", "--control-vector", "d.gguf"],
+     "control_vector"),
+    (["--control-vector-scaled", "c.gguf", "0.8"], "control_vector_scaled"),
+    (["--control-vector-layer-range", "2", "6"],
+     "control_vector_layer_range"),
+    (["-l", "29871+1.5", "-l", "5-inf", "--logit-bias", "7-0.5"],
+     "logit_bias"),
+    (["-to", "30"], "timeout"), (["--timeout", "45"], "timeout"),
+    (["-e"], "escape"), (["--escape"], "escape"), (["--no-escape"], "escape"),
+    (["--system-info"], "system_info"), (["--list-devices"], "list_devices"),
+]
+
+
+@pytest.mark.parametrize("argv,dest", LORA_CVEC_FLAGS,
+                         ids=[" ".join(a) for a, _ in LORA_CVEC_FLAGS])
+def test_lora_cvec_and_remaining_flags_parse_as_jax(argv, dest):
+    """The lora and control-vector groups, -l/--logit-bias, -to/--timeout,
+    -e/--escape/--no-escape, --system-info and --list-devices: the JAX
+    parser's values, set and unset."""
+    p, jp = cli.build_parser(), jcli.build_parser()
+    assert getattr(p.parse_args([]), dest) == getattr(jp.parse_args([]), dest)
+    assert getattr(p.parse_args(argv), dest) \
+        == getattr(jp.parse_args(argv), dest)
+
+
+def test_logit_bias_defaults_as_jax():
+    """-l entries become the server's default logit bias as the JAX CLI
+    parses them (signed values; "inf" with either sign bans the token, the
+    JAX parser's reading; a malformed entry ignored)."""
+    argv = ["-l", "29871+1.5", "-l", "5-inf", "-l", "7-0.5", "-l", "9+inf",
+            "-l", "bad", "-l", "3*2"]
+    got = cli._default_sampling(cli.build_parser().parse_args(argv))
+    want = jcli._default_sampling(jcli.build_parser().parse_args(argv))
+    assert got.logit_bias == want.logit_bias == {
+        29871: 1.5, 5: float("-inf"), 7: -0.5, 9: float("-inf")}
+
+
+def test_system_info_prints_and_exits(capsys):
+    assert cli.main(["--system-info"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("llama-box-tpu-torch") and "torch" in out
+
+
+@pytest.mark.parametrize("mode", ["per_request", "static"])
+def test_lora_requests_and_adapter_list(tmp_path, model_path, mode):
+    """--lora-per-request: a chat with a `lora` field is answered (no
+    400), an id past the adapters is a 400, and GET /lora-adapters lists
+    {"id", "path", "scale"} as the JAX CLI builds it. Static adapters
+    (merged): any `lora` id is out of range, as in JAX."""
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+    from .test_torch_lora import SHAPES, write_lora
+    a = write_lora(str(tmp_path / "a.gguf"), 1, list(SHAPES), 4, 8.0)
+    b = write_lora(str(tmp_path / "b.gguf"), 2, ["attn_v"], 2, 4.0)
+    argv = ["-m", model_path, "--device", "cpu", "--port", "0",
+            "--no-jinja", "-np", "2", "-c", "128", "--weights-dtype", "f32",
+            "--lora", a, "--lora-scaled", b, "0.5"]
+    if mode == "per_request":
+        argv.append("--lora-per-request")
+    engine, srv = cli.build_server(argv)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = "http://%s:%d" % srv.server_address[:2]
+
+    def post(body):
+        req = urllib.request.Request(
+            url + "/v1/chat/completions", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    try:
+        with urllib.request.urlopen(url + "/lora-adapters", timeout=30) as r:
+            assert json.loads(r.read()) == [
+                {"id": 0, "path": a, "scale": 1.0},
+                {"id": 1, "path": b, "scale": 0.5}]
+        body = {"messages": [{"role": "user", "content": "hi"}],
+                "max_tokens": 4, "temperature": 0}
+        if mode == "per_request":
+            assert engine.n_lora == 2 and engine.cfg.rope_mode == "norm"
+            out = post(dict(body, lora=[{"id": 1, "scale": 0.25}]))
+            assert out["choices"][0]["message"]["content"] is not None
+            assert engine._lora_rows.tolist()[0] in ([1.0, 0.25],
+                                                     [1.0, 0.5])
+        else:
+            assert engine.n_lora == 0
+        with pytest.raises(urllib.error.HTTPError) as e:
+            post(dict(body, lora=[{"id": 2}]))
+        assert e.value.code == 400
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.stop()

@@ -48,7 +48,10 @@ from .fixtures.make_tiny_model import build_vocab
 from .test_arch_families import ARCHS as FAMILY_ARCHS, _write_family
 
 OWN_ARCHS = ["qwen2", "qwen3", "gpt2", "phi3", "bitnet", "hunyuan-dense",
-             "olmo", "minicpm"]
+             "olmo", "minicpm", "openelm"]
+# openelm's per-layer query and KV head counts and FFN widths (padded at
+# load to 6 / 2 heads, FF 128, q heads grouped at stride 3)
+OPENELM = {"hc": [2, 6], "hk": [1, 2], "ff": [96, 128]}
 # the attention variants: sliding windows with their layer pattern (and
 # gemma3's local rope base, cohere2/exaone4's unroped global layers),
 # attention softcap (gemma2), ALiBi (bloom, mpt, jais, refact)
@@ -98,6 +101,9 @@ def write_own(path, arch, seed=0, dims=(64, 4, 2, 16, 128),
     def norm(n):
         return np.ones(n, np.float32) + rand(n, s=0.1)
 
+    if arch == "openelm":
+        _write_openelm(path, dims, rand, norm)
+        return
     extra = {}
     if arch == "gpt2":
         extra["attention.head_count_kv"] = H
@@ -166,6 +172,31 @@ def write_own(path, arch, seed=0, dims=(64, 4, 2, 16, 128),
         w.add_tensor(p + "ffn_down.weight", rand(E, FF), quant)
         if arch == "gpt2":
             w.add_tensor(p + "ffn_down.bias", rand(E))
+    w.write()
+
+
+def _write_openelm(path, dims, rand, norm):
+    """openelm (the golden's tensors, tests/test_arch_goldens.py): per-layer
+    head counts and FFN widths as metadata arrays (OPENELM), a fused qkv
+    at each layer's geometry, per-head [D] q/k norms, tied embeddings."""
+    E, _, _, D, _ = dims
+    hc, hk, ffs = OPENELM["hc"], OPENELM["hk"], OPENELM["ff"]
+    w, V = _header(path, "openelm", dims, (
+        ("attention.head_count", hc), ("attention.head_count_kv", hk),
+        ("feed_forward_length", ffs), ("attention.key_length", D)))
+    w.add_tensor("token_embd.weight", rand(V, E))
+    w.add_tensor("output_norm.weight", norm(E))
+    for i in range(2):
+        p = f"blk.{i}."
+        w.add_tensor(p + "attn_norm.weight", norm(E))
+        w.add_tensor(p + "attn_qkv.weight", rand((hc[i] + 2 * hk[i]) * D, E))
+        w.add_tensor(p + "attn_output.weight", rand(E, hc[i] * D))
+        w.add_tensor(p + "attn_q_norm.weight", norm(D))
+        w.add_tensor(p + "attn_k_norm.weight", norm(D))
+        w.add_tensor(p + "ffn_norm.weight", norm(E))
+        w.add_tensor(p + "ffn_gate.weight", rand(ffs[i], E))
+        w.add_tensor(p + "ffn_up.weight", rand(ffs[i], E))
+        w.add_tensor(p + "ffn_down.weight", rand(E, ffs[i]))
     w.write()
 
 
@@ -503,18 +534,47 @@ def test_moe_and_llama4_config_is_in_the_slice(tmp_path, flag, value):
 
 def test_layer_groups_and_unknown_tensors_are_refused(tmp_path):
     """A layer group, or the layer stack, holding a tensor the port does
-    not know (jetmoe's mixture-of-attention) is refused by its name; an
+    not know (a recurrent mixer's ssm_in) is refused by its name; an
     unknown root key too."""
     path = str(tmp_path / "m.gguf")
     write_own(path, "qwen3")
     cfg, params = load_model(path, dtype=torch.float32, device="cpu")
-    lay = dict(params["layers"], wq_exps=params["layers"]["q_norm"])
+    lay = dict(params["layers"], ssm_in=params["layers"]["q_norm"])
     base = {"tok_embd": params["tok_embd"],
             "output_norm": params["output_norm"]}
-    with pytest.raises(NotImplementedError, match="wq_exps"):
+    with pytest.raises(NotImplementedError, match="ssm_in"):
         tllama.check_supported(cfg, dict(base, layer_groups=[
             params["layers"], lay]))
-    with pytest.raises(NotImplementedError, match="wq_exps"):
+    with pytest.raises(NotImplementedError, match="ssm_in"):
         tllama.check_supported(cfg, dict(base, layers=lay))
     with pytest.raises(NotImplementedError, match="altup"):
         tllama.check_supported(cfg, dict(params, altup_proj=lay["q_norm"]))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_openelm_pads_per_layer_geometry_as_jax(tmp_path, quantized):
+    """openelm's per-layer head counts and FFN widths: the port's loader
+    pads every layer to the largest geometry as the JAX loader does (q
+    heads grouped by kv head at stride G_max, zero rows and columns),
+    giving its config and its stacked tensors bit for bit; a quantized
+    load stays dense in both (JAX's warning: the padding precedes
+    packing)."""
+    from llama_box_tpu_torch.ops.qmatmul import QTensor
+    path = str(tmp_path / "openelm.gguf")
+    write_own(path, "openelm", quant=GGMLType.Q8_0 if quantized
+              else GGMLType.F32)
+    jcfg, jp = jax_load(path, dtype=jnp.float32, quantized=quantized)
+    tcfg, tp = load_model(path, dtype=torch.float32, device="cpu",
+                          quantized=quantized)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert (tcfg.n_heads, tcfg.n_kv_heads, tcfg.n_ff) == (6, 2, 128)
+    assert set(tp["layers"]) == set(jp["layers"])
+    for k, v in tp["layers"].items():
+        assert not isinstance(v, QTensor)
+        np.testing.assert_array_equal(v.numpy(), np.asarray(jp["layers"][k]),
+                                      err_msg=k)
+    # layer 0 (2 q heads on 1 kv head): heads 0, 1 filled, 2 zero; kv 1 zero
+    D = 16
+    wq, wk = tp["layers"]["wq"][0], tp["layers"]["wk"][0]
+    assert wq[:, :2 * D].abs().sum() > 0 and not wq[:, 2 * D:].any()
+    assert not wk[:, D:].any() and not tp["layers"]["w_up"][0][:, 96:].any()

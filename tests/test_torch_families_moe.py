@@ -20,10 +20,12 @@ For every family:
   tokens equal the JAX engine's;
 - a T-row verify forward gives its rows' one-row decode steps (f32,
   within 1e-5).
-jetmoe's mixture-of-attention and jamba's recurrent mixer stay refused
-at load, and qwen2vl's M-RoPE by the check, by their cause (deepseek2's
-MLA is ported: tests/test_torch_families_mla.py); on a CUDA device the
-check refuses expert stacks the kernel does not take."""
+jetmoe (mixture of attention: q and output experts over a shared kv
+projection, and MoE FFN layers) is one of the families; jamba's recurrent
+mixer stays refused at load by its cause (qwen2vl's M-RoPE and deepseek2's
+MLA are ported: tests/test_torch_multimodal_engine.py,
+tests/test_torch_families_mla.py); on a CUDA device the check refuses
+expert stacks the kernel does not take."""
 
 import dataclasses
 
@@ -44,7 +46,7 @@ from .test_torch_families import C, S, T, _header, _load_both, _prefill_both
 MOE_ARCHS = ["mixtral", "qwen2moe", "qwen3moe", "olmoe", "granitemoe",
              "granitemoeshared", "phimoe", "grok", "dbrx", "arctic",
              "bailingmoe", "hunyuan-moe", "glm4moe", "dots1", "gpt-oss",
-             "llama4"]
+             "llama4", "jetmoe"]
 DIMS = (64, 4, 2, 16, 128)      # E, H, HKV, D, dense FF
 FFE = 48                        # the experts' FF (not a multiple of 64)
 WINDOW = 8                      # gpt-oss's window, llama4's chunk
@@ -95,6 +97,9 @@ def write_moe(path, arch, seed=0):
     extra = {"block_count": L, "expert_count": X, "expert_used_count": K,
              "attention.key_length": D, "attention.value_length": D,
              **_KV.get(arch, {})}
+    if arch == "jetmoe":
+        # the golden's export convention: head_count = X * head_count_kv
+        extra["attention.head_count"] = X * HKV
     w, V = _header(path, arch, DIMS, extra.items())
     qd, kvd = H * D, HKV * D
     ln_b = arch == "phimoe"                  # biased LayerNorms
@@ -111,6 +116,15 @@ def write_moe(path, arch, seed=0):
             w.add_tensor(p + "attn_norm.bias", rand(E))
         if arch == "dbrx":
             w.add_tensor(p + "attn_qkv.weight", rand(qd + 2 * kvd, E))
+        elif arch == "jetmoe":
+            # mixture of attention: q and output experts over shared k, v,
+            # a router, the output bias
+            w.add_tensor(p + "attn_q_exps.weight", rand(X, kvd, E, s=0.1))
+            w.add_tensor(p + "attn_output_exps.weight",
+                         rand(X, E, kvd, s=0.1))
+            w.add_tensor(p + "attn_gate_inp.weight", rand(X, E, s=0.5))
+            w.add_tensor(p + "attn_k.weight", rand(kvd, E))
+            w.add_tensor(p + "attn_v.weight", rand(kvd, E))
         else:
             w.add_tensor(p + "attn_q.weight", rand(qd, E))
             w.add_tensor(p + "attn_k.weight", rand(kvd, E))
@@ -127,8 +141,9 @@ def write_moe(path, arch, seed=0):
             w.add_tensor(p + "attn_k_norm.weight", norm(kvd))
         if arch == "gpt-oss":
             w.add_tensor(p + "attn_sinks.weight", rand(H, s=1.0))
-        w.add_tensor(p + "attn_output.weight", rand(E, qd))
-        if arch in ("gpt-oss", "phimoe"):
+        if arch != "jetmoe":
+            w.add_tensor(p + "attn_output.weight", rand(E, qd))
+        if arch in ("gpt-oss", "phimoe", "jetmoe"):
             w.add_tensor(p + "attn_output.bias", rand(E))
         if arch in ("grok", "dbrx"):
             # grok: the post-attention sandwich norm; dbrx: its pre-FFN norm
@@ -163,6 +178,8 @@ def write_moe(path, arch, seed=0):
             w.add_tensor(p + "ffn_down_shexp.weight", rand(E, FFE, s=0.1))
         if arch == "qwen2moe":
             w.add_tensor(p + "ffn_gate_inp_shexp.weight", rand(1, E, s=0.3))
+        if arch == "jetmoe":        # the bias after the expert sum
+            w.add_tensor(p + "ffn_down.bias", rand(E))
     w.write()
 
 
@@ -257,6 +274,9 @@ def _write_refused(path, arch, names, extra=()):
 
 
 @pytest.mark.parametrize("arch,names,cause", [
+    # mixture of attention, ported: a jetmoe file with these tensors loads
+    # and runs (its parity: the jetmoe cases of the tests above and
+    # tests/test_torch_families_moe_engine.py)
     ("jetmoe", ["blk.0.attn_q_exps.weight", "blk.0.attn_output_exps.weight"],
      "mixture-of-attention"),
     # M-RoPE: the file loads and, since M-RoPE was ported, passes the
@@ -267,6 +287,20 @@ def _write_refused(path, arch, names, extra=()):
 def test_moa_mla_and_recurrent_files_are_refused(tmp_path, arch, names,
                                                  cause):
     path = str(tmp_path / f"{arch}.gguf")
+    if arch == "jetmoe":
+        write_moe(path, arch)
+        cfg, params = load_model(path, dtype=torch.float32, device="cpu")
+        assert {n.split(".", 2)[2] for n in names} == {
+            "attn_q_exps.weight", "attn_output_exps.weight"}
+        assert {"wq_exps", "wo_exps"} <= set(params["layers"])
+        tllama.check_supported(cfg, params)
+        kv = tllama.init_kv_cache(cfg, S, C, torch.float32, device="cpu")
+        cos, sin = tllama.make_rope(cfg, C, device="cpu")
+        logits, _ = tllama.prefill_batch_impl(
+            params, cfg, torch.arange(3, 3 + S * T).view(S, T),
+            np.array([0, 0]), np.array([T, 5]), kv, cos, sin)
+        assert torch.isfinite(logits).all()
+        return
     _write_refused(path, arch, names, (("rope.dimension_sections",
                                         [2, 3, 3, 0]),)
                    if arch == "qwen2vl" else ())

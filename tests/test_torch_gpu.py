@@ -3103,3 +3103,156 @@ def test_multimodal_chat_graphs_equal_eager(cuda, tiny_model):
             eng.stop()
     assert out[True][0] == out[True][1] == out[True][2] == out[False][0]
     assert out[True] == out[False]
+
+
+def test_grouped_media_chat_cached_repeat_keeps_the_cold_bits(
+        cuda, wide_path_model):
+    """On grouped weights a media chat whose last text chunk is longer
+    than 64 rows, served cold and then again from the prefix cache (all
+    but its last token cached: a one-token chunk): the first answer
+    token's logits are bit-equal and so are the texts. A single-slot
+    chunk's pass holds its bucket's rows, and grouped calls of at most 64
+    rows split the in-dim (other bits), so the engine keeps only media
+    buckets above 64 rows (Engine.mm_buckets). At TinyLlama's widths."""
+    if wide_path_model[0] != "q4":
+        pytest.skip("the grouped GEMM's row regimes: grouped weights only")
+    from llama_box_tpu_torch.sampling import SamplerParams
+    from llama_box_tpu_torch.server.task import CompletionsTask
+    _, cfg, _, tok = wide_path_model
+    rng = np.random.default_rng(17)
+    emb = rng.standard_normal((45, cfg.n_embd)).astype(np.float32)
+    tail = rng.integers(300, 500, 100).tolist()
+    chunks = [("tokens", [1, 40, 41, 42, 43]),
+              ("embed", emb, [-(10 ** 6) - i for i in range(45)]),
+              ("tokens", tail)]
+    flat = [t for ch in chunks for t in (ch[2] if ch[0] == "embed"
+                                         else ch[1])]
+    eng = _engine(wide_path_model, True, start=True, n_ubatch=128,
+                  n_ctx=4 * 512)
+    try:
+        assert min(eng.mm_buckets) > 64
+        runs = []
+        for _ in range(2):
+            t = CompletionsTask(list(flat),
+                                SamplerParams(temp=0.0, ignore_eos=True),
+                                tokenizer=tok, max_tokens=16, chunks=chunks)
+            _, task, logits = chip_smoke.served_request(
+                eng, lambda t=t: (eng.submit(t), chip_smoke.wait_final(t)))
+            runs.append((task.n_cached, task.generated, logits))
+    finally:
+        eng.stop()
+    assert runs[0][0] == 0 and runs[1][0] == len(flat) - 1
+    assert torch.equal(runs[0][2], runs[1][2])
+    assert runs[0][1] == runs[1][1]
+
+
+def _lora_stacks(tiny, tmp_path, n_ad=2, rank=16, seed=5):
+    """The tiny model's params (a shallow copy) with n_ad random adapters
+    on every projection stacked for per-request scales
+    (models/lora.stack_dynamic)."""
+    from llama_box_tpu_torch.gguf import GGUFWriter
+    from llama_box_tpu_torch.models.lora import load_lora, stack_dynamic
+    _, cfg, params, _ = tiny
+    E, F, hd, kvd = cfg.n_embd, cfg.n_ff, cfg.n_heads * cfg.head_dim, \
+        cfg.n_kv_heads * cfg.head_dim
+    shapes = {"attn_q": (hd, E), "attn_k": (kvd, E), "attn_v": (kvd, E),
+              "attn_output": (E, hd), "ffn_gate": (F, E), "ffn_up": (F, E),
+              "ffn_down": (E, F)}
+    rng = np.random.default_rng(seed)
+    ads = []
+    for a in range(n_ad):
+        path = str(tmp_path / f"lora{a}.gguf")
+        w = GGUFWriter(path, architecture="llama")
+        w.add_kv("general.type", "adapter")
+        w.add_kv("adapter.type", "lora")
+        w.add_kv("adapter.lora.alpha", float(2 * rank))
+        for i in range(cfg.n_layers):
+            for t, (o, n) in shapes.items():
+                w.add_tensor(f"blk.{i}.{t}.weight.lora_a",
+                             rng.standard_normal((rank, n), dtype=np.float32)
+                             * 0.05)
+                w.add_tensor(f"blk.{i}.{t}.weight.lora_b",
+                             rng.standard_normal((o, rank), dtype=np.float32)
+                             * 0.05)
+        w.write()
+        ads.append(load_lora(path))
+    p = dict(params, layers=dict(params["layers"]))
+    assert stack_dynamic(p, cfg, ads) == n_ad
+    return cfg, p
+
+
+def test_lora_delta_rows_keep_their_bits(cuda, tiny_model, tmp_path):
+    """A row's LoRA delta (models/llama._lora_delta: f32 products through
+    dense_matmul) has the same bits in calls of 1, 4, 36 and 64 rows, as
+    the projections' kernels do: verify rows equal one-row steps under
+    per-request LoRA."""
+    from llama_box_tpu_torch.models import llama
+    from llama_box_tpu_torch.models.loader import fuse_projections
+    if tiny_model[0] != "bf16":
+        pytest.skip("the delta is the same f32 code on every path")
+    cfg, p = _lora_stacks(tiny_model, tmp_path)
+    lp = llama.layer_params(fuse_projections(p, cfg))[0]
+    rng = np.random.default_rng(41)
+    h = torch.from_numpy(rng.standard_normal(
+        (64, 1, cfg.n_embd), dtype=np.float32)).to(cuda, torch.bfloat16)
+    scales = torch.from_numpy(rng.uniform(0, 1, (64, 2)).astype(
+        np.float32)).to(cuda)
+    for key in ("wq", "wo", "w_gate", "w_down"):
+        x = h if key != "w_down" else torch.from_numpy(rng.standard_normal(
+            (64, 1, cfg.n_ff), dtype=np.float32)).to(cuda, torch.bfloat16)
+        if key == "wo":
+            x = x[..., :cfg.n_heads * cfg.head_dim]
+        full = llama._lora_delta(x, lp, key, scales)
+        for m in (1, 4, 36):
+            assert torch.equal(llama._lora_delta(x[:m], lp, key, scales[:m]),
+                               full[:m]), (key, m)
+
+
+def test_lora_scale_rows_change_between_replays(cuda, tiny_model, tmp_path):
+    """The [S, n_ad] scale rows are a staged operand: a captured decode
+    chain replayed after a slot's row changed (the engine's _set_lora_row)
+    gives the eager engine's bits under the new rows, for two different
+    rows, and nothing is captured again."""
+    from llama_box_tpu_torch.server.engine import Engine, EngineConfig
+    cfg, p = _lora_stacks(tiny_model, tmp_path)
+    tok = tiny_model[3]
+    engines = []
+    for graphs in (True, False):
+        eng = Engine(cfg, p, tok, EngineConfig(
+            n_slots=4, n_ctx=4 * 256, n_ubatch=32, kv_dtype="bfloat16",
+            decode_chain=16, cuda_graphs=graphs), device="cuda")
+        eng.configure_lora(2, [1.0, 0.5])
+        eng.fuse_params()
+        engines.append(eng)
+    rng = np.random.default_rng(83)
+    chunks = {b: (0, rng.integers(300, 500, n).tolist())
+              for b, n in ((0, 32), (1, 20), (3, 7))}
+    rows = [((0, 0.0),), ((1, 2.0), (0, 0.25))]
+    logits = []
+    for it in range(4):
+        outs = []
+        for eng in engines:
+            if it >= 2:     # slot 0's and slot 3's rows change
+                eng._set_lora_row(0, rows[it - 2])
+                eng._set_lora_row(3, rows[3 - it])
+            _stage_prefill(eng, chunks, 32)
+            eng._refresh_arrs()
+            pre = eng.graphs.run(("prefill", 32),
+                                 lambda e=eng: e._prefill_program(32))
+            tok0 = pre[0].cpu().tolist()
+            _stage_decode(eng, [tok0[0], tok0[1], None, tok0[3]],
+                          [32, 20, 0, 7])
+            dec = eng.graphs.run(("decode", 16, False, 64),
+                                 lambda e=eng: e._decode_program(
+                                     16, samp_extras=False, samp_kcap=64))
+            torch.cuda.synchronize()
+            outs.append([t.clone() for t in (*pre, *dec)]
+                        + [t.clone() for t in eng.kv if t is not None])
+        for a, b in zip(*outs):
+            assert torch.equal(a, b), it
+        logits.append(outs[0][4])                   # the prefill's
+    assert torch.equal(logits[0], logits[1])
+    assert not torch.equal(logits[1], logits[2])
+    assert not torch.equal(logits[2], logits[3])
+    assert engines[0].graphs.n_graphs == 2
+    assert engines[0]._lora_rows.tolist()[3] == [0.0, 0.5]

@@ -347,6 +347,27 @@ def test_grouped_prefill_passes_take_the_unsplit_gemm(models, path,
         16, 32, 64, 128)
 
 
+def test_grouped_media_chunks_take_the_unsplit_gemm(models, path):
+    """A multimodal chunk prefills one slot alone (the engine's
+    _prefill_chunk), its pass the bucket's rows: on grouped weights its
+    buckets hold more than _SPLIT_MAX_ROWS rows, so a media prompt's rows
+    take the unsplit grouped GEMM whether its last chunk is cold or all
+    but one token came from the cache; w8a8 weights keep every bucket."""
+    _, _, tcfg, tp = models["LLAMA_BOX_TPU_PACKED4"]
+    with GGUFFile(path) as g:
+        tok = Tokenizer.from_gguf(g)
+    ecfg = EngineConfig(n_slots=4, n_ctx=4 * 256, n_ubatch=256)
+    eng = Engine(tcfg, tp, tok, ecfg, device="cpu")
+    assert eng.mm_buckets == (128, 256)
+    assert eng._bucket(1, eng.mm_buckets) == eng._bucket(100,
+                                                          eng.mm_buckets)
+    assert eng._bucket(1) == 32
+    cfg, params = load_model(path, dtype=torch.bfloat16, device="cpu",
+                             quantized=True)
+    assert Engine(cfg, params, tok, ecfg, device="cpu").mm_buckets == (
+        16, 32, 64, 128, 256)
+
+
 def _mixed_type(name):
     """ffn_down Q6_K in layer 0 only (as llama.cpp's Q4_K_M mixes it)."""
     return GGMLType.Q6_K if name == "blk.0.ffn_down.weight" else GGMLType.Q4_K

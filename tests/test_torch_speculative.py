@@ -616,3 +616,51 @@ def test_spec_cli_flags_and_http_counters(model_path):
             engine.stop()
             thread.join(timeout=30)
     assert not thread.is_alive()
+
+
+def test_verify_rows_of_a_wave_whose_drafts_are_short(tmp_path):
+    """Four slots with n-gram drafts, one under a rate bucket (so every
+    pass is a one-token or verify pass): when no slot drafts draft_max
+    tokens, the staged rows still hold T = 1 + draft_max columns a slot
+    (they were staged at the longest draft list's width and read at
+    T, so every slot after the first read another's tokens); greedy
+    tokens equal plain decode and the JAX engine's."""
+    from llama_box_tpu.utils.tokenbucket import RatelimitTokenBucket as JRB
+    from llama_box_tpu_torch.utils.tokenbucket import RatelimitTokenBucket
+    path = str(tmp_path / "m.gguf")
+    write_tiny_model(path)
+    base = ([1, 106, 88, 120, 137, 202, 249], [1, 23, 261, 150, 102],
+            [1, 40, 41, 42, 43, 44, 45, 46], [1, 9, 77, 200, 31])
+    prompts = [p + p[1:] for p in base]
+    kw = dict(n_slots=4, n_ctx=256, n_ubatch=16, kv_dtype="float32",
+              decode_chain=2, draft_max=3, lookup_min_accept=0.0)
+    cfg, params = load_model(path, dtype=torch.float32, device="cpu")
+    jcfg, jparams = jax_load(path, dtype=jnp.float32)
+    with GGUFFile(path) as g:
+        tok = Tokenizer.from_gguf(g)
+    with JGGUFFile(path) as g:
+        jtok = JTokenizer.from_gguf(g)
+    out = {}
+    for name, ngram in (("plain", 0), ("ngram", 1), ("jax", 1)):
+        if name == "jax":
+            eng = JEngine(jcfg, jparams, jtok,
+                          JEngineConfig(lookup_ngram_min=ngram, **kw))
+            tc, sc, rb = JTask, JSamplerParams, JRB
+        else:
+            eng = Engine(cfg, params, tok,
+                         EngineConfig(lookup_ngram_min=ngram, **kw),
+                         device="cpu")
+            tc, sc, rb = CompletionsTask, SamplerParams, RatelimitTokenBucket
+        eng.start()
+        try:
+            tasks = [tc(list(p), sc(temp=0.0), tokenizer=eng.tokenizer,
+                        max_tokens=6) for p in prompts]
+            tasks[3].rate_bucket = rb(1e6, 1e6)
+            for t in tasks:
+                eng.submit(t)
+            out[name] = [_final(t).generated for t in tasks]
+            if name == "ngram":
+                assert eng.metrics.n_drafted_total > 0
+        finally:
+            eng.stop()
+    assert out["ngram"] == out["plain"] == out["jax"]
