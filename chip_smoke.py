@@ -37,7 +37,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     the weight K-major, beside it _int_mm on the weight as stored and
     torch.matmul in bf16 on the dequantized weight; never used by the
     port; under a window or ALiBi SDPA gets the same float mask) with
-    CUDA events on a cold L2, beside the bound max(bytes / 3.35 TB/s, ops
+    CUDA events on a cold L2 (medians of 15 launches, of PLAIN_REPS for a
+    plain version), beside the bound max(bytes / 3.35 TB/s, ops
     / peak), the peak being 989 TFLOP/s bf16 or 1979 TOP/s int8, the
     bytes and operations those of the keys each call's window leaves (K
     read at D, V at Dv; 2 x keys x (D + Dv) operations a query row); at
@@ -65,7 +66,21 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     its times beside the bound (the distinct experts' bytes, or 6 N K E F
     operations), the plain version and torch._grouped_mm's three
     products on the rows sorted by expert (never used by the port);
- 5. end to end, bf16 path: a synthetic TinyLlama-1.1B-width GGUF (8 of
+ 3r/4r. the recurrent kernels (port-only: the JAX scans are XLA):
+    csrc/ssm_scan.cu against its plain version at the rows phase 17 gives
+    it (Mamba-1.4B's mixer, 4096 channels of 16 states, and, behind
+    --families, granite-4.0-h-micro's, 64 heads of 64 with 128 states: a
+    4 x 512 prefill and 4 decode rows) and at Jamba2-3B's 5120 channels;
+    csrc/wkv.cu's three rules at RWKV-7's and RWKV-6's 32 heads of 64 and
+    qwen3-next's delta rule (32 v-heads over 16 k-heads of 128), prefill
+    and decode rows. Slots of seq_lens T, a part, 0 (its state NaN: it
+    must keep its bits) and 1, within REC_REL x max|plain|; a prefill of
+    P + 1 + the rest rows bit-equal, outputs and state, to the whole (so
+    a one-row step equals the row after a P-row prefill). Then their times
+    beside the bound (inputs, outputs, the state read and written once,
+    over 3.35 TB/s, or the f32 operations over 67 TFLOP/s) and the plain
+    version's; no PyTorch call computes either function;
+ 5. end to end, bf16 path: a synthetic TinyLlama-1.1B-width GGUF (4 of
     its 22 layers; random F16 weights from --seed, a 32000-piece SPM
     vocab, a chatml template;
     it and 5w's and 5q's files are written by three worker processes
@@ -175,7 +190,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     (flash prefill and flash decode must run), /metrics' drafted counter
     equal to the usage's, support_speculative true; then, in process, the
     n-gram, self-draft and 2-layer draft engines with graphs pipelined
-    (self-draft), graphs in lockstep and eager. Every speculative text
+    (self-draft), graphs in lockstep and eager (SPEC_EAGER_TOKENS a
+    chat). Every speculative text
     must equal plain chained decode's up to the first near tie (a top-2
     log-prob margin within NEAR_TIE in either run); no graph may be
     captured in a measured wave; the self-draft must accept at least
@@ -214,7 +230,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
  11. the dense llama variants at published widths, after phase 10: two
     synthetic GGUFs (Q8_0 matrices, F32 vectors, random from --seed, a
     synthetic vocabulary of the published size, chatml; depth cut to 4
-    layers since phase 15, 8 before): Qwen3-1.7B's (Qwen/Qwen3-1.7B config.json: 28 x 2048, 16 / 8
+    layers since phase 15, 8 before; each written with its f32 forward on
+    the host by a worker from phase 6 on, as are phase 12's, 13's and
+    14's): Qwen3-1.7B's (Qwen/Qwen3-1.7B config.json: 28 x 2048, 16 / 8
     heads of 128, FF 6144, vocab 151936, tied embeddings, per-head q/k RMS
     norms) and Pythia-1.4B's (EleutherAI/pythia-1.4b config.json: 24 x
     2048, 16 heads of 128, rotary 32 of them, parallel residual, LayerNorm
@@ -247,8 +265,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     config.json: 48 x 2048, 32 / 4 heads of 128, per-head q/k norms, 128
     experts, 8 a token, expert FF 768, norm_topk_prob, rope base 1e6,
     vocab 151936, untied output; Q8_0 matrices and expert stacks, the
-    router F32; depth cut to 4 layers; the file, about 3 GB, written by a
-    worker beside phases 3 and 4), on the bf16 and w8a8 paths (the
+    router F32; depth cut to 4 layers; the file, about 3 GB), on the bf16 and w8a8 paths (the
     experts bf16 on both): the routed-expert kernel must run; the cosine
     to the f32 CPU forward of the file (the plain versions on the host);
     then verify rows bit-equal to one-row steps (bf16 and int8 caches)
@@ -263,8 +280,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     heads, q rank 768, kv rank 256, K 64 + 32 / V 64, FF 6400, vocab
     73448, its embedding, residual and logit scales, longrope factors from
     the seed; 4 of 62 layers, uniform: chains, graphs, pipelining), Q8_0
-    matrices written by two workers beside phases 3 and 4, each on the
-    bf16 and w8a8 paths as phase 13's: both attention kernels (and on
+    matrices, each on the bf16 and w8a8 paths as phase 13's: both attention kernels (and on
     DeepSeek the expert kernel) must run; the cosine to the f32 forward of
     the file on the host (the plain versions); verify rows bit-equal to
     one-row steps (bf16 and int8 caches); on MiniCPM3 greedy K = 1 equal
@@ -294,7 +310,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     image rows under the bidirectional span) and the spanned logits
     through the kernel against its plain version;
  16. LoRA adapters and a control vector, after phase 10, on phase 5's
-    TinyLlama-width files (8 layers, -np 4 -c 8192 -ub 512
+    TinyLlama-width files (4 layers, -np 4 -c 8192 -ub 512
     --decode-chain 16): two adapters written from the seed (a: rank 16,
     alpha 32, all seven projections of every layer and output.weight; b:
     rank 8, alpha 16, q, v and down) and a control vector (every layer).
@@ -310,25 +326,59 @@ Phases (any failure raises and exits non-zero; nothing falls back):
     logits against the f32 host forward of the merged weights, and the
     dynamic path at a's scale against the host merge of a's layer pairs
     (cosine >= LORA_COS). 16c: --control-vector-scaled c 0.8
-    --control-vector-layer-range 2 6 on bf16 and w8a8 against the f32
+    --control-vector-layer-range 2 3 on bf16 and w8a8 against the f32
     host forward with the vector (CVEC_COS), on w8a8 also against the
     plain versions on the host over the same QTensors (CVEC_PLAIN_COS),
     the fused w8a8 kernels still launched;
- 9. print a `kernels` line (nine kernels; launches count graph replays;
+ 17. the recurrent families at published widths, after phase 15, on
+    phase 11's machinery: three synthetic GGUFs (Q8_0 matrices, F32
+    vectors and mixer smalls, random from --seed, a synthetic vocabulary of
+    the published size, chatml; tests/fixtures/make_tiny_mamba.py's and
+    make_tiny_rwkv.py's tensor conventions, written by workers beside
+    phases 3 and 4, each with its f32 forward on the host):
+    Mamba-1.4B's (state-spaces/mamba-1.4b-hf config.json: 48 x 2048,
+    d_inner 4096, d_state 16, dt_rank 128, conv 4, vocab 50280, tied; 8
+    layers; a pure stack: chains of 16 in graphs) on the bf16 and w8a8
+    paths and RWKV-7-1.5B's (fla-hub/rwkv7-1.5B-world: 24 x 2048, head
+    64, FF 8192, LoRA ranks 96 / 96 / 64 / 256, vocab 65536; 4 layers) on
+    bf16 (layer groups: a token a pass); the hybrid granite-4.0-h-micro
+    is served behind --families, for the script's time limit. Each served
+    by the CLI at -np 4 -c 4096: two warm-up waves, 4 greedy chats of
+    about 200 + 64 tokens with graphs and chains pipelined, the same on a
+    fresh eager engine (texts equal), one request counting its kernels
+    from 0 (row_norm and ssm_scan on Mamba, wkv on RWKV-7, w8a8_matmul on
+    w8a8; no other), rec_small_forward's logits against the host's
+    (cosine >= VARIANT_COS), one captured decode step's kernels; a
+    second turn extending the first exactly (its 37 tokens fill the ramped
+    chains, so the state stays clean) must reuse the state and give a cold
+    engine's tokens up to the first near tie; TTFT p50 of 4 requests;
+ 9. print a `kernels` line (eleven kernels; launches count graph replays;
     each also with its launches in the self-drafting waves of 8/8w/8q,
     in phase 8's n-gram, self-draft and 2-layer draft waves and in each
     path's embeddings request of phase 10, where bf16's window also holds
     the chats' chains, and in one request of each phase 11, 12, 13, 14
     and 15 model and path; the attention kernels also with their variant and MLA
     shapes' times, moe_ffn with all its timed shapes, its launches those
-    of one phase 13 bf16 request), an `e2e` line (three paths and phases
+    of one phase 13 bf16 request; ssm_scan and wkv with their timed
+    shapes, their launches those of one phase 17 request on Mamba-1.4B's
+    and RWKV-7's bf16 paths), an `e2e` line (three paths and phases
     6, 7, 8, 10, 11, 12, 13 and 14), the card line, and as the last line
     {"ok": true, "device": {...}}.
 
 Flags outside the default run: --families serves jetmoe/jetmoe-8b's
 widths (2 of 24 layers: mixture of attention and MoE FFNs) and
 apple/OpenELM-270M's (all 16 layers, per-layer heads and FFN widths) on
-the bf16 path on phase 11's machinery (cosine to the f32 host forward);
+the bf16 path on phase 11's machinery (cosine to the f32 host forward),
+and the recurrent ibm-granite/granite-4.0-h-micro's widths (40 x 2048,
+mamba2 64 heads of 64, d_state 128, 1 group, 32 / 8 heads of 64 at
+layers 5, 15, 25, 35, FF 8192, vocab 100352, multipliers 12 / 0.22 / 8,
+tied; its first 6 layers: attention at 5; ssm_scan, row_norm and both
+flash kernels must run), RWKV/v6-Finch-1B6's (4 of 24 layers) and
+Qwen3-Next-80B-A3B's (its first 4 layers: three gated DeltaNet layers,
+one gated attention layer of 16 / 2 heads of 256, 512 experts, 10 a
+token) on phase 17's, while AI21-Jamba2-3B's (its first 8 layers) must be
+refused at load: its 20 query heads over one KV head exceed flash decode's
+group of 16;
 --depth-check N holds Qwen3-1.7B's w8a8 path at N layers against the
 plain versions and f32, layer by layer (depth_check).
 
@@ -357,9 +407,9 @@ import numpy as np
 import torch
 
 # TinyLlama-1.1B (BASELINE config 1): published widths; depth cut from 22
-# to 12 layers for the script's time limit with phase 13 beside it, and to
-# 8 with phase 15 beside it
-L, E, H, HKV, D, FF, V = 8, 2048, 32, 4, 64, 5632, 32000
+# to 12 layers for the script's time limit with phase 13 beside it, to 8
+# with phase 15 beside it, and to 4 with phase 17 beside it
+L, E, H, HKV, D, FF, V = 4, 2048, 32, 4, 64, 5632, 32000
 N_SLOTS, N_CTX, N_UBATCH, CHAIN = 4, 8192, 512, 16
 SLOT_CTX = N_CTX // N_SLOTS
 HBM_BPS, BF16_FLOPS = 3.35e12, 989e12          # H100 SXM data sheet peaks
@@ -381,7 +431,14 @@ CHATML = ("{% for message in messages %}{{'<|im_start|>' + message['role'] "
           "{% endif %}")
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
+    """Print a line; a phase's heading (== ...) ends with the seconds since
+    the script started."""
+    if a and isinstance(a[0], str) and a[0].startswith("=="):
+        a = (f"{a[0]}  [{time.perf_counter() - _T0:.1f} s]", *a[1:])
     print(*a, flush=True)
 
 
@@ -394,6 +451,11 @@ def card_line() -> str:
 
 # ---------------------------------------------------------------------------
 # timing
+
+
+# launches a plain version's median is taken over (a kernel's: 15); the
+# plain versions run tens to hundreds of torch ops a call
+PLAIN_REPS = 5
 
 
 def device_ms(fn, flush: torch.Tensor, n: int = 15) -> float:
@@ -904,7 +966,8 @@ def kernel_phase(dev, seed):
         chain_rows_check(g, dev, cposes=(1023, 3000), hkv=hkv, G=1, d=d,
                          dv=dv, C=C)
 
-    log("== phase 4: device times (median of 15, cold L2)")
+    log("== phase 4: device times (median of 15, a plain version's of 5, "
+        "cold L2)")
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     rows = []
     for key, (args, kws) in main.items():
@@ -923,7 +986,8 @@ def kernel_phase(dev, seed):
         q = args[0]
         r = dict(kind=kind, cache=tag, pos=pos, q=list(q.shape),
                  C=args[1].shape[1],
-                 ms=device_ms(kern, flush), plain_ms=device_ms(plain, flush),
+                 ms=device_ms(kern, flush),
+                 plain_ms=device_ms(plain, flush, n=PLAIN_REPS),
                  library_ms=None if lib is None else device_ms(lib, flush),
                  bound_ms=b_ms, bound_by=b_by, mbytes=nbytes / 1e6,
                  gflop=flops / 1e9, dv=args[2].shape[-1])
@@ -1108,7 +1172,8 @@ def w8a8_kernel_phase(dev, seed, shapes=None):
                       lambda a=(ao, xr, *ws), k=kw: fused_layer_tail_plain(
                           *a, **k), None))
 
-    log("== phase 4w: w8a8 device times (median of 15, cold L2)")
+    log("== phase 4w: w8a8 device times (median of 15, a plain version's "
+        "of 5, cold L2)")
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     rows = []
     for (M, K, N), x, qs, sc in mm_cases:
@@ -1144,7 +1209,7 @@ def w8a8_kernel_phase(dev, seed, shapes=None):
             r = dict(kind="w8a8_matmul", shape=[M, K, N], out=str(odt)[6:],
                      ms=device_ms(kern, flush),
                      plain_ms=device_ms(lambda o=odt: w8a8_matmul_plain(
-                         x, qs, sc).to(o), flush),
+                         x, qs, sc).to(o), flush, n=PLAIN_REPS),
                      library_ms=yard["int_mm_kmajor_ms"], bound_ms=b_ms,
                      bound_by=b_by, mbytes=nbytes / 1e6, gop=ops / 1e9,
                      kernels_per_call=sum(n for _, n in calls.values()),
@@ -1160,7 +1225,8 @@ def w8a8_kernel_phase(dev, seed, shapes=None):
         nbytes, ops = w8a8_work(name, shp)
         b_ms, b_by = bound_ms(nbytes, ops, INT8_OPS)
         r = dict(kind=name, shape=list(shp), ms=device_ms(kern, flush),
-                 plain_ms=device_ms(plain, flush), library_ms=None,
+                 plain_ms=device_ms(plain, flush, n=PLAIN_REPS),
+                 library_ms=None,
                  bound_ms=b_ms, bound_by=b_by, mbytes=nbytes / 1e6,
                  gop=ops / 1e9, kernels_per_call=launches_per_call(kern))
         rows.append(r)
@@ -1251,7 +1317,8 @@ def q_kernel_phase(dev, seed):
     errs = {"q4_matmul": 0.0, "q8_matmul": 0.0}
     rows = []
     log("== phase 3q/4q: grouped kernels vs plain (NaN output guards), "
-        "then device times (median of 15, cold L2) of the timed shapes")
+        "then device times (median of 15, a plain version's of 5, cold L2) "
+        "of the timed shapes")
     for lbl, M, K, N, codes, group, mins, sdt, xdt, timed in q_cases():
         packed = codes == "q4"
         name = "q4_matmul" if packed else "q8_matmul"
@@ -1289,7 +1356,8 @@ def q_kernel_phase(dev, seed):
                          ms=device_ms(lambda: kern(x, qs, sc, mn, group,
                                                    out_dtype=odt), flush),
                          plain_ms=device_ms(lambda: plain(
-                             x, qs, sc, mn, group).to(odt), flush),
+                             x, qs, sc, mn, group).to(odt), flush,
+                             n=PLAIN_REPS),
                          library_ms=device_ms(lambda: torch.matmul(x, w),
                                               flush),
                          bound_ms=b_ms, bound_by=b_by, mbytes=nbytes / 1e6,
@@ -1600,11 +1668,14 @@ def kernel_counters() -> dict:
     from llama_box_tpu_torch.ops.norm import row_norm
     from llama_box_tpu_torch.ops.qmatmul import (q4_matmul, q8_matmul,
                                                  w8a8_matmul)
+    from llama_box_tpu_torch.ops.ssm_scan import ssm_scan
+    from llama_box_tpu_torch.ops.wkv import wkv_kernel
     return {"flash_prefill": flash_prefill_batched,
             "flash_decode": flash_decode, "w8a8_matmul": w8a8_matmul,
             "fused_norm_qmm": fused_norm_qmm,
             "fused_layer_tail": fused_layer_tail, "q4_matmul": q4_matmul,
-            "q8_matmul": q8_matmul, "row_norm": row_norm, "moe_ffn": moe_ffn}
+            "q8_matmul": q8_matmul, "row_norm": row_norm, "moe_ffn": moe_ffn,
+            "ssm_scan": ssm_scan, "wkv": wkv_kernel}
 
 
 # each served path: phase name, GGUF types, extra CLI flags, environment,
@@ -1807,9 +1878,10 @@ MODES = {"graphs": (True, True), "eager": (False, False),
          "lockstep": (True, False)}
 REPS = 3    # measured waves a mode
 # the arrival probe: rounds a mode, requests a round, the background's
-# tokens a chat (fewer where the engine runs eagerly)
+# tokens a chat (fewer where the engine runs eagerly; doubled when
+# TinyLlama went from 8 to 4 layers, so the background lasts as long)
 PROBE_ROUNDS, PROBES = 2, 6
-PROBE_BG_TOKENS = {True: 384, False: 96}
+PROBE_BG_TOKENS = {True: 768, False: 192}
 
 
 def arrival_probe(url, bg_texts, probe_texts, bg_tokens, delays):
@@ -3125,6 +3197,9 @@ def one_pass_device_ms(eng, n=30) -> dict:
 # w8a8 and the q4 paths
 
 SPEC_PROMPT, SPEC_TOKENS, SPEC_DRAFT = 160, 128, 8
+# the eager engines' waves stop at 32 tokens a chat, held against plain
+# decode's first 32: their hosts launch every kernel of every draft round
+SPEC_EAGER_TOKENS = 32
 DRAFT_LAYERS = 2
 # the least share of a self-draft's drafts the target accepts. The synthetic
 # model's greedy steps are near ties (top-2 margins of a bf16 ulp), so the
@@ -3419,12 +3494,13 @@ def _spec_engine(engine, draft, ecfg):
 
 
 def spec_run(app, eng, texts, warm_texts, counters=None, srv=None,
-             costs=False) -> dict:
+             costs=False, n=SPEC_TOKENS) -> dict:
     """Warm `eng` when it has graphs (every key captured, then one wave of
     other prompts), serve it (by `srv`, a CLI server whose engine already
-    runs, or by `app`'s routes) and run the measured wave, the kernel
-    counts from 0 when `counters` is given; no graph may be captured in
-    it. `costs`: verify_costs after the wave. The engine is stopped."""
+    runs, or by `app`'s routes) and run the measured wave of `n` tokens a
+    chat, the kernel counts from 0 when `counters` is given; no graph may
+    be captured in it. `costs`: verify_costs after the wave. The engine
+    is stopped."""
     if eng.ecfg.cuda_graphs:
         warm_spec_keys(eng)      # the loop, if running, is idle
     if srv is None:
@@ -3447,7 +3523,7 @@ def spec_run(app, eng, texts, warm_texts, counters=None, srv=None,
         if counters:
             for fn in counters.values():
                 fn.launches = 0
-        w = spec_wave(url, eng, texts)
+        w = spec_wave(url, eng, texts, n)
         if counters:
             w["launches"] = {k: fn.launches for k, fn in counters.items()}
         w.update(captured_in_measured=eng.graphs.n_graphs - n_graphs,
@@ -3574,14 +3650,17 @@ def spec_phase(dev, seed, tmp, path, engine, app) -> dict:
                 app, _spec_engine(engine, drafts.get(label),
                                   dataclasses.replace(ecfgs[label], **kw)),
                 texts, warm, counters if mode == "graphs" else None,
-                costs=mode == "graphs")
+                costs=mode == "graphs",
+                n=SPEC_EAGER_TOKENS if mode == "eager" else SPEC_TOKENS)
     ref = waves["plain16"]["margins"]
     for label, w in waves.items():
         if not label.startswith("plain"):
             assert w["drafted"] > 0, f"{label}: nothing was drafted"
             assert w["prom_drafted"] == w["drafted"] and \
                 w["support_speculative"], label
-            w["vs_plain"] = same_to_near_tie(w["margins"], ref)
+            w["vs_plain"] = same_to_near_tie(
+                w["margins"], [m[:len(g)] for g, m in zip(w["margins"],
+                                                         ref)])
         _log_wave(label, w)
         w.pop("margins")
     s = waves["self_graphs"]
@@ -4285,7 +4364,8 @@ def norm_kernel_phase(dev, seed):
             f"among 36: {same}")
         assert same, (n, style)
 
-    log("== phase 4n: row_norm device times (median of 15, cold L2)")
+    log("== phase 4n: row_norm device times (median of 15, a plain "
+        "version's of 5, cold L2)")
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     rows = []
     for label in NORM_TIMED:
@@ -4296,7 +4376,7 @@ def norm_kernel_phase(dev, seed):
         flops = x.numel() * (7 if style == "ln" else 4)
         b_ms, b_by = bound_ms(nbytes, flops, F32_FLOPS)
         r = dict(kind="row_norm", case=label, ms=device_ms(kern, flush),
-                 plain_ms=device_ms(plain, flush),
+                 plain_ms=device_ms(plain, flush, n=PLAIN_REPS),
                  library_ms=None if lib is None else device_ms(lib, flush),
                  bound_ms=b_ms, bound_by=b_by, mbytes=nbytes / 1e6)
         rows.append(r)
@@ -4435,7 +4515,8 @@ def moe_kernel_phase(dev, seed):
     log(f"  moe_ffn: a row's bits alone = among 36 = among 2048: {same}")
     assert same
 
-    log("== phase 4m: moe_ffn device times (median of 15, cold L2)")
+    log("== phase 4m: moe_ffn device times (median of 15, a plain "
+        "version's of 5, cold L2)")
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     rows = []
     for label, (h, topi, topv, stacks, kw) in cases.items():
@@ -4446,7 +4527,7 @@ def moe_kernel_phase(dev, seed):
                  ms=device_ms(lambda: moe_ffn(h, topi, topv, *stacks, **kw),
                               flush),
                  plain_ms=device_ms(lambda: moe_ffn_plain(
-                     h, topi, topv, *stacks, **kw), flush),
+                     h, topi, topv, *stacks, **kw), flush, n=PLAIN_REPS),
                  library_ms=None if lib is None else device_ms(lib, flush),
                  bound_ms=b_ms, bound_by=b_by, mbytes=nbytes / 1e6,
                  gflop=flops / 1e9)
@@ -4867,7 +4948,7 @@ VARIANT_PATHS = {
 
 def variant_serve(dev, seed, tmp, name, path, mode, ref, paths=None,
                   prompt_len=VARIANT_PROMPT, forward=None,
-                  extra=None) -> dict:
+                  extra=None, cos_min=VARIANT_COS) -> dict:
     """One phase 11 model on one path, served by the CLI: a warm-up wave
     pair (other prompts: a key's first use runs eagerly, its second
     captures; the captures left in the measured wave are counted), the
@@ -4875,7 +4956,7 @@ def variant_serve(dev, seed, tmp, name, path, mode, ref, paths=None,
     (the defaults), the same wave on a fresh eager engine behind the same
     routes (texts equal), one more request counting its kernels from 0,
     small_forward's logits (or `forward`'s) against the f32 CPU forward
-    `ref` (cosine >= VARIANT_COS), and the kernels of one decode step.
+    `ref` (cosine >= cos_min), and the kernels of one decode step.
     `paths` (VARIANT_PATHS by default) gives the CLI flags and the
     kernels one request must launch; prompts are about `prompt_len`
     tokens. `extra(engine, routes, counters)`, run last while the server
@@ -4947,7 +5028,7 @@ def variant_serve(dev, seed, tmp, name, path, mode, ref, paths=None,
                graph_pool_mib=pool_mib, **ops, **more)
     log(f"  {name} {mode}: loaded in {load_s:.1f} s; texts graphs = eager: "
         f"{same}; cosine to the f32 CPU forward {cos:.6f} (tol "
-        f"{VARIANT_COS}); {captured} captures in the measured wave; decode "
+        f"{cos_min}); {captured} captures in the measured wave; decode "
         f"tok/s {res['decode_tok_s']:.1f}, window "
         f"tok/s {res['window_tok_s']:.1f} (eager "
         f"{res['eager_window_tok_s']:.1f}); a decode step: "
@@ -4958,7 +5039,7 @@ def variant_serve(dev, seed, tmp, name, path, mode, ref, paths=None,
         f"({ops['mean_reductions_plain']} with the plain norms); launches "
         f"of one request {launches}")
     assert same, f"{name} {mode}: graphs and eager texts differ"
-    assert cos >= VARIANT_COS, (name, mode, cos)
+    assert cos >= cos_min, (name, mode, cos)
     assert ops["mean_reductions_a_step"] == 0, "a norm's torch reduction"
     assert ops["norm_launches_a_step"] > 0
     for k, n in launches.items():
@@ -4969,26 +5050,56 @@ def variant_serve(dev, seed, tmp, name, path, mode, ref, paths=None,
     return res
 
 
-def variant_phase(dev, seed, tmp) -> dict:
-    """Phase 11 (see the module docstring)."""
+def file_reference(path: str, name: str, seed: int,
+                   forward: str = "small") -> dict:
+    """Write the synthetic GGUF of `name` (write_variant), then its f32
+    forward on the host, the plain versions: small_forward, or
+    long_forward for "long". A worker's job beside the served phases
+    (main), or a step of its phase when run alone. Returns the path, the
+    logits, the model's layers, layer groups and attention widths and the
+    seconds it took."""
     from llama_box_tpu_torch.models.loader import load_model
+    t0 = time.perf_counter()
+    write_variant(path, name, seed)
+    cfg, params = load_model(path, dtype=torch.float32, device="cpu")
+    fwd = long_forward if forward == "long" else small_forward
+    ref = fwd(params, cfg, "cpu", torch.float32)
+    return dict(path=path, ref=ref, layers=cfg.n_layers,
+                groups=len(params.get("layer_groups") or [0]),
+                heads=cfg.n_heads, k=cfg.head_dim, v=cfg.v_head_dim,
+                seconds=time.perf_counter() - t0)
+
+
+def _reference(refs, tmp, name, seed, forward="small") -> dict:
+    """`name`'s file and f32 host forward: a worker's (refs[name], a
+    Future, waited for here) or, without `refs`, made now."""
+    if refs is not None:
+        t0 = time.perf_counter()
+        r = refs[name].result()
+        log(f"  {name}: written and its f32 forward on the host by a "
+            f"worker in {r['seconds']:.1f} s (waited for here "
+            f"{time.perf_counter() - t0:.1f} s)")
+        return r
+    r = file_reference(f"{tmp}/synthetic-{name}-q8_0.gguf", name, seed,
+                       forward)
+    log(f"  {name}: written and its f32 forward on the host in "
+        f"{r['seconds']:.1f} s")
+    return r
+
+
+def variant_phase(dev, seed, tmp, refs=None) -> dict:
+    """Phase 11 (see the module docstring); `refs`: the workers' files
+    and host forwards (file_reference), else made here."""
     log("== phase 11: dense llama variants at published widths: "
         + ", ".join(VARIANTS))
     t_phase = time.perf_counter()
     out = {}
     for name in VARIANTS:
-        path = f"{tmp}/synthetic-{name}-q8_0.gguf"
-        t0 = time.perf_counter()
-        write_variant(path, name, seed)
-        log(f"  wrote {path} in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        cfg, params = load_model(path, dtype=torch.float32, device="cpu")
-        ref = small_forward(params, cfg, "cpu", torch.float32)
-        del params
-        log(f"  f32 CPU forward of the file in "
-            f"{time.perf_counter() - t0:.1f} s")
+        r = _reference(refs, tmp, name, seed)
+        path = r["path"]
         out[name] = {mode: variant_serve(dev, seed, tmp, name, path, mode,
-                                         ref) for mode in VARIANT_PATHS}
+                                         r["ref"])
+                     for mode in VARIANT_PATHS}
         os.remove(path)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 11: {out['seconds']:.1f} s")
@@ -5037,24 +5148,16 @@ def long_forward(params, cfg, device, kv_dtype):
     return torch.cat(out)
 
 
-def attn_variant_phase(dev, seed, tmp) -> dict:
-    """Phase 12 (see the module docstring)."""
-    from llama_box_tpu_torch.models.loader import load_model
+def attn_variant_phase(dev, seed, tmp, refs=None) -> dict:
+    """Phase 12 (see the module docstring); `refs` as phase 11's (the
+    host forwards long_forward's 640 positions)."""
     log("== phase 12: attention variants at published widths: "
         + ", ".join(ATTN_VARIANTS))
     t_phase = time.perf_counter()
     out = {}
     for name in ATTN_VARIANTS:
-        path = f"{tmp}/synthetic-{name}-q8_0.gguf"
-        t0 = time.perf_counter()
-        write_variant(path, name, seed)
-        log(f"  wrote {path} in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        cfg, params = load_model(path, dtype=torch.float32, device="cpu")
-        ref = long_forward(params, cfg, "cpu", torch.float32)
-        del params
-        log(f"  f32 CPU forward of the file (640 positions) in "
-            f"{time.perf_counter() - t0:.1f} s")
+        r = _reference(refs, tmp, name, seed, "long")
+        path, ref = r["path"], r["ref"]
         out[name] = {mode: variant_serve(
             dev, seed, tmp, name, path, mode, ref, paths=ATTN_PATHS,
             prompt_len=ATTN_PROMPT, forward=long_forward,
@@ -5114,25 +5217,20 @@ def moe_checks(seed, mode):
     return run
 
 
-def moe_phase(dev, seed, tmp, path) -> dict:
-    """Phase 13 (see the module docstring); `path` is the GGUF a worker
-    wrote beside the kernel phases."""
-    from llama_box_tpu_torch.models.loader import load_model
+def moe_phase(dev, seed, tmp, refs=None) -> dict:
+    """Phase 13 (see the module docstring); `refs` as phase 11's."""
     c = MOE_VARIANTS[MOE_NAME]
     log(f"== phase 13: a mixture-of-experts model at published widths: "
         f"{MOE_NAME}, {c['L']} of 48 layers, {c['X']} experts, {c['K']} a "
         f"token")
     t_phase = time.perf_counter()
-    t0 = time.perf_counter()
-    cfg, params = load_model(path, dtype=torch.float32, device="cpu")
-    ref = small_forward(params, cfg, "cpu", torch.float32)
-    del params
-    log(f"  f32 CPU forward of the file (the plain versions; {cfg.n_layers} "
-        f"layers) in {time.perf_counter() - t0:.1f} s")
+    r = _reference(refs, tmp, MOE_NAME, seed)
     out = {MOE_NAME: {mode: variant_serve(
-        dev, seed, tmp, MOE_NAME, path, mode, ref, paths=MOE_PATHS,
-        extra=moe_checks(seed, mode)) for mode in MOE_PATHS}}
-    out["layers"] = cfg.n_layers
+        dev, seed, tmp, MOE_NAME, r["path"], mode, r["ref"],
+        paths=MOE_PATHS, extra=moe_checks(seed, mode))
+        for mode in MOE_PATHS}}
+    os.remove(r["path"])
+    out["layers"] = r["layers"]
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 13: {out['seconds']:.1f} s")
     return out
@@ -5190,28 +5288,21 @@ def mla_checks(seed, mode, name):
     return run
 
 
-def mla_phase(dev, seed, tmp, paths) -> dict:
-    """Phase 14 (see the module docstring); `paths` are the GGUFs workers
-    wrote beside the kernel phases."""
-    from llama_box_tpu_torch.models.loader import load_model
+def mla_phase(dev, seed, tmp, refs=None) -> dict:
+    """Phase 14 (see the module docstring); `refs` as phase 11's."""
     log("== phase 14: multi-head latent attention at published widths: "
         + ", ".join(MLA_VARIANTS))
     t_phase = time.perf_counter()
     out = {}
-    for name, path in paths.items():
-        t0 = time.perf_counter()
-        cfg, params = load_model(path, dtype=torch.float32, device="cpu")
-        ref = small_forward(params, cfg, "cpu", torch.float32)
-        groups = len(params.get("layer_groups") or [0])
-        del params
-        log(f"  {name}: {cfg.n_layers} layers in {groups} group(s), K "
-            f"{cfg.head_dim} / V {cfg.v_head_dim}, {cfg.n_heads} heads; the "
-            f"f32 forward of the file on the host (the plain versions) in "
-            f"{time.perf_counter() - t0:.1f} s")
+    for name in MLA_VARIANTS:
+        r = _reference(refs, tmp, name, seed)
+        path = r["path"]
+        log(f"  {name}: {r['layers']} layers in {r['groups']} group(s), K "
+            f"{r['k']} / V {r['v']}, {r['heads']} heads")
         out[name] = {mode: variant_serve(
-            dev, seed, tmp, name, path, mode, ref, paths=MLA_PATHS,
+            dev, seed, tmp, name, path, mode, r["ref"], paths=MLA_PATHS,
             extra=mla_checks(seed, mode, name)) for mode in MLA_PATHS}
-        out.setdefault("layers", {})[name] = cfg.n_layers
+        out.setdefault("layers", {})[name] = r["layers"]
         os.remove(path)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 14: {out['seconds']:.1f} s")
@@ -5909,7 +6000,7 @@ LORA_PROMPT, LORA_TOKENS = 200, 64
 LORA_COS = 0.999
 # the control vector: every layer's direction (std CVEC_STD) at scale 0.8,
 # layers 2 to 6 (1-based) steered
-CVEC_STD, CVEC_SCALE, CVEC_RANGE = 0.2, "0.8", ("2", "6")
+CVEC_STD, CVEC_SCALE, CVEC_RANGE = 0.2, "0.8", ("2", "3")
 # served logits against the f32 host forward with the vector; on w8a8 also
 # against the plain versions on the host over the same QTensors, within
 # phase 5's w8a8 bound (an int8 code the fused norm's other summation
@@ -6259,7 +6350,7 @@ def lora_phase(dev, seed, tmp) -> dict:
     assert s["cos_dynamic_host"] >= LORA_COS, s
     # 16c: the control vector on bf16 and w8a8
     log("== phase 16c: --control-vector-scaled c 0.8 "
-        "--control-vector-layer-range 2 6, against the f32 host forward")
+        "--control-vector-layer-range 2 3, against the f32 host forward")
     cflags = ["--control-vector-scaled", _LORA_FILES["c"], CVEC_SCALE,
               "--control-vector-layer-range", *CVEC_RANGE]
     out["cvec"] = {}
@@ -6447,6 +6538,710 @@ def depth_check(dev, seed, tmp, name, n_layers) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the recurrent kernels (csrc/ssm_scan.cu, csrc/wkv.cu): phases 3r and 4r
+
+# label -> (slots S, rows T, channels C, steps a row nh, B/C groups G,
+# states ds, a decay per state): the rows phase 17 gives the selective
+# scan (Mamba-1.4B's mixer, and granite-4.0-h-micro's behind --families:
+# a 4 x 512 prefill, 4 decode rows) and Jamba2-3B's mixer (5120 channels)
+SSM_CASES = {
+    "mamba-1.4b 4x512 prefill": (4, 512, 4096, 4096, 1, 16, True),
+    "mamba-1.4b 4 decode rows": (4, 1, 4096, 4096, 1, 16, True),
+    "jamba2-3b 4x512 prefill": (4, 512, 5120, 5120, 1, 16, True),
+    "granite-4.0-h-micro 4x512 prefill": (4, 512, 4096, 64, 1, 128, False),
+    "granite-4.0-h-micro 4 decode rows": (4, 1, 4096, 64, 1, 128, False),
+}
+# label -> (rule, S, T, heads H, k-heads Hk, state width N): RWKV-7-1.5B's
+# and RWKV-6-1.6B's 32 heads of 64, qwen3-next's delta rule (32 v-heads
+# over 16 k-heads of 128)
+WKV_CASES = {
+    "rwkv7 h32x64 4x512 prefill": ("wkv7", 4, 512, 32, 32, 64),
+    "rwkv7 h32x64 4 decode rows": ("wkv7", 4, 1, 32, 32, 64),
+    "rwkv6 h32x64 4x512 prefill": ("wkv6", 4, 512, 32, 32, 64),
+    "delta 32/16x128 4x512 prefill": ("delta", 4, 512, 32, 16, 128),
+    "delta 32/16x128 4 decode rows": ("delta", 4, 1, 32, 16, 128),
+}
+# the case each kernel's row of the kernels line reports
+REC_MAIN = {"ssm_scan": "mamba-1.4b 4x512 prefill",
+            "wkv": "rwkv7 h32x64 4x512 prefill"}
+REC_REL = 1e-5      # kernel vs plain, x max|plain| (f32 sums reordered)
+# each state element's operations a row (multiply-adds and the exp the
+# update takes; the output's product and sum)
+SSM_OPS, WKV_OPS = {True: 7, False: 5}, {"wkv6": 6, "wkv7": 8, "delta": 7}
+
+
+def _rec_lens(S, T, dev):
+    """Valid rows a slot: whole, part, none (its state NaN: must keep its
+    bits), one."""
+    return torch.tensor([T, max(1, T * 3 // 5), 0, 1][:S], device=dev)
+
+
+def _ssm_case(g, dev, label):
+    S, T, C, nh, G, ds, per_state = SSM_CASES[label]
+
+    def r(*shape, s=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * s
+    inp = dict(x=r(S, T, C), dt=torch.nn.functional.softplus(r(S, T, nh)
+                                                             - 2.0),
+               A=-torch.exp(r(C, ds) if per_state else r(nh)),
+               B=r(S, T, G, ds), Cm=r(S, T, G, ds), D=r(nh))
+    return inp, r(S, C, ds, s=0.5)
+
+
+def _ssm_run(fn, inp, lens, state, a=0, b=None):
+    sub = {k: (v[:, a:b] if k in ("x", "dt", "B", "Cm") else v)
+           for k, v in inp.items()}
+    return fn(sub["x"].contiguous(), sub["dt"].contiguous(), sub["A"],
+              sub["B"].contiguous(), sub["Cm"].contiguous(), sub["D"], lens,
+              state)
+
+
+def _wkv_case(g, dev, label):
+    mode, S, T, H, Hk, N = WKV_CASES[label]
+    F = torch.nn.functional
+
+    def r(*shape, s=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * s
+    if mode == "delta":
+        args = (F.normalize(r(S, T, Hk, N), dim=-1),
+                F.normalize(r(S, T, Hk, N), dim=-1), r(S, T, H, N),
+                torch.sigmoid(r(S, T, H) + 2.0), torch.sigmoid(r(S, T, H)))
+    elif mode == "wkv6":
+        args = (r(S, T, H, N), r(S, T, H, N, s=0.3), r(S, T, H, N, s=0.3),
+                torch.exp(-torch.exp(r(S, T, H, N) - 1.0)), r(H, N, s=0.3))
+    else:
+        args = (r(S, T, H, N), torch.exp(-torch.exp(r(S, T, H, N) - 1.0)),
+                r(S, T, H, N, s=0.3), r(S, T, H, N, s=0.3),
+                F.normalize(r(S, T, H, N), dim=-1),
+                torch.sigmoid(r(S, T, H, N)))
+    return mode, args, r(S, H, N, N, s=0.3)
+
+
+def _wkv_fns(mode):
+    from llama_box_tpu_torch.ops import wkv
+    name = "delta_rule" if mode == "delta" else mode
+    return getattr(wkv, name), getattr(wkv, name + "_plain")
+
+
+def _wkv_rows(mode, args, a, b):
+    return tuple(t if (mode == "wkv6" and i == 4) else t[:, a:b].contiguous()
+                 for i, t in enumerate(args))
+
+
+def _rec_compare(label, y, want, st, st_plain, lens) -> float:
+    """The kernel's valid rows and states against the plain version's
+    (within REC_REL x max|plain|); the masked slot's NaN state intact."""
+    rows = [int(n) for n in lens.tolist()]
+    masked = rows.index(0)
+    assert torch.isnan(st[masked]).all(), f"{label}: a masked state moved"
+    err = 0.0
+    for b, n in enumerate(rows):
+        if not n:
+            continue
+        e = float((y[b, :n] - want[b, :n]).abs().max())
+        tol = REC_REL * float(want[b, :n].abs().max())
+        assert e <= tol and torch.isfinite(y[b, :n]).all(), (label, b, e)
+        es = float((st[b] - st_plain[b]).abs().max())
+        assert es <= REC_REL * float(st_plain[b].abs().max()), (label, b, es)
+        err = max(err, e)
+    return err
+
+
+def rec_kernel_phase(dev, seed):
+    """Phase 3r: both recurrent kernels against their plain versions at
+    SSM_CASES / WKV_CASES (slots of seq_lens T, a part of T, 0 with a NaN
+    state that must keep its bits, and 1), within REC_REL x max|plain|;
+    a prefill split as P + 1 + the rest bit-equal (outputs and state) to
+    the whole, which also holds the one-row step against the row after a
+    P-row prefill. Phase 4r: their device times on a cold L2 beside the
+    bound (inputs, outputs and the state read and written once, over 3.35
+    TB/s; or the f32 operations over 67 TFLOP/s) and the plain version's
+    time; no PyTorch call computes either function."""
+    from llama_box_tpu_torch.ops import ssm_scan as ss
+    from llama_box_tpu_torch.ops import wkv
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 23)
+    log("== phase 3r: the selective scan (csrc/ssm_scan.cu) and the WKV "
+        "rules (csrc/wkv.cu) vs plain")
+    errs = {"ssm_scan": 0.0, "wkv": 0.0}
+    timed = []
+    for label in SSM_CASES:
+        S, T, C, nh, G, ds, per_state = SSM_CASES[label]
+        inp, s0 = _ssm_case(g, dev, label)
+        lens = _rec_lens(S, T, dev)
+        s0[lens.tolist().index(0)] = float("nan")
+        st, stp = s0.clone(), s0.clone()
+        before = ss.ssm_scan.launches
+        y = _ssm_run(ss.ssm_scan, inp, lens, st)
+        want = _ssm_run(ss.ssm_scan_plain, inp, lens, stp)
+        torch.cuda.synchronize()
+        assert ss.ssm_scan.launches == before + 1
+        e = _rec_compare(label, y, want, st, stp, lens)
+        errs["ssm_scan"] = max(errs["ssm_scan"], e)
+        full = torch.full((S,), T, device=dev)
+        st1, st2 = s0.clone(), s0.clone()
+        st1[2] = st2[2] = 0.0
+        whole = _ssm_run(ss.ssm_scan, inp, full, st1)
+        P = max(1, T * 3 // 5) if T > 2 else T
+        cuts = [(0, P), (P, P + 1), (P + 1, T)] if T > 2 else [(0, T)]
+        parts = torch.cat([_ssm_run(ss.ssm_scan, inp, torch.full_like(
+            full, b - a), st2, a, b) for a, b in cuts], dim=1)
+        bits = torch.equal(parts, whole) and torch.equal(st1, st2)
+        log(f"  ssm_scan {label:<36s} max_abs_err {e:.3e} (tol {REC_REL:g}"
+            f" x max|plain|); split {cuts} = whole bit for bit: {bits}")
+        assert bits, label
+        rows_v = int(lens.sum())
+        nbytes = 4 * (S * T * (2 * C + nh + 2 * G * ds) + 2 * S * C * ds
+                      + inp["A"].numel() + nh)
+        timed.append(("ssm_scan", label, lambda i=inp, l=lens, s=st:
+                      _ssm_run(ss.ssm_scan, i, l, s.clone()),
+                      lambda i=inp, l=lens, s=st:
+                      _ssm_run(ss.ssm_scan_plain, i, l, s.clone()),
+                      nbytes, SSM_OPS[per_state] * rows_v * C * ds))
+    for label in WKV_CASES:
+        mode, S, T, H, Hk, N = WKV_CASES[label]
+        _, args, s0 = _wkv_case(g, dev, label)
+        fn, plain = _wkv_fns(mode)
+        lens = _rec_lens(S, T, dev)
+        s0[lens.tolist().index(0)] = float("nan")
+        st, stp = s0.clone(), s0.clone()
+        before = wkv.wkv_kernel.launches
+        y = fn(*args, lens, st)
+        want = plain(*args, lens, stp)
+        torch.cuda.synchronize()
+        assert wkv.wkv_kernel.launches == before + 1
+        e = _rec_compare(label, y, want, st, stp, lens)
+        errs["wkv"] = max(errs["wkv"], e)
+        full = torch.full((S,), T, device=dev)
+        st1, st2 = s0.clone(), s0.clone()
+        st1[2] = st2[2] = 0.0
+        whole = fn(*args, full, st1)
+        P = max(1, T * 3 // 5) if T > 2 else T
+        cuts = [(0, P), (P, P + 1), (P + 1, T)] if T > 2 else [(0, T)]
+        parts = torch.cat([fn(*_wkv_rows(mode, args, a, b),
+                              torch.full_like(full, b - a), st2)
+                           for a, b in cuts], dim=1)
+        bits = torch.equal(parts, whole) and torch.equal(st1, st2)
+        log(f"  wkv {mode:<5s} {label:<33s} max_abs_err {e:.3e} (tol "
+            f"{REC_REL:g} x max|plain|); split = whole bit for bit: {bits}")
+        assert bits, label
+        nvec = {"wkv6": 4, "wkv7": 6, "delta": 1}[mode]
+        nbytes = 4 * (S * T * H * N * (nvec + 1)
+                      + (2 * S * T * Hk * N + 2 * S * T * H
+                         if mode == "delta" else 0)
+                      + 2 * S * H * N * N + (H * N if mode == "wkv6" else 0))
+        timed.append(("wkv", label, lambda a=args, l=lens, s=st, f=fn:
+                      f(*a, l, s.clone()),
+                      lambda a=args, l=lens, s=st, f=plain: f(*a, l,
+                                                             s.clone()),
+                      nbytes, WKV_OPS[mode] * int(lens.sum()) * H * N * N))
+
+    log("== phase 4r: ssm_scan and wkv device times (median of 15, a "
+        "plain version's of 5, cold L2)")
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for kind, label, kern, plain, nbytes, flops in timed:
+        b_ms, b_by = bound_ms(nbytes, flops, F32_FLOPS)
+        r = dict(kind=kind, case=label, ms=device_ms(kern, flush),
+                 plain_ms=device_ms(plain, flush, n=PLAIN_REPS),
+                 library_ms=None,
+                 library="no PyTorch call", bound_ms=b_ms, bound_by=b_by,
+                 mbytes=nbytes / 1e6, gflop=flops / 1e9)
+        rows.append(r)
+        log("  " + json.dumps(r))
+    return errs, rows
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the recurrent families at published widths
+
+REC_VARIANTS = {
+    # state-spaces/mamba-1.4b-hf config.json: 48 x 2048, d_inner 4096
+    # (expand 2), d_state 16, dt_rank 128, conv 4, vocab 50280, tied
+    # embeddings, rms eps 1e-5; depth cut from 48 to 8 layers
+    "mamba-1.4b": dict(arch="mamba", L=8, E=2048, DI=4096, DS=16, DTR=128,
+                       DC=4, V=50280, eps=1e-5),
+    # fla-hub/rwkv7-1.5B-world: 24 x 2048, head 64, FF 8192, LoRA ranks w
+    # 96 / a 96 / v 64 / g 256, vocab 65536; depth cut to 4 layers
+    "rwkv7-1.5b": dict(arch="rwkv7", L=4, E=2048, HS=64, FF=8192, W=96,
+                       A=96, VR=64, G=256, V=65536, eps=1e-5),
+}
+REC_FAMILY_VARIANTS = {
+    # ibm-granite/granite-4.0-h-micro config.json: 40 x 2048, mamba2 64
+    # heads of 64 (d_inner 4096), d_state 128, 1 group, conv 4, attention
+    # (32 / 8 heads of 64, rope base 1e4) at layers 5, 15, 25, 35, FF 8192,
+    # vocab 100352, embedding / residual / logits multipliers 12 / 0.22 / 8
+    # (the logits divided by 8), tied; its first 6 layers (attention at
+    # 5); served behind --families, outside the default run's time
+    "granite-4.0-h-micro": dict(arch="granitehybrid", L=6, E=2048, DI=4096,
+                                DS=128, NH=64, NG=1, DC=4, H=32, HKV=8,
+                                D=64, ATTN=(5,), FF=8192, V=100352, eps=1e-5,
+                                base=10000.0, escale=12.0, rscale=0.22,
+                                lscale=0.125),
+    # RWKV/v6-Finch-1B6-HF: 24 x 2048, head 64, FF 7168, mix / decay LoRA
+    # 32 / 64, vocab 65536; 4 of 24 layers
+    "rwkv6-1.6b": dict(arch="rwkv6", L=4, E=2048, HS=64, FF=7168, MIX=32,
+                       DEC=64, V=65536, eps=1e-5),
+    # Qwen/Qwen3-Next-80B-A3B-Instruct config.json: 48 x 2048, every 4th
+    # layer gated attention (16 / 2 heads of 256, partial rotary 0.25, rope
+    # base 1e7), the others gated DeltaNet (16 k-heads / 32 v-heads of 128,
+    # conv 4), 512 experts, 10 a token, expert FF 512, one shared expert of
+    # 512, vocab 151936, rms eps 1e-6; its first 4 layers
+    "qwen3-next-80b-a3b": dict(arch="qwen3next", L=4, E=2048, H=16, HKV=2,
+                               D=256, rot=64, HK=16, HV=32, DK=128, DV=128,
+                               DC=4, X=512, K=10, FFE=512, SH=512, FF=5120,
+                               V=151936, eps=1e-6, base=1e7),
+    # ai21labs/AI21-Jamba2-3B config.json: 28 x 2560, mamba d_state 16,
+    # dt_rank 160, expand 2 (d_inner 5120), conv 4, 20 / 1 heads of 128,
+    # attention at layer 7, FF 8192, vocab 65536; its first 8 layers
+    "jamba2-3b": dict(arch="jamba", L=8, E=2560, DI=5120, DS=16, DTR=160,
+                      DC=4, H=20, HKV=1, D=128, ATTN=(7,), FF=8192, V=65536,
+                      eps=1e-6),
+}
+REC_DEFAULT = tuple(REC_VARIANTS)
+# each phase 17 path: CLI flags, and the kernels one request must launch
+REC_PATHS = {
+    "bf16": ([], {"mamba-1.4b": ("row_norm", "ssm_scan"),
+                  "granite-4.0-h-micro": ("row_norm", "ssm_scan",
+                                          "flash_prefill", "flash_decode"),
+                  "rwkv7-1.5b": ("row_norm", "wkv"),
+                  "rwkv6-1.6b": ("row_norm", "wkv"),
+                  "qwen3-next-80b-a3b": ("row_norm", "wkv", "flash_prefill",
+                                         "flash_decode", "moe_ffn")}),
+    "w8a8": (["--weights-dtype", "quantized"],
+             {"mamba-1.4b": ("row_norm", "ssm_scan", "w8a8_matmul")}),
+}
+# which models take which paths (the rest of REC_PATHS' rows: bf16 only)
+REC_MODES = {"mamba-1.4b": ("bf16", "w8a8")}
+# rec_small_forward's logits on the card against the f32 host forward of
+# the file, by path; on w8a8 also against the plain versions on the host
+# over the same QTensors (int8 activations a row drift from f32 through
+# the mixers' exp and softplus: the plain versions show the same drift)
+REC_COS = {"bf16": VARIANT_COS, "w8a8": 0.97}
+REC_PLAIN_COS = 0.99    # w8a8_reference_check's gate
+# the turn that extends the first exactly: 1 + 4 + 16 + 16 tokens fill the
+# ramped chains (4, then 16) with no tail cut, so the state stays clean
+REC_TURN_TOKENS = 37
+
+
+def write_rec_variant(path: str, name: str, seed: int) -> None:
+    """The synthetic GGUF of REC_VARIANTS[name] (or REC_FAMILY_VARIANTS'),
+    in the tensor conventions of tests/fixtures/make_tiny_mamba.py and
+    make_tiny_rwkv.py (llama.cpp's converters): Q8_0 matrices, F32
+    vectors, the mixers' smalls (conv, A, D, norms, lerps) F32, random
+    from `seed`; a synthetic vocabulary of the published size and the
+    chatml template."""
+    from llama_box_tpu_torch.gguf import GGMLType, GGUFWriter
+    c = {**REC_VARIANTS, **REC_FAMILY_VARIANTS}[name]
+    a, L_, E_, V_ = c["arch"], c["L"], c["E"], c["V"]
+    rng = np.random.default_rng(seed + 171)
+    vocab, scores, types = spm_vocab(V_)
+    w = GGUFWriter(path, architecture=a)
+    hkv = [c["HKV"] if i in c.get("ATTN", ()) else 0 for i in range(L_)]
+    kvs = [("block_count", L_), ("context_length", 8192),
+           ("embedding_length", E_), ("vocab_size", V_),
+           ("attention.layer_norm_rms_epsilon", c["eps"]),
+           ("attention.layer_norm_epsilon", c["eps"])]
+    if "DI" in c:
+        kvs += [("ssm.conv_kernel", c["DC"]), ("ssm.inner_size", c["DI"]),
+                ("ssm.state_size", c["DS"]),
+                ("ssm.time_step_rank", c.get("DTR", c.get("NH"))),
+                ("feed_forward_length", c.get("FF", 0))]
+    if "NG" in c:
+        kvs.append(("ssm.group_count", c["NG"]))
+    if "H" in c and a != "qwen3next":
+        kvs += [("attention.head_count", c["H"]),
+                ("attention.head_count_kv", hkv),
+                ("attention.key_length", c["D"]),
+                ("attention.value_length", c["D"]),
+                ("rope.freq_base", c.get("base", 10000.0)),
+                ("rope.dimension_count", c["D"])]
+    if a == "granitehybrid":
+        kvs += [("embedding_scale", c["escale"]),
+                ("residual_scale", c["rscale"]),
+                ("logit_scale", c["lscale"])]
+    if "HS" in c:
+        kvs += [("feed_forward_length", c["FF"]), ("wkv.head_size", c["HS"]),
+                ("attention.head_count", 0), ("attention.head_count_kv", 0),
+                ("rescale_every_n_layers", 0), ("token_shift_count", 2)]
+    if a == "qwen3next":
+        kvs += [("feed_forward_length", c["FF"]),
+                ("attention.head_count", c["H"]),
+                ("attention.head_count_kv", c["HKV"]),
+                ("attention.key_length", c["D"]),
+                ("attention.value_length", c["D"]),
+                ("rope.freq_base", c["base"]),
+                ("rope.dimension_count", c["rot"]),
+                ("expert_count", c["X"]), ("expert_used_count", c["K"]),
+                ("expert_feed_forward_length", c["FFE"]),
+                ("expert_shared_feed_forward_length", c["SH"]),
+                ("expert_weights_norm", True),
+                ("ssm.conv_kernel", c["DC"]),
+                ("ssm.inner_size", c["HV"] * c["DV"]),
+                ("ssm.state_size", c["DK"]),
+                ("ssm.time_step_rank", c["HV"]),
+                ("ssm.group_count", c["HK"])]
+    for k, v in kvs:
+        w.add_kv(f"{a}.{k}", v)
+    for k, v in (("general.name", f"synthetic-{name}"),
+                 ("tokenizer.ggml.model", "llama"),
+                 ("tokenizer.ggml.tokens", vocab),
+                 ("tokenizer.ggml.scores", np.asarray(scores, np.float32)),
+                 ("tokenizer.ggml.token_type", np.asarray(types, np.int32)),
+                 ("tokenizer.ggml.bos_token_id", 1),
+                 ("tokenizer.ggml.eos_token_id", 2),
+                 ("tokenizer.ggml.unknown_token_id", 0),
+                 ("tokenizer.ggml.add_bos_token", True),
+                 ("tokenizer.chat_template", CHATML)):
+        w.add_kv(k, v)
+    q8 = GGMLType.Q8_0
+
+    def mat(tname, *shape):
+        w.add_raw_tensor(tname, shape, q8, _q8_random(rng, shape))
+
+    def vec(tname, *shape, base=0.0, s=0.02):
+        w.add_tensor(tname, (base + rng.standard_normal(
+            shape, dtype=np.float32) * s).astype(np.float32))
+
+    mat("token_embd.weight", V_, E_)
+    if "HS" in c:
+        vec("token_embd_norm.weight", E_, base=1.0)
+        vec("token_embd_norm.bias", E_)
+    vec("output_norm.weight", E_, base=1.0)
+    if "HS" in c:
+        vec("output_norm.bias", E_)
+    if a in ("rwkv7", "rwkv6", "qwen3next", "jamba"):
+        mat("output.weight", V_, E_)     # mamba and granite tie theirs
+    for i in range(L_):
+        p = f"blk.{i}."
+        vec(p + "attn_norm.weight", E_, base=1.0)
+        if "HS" in c:
+            _rwkv_layer(c, p, i, mat, vec)
+            continue
+        if a == "qwen3next":
+            _qwen3next_layer(c, p, i, mat, vec, rng, w)
+            continue
+        vec(p + "ffn_norm.weight", E_, base=1.0) if "FF" in c and c["FF"] \
+            else None
+        if i in c.get("ATTN", ()):
+            H_, HKV_, D_ = c["H"], c["HKV"], c["D"]
+            mat(p + "attn_q.weight", H_ * D_, E_)
+            mat(p + "attn_k.weight", HKV_ * D_, E_)
+            mat(p + "attn_v.weight", HKV_ * D_, E_)
+            mat(p + "attn_output.weight", E_, H_ * D_)
+        elif "NH" in c:                   # mamba2 (granite)
+            di, ds, ng, nh, dc = c["DI"], c["DS"], c["NG"], c["NH"], c["DC"]
+            conv_dim = di + 2 * ng * ds
+            mat(p + "ssm_in.weight", 2 * di + 2 * ng * ds + nh, E_)
+            vec(p + "ssm_conv1d.weight", conv_dim, dc, s=0.3)
+            vec(p + "ssm_conv1d.bias", conv_dim)
+            vec(p + "ssm_dt.bias", nh, base=0.5, s=0.1)
+            w.add_tensor(p + "ssm_a.weight", -(1.0 + rng.uniform(
+                0.0, 3.0, nh)).astype(np.float32))
+            vec(p + "ssm_d.weight", nh, base=1.0)
+            vec(p + "ssm_norm.weight", di, base=1.0)
+            mat(p + "ssm_out.weight", E_, di)
+        else:                             # mamba1 (mamba, jamba)
+            di, ds, dtr, dc = c["DI"], c["DS"], c["DTR"], c["DC"]
+            mat(p + "ssm_in.weight", 2 * di, E_)
+            vec(p + "ssm_conv1d.weight", di, dc, s=0.3)
+            vec(p + "ssm_conv1d.bias", di)
+            mat(p + "ssm_x.weight", dtr + 2 * ds, di)
+            mat(p + "ssm_dt.weight", di, dtr)
+            vec(p + "ssm_dt.bias", di, base=0.5, s=0.1)
+            w.add_tensor(p + "ssm_a.weight", -(1.0 + rng.uniform(
+                0.0, 3.0, (di, ds))).astype(np.float32))
+            vec(p + "ssm_d.weight", di, base=1.0)
+            mat(p + "ssm_out.weight", E_, di)
+            if a == "jamba":
+                vec(p + "ssm_dt_norm.weight", dtr, base=1.0)
+                vec(p + "ssm_b_norm.weight", ds, base=1.0)
+                vec(p + "ssm_c_norm.weight", ds, base=1.0)
+        if c.get("FF"):
+            mat(p + "ffn_gate.weight", c["FF"], E_)
+            mat(p + "ffn_up.weight", c["FF"], E_)
+            mat(p + "ffn_down.weight", E_, c["FF"])
+    w.write()
+
+
+def _rwkv_layer(c, p, i, mat, vec):
+    """One rwkv6 / rwkv7 layer (make_tiny_rwkv.py's tensors)."""
+    E_, HS, FF_ = c["E"], c["HS"], c["FF"]
+    H_ = E_ // HS
+    t = p + "time_mix_"
+    vec(p + "attn_norm.bias", E_)
+    vec(p + "attn_norm_2.weight", E_, base=1.0)
+    vec(p + "attn_norm_2.bias", E_)
+    if c["arch"] == "rwkv6":
+        for nm in ("x", "w", "k", "v", "r", "g"):
+            vec(t + f"lerp_{nm}.weight", 1, 1, E_, base=0.5, s=0.2)
+        mat(t + "w1.weight", 5 * c["MIX"], E_)
+        mat(t + "w2.weight", 5, E_, c["MIX"])
+        vec(t + "first.weight", H_, HS, s=0.5)
+        vec(t + "decay.weight", E_, base=-4.0, s=0.5)
+        mat(t + "decay_w1.weight", c["DEC"], E_)
+        mat(t + "decay_w2.weight", E_, c["DEC"])
+        mat(t + "gate.weight", E_, E_)
+        mat(p + "channel_mix_receptance.weight", E_, E_)
+        vec(p + "channel_mix_lerp_r.weight", 1, 1, E_, base=0.5, s=0.2)
+    else:
+        for nm in ("r", "w", "k", "v", "a", "g"):
+            vec(t + f"lerp_{nm}.weight", 1, 1, E_, base=0.5, s=0.2)
+        vec(t + "w0.weight", E_, base=-4.0, s=0.5)
+        mat(t + "w1.weight", c["W"], E_)
+        mat(t + "w2.weight", E_, c["W"])
+        vec(t + "a0.weight", E_, s=0.3)
+        mat(t + "a1.weight", c["A"], E_)
+        mat(t + "a2.weight", E_, c["A"])
+        if i > 0:                          # layer 0 sets v_first
+            vec(t + "v0.weight", E_, s=0.3)
+            mat(t + "v1.weight", c["VR"], E_)
+            mat(t + "v2.weight", E_, c["VR"])
+        mat(t + "g1.weight", c["G"], E_)
+        mat(t + "g2.weight", E_, c["G"])
+        vec(t + "k_k.weight", E_, base=0.8, s=0.3)
+        vec(t + "k_a.weight", E_, base=0.8, s=0.3)
+        vec(t + "r_k.weight", H_, HS, s=0.3)
+    for nm in ("receptance", "key", "value", "output"):
+        mat(t + f"{nm}.weight", E_, E_)
+    vec(t + "ln.weight", E_, base=1.0)
+    vec(t + "ln.bias", E_)
+    vec(p + "channel_mix_lerp_k.weight", 1, 1, E_, base=0.5, s=0.2)
+    mat(p + "channel_mix_key.weight", FF_, E_)
+    mat(p + "channel_mix_value.weight", E_, FF_)
+
+
+def _qwen3next_layer(c, p, i, mat, vec, rng, w):
+    """One qwen3-next layer (tests/test_mamba.py's qwen3next export):
+    gated attention every 4th layer (attn_q and its gate attn_gate, q/k
+    norms), else the gated DeltaNet; then the experts and the gated shared
+    expert."""
+    E_ = c["E"]
+    vec(p + "ffn_norm.weight", E_, base=1.0)
+    if (i + 1) % 4 == 0:
+        H_, HKV_, D_ = c["H"], c["HKV"], c["D"]
+        mat(p + "attn_q.weight", H_ * D_, E_)
+        mat(p + "attn_gate.weight", H_ * D_, E_)
+        mat(p + "attn_k.weight", HKV_ * D_, E_)
+        mat(p + "attn_v.weight", HKV_ * D_, E_)
+        mat(p + "attn_output.weight", E_, H_ * D_)
+        vec(p + "attn_q_norm.weight", D_, base=1.0)
+        vec(p + "attn_k_norm.weight", D_, base=1.0)
+    else:
+        hk, hv, dk, dv, dc = c["HK"], c["HV"], c["DK"], c["DV"], c["DC"]
+        R = hv // hk
+        conv_dim = 2 * hk * dk + hv * dv
+        mat(p + "ssm_in.weight", hk * (2 * dk + 2 * R * dv), E_)
+        mat(p + "ssm_beta_alpha.weight", hk * 2 * R, E_)
+        vec(p + "ssm_conv1d.weight", conv_dim, dc, s=0.3)
+        vec(p + "ssm_dt.bias", hv, base=0.5, s=0.1)
+        w.add_tensor(p + "ssm_a.weight", -(1.0 + rng.uniform(
+            0.0, 3.0, hv)).astype(np.float32))
+        vec(p + "ssm_norm.weight", dv, base=1.0)
+        mat(p + "ssm_out.weight", E_, hv * dv)
+    X_, FE = c["X"], c["FFE"]
+    w.add_tensor(p + "ffn_gate_inp.weight", rng.standard_normal(
+        (X_, E_), dtype=np.float32) * 0.02)
+    mat(p + "ffn_gate_exps.weight", X_, FE, E_)
+    mat(p + "ffn_up_exps.weight", X_, FE, E_)
+    mat(p + "ffn_down_exps.weight", X_, E_, FE)
+    mat(p + "ffn_gate_shexp.weight", c["SH"], E_)
+    mat(p + "ffn_up_shexp.weight", c["SH"], E_)
+    mat(p + "ffn_down_shexp.weight", E_, c["SH"])
+    w.add_tensor(p + "ffn_gate_inp_shexp.weight", rng.standard_normal(
+        (1, E_), dtype=np.float32) * 0.02)
+
+
+def rec_small_forward(params, cfg, device, kv_dtype):
+    """small_forward on the recurrent forward: two prefill chunks of 16
+    rows a slot (2 slots; the second slot 11 then 7 rows), then one decode
+    step, at full width (a 64-position KV for a hybrid's attention
+    layers). Returns the logits [6, V] f32 on the CPU."""
+    from llama_box_tpu_torch.models import llama, mamba
+    S, T, C = 2, 16, 64
+    rng = np.random.default_rng(5)
+    toks = rng.integers(3, cfg.vocab_size, (3, S, T)).astype(np.int64)
+    cache = mamba.init_rec_cache(cfg, S, capacity=C, params=params,
+                                 dtype=kv_dtype, device=device)
+    cos = sin = None
+    if cfg.n_heads > 0:
+        cos, sin = llama.make_rope(cfg, C, device=device)
+    out = []
+    for i, (p, n) in enumerate(((np.zeros(S, np.int64), np.array([T, 11])),
+                                (np.array([T, 11]), np.array([T, 7])))):
+        lg, _ = mamba.rec_prefill_batch_impl(
+            params, cfg, torch.from_numpy(toks[i]), p, n, cache, cos, sin)
+        out.append(lg.float().cpu())
+    dev = torch.device(device)
+    lg = mamba._decode_step(params, cfg, torch.from_numpy(toks[2, :, 0]).to(
+        dev), torch.tensor([2 * T, 18], device=dev),
+        torch.tensor([True, True], device=dev), cache, cos, sin)
+    out.append(lg.float().cpu())
+    return torch.cat(out)
+
+
+def rec_reference(path: str, name: str, seed: int):
+    """A worker's job beside phases 3 and 4: write the file, then its f32
+    forward on the host (the plain versions): (path, logits)."""
+    from llama_box_tpu_torch.models.loader import load_model
+    torch.set_num_threads(2)
+    write_rec_variant(path, name, seed)
+    cfg, params = load_model(path, dtype=torch.float32, device="cpu")
+    return path, rec_small_forward(params, cfg, "cpu", torch.float32)
+
+
+def _rec_turns(engine, routes, counters, ref=None) -> dict:
+    """phase 17's extra checks, on the served engine: a turn that extends
+    the first one's prompt and answer exactly reuses the slot's state
+    (n_cached), and gives a cold engine's tokens up to the first near tie;
+    TTFT p50 of a wave of 4 chats."""
+    from llama_box_tpu_torch.sampling import SamplerParams
+    from llama_box_tpu_torch.server.engine import Engine
+    from llama_box_tpu_torch.server.task import CompletionsTask
+    from llama_box_tpu_torch.ops.qmatmul import QTensor
+    tok = engine.tokenizer
+    rng = np.random.default_rng(7)
+    out = {}
+    if any(isinstance(w, QTensor) for gp in (engine.params.get(
+            "layer_groups") or [engine.params["layers"]])
+            for w in gp.values()):
+        # the w8a8 path against its plain versions on the host
+        got = rec_small_forward(engine.params, engine.cfg, engine.device,
+                                torch.bfloat16)
+        want = rec_small_forward(_moved(engine.params, "cpu"), engine.cfg,
+                                 "cpu", torch.bfloat16)
+        out["cosine_plain"] = _cosine(got, want)
+        out["cosine_plain_f32"] = _cosine(want, ref)
+        log(f"    rec_small_forward's logits, card vs the plain versions on "
+            f"the host over the same QTensors: cosine "
+            f"{out['cosine_plain']:.6f} (tol {REC_PLAIN_COS}); the plain "
+            f"versions vs f32 {out['cosine_plain_f32']:.6f}")
+        assert out["cosine_plain"] >= REC_PLAIN_COS, out
+    p1 = [1] + rng.integers(300, 20000, 150).tolist()
+
+    def one(eng, prompt, n):
+        t = CompletionsTask(list(prompt), SamplerParams(temp=0.0,
+                                                        ignore_eos=True),
+                            tokenizer=tok, max_tokens=n, n_probs=2)
+        eng.submit(t)
+        wait_final(t)
+        return t
+    f1 = one(engine, p1, REC_TURN_TOKENS)
+    p2 = p1 + list(f1.generated) + rng.integers(300, 20000, 40).tolist()
+    f2 = one(engine, p2, 24)
+    reused = f2.n_cached == len(p1) + len(f1.generated) - 1
+    cold_eng = Engine(engine.cfg, engine.params, tok, dataclasses.replace(
+        engine.ecfg, cuda_graphs=False, pipeline_chain=False),
+        device=str(engine.device))
+    cold_eng.start()
+    try:
+        fc = one(cold_eng, p2, 24)
+    finally:
+        cold_eng.stop()
+    def margin(pr):
+        p0, p1 = pr.top_probs[:2]
+        return float(np.log(p0) - np.log(max(p1, 1e-30)))
+    pairs = [[(t, margin(pr)) for t, pr in zip(x.generated, x.probs)]
+             for x in (f2, fc)]
+    (j, same, part, _), = same_to_near_tie([pairs[0]], [pairs[1]])
+    # TTFT p50 of 4 concurrent requests of about VARIANT_PROMPT tokens
+    tasks = [CompletionsTask(
+        [1] + rng.integers(300, 20000, VARIANT_PROMPT).tolist(),
+        SamplerParams(temp=0.0), tokenizer=tok, max_tokens=16)
+        for _ in range(N_SLOTS)]
+    for t in tasks:
+        engine.submit(t)
+    for t in tasks:
+        wait_final(t)
+    ttft = [t.timings()["time_to_first_token_ms"] for t in tasks]
+    out.update(turn2_cached=f2.n_cached, turn2_reused=reused,
+               turn2_equal_cold=same, turn2_parts_at=part,
+               turn2_first_near_tie=j, ttft_p50_ms=statistics.median(ttft))
+    log(f"    second turn: {f2.n_cached} of {len(p2)} prompt tokens reused "
+        f"(exact extension: {reused}); the same tokens as a cold engine up "
+        f"to the first near tie (token {j} of {len(f2.generated)}); whole "
+        f"texts equal: {same} (parting at {part}); TTFT p50 "
+        f"{out['ttft_p50_ms']:.2f} ms")
+    assert reused, "the exact extension did not reuse the state"
+    return out
+
+
+def rec_phase(dev, seed, tmp, refs, names) -> dict:
+    """Phase 17 (see the module docstring): each model of `names` on its
+    REC_MODES paths through variant_serve, with rec_small_forward against
+    the worker's f32 host forward and _rec_turns."""
+    log("== phase 17: the recurrent families at published widths: "
+        + ", ".join(names))
+    t_phase = time.perf_counter()
+    out = {}
+    for name in names:
+        path, ref = refs[name]
+        out[name] = {mode: variant_serve(
+            dev, seed, tmp, name, path, mode, ref, paths=REC_PATHS,
+            forward=rec_small_forward,
+            extra=lambda e, r, c, ref=ref: _rec_turns(e, r, c, ref),
+            cos_min=REC_COS[mode])
+            for mode in REC_MODES.get(name, ("bf16",))}
+        os.remove(path)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 17: {out['seconds']:.1f} s")
+    return out
+
+
+def rec_family_phase(dev, seed, tmp) -> dict:
+    """--families' recurrent models: granite-4.0-h-micro's first 6 layers,
+    RWKV-6-1.6B and Qwen3-Next's first 4 layers served on bf16 as phase
+    17's; Jamba2-3B's 20 query heads over
+    one KV head exceed the flash decode kernel's group of 16, so the CLI
+    must refuse it at load by that cause (its mixers' scan runs at its
+    widths in phase 3r)."""
+    from llama_box_tpu_torch import cli
+    log("== families (recurrent): " + ", ".join(REC_FAMILY_VARIANTS))
+    out = {}
+    for name in REC_FAMILY_VARIANTS:
+        path = f"{tmp}/synthetic-{name}-q8_0.gguf"
+        t0 = time.perf_counter()
+        _, ref = rec_reference(path, name, seed)
+        log(f"  {name}: written and its f32 forward on the host in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if name == "jamba2-3b":
+            try:
+                cli.build_server(["-m", path, "--port", "0", "-np",
+                                  str(N_SLOTS), "-c", "4096", "--no-jinja",
+                                  "--device", dev.type])
+            except NotImplementedError as exc:
+                out[name] = {"refused": str(exc)}
+                log(f"  {name}: refused at load: {exc}")
+                assert "query heads per KV head" in str(exc)
+            else:
+                raise AssertionError(f"{name}: served past the kernels' "
+                                     "group limit")
+        else:
+            out[name] = {"bf16": variant_serve(
+                dev, seed, tmp, name, path, "bf16", ref, paths=REC_PATHS,
+                forward=rec_small_forward,
+                extra=lambda e, r, c, ref=ref: _rec_turns(e, r, c, ref))}
+        os.remove(path)
+    return out
+
+
+# phases 11 to 14's files and f32 host forwards (file_reference), made by
+# LATE_WORKERS processes of LATE_THREADS torch threads each from phase 6
+# on, the longest first: beside the host's share of phases 6 to 16
+LATE_WORKERS, LATE_THREADS = 3, 2
+
+
+def late_jobs(pool, tmp, seed) -> dict:
+    """Submit phases 11 to 14's file_reference jobs to `pool`: name ->
+    Future."""
+    jobs = [(MOE_NAME, "small")] + [(n, "small") for n in MLA_VARIANTS] \
+        + [(n, "small") for n in VARIANTS] \
+        + [(n, "long") for n in ATTN_VARIANTS]
+    return {n: pool.submit(file_reference, f"{tmp}/synthetic-{n}-q8_0.gguf",
+                           n, seed, fwd) for n, fwd in jobs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6454,8 +7249,10 @@ def main(argv=None) -> int:
                     help="also trace 4 greedy requests with torch.profiler, "
                     "graphs on and off")
     ap.add_argument("--families", action="store_true",
-                    help="also serve jetmoe's and openelm's published "
-                    "widths (FAMILY_VARIANTS)")
+                    help="also serve jetmoe's, openelm's, granite-4.0-h-"
+                    "micro's, RWKV-6's and Qwen3-Next's published widths "
+                    "(FAMILY_VARIANTS, REC_FAMILY_VARIANTS) and check "
+                    "Jamba2-3B's refusal")
     ap.add_argument("--depth-check", type=int, default=0, metavar="LAYERS",
                     help="also hold Qwen3-1.7B's w8a8 path at LAYERS layers "
                     "against the plain versions and f32, layer by layer")
@@ -6485,7 +7282,7 @@ def main(argv=None) -> int:
              "grouped_gemm_kernel", "norm_qmm_kernel", "tail_phase_kernel",
              "w8a8_gemm", "quant_rows_kernel", "11norm_kernel",
              "align_kernel", "gate_up_kernel", "down_kernel",
-             "combine_kernel")
+             "combine_kernel", "ssm_scan_kernel", "wkv_kernel")
     for entry, used, spill in ptxas_entries(
             "\n".join(_kernels.ptxas_report.values()), names):
         short = entry[min(entry.find(n) for n in names if n in entry):]
@@ -6493,66 +7290,87 @@ def main(argv=None) -> int:
 
     tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     tmp = tmp_dir.name
-    # phase 5's three GGUFs and phase 13's are written by worker processes
-    # (numpy on the host) while the kernel phases run on the card; every
-    # write is done before the first served request, so no measured wave
-    # shares the host
-    moe_path = f"{tmp}/synthetic-{MOE_NAME}-q8_0.gguf"
-    mla_paths = {n: f"{tmp}/synthetic-{n}-q8_0.gguf" for n in MLA_VARIANTS}
-    with ProcessPoolExecutor(len(MODEL_TYPES) + 1 + len(MLA_VARIANTS)
-                             + len(MM_VARIANTS),
-                             mp_context=multiprocessing
-                             .get_context("spawn")) as pool:
+    spawn = multiprocessing.get_context("spawn")
+    # phase 5's three GGUFs, phase 15's pairs and phase 17's files with
+    # their f32 host forwards are made by worker processes (numpy and
+    # torch on the host) while the kernel phases run on the card; all are
+    # done before the first served request, so no wave of phase 5 shares
+    # the host. Phases 11 to 14's files and host forwards are made by
+    # LATE_WORKERS more from phase 6 on (late_jobs): they share the host
+    # with phases 6 to 16, which time the card's work and the server's
+    # waves but gate nothing on a rate
+    with ProcessPoolExecutor(len(MODEL_TYPES) + len(MM_VARIANTS)
+                             + len(REC_DEFAULT), mp_context=spawn) as pool:
         t_w = time.perf_counter()
         writes = {fmt: pool.submit(write_model, _model_path(tmp, fmt),
                                    args.seed, fmt) for fmt in MODEL_TYPES}
-        writes["moe"] = pool.submit(write_variant, moe_path, MOE_NAME,
-                                    args.seed)
-        for n, pth in mla_paths.items():
-            writes[n] = pool.submit(write_variant, pth, n, args.seed)
         for n in MM_VARIANTS:
             writes[n] = pool.submit(write_mm_pair, tmp, n, args.seed)
+        # phase 17's files and their f32 host forwards
+        for n in REC_DEFAULT:
+            writes[n] = pool.submit(rec_reference,
+                                    f"{tmp}/synthetic-{n}-q8_0.gguf", n,
+                                    args.seed)
         errs, rows = kernel_phase(dev, args.seed)
         w_errs, w_rows = w8a8_kernel_phase(dev, args.seed)
         q_errs, q_rows = q_kernel_phase(dev, args.seed)
         n_errs, n_rows = norm_kernel_phase(dev, args.seed)
         m_errs, m_rows = moe_kernel_phase(dev, args.seed)
+        r_errs, r_rows = rec_kernel_phase(dev, args.seed)
         for w in writes.values():
             w.result()
         mm_pairs = {n: writes[n].result() for n in MM_VARIANTS}
-        log(f"  phase 5's, 13's, 14's and 15's GGUFs written beside the "
+        rec_refs = {n: writes[n].result() for n in REC_DEFAULT}
+        log(f"  phase 5's, 15's and 17's GGUFs written beside the "
             f"kernel phases: {time.perf_counter() - t_w:.1f} s from their "
             f"start")
     errs.update(w_errs)
     errs.update(q_errs)
     errs.update(n_errs)
     errs.update(m_errs)
+    errs.update(r_errs)
     launches, e2e = {}, {}
     capture_failure_check()
-    with tmp_dir:
-        for mode in PATHS:
-            launches[mode], e2e[mode], served = e2e_phase(
-                dev, args.seed, tmp, args.profile, mode)
-            if mode == "bf16":
-                bf16_served = served
-            del served
-        e2e["kv_edit"] = kv_edit_phase(dev, args.seed, *bf16_served)
-        e2e["spec"] = spec_phase(dev, args.seed, tmp,
-                                 _model_path(tmp, "f16"), *bf16_served)
-        e2e["embed"] = embed_phase(dev, args.seed, tmp, *bf16_served)
-        del bf16_served
-        e2e["lora"] = lora_phase(dev, args.seed, tmp)
-        e2e["variants"] = variant_phase(dev, args.seed, tmp)
-        e2e["attn_variants"] = attn_variant_phase(dev, args.seed, tmp)
-        e2e["moe"] = moe_phase(dev, args.seed, tmp, moe_path)
-        os.remove(moe_path)
-        e2e["mla"] = mla_phase(dev, args.seed, tmp, mla_paths)
-        e2e["mm"] = mm_phase(dev, args.seed, mm_pairs)
-        if args.families:
-            e2e["families"] = family_phase(dev, args.seed, tmp)
-        if args.depth_check:
-            e2e["depth"] = depth_check(dev, args.seed, tmp, "qwen3-1.7b",
-                                       args.depth_check)
+    late = ProcessPoolExecutor(LATE_WORKERS, mp_context=spawn,
+                               initializer=torch.set_num_threads,
+                               initargs=(LATE_THREADS,))
+    ok = False
+    try:
+        with tmp_dir:
+            for mode in PATHS:
+                launches[mode], e2e[mode], served = e2e_phase(
+                    dev, args.seed, tmp, args.profile, mode)
+                if mode == "bf16":
+                    bf16_served = served
+                del served
+            refs = late_jobs(late, tmp, args.seed)
+            e2e["kv_edit"] = kv_edit_phase(dev, args.seed, *bf16_served)
+            e2e["spec"] = spec_phase(dev, args.seed, tmp,
+                                     _model_path(tmp, "f16"), *bf16_served)
+            e2e["embed"] = embed_phase(dev, args.seed, tmp, *bf16_served)
+            del bf16_served
+            e2e["lora"] = lora_phase(dev, args.seed, tmp)
+            e2e["variants"] = variant_phase(dev, args.seed, tmp, refs)
+            e2e["attn_variants"] = attn_variant_phase(dev, args.seed, tmp,
+                                                      refs)
+            e2e["moe"] = moe_phase(dev, args.seed, tmp, refs)
+            e2e["mla"] = mla_phase(dev, args.seed, tmp, refs)
+            e2e["mm"] = mm_phase(dev, args.seed, mm_pairs)
+            e2e["rec"] = rec_phase(dev, args.seed, tmp, rec_refs,
+                                   REC_DEFAULT)
+            if args.families:
+                e2e["families"] = family_phase(dev, args.seed, tmp)
+                e2e["families"].update(rec_family_phase(dev, args.seed,
+                                                        tmp))
+            if args.depth_check:
+                e2e["depth"] = depth_check(dev, args.seed, tmp,
+                                           "qwen3-1.7b", args.depth_check)
+        ok = True
+    finally:
+        if not ok:      # the workers' jobs end with the run
+            for proc in list((late._processes or {}).values()):
+                proc.terminate()
+        late.shutdown(wait=True, cancel_futures=not ok)
 
     pick = {"flash_prefill": ("prefill", "bf16", 0),
             "flash_decode": ("decode", "bf16", 1023),
@@ -6676,6 +7494,33 @@ def main(argv=None) -> int:
         timed_shapes=[{k: x[k] for k in ("case", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
                                         "library_ms")} for x in m_rows]))
+    # the recurrent kernels (port-only): their main path is phase 17, one
+    # request counted from 0 (Mamba-1.4B's bf16 path, RWKV-7's)
+    rec = e2e["rec"]
+    rec_home = {"ssm_scan": "mamba-1.4b", "wkv": "rwkv7-1.5b"}
+    rec_replaces = {
+        "ssm_scan": "none (port-only; XLA: the associative scans of "
+                    "llama_box_tpu/models/mamba.py:217 and :295)",
+        "wkv": "none (port-only; XLA: llama_box_tpu/models/mamba.py:392 "
+               "and the scans of llama_box_tpu/models/rwkv.py:106, :248, "
+               ":344)"}
+    for name in ("ssm_scan", "wkv"):
+        r = next(x for x in r_rows if x["case"] == REC_MAIN[name])
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"llama_box_tpu_torch/csrc/{name}.cu",
+            replaces=rec_replaces[name],
+            launches=rec[rec_home[name]]["bf16"]["launches_one_request"][
+                name],
+            max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            library="no PyTorch call", shape=REC_MAIN[name],
+            launches_by_model={
+                f"{v} {m}": rec[v][m]["launches_one_request"][name]
+                for v in REC_DEFAULT for m in rec[v]},
+            timed_shapes=[{k: x[k] for k in ("case", "ms", "plain_ms",
+                                            "bound_ms", "bound_by")}
+                          for x in r_rows if x["kind"] == name]))
     e2e.update(card=card, seconds=time.perf_counter() - t_start)
     if args.profile:
         for label in MODES:
@@ -6785,6 +7630,18 @@ def main(argv=None) -> int:
     log(f"  phase 16b/c: cosines {json.dumps(lo['static'])}; control vector "
         + "; ".join(f"{m} {lo['cvec'][m]['cos_host']:.6f}"
                     for m in lo["cvec"]))
+    for name in REC_DEFAULT:
+        for mode, x in e2e["rec"][name].items():
+            log(f"  phase 17, {name} {mode}: load s {x['load_s']:.1f}, "
+                f"decode tok/s {x['decode_tok_s']:.1f}, window tok/s "
+                f"{x['window_tok_s']:.1f}, TTFT p50 ms "
+                f"{x['ttft_p50_ms']:.2f}, cosine {x['cosine']:.6f}, second "
+                f"turn reused {x['turn2_cached']} tokens, = cold "
+                f"{x['turn2_equal_cold']} (parting at {x['turn2_parts_at']}, "
+                f"first near tie {x['turn2_first_near_tie']}), launches of "
+                f"one request "
+                + json.dumps({k: n for k, n in
+                              x["launches_one_request"].items() if n}))
     log("e2e " + json.dumps(e2e))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

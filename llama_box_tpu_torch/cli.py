@@ -617,7 +617,9 @@ def build_server(argv: list[str]):
         chat_template_kwargs=(json.loads(args.chat_template_kwargs)
                               if args.chat_template_kwargs else None),
         capabilities={"completion": not is_bert and not args.embeddings,
-                      "embedding": True,
+                      # a recurrent model has no embeddings forward (the
+                      # engine refuses the task too, as in JAX)
+                      "embedding": not cfg.recurrent,
                       "reranking": args.rerank
                       or (is_bert and cfg.pooling == "rank")},
         multimodal=multimodal,

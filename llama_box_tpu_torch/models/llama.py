@@ -181,6 +181,20 @@ _LAYER_KEYS = {
     # engine's layout of lora_B_, loader.fuse_projections)
     f"lora_{p}_{k}" for p in ("A", "B", "Bt")
     for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")}
+# the recurrent families' layer tensors (models/mamba.py, models/rwkv.py):
+# the mamba / mamba2 / DeltaNet mixers, lfm2's short conv, qwen3-next's
+# attention output gate, rwkv6/7's time and channel mix
+_REC_KEYS = {
+    "ssm_in", "ssm_x", "ssm_dt", "ssm_out", "ssm_conv_w", "ssm_conv_b",
+    "ssm_dt_b", "ssm_a", "ssm_d", "ssm_norm", "ssm_dt_norm", "ssm_b_norm",
+    "ssm_c_norm", "ssm_ba", "wq_gate", "shortconv_in", "shortconv_out",
+    "shortconv_conv", "shortconv_conv_b",
+    "tm_k", "tm_v", "tm_r", "tm_g", "tm_o", "cm_k", "cm_r", "cm_v", "tm_w1",
+    "tm_w2", "tm_lerp_x", "tm_lerp_w", "tm_lerp_k", "tm_lerp_v", "tm_lerp_r",
+    "tm_lerp_g", "tm_lerp_fused", "tm_first", "tm_decay", "tm_decay_w1",
+    "tm_decay_w2", "tm_ln", "tm_ln_b", "cm_lerp_k", "cm_lerp_r", "tm_w0",
+    "tm_a0", "tm_a1", "tm_a2", "tm_v0", "tm_v1", "tm_v2", "tm_g1", "tm_g2",
+    "tm_lerp_a", "tm_kk", "tm_ka", "tm_rk"}
 _ROOT_KEYS = {"tok_embd", "pos_embd", "tok_embd_norm", "tok_embd_norm_b",
               "output_norm", "output_norm_b", "output", "output_b", "layers",
               "layer_groups", "cvec", "lora_scales"}
@@ -188,7 +202,11 @@ _EXPERT_STACKS = ("w_gate_exps", "w_up_exps", "w_down_exps")
 # the keys that may hold a QTensor (the JAX loader's quantizable 2D
 # projections; token_embd and the norms stay dense)
 _Q_KEYS = {"wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up", "w_gateup",
-           "w_down", "output"}
+           "w_down", "output",
+           # the recurrent projections (the JAX loader's _LAYER_WEIGHTS)
+           "ssm_in", "ssm_x", "ssm_dt", "ssm_out", "shortconv_in",
+           "shortconv_out", "ssm_ba", "wq_gate", "tm_k", "tm_v", "tm_r",
+           "tm_g", "tm_o", "cm_k", "cm_r", "cm_v"}
 
 
 # what the attention kernels instantiate (csrc/flash_prefill.cu,
@@ -213,16 +231,22 @@ def moe_act(cfg: ModelConfig) -> str:
 def check_supported(cfg: ModelConfig, params: dict, device=None) -> None:
     """Raise NotImplementedError for a model outside the dense llama graph,
     its dense, attention, mixture-of-experts and latent-attention variants
-    (the other families are later slices; nothing runs half-supported),
-    or, on a CUDA `device`, for shapes the kernels do not take: a (K, V)
-    head width pair, expert stacks that are not bf16, an expert activation
-    or width csrc/moe_ffn.cu lacks. The engine refuses such a model at
-    load, not at its first request, and nothing falls back to a plain
-    version."""
+    and the recurrent families (models/mamba.py, models/rwkv.py: a
+    recurrent config whose layers carry a recurrent mixer; the recurrent
+    tensors nowhere else), or, on a CUDA `device`, for shapes the kernels
+    do not take: a (K, V) head width pair (where a layer attends), expert
+    stacks that are not bf16, an expert activation or width
+    csrc/moe_ffn.cu lacks, a state width csrc/ssm_scan.cu or csrc/wkv.cu
+    lacks. The engine refuses such a model at load, not at its first
+    request, and nothing falls back to a plain version."""
     groups = layer_groups(params)
     mla = {"wkv_a" in gp for gp in groups}
+    rec = bool(getattr(cfg, "recurrent", False))
+    rec_groups = [gp for gp in groups
+                  if {"ssm_in", "shortconv_in", "tm_k"} & set(gp)]
     unsupported = {
-        "recurrent": getattr(cfg, "recurrent", False),
+        # a recurrent config runs models/mamba.py, which needs a mixer
+        "recurrent": rec and not rec_groups,
         # M-RoPE gathers 2-D tables per section
         "mrope_sections": bool(cfg.mrope_sections) and (
             cfg.nope_layer_step > 0 or cfg.rope_freq_base_swa > 0),
@@ -233,8 +257,14 @@ def check_supported(cfg: ModelConfig, params: dict, device=None) -> None:
         "kv_lora_rank": mla != {cfg.kv_lora_rank > 0},
         "v_head_dim": v_width(cfg) != cfg.head_dim and mla != {True},
     }
-    extra_keys = set().union(*groups) - _LAYER_KEYS
+    extra_keys = set().union(*groups) - _LAYER_KEYS - (_REC_KEYS if rec
+                                                       else set())
     bad = [k for k, v in unsupported.items() if v]
+    if not rec and extra_keys & _REC_KEYS:
+        raise NotImplementedError(
+            f"{cfg.arch}: the recurrent mixer's tensors "
+            f"{sorted(extra_keys & _REC_KEYS)} in a config that is not "
+            "recurrent")
     if bad or extra_keys or set(params) - _ROOT_KEYS:
         raise NotImplementedError(
             f"{cfg.arch}: not on the ported llama graph "
@@ -269,16 +299,46 @@ def check_supported(cfg: ModelConfig, params: dict, device=None) -> None:
                     f"are multiples of 8, up to {MAX_PICKS} picks and "
                     f"{MAX_EXPERTS} experts (this model: E {E}, FF {F}, "
                     f"{K} of {X}); --device cpu runs it")
+        if rec:
+            _check_rec_kernels(cfg, rec_groups)
+        attends = any("wq" in gp or "wqkv" in gp or "wkv_a" in gp
+                      or "wq_exps" in gp for gp in groups)
         dv = v_width(cfg)
         group = cfg.n_heads / max(1, kv_heads(cfg))
-        if (cfg.head_dim, dv) not in _KERNEL_HEAD_PAIRS \
-                or group > _KERNEL_MAX_GROUP:
+        if attends and ((cfg.head_dim, dv) not in _KERNEL_HEAD_PAIRS
+                        or group > _KERNEL_MAX_GROUP):
             raise NotImplementedError(
                 f"{cfg.arch}: the CUDA attention kernels take the (K, V) "
                 f"head widths {_KERNEL_HEAD_PAIRS} and up to "
                 f"{_KERNEL_MAX_GROUP} query heads per KV head (this model: "
                 f"K {cfg.head_dim}, V {dv}, {cfg.n_heads} / "
                 f"{kv_heads(cfg)} heads); --device cpu runs it")
+
+
+def _check_rec_kernels(cfg: ModelConfig, rec_groups: list[dict]) -> None:
+    """The recurrent mixers' state widths the CUDA kernels take: at most
+    ssm_scan.MAX_STATE states a channel (csrc/ssm_scan.cu); rwkv's head
+    size and the DeltaNet's key and value widths, equal, among
+    wkv.WIDTHS (csrc/wkv.cu)."""
+    from ..ops.ssm_scan import MAX_STATE
+    from ..ops.wkv import WIDTHS
+    for gp in rec_groups:
+        if "tm_k" in gp:
+            N = (cfg.wkv_head_size,) * 2
+        elif "ssm_ba" in gp:
+            N = (cfg.ssm_d_state, gp["ssm_norm"].shape[-1])
+        else:
+            if "ssm_in" in gp and cfg.ssm_d_state > MAX_STATE:
+                raise NotImplementedError(
+                    f"{cfg.arch}: the CUDA selective scan (csrc/ssm_scan.cu)"
+                    f" takes up to {MAX_STATE} states a channel, not "
+                    f"{cfg.ssm_d_state}; --device cpu runs it")
+            continue
+        if N[0] != N[1] or N[0] not in WIDTHS:
+            raise NotImplementedError(
+                f"{cfg.arch}: the CUDA WKV kernel (csrc/wkv.cu) takes equal "
+                f"key and value widths among {WIDTHS}, not {N}; --device "
+                "cpu runs it")
 
 
 # -- rope --------------------------------------------------------------------
@@ -752,7 +812,8 @@ def _fuse_tail_ok(cfg: ModelConfig, lp, x, lora=None) -> bool:
             and _pick_tile(lp["w_down"].in_dim, (512, 256, 128)) != 0)
 
 
-def _layer_tail(x, lp, cfg: ModelConfig, attn, lora=None, route=None):
+def _layer_tail(x, lp, cfg: ModelConfig, attn, lora=None, route=None,
+                extra_residual=None):
     """The output projection and the FFN block with their residuals (JAX
     `_layer_tail` without an extra residual): bitnet's attention sub norm,
     jetmoe's expert output mix (route: the [B, T, X] routing mask; each
@@ -762,8 +823,13 @@ def _layer_tail(x, lp, cfg: ModelConfig, attn, lora=None, route=None):
     residual scale, the parallel residual (falcon, gptneox, phi2,
     command-r) whose FFN input is attn_norm_2, ffn_norm or the shared
     attention-input norm, and arctic's parallel dense and expert
-    branches."""
-    if _fuse_tail_ok(cfg, lp, x, lora):
+    branches. Of the recurrent hybrids: qwen3-next's output gate (wq_gate:
+    the attention output times sigmoid of the gate's projection of the
+    layer's normed input), falcon-h1's parallel mixer (extra_residual: its
+    output joins the attention residual, x + attn + mixer, then the FFN
+    block) and nemotron_h's attention-only blocks (no FFN tensors: the
+    block ends after the attention residual)."""
+    if extra_residual is None and _fuse_tail_ok(cfg, lp, x, lora):
         # decode widths: the whole tail through ops/fused_decode
         B, T, E = x.shape
         out = fused_layer_tail(
@@ -776,6 +842,9 @@ def _layer_tail(x, lp, cfg: ModelConfig, attn, lora=None, route=None):
     ao = attn.to(x.dtype)
     if "attn_sub_norm" in lp:   # bitnet: a norm before the output proj
         ao = _norm_any(ao, lp["attn_sub_norm"], None, cfg)
+    if "wq_gate" in lp:
+        hg = _pre_norm(x, lp, "attn_norm", cfg)
+        ao = ao * torch.sigmoid(mm(hg, lp["wq_gate"])).to(x.dtype)
     if route is not None:
         B, T, HD = ao.shape
         Xe = lp["wo_exps"].shape[0]
@@ -793,6 +862,11 @@ def _layer_tail(x, lp, cfg: ModelConfig, attn, lora=None, route=None):
         attn_out = _norm_any(attn_out, lp["attn_post_norm"],
                              lp.get("attn_post_norm_b"), cfg)
     rs = cfg.residual_scale
+    if extra_residual is not None:
+        # the JAX package divides by rs so that x + attn_out * rs below
+        # adds the mixer unscaled (falcon-h1's rs is 1)
+        e = extra_residual.to(x.dtype)
+        attn_out = attn_out + (e if rs == 1.0 else e / _weak(rs, e.dtype))
     if cfg.parallel_residual:
         if "attn_norm_2" in lp:
             h = _norm_any(x, lp["attn_norm_2"], lp.get("attn_norm_2_b"), cfg)
@@ -817,6 +891,9 @@ def _layer_tail(x, lp, cfg: ModelConfig, attn, lora=None, route=None):
         moe = _moe_ffn(hm, {k: v for k, v in lp.items() if k != "b_down"},
                        cfg).to(x.dtype)
         return x + _scaled(dense + moe, rs)
+    if not any(k in lp for k in ("w_up", "w_gate", "w_gate_inp",
+                                 "w_gateup")):
+        return x    # an attention-only block (nemotron_h)
     h = _pre_norm(x, lp, "ffn_norm", cfg)
     ffn_out = _ffn_block(h, lp, cfg, x.dtype, lora)
     if "ffn_post_norm" in lp:
@@ -926,8 +1003,9 @@ def _attn_layer(x, lp, li: int, kv: KVCache, cfg: ModelConfig, cos, sin,
                 rows: list, win, alibi=None, flash_meta=None, chain=None,
                 step=0, decode_meta=None, verify_meta=None,
                 dense_mask=None, positions=None, is_local: int = 0,
-                lora=None):
-    """x [B, T, E] -> x after attention and the layer tail. cos/sin are the
+                lora=None, extra_residual=None):
+    """x [B, T, E] -> x after attention and the layer tail (whose
+    extra_residual, falcon-h1's parallel mixer output, _layer_tail adds). cos/sin are the
     tables gathered at the rows' positions ([B, T, rot/2]). The input norm
     (absent: olmo2), the q/k/v projections with their per-request LoRA
     deltas (lora: the [S, n_ad] scale rows, or None), the q/k/v biases,
@@ -1000,7 +1078,8 @@ def _attn_layer(x, lp, li: int, kv: KVCache, cfg: ModelConfig, cos, sin,
     return _attn_deferred(x, lp, li, kv, cfg, q, k, v, rows, win, alibi,
                           flash_meta=flash_meta, chain=chain, step=step,
                           decode_meta=decode_meta, verify_meta=verify_meta,
-                          dense_mask=dense_mask, lora=lora, route=route)
+                          dense_mask=dense_mask, lora=lora, route=route,
+                          extra_residual=extra_residual)
 
 
 def _attn_verify(q, k, v, kc, vc, ks, vs, stored, meta, win, adt, scale,
@@ -1035,7 +1114,8 @@ def _attn_verify(q, k, v, kc, vc, ks, vs, stored, meta, win, adt, scale,
 def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
                    rows: list, win, alibi=None, flash_meta=None, chain=None,
                    step=0, decode_meta=None, verify_meta=None,
-                   dense_mask=None, lora=None, route=None):
+                   dense_mask=None, lora=None, route=None,
+                   extra_residual=None):
     """Attention against the cache as it stood before this forward plus
     the new rows (through the flash kernels), then the layer tail (with
     `lora` and `route` as _layer_tail takes them). The
@@ -1093,7 +1173,7 @@ def _attn_deferred(x, lp, li: int, kv: KVCache, cfg: ModelConfig, q, k, v,
                            ).to(adt)
             vr[:, step] = (vq[:, 0].float() * vsr[:, 0].float()[..., None]
                            ).to(adt)
-    return _layer_tail(x, lp, cfg, attn, lora, route)
+    return _layer_tail(x, lp, cfg, attn, lora, route, extra_residual)
 
 
 def layer_params(params) -> list[dict]:

@@ -17,9 +17,10 @@ Two weight formats:
   switches: w8a8 by default (per-column int8 codes, f32 scales), or the
   grouped layout under LLAMA_BOX_TPU_PACKED4 / _Q4_INT8 / _Q4_F32SCALES
   (group codes, nibble-packed for 4-bit formats, per-group scales and
-  mins). Tensors are packed on the host one at a time and moved to the
-  device once per layer stack. token_embd, the norms and formats without
-  a repacker stay dense, as in JAX.
+  mins). Tensors are packed one at a time: w8a8 on the device, the
+  grouped layout on the host, moved to the device once per layer stack.
+  token_embd, the norms and formats without a repacker stay dense, as in
+  JAX.
 Mixture-of-experts layers (the router, the expert stacks [X, E, FF] /
 [X, FF, E], shared experts, gpt-oss's sinks and biases) load dense, as in
 JAX. Multi-head latent attention's projections and norms (wq_a,
@@ -37,9 +38,13 @@ loader refuses it by name. jetmoe's mixture of attention (q and output
 experts, their router) loads dense, as the JAX loader's optional keys;
 openelm's per-layer head counts and FFN widths are zero-padded to the
 largest, as the JAX loader pads them (_pad_openelm; a quantized load
-stays dense, with JAX's warning). The other families' tensors are later
-slices of the port: a GGUF that carries a tensor this path does not know
-is refused, never half-loaded (the recurrent mixers by their cause).
+stays dense, with JAX's warning). The recurrent families' tensors load
+as the JAX loader reads them (the mixers' projections quantizable, their
+smalls dense; rwkv6's 3D time_mix_w2 swapped to [5, edim, E], rwkv7's 2D
+one transposed), their layer groups by tensor set too (jamba's and the
+other hybrids' attention, mixer and MoE layers, rwkv7's layer 0 without
+its v LoRA). A GGUF that carries a tensor no ported path knows is refused,
+never half-loaded.
 """
 
 from __future__ import annotations
@@ -66,6 +71,26 @@ _LAYER_WEIGHTS = {
     "w_gate": ("blk.{i}.ffn_gate.weight", True),
     "w_up": ("blk.{i}.ffn_up.weight", True),
     "w_down": ("blk.{i}.ffn_down.weight", True),
+    # the recurrent mixers' projections (models/mamba.py, models/rwkv.py):
+    # mamba / mamba2 / DeltaNet (whose fused q|k|v|z rides ssm_in, with
+    # its beta|alpha gates and the attention output gate), lfm2's short
+    # conv, rwkv6/7's time and channel mix
+    "ssm_in": ("blk.{i}.ssm_in.weight", True),
+    "shortconv_in": ("blk.{i}.shortconv.in_proj.weight", True),
+    "shortconv_out": ("blk.{i}.shortconv.out_proj.weight", True),
+    "ssm_ba": ("blk.{i}.ssm_beta_alpha.weight", True),
+    "wq_gate": ("blk.{i}.attn_gate.weight", True),
+    "ssm_x": ("blk.{i}.ssm_x.weight", True),
+    "ssm_dt": ("blk.{i}.ssm_dt.weight", True),
+    "ssm_out": ("blk.{i}.ssm_out.weight", True),
+    "tm_k": ("blk.{i}.time_mix_key.weight", True),
+    "tm_v": ("blk.{i}.time_mix_value.weight", True),
+    "tm_r": ("blk.{i}.time_mix_receptance.weight", True),
+    "tm_g": ("blk.{i}.time_mix_gate.weight", True),
+    "tm_o": ("blk.{i}.time_mix_output.weight", True),
+    "cm_k": ("blk.{i}.channel_mix_key.weight", True),
+    "cm_r": ("blk.{i}.channel_mix_receptance.weight", True),
+    "cm_v": ("blk.{i}.channel_mix_value.weight", True),
 }
 # optional per-layer tensors, always dense (JAX `_LAYER_OPTIONAL`, the part
 # the dense variants read): norms (absent attn_norm: olmo2's post-norm-only
@@ -135,9 +160,57 @@ _LAYER_OPTIONAL = {
     "wq_exps": ("blk.{i}.attn_q_exps.weight", "3d"),
     "wo_exps": ("blk.{i}.attn_output_exps.weight", "3d"),
     "attn_gate_inp": ("blk.{i}.attn_gate_inp.weight", True),
+    # the recurrent mixers' smalls, always dense: the mamba conv kernel,
+    # its bias, dt's bias, A, D and mamba2's gated norm; jamba's learned
+    # dt/B/C norms; lfm2's conv
+    "ssm_conv_w": ("blk.{i}.ssm_conv1d.weight", False),
+    "ssm_conv_b": ("blk.{i}.ssm_conv1d.bias", False),
+    "ssm_dt_b": ("blk.{i}.ssm_dt.bias", False),
+    "ssm_a": ("blk.{i}.ssm_a.weight", False),
+    "ssm_d": ("blk.{i}.ssm_d.weight", False),
+    "ssm_norm": ("blk.{i}.ssm_norm.weight", False),
+    "shortconv_conv": ("blk.{i}.shortconv.conv.weight", False),
+    "shortconv_conv_b": ("blk.{i}.shortconv.conv.bias", False),
+    "ssm_dt_norm": ("blk.{i}.ssm_dt_norm.weight", False),
+    "ssm_b_norm": ("blk.{i}.ssm_b_norm.weight", False),
+    "ssm_c_norm": ("blk.{i}.ssm_c_norm.weight", False),
+    # rwkv6's time-mix smalls: the data-dependent lerp LoRA (w1 [E, 5
+    # edim]; w2 stored (5, E, edim) -> [5, edim, E] by the "3d" swap,
+    # rwkv7's 2D one transposed), the decay LoRA, the bonus, the per-head
+    # group norm; the channel-mix lerps
+    "tm_w1": ("blk.{i}.time_mix_w1.weight", True),
+    "tm_w2": ("blk.{i}.time_mix_w2.weight", "3d"),
+    "tm_lerp_x": ("blk.{i}.time_mix_lerp_x.weight", False),
+    "tm_lerp_w": ("blk.{i}.time_mix_lerp_w.weight", False),
+    "tm_lerp_k": ("blk.{i}.time_mix_lerp_k.weight", False),
+    "tm_lerp_v": ("blk.{i}.time_mix_lerp_v.weight", False),
+    "tm_lerp_r": ("blk.{i}.time_mix_lerp_r.weight", False),
+    "tm_lerp_g": ("blk.{i}.time_mix_lerp_g.weight", False),
+    "tm_lerp_fused": ("blk.{i}.time_mix_lerp_fused.weight", False),
+    "tm_first": ("blk.{i}.time_mix_first.weight", False),
+    "tm_decay": ("blk.{i}.time_mix_decay.weight", False),
+    "tm_decay_w1": ("blk.{i}.time_mix_decay_w1.weight", True),
+    "tm_decay_w2": ("blk.{i}.time_mix_decay_w2.weight", True),
+    "tm_ln": ("blk.{i}.time_mix_ln.weight", False),
+    "tm_ln_b": ("blk.{i}.time_mix_ln.bias", False),
+    "cm_lerp_k": ("blk.{i}.channel_mix_lerp_k.weight", False),
+    "cm_lerp_r": ("blk.{i}.channel_mix_lerp_r.weight", False),
+    # rwkv7's w0 / a0..a2 / v0..v2 / g1, g2 LoRAs and k_k / k_a / r_k gates
+    # (layer 0 carries no v LoRA: its own layer group, as in JAX)
+    "tm_w0": ("blk.{i}.time_mix_w0.weight", False),
+    "tm_a0": ("blk.{i}.time_mix_a0.weight", False),
+    "tm_a1": ("blk.{i}.time_mix_a1.weight", True),
+    "tm_a2": ("blk.{i}.time_mix_a2.weight", True),
+    "tm_v0": ("blk.{i}.time_mix_v0.weight", False),
+    "tm_v1": ("blk.{i}.time_mix_v1.weight", True),
+    "tm_v2": ("blk.{i}.time_mix_v2.weight", True),
+    "tm_g1": ("blk.{i}.time_mix_g1.weight", True),
+    "tm_g2": ("blk.{i}.time_mix_g2.weight", True),
+    "tm_lerp_a": ("blk.{i}.time_mix_lerp_a.weight", False),
+    "tm_kk": ("blk.{i}.time_mix_k_k.weight", False),
+    "tm_ka": ("blk.{i}.time_mix_k_a.weight", False),
+    "tm_rk": ("blk.{i}.time_mix_r_k.weight", False),
 }
-# tensors of families outside the port, refused at load by their cause
-_REFUSED = {"ssm_in": "a recurrent mixer (mamba / jamba)"}
 # fused tensors split at load (phi3/gptneox attn_qkv, phi3 gate|up ffn_up)
 _LAYER_FUSED = ("blk.{i}.attn_qkv.weight", "blk.{i}.attn_qkv.bias")
 _ROOT = ("token_embd.weight", "output_norm.weight", "output.weight",
@@ -262,10 +335,6 @@ def load_model(path: str, dtype=torch.bfloat16, device="cuda",
             | {pat.format(i=i) for pat in _LAYER_FUSED
                for i in range(cfg.n_layers)}
         extra = sorted(set(g.tensors) - known)
-        for part, cause in _REFUSED.items():
-            if any(f".{part}." in name for name in extra):
-                raise NotImplementedError(
-                    f"{cfg.arch}: {cause} is not ported")
         hc_arr = cfg.extra.get("head_count_arr")
         hckv_arr = cfg.extra.get("head_count_kv_arr")
         varheads = cfg.arch == "openelm" and (
@@ -277,8 +346,8 @@ def load_model(path: str, dtype=torch.bfloat16, device="cuda",
             quantized = False
         if extra:
             raise NotImplementedError(
-                f"{cfg.arch}: tensors outside the dense llama graph are not "
-                f"ported yet: {extra[:8]}")
+                f"{cfg.arch}: tensors outside the llama graph and the "
+                f"recurrent families are not ported yet: {extra[:8]}")
 
         def fetch(name: str, transpose) -> torch.Tensor:
             info = g.tensors[name]
@@ -294,13 +363,14 @@ def load_model(path: str, dtype=torch.bfloat16, device="cuda",
             return x.to(dev, dtype).contiguous()
 
         def fetch_maybe_q(name: str, transpose: bool):
-            """A QTensor (host tensors) or a dense device tensor."""
+            """A QTensor (w8a8 on the device, grouped on the host) or a
+            dense device tensor."""
             info = g.tensors[name]
             if quantized and transpose and _quantizable(info, info.shape):
                 rt = repack(info.ggml_type, g.tensor_raw(name),
                             info.n_elements)
                 out_dim, in_dim = info.shape
-                return pack_repacked(rt, (in_dim, out_dim))
+                return pack_repacked(rt, (in_dim, out_dim), dev)
             return fetch(name, transpose)
 
         def stack(key: str, ws: list):
@@ -500,7 +570,11 @@ def params_from_numpy(params_np: dict, cfg: ModelConfig,
     port's QTensors. The `smalls_all` bundle (a TPU layout of values the
     tree already holds) is dropped. The mmproj towers' trees (JAX
     `load_clip`, `load_audio_tower`) carry over the same way, their
-    absent tensors (None) as None."""
+    absent tensors (None) as None, and so do the recurrent families'
+    trees: their layer groups (a list of stacked groups: rwkv7's layer 0
+    without its v LoRA, the hybrids' mixer, attention and FFN-only
+    groups) and every leaf as the JAX loader laid it out (rwkv6's tm_w2
+    [5, edim, E] after the "3d" swap)."""
     del cfg  # the tree carries its own shapes; kept for the JAX signature
 
     def conv(x):

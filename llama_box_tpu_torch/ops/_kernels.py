@@ -27,9 +27,14 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = ("flash_prefill", "flash_decode", "w8a8_matmul", "fused_norm_qmm",
-           "fused_layer_tail", "q_matmul", "norm", "moe_ffn")
+           "fused_layer_tail", "q_matmul", "norm", "moe_ffn", "ssm_scan",
+           "wkv")
+# --split-compile=0: each nvcc runs its optimizer over the file's kernels on
+# every core, so the sources with dozens of instantiations (the attention
+# kernels) no longer hold the whole build behind one core
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+              "--split-compile=0")
 
 # dtype codes of csrc/common.cuh (LbtDtype)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}

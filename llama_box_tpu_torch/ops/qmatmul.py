@@ -85,18 +85,19 @@ class QTensor:
                 f"w8a8={self.w8a8})")
 
 
-def pack_repacked(rt, shape_in_out: tuple[int, int]) -> QTensor:
+def pack_repacked(rt, shape_in_out: tuple[int, int],
+                  device=None) -> QTensor:
     """RepackedTensor (flat, GGUF [out, in] row-major order) -> QTensor in
-    [in, out] layout, host tensors. The residency follows the JAX
-    package's switches, read here at load time: none set gives w8a8
-    (`pack_w8a8`); any of LLAMA_BOX_TPU_PACKED4, _Q4_INT8, _Q4_F32SCALES
-    gives the grouped layout, 4-bit codes nibble-packed unless _Q4_INT8,
-    scales and mins bf16 (round to nearest even, as ml_dtypes) unless
-    _Q4_F32SCALES."""
+    [in, out] layout. The residency follows the JAX package's switches,
+    read here at load time: none set gives w8a8 (`pack_w8a8`, packed on
+    `device`); any of LLAMA_BOX_TPU_PACKED4, _Q4_INT8, _Q4_F32SCALES gives
+    the grouped layout as host tensors, 4-bit codes nibble-packed unless
+    _Q4_INT8, scales and mins bf16 (round to nearest even, as ml_dtypes)
+    unless _Q4_F32SCALES."""
     if not (os.environ.get("LLAMA_BOX_TPU_PACKED4")
             or os.environ.get("LLAMA_BOX_TPU_Q4_INT8")
             or os.environ.get("LLAMA_BOX_TPU_Q4_F32SCALES")):
-        return pack_w8a8(rt, shape_in_out)
+        return pack_w8a8(rt, shape_in_out, device)
     f32_scales = bool(os.environ.get("LLAMA_BOX_TPU_Q4_F32SCALES"))
     out_dim, in_dim = shape_in_out[1], shape_in_out[0]
     q = rt.q.reshape(out_dim, in_dim).T                      # [in, out]
@@ -122,25 +123,40 @@ def pack_repacked(rt, shape_in_out: tuple[int, int]) -> QTensor:
                    packed4)
 
 
-def pack_w8a8(rt, shape_in_out: tuple[int, int]) -> QTensor:
-    """RepackedTensor -> per-column int8 residency (W8A8), host tensors.
-    The group quantization is dequantized exactly, then requantized
-    symmetric int8 per output column (the JAX arithmetic, in numpy, one
-    tensor at a time)."""
+# output columns requantized at a time by pack_w8a8 (its f32 temporaries)
+_PACK_COLS = 4096
+
+
+def pack_w8a8(rt, shape_in_out: tuple[int, int], device=None) -> QTensor:
+    """RepackedTensor -> per-column int8 residency (W8A8), tensors on
+    `device` (the host by default). The group quantization is dequantized
+    exactly, then requantized symmetric int8 per output column: the JAX
+    arithmetic (every step one correctly rounded operation, so the bits
+    are the same on any device), in torch on `device`, _PACK_COLS output
+    columns at a time."""
     out_dim, in_dim = shape_in_out[1], shape_in_out[0]
-    q = rt.q.reshape(out_dim, in_dim).astype(np.float32)
-    scales = np.repeat(rt.scales.reshape(out_dim, in_dim // rt.group),
-                       rt.group, axis=1)
-    wf = q * scales
-    if rt.mins is not None:
-        wf = wf - np.repeat(rt.mins.reshape(out_dim, in_dim // rt.group),
-                            rt.group, axis=1)
-    wf = wf.T                                         # [in, out]
-    col = np.maximum(np.abs(wf).max(axis=0), 1e-12) / 127.0   # [out]
-    q8 = np.clip(np.round(wf / col), -127, 127).astype(np.int8)
-    return QTensor(torch.from_numpy(np.ascontiguousarray(q8)),
-                   torch.from_numpy(col.astype(np.float32)), None,
-                   in_dim, in_dim, packed4=False, w8a8=True)
+    dev = torch.device(device or "cpu")
+    n_g = in_dim // rt.group
+
+    def put(a, cols):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev).view(-1,
+                                                                      cols)
+    q = put(rt.q, in_dim)                             # GGUF [out, in]
+    scales = put(rt.scales, n_g)
+    mins = None if rt.mins is None else put(rt.mins, n_g)
+    q8 = torch.empty(out_dim, in_dim, dtype=torch.int8, device=dev)
+    col = torch.empty(out_dim, dtype=scales.dtype, device=dev)
+    for o in range(0, out_dim, _PACK_COLS):
+        s = slice(o, o + _PACK_COLS)
+        wf = q[s].float() * scales[s].repeat_interleave(rt.group, dim=1)
+        if mins is not None:
+            wf = wf - mins[s].repeat_interleave(rt.group, dim=1)
+        amax = wf.abs().amax(dim=1, keepdim=True).clamp_min(1e-12)
+        c = amax / torch.full_like(amax, 127.0)
+        q8[s] = torch.round(wf / c).clamp(-127, 127).to(torch.int8)
+        col[s] = c[:, 0]
+    return QTensor(q8.T.contiguous(), col.float(), None, in_dim, in_dim,
+                   packed4=False, w8a8=True)
 
 
 # -- the w8a8 matmul -----------------------------------------------------------

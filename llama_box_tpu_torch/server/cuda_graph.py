@@ -47,8 +47,11 @@ def kernel_wrappers() -> list:
     from ..ops.moe import moe_ffn
     from ..ops.norm import row_norm
     from ..ops.qmatmul import q4_matmul, q8_matmul, w8a8_matmul
+    from ..ops.ssm_scan import ssm_scan
+    from ..ops.wkv import wkv_kernel
     return [flash_prefill_batched, flash_decode, w8a8_matmul, fused_norm_qmm,
-            fused_layer_tail, q4_matmul, q8_matmul, row_norm, moe_ffn]
+            fused_layer_tail, q4_matmul, q8_matmul, row_norm, moe_ffn,
+            ssm_scan, wkv_kernel]
 
 
 class _Graph:

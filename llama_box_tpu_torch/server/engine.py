@@ -103,7 +103,21 @@ programs replay on, with no host wait.
   the rows against its own batch rows, and the rope layout stays the
   file's (the stacks' q / k columns are in its order).
 
-Not ported yet (the JAX engine has them): the other model families.
+- Recurrent models (JAX `self.rec`: mamba, mamba2, jamba, bamba /
+  granitehybrid, falcon-h1, nemotron_h, lfm2, qwen3next, rwkv6, rwkv7;
+  models/mamba.py): a constant-size state a slot (RecCache) in place of
+  the KV cache, a hybrid's attention layers with a KV cache of their own
+  (bf16 for an int8 --cache-type, as in JAX). As in the JAX engine: no
+  speculative decoding (a draft model raises, n-gram lookup is switched
+  off with its warning), no context shift (max_tokens is capped at the
+  slot boundary, a slot that reaches it finishes with "length"), no
+  embeddings or rerank, no cross-slot prefix copy and no chain after a
+  prefill; a slot's state is reused only when the new prompt extends its
+  whole history exactly, and never once the device has run inputs the
+  host did not keep (rec_dirty: a chain's discarded tail, a pipelined
+  chain still in flight when its task ends, a dropped chain); else
+  admission zeroes the slot's state (reset_rec_slot). Layer-group models
+  decode a token a pass, the others chain, pipelined as every chain.
 """
 
 from __future__ import annotations
@@ -118,6 +132,9 @@ import torch
 
 from ..models.bert import BERT_ARCHS, bert_forward, check_bert_supported
 from ..models.config import ModelConfig
+from ..models.mamba import (init_rec_cache, rec_decode_chain,
+                            rec_decode_verify_sample,
+                            rec_prefill_batch_impl, reset_rec_slot)
 from ..models.llama import (alibi_slopes, check_supported,
                             copy_kv_prefix,
                             decode_operands, decode_step_impl,
@@ -394,7 +411,7 @@ class _Chain:
 class Slot:
     __slots__ = ("idx", "capacity", "task", "cache_tokens", "pos", "state",
                  "cursor", "next_token", "last_used", "chain_ramp", "drafts",
-                 "draft_pos")
+                 "draft_pos", "rec_dirty")
 
     def __init__(self, idx: int, capacity: int):
         self.idx = idx
@@ -409,6 +426,9 @@ class Slot:
         self.chain_ramp = 0                 # >0 caps the next chain's K
         self.drafts: list[int] = []         # drafted tokens for next verify
         self.draft_pos = 0                  # draft-model KV progress
+        # recurrent models: the device ran this slot's state past
+        # cache_tokens, so it matches no token prefix (never reused)
+        self.rec_dirty = False
 
 
 class Engine:
@@ -437,6 +457,18 @@ class Engine:
         self.ecfg = ecfg or EngineConfig()
         S = self.ecfg.n_slots
         self.slot_ctx = max(16, self.ecfg.n_ctx // S)
+        self.rec = bool(not self.bert and cfg.recurrent)
+        if self.rec:
+            # the JAX engine's gates: a recurrent state has no cheap
+            # rollback, so nothing drafts
+            if draft is not None:
+                raise ValueError("speculative decoding is not supported "
+                                 "for recurrent (mamba) models")
+            if self.ecfg.lookup_ngram_min > 0:
+                SRV_WRN("engine", "n-gram lookup drafting disabled for "
+                        "recurrent model")
+                self.ecfg = dataclasses.replace(self.ecfg,
+                                                lookup_ngram_min=0)
         if self.ecfg.lookup_ngram_min > 0 and self._ngram_dominated():
             SRV_WRN("engine", "n-gram lookup drafting is dominated by "
                     "chained decode (decode_chain=%d > draft_max+1=%d "
@@ -444,15 +476,30 @@ class Engine:
                     "--decode-chain or raise --draft-max to use it",
                     self.ecfg.decode_chain, self.ecfg.draft_max + 1)
         kv_dtype = _KV_DTYPES[self.ecfg.kv_dtype]
-        self.kv = None if self.bert else init_kv_cache(
-            cfg, S, self.slot_ctx, kv_dtype, self.device)
-        self.rope_cos, self.rope_sin = make_rope(cfg, self.slot_ctx,
-                                                 self.device)
-        self.delta_cos, self.delta_sin = make_delta_rope(cfg, self.slot_ctx,
-                                                         self.device)
-        # stacked tables: each layer rotates by its own branch on a shift
-        self.delta_select = (layer_is_local(cfg)
-                             if self.delta_cos.dim() == 3 else None)
+        if self.rec:
+            # the state of every slot, and a hybrid's KV for its
+            # attention layers; rope tables where layers attend (JAX)
+            self.kv = init_rec_cache(cfg, S, capacity=self.slot_ctx,
+                                     params=params, dtype=kv_dtype,
+                                     device=self.device)
+            if cfg.n_heads > 0:
+                self.rope_cos, self.rope_sin = make_rope(
+                    cfg, self.slot_ctx, self.device)
+            else:
+                self.rope_cos = self.rope_sin = torch.zeros(
+                    1, device=self.device)
+            self.delta_cos = self.delta_sin = self.delta_select = None
+        else:
+            self.kv = None if self.bert else init_kv_cache(
+                cfg, S, self.slot_ctx, kv_dtype, self.device)
+            self.rope_cos, self.rope_sin = make_rope(cfg, self.slot_ctx,
+                                                     self.device)
+            self.delta_cos, self.delta_sin = make_delta_rope(
+                cfg, self.slot_ctx, self.device)
+            # stacked tables: each layer rotates by its own branch on a
+            # shift
+            self.delta_select = (layer_is_local(cfg)
+                                 if self.delta_cos.dim() == 3 else None)
         if self.kv is not None:
             # the attention kernels' per-layer windows and ALiBi slopes:
             # device constants made before any program is captured
@@ -571,8 +618,9 @@ class Engine:
         the dynamic stacks. The BERT encoder reads the unfused keys. Under
         per-request LoRA the rope layout stays the file's, as in JAX: the
         stacks' q / k columns are in the file's order."""
-        if self.bert:
-            return
+        if self.bert or self.rec:
+            return      # the BERT encoder reads the unfused keys; the
+            # recurrent models run unfused, as in JAX
         from ..models.loader import deinterleave_rope, fuse_projections
         if self.n_lora == 0:
             self.params, self.cfg = deinterleave_rope(self.params, self.cfg)
@@ -762,11 +810,30 @@ class Engine:
             reuse = 0
         if self.cfg.swa_window > 0 and reuse < len(task.prompt_tokens) - 1:
             reuse = 0   # a partial reuse would dip below the SWA window
-        reuse = self._share_prefix(best, task.prompt_tokens, reuse)
+        if self.rec:
+            if task.chunks is not None and any(ch[0] != "tokens"
+                                               for ch in task.chunks):
+                raise ValueError("a recurrent model takes token prompts "
+                                 "only (no embedding chunks)")
+            if best.rec_dirty or reuse != len(best.cache_tokens):
+                # the state stands for ALL cached tokens: exact
+                # extensions only (no per-position checkpoints)
+                reuse = 0
+        else:
+            reuse = self._share_prefix(best, task.prompt_tokens, reuse)
 
         s = best
         s.task = task
         s.state = "prefill"
+        if self.rec:
+            s.rec_dirty = False
+            if reuse == 0:
+                reset_rec_slot(self.kv, s.idx)
+            # no context shift for a recurrent state: the request ends
+            # with "length" at the slot boundary instead
+            cap = s.capacity - len(task.prompt_tokens)
+            task.max_tokens = (cap if task.max_tokens <= 0
+                               else min(task.max_tokens, cap))
         s.cache_tokens = task.prompt_tokens[:reuse]
         s.pos = reuse
         s.cursor = reuse
@@ -812,8 +879,7 @@ class Engine:
         rows of the slot sharing the longest prefix with `prompt` into
         `best` when it beats `best`'s own `reuse` by cache_share_min or
         more; returns the rows `best` now holds. Never under a sliding
-        window (the JAX rule; it also excludes recurrent models, which the
-        port refuses at load).
+        window (the JAX rule; recurrent models never come here).
 
         The rows are valid under pipelining: a donor's cache_tokens and
         pos are host state that lags the device, and every row below
@@ -874,7 +940,7 @@ class Engine:
         for s in pre:
             if s.task.cancelled:
                 self._release(s)
-            elif s.task.chunks is not None:
+            elif s.task.chunks is not None and not self.rec:
                 self._prefill_chunk(s)
             else:
                 slots.append(s)
@@ -931,7 +997,8 @@ class Engine:
         probs, tokp, last-row logits [S, V] f32)."""
         S = len(self.slots)
         d = self._pre_in.dev
-        logits, self.kv = prefill_batch_impl(
+        prefill = rec_prefill_batch_impl if self.rec else prefill_batch_impl
+        logits, self.kv = prefill(
             self.params, self.cfg, d[3 * S:S * (3 + T)].view(S, T), d[:S],
             d[S:2 * S], self.kv, self.rope_cos, self.rope_sin)
         tok, ids, probs, tokp, self.sstate = sample_impl(
@@ -1048,9 +1115,9 @@ class Engine:
         it went out (it has set the slots' ramps)."""
         if not self.ecfg.pipeline_chain or self._chain_q or self._spec_q:
             return False
-        # no chain over heterogeneous layer groups or after an M-RoPE
-        # prefill (the JAX gates)
-        if "layer_groups" in self.params or self.mrope:
+        # no chain over heterogeneous layer groups, after an M-RoPE
+        # prefill or on a recurrent model (the JAX gates)
+        if "layer_groups" in self.params or self.mrope or self.rec:
             return False
         # no chain while a slot may draft (the JAX gate)
         if self.draft_params is not None or (
@@ -1146,7 +1213,10 @@ class Engine:
             # JAX engine's one-token pass), and the chain shrinks to fit
             for s in dec:
                 if s.pos >= s.capacity:
-                    self._context_shift(s)
+                    self._shift_or_finish(s)
+            dec = [s for s in dec if s.state == "decode"]
+            if not dec:
+                return
             K = self._chain_k(dec)
             K = max(1, min(K, _pow2_floor(min(s.capacity - s.pos
                                               for s in dec))))
@@ -1196,7 +1266,8 @@ class Engine:
                             else self._make_drafts(s))
         for s in dec:
             if s.pos + 1 + len(s.drafts) > s.capacity:
-                self._context_shift(s)
+                self._shift_or_finish(s)
+        dec = [s for s in dec if s.state == "decode"]
         dec = [s for s in dec if s.task.rate_bucket is None
                or s.task.rate_bucket.try_acquire(1 + len(s.drafts))]
         if not dec:
@@ -1265,6 +1336,16 @@ class Engine:
         the staged index vector, so the graph's shapes are fixed)."""
         S = len(self.slots)
         d = self._one_in.dev
+        if self.rec:
+            # T = 1: nothing drafts on a recurrent model
+            toks, n_em, ids, probs, tokps, logits0, self.kv, self.sstate = \
+                rec_decode_verify_sample(
+                    self.params, self.cfg, d[6 * S:S * (6 + T)].view(S, T),
+                    d[:S], self.kv, self.sstate, self.arrs, d[S:2 * S] != 0,
+                    d[2 * S:3 * S] != 0, self.rope_cos, self.rope_sin, **kw)
+            packed = torch.cat([toks, n_em[:, None].to(torch.int32)], dim=1)
+            return (packed, ids, probs, tokps,
+                    logits0.index_select(0, d[3 * S:4 * S]))
         toks, n_em, ids, probs, tokps, logits0, self.kv, self.sstate = \
             _decode_verify_sample(
                 self.params, self.cfg, d[6 * S:S * (6 + T)].view(S, T),
@@ -1652,6 +1733,34 @@ class Engine:
         self._acct_decode(sum(len(tasks0[s.idx].generated) - gen0[s.idx]
                               for s in covered), rec.t0)
 
+    def _shift_or_finish(self, s: Slot) -> None:
+        """A slot at its capacity: a context shift, or on a recurrent
+        model, whose state cannot shift, the end of its request with
+        "length" (JAX `_finish_now`; max_tokens is capped at admission, so
+        this is a backstop)."""
+        if self.rec:
+            self._finish_now(s, "length")
+        else:
+            self._context_shift(s)
+
+    def _finish_now(self, s: Slot, reason: str = "length") -> None:
+        """Finish a decoding slot without accepting another token (JAX
+        `_finish_now`)."""
+        task = s.task
+        text = task.scanner.flush()
+        text, r_delta, calls = task.postprocess(text, final=True)
+        if text:
+            task.text += text
+        if task.stream:
+            task.emit("delta", {"text": text, "token": -1,
+                                "reasoning_content": r_delta,
+                                "tool_calls": calls,
+                                "finish_reason": reason})
+        task.finish_reason = reason
+        task.t_decoded = time.monotonic()
+        task.emit("final", task)
+        self._release(s, keep_cache=self.ecfg.prompt_cache)
+
     def _context_shift(self, s: Slot) -> None:
         """Drop min(n_left / 4, n_ubatch) rows after n_keep and re-rotate
         the kept keys (JAX `_context_shift`, the reference's reactive
@@ -1782,6 +1891,12 @@ class Engine:
         """One K-step chain over the staged operands."""
         S = len(self.slots)
         d = self._dec_in.dev
+        if self.rec:
+            toks, ids, probs, tokps, self.kv, self.sstate = rec_decode_chain(
+                self.params, self.cfg, d[:S], d[S:2 * S], self.kv,
+                self.sstate, self.arrs, d[2 * S:3 * S] != 0, self.rope_cos,
+                self.rope_sin, n_steps=K, **kw)
+            return toks, ids, probs, tokps
         toks, ids, probs, tokps, self.kv, self.sstate = _decode_chain(
             self.params, self.cfg, d[:S], d[S:2 * S], self.kv, self.sstate,
             self.arrs, d[2 * S:3 * S] != 0, self.rope_cos, self.rope_sin,
@@ -1891,14 +2006,26 @@ class Engine:
         return True
 
     def _drop_queue(self) -> None:
-        """Drop every chain and spec pass in flight, unread."""
+        """Drop every chain and spec pass in flight, unread (on a
+        recurrent model each has advanced its slots' states: dirty)."""
         for c in self._chain_q + self._spec_q:
             self._copies.drop(c.copy)
+            if self.rec:
+                self._mark_dirty(c)
         self._chain_q.clear()
         self._spec_q.clear()
 
+    def _mark_dirty(self, c) -> None:
+        """Every slot chain c ran for: dirty (recurrent models)."""
+        for b, t in enumerate(c.tasks):
+            if t is not None:
+                self.slots[b].rec_dirty = True
+
     def _emit_chain(self, dec: list, rec: _Chain) -> None:
-        """Wait for a chain's tokens and hand them to its slots."""
+        """Wait for a chain's tokens and hand them to its slots. On a
+        recurrent model a slot whose task ends before the chain's last
+        step is dirty: the device ran the chain's tail (JAX
+        `_emit_chain`)."""
         toks_h, ids_h, probs_h, tokps_h, _ = self._copies.wait(rec.copy)
         n_tok = 0
         for s in dec:
@@ -1906,6 +2033,8 @@ class Engine:
             ngram = s.task.ngram if s.task is not None else None
             for j in range(rec.k):
                 if s.task is None:   # finished/cancelled mid-chain
+                    if self.rec:
+                        s.rec_dirty = True
                     break
                 s.cache_tokens.append(inp)
                 s.pos += 1
@@ -1990,7 +2119,11 @@ class Engine:
                      pooling: str) -> None:
         """Queue an embeddings/rerank task as groups of at most
         max_embed_batch inputs, sorted by length; _embed_pass runs ONE
-        group a reconcile pass (JAX `_admit_embed`)."""
+        group a reconcile pass (JAX `_admit_embed`). A recurrent model has
+        no embeddings forward: refused, as in JAX."""
+        if self.rec:
+            raise ValueError("embeddings/rerank are not supported for "
+                             "recurrent/encoder-decoder models here")
         order = sorted(range(len(token_lists)),
                        key=lambda i: len(token_lists[i]))
         nb = self.ecfg.max_embed_batch
@@ -2143,6 +2276,11 @@ class Engine:
     def _release(self, s: Slot, keep_cache: bool = False) -> None:
         """Free the slot; optionally keep its KV token history for the
         prefix cache."""
+        if self.rec and any(c.tasks[s.idx] is not None
+                            for c in self._chain_q):
+            # a pipelined chain still in flight advances this slot past
+            # its tokens
+            s.rec_dirty = True
         s.task = None
         s.state = "idle"
         s.cursor = 0

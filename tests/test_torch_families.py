@@ -505,8 +505,8 @@ def test_alibi_slopes_match_jax(paths, heads):
 def test_outside_the_slice_is_refused_at_load(tmp_path, flag, value, named):
     """M-RoPE beside stacked rope tables (a local rope base), a V head
     width other than K's outside multi-head latent attention, an MLA rank
-    without its tensors, recurrent: still refused by the port's check, by
-    name (MLA files run: tests/test_torch_families_mla.py; M-RoPE alone
+    without its tensors, a recurrent config whose layers carry no
+    recurrent mixer: still refused by the port's check, by name (MLA files run: tests/test_torch_families_mla.py; M-RoPE alone
     passes the check and runs: tests/test_torch_multimodal_engine.py)."""
     path = str(tmp_path / "m.gguf")
     write_own(path, "qwen3")
@@ -534,8 +534,8 @@ def test_moe_and_llama4_config_is_in_the_slice(tmp_path, flag, value):
 
 def test_layer_groups_and_unknown_tensors_are_refused(tmp_path):
     """A layer group, or the layer stack, holding a tensor the port does
-    not know (a recurrent mixer's ssm_in) is refused by its name; an
-    unknown root key too."""
+    not serve on this config (a recurrent mixer's ssm_in on a config that
+    is not recurrent) is refused by its name; an unknown root key too."""
     path = str(tmp_path / "m.gguf")
     write_own(path, "qwen3")
     cfg, params = load_model(path, dtype=torch.float32, device="cpu")

@@ -283,6 +283,9 @@ def _write_refused(path, arch, names, extra=()):
     # check (tests/test_torch_multimodal_engine.py runs it; MLA, this case
     # before it was ported, loads and runs: tests/test_torch_families_mla.py)
     ("qwen2vl", [], None),
+    # a recurrent mixer's tensor in a file whose config is not recurrent
+    # (no ssm metadata): refused by the port's check by its cause (the
+    # recurrent families run: tests/test_torch_mamba.py)
     ("jamba", ["blk.0.ssm_in.weight"], "recurrent")])
 def test_moa_mla_and_recurrent_files_are_refused(tmp_path, arch, names,
                                                  cause):

@@ -3256,3 +3256,223 @@ def test_lora_scale_rows_change_between_replays(cuda, tiny_model, tmp_path):
     assert not torch.equal(logits[2], logits[3])
     assert engines[0].graphs.n_graphs == 2
     assert engines[0]._lora_rows.tolist()[3] == [0.0, 0.5]
+
+
+# -- the recurrent kernels: csrc/ssm_scan.cu and csrc/wkv.cu ---------------
+
+# (C, steps a row nh, B/C groups G, states ds, decay per state): the tiny
+# fixtures' widths and the published ones chip_smoke.py serves
+_SSM_CASES = {
+    "tiny mamba1": (128, 128, 1, 8, True),
+    "tiny mamba2": (64, 8, 1, 16, False),
+    "mamba-1.4b": (4096, 4096, 1, 16, True),
+    "jamba2-3b": (5120, 5120, 1, 16, True),
+    "granite-4.0-h-micro": (4096, 64, 1, 128, False),
+    "mamba2 4 groups": (512, 16, 4, 64, False),
+}
+# (mode, H, Hk, N): rwkv6 / rwkv7 at the fixtures' and RWKV-1.5B's heads,
+# the delta rule at qwen3-next's 32 v-heads over 16 k-heads of 128
+_WKV_CASES = {
+    "rwkv6 tiny": ("wkv6", 4, 4, 16), "rwkv6 h32x64": ("wkv6", 32, 32, 64),
+    "rwkv7 tiny": ("wkv7", 4, 4, 16), "rwkv7 h32x64": ("wkv7", 32, 32, 64),
+    "delta tiny": ("delta", 4, 2, 16), "delta 32/16x128": ("delta", 32, 16,
+                                                           128),
+}
+_REC_REL = 1e-5
+
+
+def _ssm_inputs(g, dev, case, S, T):
+    C, nh, G, ds, per_state = _SSM_CASES[case]
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).to(dev)
+    x = r(S, T, C)
+    dt = torch.nn.functional.softplus(r(S, T, nh) - 2.0)
+    A = -torch.exp(r(C, ds) if per_state else r(nh))
+    return dict(x=x, dt=dt, A=A, B=r(S, T, G, ds), Cm=r(S, T, G, ds),
+                D=r(nh), state=r(S, C, ds, s=0.5))
+
+
+def _ssm_call(fn, inp, lens, state):
+    return fn(inp["x"], inp["dt"], inp["A"], inp["B"], inp["Cm"], inp["D"],
+              lens, state)
+
+
+def _close_rel(got, want, valid_rows):
+    for b, n in enumerate(valid_rows):
+        if not n:
+            continue
+        w = want[b, :n]
+        err = float((got[b, :n] - w).abs().max())
+        assert err <= _REC_REL * float(w.abs().max()), (b, err)
+
+
+@pytest.mark.parametrize("case", sorted(_SSM_CASES))
+def test_ssm_scan_kernel_matches_plain(cuda, case):
+    """Within 1e-5 x max|plain| at seq_lens 0, a part of T and T; a
+    masked slot's state (NaN here) keeps its bits, the others agree."""
+    from llama_box_tpu_torch.ops import ssm_scan as ss
+    g = torch.Generator().manual_seed(1)
+    S, T = 3, 24
+    inp = _ssm_inputs(g, cuda, case, S, T)
+    lens = torch.tensor([0, 11, T], device=cuda)
+    inp["state"][0] = float("nan")
+    st_k, st_p = inp["state"].clone(), inp["state"].clone()
+    y = _ssm_call(ss.ssm_scan, inp, lens, st_k)
+    want = _ssm_call(ss.ssm_scan_plain, inp, lens, st_p)
+    assert torch.isnan(st_k[0]).all()
+    _close_rel(y, want, [0, 11, T])
+    err = float((st_k[1:] - st_p[1:]).abs().max())
+    assert err <= _REC_REL * float(st_p[1:].abs().max())
+
+
+@pytest.mark.parametrize("case", sorted(_SSM_CASES))
+def test_ssm_scan_split_and_one_row_keep_the_bits(cuda, case):
+    """A prefill of P + Q rows gives the state and outputs of P then Q,
+    and a one-row call those of the row after a P-row prefill, bit for
+    bit."""
+    from llama_box_tpu_torch.ops.ssm_scan import ssm_scan
+    g = torch.Generator().manual_seed(2)
+    S, T, P = 2, 20, 13
+    inp = _ssm_inputs(g, cuda, case, S, T)
+    full = T * torch.ones(S, dtype=torch.int32, device=cuda)
+    st = inp["state"].clone()
+    y = _ssm_call(ssm_scan, inp, full, st)
+    st2 = inp["state"].clone()
+    parts = []
+    for a, b in ((0, P), (P, P + 1), (P + 1, T)):
+        sub = {k: (v[:, a:b].contiguous() if k in ("x", "dt", "B", "Cm")
+                   else v) for k, v in inp.items()}
+        parts.append(_ssm_call(ssm_scan, sub, (b - a) * torch.ones_like(full),
+                               st2))
+    assert torch.equal(torch.cat(parts, dim=1), y)
+    assert torch.equal(st2, st)
+
+
+def _wkv_inputs(g, dev, case, S, T):
+    mode, H, Hk, N = _WKV_CASES[case]
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).to(dev)
+    if mode == "delta":
+        q = torch.nn.functional.normalize(r(S, T, Hk, N), dim=-1)
+        k = torch.nn.functional.normalize(r(S, T, Hk, N), dim=-1)
+        return mode, (q, k, r(S, T, H, N), torch.sigmoid(r(S, T, H) + 2),
+                      torch.sigmoid(r(S, T, H))), r(S, H, N, N, s=0.3)
+    w = torch.exp(-torch.exp(r(S, T, H, N) - 1.0))
+    if mode == "wkv6":
+        return mode, (r(S, T, H, N), r(S, T, H, N, s=0.3),
+                      r(S, T, H, N, s=0.3), w, r(H, N, s=0.3)), \
+            r(S, H, N, N, s=0.3)
+    kk = torch.nn.functional.normalize(r(S, T, H, N), dim=-1)
+    return mode, (r(S, T, H, N), w, r(S, T, H, N, s=0.3),
+                  r(S, T, H, N, s=0.3), kk, torch.sigmoid(r(S, T, H, N))), \
+        r(S, H, N, N, s=0.3)
+
+
+def _wkv_fns(mode):
+    from llama_box_tpu_torch.ops import wkv
+    name = {"delta": "delta_rule"}.get(mode, mode)
+    return getattr(wkv, name), getattr(wkv, name + "_plain")
+
+
+def _wkv_slice(mode, args, a, b):
+    """The per-step operands' rows a..b (u stays whole)."""
+    return tuple(t if (mode == "wkv6" and i == 4) else
+                 t[:, a:b].contiguous() for i, t in enumerate(args))
+
+
+@pytest.mark.parametrize("case", sorted(_WKV_CASES))
+def test_wkv_kernel_matches_plain(cuda, case):
+    g = torch.Generator().manual_seed(3)
+    S, T = 3, 24
+    mode, args, s0 = _wkv_inputs(g, cuda, case, S, T)
+    fn, plain = _wkv_fns(mode)
+    lens = torch.tensor([0, 9, T], device=cuda)
+    s0[0] = float("nan")
+    sk, sp = s0.clone(), s0.clone()
+    y = fn(*args, lens, sk)
+    want = plain(*args, lens, sp)
+    assert torch.isnan(sk[0]).all()
+    _close_rel(y, want, [0, 9, T])
+    err = float((sk[1:] - sp[1:]).abs().max())
+    assert err <= _REC_REL * float(sp[1:].abs().max())
+
+
+@pytest.mark.parametrize("case", sorted(_WKV_CASES))
+def test_wkv_split_and_one_row_keep_the_bits(cuda, case):
+    g = torch.Generator().manual_seed(4)
+    S, T, P = 2, 20, 13
+    mode, args, s0 = _wkv_inputs(g, cuda, case, S, T)
+    fn, _ = _wkv_fns(mode)
+    full = torch.full((S,), T, dtype=torch.int32, device=cuda)
+    st = s0.clone()
+    y = fn(*args, full, st)
+    st2 = s0.clone()
+    parts = [fn(*_wkv_slice(mode, args, a, b), torch.full_like(full, b - a),
+                st2) for a, b in ((0, P), (P, P + 1), (P + 1, T))]
+    assert torch.equal(torch.cat(parts, dim=1), y)
+    assert torch.equal(st2, st)
+
+
+@pytest.fixture(scope="module", params=["mamba", "rwkv7"])
+def tiny_rec(request, tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from llama_box_tpu_torch.gguf import GGUFFile
+    from llama_box_tpu_torch.models.loader import load_model
+    from llama_box_tpu_torch.tokenizer import Tokenizer
+
+    from .fixtures.make_tiny_mamba import write_tiny_mamba
+    from .fixtures.make_tiny_rwkv import write_tiny_rwkv7
+    path = str(tmp_path_factory.mktemp("tiny_rec") / f"{request.param}.gguf")
+    {"mamba": write_tiny_mamba, "rwkv7": write_tiny_rwkv7}[request.param](
+        path)
+    cfg, params = load_model(path, dtype=torch.bfloat16, device="cuda")
+    with GGUFFile(path) as g:
+        tok = Tokenizer.from_gguf(g)
+    return request.param, cfg, params, tok
+
+
+def test_recurrent_engine_greedy_chains_graphs_and_kernels(cuda, tiny_rec):
+    """On the tiny mamba and rwkv7 (bf16): greedy texts at K = 1 equal K =
+    16, graphs equal eager, and the engine's scan kernel launched."""
+    from llama_box_tpu_torch.ops import ssm_scan as ss
+    from llama_box_tpu_torch.ops import wkv
+    from llama_box_tpu_torch.sampling import SamplerParams
+    from llama_box_tpu_torch.server.engine import Engine, EngineConfig
+    from llama_box_tpu_torch.server.task import CompletionsTask
+    name, cfg, params, tok = tiny_rec
+    prompts = [[1] + list(range(40 + 7 * i, 52 + 9 * i)) for i in range(3)]
+
+    def run(chain, graphs):
+        eng = Engine(cfg, params, tok, EngineConfig(
+            n_slots=4, n_ctx=4 * 128, n_ubatch=32, decode_chain=chain,
+            cuda_graphs=graphs, pipeline_chain=graphs), device="cuda")
+        eng.start()
+        try:
+            tasks = [CompletionsTask(p, SamplerParams(temp=0.0,
+                                                      ignore_eos=True),
+                                     tokenizer=tok, max_tokens=24)
+                     for p in prompts]
+            for t in tasks:
+                eng.submit(t)
+            out = []
+            for t in tasks:
+                while True:
+                    kind, payload = t.result_q.get(timeout=300)
+                    if kind == "error":
+                        raise payload
+                    if kind == "final":
+                        out.append(payload.generated)
+                        break
+            return out
+        finally:
+            eng.stop()
+    ss.ssm_scan.launches = 0
+    wkv.wkv_kernel.launches = 0
+    want = run(16, True)
+    n = ss.ssm_scan.launches if name == "mamba" else wkv.wkv_kernel.launches
+    assert n > 0
+    assert run(1, True) == want
+    assert run(16, False) == want

@@ -179,10 +179,16 @@ def test_cuda_refuses_head_shapes_the_kernels_cannot_take(models, change,
 
 
 def test_other_families_are_refused(tmp_path):
-    """A GGUF outside the dense llama path is refused at load, never
-    half-loaded (the other families are later slices)."""
+    """A GGUF with tensors no ported path knows (gemma3n's per-layer
+    embeddings) is refused at load, never half-loaded; a mamba file, a
+    recurrent family the port now serves (models/mamba.py), loads."""
     from .fixtures.make_tiny_mamba import write_tiny_mamba
+    from .test_torch_families_moe import _write_refused
     path = str(tmp_path / "mamba.gguf")
     write_tiny_mamba(path)
-    with pytest.raises(NotImplementedError):
+    cfg, _ = load_model(path, dtype=torch.float32, device="cpu")
+    assert cfg.recurrent
+    path = str(tmp_path / "gemma3n.gguf")
+    _write_refused(path, "gemma3n", ["per_layer_token_embd.weight"])
+    with pytest.raises(NotImplementedError, match="per_layer_token_embd"):
         load_model(path, dtype=torch.float32, device="cpu")

@@ -3,7 +3,8 @@ ops/qmatmul.py) against the JAX package, on the CPU.
 
 - repack: every format of REPACKERS, on the same raw bytes (written by the
   port's quantizer), bitwise equal to the JAX package's numpy repacker;
-- pack_w8a8: codes and column scales bitwise equal;
+- pack_w8a8: codes and column scales bitwise equal, whole and in blocks
+  of columns;
 - w8a8_matmul_plain: the int32 sums exact and the f32 outputs equal to
   JAX `_w8a8_matmul` (both compute float(s32) * xs * ws in f32 with the
   same per-row codes);
@@ -76,6 +77,26 @@ def test_pack_w8a8_bitwise_equal(fmt):
     # pack_repacked is the w8a8 packing in the port
     np.testing.assert_array_equal(
         tq.pack_repacked(rt, shape_in_out).qs.numpy(), got.qs.numpy())
+
+
+@pytest.mark.parametrize("fmt", [GGMLType.Q8_0, GGMLType.Q4_K],
+                         ids=lambda t: t.name)
+def test_pack_w8a8_in_column_blocks_bitwise_equal(monkeypatch, fmt):
+    """pack_w8a8 requantizes _PACK_COLS output columns at a time: blocks
+    of 40 over 96 columns (the last one short, a column all zeros) give
+    the JAX package's codes and scales bit for bit."""
+    rng = np.random.default_rng(2)
+    x = (rng.standard_normal(SHAPE) * 0.05).astype(np.float32)
+    x[50] = 0.0
+    raw = np.frombuffer(quantize(fmt, x), dtype=np.uint8)
+    rt = trepack.repack(fmt, raw, SHAPE[0] * SHAPE[1])
+    shape_in_out = (SHAPE[1], SHAPE[0])
+    monkeypatch.setattr(tq, "_PACK_COLS", 40)
+    got = tq.pack_w8a8(rt, shape_in_out)
+    want = jq.pack_w8a8(rt, shape_in_out, device=False)
+    np.testing.assert_array_equal(got.qs.numpy(), np.asarray(want.qs))
+    np.testing.assert_array_equal(got.scales.numpy().view(np.uint32),
+                                  np.asarray(want.scales).view(np.uint32))
 
 
 def _operands(rng, M, K, N, dtype=np.float32):
